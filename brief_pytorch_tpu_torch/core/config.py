@@ -1,0 +1,75 @@
+"""Config system: YAML + attribute access, OmegaConf-compatible in behaviour
+for what the SingleTask path needs.
+
+Accepts the reference's opt/*.yaml files verbatim: nested dicts become
+attribute-accessible `Config` nodes, lists stay lists.  Trimmed copy of
+brief_pytorch_tpu/core/config.py (load / loads / save and `Config`).
+"""
+from __future__ import annotations
+
+import copy
+from typing import Dict
+
+import yaml
+
+
+class Config(dict):
+    """A dict with attribute access and recursive wrapping."""
+
+    def __init__(self, data: Dict | None = None):
+        super().__init__()
+        if data:
+            for k, v in data.items():
+                self[k] = v
+
+    @staticmethod
+    def _wrap(value):
+        if isinstance(value, Config):
+            return value
+        if isinstance(value, dict):
+            return Config(value)
+        if isinstance(value, (list, tuple)):
+            return [Config._wrap(v) for v in value]
+        return value
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, Config._wrap(value))
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError as e:
+            raise AttributeError(key) from e
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def __delattr__(self, key):
+        del self[key]
+
+    def __deepcopy__(self, memo):
+        return Config({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def to_plain(self) -> Dict:
+        def conv(v):
+            if isinstance(v, Config):
+                return {k: conv(x) for k, x in v.items()}
+            if isinstance(v, list):
+                return [conv(x) for x in v]
+            return v
+        return conv(self)
+
+
+def load(path: str) -> Config:
+    with open(path, "r") as f:
+        return Config(yaml.safe_load(f) or {})
+
+
+def loads(text: str) -> Config:
+    return Config(yaml.safe_load(text) or {})
+
+
+def save(cfg: Config | Dict, path: str) -> None:
+    plain = cfg.to_plain() if isinstance(cfg, Config) else cfg
+    with open(path, "w") as f:
+        yaml.safe_dump(plain, f, sort_keys=False)

@@ -1,0 +1,383 @@
+"""NFGR: overfit one φ-network to one volume — the core compression path.
+
+Torch port of brief_pytorch_tpu/train/fit.py:129-468 (compress) and
+533-575 (decompress), reference main.py:164-454.  The JAX package's
+on-device scan of training steps becomes a Python loop of steps:
+
+  * each step samples a batch (train/samplers.py), and on a CUDA device
+    with a supported chain runs the fused train-step kernel
+    (ops/fused_train.py), which returns the loss and the gradients
+    directly; otherwise autograd through the torch chain gives them.  The
+    gate mirrors fit.py:331-336: Compress.fused_train (default true), the
+    chain and loss supported, a CUDA device, not `half`;
+  * the optimizer (train/optim.py, optax's rules) updates the parameters
+    in place;
+  * losses stay on the device until a checkpoint, so the loop never waits
+    for the card between steps.
+
+At each checkpoint it writes the reference's artifacts — raw weight
+binaries and sideinfos.yaml under steps{N}/compressed/, the decoded volume,
+performance.csv — decoding through the fused grid kernel on the card
+(train/decode.py), and the atomic trainstate.npz.
+
+Not ported yet (ROADMAP.md): `half` (bf16 compute), Compress.data_shards
+> 1 (data parallelism), Compress.resume, and the randompoint sampler's
+vector_len / raw_gather options.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import time
+from os.path import basename as opb
+from os.path import join as opj
+from os.path import splitext as ops
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from brief_pytorch_tpu_torch.core import config as cfglib
+from brief_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
+from brief_pytorch_tpu_torch.core.normalize import (get_type_max,
+                                                    invnormalize_data,
+                                                    normalize_data)
+from brief_pytorch_tpu_torch.eval.metrics import eval_performance, mip_ops
+from brief_pytorch_tpu_torch.io.image import (get_folder_size, read_img,
+                                              save_img)
+from brief_pytorch_tpu_torch.io.modelsave import load_model, save_phi_module
+from brief_pytorch_tpu_torch.models import sizing
+from brief_pytorch_tpu_torch.models.phi import (get_param_count, init_phi,
+                                                params_from_numpy)
+from brief_pytorch_tpu_torch.ops import fused_train
+from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
+                                               make_pre_encode)
+from brief_pytorch_tpu_torch.post.preprocess import (parse_checkpoints,
+                                                     parse_weight, preprocess)
+from brief_pytorch_tpu_torch.train.checkpoint import save_trainstate
+from brief_pytorch_tpu_torch.train.decode import reconstruct_flattened
+from brief_pytorch_tpu_torch.train.loss import make_loss
+from brief_pytorch_tpu_torch.train.optim import make_optimizer
+from brief_pytorch_tpu_torch.train.samplers import (RandomCubeSampler,
+                                                    RandomPointSampler,
+                                                    cube_size_guard)
+
+
+class NFGR:
+    """Neural-fields global representation compressor
+    (reference main.py:164-651)."""
+
+    def __init__(self, opt, logger=None, seed: int = 42,
+                 device: DeviceLike = None):
+        """opt: the CompressFramework config node (reference schema).
+        device: None (the CUDA card), 'cpu', or a torch device."""
+        self.opt = opt
+        self.half = bool(opt.Compress.half)
+        if self.half:
+            raise NotImplementedError(
+                "Compress.half (bf16 compute) is not ported yet (ROADMAP.md)")
+        if int(opt.Compress.get("data_shards", 1) or 1) > 1:
+            raise NotImplementedError(
+                "Compress.data_shards > 1 is not ported yet (ROADMAP.md)")
+        self.logger = logger
+        self.seed = int(seed)
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------- sizing --
+    def parse_param_size(self, data_path: Optional[str] = None) -> float:
+        """Byte budget from given_size XOR filesize_ratio
+        (reference main.py:199-207)."""
+        given = self.opt.Compress.param.given_size
+        ratio = self.opt.Compress.param.filesize_ratio
+        if (given > 0 and ratio > 0) or (given == 0 and ratio == 0):
+            raise ValueError("There can only be one arg to be used")
+        if given > 0:
+            return float(given)
+        return os.path.getsize(data_path) / ratio
+
+    def prepare_module(self, ideal_module_size: float):
+        """Size + build the φ network (reference main.py:248-264)."""
+        phi_cfg = self.opt.Module.phi
+        features, actual_count, theory_size = sizing.estimate_module_size(
+            ideal_module_size, phi_cfg, self.half)
+        err = (theory_size - ideal_module_size) / ideal_module_size
+        if abs(err) > 0.05:
+            logging.warning("Error_rate=%.3f>0.05! ideal=%s theory=%s",
+                            err, ideal_module_size, theory_size)
+        phi_cfg["features"] = features
+        model = init_phi(dict(phi_cfg))
+        params = model.init(torch.Generator().manual_seed(self.seed),
+                            self.device)
+        if get_param_count(params) != actual_count:
+            raise RuntimeError("parameter count differs from the sizing")
+        return model, params, features, theory_size
+
+    # -------------------------------------------------------------- train --
+    def compress(self, data_path: str, stepstore: bool = False) -> Dict:
+        """Compress one volume; writes checkpoint artifacts under the logger
+        dir.  Returns a summary dict of the last checkpoint."""
+        log = self.logger
+        dev = self.device
+        cfg = self.opt.Compress
+        if str(cfg.get("resume", "none") or "none") != "none":
+            raise NotImplementedError(
+                "Compress.resume is not ported yet (ROADMAP.md)")
+        data = read_img(data_path)
+
+        # sampler size guard (reference main.py:325-334)
+        cube_len = list(cfg.sampler.cube_len)
+        cube_voxels = int(np.prod([min(c, s) for c, s in
+                                   zip(cube_len, data.shape[:-1])]))
+        cfg.sampler.name = cube_size_guard(cfg.sampler.name, data.size,
+                                           cube_voxels)
+
+        # preprocess + per-voxel weights
+        pre = cfg.preprocess
+        data_pre = preprocess(data.copy(), pre.denoise.level,
+                              pre.denoise.close, pre.clip)
+        if log is not None:
+            save_img(opj(log.logdir, opb(ops(data_path)[0]) + "_preprocessed"
+                         + ops(data_path)[-1]), data_pre)
+        weight = parse_weight(data_pre, cfg.loss.weight)
+        data_norm, sideinfos = normalize_data(data_pre, **self.opt.Normalize)
+
+        # module sizing (+ optional warm start, reference main.py:345-354)
+        ideal = self.parse_param_size(data_path)
+        model, params, features, theory_size = self.prepare_module(ideal)
+        init_net = cfg.param.get("init_net_path", "none")
+        if init_net and init_net != "none":
+            params = params_from_numpy(load_model(init_net), dev)
+        sideinfos = {**sideinfos,
+                     "data_shape": list(data_norm.shape),
+                     "phi_features": features,
+                     "phi_name": self.opt.Module.phi.name}
+
+        # sampler; all-ones weight volumes (the default) skip the weight
+        # upload and gather
+        unit_weight = bool(np.all(weight == 1.0))
+        spatial = tuple(int(s) for s in data_norm.shape[:-1])
+        mode = cfg.coords_mode
+        c = data_norm.shape[-1]
+        if cfg.sampler.name == "randompoint":
+            if int(cfg.sampler.get("vector_len", 1) or 1) > 1 or \
+                    bool(cfg.get("raw_gather", False)):
+                raise NotImplementedError(
+                    "sampler vector_len / raw_gather are not ported yet "
+                    "(ROADMAP.md)")
+            sampler = RandomPointSampler(spatial, mode,
+                                         int(cfg.sampler.sample_size))
+            dev_data = torch.from_numpy(data_norm.reshape(-1, c)).to(dev)
+            dev_weight = None if unit_weight else \
+                torch.from_numpy(weight.reshape(-1, c)).to(dev)
+        elif cfg.sampler.name == "randomcube":
+            clipped = tuple(min(int(n), s) for n, s in zip(cube_len, spatial))
+            sampler = RandomCubeSampler(spatial, mode,
+                                        int(cfg.sampler.cube_count), clipped)
+            dev_data = torch.from_numpy(data_norm).to(dev)
+            dev_weight = None if unit_weight else \
+                torch.from_numpy(weight).to(dev)
+        else:
+            raise NotImplementedError(cfg.sampler.name)
+
+        # normalized weight threshold (reference main.py:380-383)
+        thres = cfg.loss.weight_thres
+        if thres > get_type_max(data_pre):
+            raise ValueError(
+                "The weight threshold should be less than the data maximum!")
+        thres_norm, _ = normalize_data(np.array(thres, dtype=np.float32),
+                                       **self.opt.Normalize,
+                                       min=sideinfos["min"],
+                                       max=sideinfos["max"])
+        thres_norm = float(thres_norm)
+
+        opt = make_optimizer(cfg.optimizer_name_phi, float(cfg.lr_phi),
+                             cfg.lr_scheduler_phi)
+        opt_state = opt.init(params)
+        max_steps = int(cfg.max_steps)
+        checkpoints = parse_checkpoints(cfg.checkpoints, max_steps)
+        loss_log_freq = int(cfg.loss_log_freq)
+        loss_name = cfg.loss.name
+        beta = float(cfg.loss.get("beta", 0.01))
+
+        # fused train kernel gate (fit.py:331-336 of the JAX package)
+        fused = bool(cfg.get("fused_train", True)) and dev.type == "cuda" \
+            and fused_train.supports_training(model, loss_name)
+        step_fn = self._fused_step if fused else self._autograd_step
+        step_args = dict(model=model, sampler=sampler, data=dev_data,
+                         weight=dev_weight, loss_name=loss_name, beta=beta,
+                         weight_thres=thres_norm)
+        gen = torch.Generator(device=sampler.generator_device(dev))
+        gen.manual_seed(self.seed)
+
+        fingerprint = {
+            "kind": "single", "phi_name": str(self.opt.Module.phi.name),
+            "phi_features": int(features), "sampler": repr(sampler),
+            "optimizer": str(cfg.optimizer_name_phi),
+            "lr": float(cfg.lr_phi),
+            "loss": f"{loss_name}/{beta}/{thres_norm}",
+            "half": self.half, "data_shards": 1, "seed": self.seed,
+            "fused": fused, "framework": "torch",
+        }
+
+        step = 0
+        summary = {}
+        orig_data = None
+        last_loss = float("nan")   # checkpoints may start at 0 steps
+        # host seconds in the training steps (ending in the one sync per
+        # checkpoint interval that fetches the losses) and in checkpoints
+        train_s = checkpoint_s = 0.0
+        for ckpt in checkpoints:
+            n = ckpt - step
+            t0 = time.perf_counter()
+            if n > 0:
+                losses = []
+                for _ in range(n):
+                    loss, grads = step_fn(params, gen, **step_args)
+                    opt.step(params, grads, opt_state)
+                    losses.append(loss.detach())
+                losses = torch.stack(losses).cpu().numpy()
+                train_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                if log is not None:
+                    for i in range(n):
+                        gstep = step + i + 1
+                        if gstep % loss_log_freq == 0:
+                            log.log_metrics({"loss": float(losses[i])}, gstep)
+                last_loss = float(losses[-1])
+            step = ckpt
+
+            # ---- checkpoint artifacts (reference main.py:404-453) ----
+            if log is None:
+                continue
+            step_dir = opj(log.logdir, f"steps{step}")
+            compressed_dir = opj(step_dir, "compressed")
+            os.makedirs(compressed_dir, exist_ok=True)
+            module_path = opj(compressed_dir, "module")
+            sideinfos_path = opj(compressed_dir, "sideinfos.yaml")
+            cfglib.save(sideinfos, sideinfos_path)
+            save_phi_module(model, params, module_path)
+            actual_module_size = get_folder_size(module_path)
+            side_bytes = os.path.getsize(sideinfos_path)
+            orig_bytes = os.path.getsize(data_path)
+            ratios = {
+                "compress_ratio/theory": orig_bytes / (side_bytes + theory_size),
+                "compress_ratio/actual":
+                    orig_bytes / (side_bytes + actual_module_size),
+            }
+            log.log_metrics(ratios, step)
+            summary = {"steps": step, "loss": last_loss, **ratios}
+
+            if cfg.decompress:
+                dec = self._decode(model, params, sideinfos)
+                if self.opt.Decompress.keep_decompressed:
+                    dd = opj(step_dir, "decompressed")
+                    os.makedirs(dd, exist_ok=True)
+                    save_img(opj(dd, opb(ops(data_path)[0]) + "_decompressed"
+                                 + ops(data_path)[-1]), dec)
+                if orig_data is None:
+                    orig_data = read_img(data_path)
+                if self.opt.Decompress.mip and orig_data.ndim == 4:
+                    md = opj(step_dir, "mip")
+                    os.makedirs(md, exist_ok=True)
+                    stem = opb(ops(data_path)[0])
+                    ext = ops(data_path)[-1]
+                    mip_ops(orig_data, md, stem, ext)
+                    mip_ops(dec, md, stem + "_decompressed", ext)
+                    mip_ops(orig_data, md, stem, ".png")
+                    mip_ops(dec, md, stem + "_decompressed", ".png")
+                perf = eval_performance(step, orig_data, dec, log,
+                                        self.opt.Decompress.mse,
+                                        self.opt.Decompress.psnr,
+                                        self.opt.Decompress.ssim,
+                                        device=dev)
+                perf["loss"] = last_loss
+                log.append_csv_row(opj(log.logdir, "performance.csv"), perf)
+                summary.update(perf)
+
+            # the full training state, atomically, after the artifacts
+            save_trainstate(opj(log.logdir, "trainstate.npz"), params,
+                            opt_state, gen, step, fingerprint)
+
+            if stepstore and step < max_steps:
+                shutil.rmtree(step_dir)
+            checkpoint_s += time.perf_counter() - t0
+        summary.update(train_s=train_s, checkpoint_s=checkpoint_s)
+        if log is not None:
+            log.close()
+        self.model, self.params, self.sideinfos = model, params, sideinfos
+        return summary
+
+    # -------------------------------------------------------------- steps --
+    @staticmethod
+    def _fused_step(params, gen, *, model, sampler, data, weight, loss_name,
+                    beta, weight_thres):
+        """(loss, grads) from the fused train-step kernel."""
+        coords, vals, wts = sampler.sample(gen, data, weight)
+        coords = make_pre_encode(model.spec)(coords)
+        return fused_train.fused_train_grads(
+            params["layers"], coords.T.contiguous(), vals.T.contiguous(),
+            wts.T.contiguous(), chain_layer_specs(model.spec),
+            loss_name=loss_name, beta=beta, weight_thres=weight_thres or None)
+
+    @staticmethod
+    def _autograd_step(params, gen, *, model, sampler, data, weight,
+                       loss_name, beta, weight_thres):
+        """(loss, grads) by autograd through the torch chain."""
+        coords, vals, wts = sampler.sample(gen, data, weight)
+        leaves = [t for layer in params["layers"] for t in layer.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            pred = model.apply(params, coords)
+            loss = make_loss(loss_name, beta)(vals, pred, wts, weight_thres)
+            flat = torch.autograd.grad(loss, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        it = iter(flat)
+        grads = {"layers": [{k: next(it) for k in layer}
+                            for layer in params["layers"]]}
+        return loss, grads
+
+    # -------------------------------------------------------------- utils --
+    def _decode(self, model, params, sideinfos) -> np.ndarray:
+        dec = reconstruct_flattened(
+            model, params, sideinfos["data_shape"],
+            int(self.opt.Decompress.sample_size), self.opt.Compress.coords_mode)
+        dec = invnormalize_data(dec, sideinfos, **self.opt.Normalize)
+        post = self.opt.Decompress.postprocess
+        return preprocess(dec, post.denoise.level, post.denoise.close,
+                          post.clip)
+
+    # --------------------------------------------------------- decompress --
+    @staticmethod
+    def decompress(opt, module_path: str, sideinfos_path: str,
+                   device: DeviceLike = None) -> np.ndarray:
+        """Standalone decode from saved artifacts (reference main.py:270-297).
+
+        opt: a CompressFramework config node or a path to a SingleTask yaml.
+        device: None (the CUDA card), 'cpu', or a torch device.
+        """
+        dev = resolve_device(device)
+        if isinstance(opt, str):
+            opt = cfglib.load(opt).CompressFramework
+        if bool(opt.Compress.half):
+            raise NotImplementedError(
+                "Compress.half (bf16 compute) is not ported yet (ROADMAP.md)")
+        sideinfos = cfglib.load(sideinfos_path)
+        if os.path.exists(opj(module_path, "params.npz")):
+            raise NotImplementedError(
+                "npz modules (MFN families) are not ported yet (ROADMAP.md)")
+        phi_cfg = dict(opt.Module.phi)
+        phi_cfg["features"] = sideinfos["phi_features"]
+        phi_cfg["name"] = sideinfos["phi_name"]
+        model = init_phi(phi_cfg)
+        params = params_from_numpy(load_model(module_path), dev)
+        dec = reconstruct_flattened(model, params, sideinfos["data_shape"],
+                                    int(opt.Decompress.sample_size),
+                                    opt.Compress.coords_mode)
+        dec = invnormalize_data(dec, dict(sideinfos), **opt.Normalize)
+        post = opt.Decompress.postprocess
+        return preprocess(dec, post.denoise.level, post.denoise.close,
+                          post.clip)

@@ -1,0 +1,164 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked `gpu`: each test skips where torch.cuda.is_available() is
+false (decided inside the fixture, never at import).  Run on a machine
+with an NVIDIA Hopper card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m gpu
+
+Tolerances: the kernels sum in another order than torch's matmuls and
+contract multiply-adds into FMAs — loss rtol 1e-5, gradients
+1e-4 * max|plain| + 1e-6, decoded values 1e-5 * max|plain| + 1e-5,
+fast_sincos 4e-6 absolute over |x| <= 200.
+"""
+import numpy as np
+import pytest
+import torch
+
+from brief_pytorch_tpu_torch.models import phi as tphi
+from brief_pytorch_tpu_torch.ops import fused_decode as fd
+from brief_pytorch_tpu_torch.ops import fused_train as ft
+from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
+from brief_pytorch_tpu_torch.ops.fast_math import (fast_sincos,
+                                                   fast_sincos_device)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _chain(dev, features, layers, cin=3, cout=1, seed=0, **extra):
+    cfg = {"name": "SIREN", "coords_channel": cin, "data_channel": cout,
+           "features": features, "layers": layers, "w0": 20, **extra}
+    model = tphi.init_phi(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), dev)
+    return model, params
+
+
+def _batch(dev, n, cin=3, cout=1, seed=1):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (f(rng.uniform(-1, 1, (cin, n))), f(rng.uniform(0, 1, (cout, n))),
+            f(rng.uniform(1, 2, (cout, n))))
+
+
+def test_fast_sincos_device(dev):
+    x = torch.linspace(-200, 200, 1 << 20, device=dev)
+    s, c = fast_sincos_device(x)
+    rs, rc = fast_sincos(x)
+    assert float((s - rs).abs().max()) <= 4e-6
+    assert float((c - rc).abs().max()) <= 4e-6
+
+
+@pytest.mark.parametrize("features,layers,n,loss_name,thres", [
+    (22, 5, 262144, "datal2", 0.5),
+    (22, 5, 1000, "datasmoothl1", None),
+    (16, 3, 300, "datal2", None),
+    (64, 4, 4099, "datasmoothl1", 0.3),
+])
+def test_fused_train_matches_plain(dev, features, layers, n, loss_name,
+                                   thres):
+    model, params = _chain(dev, features, layers)
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, n)
+    kw = dict(loss_name=loss_name, beta=0.01, weight_thres=thres)
+    before = ft.launches
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    assert ft.launches == before + 1
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(gk["layers"], gp["layers"]):
+        for k in ("w", "b"):
+            assert a[k].shape == b[k].shape
+            d = float((a[k] - b[k]).abs().max())
+            assert d <= 1e-4 * float(b[k].abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("acts", [
+    (("sine", 20.0), ("relu", 1.0), ("none", 1.0)),
+    (("sigmoid", 1.0), ("sine", 30.0), ("sigmoid", 1.0)),
+])
+def test_fused_train_other_activations(dev, acts):
+    model, params = _chain(dev, 24, 3, cout=2)
+    coords, values, weights = _batch(dev, 5000, cout=2)
+    kw = dict(loss_name="datasmoothl1", beta=0.05, weight_thres=0.4)
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(gk["layers"], gp["layers"]):
+        for k in ("w", "b"):
+            d = float((a[k] - b[k]).abs().max())
+            assert d <= 1e-4 * float(b[k].abs().max()) + 1e-6
+
+
+def test_fused_train_is_deterministic(dev):
+    model, params = _chain(dev, 22, 5)
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, 100000)
+    runs = [ft.fused_train_grads(params["layers"], coords, values, weights,
+                                 acts, loss_name="datal2") for _ in range(3)]
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        for a, b in zip(grads["layers"], runs[0][1]["layers"]):
+            assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+@pytest.mark.parametrize("spatial,features,cout,mode", [
+    ((64, 64, 64), 22, 1, "-1,1"),
+    ((5, 6, 7), 16, 1, "n11"),
+    ((37, 41), 22, 3, "0,1"),
+    ((1, 6, 7), 8, 1, "n11"),
+])
+def test_fused_decode_matches_plain(dev, spatial, features, cout, mode):
+    model, params = _chain(dev, features, 5, cin=len(spatial), cout=cout)
+    acts = chain_layer_specs(model.spec)
+    before = fd.launches
+    out = fd.fused_decode_grid(params["layers"], spatial, acts, mode)
+    assert fd.launches == before + 1
+    ref = fd.fused_decode_grid_reference(params["layers"], spatial, acts, mode)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (int(np.prod(spatial)), cout)
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
+
+
+def test_fused_decode_sirenpos(dev):
+    model, params = _chain(dev, 16, 4, name="SIRENPos", T=[2.0, 3.0, 2.0])
+    out = fd.decode_volume(model, params, (9, 10, 11), "n11")
+    ref = fd.fused_decode_grid_reference(
+        params["layers"], (9, 10, 11), chain_layer_specs(model.spec), "n11",
+        enc_periods=(2.0, 3.0, 2.0))
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    model, params = _chain(dev, 16, 3)
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, 256)
+    with pytest.raises(ValueError):
+        ft.fused_train_grads(params["layers"], coords.T, values, weights,
+                             acts, loss_name="datal2")
+    with pytest.raises(ValueError):
+        ft.fused_train_grads(params["layers"], coords.double(), values,
+                             weights, acts, loss_name="datal2")
+    with pytest.raises(ValueError):
+        fd.fused_decode_grid(params["layers"], (4, 4), acts)
+
+
+def test_profiling_reports_device_time(dev, capsys):
+    from brief_pytorch_tpu_torch.utils import profiling
+    out = profiling.main(["--steps", "20"])
+    assert out["steps"] == 20 and out["device"] == torch.cuda.get_device_name(0)
+    assert 0 < out["device_ms_per_step"] < out["wall_ms_per_step"]
+    assert 0 <= out["device_idle_share"] < 1
+    assert any("fused_train_kernel" in k for k in out["kernels"])

@@ -1,0 +1,153 @@
+"""Plain version of the port's fused train-step kernel
+(brief_pytorch_tpu_torch/ops/fused_train.py) against the JAX package's
+Pallas kernel run in interpret mode (ops/pallas_train.fused_train_grads),
+as tests/test_pallas_train.py runs it on the CPU.
+
+The same numpy weights and batch go to both.  Tolerances: loss rtol 1e-5,
+gradients atol 1e-5 / rtol 1e-4 — both sum the batch in float32, the JAX
+kernel tile by tile, the port in one matmul, so they round differently.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from brief_pytorch_tpu.models.phi import init_phi as jinit
+from brief_pytorch_tpu.ops import pallas_siren as ps
+from brief_pytorch_tpu.ops import pallas_train as pt
+from brief_pytorch_tpu_torch.models import phi as tphi
+from brief_pytorch_tpu_torch.ops import fused_train as ft
+from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
+
+
+def _setup(features=24, layers=4, n=700, c_out=1, seed=0, **extra):
+    cfg = {"name": "SIREN", "coords_channel": 3, "data_channel": c_out,
+           "features": features, "layers": layers, "w0": 20, **extra}
+    model = jinit(cfg)
+    params = model.init(jax.random.PRNGKey(seed))
+    layers_np = [{k: np.asarray(v) for k, v in l.items()}
+                 for l in params["layers"]]
+    rng = np.random.default_rng(seed + 1)
+    coords = rng.uniform(-1, 1, (3, n)).astype(np.float32)
+    values = rng.uniform(0, 1, (c_out, n)).astype(np.float32)
+    weights = (1 + rng.uniform(0, 1, (c_out, n))).astype(np.float32)
+    return cfg, model, layers_np, coords, values, weights
+
+
+def _compare(layers_np, coords, values, weights, acts, tile=256, **kw):
+    jl, jg = pt.fused_train_grads(
+        [{k: jnp.asarray(v) for k, v in l.items()} for l in layers_np],
+        jnp.asarray(coords), jnp.asarray(values), jnp.asarray(weights), acts,
+        tile=tile, interpret=True, **kw)
+    tparams = tphi.params_from_numpy(layers_np)
+    tl, tg = ft.fused_train_grads(
+        tparams["layers"], torch.from_numpy(coords),
+        torch.from_numpy(values), torch.from_numpy(weights), acts, **kw)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    for l, (a, b) in enumerate(zip(tg["layers"], jg["layers"])):
+        for k in ("w", "b"):
+            assert tuple(a[k].shape) == tuple(b[k].shape)
+            np.testing.assert_allclose(a[k].numpy(), np.asarray(b[k]),
+                                       atol=1e-5, rtol=1e-4,
+                                       err_msg=f"d{k} layer {l}")
+
+
+@pytest.mark.parametrize("loss_name,thres", [
+    ("datal2", None), ("datal2", 0.7),
+    ("datasmoothl1", None), ("datasmoothl1", 0.7),
+])
+def test_matches_pallas_interpret(loss_name, thres):
+    cfg, model, layers_np, coords, values, weights = _setup()
+    _compare(layers_np, coords, values, weights,
+             ps.chain_layer_specs(model.spec), loss_name=loss_name,
+             beta=0.01, weight_thres=thres)
+
+
+def test_padded_tail():
+    """N=300 with the JAX kernel's 256-wide tile pads its last tile; the
+    padding must not leak into the loss or gradients of either version."""
+    cfg, model, layers_np, coords, values, weights = _setup(n=300)
+    _compare(layers_np, coords, values, weights,
+             ps.chain_layer_specs(model.spec), loss_name="datal2",
+             weight_thres=0.5)
+
+
+def test_three_layers_f16_tile256():
+    cfg, model, layers_np, coords, values, weights = _setup(
+        features=16, layers=3, n=1000)
+    _compare(layers_np, coords, values, weights,
+             ps.chain_layer_specs(model.spec), loss_name="datal2",
+             weight_thres=0.6)
+
+
+@pytest.mark.parametrize("acts", [
+    (("sine", 20.0), ("relu", 1.0), ("none", 1.0)),
+    (("sigmoid", 1.0), ("sine", 30.0), ("sigmoid", 1.0)),
+    (("relu", 1.0), ("sigmoid", 1.0), ("sine", 30.0)),
+])
+def test_other_activations(acts):
+    cfg, model, layers_np, coords, values, weights = _setup(
+        features=12, layers=3, n=513, c_out=2)
+    _compare(layers_np, coords, values, weights, acts,
+             loss_name="datasmoothl1", beta=0.05)
+
+
+def test_port_specs_match_jax_specs():
+    cfg, model, *_ = _setup(output_act=True)
+    assert chain_layer_specs(tphi.init_phi(cfg).spec) == \
+        ps.chain_layer_specs(model.spec)
+
+
+def test_supports_training_and_plan():
+    cfg, *_ = _setup(features=22, layers=5)
+    model = tphi.init_phi(cfg)
+    assert ft.supports_training(model, "datal2")
+    assert ft.supports_training(model, "datasmoothl1")
+    assert not ft.supports_training(model, "nosuchloss")
+    # the default chain: tiles of 128 coordinates, two blocks per SM
+    p = ft.choose_plan([3, 22, 22, 22, 22, 1])
+    assert p["block"] == 128 and p["smem_bytes"] <= ft.SMEM_LIMIT
+    assert ft.SM_SMEM // (p["smem_bytes"] + 1024) == 2
+    wide = tphi.init_phi({**cfg, "features": 512})
+    assert not ft.supports_training(wide, "datal2")
+
+
+def test_plan_layout_is_disjoint_and_aligned():
+    widths = [3, 22, 22, 22, 22, 1]
+    p = ft.plan(widths, 64)
+    regions = []
+    for l in range(len(widths) - 1):
+        fin, fout = widths[l], widths[l + 1]
+        r8 = lambda x: (x + 7) // 8 * 8
+        regions += [(p["sw_off"][l], fin * r8(fout)),
+                    (p["swt_off"][l], fout * r8(fin)),
+                    (p["sb_off"][l], r8(fout))]
+    regions += [(p["acc_off"], p["n_params"]), (p["red_off"], 64)]
+    regions.sort()
+    for (a, n), (b, _) in zip(regions, regions[1:]):
+        assert a + n <= b
+    assert all(off % 8 == 0 for off, _ in regions)   # float4 loads
+    assert regions[-1][0] + regions[-1][1] <= p["act_off"]
+    # activation rows: the coordinates, then h_l and d_l of every layer
+    spans = [(0, widths[0])] + [(p[k][l], widths[l + 1]) for l in range(5)
+                                for k in ("h_row", "dg_row")]
+    spans.sort()
+    for (a, n), (b, _) in zip(spans, spans[1:]):
+        assert a + n <= b
+    rows = spans[-1][0] + spans[-1][1]
+    assert p["smem_bytes"] == 4 * (p["act_off"] + rows * p["stride"])
+    assert p["n_params"] == sum(a * b + b for a, b in
+                                zip(widths[:-1], widths[1:]))
+
+
+def test_cpu_tensors_never_reach_the_kernel():
+    cfg, model, layers_np, coords, values, weights = _setup(n=64)
+    before = ft.launches
+    tparams = tphi.params_from_numpy(layers_np)
+    ft.fused_train_grads(tparams["layers"], torch.from_numpy(coords),
+                         torch.from_numpy(values), torch.from_numpy(weights),
+                         chain_layer_specs(tphi.init_phi(cfg).spec),
+                         loss_name="datal2")
+    assert ft.launches == before
