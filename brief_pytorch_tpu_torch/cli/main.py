@@ -4,8 +4,9 @@ Usage (mirrors reference main.py:680-706):
     python -m brief_pytorch_tpu_torch.cli.main -p opt/SingleTask/default.yaml
     python -m brief_pytorch_tpu_torch.cli.main -p <yaml> -g cpu
 -g picks the device: a card number (default 0) or `cpu`.  Without a card
-the run raises unless `-g cpu` is given.  DivideTask
-(Compress.divide.divide_type other than none) is not ported yet.
+the run raises unless `-g cpu` is given.  A config whose
+Compress.divide.divide_type is not `none` runs DivideTask
+(parallel/divide_runner.compress_divide), as in JAX cli/main.py:46-52.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from brief_pytorch_tpu_torch.core import config as cfglib
+from brief_pytorch_tpu_torch.core.device import resolve_device
 from brief_pytorch_tpu_torch.utils.logger import MyLogger
 
 
@@ -31,21 +33,19 @@ def reproduc(opt) -> None:
 
 def run(opt_path: str, args=None) -> dict:
     opt = cfglib.load(opt_path)
-    divide_type = opt.CompressFramework.Compress.divide.divide_type
-    if divide_type != "none":
-        raise NotImplementedError(
-            f"divide_type {divide_type!r}: DivideTask is not ported yet "
-            "(ROADMAP.md, Queue 1 item 11)")
     if getattr(args, "resume", None):
         raise NotImplementedError("-resume is not ported yet (ROADMAP.md)")
-    device = getattr(args, "g", None) or "0"
-    from brief_pytorch_tpu_torch.train.fit import NFGR
+    device = resolve_device(getattr(args, "g", None) or "0")
     seed = int(opt.Reproduc.seed)
-    cf = NFGR(opt.CompressFramework, seed=seed, device=device)
     log = MyLogger(**opt.Log.to_plain())
-    cf.logger = log
     shutil.copy(opt_path, log.script_dir)
     reproduc(opt.Reproduc)
+    if opt.CompressFramework.Compress.divide.divide_type != "none":
+        from brief_pytorch_tpu_torch.parallel.divide_runner import \
+            compress_divide
+        return compress_divide(opt, log, device=device)
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    cf = NFGR(opt.CompressFramework, logger=log, seed=seed, device=device)
     return cf.compress(opt.Dataset.data_path,
                        stepstore=getattr(args, "stepstore", False))
 

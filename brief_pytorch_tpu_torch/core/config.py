@@ -3,7 +3,8 @@ for what the SingleTask path needs.
 
 Accepts the reference's opt/*.yaml files verbatim: nested dicts become
 attribute-accessible `Config` nodes, lists stay lists.  Trimmed copy of
-brief_pytorch_tpu/core/config.py (load / loads / save and `Config`).
+brief_pytorch_tpu/core/config.py (load / loads / save / merge and
+`Config`).
 """
 from __future__ import annotations
 
@@ -73,3 +74,18 @@ def save(cfg: Config | Dict, path: str) -> None:
     plain = cfg.to_plain() if isinstance(cfg, Config) else cfg
     with open(path, "w") as f:
         yaml.safe_dump(plain, f, sort_keys=False)
+
+
+def merge(base: Config, override: Dict) -> Config:
+    """Deep merge: override wins; dicts merge recursively, lists replace
+    (OmegaConf.merge as reference main.py:568-569 uses it)."""
+    out = copy.deepcopy(base)
+
+    def rec(dst: Config, src: Dict):
+        for k, v in src.items():
+            if k in dst and isinstance(dst[k], Config) and isinstance(v, dict):
+                rec(dst[k], v)
+            else:
+                dst[k] = v
+    rec(out, override)
+    return out

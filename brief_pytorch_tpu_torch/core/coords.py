@@ -72,3 +72,65 @@ def index_to_coords(flat_idx: torch.Tensor, shape: Sequence[int],
                                 device=flat_idx.device)
             comps.append(lo + idx_axis.to(dtype) * step)
     return torch.stack(comps, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# per-block shapes (the block fleet, parallel/block_trainer.py)
+# --------------------------------------------------------------------------
+def row_major_strides(shape_vec: torch.Tensor) -> torch.Tensor:
+    """Row-major voxel strides of a shape vector (..., ndim) (JAX
+    core/coords.py:93-99), batched over leading axes."""
+    rev = torch.cumprod(shape_vec.flip(-1), dim=-1).flip(-1)
+    return torch.cat([rev[..., 1:], torch.ones_like(rev[..., :1])], dim=-1)
+
+
+def axes_to_coords(axes_idx: torch.Tensor, shape_vec: torch.Tensor,
+                   mode: str = "n11", dtype=torch.float32) -> torch.Tensor:
+    """Per-axis integer indices (..., ndim) -> coordinates (JAX
+    core/coords.py:102-112): lo + i * step with step = (hi - lo) / (n - 1)
+    rounded to `dtype` (0 for axes of size 1).  shape_vec broadcasts
+    against axes_idx: (ndim,) or (B, 1, ndim) for a batch of blocks."""
+    lo, hi = parse_coords_mode(mode)
+    n = shape_vec.to(dtype)
+    step = torch.where(shape_vec > 1,
+                       (hi - lo) / torch.clamp_min(n - 1.0, 1.0),
+                       torch.zeros_like(n))
+    return lo + axes_idx.to(dtype) * step
+
+
+def flat_to_axes24(flat_idx: torch.Tensor, shape_vec: torch.Tensor
+                   ) -> torch.Tensor:
+    """Flat row-major indices -> per-axis indices (..., ndim) (JAX
+    core/coords.py:115-144).  The JAX package divides by a float32
+    reciprocal with two corrections, exact for indices below 2**24; this
+    divides integers, which is exact everywhere and equal to it there.
+    shape_vec: (ndim,) or broadcastable to flat_idx's shape + (ndim,)."""
+    ndim = shape_vec.shape[-1]
+    rem = flat_idx
+    axes = []
+    for axis in range(ndim - 1, -1, -1):
+        n = shape_vec[..., axis]
+        axes.append(torch.remainder(rem, n))
+        rem = torch.div(rem, n, rounding_mode="floor")
+    return torch.stack(axes[::-1], dim=-1)
+
+
+def index_to_coords_dynamic(flat_idx: torch.Tensor, shape_vec: torch.Tensor,
+                            mode: str = "n11", dtype=torch.float32
+                            ) -> torch.Tensor:
+    """index_to_coords with a per-block shape vector (JAX
+    core/coords.py:71-90); axes of size 1 map to the interval minimum."""
+    lo, hi = parse_coords_mode(mode)
+    ndim = shape_vec.shape[-1]
+    comps = []
+    rem = flat_idx
+    for axis in range(ndim - 1, -1, -1):
+        n = shape_vec[..., axis]
+        idx_axis = torch.remainder(rem, n)
+        rem = torch.div(rem, n, rounding_mode="floor")
+        step = torch.where(
+            n > 1, torch.tensor(hi - lo, dtype=dtype, device=n.device)
+            / torch.clamp_min(n - 1, 1).to(dtype),
+            torch.zeros((), dtype=dtype, device=n.device))
+        comps.append(lo + idx_axis.to(dtype) * step)
+    return torch.stack(comps[::-1], dim=-1)

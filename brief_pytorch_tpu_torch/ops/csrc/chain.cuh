@@ -65,12 +65,14 @@ __device__ __forceinline__ float act_only(int act, float w0, float z) {
 }
 
 // out rows [h_row, h_row + fout) = act(W^T in + b) for this thread's
-// column; with kStoreD also rows [d_row, d_row + fout) = act'(z).
+// column; with kStoreD also rows [d_row, d_row + fout) = act'(z).  A
+// non-null `mask` (fout 0/1 floats, device memory) multiplies both, as the
+// block fleet's width padding needs.
 template <bool kStoreD>
 __device__ __forceinline__ void layer_forward(
     const float* __restrict__ sw, const float* __restrict__ sb, float* A,
     int stride, int col, int in_row, int fin, int fout, int act, float w0,
-    int h_row, int d_row) {
+    int h_row, int d_row, const float* __restrict__ mask = nullptr) {
   const int fop = round_up8(fout);
   for (int o0 = 0; o0 < fout; o0 += kChunk) {
     float z[kChunk];
@@ -98,10 +100,17 @@ __device__ __forceinline__ void layer_forward(
         if (kStoreD) {
           float h, d;
           act_fwd(act, w0, zz, &h, &d);
+          if (mask != nullptr) {
+            const float m = __ldg(mask + o);
+            h *= m;
+            d *= m;
+          }
           A[(h_row + o) * stride + col] = h;
           A[(d_row + o) * stride + col] = d;
         } else {
-          A[(h_row + o) * stride + col] = act_only(act, w0, zz);
+          float h = act_only(act, w0, zz);
+          if (mask != nullptr) h *= __ldg(mask + o);
+          A[(h_row + o) * stride + col] = h;
         }
       }
     }

@@ -1,39 +1,59 @@
-// Fused train-step gradients of a plain activation chain, for Hopper.
+// Fused train-step gradients of a plain activation chain, for Hopper, for
+// one chain or for a fleet of B chains of one padded shape.
 //
 // Replaces the Pallas TPU kernel of brief_pytorch_tpu/ops/pallas_train.py
-// (_make_train_kernel / _fused_grads_padded / fused_train_grads): one pass
-// over a coordinate batch runs the chain forward (storing each layer's
-// activation h_l and derivative d_l; for sine one range reduction gives
-// both), the weighted datal2 / datasmoothl1 loss with the weight_thres
-// override, and a backward with no transcendentals that sums dW and db
-// over the batch.  Output: loss and gradients divided by N * Cout.
+// (_make_train_kernel / _fused_grads_padded / fused_train_grads), in its
+// single form and in the fleet form that jax.vmap makes of it in
+// parallel/block_trainer.run_block_segment: one pass over a coordinate
+// batch runs the chain forward (storing each layer's activation h_l and
+// derivative d_l; for sine one range reduction gives both), the weighted
+// datal2 / datasmoothl1 loss with the weight_thres override, and a
+// backward with no transcendentals that sums dW and db over the batch.
+// Output per chain: loss and gradients divided by N * Cout.
 //
-// What bounds it on an H100: operations.  At the default run's shapes
-// (SIREN 5 x 22, N = 262,144) it reads ~5 MB (3.3 TB/s: ~1.6 us) but
-// does ~2.4 GFLOP of chain products plus ~88 sincos per coordinate
-// (67 TFLOP/s float32: ~45 us).  Tensor cores are unused: the chain is
-// 22 wide, and this first version keeps float32 CUDA-core arithmetic so
-// it agrees with the plain version to float32 rounding.
+// Fleet form: blockIdx.y is the fleet block.  Its unit masks (one 0/1 row
+// per hidden layer, the width padding of block_trainer.stacked_apply)
+// multiply h_l and d_l after the activation, so padded units carry 0 and
+// every gradient into them is exactly 0; a masked identity layer's
+// derivative is its mask.  Its threshold is read per block (-inf: the
+// override never fires).
+//
+// What bounds it on an H100: operations.  At the single run's shapes
+// (SIREN 5 x 22, N = 262,144) it reads ~5 MB (3.3 TB/s: ~1.6 us) but does
+// ~2.4 GFLOP of chain products plus ~88 sincos per coordinate (67 TFLOP/s
+// float32: ~45 us); at the HiP-CT fleet's (4 blocks x 100,000, 3-66x6-1)
+// ~57 GFLOP on the padded widths.  Tensor cores are unused: this version
+// keeps float32 CUDA-core arithmetic so it agrees with the plain version
+// to float32 rounding.
 //
 // Design:
 //  * A block owns a tile of T coordinates (T = blockDim.x, one per
-//    thread) and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-//    (a persistent grid of a few blocks per SM), so the TPU grid's
-//    in-order accumulation becomes a loop inside the block.
+//    thread) and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
+//    its fleet block (a persistent grid of a few blocks per SM), so the
+//    TPU grid's in-order accumulation becomes a loop inside the block.
 //  * h_l and d_l of the tile stay in shared memory, one column per
 //    thread (rows padded to T + 1 floats so that the weight-gradient
 //    phase, where a warp reads one column index across many rows, hits
 //    distinct banks).  Nothing per coordinate goes to device memory.
-//  * Weights live in shared memory for the whole block, twice: W padded
-//    for the forward chunks and W^T padded for the backward's input
-//    gradient.
+//  * Two layouts of the rest (kSmemW):
+//    - narrow chains: W padded for the forward, W^T padded for the
+//      backward, the biases and the block's gradient accumulator all live
+//      in shared memory;
+//    - wide chains (whose weights and accumulator do not fit beside the
+//      activation tile, e.g. 3-66x6-1 or 3-186x4-1): W is read from device
+//      memory through the read-only path in the same order of
+//      multiply-adds (so the two layouts give the same bits), and the
+//      block accumulates straight into its own row of partial sums in
+//      device memory, a group of entries per thread in flight at once.
+//      The tile is small (T = 64 or 32), so Q = 512 / T threads share a
+//      coordinate: each computes every Q-th chunk of 8 features of a
+//      layer, with a barrier between layers.
 //  * Weight gradients: after a layer's output gradient g_l is in shared
 //    memory, thread t owns parameter entries e = t, t + T, ... of that
 //    layer and sums g_l[o] * h_{l-1}[i] over the tile's coordinates into
-//    a per-block accumulator in shared memory.  At the end each block
-//    writes its partial sums; a second kernel adds the partials of all
-//    blocks in block order.  No float atomics: the result is the same on
-//    every run with the same grid.
+//    the accumulator.  Each block writes one row of partial sums; a second
+//    kernel adds the rows of each fleet block in block order.  No float
+//    atomics: the result is the same on every run with the same grid.
 //  * The input gradient g_{l-1} = d_{l-1} * (W_l g_l) overwrites d_{l-1}
 //    in place, in the thread's own column.
 #include <cuda_runtime.h>
@@ -43,9 +63,13 @@
 
 namespace {
 
+using brief::kChunk;
 using brief::kMaxLayers;
 using brief::round_up8;
 
+// The fleet's and the wide layout's fields come last: placed before w0
+// they make the compiler schedule the one-chain kernel's loops measurably
+// slower.
 struct TrainDesc {
   int n_layers, c_in, c_out, n_params, stride;
   int acc_off, red_off, act_off;
@@ -53,57 +77,170 @@ struct TrainDesc {
   int p_off[kMaxLayers], sw_off[kMaxLayers], swt_off[kMaxLayers];
   int sb_off[kMaxLayers], h_row[kMaxLayers], dg_row[kMaxLayers];
   float w0[kMaxLayers];
+  int mask_width, tile;
+  int mask_off[kMaxLayers];
 };
 
-constexpr int kMetaHead = 8;
-constexpr int kMetaPerLayer = 9;
+constexpr int kMetaHead = 11;
+constexpr int kMetaPerLayer = 10;
+constexpr int kGroup = 8;   // accumulator entries in flight per thread
 
+// layer_forward<true> of chain.cuh with W (fin, fout) row-major and the
+// bias after it, read from device memory, for the output chunks o0 =
+// o_begin, o_begin + o_step, ...: the same multiply-adds in the same order.
+__device__ __forceinline__ void layer_forward_global(
+    const float* __restrict__ W, float* A, int stride, int col, int in_row,
+    int fin, int fout, int act, float w0, int h_row, int d_row,
+    const float* __restrict__ mask, int o_begin, int o_step) {
+  const float* bias = W + fin * fout;
+  for (int o0 = o_begin; o0 < fout; o0 += o_step) {
+    float z[kChunk];
+    int oc[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      z[k] = 0.f;
+      oc[k] = min(o0 + k, fout - 1);
+    }
+    for (int i = 0; i < fin; ++i) {
+      const float x = A[(in_row + i) * stride + col];
+      const float* wr = W + i * fout;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) z[k] = fmaf(__ldg(wr + oc[k]), x, z[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int o = o0 + k;
+      if (o < fout) {
+        float h, d;
+        brief::act_fwd(act, w0, z[k] + __ldg(bias + o), &h, &d);
+        if (mask != nullptr) {
+          const float m = __ldg(mask + o);
+          h *= m;
+          d *= m;
+        }
+        A[(h_row + o) * stride + col] = h;
+        A[(d_row + o) * stride + col] = d;
+      }
+    }
+  }
+}
+
+// Wide layout: entry e of a layer's packed (W, b) gradient summed over the
+// tile's T coordinates: sum_u g[o][u] * h[i][u] for e = i * fout + o < nw, else the
+// bias sum_u g[e - nw][u].
+__device__ __forceinline__ float tile_grad(const float* G, const float* H,
+                                           int S, int T, int nw, int fout,
+                                           int e) {
+  float s = 0.f;
+  if (e < nw) {
+    const int i = e / fout, o = e - i * fout;
+    const float* g = G + o * S;
+    const float* h = H + i * S;
+    for (int u = 0; u < T; ++u) s = fmaf(g[u], h[u], s);
+  } else {
+    const float* g = G + (e - nw) * S;
+    for (int u = 0; u < T; ++u) s += g[u];
+  }
+  return s;
+}
+
+// This block's row of partial sums (gradients, then the loss) in the
+// (B, gridDim.x, n_params + 1) scratch.
+__device__ __forceinline__ float* partial_row(float* partial, int fb,
+                                              int n_params) {
+  return partial +
+         ((size_t)fb * gridDim.x + blockIdx.x) * (size_t)(n_params + 1);
+}
+
+// kFleet: the fleet form (blockIdx.y selects the chain, masks per chain);
+// without it one chain and none of the fleet's address arithmetic (it
+// slows the one-chain path).  thres: one threshold per chain, read when
+// has_thres (-inf never fires).  In the shared-memory layout it waits in
+// the first slot of the loss reduction buffer, idle until the end, since a
+// register held across the kernel slows the one-chain loops; the wide
+// layout is faster with the register.
+template <bool kSmemW, bool kFleet>
 __global__ void fused_train_kernel(const float* __restrict__ coords,
                                    const float* __restrict__ values,
                                    const float* __restrict__ weights,
                                    const float* __restrict__ params,
                                    float* __restrict__ partial, int n,
                                    TrainDesc d, int loss, float beta,
-                                   int has_thres, float thres) {
+                                   int has_thres,
+                                   const float* __restrict__ thres,
+                                   const float* __restrict__ masks) {
   extern __shared__ __align__(16) float sm[];
-  const int T = blockDim.x, t = threadIdx.x, S = d.stride, L = d.n_layers;
-  float* acc = sm + d.acc_off;
+  // NT threads, T coordinates per tile, Q = NT / T threads per coordinate
+  // (1 in the narrow layout); thread t works on coordinate u of the tile
+  // and on the q-th share of each layer's features
+  const int NT = blockDim.x, t = threadIdx.x, S = d.stride, L = d.n_layers;
+  const int T = kSmemW ? NT : d.tile, Q = kSmemW ? 1 : NT / T;
+  const int u = kSmemW ? t : t % T, q = kSmemW ? 0 : t / T;
+  const int fb = kFleet ? blockIdx.y : 0;          // fleet block
+  const float* mk = nullptr;
+  if (kFleet) {
+    coords += (size_t)fb * d.c_in * n;
+    values += (size_t)fb * d.c_out * n;
+    weights += (size_t)fb * d.c_out * n;
+    params += (size_t)fb * d.n_params;
+    if (masks != nullptr) mk = masks + (size_t)fb * d.mask_width;
+  }
+  float thr = 0.f;
+  if (!kSmemW && has_thres) thr = thres[fb];
+  // the wide layout accumulates straight into its row of partial sums
+  float* acc = kSmemW ? sm + d.acc_off : partial_row(partial, fb, d.n_params);
   float* A = sm + d.act_off;
 
-  for (int l = 0; l < L; ++l) {
-    brief::load_weights(params + d.p_off[l], d.fin[l], d.fout[l],
-                        sm + d.sw_off[l], sm + d.swt_off[l], sm + d.sb_off[l]);
+  if (kSmemW) {
+    for (int l = 0; l < L; ++l) {
+      brief::load_weights(params + d.p_off[l], d.fin[l], d.fout[l],
+                          sm + d.sw_off[l], sm + d.swt_off[l],
+                          sm + d.sb_off[l]);
+    }
   }
-  for (int e = t; e < d.n_params; e += T) acc[e] = 0.f;
+  for (int e = t; e < d.n_params; e += NT) acc[e] = 0.f;
+  if (kSmemW && t == 0 && has_thres) sm[d.red_off] = thres[fb];
   float loss_acc = 0.f;
   __syncthreads();
 
   const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int idx = tile * T + t;
+    const int idx = tile * T + u;
     const bool valid = idx < n;
 
     // ---- forward: own column; h_l and d_l into shared memory ----
-    for (int c = 0; c < d.c_in; ++c) {
-      A[c * S + t] = valid ? coords[(size_t)c * n + idx] : 0.f;
+    for (int c = q; c < d.c_in; c += Q) {
+      A[c * S + u] = valid ? coords[(size_t)c * n + idx] : 0.f;
     }
     for (int l = 0; l < L; ++l) {
-      brief::layer_forward<true>(sm + d.sw_off[l], sm + d.sb_off[l], A, S, t,
-                                 l == 0 ? 0 : d.h_row[l - 1], d.fin[l],
-                                 d.fout[l], d.act[l], d.w0[l], d.h_row[l],
-                                 d.dg_row[l]);
+      // the Q threads of a column share it: the layer's input must be whole
+      if (!kSmemW) __syncthreads();
+      const int in_row = l == 0 ? 0 : d.h_row[l - 1];
+      const float* ml =
+          mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
+      if (kSmemW) {
+        brief::layer_forward<true>(sm + d.sw_off[l], sm + d.sb_off[l], A, S,
+                                   t, in_row, d.fin[l], d.fout[l], d.act[l],
+                                   d.w0[l], d.h_row[l], d.dg_row[l], ml);
+      } else {
+        layer_forward_global(params + d.p_off[l], A, S, u, in_row, d.fin[l],
+                             d.fout[l], d.act[l], d.w0[l], d.h_row[l],
+                             d.dg_row[l], ml, q * kChunk, Q * kChunk);
+      }
     }
+    if (!kSmemW) __syncthreads();
 
     // ---- loss and dL/dz of the last layer (padding lanes weigh 0) ----
     const int last = L - 1;
-    for (int c = 0; c < d.c_out; ++c) {
-      const float p = A[(d.h_row[last] + c) * S + t];
+    for (int c = q; c < d.c_out; c += Q) {
+      const float p = A[(d.h_row[last] + c) * S + u];
       float y = 0.f, wv = 0.f;
       if (valid) {
         y = values[(size_t)c * n + idx];
         wv = weights[(size_t)c * n + idx];
       }
-      float weff = (has_thres && p <= thres) ? 1.f : wv;
+      float weff =
+          (has_thres && p <= (kSmemW ? sm[d.red_off] : thr)) ? 1.f : wv;
       weff = valid ? weff : 0.f;
       const float e = p - y;
       float le, g;
@@ -117,7 +254,7 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
         g = weff * (ae < beta ? e / beta : sg);
       }
       loss_acc += weff * le;
-      float* dg = &A[(d.dg_row[last] + c) * S + t];
+      float* dg = &A[(d.dg_row[last] + c) * S + u];
       *dg = g * *dg;
     }
     __syncthreads();
@@ -130,47 +267,80 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
       float* accl = acc + d.p_off[l];
       const int nw = fin * fout;
       // weight and bias gradients: reads every column of g_l and h_{l-1}
-      for (int e = t; e < nw + fout; e += T) {
-        float s = 0.f;
-        if (e < nw) {
-          const int i = e / fout, o = e - i * fout;
-          const float* g = G + o * S;
-          const float* h = H + i * S;
-          for (int u = 0; u < T; ++u) s = fmaf(g[u], h[u], s);
-        } else {
-          const float* g = G + (e - nw) * S;
-          for (int u = 0; u < T; ++u) s += g[u];
+      if (kSmemW) {
+        // tile_grad written out: so the one-chain kernel schedules faster
+        for (int e = t; e < nw + fout; e += NT) {
+          float s = 0.f;
+          if (e < nw) {
+            const int i = e / fout, o = e - i * fout;
+            const float* g = G + o * S;
+            const float* h = H + i * S;
+            for (int v = 0; v < T; ++v) s = fmaf(g[v], h[v], s);
+          } else {
+            const float* g = G + (e - nw) * S;
+            for (int v = 0; v < T; ++v) s += g[v];
+          }
+          accl[e] += s;
         }
-        accl[e] += s;
+      } else {
+        // the accumulator is in device memory: kGroup of the thread's
+        // entries at a time, so their loads are in flight together
+        for (int e0 = t; e0 < nw + fout; e0 += kGroup * NT) {
+          float a[kGroup];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const int e = e0 + j * NT;
+            a[j] = e < nw + fout ? accl[e] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const int e = e0 + j * NT;
+            if (e < nw + fout)
+              accl[e] = a[j] + tile_grad(G, H, S, T, nw, fout, e);
+          }
+        }
       }
       // input gradient into d_{l-1}, own column only
       if (l > 0) {
-        const float* swt = sm + d.swt_off[l];
-        const int fip = round_up8(fin);
         float* D = A + d.dg_row[l - 1] * S;
-        for (int i0 = 0; i0 < fin; i0 += brief::kChunk) {
-          float z[brief::kChunk];
+        const float* swt = sm + d.swt_off[l];
+        const float* W = params + d.p_off[l];
+        const int fip = round_up8(fin);
+        for (int i0 = q * kChunk; i0 < fin; i0 += Q * kChunk) {
+          float z[kChunk];
 #pragma unroll
-          for (int k = 0; k < brief::kChunk; ++k) z[k] = 0.f;
-          for (int o = 0; o < fout; ++o) {
-            const float x = G[o * S + t];
-            const float4 wa =
-                *reinterpret_cast<const float4*>(swt + o * fip + i0);
-            const float4 wb =
-                *reinterpret_cast<const float4*>(swt + o * fip + i0 + 4);
-            z[0] = fmaf(wa.x, x, z[0]);
-            z[1] = fmaf(wa.y, x, z[1]);
-            z[2] = fmaf(wa.z, x, z[2]);
-            z[3] = fmaf(wa.w, x, z[3]);
-            z[4] = fmaf(wb.x, x, z[4]);
-            z[5] = fmaf(wb.y, x, z[5]);
-            z[6] = fmaf(wb.z, x, z[6]);
-            z[7] = fmaf(wb.w, x, z[7]);
+          for (int k = 0; k < kChunk; ++k) z[k] = 0.f;
+          if (kSmemW) {
+            for (int o = 0; o < fout; ++o) {
+              const float x = G[o * S + u];
+              const float4 wa =
+                  *reinterpret_cast<const float4*>(swt + o * fip + i0);
+              const float4 wb =
+                  *reinterpret_cast<const float4*>(swt + o * fip + i0 + 4);
+              z[0] = fmaf(wa.x, x, z[0]);
+              z[1] = fmaf(wa.y, x, z[1]);
+              z[2] = fmaf(wa.z, x, z[2]);
+              z[3] = fmaf(wa.w, x, z[3]);
+              z[4] = fmaf(wb.x, x, z[4]);
+              z[5] = fmaf(wb.y, x, z[5]);
+              z[6] = fmaf(wb.z, x, z[6]);
+              z[7] = fmaf(wb.w, x, z[7]);
+            }
+          } else {
+            int ic[kChunk];
+#pragma unroll
+            for (int k = 0; k < kChunk; ++k) ic[k] = min(i0 + k, fin - 1) * fout;
+            for (int o = 0; o < fout; ++o) {
+              const float x = G[o * S + u];
+#pragma unroll
+              for (int k = 0; k < kChunk; ++k)
+                z[k] = fmaf(__ldg(W + ic[k] + o), x, z[k]);
+            }
           }
 #pragma unroll
-          for (int k = 0; k < brief::kChunk; ++k) {
+          for (int k = 0; k < kChunk; ++k) {
             const int i = i0 + k;
-            if (i < fin) D[i * S + t] = z[k] * D[i * S + t];
+            if (i < fin) D[i * S + u] = z[k] * D[i * S + u];
           }
         }
       }
@@ -179,27 +349,63 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
   }
 
   // ---- this block's partial sums: gradients, then the loss ----
-  float* out = partial + (size_t)blockIdx.x * (d.n_params + 1);
-  for (int e = t; e < d.n_params; e += T) out[e] = acc[e];
+  float* out = partial_row(partial, fb, d.n_params);
+  if (kSmemW) {
+    for (int e = t; e < d.n_params; e += NT) out[e] = acc[e];
+  }
   float* red = sm + d.red_off;
+  __syncthreads();   // every thread is done with the threshold in red[0]
   red[t] = loss_acc;
   __syncthreads();
-  for (int s = T / 2; s > 0; s >>= 1) {
+  for (int s = NT / 2; s > 0; s >>= 1) {
     if (t < s) red[t] += red[t + s];
     __syncthreads();
   }
   if (t == 0) out[d.n_params] = red[0];
 }
 
-// out[p] = (sum over blocks b, in order, of partial[b][p]) / m
+// out[fb][p] = (sum over blocks g, in order, of partial[fb][g][p]) / m,
+// fb = blockIdx.y (the fleet's row offsets slow the one-chain sum, so
+// they are compiled in only for the fleet)
+template <bool kFleet>
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ out, int n_blocks,
                                        int width, float m) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= width) return;
+  if (kFleet) {
+    partial += (size_t)blockIdx.y * n_blocks * width;
+    out += (size_t)blockIdx.y * width;
+  }
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * width + p];
   out[p] = s / m;
+}
+
+template <bool kSmemW>
+cudaError_t occupancy(int block, int smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_train_kernel<kSmemW, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fused_train_kernel<kSmemW, false>, block, smem_bytes);
+}
+
+template <bool kSmemW, bool kFleet>
+cudaError_t launch(dim3 grid, int block, int smem_bytes, cudaStream_t s,
+                   const float* coords, const float* values,
+                   const float* weights, const float* params, float* partial,
+                   int n, const TrainDesc& d, int loss, float beta,
+                   const float* thres, const float* masks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_train_kernel<kSmemW, kFleet>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  fused_train_kernel<kSmemW, kFleet><<<grid, block, smem_bytes, s>>>(
+      coords, values, weights, params, partial, n, d, loss, beta,
+      thres != nullptr, thres, masks);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -207,15 +413,13 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 extern "C" {
 
 // Blocks of `block` threads using `smem_bytes` of dynamic shared memory
-// that fit on one SM at once, and the device's SM count.
-int brief_fused_train_occupancy(int block, int smem_bytes, int* blocks_per_sm,
-                                int* sm_count) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_train_kernel, block, smem_bytes);
+// that fit on one SM at once for the layout `smem_weights`, and the
+// device's SM count.
+int brief_fused_train_occupancy(int smem_weights, int block, int smem_bytes,
+                                int* blocks_per_sm, int* sm_count) {
+  cudaError_t err = smem_weights
+                        ? occupancy<true>(block, smem_bytes, blocks_per_sm)
+                        : occupancy<false>(block, smem_bytes, blocks_per_sm);
   if (err != cudaSuccess) return (int)err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -225,18 +429,26 @@ int brief_fused_train_occupancy(int block, int smem_bytes, int* blocks_per_sm,
 }
 
 // meta: n_layers, c_in, c_out, n_params, stride, acc_off, red_off, act_off,
+// smem_weights, mask_width, tile (coordinates per tile; `block` threads),
 // then per layer: fin, fout, act, p_off, sw_off, swt_off, sb_off, h_row,
-// dg_row.  partial: (grid, n_params + 1) scratch; out: (n_params + 1,),
-// the gradients in the packed parameter layout followed by the loss.
+// dg_row, mask_off (-1: unmasked).
+// coords (B, c_in, n), values / weights (B, c_out, n), params
+// (B, n_params), masks (B, mask_width) or null, thres (B,) or null (no
+// override); partial: (B, grid, n_params + 1) scratch; out:
+// (B, n_params + 1), the gradients in the packed parameter layout followed
+// by the loss.  One unmasked chain (B = 1, no masks) runs the kernel
+// without the fleet's parts.
 int brief_fused_train(const float* coords, const float* values,
                       const float* weights, const float* params,
-                      float* partial, float* out, int n, const int* meta,
-                      const float* w0s, int loss, float beta, int has_thres,
-                      float thres, int grid, int block, int smem_bytes,
-                      void* stream) {
+                      const float* masks, const float* thres, float* partial,
+                      float* out, int n, int n_fleet, const int* meta,
+                      const float* w0s, int loss, float beta, int grid,
+                      int block, int smem_bytes, void* stream) {
   TrainDesc d;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || d.n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
+      n_fleet > 65535)
+    return (int)cudaErrorInvalidValue;
   d.c_in = meta[1];
   d.c_out = meta[2];
   d.n_params = meta[3];
@@ -244,6 +456,9 @@ int brief_fused_train(const float* coords, const float* values,
   d.acc_off = meta[5];
   d.red_off = meta[6];
   d.act_off = meta[7];
+  const bool smem_weights = meta[8] != 0;
+  d.mask_width = meta[9];
+  d.tile = meta[10];
   for (int l = 0; l < d.n_layers; ++l) {
     const int* m = meta + kMetaHead + kMetaPerLayer * l;
     d.fin[l] = m[0];
@@ -255,21 +470,28 @@ int brief_fused_train(const float* coords, const float* values,
     d.sb_off[l] = m[6];
     d.h_row[l] = m[7];
     d.dg_row[l] = m[8];
+    d.mask_off[l] = masks == nullptr ? -1 : m[9];
     d.w0[l] = w0s[l];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  fused_train_kernel<<<grid, block, smem_bytes, s>>>(
-      coords, values, weights, params, partial, n, d, loss, beta, has_thres,
-      thres);
-  err = cudaGetLastError();
+  const dim3 grid2(grid, n_fleet);
+  const bool fleet = n_fleet > 1 || masks != nullptr;
+  decltype(&launch<true, true>) fn =
+      smem_weights ? (fleet ? &launch<true, true> : &launch<true, false>)
+                   : (fleet ? &launch<false, true> : &launch<false, false>);
+  cudaError_t err = fn(grid2, block, smem_bytes, s, coords, values, weights,
+                       params, partial, n, d, loss, beta, thres, masks);
   if (err != cudaSuccess) return (int)err;
   const int width = d.n_params + 1;
-  reduce_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>(
-      partial, out, grid, width, (float)((double)n * d.c_out));
+  const dim3 rgrid((width + 255) / 256, n_fleet);
+  const float m = (float)((double)n * d.c_out);
+  if (fleet) {
+    reduce_partials_kernel<true><<<rgrid, 256, 0, s>>>(partial, out, grid,
+                                                       width, m);
+  } else {
+    reduce_partials_kernel<false><<<rgrid, 256, 0, s>>>(partial, out, grid,
+                                                        width, m);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,31 +1,43 @@
-"""Fused train-step gradients for plain activation chains: CUDA kernel +
-plain PyTorch version.
+"""Fused train-step gradients for plain activation chains, for one chain
+or for a fleet of padded chains: CUDA kernel + plain PyTorch version.
 
 Replaces the Pallas TPU kernel of brief_pytorch_tpu/ops/pallas_train.py
 (`_make_train_kernel` / `_fused_grads_padded`, entry `fused_train_grads`,
-lines 70-357).  One kernel runs, per coordinate tile, the chain's forward
-(storing each activation and its derivative), the weighted datal2 /
-datasmoothl1 loss with the weight_thres override, and a backward with no
-transcendentals; a second pass adds the blocks' partial sums in a fixed
-order.  It returns (loss, grads) already divided by N * Cout and replaces
-autograd in train/fit.py.
+lines 70-357), in its single form (train/fit.py) and in the fleet form
+that `jax.vmap` makes of it for the block fleet
+(parallel/block_trainer.py:594-617): per-hidden-layer unit masks, a
+per-block threshold and a block-index grid dimension.  One kernel runs,
+per coordinate tile, the chain's forward (storing each activation and its
+derivative), the weighted datal2 / datasmoothl1 loss with the weight_thres
+override, and a backward with no transcendentals; a second pass adds the
+blocks' partial sums in a fixed order.  It returns (loss, grads) already
+divided by N * Cout and replaces autograd.
 
-Bound on an H100: operations.  At the default run's shapes (SIREN 5 x 22,
-N = 262,144) the call moves ~5 MB but does ~3 GFLOP of float32 work
-(~45 us at 67 TFLOP/s); csrc/fused_train.cu says how its design answers
-that.
+Bound on an H100: operations.  At the SingleTask run's shapes (SIREN
+5 x 22, N = 262,144) the call moves ~5 MB but does ~3 GFLOP of float32
+work (~45 us at 67 TFLOP/s); csrc/fused_train.cu says how its design
+answers that.
 
-`fused_train_grads` launches the kernel for CUDA tensors and calls the
-plain version, `fused_train_grads_reference`, for CPU tensors; there is
-no fallback from one to the other.  Scope of this port: acts sine, relu,
-sigmoid, none; losses datal2, datasmoothl1; a static weight_thres;
-float32.  The TPU kernel's unit masks, traced threshold and bf16 inputs
-(the DivideTask fleet and `half`) are not ported yet (ROADMAP.md).
+Two shared-memory layouts (`plan`): narrow chains keep the weights and
+the gradient accumulator in shared memory beside the activation tile;
+wide chains keep only the activation tile there (T = 64 or 32
+coordinates) and read the weights from device memory.  `choose_plan`
+takes the first layout that fits; `kernel_plan` raises for a chain whose
+activation tile does not fit even at T = 32.
+
+`fused_train_grads_fleet` launches the kernel for CUDA tensors and calls
+the plain version, `fused_train_grads_reference`, for CPU tensors; there
+is no fallback from one to the other.  `fused_train_grads` is its one-chain
+form (a fleet of one, which the C side runs without the fleet's parts).
+Scope: acts sine, relu, sigmoid, none; losses datal2, datasmoothl1;
+float32.  Not ported yet (ROADMAP.md): bf16 inputs (`half`, which the
+trainers refuse) and chains too wide for the smallest tile (kernel_plan
+raises NotImplementedError).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,16 +48,19 @@ LOSSES = ("datal2", "datasmoothl1")
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
 BLOCKS = (128, 64, 32)       # coordinates per tile (= threads per block)
+WIDE_BLOCKS = (64, 32)       # tiles of the wide-chain layout
+WIDE_THREADS = 512           # threads per block of the wide-chain layout
+MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
 
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {
-    "brief_fused_train_occupancy": [ctypes.c_int, ctypes.c_int,
+    "brief_fused_train_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_void_p],
-    "brief_fused_train": [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "brief_fused_train": [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -53,14 +68,19 @@ def _round8(x: int) -> int:
     return (x + 7) // 8 * 8
 
 
-def plan(widths: Sequence[int], block: int) -> Dict:
+def plan(widths: Sequence[int], block: int, smem_weights: bool = True
+         ) -> Dict:
     """Shared-memory layout (in floats) of the kernel for a chain of
     `widths` = (c_in, f_1, ..., c_out) and `block` coordinates per tile.
 
-    The weights W (fin, round8(fout)) and W^T (fout, round8(fin)) and the
-    bias of every layer, the per-block gradient accumulator, a loss
-    reduction buffer, then the activation rows (coordinates, then h_l and
-    d_l of every layer), each row block + 1 floats long."""
+    smem_weights: the weights W (fin, round8(fout)) and W^T (fout,
+    round8(fin)) and the bias of every layer, then the per-block gradient
+    accumulator; otherwise neither (the kernel reads W from device memory
+    and accumulates in device memory, and WIDE_THREADS threads share the
+    tile).  Then a loss reduction buffer of one float per thread and the
+    activation rows (coordinates, then h_l and d_l of every layer), each
+    row block + 1 floats long."""
+    threads = block if smem_weights else WIDE_THREADS
     n_layers = len(widths) - 1
     off = 0
     p_off, sw_off, swt_off, sb_off, h_row, dg_row = [], [], [], [], [], []
@@ -69,16 +89,22 @@ def plan(widths: Sequence[int], block: int) -> Dict:
         fin, fout = widths[l], widths[l + 1]
         p_off.append(n_params)
         n_params += fin * fout + fout
-        sw_off.append(off)
-        off += fin * _round8(fout)
-        swt_off.append(off)
-        off += fout * _round8(fin)
-        sb_off.append(off)
-        off += _round8(fout)
-    acc_off = off
-    off += _round8(n_params)
+        if smem_weights:
+            sw_off.append(off)
+            off += fin * _round8(fout)
+            swt_off.append(off)
+            off += fout * _round8(fin)
+            sb_off.append(off)
+            off += _round8(fout)
+        else:
+            sw_off.append(0)
+            swt_off.append(0)
+            sb_off.append(0)
+    acc_off = off if smem_weights else 0
+    if smem_weights:
+        off += _round8(n_params)
     red_off = off
-    off += block
+    off += threads
     act_off = _round8(off)
     row = widths[0]
     for l in range(n_layers):
@@ -91,30 +117,55 @@ def plan(widths: Sequence[int], block: int) -> Dict:
             "swt_off": swt_off, "sb_off": sb_off, "h_row": h_row,
             "dg_row": dg_row, "acc_off": acc_off, "red_off": red_off,
             "act_off": act_off, "stride": stride, "block": block,
+            "threads": threads, "smem_weights": smem_weights,
             "smem_bytes": 4 * (act_off + row * stride)}
 
 
-def choose_plan(widths: Sequence[int]):
-    """The tile size that keeps the most coordinates resident per SM (an
-    H100 SM has 228 KB of shared memory, 1 KB of it reserved per block),
-    or None when even 32 coordinates per tile do not fit a block's 227 KB
-    (the chain then trains through autograd)."""
-    if len(widths) - 1 > 16:
+def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
+    """The layout and tile that keep the most coordinates resident per SM
+    (an H100 SM has 228 KB of shared memory, 1 KB of it reserved per
+    block): the all-in-shared-memory layout when it fits at any tile, else
+    the wide-chain layout; None when even its 32-coordinate activation
+    tile does not fit a block's 227 KB."""
+    if len(widths) - 1 > MAX_LAYERS:
         return None
-    best, best_resident = None, 0
-    for block in BLOCKS:
-        p = plan(widths, block)
-        if p["smem_bytes"] > SMEM_LIMIT:
-            continue
-        resident = block * min(2048 // block,
-                               SM_SMEM // (p["smem_bytes"] + 1024))
-        if resident > best_resident:
-            best, best_resident = p, resident
-    return best
+    for smem_weights, blocks in ((True, BLOCKS), (False, WIDE_BLOCKS)):
+        best, best_resident = None, 0
+        for block in blocks:
+            p = plan(widths, block, smem_weights)
+            if p["smem_bytes"] > SMEM_LIMIT:
+                continue
+            resident = block * min(2048 // p["threads"],
+                                   SM_SMEM // (p["smem_bytes"] + 1024))
+            if resident > best_resident:
+                best, best_resident = p, resident
+        if best is not None:
+            return best
+    return None
+
+
+def kernel_plan(widths: Sequence[int]) -> Dict:
+    """choose_plan, raising NotImplementedError for a chain the kernel
+    cannot hold (the JAX kernel takes it: there is no autograd fallback on
+    the card)."""
+    p = choose_plan(widths)
+    if p is None:
+        raise NotImplementedError(
+            f"chain widths {widths}: more than {MAX_LAYERS} layers, or an "
+            f"activation tile of 32 coordinates beyond a block's shared "
+            f"memory; such chains on the train kernel are not ported yet "
+            f"(ROADMAP.md, 'Still to port')")
+    return p
+
+
+def chain_widths(spec) -> List[int]:
+    return [spec.entries[0].fan_in] + [e.fan_out for e in spec.entries]
 
 
 def supports_training(model, loss_name: str) -> bool:
-    """Whether the fused train-grad kernel can run this φ model + loss."""
+    """Whether the fused train-grad kernel runs this φ model + loss: a plain
+    activation chain and a kernel loss (the JAX package's gate).  Raises
+    NotImplementedError for such a chain that is too wide (kernel_plan)."""
     if loss_name not in LOSSES:
         return False
     spec = getattr(model, "spec", None)
@@ -124,8 +175,8 @@ def supports_training(model, loss_name: str) -> bool:
         chain_layer_specs(spec)
     except ValueError:
         return False
-    widths = [spec.entries[0].fan_in] + [e.fan_out for e in spec.entries]
-    return choose_plan(widths) is not None
+    kernel_plan(chain_widths(spec))
+    return True
 
 
 # --------------------------------------------------------------------------
@@ -148,19 +199,37 @@ def _act_fwd(z: torch.Tensor, act: str, w0: float):
 
 def fused_train_grads_reference(layers, coords_t, values_t, weights_t,
                                 acts: LayerSpec, *, loss_name: str,
-                                beta: float = 0.01, weight_thres=None):
+                                beta: float = 0.01, weight_thres=None,
+                                unit_masks=None):
     """The kernel's function in plain PyTorch, feature-major: the forward
-    stores h_l and d_l, the backward re-reads them (no autograd)."""
+    stores h_l and d_l, the backward re-reads them (no autograd).
+
+    One chain: w (fin, fout), b (fout,), coords (C, N), values / weights
+    (Cout, N).  A fleet adds a leading block axis B to every one of them
+    and gets a loss of shape (B,).  weight_thres: a number (0 or None
+    disables the override) or a (B,) tensor (-inf disables it for that
+    block).  unit_masks: None or one entry per layer, None or (f_l,) /
+    (B, f_l) 0/1, multiplying h_l and d_l after the activation (a masked
+    identity layer's derivative is its mask)."""
+    n_layers = len(layers)
+    masks = unit_masks if unit_masks is not None else [None] * n_layers
     hs, ds = [coords_t], []
     h = coords_t
-    for layer, (act, w0) in zip(layers, acts):
-        z = layer["w"].T @ h + layer["b"][:, None]
+    for layer, (act, w0), mk in zip(layers, acts, masks):
+        z = layer["w"].transpose(-1, -2) @ h + layer["b"][..., :, None]
         h, d = _act_fwd(z, act, w0)
+        if mk is not None:
+            m = mk[..., :, None]
+            h = h * m
+            d = m if d is None else d * m
         hs.append(h)
         ds.append(d)
     pred = h
     w_eff = weights_t
-    if weight_thres:
+    if isinstance(weight_thres, torch.Tensor):
+        w_eff = torch.where(pred <= weight_thres[..., None, None], 1.0,
+                            weights_t)
+    elif weight_thres:
         w_eff = torch.where(pred <= weight_thres, 1.0, weights_t)
     e = pred - values_t
     if loss_name == "datal2":
@@ -172,13 +241,14 @@ def fused_train_grads_reference(layers, coords_t, values_t, weights_t,
         g = w_eff * torch.where(ae < beta, e / beta, torch.sign(e))
     else:
         raise NotImplementedError(loss_name)
-    loss = torch.sum(w_eff * l_elem)
+    loss = torch.sum(w_eff * l_elem, dim=(-2, -1))
     if ds[-1] is not None:
         g = g * ds[-1]
-    m = float(coords_t.shape[1] * values_t.shape[0])
-    grads: List[Dict] = [None] * len(layers)
-    for l in range(len(layers) - 1, -1, -1):
-        grads[l] = {"w": (hs[l] @ g.T) / m, "b": g.sum(dim=1) / m}
+    m = float(coords_t.shape[-1] * values_t.shape[-2])
+    grads: List[Dict] = [None] * n_layers
+    for l in range(n_layers - 1, -1, -1):
+        grads[l] = {"w": (hs[l] @ g.transpose(-1, -2)) / m,
+                    "b": g.sum(dim=-1) / m}
         if l > 0:
             g = layers[l]["w"] @ g
             if ds[l - 1] is not None:
@@ -189,103 +259,213 @@ def fused_train_grads_reference(layers, coords_t, values_t, weights_t,
 # --------------------------------------------------------------------------
 # CUDA kernel
 # --------------------------------------------------------------------------
-_OCCUPANCY: Dict[Tuple[int, int, int], int] = {}
+_OCCUPANCY: Dict[Tuple[int, bool, int, int], int] = {}
 
 
-def _grid(lib, device: torch.device, p: Dict, n: int) -> int:
-    """Persistent grid: as many blocks as fit on the card at once, but no
-    more than there are tiles."""
-    key = (device.index or 0, p["block"], p["smem_bytes"])
+def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
+    """Persistent grid per fleet block: as many blocks in all as fit on the
+    card at once, but no more than there are tiles."""
+    key = (device.index or 0, p["smem_weights"], p["threads"],
+           p["smem_bytes"])
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         from brief_pytorch_tpu_torch.ops import build
         build.check(lib.brief_fused_train_occupancy(
-            p["block"], p["smem_bytes"], ctypes.addressof(per_sm),
-            ctypes.addressof(sms)), "fused_train occupancy")
+            int(p["smem_weights"]), p["threads"], p["smem_bytes"],
+            ctypes.addressof(per_sm), ctypes.addressof(sms)),
+            "fused_train occupancy")
         _OCCUPANCY[key] = max(1, per_sm.value) * sms.value
-    return max(1, min(_OCCUPANCY[key], -(-n // p["block"])))
+    per_fleet = -(-_OCCUPANCY[key] // n_fleet)
+    return max(1, min(per_fleet, -(-n // p["block"])))
 
 
-def fused_train_grads(layers, coords_t: torch.Tensor, values_t: torch.Tensor,
-                      weights_t: torch.Tensor, acts: LayerSpec, *,
-                      loss_name: str, beta: float = 0.01, weight_thres=None):
-    """(loss, grads) for weighted-loss fitting of a plain activation chain.
-
-    layers: [{'w': (fin, fout), 'b': (fout,)}, ...] float32
-    coords_t: (C, N); values_t / weights_t: (Cout, N) — feature-major,
-    contiguous.  grads: {"layers": [{'w', 'b'}]} shaped like `layers`,
-    loss and grads divided by N * Cout.  CUDA tensors launch the kernel;
-    CPU tensors take the plain version.
-    """
-    if coords_t.device.type == "cpu":
-        return fused_train_grads_reference(
-            layers, coords_t, values_t, weights_t, acts,
-            loss_name=loss_name, beta=beta, weight_thres=weight_thres)
-    if not coords_t.is_cuda:
-        raise ValueError(f"fused_train_grads runs on cuda or cpu, not "
-                         f"{coords_t.device}")
-    global launches
-    from brief_pytorch_tpu_torch.ops import build
-
-    device = coords_t.device
-    c_in, n = coords_t.shape
-    c_out = values_t.shape[0]
-    widths = [c_in] + [int(l["w"].shape[1]) for l in layers]
-    for l, layer in enumerate(layers):
-        if tuple(layer["w"].shape) != (widths[l], widths[l + 1]) or \
-                tuple(layer["b"].shape) != (widths[l + 1],):
-            raise ValueError(f"layer {l}: w {tuple(layer['w'].shape)} / b "
-                             f"{tuple(layer['b'].shape)} do not chain")
-    if widths[-1] != c_out or tuple(weights_t.shape) != (c_out, n) or \
-            tuple(values_t.shape) != (c_out, n):
-        raise ValueError("values/weights must be (Cout, N) matching coords "
-                         "(C, N) and the last layer")
-    for name, x in (("coords", coords_t), ("values", values_t),
-                    ("weights", weights_t)):
+def _check_batch(widths, coords, values, weights, lead: Tuple[int, ...]):
+    """Shapes, device, type and contiguity of one call's batch tensors."""
+    device = coords.device
+    c_in, c_out = widths[0], widths[-1]
+    n = coords.shape[-1]
+    if tuple(coords.shape) != lead + (c_in, n):
+        raise ValueError(f"coords: expected {lead + (c_in, n)}, got "
+                         f"{tuple(coords.shape)}")
+    for name, x in (("values", values), ("weights", weights)):
+        if tuple(x.shape) != lead + (c_out, n):
+            raise ValueError(f"{name}: expected {lead + (c_out, n)} matching "
+                             f"coords and the last layer, got "
+                             f"{tuple(x.shape)}")
+    for name, x in (("coords", coords), ("values", values),
+                    ("weights", weights)):
         if x.device != device or x.dtype != torch.float32 or \
                 not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous float32 tensor "
                              f"on {device}")
+
+
+def _layer_widths(layers, c_in: int, lead: Tuple[int, ...]) -> List[int]:
+    widths = [c_in] + [int(l["w"].shape[-1]) for l in layers]
+    for l, layer in enumerate(layers):
+        if tuple(layer["w"].shape) != lead + (widths[l], widths[l + 1]) or \
+                tuple(layer["b"].shape) != lead + (widths[l + 1],):
+            raise ValueError(f"layer {l}: w {tuple(layer['w'].shape)} / b "
+                             f"{tuple(layer['b'].shape)} do not chain")
+    return widths
+
+
+def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
+            masks: Optional[torch.Tensor], mask_off: Sequence[int],
+            thres: Optional[torch.Tensor], loss_name: str, beta: float
+            ) -> torch.Tensor:
+    """One launch for n_fleet = params.shape[0] chains; returns
+    (n_fleet, n_params + 1): the gradients in the packed layout, then the
+    loss, divided by N * Cout."""
+    from brief_pytorch_tpu_torch.ops import build
+
+    device = coords.device
     if loss_name not in LOSSES:
         raise NotImplementedError(loss_name)
-    if len(acts) != len(layers):
+    if len(acts) != len(widths) - 1:
         raise ValueError("one (act, w0) per layer")
-    p = choose_plan(widths)
-    if p is None:
-        raise ValueError(f"chain widths {widths} exceed the kernel's shared "
-                         "memory (see supports_training)")
-    params = torch.cat([t for layer in layers
-                        for t in (layer["w"].reshape(-1), layer["b"])])
+    p = kernel_plan(widths)
     if params.device != device or params.dtype != torch.float32:
         raise ValueError(f"weights: expected float32 on {device}")
-    meta = [len(layers), c_in, c_out, p["n_params"], p["stride"],
-            p["acc_off"], p["red_off"], p["act_off"]]
+    n_fleet, n = params.shape[0], coords.shape[-1]
+    mask_width = 0 if masks is None else masks.shape[1]
+    meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
+            p["stride"], p["acc_off"], p["red_off"], p["act_off"],
+            int(p["smem_weights"]), mask_width, p["block"]]
     for l, (act, _) in enumerate(acts):
         meta += [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
                  p["sw_off"][l], p["swt_off"][l], p["sb_off"][l],
-                 p["h_row"][l], p["dg_row"][l]]
+                 p["h_row"][l], p["dg_row"][l], mask_off[l]]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     w0_c = (ctypes.c_float * len(acts))(*[float(w0) for _, w0 in acts])
 
     lib = build.library("fused_train", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
-        grid = _grid(lib, device, p, n)
+        grid = _grid(lib, device, p, n, n_fleet)
         width = p["n_params"] + 1
-        partial = torch.empty((grid, width), dtype=torch.float32,
+        partial = torch.empty((n_fleet, grid, width), dtype=torch.float32,
                               device=device)
-        out = torch.empty((width,), dtype=torch.float32, device=device)
+        out = torch.empty((n_fleet, width), dtype=torch.float32,
+                          device=device)
         build.check(lib.brief_fused_train(
-            coords_t.data_ptr(), values_t.data_ptr(), weights_t.data_ptr(),
-            params.data_ptr(), partial.data_ptr(), out.data_ptr(), n, meta_c,
-            w0_c, LOSSES.index(loss_name), float(beta),
-            int(bool(weight_thres)), float(weight_thres or 0.0), grid,
-            p["block"], p["smem_bytes"],
-            torch.cuda.current_stream(device).cuda_stream), "fused_train")
+            coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
+            params.data_ptr(), 0 if masks is None else masks.data_ptr(),
+            0 if thres is None else thres.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n, n_fleet, meta_c, w0_c,
+            LOSSES.index(loss_name), float(beta), grid, p["threads"],
+            p["smem_bytes"], torch.cuda.current_stream(device).cuda_stream),
+            "fused_train")
+    return out
+
+
+def _unpack(out: torch.Tensor, widths: Sequence[int]):
+    """(loss, grads) views of _launch's (B, n_params + 1) output."""
+    grads, o = [], 0
+    for fin, fout in zip(widths[:-1], widths[1:]):
+        grads.append({"w": out[:, o:o + fin * fout].view(-1, fin, fout),
+                      "b": out[:, o + fin * fout:o + fin * fout + fout]})
+        o += fin * fout + fout
+    return out[:, o], grads
+
+
+_THRES: Dict[Tuple[torch.device, float], torch.Tensor] = {}
+
+
+def _thres_tensor(value: float, device: torch.device) -> torch.Tensor:
+    """A (1,) tensor of one chain's threshold on `device`, made once per
+    value (a step's launch then moves nothing from the host)."""
+    key = (device, value)
+    if key not in _THRES:
+        _THRES[key] = torch.full((1,), value, dtype=torch.float32,
+                                 device=device)
+    return _THRES[key]
+
+
+def fused_train_grads(layers, coords_t: torch.Tensor, values_t: torch.Tensor,
+                      weights_t: torch.Tensor, acts: LayerSpec, *,
+                      loss_name: str, beta: float = 0.01, weight_thres=None):
+    """(loss, grads) for weighted-loss fitting of one plain activation chain.
+
+    layers: [{'w': (fin, fout), 'b': (fout,)}, ...] float32
+    coords_t: (C, N); values_t / weights_t: (Cout, N) — feature-major,
+    contiguous.  weight_thres: 0 or None disables the override.  grads:
+    {"layers": [{'w', 'b'}]} shaped like `layers`, loss and grads divided
+    by N * Cout.  A fleet of one: CUDA tensors launch the kernel; CPU
+    tensors take the plain version.
+    """
+    if coords_t.device.type == "cpu":
+        return fused_train_grads_reference(
+            layers, coords_t, values_t, weights_t, acts,
+            loss_name=loss_name, beta=beta, weight_thres=weight_thres)
+    thres = None
+    if weight_thres:
+        thres = _thres_tensor(float(weight_thres), coords_t.device)
+    loss, grads = fused_train_grads_fleet(
+        [{k: v[None] for k, v in layer.items()} for layer in layers],
+        coords_t[None], values_t[None], weights_t[None], acts,
+        loss_name=loss_name, beta=beta, thres=thres)
+    return loss[0], {"layers": [{k: v[0] for k, v in g.items()}
+                                for g in grads["layers"]]}
+
+
+def fused_train_grads_fleet(layers, coords: torch.Tensor,
+                            values: torch.Tensor, weights: torch.Tensor,
+                            acts: LayerSpec, *, loss_name: str,
+                            beta: float = 0.01, unit_masks=None,
+                            thres: Optional[torch.Tensor] = None):
+    """(losses (B,), grads) of B padded chains in one launch (the block
+    fleet's step, JAX block_trainer.py:594-617).
+
+    layers: [{'w': (B, fin, fout), 'b': (B, fout)}, ...] float32
+    coords: (B, C, N); values / weights: (B, Cout, N), contiguous.
+    unit_masks: None or per layer None or (B, f_l) 0/1 (the fleet passes
+    its hidden layers' masks and None for the last layer).  thres: None
+    or (B,) float32, -inf where the override is disabled.  grads are
+    shaped like `layers`, everything divided by N * Cout per block.  CUDA
+    tensors launch the kernel; CPU tensors take the plain version.
+    """
+    if coords.device.type == "cpu":
+        return fused_train_grads_reference(
+            layers, coords, values, weights, acts, loss_name=loss_name,
+            beta=beta, weight_thres=thres, unit_masks=unit_masks)
+    if not coords.is_cuda:
+        raise ValueError(f"fused_train_grads runs on cuda or cpu, not "
+                         f"{coords.device}")
+    global launches
+    n_fleet = coords.shape[0]
+    widths = _layer_widths(layers, coords.shape[1], (n_fleet,))
+    _check_batch(widths, coords, values, weights, (n_fleet,))
+    if n_fleet == 1:    # one chain: the 1-D concatenation is the faster one
+        params = torch.cat([t.reshape(-1) for layer in layers
+                            for t in (layer["w"], layer["b"])])[None]
+    else:
+        params = torch.cat([t for layer in layers
+                            for t in (layer["w"].reshape(n_fleet, -1),
+                                      layer["b"])], dim=1)
+    masks, mask_off, off = None, [], 0
+    if unit_masks is not None:
+        rows = []
+        for l, mk in enumerate(unit_masks):
+            if mk is None:
+                mask_off.append(-1)
+                continue
+            if tuple(mk.shape) != (n_fleet, widths[l + 1]):
+                raise ValueError(f"unit mask {l}: expected "
+                                 f"{(n_fleet, widths[l + 1])}, got "
+                                 f"{tuple(mk.shape)}")
+            mask_off.append(off)
+            off += widths[l + 1]
+            rows.append(mk)
+        if rows:
+            masks = torch.cat(rows, dim=1).to(torch.float32).contiguous()
+    mask_off += [-1] * (len(layers) - len(mask_off))
+    if thres is not None:
+        if tuple(thres.shape) != (n_fleet,) or thres.device != coords.device:
+            raise ValueError(f"thres: expected ({n_fleet},) on "
+                             f"{coords.device}")
+        thres = thres.to(torch.float32).contiguous()
+    out = _launch(params, coords, values, weights, widths, acts, masks,
+                  mask_off, thres, loss_name, beta)
     launches += 1
-    grads = []
-    for l in range(len(layers)):
-        fin, fout = widths[l], widths[l + 1]
-        o = p["p_off"][l]
-        grads.append({"w": out[o:o + fin * fout].view(fin, fout),
-                      "b": out[o + fin * fout:o + fin * fout + fout]})
-    return out[p["n_params"]], {"layers": grads}
+    loss, grads = _unpack(out, widths)
+    return loss, {"layers": grads}

@@ -200,7 +200,8 @@ class NFGR:
         loss_name = cfg.loss.name
         beta = float(cfg.loss.get("beta", 0.01))
 
-        # fused train kernel gate (fit.py:331-336 of the JAX package)
+        # fused train kernel gate (fit.py:331-336 of the JAX package); a
+        # chain too wide for the kernel raises NotImplementedError
         fused = bool(cfg.get("fused_train", True)) and dev.type == "cuda" \
             and fused_train.supports_training(model, loss_name)
         step_fn = self._fused_step if fused else self._autograd_step
@@ -351,6 +352,42 @@ class NFGR:
                           post.clip)
 
     # --------------------------------------------------------- decompress --
+    @staticmethod
+    def decompress_divide(opt, orig_sideinfos_path: str,
+                          module_save_dir: str, sideinfos_save_dir: str,
+                          device: DeviceLike = None) -> np.ndarray:
+        """Standalone decode of a saved DivideTask archive (reference
+        main.py:299-320, JAX fit.py:496-531): every chunk under
+        <module_save_dir>/<chunk_name>/module is decoded through
+        NFGR.decompress with its own sideinfos and merged by the extents
+        in its name 'd_{z0}_{z1}-h_{y0}_{y1}-w_{x0}_{x1}'.
+
+        opt: a CompressFramework config node or a path to a yaml.
+        """
+        from brief_pytorch_tpu_torch.partition.divide import (
+            merge_divided_data, parse_chunk_name)
+        dev = resolve_device(device)
+        if isinstance(opt, str):
+            opt = cfglib.load(opt).CompressFramework
+        data_shape = list(cfglib.load(orig_sideinfos_path)["data_shape"])
+        chunk_list = []
+        for name in sorted(os.listdir(module_save_dir)):
+            # chunk entries are directories named d_*-h_*-w_* / h_*-w_*
+            if not os.path.isdir(opj(module_save_dir, name)):
+                continue
+            try:
+                extents = parse_chunk_name(name)
+            except (ValueError, IndexError):
+                continue
+            dec = NFGR.decompress(
+                opt, opj(module_save_dir, name, "module"),
+                opj(sideinfos_save_dir, name, "sideinfos.yaml"), device=dev)
+            chunk_list.append({"data": dec, "name": name, **extents})
+        if not chunk_list:
+            raise FileNotFoundError(
+                f"no chunk directories found in {module_save_dir}")
+        return merge_divided_data(chunk_list, data_shape)
+
     @staticmethod
     def decompress(opt, module_path: str, sideinfos_path: str,
                    device: DeviceLike = None) -> np.ndarray:

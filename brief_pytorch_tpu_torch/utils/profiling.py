@@ -1,11 +1,15 @@
-"""Where the SingleTask training loop's time goes, on the card.
+"""Where the training loop's time goes, on the card.
 
     python -m brief_pytorch_tpu_torch.utils.profiling [-p yaml] [--steps N]
+        [--data volume]
 
 Runs the config's training (Compress.max_steps = N, no checkpoint
-artifacts: no logger) twice through NFGR.compress: once plain, for the
-host-clock step time, and once under torch.profiler, for the device time
-of every CUDA kernel.  Prints one JSON line:
+artifacts) twice: once plain, for the host-clock step time, and once
+under torch.profiler, for the device time of every CUDA kernel.  A
+SingleTask config trains through NFGR.compress; a DivideTask config
+(divide_type other than none) trains its block fleet
+(parallel/block_trainer.py) on the blocks compress_divide would make.
+--data replaces Dataset.data_path.  Prints one JSON line:
   wall_ms_per_step    host clock over the training loop (ends in a sync)
   device_ms_per_step  summed kernel time / N (the set-up's few kernels
                       included)
@@ -26,12 +30,30 @@ from brief_pytorch_tpu_torch.core import config as cfglib
 
 
 def _run(opt, steps: int) -> dict:
-    from brief_pytorch_tpu_torch.train.fit import NFGR
     c = opt.CompressFramework
     c.Compress.max_steps = steps
     c.Compress.checkpoints = "none"
-    nfgr = NFGR(c, logger=None, seed=int(opt.Reproduc.seed), device="cuda")
-    summary = nfgr.compress(opt.Dataset.data_path)
+    seed = int(opt.Reproduc.seed)
+    path = opt.Dataset.data_path
+    if c.Compress.divide.divide_type != "none":
+        from brief_pytorch_tpu_torch.io.image import read_img
+        from brief_pytorch_tpu_torch.parallel.block_trainer import \
+            BlockFleetTrainer
+        from brief_pytorch_tpu_torch.parallel.divide_runner import (
+            param_budget, plan_blocks)
+        from brief_pytorch_tpu_torch.post.preprocess import preprocess
+        pre = c.Compress.preprocess
+        data = preprocess(read_img(path), pre.denoise.level,
+                          pre.denoise.close, pre.clip)
+        _, blocks, _ = plan_blocks(c, data, param_budget(c.Compress, path))
+        trainer = BlockFleetTrainer(seed=seed, device="cuda")
+        trainer.train(blocks, c.Compress, steps)
+        summary = {"train_s": trainer.train_s,
+                   "fleet": trainer.fleet_stats()}
+    else:
+        from brief_pytorch_tpu_torch.train.fit import NFGR
+        nfgr = NFGR(c, logger=None, seed=seed, device="cuda")
+        summary = nfgr.compress(path)
     torch.cuda.synchronize()
     return summary
 
@@ -40,15 +62,23 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-p", default="opt/SingleTask/default.yaml")
     parser.add_argument("--steps", type=int, default=1000)
+    parser.add_argument("--data", default=None,
+                        help="a volume in place of Dataset.data_path")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA card")
 
-    plain = _run(cfglib.load(args.p), args.steps)
+    def load():
+        opt = cfglib.load(args.p)
+        if args.data:
+            opt.Dataset.data_path = args.data
+        return opt
+
+    plain = _run(load(), args.steps)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _run(cfglib.load(args.p), args.steps)
+        _run(load(), args.steps)
     kernels = {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", 0.0)
@@ -64,6 +94,7 @@ def main(argv=None) -> dict:
            "device_ms_per_step": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms,
            "kernels": {k: v / args.steps for k, v in top},
+           "fleet": plain.get("fleet"),
            "device": torch.cuda.get_device_name(0), "power_limit": smi}
     print(json.dumps(out), flush=True)
     return out

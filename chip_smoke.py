@@ -17,7 +17,29 @@ non-zero exit:
      bundled 64^3 fixture for COMPRESS_STEPS steps with one checkpoint:
      both kernels' launch counters above 0, PSNR above PSNR_FLOOR, the
      weight binaries written, and the standalone decompress of the
-     artifacts equal to the checkpoint's decode.
+     artifacts equal to the checkpoint's decode;
+  6. the train kernel's fleet form at the shapes phases 7 and 8 give it
+     (fleet_check): 4 blocks padded to 3-64x6-1, true widths
+     FLEET_WIDTHS through unit masks, SIREN w0 = 10, N = 100,000 per
+     block (the wide layout), and brain64's 8 blocks of 3-7x4-1, w0 = 20,
+     N = 20,000 (the shared-memory layout), each with finite and -inf
+     thresholds, against its plain version for both losses and a
+     relu/sigmoid chain, each block against the one-chain kernel on its
+     unpadded chain, padded gradients exactly 0, three runs bitwise equal;
+     timed beside the plain version and the bound; the wide one-chain
+     layout (3-186x4-1, N = 262,144) timed the same way;
+  7. the DivideTask command on opt/DivideTask/hipct.yaml, verbatim but for
+     the data (a seeded 64x512x512 uint16 volume whose quadrants' contrast
+     makes by_var give four widths, which must be phase 6's), HIPCT_STEPS
+     steps with one checkpoint and no MIPs: one kernel launch per step,
+     the standalone decompress_divide launching the decode kernel once per
+     chunk and within 1 LSB of the checkpoint's merged volume on >= 99.9%
+     of voxels, PSNR above HIPCT_PSNR_FLOOR and within HIPCT_AUTOGRAD_DB
+     of the same run through autograd (Compress.fused_train: false);
+  8. opt/DivideTask/brain64.yaml (8 blocks of 32^3, randompoint, on the
+     fleet kernel at phase 6's shape) and opt/DivideTask/default.yaml
+     (adaptive blocks, fullbatch buckets through autograd) on the bundled
+     fixture for FIXTURE_STEPS steps each: artifacts written, PSNR finite.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -41,9 +63,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "dataset", "brain", "64x64x64",
                        "brain-64_128-64_128-192_256.tif")
 CONFIG = os.path.join(ROOT, "opt", "SingleTask", "default.yaml")
+DIVIDE = os.path.join(ROOT, "opt", "DivideTask")
 COMPRESS_STEPS = 3000
-PSNR_FLOOR = 40.0          # dB; 42.016 measured on an H100 (PERF.md)
+PSNR_FLOOR = 40.0          # dB; 41.985 measured on an H100 (PERF.md)
 N_COORDS = 64 ** 3         # randomcube over the whole 64^3 fixture
+HIPCT_STEPS = 500          # cut from the config's 80,000
+HIPCT_PSNR_FLOOR = 15.0    # dB; 16.371 on the first H100 run (PERF.md)
+HIPCT_AUTOGRAD_DB = 0.5    # dB; the kernel run's PSNR against autograd's
+FIXTURE_STEPS = 300        # cut from the configs' 20,000
+FLEET_WIDTHS = (49, 52, 58, 64)   # phase 7's true widths (padded to 64)
+FLEET_N = 100_000          # the hipct config's sample_size
+BRAIN64_WIDTHS = (7,) * 8  # brain64.yaml's 8 blocks (by_size at 80x)
+BRAIN64_N = 20_000         # brain64.yaml's sample_size
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 SINCOS_FLOPS = 25            # fast_sincos incl. the w0 multiplies
@@ -92,6 +123,205 @@ def bound_ms(n_bytes: float, n_flops: float):
 
 def chain_macs(widths) -> int:
     return sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+
+
+def train_flops(widths, acts, n: int) -> float:
+    """Float32 operations of one fused train call on n coordinates: 2 per
+    multiply-add of the forward, weight-gradient and input-gradient
+    products, SINCOS_FLOPS per sine unit."""
+    macs = chain_macs(widths)
+    sine = sum(w for w, (a, _) in zip(widths[1:], acts) if a == "sine")
+    return n * (4 * macs + 2 * (macs - widths[0] * widths[1])
+                + SINCOS_FLOPS * sine)
+
+
+def compare_grads(lk, gk, lp, gp, what: str) -> float:
+    """Fail unless the kernel's (loss, grads) match the plain version's:
+    loss rel 1e-5, each gradient 1e-4 * max|plain| + 1e-6.  Returns the
+    largest absolute difference."""
+    err = float((lk - lp).abs().max())
+    if not bool(((lk - lp).abs() <= 1e-5 * lp.abs()).all()):
+        fail(f"{what}: loss {lk.tolist()} vs plain {lp.tolist()}")
+    for l, (a, b) in enumerate(zip(gk, gp)):
+        for key in ("w", "b"):
+            d = float((a[key] - b[key]).abs().max())
+            scale = float(b[key].abs().max())
+            err = max(err, d)
+            if not d <= 1e-4 * scale + 1e-6:
+                fail(f"{what}: grad {key}{l}: max abs err {d} "
+                     f"(max |plain| {scale})")
+    return err
+
+
+def hipct_volume(seed: int, shape=(64, 512, 512),
+                 ratio_widths=(51, 54, 60, 66)) -> np.ndarray:
+    """A (64, 512, 512, 1) uint16 volume made from `seed`: a sum of twelve
+    random plane waves, its four (h, w) quadrants scaled so that by_var
+    gives them budgets in the ratio of 7-layer SIRENs of `ratio_widths`
+    (5 f^2 + 10 f + 1 parameters).  hipct.yaml's 128x budget, 65,536
+    parameters, then gives the four blocks FLEET_WIDTHS."""
+    rng = np.random.default_rng(seed)
+    d, h, w = shape
+    z = np.linspace(0, 1, d, dtype=np.float32)[:, None, None]
+    y = np.linspace(0, 1, h, dtype=np.float32)[None, :, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, None, :]
+    field = np.zeros(shape, np.float32)
+    for _ in range(12):
+        k = rng.uniform(-6, 6, 3).astype(np.float32)
+        field += np.float32(rng.uniform(0.3, 1.0)) * np.cos(
+            np.float32(2 * np.pi) * (k[0] * z + k[1] * y + k[2] * x)
+            + np.float32(rng.uniform(0, 2 * np.pi)))
+    field /= np.abs(field).max()
+    quads = [(slice(None), slice(q // 2 * h // 2, (q // 2 + 1) * h // 2),
+              slice(q % 2 * w // 2, (q % 2 + 1) * w // 2)) for q in range(4)]
+    target = np.array([5 * f * f + 10 * f + 1 for f in ratio_widths],
+                      np.float64)
+    gain = np.sqrt(target / np.array([field[q].var() for q in quads]))
+    gain *= 1.4 / gain.max()
+    vol = np.empty(shape, np.float32)
+    for q, g in zip(quads, gain):
+        vol[q] = 32768 + 15000 * g * (field[q] - field[q].mean())
+    return np.rint(vol).astype(np.uint16)[..., None]
+
+
+def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
+                thres) -> dict:
+    """The train kernel's fleet form on B = len(true_widths) SIREN chains
+    padded to the widest (unit masks), n coordinates per block, per-block
+    thresholds `thres` (-inf: none): against its plain version for both
+    losses and a relu/sigmoid chain, each block against the one-chain
+    kernel on its unpadded chain, padded gradients exactly 0, three runs
+    bitwise equal; then timed beside the plain version and the bound.
+    Fails the run on any disagreement; returns the kernel's JSON row."""
+    import torch
+    from brief_pytorch_tpu_torch.models.phi import init_phi
+    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
+    from brief_pytorch_tpu_torch.parallel.block_trainer import build_stacked
+    models = [init_phi({"name": "SIREN", "coords_channel": 3,
+                        "data_channel": 1, "features": f, "layers": layers,
+                        "w0": w0}) for f in true_widths]
+    _, params, masks = build_stacked(models, 0, device=dev)
+    flayers = params["layers"]
+    padded = [3] + [int(l["w"].shape[-1]) for l in flayers]
+    acts = chain_layer_specs(models[-1].spec)
+    nb = len(true_widths)
+    to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    fc = to_dev(rng.uniform(-1, 1, (nb, 3, n)))
+    fv = to_dev(rng.uniform(0, 100, (nb, 1, n)))
+    fw = to_dev(rng.uniform(1, 2, (nb, 1, n)))
+    fthres = torch.tensor(thres, dtype=torch.float32, device=dev)
+    um = list(masks[:-1]) + [None]
+    what = f"fleet {nb} x {padded}"
+
+    def k6(loss_name="datal2", acts6=acts):
+        return fused_train.fused_train_grads_fleet(
+            flayers, fc, fv, fw, acts6, loss_name=loss_name, beta=0.01,
+            unit_masks=um, thres=fthres)
+
+    def p6(loss_name="datal2", acts6=acts):
+        return fused_train.fused_train_grads_reference(
+            flayers, fc, fv, fw, acts6, loss_name=loss_name, beta=0.01,
+            weight_thres=fthres, unit_masks=um)
+
+    relu_sig = tuple((("relu", 1.0), ("sigmoid", 1.0))[l % 2]
+                     for l in range(len(acts) - 1)) + (("none", 1.0),)
+    err = 0.0
+    for loss_name, acts6 in (("datal2", acts), ("datasmoothl1", acts),
+                             ("datasmoothl1", relu_sig)):
+        (lk, gk), (lp, gp) = k6(loss_name, acts6), p6(loss_name, acts6)
+        torch.cuda.synchronize()
+        err = max(err, compare_grads(lk, gk["layers"], lp, gp["layers"],
+                                     f"{what} {loss_name} {acts6[:2]}"))
+    loss_f, g_f = k6()
+    for i, m in enumerate(models):
+        dims = [(e.fan_in, e.fan_out) for e in m.spec.entries]
+        own = [{"w": l["w"][i, :a, :b].contiguous(),
+                "b": l["b"][i, :b].contiguous()}
+               for l, (a, b) in zip(flayers, dims)]
+        t = float(fthres[i])
+        ls, gs = fused_train.fused_train_grads(
+            own, fc[i], fv[i], fw[i], acts, loss_name="datal2", beta=0.01,
+            weight_thres=t if math.isfinite(t) else None)
+        compare_grads(loss_f[i], [{"w": g["w"][i, :a, :b], "b": g["b"][i, :b]}
+                                  for g, (a, b) in zip(g_f["layers"], dims)],
+                      ls, gs["layers"], f"{what} block {i} vs one chain")
+        for l, ((a, b), g) in enumerate(zip(dims, g_f["layers"])):
+            pad = int(torch.count_nonzero(g["w"][i, a:, :])
+                      + torch.count_nonzero(g["w"][i, :, b:])
+                      + torch.count_nonzero(g["b"][i, b:]))
+            if pad:
+                fail(f"{what} block {i} layer {l}: {pad} nonzero gradients "
+                     "of padded units")
+    for loss_r, g_r in [k6() for _ in range(3)]:
+        if not torch.equal(loss_r, loss_f) or not all(
+                torch.equal(a[k], b[k]) for a, b in
+                zip(g_r["layers"], g_f["layers"]) for k in ("w", "b")):
+            fail(f"{what}: runs differ bitwise")
+    ms = time_ms(k6)
+    plain = time_ms(p6, reps=5)
+    flops = sum(train_flops([3] + [f] * (layers - 1) + [1], acts, n)
+                for f in true_widths)
+    flops_pad = nb * train_flops(padded, acts, n)
+    n_par = sum(l["w"].numel() + l["b"].numel() for l in flayers)
+    n_bytes = 4 * (nb * n * (3 + 1 + 1) + 2 * n_par + nb
+                   + sum(m.numel() for m in masks[:-1]))
+    b, by = bound_ms(n_bytes, flops)
+    b_pad, _ = bound_ms(n_bytes, flops_pad)
+    p = fused_train.choose_plan(padded)
+    layout = "shared" if p["smem_weights"] else "wide"
+    say("6-fused_train_fleet", blocks=nb, n=n, padded=padded,
+        true_widths=list(true_widths), thres=fthres.tolist(), layout=layout,
+        tile=p["block"], max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain:.4f}", bound_ms=f"{b:.4f}",
+        bound_padded_ms=f"{b_pad:.4f}", bound_by=by,
+        tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; padded "
+                  "grads 0; 3 runs bitwise")
+    return dict(shape=f"{nb} x SIREN {padded} (true {list(true_widths)}), "
+                      f"N={n} per block", layout=layout, tile=p["block"],
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_padded_ms=b_pad, bound_by=by, padded=padded)
+
+
+def run_config(config: str, out_dir: str, steps: int, data_path=None,
+               fused_train: bool = True):
+    """The CLI on `config` cut to `steps` steps with one checkpoint, no
+    MIPs (and the fused train kernel off unless `fused_train`); returns
+    (summary, run dir, the yaml's config)."""
+    from brief_pytorch_tpu_torch.cli import main as cli
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    opt = cfglib.load(config)
+    if data_path is not None:
+        opt.Dataset.data_path = data_path
+    opt.Log.outputs_dir = out_dir
+    opt.Log.tensorboard = False
+    opt.Log.time = False
+    c = opt.CompressFramework
+    c.Compress.max_steps = steps
+    c.Compress.checkpoints = "none"
+    c.Decompress.mip = False
+    if not fused_train:
+        c.Compress.fused_train = False
+        opt.Log.project_name += "_autograd"
+    yaml_path = os.path.join(out_dir, os.path.basename(config))
+    cfglib.save(opt, yaml_path)
+    summary = cli.main(["-p", yaml_path, "-g", "0"])
+    return summary, os.path.join(out_dir, opt.Log.project_name), opt
+
+
+def last_psnr(run_dir: str) -> float:
+    with open(os.path.join(run_dir, "performance.csv")) as f:
+        return float(list(csv.DictReader(f))[-1]["psnr"])
+
+
+def chunk_dirs(run_dir: str, steps: int):
+    module = os.path.join(run_dir, f"steps{steps}", "compressed", "module")
+    names = sorted(os.listdir(module))
+    for name in names:
+        if not any(f.startswith("weight-") for f in
+                   os.listdir(os.path.join(module, name, "module"))):
+            fail(f"{module}/{name}: no weight-* binaries written")
+    return names
 
 
 def main() -> int:
@@ -185,10 +415,7 @@ def main() -> int:
     plain1 = time_ms(p1)
     macs = chain_macs(widths)
     sine_units = sum(w for w, (a, _) in zip(widths[1:], acts) if a == "sine")
-    flops1 = n * (2 * macs            # forward
-                  + 2 * macs          # weight gradients
-                  + 2 * (macs - widths[0] * widths[1])   # input gradients
-                  + SINCOS_FLOPS * sine_units)
+    flops1 = train_flops(widths, acts, n)
     bytes1 = 4 * (n * (3 + 1 + 1) + 2 * (sum(l["w"].numel() + l["b"].numel()
                                              for l in layers) + 1))
     b1, by1 = bound_ms(bytes1, flops1)
@@ -294,17 +521,186 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- 6. kernel 1, fleet form, at the fleets' shapes of phases 7, 8 ----
+    hip_row = fleet_check(dev, rng, FLEET_WIDTHS, 7, 10.0, FLEET_N,
+                          [60.0, -math.inf, 40.0, -math.inf])
+    b64_row = fleet_check(dev, rng, BRAIN64_WIDTHS, 5, 20.0, BRAIN64_N,
+                          [60.0, -math.inf] * 4)
+
+    # the wide one-chain layout: the SingleTask default's width on a
+    # volume of the HiP-CT demo's size
+    wmodel = init_phi({**phi, "features": 186})
+    wlayers = wmodel.init(torch.Generator().manual_seed(1), dev)["layers"]
+    wacts = chain_layer_specs(wmodel.spec)
+    wwidths = [3] + [int(l["w"].shape[1]) for l in wlayers]
+    wplan = fused_train.choose_plan(wwidths)
+    if wplan is None or wplan["smem_weights"] or \
+            not fused_train.supports_training(wmodel, "datal2"):
+        fail(f"chain {wwidths}: no wide-layout plan ({wplan})")
+
+    def kwide():
+        return fused_train.fused_train_grads(wlayers, coords, values, weights,
+                                             wacts, **kw)
+
+    def pwide():
+        return fused_train.fused_train_grads_reference(
+            wlayers, coords, values, weights, wacts, **kw)
+
+    (lk, gk), (lp, gp) = kwide(), pwide()
+    torch.cuda.synchronize()
+    errw = compare_grads(lk, gk["layers"], lp, gp["layers"], "wide chain")
+    msw = time_ms(kwide)
+    plainw = time_ms(pwide, reps=10)
+    bw, byw = bound_ms(4 * (n * 5 + 2 * sum(l["w"].numel() + l["b"].numel()
+                                            for l in wlayers) + 1),
+                       train_flops(wwidths, wacts, n))
+    wide_row = dict(shape=f"SIREN {wwidths}, N={n}", tile=wplan["block"],
+                    max_abs_err=errw, ms=msw, plain_ms=plainw, bound_ms=bw,
+                    bound_by=byw)
+    say("6-fused_train_wide", widths=wwidths, n=n, tile=wplan["block"],
+        smem_bytes=wplan["smem_bytes"], max_abs_err=f"{errw:.3e}",
+        ms=f"{msw:.4f}", plain_ms=f"{plainw:.4f}", bound_ms=f"{bw:.4f}",
+        bound_by=byw)
+
+    # ---- 7. the DivideTask command on the HiP-CT config ----
+    from brief_pytorch_tpu_torch.io.image import save_img
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_divide_")
+    try:
+        t0 = time.perf_counter()
+        data_path = os.path.join(out_dir, "hipct-0_64-0_512-0_512.tif")
+        save_img(data_path, hipct_volume(42))
+        gen_s = time.perf_counter() - t0
+        fused_train.launches = 0
+        fused_decode.launches = 0
+        t0 = time.perf_counter()
+        summary7, run_dir, opt7 = run_config(
+            os.path.join(DIVIDE, "hipct.yaml"), out_dir, HIPCT_STEPS,
+            data_path)
+        torch.cuda.synchronize()
+        wall7 = time.perf_counter() - t0
+        launches7 = {"fused_train": fused_train.launches,
+                     "fused_decode": fused_decode.launches}
+        padded7 = summary7["fleet"][0]["widths"]
+        if launches7["fused_train"] != HIPCT_STEPS or \
+                summary7["fused"] != [True] or padded7 != hip_row["padded"]:
+            fail(f"hipct: launches {launches7}, fused buckets "
+                 f"{summary7['fused']}, widths {padded7} (want "
+                 f"{HIPCT_STEPS}, [True], {hip_row['padded']})")
+        names = chunk_dirs(run_dir, HIPCT_STEPS)
+        comp = os.path.join(run_dir, f"steps{HIPCT_STEPS}", "compressed")
+        feats = [int(cfglib.load(os.path.join(
+            comp, "sideinfos", nm, "sideinfos.yaml"))["phi_features"])
+            for nm in names]
+        if sorted(feats) != sorted(FLEET_WIDTHS):
+            fail(f"hipct: chunks {names} with widths {feats}, not phase "
+                 f"6's {FLEET_WIDTHS}")
+        fused_decode.launches = 0
+        dec = NFGR.decompress_divide(
+            opt7.CompressFramework, os.path.join(comp, "sideinfos.yaml"),
+            os.path.join(comp, "module"), os.path.join(comp, "sideinfos"),
+            device=dev)
+        decode_launches7 = fused_decode.launches
+        ck = read_img(os.path.join(run_dir, f"steps{HIPCT_STEPS}",
+                                   "decompressed", os.path.basename(
+                                       data_path).replace(".tif",
+                                                          "_decompressed.tif")))
+        diff = np.abs(dec.astype(np.int64) - ck.astype(np.int64))
+        within = float((diff <= 1).mean())
+        if decode_launches7 != len(names) or dec.shape != ck.shape or \
+                within < 0.999:
+            fail(f"hipct decompress_divide: {decode_launches7} decode "
+                 f"launches for {len(names)} chunks, shape {dec.shape} vs "
+                 f"{ck.shape}, {within:.6f} of voxels within 1 LSB")
+        psnr7 = last_psnr(run_dir)
+        train7 = summary7["train_s"]
+        # the same run through autograd (stacked_apply), the same draws
+        fused_train.launches = 0
+        summary7a, run_dir7a, _ = run_config(
+            os.path.join(DIVIDE, "hipct.yaml"), out_dir, HIPCT_STEPS,
+            data_path, fused_train=False)
+        psnr7a = last_psnr(run_dir7a)
+        if summary7a["fused"] != [False] or fused_train.launches:
+            fail(f"hipct autograd run: fused {summary7a['fused']}, "
+                 f"{fused_train.launches} kernel launches")
+        say("7-divide-hipct", steps=HIPCT_STEPS, chunks=len(names),
+            widths=feats, padded=padded7,
+            launches=json.dumps(launches7),
+            decompress_decode_launches=decode_launches7,
+            within_1lsb=f"{within:.6f}", max_lsb=int(diff.max()),
+            psnr=f"{psnr7:.3f}", psnr_floor=HIPCT_PSNR_FLOOR,
+            psnr_autograd=f"{psnr7a:.3f}",
+            psnr_autograd_margin=HIPCT_AUTOGRAD_DB,
+            ssim=f"{float(summary7['ssim']):.4f}",
+            ssim_autograd=f"{float(summary7a['ssim']):.4f}",
+            train_s=f"{train7:.3f}",
+            steps_per_s=f"{HIPCT_STEPS / train7:.2f}",
+            steps_per_s_autograd=f"{HIPCT_STEPS / summary7a['train_s']:.2f}",
+            coords_per_s=f"{HIPCT_STEPS * len(names) * FLEET_N / train7:.4g}",
+            checkpoint_s=f"{summary7['checkpoint_s']:.3f}",
+            wall_s=f"{wall7:.3f}", data_gen_s=f"{gen_s:.3f}")
+        if not math.isfinite(psnr7) or psnr7 < HIPCT_PSNR_FLOOR:
+            fail(f"hipct PSNR {psnr7} below the floor {HIPCT_PSNR_FLOOR}")
+        if not abs(psnr7 - psnr7a) <= HIPCT_AUTOGRAD_DB:
+            fail(f"hipct PSNR {psnr7} on the kernel, {psnr7a} through "
+                 f"autograd: more than {HIPCT_AUTOGRAD_DB} dB apart")
+
+        # ---- 8. the bundled fixture: brain64 (kernel), default (autograd)
+        for name, fused_want in (("brain64.yaml", [True]),
+                                 ("default.yaml", None)):
+            fused_train.launches = 0
+            t0 = time.perf_counter()
+            summary8, run_dir8, _ = run_config(
+                os.path.join(DIVIDE, name), out_dir, FIXTURE_STEPS)
+            torch.cuda.synchronize()
+            wall8 = time.perf_counter() - t0
+            fleet8 = fused_train.launches
+            samplers = [b["sampler"] for b in summary8["fleet"]]
+            if fused_want is not None and (
+                    summary8["fused"] != fused_want or
+                    fleet8 != FIXTURE_STEPS or
+                    summary8["fleet"][0]["widths"] != b64_row["padded"] or
+                    summary8["fleet"][0]["blocks"] != len(BRAIN64_WIDTHS)):
+                fail(f"{name}: fused {summary8['fused']}, fleet launches "
+                     f"{fleet8}, buckets {summary8['fleet']} (phase 6: "
+                     f"{len(BRAIN64_WIDTHS)} x {b64_row['padded']})")
+            if fused_want is not None:
+                b64_row["launches"] = fleet8
+            if fused_want is None and (any(summary8["fused"]) or fleet8 or
+                                       set(samplers) != {"fullbatch"}):
+                fail(f"{name}: fused {summary8['fused']}, samplers "
+                     f"{samplers}, fleet launches {fleet8}")
+            names8 = chunk_dirs(run_dir8, FIXTURE_STEPS)
+            psnr8 = last_psnr(run_dir8)
+            if not math.isfinite(psnr8):
+                fail(f"{name}: PSNR {psnr8}")
+            say("8-divide-fixture", config=name, steps=FIXTURE_STEPS,
+                chunks=len(names8), buckets=len(summary8["fleet"]),
+                samplers=samplers, fused=summary8["fused"],
+                launches=fleet8, psnr=f"{psnr8:.3f}",
+                train_s=f"{summary8['train_s']:.3f}",
+                checkpoint_s=f"{summary8['checkpoint_s']:.3f}",
+                wall_s=f"{wall8:.3f}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
          "launches": launches["fused_train"], "max_abs_err": err1,
          "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
-         "library_ms": None, "shape": f"SIREN {widths}, N={n}"},
+         "library_ms": None, "shape": f"SIREN {widths}, N={n}",
+         "wide": wide_row},
+        {"name": "fused_train_grads_fleet", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
+         "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
+         "launches": launches7["fused_train"], "library_ms": None,
+         **{k: v for k, v in hip_row.items() if k != "padded"},
+         "narrow": {k: v for k, v in b64_row.items() if k != "padded"}},
         {"name": "fused_decode_grid", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_decode.py:172",
-         "launches": launches["fused_decode"],
+         "launches": launches["fused_decode"] + decode_launches7,
          "max_abs_err": dec_rows[64]["max_abs_err"], "ms": dec_rows[64]["ms"],
          "plain_ms": dec_rows[64]["plain_ms"],
          "bound_ms": dec_rows[64]["bound_ms"],

@@ -162,3 +162,133 @@ def test_profiling_reports_device_time(dev, capsys):
     assert 0 < out["device_ms_per_step"] < out["wall_ms_per_step"]
     assert 0 <= out["device_idle_share"] < 1
     assert any("fused_train_kernel" in k for k in out["kernels"])
+
+
+# --- the train kernel's fleet form and its wide-chain layout ---------------
+def _fleet(dev, true_widths, layers=4, cout=1, n=5000, seed=3):
+    """B padded SIREN chains (w0 = 10) of the given true widths, their unit
+    masks, a batch and per-block thresholds (finite and -inf)."""
+    from brief_pytorch_tpu_torch.parallel.block_trainer import build_stacked
+    models = [tphi.init_phi({"name": "SIREN", "coords_channel": 3,
+                             "data_channel": cout, "features": f,
+                             "layers": layers, "w0": 10})
+              for f in true_widths]
+    _, params, masks = build_stacked(models, seed, device=dev)
+    B = len(true_widths)
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    batch = (f(rng.uniform(-1, 1, (B, 3, n))), f(rng.uniform(0, 1, (B, cout, n))),
+             f(rng.uniform(1, 2, (B, cout, n))))
+    thres = torch.tensor([0.4, -np.inf, 0.6, -np.inf][:B], device=dev)
+    return models, params["layers"], list(masks[:-1]) + [None], batch, thres
+
+
+def _close(lk, gk, lp, gp):
+    assert bool(((lk - lp).abs() <= 1e-5 * lp.abs()).all())
+    for a, b in zip(gk, gp):
+        for k in ("w", "b"):
+            assert a[k].shape == b[k].shape
+            d = float((a[k] - b[k]).abs().max())
+            assert d <= 1e-4 * float(b[k].abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("true_widths,layers,n", [
+    ((8, 12, 10), 4, 5000),          # narrow: shared-memory layout
+    ((51, 54, 60, 66), 7, 20000),    # the HiP-CT bucket: wide layout
+])
+@pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
+def test_fused_train_fleet_matches_plain(dev, true_widths, layers, n,
+                                         loss_name):
+    models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers,
+                                                   n=n)
+    acts = chain_layer_specs(models[0].spec)
+    kw = dict(loss_name=loss_name, beta=0.01)
+    before = ft.launches
+    lk, gk = ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
+                                        thres=thres, **kw)
+    assert ft.launches == before + 1
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, acts,
+                                            weight_thres=thres,
+                                            unit_masks=um, **kw)
+    torch.cuda.synchronize()
+    _close(lk, gk["layers"], lp, gp["layers"])
+    # padded units get exactly zero gradient; each block equals the
+    # one-chain kernel on its unpadded chain
+    for i, m in enumerate(models):
+        dims = [(e.fan_in, e.fan_out) for e in m.spec.entries]
+        for (a, b), g in zip(dims, gk["layers"]):
+            assert int(torch.count_nonzero(g["w"][i, a:, :])) == 0
+            assert int(torch.count_nonzero(g["w"][i, :, b:])) == 0
+            assert int(torch.count_nonzero(g["b"][i, b:])) == 0
+        own = [{"w": l["w"][i, :a, :b].contiguous(),
+                "b": l["b"][i, :b].contiguous()}
+               for l, (a, b) in zip(layers_, dims)]
+        t = float(thres[i])
+        ls, gs = ft.fused_train_grads(own, c[i], v[i], w[i], acts,
+                                      weight_thres=t if np.isfinite(t)
+                                      else None, **kw)
+        _close(lk[i], [{"w": g["w"][i, :a, :b], "b": g["b"][i, :b]}
+                       for g, (a, b) in zip(gk["layers"], dims)],
+               ls, gs["layers"])
+
+
+def test_fused_train_fleet_relu_sigmoid_masked(dev):
+    models, layers_, um, (c, v, w), thres = _fleet(dev, (30, 24, 17), 5)
+    acts = (("relu", 1.0), ("sigmoid", 1.0), ("relu", 1.0), ("sigmoid", 1.0),
+            ("none", 1.0))
+    kw = dict(loss_name="datasmoothl1", beta=0.05)
+    lk, gk = ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
+                                        thres=thres, **kw)
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, acts,
+                                            weight_thres=thres,
+                                            unit_masks=um, **kw)
+    _close(lk, gk["layers"], lp, gp["layers"])
+
+
+@pytest.mark.parametrize("true_widths,layers", [((8, 12, 10), 4),
+                                                ((51, 54, 60, 66), 7)])
+def test_fused_train_fleet_is_deterministic(dev, true_widths, layers):
+    models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers,
+                                                   n=30000)
+    acts = chain_layer_specs(models[0].spec)
+    runs = [ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
+                                       thres=thres, loss_name="datal2")
+            for _ in range(3)]
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        for a, b in zip(grads["layers"], runs[0][1]["layers"]):
+            assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+@pytest.mark.parametrize("features,layers", [(66, 7), (186, 5)])
+def test_wide_chain_trains_on_the_kernel(dev, features, layers):
+    """The padded HiP-CT bucket (3-66x6-1) and the SingleTask default on a
+    volume of that size (3-186x4-1): supports_training holds, the plan is
+    the wide layout, and the kernel matches its plain version."""
+    model, params = _chain(dev, features, layers)
+    assert ft.supports_training(model, "datal2")
+    p = ft.choose_plan(ft.chain_widths(model.spec))
+    assert not p["smem_weights"] and p["block"] in ft.WIDE_BLOCKS
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, 20000)
+    kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.5)
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    _close(lk, gk["layers"], lp, gp["layers"])
+
+
+def test_too_wide_chain_raises_on_the_card(dev):
+    """A chain whose 32-coordinate activation tile exceeds shared memory
+    has no autograd fallback on the card: the gate and the launch raise
+    NotImplementedError naming its widths."""
+    model, params = _chain(dev, 512, 5)
+    with pytest.raises(NotImplementedError, match="512"):
+        ft.supports_training(model, "datal2")
+    coords, values, weights = _batch(dev, 256)
+    with pytest.raises(NotImplementedError, match="512"):
+        ft.fused_train_grads(params["layers"], coords, values, weights,
+                             chain_layer_specs(model.spec),
+                             loss_name="datal2")

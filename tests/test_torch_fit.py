@@ -160,10 +160,15 @@ def test_cli_runs_on_cpu(tmp_path, runs):
     assert summary["steps"] == 5 and np.isfinite(summary["psnr"])
     mips = os.listdir(tmp_path / "single" / "steps5" / "mip")
     assert len(mips) == 12
+    # a divide_type other than none runs DivideTask on the same CLI
     opt.CompressFramework.Compress.divide.divide_type = "total_2_2_2"
+    opt.CompressFramework.Compress.param.init_net_path = "none"
+    opt.Log.project_name = "divide"
     tcfg.save(opt, p)
-    with pytest.raises(NotImplementedError, match="DivideTask"):
-        cli.main(["-p", p, "-g", "cpu"])
+    summary = cli.main(["-p", p, "-g", "cpu"])
+    assert summary["steps"] == 5 and np.isfinite(summary["psnr"])
+    assert len(os.listdir(tmp_path / "divide" / "steps5" / "compressed" /
+                          "module")) == 8
 
 
 def test_unported_options_raise(runs):

@@ -110,8 +110,13 @@ def test_supports_training_and_plan():
     p = ft.choose_plan([3, 22, 22, 22, 22, 1])
     assert p["block"] == 128 and p["smem_bytes"] <= ft.SMEM_LIMIT
     assert ft.SM_SMEM // (p["smem_bytes"] + 1024) == 2
+    # a chain whose activation tile exceeds shared memory even at T = 32:
+    # the card has no autograd fallback for it, the gate raises
     wide = tphi.init_phi({**cfg, "features": 512})
-    assert not ft.supports_training(wide, "datal2")
+    assert ft.choose_plan(ft.chain_widths(wide.spec)) is None
+    with pytest.raises(NotImplementedError, match="512"):
+        ft.supports_training(wide, "datal2")
+    assert not ft.supports_training(wide, "nosuchloss")
 
 
 def test_plan_layout_is_disjoint_and_aligned():
@@ -151,3 +156,151 @@ def test_cpu_tensors_never_reach_the_kernel():
                          chain_layer_specs(tphi.init_phi(cfg).spec),
                          loss_name="datal2")
     assert ft.launches == before
+
+
+# --- the fleet form: unit masks, per-block thresholds, a block axis --------
+FLEET_TRUE = (8, 12, 10)        # true hidden widths, padded to 12
+FLEET_THRES = np.array([0.4, -np.inf, 0.6], np.float32)
+
+
+def _fleet_setup(acts, n=600, seed=0):
+    """B = 3 chains 3 -> f -> f -> f -> 1 of true widths FLEET_TRUE padded
+    to 12 (zeros beyond each block's width), their masks and a batch.
+    Weights after a sine layer follow SIREN's init (U(+-sqrt(6/fan_in)/w0),
+    so gradients stay well conditioned), others U(+-0.6)."""
+    rng = np.random.default_rng(seed)
+    B, F = len(FLEET_TRUE), max(FLEET_TRUE)
+    dims = [(3, F), (F, F), (F, F), (F, 1)]
+    masks = np.zeros((B, F), np.float32)
+    for i, f in enumerate(FLEET_TRUE):
+        masks[i, :f] = 1.0
+    layers = []
+    for l, (fi, fo) in enumerate(dims):
+        bound = 0.6
+        if l > 0 and acts[l - 1][0] == "sine":
+            bound = np.sqrt(6.0 / fi) / acts[l - 1][1]
+        w = rng.uniform(-bound, bound, (B, fi, fo)).astype(np.float32)
+        b = rng.uniform(-0.3, 0.3, (B, fo)).astype(np.float32)
+        if l > 0:
+            w *= masks[:, :, None]
+        if l < len(dims) - 1:
+            w *= masks[:, None, :]
+            b *= masks
+        layers.append({"w": w, "b": b})
+    coords = rng.uniform(-1, 1, (B, 3, n)).astype(np.float32)
+    values = rng.uniform(0, 1, (B, 1, n)).astype(np.float32)
+    weights = (1 + rng.uniform(0, 1, (B, 1, n))).astype(np.float32)
+    return layers, masks, coords, values, weights
+
+
+FLEET_ACTS = [
+    (("sine", 20.0), ("sine", 30.0), ("sine", 30.0), ("none", 1.0)),
+    (("relu", 1.0), ("relu", 1.0), ("sine", 30.0), ("none", 1.0)),
+    (("sigmoid", 1.0), ("sigmoid", 1.0), ("relu", 1.0), ("sigmoid", 1.0)),
+]
+
+
+@pytest.mark.parametrize("acts", FLEET_ACTS, ids=["sine", "relu", "sigmoid"])
+@pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
+def test_fleet_matches_pallas_interpret_per_block(acts, loss_name):
+    """One fleet call of the port's plain version against the JAX kernel
+    (interpret mode) block by block, with unit_masks and dynamic_thres as
+    block_trainer.run_block_segment passes them.  rtol 1e-5 on the loss
+    and on the gradients (atol 1e-6 for near-zero entries)."""
+    layers, masks, coords, values, weights = _fleet_setup(acts)
+    tl, tg = ft.fused_train_grads_fleet(
+        [{k: torch.from_numpy(v) for k, v in l.items()} for l in layers],
+        torch.from_numpy(coords), torch.from_numpy(values),
+        torch.from_numpy(weights), acts, loss_name=loss_name, beta=0.05,
+        unit_masks=[torch.from_numpy(masks)] * 3 + [None],
+        thres=torch.from_numpy(FLEET_THRES))
+    assert tuple(tl.shape) == (len(FLEET_TRUE),)
+    for i in range(len(FLEET_TRUE)):
+        jl, jg = pt.fused_train_grads(
+            [{k: jnp.asarray(v[i]) for k, v in l.items()} for l in layers],
+            jnp.asarray(coords[i]), jnp.asarray(values[i]),
+            jnp.asarray(weights[i]), acts, loss_name=loss_name, beta=0.05,
+            unit_masks=[jnp.asarray(masks[i])] * 3 + [None],
+            dynamic_thres=jnp.asarray(FLEET_THRES[i]), interpret=True,
+            tile=256)
+        np.testing.assert_allclose(float(tl[i]), float(jl), rtol=1e-5)
+        for l, (a, b) in enumerate(zip(tg["layers"], jg["layers"])):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(a[k][i].numpy(), np.asarray(b[k]),
+                                           rtol=1e-5, atol=1e-6,
+                                           err_msg=f"block {i} d{k}{l}")
+
+
+@pytest.mark.parametrize("acts", FLEET_ACTS, ids=["sine", "relu", "sigmoid"])
+def test_fleet_padding_invariance(acts):
+    """Mirror of tests/test_pallas_train.py's padding test for the port:
+    each padded, masked block gives exactly the loss of its unpadded chain
+    and exactly zero gradient on padded units (sigmoid(0) = 0.5 is the case
+    an unmasked kernel could not pad)."""
+    layers, masks, coords, values, weights = _fleet_setup(acts)
+    tl, tg = ft.fused_train_grads_reference(
+        [{k: torch.from_numpy(v) for k, v in l.items()} for l in layers],
+        torch.from_numpy(coords), torch.from_numpy(values),
+        torch.from_numpy(weights), acts, loss_name="datal2",
+        weight_thres=torch.from_numpy(FLEET_THRES),
+        unit_masks=[torch.from_numpy(masks)] * 3 + [None])
+    for i, f in enumerate(FLEET_TRUE):
+        dims = [(3, f), (f, f), (f, f), (f, 1)]
+        own = [{"w": torch.from_numpy(l["w"][i, :a, :b].copy()),
+                "b": torch.from_numpy(l["b"][i, :b].copy())}
+               for l, (a, b) in zip(layers, dims)]
+        thres = float(FLEET_THRES[i])
+        ul, ug = ft.fused_train_grads_reference(
+            own, torch.from_numpy(coords[i]), torch.from_numpy(values[i]),
+            torch.from_numpy(weights[i]), acts, loss_name="datal2",
+            weight_thres=thres if np.isfinite(thres) else None)
+        assert float(tl[i]) == float(ul)
+        for l, ((a, b), gp, gu) in enumerate(zip(dims, tg["layers"],
+                                                 ug["layers"])):
+            w, bias = gp["w"][i].numpy(), gp["b"][i].numpy()
+            np.testing.assert_allclose(w[:a, :b], gu["w"].numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"valid dW{l}")
+            np.testing.assert_allclose(bias[:b], gu["b"].numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"valid db{l}")
+            assert np.abs(w[a:, :]).max(initial=0.0) == 0.0, l
+            assert np.abs(w[:, b:]).max(initial=0.0) == 0.0, l
+            assert np.abs(bias[b:]).max(initial=0.0) == 0.0, l
+
+
+def test_fleet_cpu_tensors_never_reach_the_kernel():
+    acts = FLEET_ACTS[0]
+    layers, masks, coords, values, weights = _fleet_setup(acts, n=64)
+    before = ft.launches
+    ft.fused_train_grads_fleet(
+        [{k: torch.from_numpy(v) for k, v in l.items()} for l in layers],
+        torch.from_numpy(coords), torch.from_numpy(values),
+        torch.from_numpy(weights), acts, loss_name="datal2")
+    assert ft.launches == before
+
+
+@pytest.mark.parametrize("widths,block", [
+    ([3] + [66] * 6 + [1], 64),      # the padded HiP-CT DivideTask bucket
+    ([3] + [186] * 4 + [1], 32),     # SingleTask default at HiP-CT size
+])
+def test_wide_chains_get_the_wide_layout(widths, block):
+    """Chains whose weights and accumulator do not fit a block's shared
+    memory keep only the activation tile there: they still train on the
+    kernel (no silent autograd fallback)."""
+    assert all(ft.plan(widths, b)["smem_bytes"] > ft.SMEM_LIMIT
+               for b in ft.BLOCKS)
+    p = ft.choose_plan(widths)
+    assert p is not None and not p["smem_weights"]
+    assert p["block"] == block and p["threads"] == ft.WIDE_THREADS
+    assert p["smem_bytes"] <= ft.SMEM_LIMIT
+    rows = widths[0] + 2 * sum(widths[1:])
+    assert p["smem_bytes"] == 4 * (p["act_off"] + rows * (block + 1))
+    assert p["act_off"] >= p["red_off"] + p["threads"]
+    model = tphi.init_phi({"name": "SIREN", "features": widths[1],
+                           "layers": len(widths) - 1, "w0": 10})
+    assert ft.supports_training(model, "datal2")
+
+
+def test_narrow_chain_keeps_its_layout():
+    p = ft.choose_plan([3, 22, 22, 22, 22, 1])
+    assert p["smem_weights"] and p["block"] == p["threads"] == 128
+    assert p["smem_bytes"] == 115316
