@@ -5,9 +5,11 @@ directory of files
     weight-{l}-{out}-{in}   packed little-endian float32, row-major (out, in)
     bias-{l}-{len}          packed little-endian float32
 one pair per linear layer of the chain (reference utils/ModelSave.py:8-52).
-Copy of brief_pytorch_tpu/io/modelsave.py for chains; the files are byte
-for byte those of the JAX package, so either package decodes the other's
-archives.  Weights are (in, out) in memory and transposed on the way out/in.
+Copy of brief_pytorch_tpu/io/modelsave.py; the files are byte for byte
+those of the JAX package, so either package decodes the other's archives.
+Weights are (in, out) in memory and transposed on the way out/in.  FFN's
+frozen encoder goes beside them as encoder.npz; the MFN families, which are
+no chains, use the params.npz container (save_phi_module).
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ import shutil
 from typing import Dict, List
 
 import numpy as np
+
+from brief_pytorch_tpu_torch.core.tree import (tree_leaves_sorted,
+                                               tree_unflatten)
 
 
 def save_model(layers: List[Dict[str, np.ndarray]], save_path: str) -> None:
@@ -53,9 +58,70 @@ def load_model(model_path: str) -> List[Dict[str, np.ndarray]]:
     return [{"w": weights[l], "b": biases[l]} for l in range(n_layers)]
 
 
+def _np(x) -> np.ndarray:
+    """A tensor or array as a host numpy array."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
 def save_phi_module(model, params, module_path: str) -> None:
-    """Serialize a chain φ's parameters into a module dir (raw binaries).
-    Every ported family is a chain; the JAX package's npz container for
-    MFN families is not ported yet (ROADMAP.md)."""
-    save_model([{k: v.detach().cpu().numpy() for k, v in layer.items()}
-                for layer in params["layers"]], module_path)
+    """Serialize any φ family's parameters into a module dir.
+
+    Chain families use the raw per-layer binary format above, plus
+    encoder.npz for FFN's frozen bvals (load_model ignores files that are
+    not weight-* / bias-*).  MFN families (no chain structure) use the JAX
+    package's npz container: params.npz with leaves keyed p{i} in
+    jax.tree_util.tree_flatten order (dict keys sorted, lists in order;
+    core/tree.py), which load_phi_module_npz restores into a structurally
+    identical tree.  Either package reads the other's module dirs.
+    """
+    if model.serializable_chain:
+        save_model([{k: _np(v) for k, v in layer.items()}
+                    for layer in params["layers"]], module_path)
+        if "encoder" in params:
+            np.savez(os.path.join(module_path, "encoder.npz"),
+                     **{k: _np(v) for k, v in params["encoder"].items()})
+        return
+    if os.path.exists(module_path):
+        shutil.rmtree(module_path)
+    os.makedirs(module_path)
+    np.savez(os.path.join(module_path, "params.npz"),
+             **{f"p{i}": _np(x)
+                for i, x in enumerate(tree_leaves_sorted(params))})
+
+
+def load_phi_module_npz(module_path: str, like_params):
+    """Load a params.npz module into the structure of `like_params` (a
+    freshly initialised tree of the same architecture); returns the same
+    tree of numpy arrays."""
+    with np.load(os.path.join(module_path, "params.npz")) as z:
+        flat = tree_leaves_sorted(like_params)
+        if len(z.files) != len(flat):
+            raise ValueError(
+                f"params.npz has {len(z.files)} leaves but the "
+                f"architecture expects {len(flat)} — wrong phi config?")
+        leaves = [np.asarray(z[f"p{i}"]) for i in range(len(flat))]
+        for got, want in zip(leaves, flat):
+            if got.shape != tuple(want.shape):
+                raise ValueError(
+                    f"params.npz leaf shape {got.shape} != expected "
+                    f"{tuple(want.shape)} — wrong phi config?")
+        return tree_unflatten(like_params, leaves, sort=True)
+
+
+def load_phi_module(model, module_path: str, like_params=None):
+    """A module dir of either kind back into the numpy parameter tree of
+    `model`: params.npz (MFN; needs `like_params`, a freshly initialised
+    tree), or the raw binaries with encoder.npz beside them where the
+    family has frozen encoder parameters (FFN)."""
+    if os.path.exists(os.path.join(module_path, "params.npz")):
+        return load_phi_module_npz(module_path, like_params)
+    params = {"layers": load_model(module_path)}
+    enc_path = os.path.join(module_path, "encoder.npz")
+    if os.path.exists(enc_path):
+        with np.load(enc_path) as z:
+            params["encoder"] = {k: np.asarray(z[k]) for k in z.files}
+    elif like_params is not None and "encoder" in like_params:
+        # an archive written without encoder.npz: the regenerated draw
+        params["encoder"] = {k: _np(v)
+                             for k, v in like_params["encoder"].items()}
+    return params

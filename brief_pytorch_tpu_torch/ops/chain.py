@@ -1,9 +1,8 @@
 """Chain helpers shared by the fused kernels.
 
 Torch port of the helpers in brief_pytorch_tpu/ops/pallas_siren.py:48-62
-and 205-217.  The batch-major fused forward kernel of that file (its
-`_fused_forward`) is off every default path and is not ported yet
-(ROADMAP.md, Queue 2 item 4).
+and 205-217, which the train, grid-decode and batch-major forward kernels
+(ops/fused_train.py, ops/fused_decode.py, ops/fused_siren.py) all gate on.
 """
 from __future__ import annotations
 

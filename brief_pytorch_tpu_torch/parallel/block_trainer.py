@@ -28,10 +28,17 @@ order, fullbatch every voxel of the block (the cube covers it).  torch's
 generator gives other numbers than JAX's PRNG; tests feed both the same u
 and corners.
 
+Chains with res entries, a skip concat or an encoder (res-SIREN, NeRF,
+FFN with its stacked frozen bvals) stack like plain ones and train through
+autograd, since `fleet_fused_supported` says no to them.  Families without
+chain structure (MFNFourier, MFNGabor) train on the solo path: one block at
+a time with the single-volume trainer's sampler and autograd step
+(train/fit.py), in lockstep with the buckets between checkpoints.
+
 One card: no mesh.  Not ported (each raises NotImplementedError, see
-ROADMAP.md): the solo path (MFN families, and `exception` blocks that
-override step-level parameters), `half`, integer stacks (raw_gather),
-vector_len > 1, fleet resume, and more than one card.
+ROADMAP.md): solo blocks whose `exception` overrides step-level
+parameters, `half`, integer stacks (raw_gather), vector_len > 1, fleet
+resume, and more than one card.
 """
 from __future__ import annotations
 
@@ -47,12 +54,16 @@ from brief_pytorch_tpu_torch.core.coords import (axes_to_coords,
                                                  flat_to_axes24,
                                                  row_major_strides)
 from brief_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
-from brief_pytorch_tpu_torch.models.phi import ChainSpec, PhiModel, _act, encode
+from brief_pytorch_tpu_torch.core.tree import tree_leaves, tree_map
+from brief_pytorch_tpu_torch.models.phi import (ChainSpec, PhiModel,
+                                                _ChainModel, _act, encode)
 from brief_pytorch_tpu_torch.ops import fused_train
 from brief_pytorch_tpu_torch.train.checkpoint import (atomic_savez,
                                                       fingerprint_bytes)
 from brief_pytorch_tpu_torch.train.optim import make_optimizer
-from brief_pytorch_tpu_torch.train.samplers import cube_size_guard
+from brief_pytorch_tpu_torch.train.samplers import (RandomCubeSampler,
+                                                    RandomPointSampler,
+                                                    cube_size_guard)
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, 'Still to port')"
 
@@ -64,13 +75,14 @@ _NOT_PORTED = "is not ported yet (ROADMAP.md, 'Still to port')"
 class StackedChainSpec:
     """Common (padded) architecture of a bucket of chain networks.
 
-    entries: per linear (kind, act, w0); the port builds kind 'plain'
-    only.  dims: padded (in, out) per linear.
+    entries: per logical entry (kind, act, w0) — kind 'plain' consumes one
+    linear from `dims`, kind 'res' (HalfResidual) consumes two.
+    dims: padded (in, out) per linear, in entry order.
     """
     entries: Tuple[Tuple[str, str, float], ...]
     dims: Tuple[Tuple[int, int], ...]
     skip_entry: int = -1
-    encoder: str = "none"     # 'none' | 'sirenpos'
+    encoder: str = "none"     # 'none' | 'sirenpos' | 'nerf' | 'ffn'
     encoder_cfg: Tuple = ()
 
     @property
@@ -79,8 +91,14 @@ class StackedChainSpec:
 
 
 def _linear_dims(spec: ChainSpec) -> List[Tuple[int, int]]:
-    """(fan_in, fan_out) of every linear in chain order."""
-    return [(e.fan_in, e.fan_out) for e in spec.entries]
+    """(fan_in, fan_out) of every linear in chain order (res entries own
+    two linears, reference Networks.py:209-214, 251-257)."""
+    out = []
+    for e in spec.entries:
+        out.append((e.fan_in, e.fan_out))
+        if e.kind == "res":
+            out.append((e.fan_out, e.fan_out))
+    return out
 
 
 def _stack_signature(spec: ChainSpec) -> tuple:
@@ -107,24 +125,28 @@ def build_stacked(models: Sequence[PhiModel], seed: int,
     distributions of single-block training); init_layers_list entries
     ([{'w','b'},...] numpy, io.modelsave.load_model) warm-start blocks.
 
-    Returns (stacked_spec, params_layers, masks) where
-      params_layers[l] = {'w': (B, in_max, out_max), 'b': (B, out_max)}
-      masks[e]         = (B, out_max_of_entry) float32 validity mask
+    Returns (stacked_spec, params, masks) where
+      params["layers"][l] = {'w': (B, in_max, out_max), 'b': (B, out_max)}
+      params["encoder"]   = the stacked frozen encoder parameters, for
+                            'ffn' only: {'bvals': (B, embsize, c)}
+      masks[e]            = (B, out_max_of_entry) float32 validity mask
     """
     sig0 = _stack_signature(models[0].spec)
     for m in models[1:]:
         if _stack_signature(m.spec) != sig0:
             raise ValueError("bucket mixes incompatible chain topologies")
-    per_block = []
+    per_block, encoders = [], []
     for bi, m in enumerate(models):
+        own = m.init(_block_generator(seed, bi))
         warm = init_layers_list[bi] if init_layers_list is not None else None
         if warm is not None:
             layers = [{k: np.asarray(v, np.float32) for k, v in l.items()}
                       for l in warm]
         else:
-            layers = [{k: v.numpy() for k, v in l.items()} for l in
-                      m.init(_block_generator(seed, bi))["layers"]]
+            layers = [{k: v.numpy() for k, v in l.items()}
+                      for l in own["layers"]]
         per_block.append(layers)
+        encoders.append(own.get("encoder"))
     lin_dims = [_linear_dims(m.spec) for m in models]
     spec0 = models[0].spec
     dims = [(max(d[l][0] for d in lin_dims), max(d[l][1] for d in lin_dims))
@@ -149,12 +171,18 @@ def build_stacked(models: Sequence[PhiModel], seed: int,
             b[bi, :fo] = per_block[bi][l]["b"]
         layers_np.append({"w": w, "b": b})
     masks_np = []
-    for ei, (_, out_max) in enumerate(dims):
-        mk = np.zeros((B, out_max), np.float32)
+    li = 0
+    for ei, e in enumerate(spec0.entries):
+        li += 2 if e.kind == "res" else 1
+        mk = np.zeros((B, dims[li - 1][1]), np.float32)
         for bi, m in enumerate(models):
             mk[bi, :m.spec.entries[ei].fan_out] = 1.0
         masks_np.append(mk)
     params, masks = stacked_from_numpy(layers_np, masks_np, device)
+    if spec0.encoder == "ffn":
+        params["encoder"] = {"bvals": torch.stack(
+            [enc["bvals"] for enc in encoders]).to(params["layers"][0]["w"]
+                                                   .device)}
     return sspec, params, masks
 
 
@@ -169,35 +197,60 @@ def stacked_from_numpy(layers, masks=None, device: DeviceLike = "cpu"):
 
 
 def stacked_apply(layers, masks, coords: torch.Tensor,
-                  spec: StackedChainSpec) -> torch.Tensor:
+                  spec: StackedChainSpec, enc: Optional[Dict] = None
+                  ) -> torch.Tensor:
     """Batched forward of B padded chains: coords (B, N, C) -> (B, N, Cout).
+    enc: the stacked frozen encoder parameters ('ffn': bvals (B, embsize,
+    c)), which get no gradient.
 
     Masking after each hidden entry's activation zeroes padded units,
     which keeps the active network exact (adding 0.0 terms to a float sum
-    is exact) and kills every gradient path into padding."""
-    if spec.skip_entry >= 0 or any(k != "plain" for k, _, _ in spec.entries):
-        raise NotImplementedError(f"res / skip chains {_NOT_PORTED}")
-    h = encode(coords, spec)
+    is exact) and kills every gradient path into padding.  The skip concat
+    stays aligned because the encoder's width is topology-level (equal
+    across the bucket) and valid hidden units are the leading columns of
+    the padded block."""
+    if spec.encoder == "ffn":
+        enc = {"bvals": enc["bvals"].detach()}
+    x = encode(coords, spec, enc)
+    h = x
+    li = 0
     n_ent = spec.n_entries
-    for ei, ((_, act, w0), layer) in enumerate(zip(spec.entries, layers)):
-        h = _act(act, w0, torch.baddbmm(layer["b"][:, None, :], h,
-                                        layer["w"]))
+
+    def linear(h, layer):
+        return torch.baddbmm(layer["b"][:, None, :], h, layer["w"])
+
+    for ei, (kind, act, w0) in enumerate(spec.entries):
+        if ei == spec.skip_entry:
+            h = torch.cat([x, h], dim=-1)
+        z = linear(h, layers[li])
+        if kind == "plain":
+            h = _act(act, w0, z)
+            li += 1
+        else:   # res: 0.5 * (sine(lin(sine(lin(h)))) + h)
+            t = _act("sine", w0, z) * masks[ei][:, None, :]
+            h = 0.5 * (_act("sine", w0, linear(t, layers[li + 1])) + h)
+            li += 2
         if ei < n_ent - 1:
             h = h * masks[ei][:, None, :]
     return h
 
 
-def unstack_params(params_layers, models: Sequence[PhiModel]) -> List[Dict]:
-    """Slice each block's true-width layers out of the padded stack:
-    per block {"layers": [{'w': (in, out), 'b': (out,)}]} of CPU tensors."""
+def unstack_params(params_layers, models: Sequence[PhiModel],
+                   enc: Optional[Dict] = None) -> List[Dict]:
+    """Slice each block's true-width layers out of the padded stack: per
+    block {"layers": [{'w': (in, out), 'b': (out,)}]} of CPU tensors, with
+    {"encoder": {"bvals"}} where the stack has one."""
     host = [{k: v.detach().cpu() for k, v in l.items()}
             for l in params_layers]
     out = []
     for bi, m in enumerate(models):
-        out.append({"layers": [
+        p = {"layers": [
             {"w": host[l]["w"][bi, :fi, :fo].clone(),
              "b": host[l]["b"][bi, :fo].clone()}
-            for l, (fi, fo) in enumerate(_linear_dims(m.spec))]})
+            for l, (fi, fo) in enumerate(_linear_dims(m.spec))]}
+        if enc and "bvals" in enc:
+            p["encoder"] = {"bvals": enc["bvals"][bi].detach().cpu().clone()}
+        out.append(p)
     return out
 
 
@@ -375,6 +428,26 @@ class _BucketState:
     losses: Optional[torch.Tensor] = None   # (steps, B) of the last segment
 
 
+@dataclass
+class _SoloState:
+    """Training state of a block that cannot join a stacked bucket: a φ
+    family without chain structure (the MFNs' multiplicative filters).  It
+    trains alone with the single-volume trainer's sampler and autograd
+    step — what one reference child process did (main.py:277-280)."""
+    block_idx: int
+    model: object
+    params: Dict
+    opt_state: Dict
+    opt: object
+    gen: torch.Generator
+    sampler: object
+    data: torch.Tensor
+    weight: Optional[torch.Tensor]
+    thres: float
+    steps_done: int = 0
+    losses: Optional[torch.Tensor] = None   # (steps,) of the last segment
+
+
 def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
                       beta: float, sample_size: int, coords_mode: str,
                       cube_count: int = 1) -> torch.Tensor:
@@ -386,7 +459,9 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
     unit_masks = list(st.masks[:-1]) + [None]   # the output is unmasked
     thres = st.thres if st.use_thres else None
     layers = st.params["layers"]
-    leaves = [t for l in layers for t in l.values()]
+    enc = st.params.get("encoder")
+    trained = {"layers": layers}      # the frozen encoder is not stepped
+    leaves = tree_leaves(trained)
     losses = []
     for _ in range(n_steps):
         coords, vals, wts, sample_valid = draw_batch(
@@ -403,7 +478,7 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
             for t in leaves:
                 t.requires_grad_(True)
             try:
-                pred = stacked_apply(layers, st.masks, coords, st.spec)
+                pred = stacked_apply(layers, st.masks, coords, st.spec, enc)
                 if thres is not None:
                     wts = torch.where(pred <= thres[:, None, None], 1.0, wts)
                 err = _elem_loss(loss_name, beta, pred, vals) * wts
@@ -419,7 +494,7 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
             it = iter(flat)
             grads = {"layers": [{k: next(it) for k in l} for l in layers]}
             loss = loss.detach()
-        st.opt.step(st.params, grads, st.opt_state)
+        st.opt.step(trained, grads, st.opt_state)
         losses.append(loss)
     return torch.stack(losses)
 
@@ -427,7 +502,7 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
 @torch.no_grad()
 def decode_blocks(params_layers, masks, shapes: torch.Tensor,
                   spec: StackedChainSpec, *, slab: int, coords_mode: str,
-                  vmax: int) -> torch.Tensor:
+                  vmax: int, enc: Optional[Dict] = None) -> torch.Tensor:
     """Batched padded grid decode: (B, Vmax, c) predictions, slab by slab
     of flat indices, coordinates from affine per-block formulas (JAX
     block_trainer.py:634-661)."""
@@ -436,7 +511,7 @@ def decode_blocks(params_layers, masks, shapes: torch.Tensor,
         idx = torch.arange(s, min(vmax, s + slab), device=shapes.device)
         axes = flat_to_axes24(idx[None, :], shapes[:, None, :])
         coords = axes_to_coords(axes, shapes[:, None, :], coords_mode)
-        out.append(stacked_apply(params_layers, masks, coords, spec))
+        out.append(stacked_apply(params_layers, masks, coords, spec, enc))
     return torch.cat(out, dim=1)
 
 
@@ -447,20 +522,23 @@ class BlockFleetTrainer:
     """Trains a fleet of per-block INRs as stacked buckets on one card.
 
     Buckets group blocks by (phi family, topology, effective sampler);
-    widths inside a bucket are padded to the max.  Buckets advance in
-    lockstep between checkpoints, so a checkpoint callback sees the whole
-    fleet at one step, as the reference's children all checkpoint at the
-    same step numbers (main.py:585-607).  Bucket segments are queued
-    without waiting for the card; the one sync per checkpoint interval is
-    the artifacts' fetch of the parameters.
+    widths inside a bucket are padded to the max.  Blocks that do not stack
+    (the MFN families) train on the solo path, one after another.  Buckets
+    and solo blocks advance in lockstep between checkpoints, so a
+    checkpoint callback sees the whole fleet at one step, as the
+    reference's children all checkpoint at the same step numbers
+    (main.py:585-607).  Segments are queued without waiting for the card;
+    the one sync per checkpoint interval is the fetch of the last losses.
     """
 
     def __init__(self, seed: int = 42, device: DeviceLike = None):
         self.seed = int(seed)
         self.device = resolve_device(device)
         self._states: List[_BucketState] = []
+        self._solo: List[_SoloState] = []
         self.train_s = 0.0           # host seconds in the training steps
-        self.last_losses: List[np.ndarray] = []   # per bucket, (B,)
+        # the last step's losses: per bucket (B,), then per solo block (1,)
+        self.last_losses: List[np.ndarray] = []
 
     def train(self, blocks: List[Dict], compress_cfg, max_steps: int,
               checkpoint_cb=None, checkpoints: Optional[List[int]] = None,
@@ -479,6 +557,7 @@ class BlockFleetTrainer:
         if int(cc.sampler.get("vector_len", 1) or 1) > 1:
             raise NotImplementedError(f"sampler vector_len > 1 {_NOT_PORTED}")
         buckets: Dict[tuple, List[int]] = {}
+        solo_idxs: List[int] = []
         for i, blk in enumerate(blocks):
             if blk.get("solo_cfg") is not None:
                 raise NotImplementedError(
@@ -493,11 +572,15 @@ class BlockFleetTrainer:
             eff = cube_size_guard(cc.sampler.name, int(np.prod(shape)),
                                   int(np.prod(clipped)))
             blk["sampler_name"] = eff
+            if not isinstance(m, _ChainModel):
+                solo_idxs.append(i)
+                continue
             sig = (type(m).__name__, _stack_signature(m.spec), eff,
                    clipped if eff == "randomcube" else ())
             buckets.setdefault(sig, []).append(i)
         self._states = [self._prepare_bucket(blocks, idxs, cc)
                         for idxs in buckets.values()]
+        self._solo = [self._prepare_solo(blocks, i, cc) for i in solo_idxs]
         fingerprint = self._fleet_fingerprint(blocks, cc, max_steps)
 
         step = 0
@@ -510,8 +593,12 @@ class BlockFleetTrainer:
                 t0 = time.perf_counter()
                 for st in self._states:
                     st.losses = self._run_segment(st, cc, n)
+                for ss in self._solo:
+                    self._run_solo_to(ss, cc, ckpt)
                 self.last_losses = [st.losses[-1].cpu().numpy()
-                                    for st in self._states]
+                                    for st in self._states] + \
+                    [ss.losses[-1:].cpu().numpy() for ss in self._solo
+                     if ss.losses is not None]
                 self.train_s += time.perf_counter() - t0
             step = ckpt
             if checkpoint_cb is not None:
@@ -533,7 +620,7 @@ class BlockFleetTrainer:
             "models": [type(b["model"]).__name__ for b in blocks],
             "buckets": [[int(i) for i in st.block_idxs]
                         for st in self._states],
-            "solo": [],
+            "solo": [int(ss.block_idx) for ss in self._solo],
             "optimizer": str(cc.optimizer_name_phi), "lr": float(cc.lr_phi),
             "sampler": str(cc.sampler.name), "seed": self.seed,
             "max_steps": int(max_steps), "half": bool(cc.half),
@@ -548,16 +635,21 @@ class BlockFleetTrainer:
         arrs: Dict[str, np.ndarray] = {
             "step": np.asarray(int(step)),
             "fingerprint": fingerprint_bytes(fingerprint)}
-        for bi, st in enumerate(self._states):
-            leaves = [t for l in st.params["layers"] for t in l.values()]
-            for i, t in enumerate(leaves):
-                arrs[f"b{bi}p{i}"] = t.detach().cpu().numpy()
-            opt = [np.asarray(st.opt_state["count"], np.int32)] + \
+        def pack(prefix: str, state) -> None:
+            for i, t in enumerate(tree_leaves(state.params)):
+                arrs[f"{prefix}p{i}"] = t.detach().cpu().numpy()
+            opt = [np.asarray(state.opt_state["count"], np.int32)] + \
                 [t.detach().cpu().numpy()
-                 for t in st.opt_state["mu"] + st.opt_state["nu"]]
+                 for t in state.opt_state["mu"] + state.opt_state["nu"]]
             for i, a in enumerate(opt):
-                arrs[f"b{bi}o{i}"] = a
-            arrs[f"b{bi}key"] = st.gen.get_state().numpy()
+                arrs[f"{prefix}o{i}"] = a
+            arrs[f"{prefix}key"] = state.gen.get_state().numpy()
+
+        for bi, st in enumerate(self._states):
+            pack(f"b{bi}", st)
+        for si, ss in enumerate(self._solo):
+            pack(f"s{si}", ss)
+            arrs[f"s{si}done"] = np.asarray(int(ss.steps_done))
         atomic_savez(path, arrs)
 
     def _prepare_bucket(self, blocks: List[Dict], idxs: List[int], cc
@@ -606,12 +698,75 @@ class BlockFleetTrainer:
         to = lambda a: torch.from_numpy(a).to(dev)
         return _BucketState(
             block_idxs=list(idxs), models=models, spec=spec, params=params,
-            opt_state=opt.init(params), masks=masks, batch=batch,
+            opt_state=opt.init({"layers": params["layers"]}), masks=masks,
+            batch=batch,
             data=to(batch.data),
             weight=None if unit_weight else to(batch.weight),
             valid=to(batch.valid), shapes=to(batch.shapes), opt=opt,
             gen=gen, thres=thres, use_thres=bool(np.any(thres_host != 0.0)),
             sampler_name=sampler_name, cube_len=cube_len, fused=fused)
+
+    def _prepare_solo(self, blocks: List[Dict], idx: int, cc) -> _SoloState:
+        """The single-volume trainer's state for one block (JAX
+        block_trainer.py:1101-1165): its own init, sampler and optimizer."""
+        dev = self.device
+        blk = blocks[idx]
+        model = blk["model"]
+        params = tree_map(lambda t: t.to(dev),
+                          model.init(_block_generator(self.seed, idx)))
+        spatial = tuple(int(s) for s in blk["data_norm"].shape[:-1])
+        c = blk["data_norm"].shape[-1]
+        unit_weight = bool(np.all(blk["weight"] == 1.0))
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if blk["sampler_name"] == "randomcube":
+            clipped = tuple(min(int(cl), s) for cl, s in
+                            zip(cc.sampler.cube_len, spatial))
+            sampler = RandomCubeSampler(spatial, cc.coords_mode,
+                                        int(cc.sampler.cube_count), clipped)
+            data = to(blk["data_norm"])
+            weight = None if unit_weight else to(blk["weight"])
+        else:
+            sampler = RandomPointSampler(spatial, cc.coords_mode,
+                                         int(cc.sampler.sample_size))
+            data = to(blk["data_norm"].reshape(-1, c))
+            weight = None if unit_weight else \
+                to(blk["weight"].reshape(-1, c))
+        opt = make_optimizer(cc.optimizer_name_phi, float(cc.lr_phi),
+                             cc.lr_scheduler_phi)
+        gen = torch.Generator(device=sampler.generator_device(dev))
+        gen.manual_seed((self.seed + 1) * 100003 + idx)
+        return _SoloState(
+            block_idx=idx, model=model, params=params,
+            opt_state=opt.init(params), opt=opt, gen=gen, sampler=sampler,
+            data=data, weight=weight,
+            thres=float(blk.get("weight_thres_norm", 0.0)))
+
+    def _run_solo_to(self, ss: _SoloState, cc, fleet_step: int) -> None:
+        """Advance one solo block to the fleet's step.  (A block with a
+        max_steps of its own would get a proportional target, JAX
+        block_trainer.py:1205-1213; such blocks raise in `train`.)"""
+        self._run_solo_segment(ss, cc, fleet_step - ss.steps_done)
+
+    def _run_solo_segment(self, ss: _SoloState, cc, n_steps: int) -> None:
+        """n_steps of the single-volume trainer's autograd step for one
+        solo block; the losses stay on the device."""
+        from brief_pytorch_tpu_torch.train.fit import NFGR
+        losses = []
+        for _ in range(max(0, n_steps)):
+            loss, grads = NFGR._autograd_step(
+                ss.params, ss.gen, model=ss.model, sampler=ss.sampler,
+                data=ss.data, weight=ss.weight, loss_name=cc.loss.name,
+                beta=float(cc.loss.get("beta", 0.01)),
+                weight_thres=ss.thres)
+            ss.opt.step(ss.params, grads, ss.opt_state)
+            losses.append(loss.detach())
+        if losses:
+            ss.losses = torch.stack(losses)
+            ss.steps_done += len(losses)
+
+    def solo_blocks(self) -> List[int]:
+        """Indices of the blocks that train on the solo path."""
+        return [ss.block_idx for ss in self._solo]
 
     def _run_segment(self, st: _BucketState, cc, n_steps: int):
         return run_block_segment(
@@ -649,8 +804,12 @@ class BlockFleetTrainer:
         out: List[Optional[Dict]] = [None] * len(blocks)
         for st in self._states:
             for bi, p in zip(st.block_idxs,
-                             unstack_params(st.params["layers"], st.models)):
+                             unstack_params(st.params["layers"], st.models,
+                                            st.params.get("encoder"))):
                 out[bi] = p
+        for ss in self._solo:
+            out[ss.block_idx] = tree_map(lambda t: t.detach().cpu().clone(),
+                                         ss.params)
         return out
 
     def decode(self, blocks: List[Dict], cc) -> List[np.ndarray]:
@@ -663,9 +822,16 @@ class BlockFleetTrainer:
             out = decode_blocks(st.params["layers"], st.masks, st.shapes,
                                 st.spec, slab=slab,
                                 coords_mode=cc.coords_mode,
-                                vmax=st.batch.vmax).cpu().numpy()
+                                vmax=st.batch.vmax,
+                                enc=st.params.get("encoder")).cpu().numpy()
             for i, bi in enumerate(st.block_idxs):
                 shape = blocks[bi]["data_norm"].shape
                 v = int(math.prod(shape[:-1]))
                 results[bi] = out[i, :v].reshape(shape)
+        for ss in self._solo:
+            from brief_pytorch_tpu_torch.train.decode import \
+                reconstruct_flattened
+            results[ss.block_idx] = reconstruct_flattened(
+                ss.model, ss.params, blocks[ss.block_idx]["data_norm"].shape,
+                1 << 15, cc.coords_mode)
         return results

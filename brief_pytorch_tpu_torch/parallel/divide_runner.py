@@ -11,12 +11,14 @@ and the JAX package's NFGR.decompress_divide read it:
   <logdir>/steps{N}/compressed/sideinfos.yaml           (orig volume info)
   <logdir>/steps{N}/compressed/sideinfos/<chunk>/sideinfos.yaml
   <logdir>/steps{N}/compressed/module/<chunk>/module/{weight-*,bias-*}
+      (+ encoder.npz for FFN chunks; params.npz alone for MFN chunks)
   <logdir>/steps{N}/decompressed/... , mip/..., performance.csv
   <logdir>/divide.<ext>                                  (boundary viz)
   <logdir>/trainstate_fleet.npz                          (training state)
 
 Not ported (NotImplementedError, ROADMAP.md): exceptions that override
-step-level parameters (the solo path), Compress.raw_gather, resume.
+step-level parameters (they need the solo path with a config of their
+own), Compress.raw_gather, resume.
 """
 from __future__ import annotations
 
@@ -276,6 +278,6 @@ def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
                   checkpoints=checkpoints,
                   state_path=opj(log.logdir, "trainstate_fleet.npz"))
     summary.update(train_s=trainer.train_s, fused=trainer.fused_paths(),
-                   fleet=trainer.fleet_stats())
+                   fleet=trainer.fleet_stats(), solo=trainer.solo_blocks())
     log.close()
     return summary

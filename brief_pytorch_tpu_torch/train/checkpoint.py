@@ -3,7 +3,8 @@ NFGR.compress writes at every checkpoint.
 
 Torch port of the writer of brief_pytorch_tpu/train/checkpoint.py
 (save_trainstate, atomic_savez, the JSON fingerprint): params leaves
-p{i}, optimizer leaves o{i} (the count, then the moments), the sampler
+p{i} of any parameter tree (core/tree.py's tree_leaves order), optimizer
+leaves o{i} (the count, then the moments), the sampler
 generator's state, the step and the fingerprint, written to a temporary
 file and renamed so that a preemption mid-write leaves the previous state
 intact.  Reading it back (`-resume`) is not ported yet (ROADMAP.md).
@@ -16,6 +17,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from brief_pytorch_tpu_torch.core.tree import tree_leaves
 
 
 def fingerprint_bytes(fingerprint: Dict) -> np.ndarray:
@@ -35,8 +38,7 @@ def save_trainstate(path: str, params: Dict, opt_state: Dict,
                     fingerprint: Dict) -> None:
     """Atomically write a single-trainer state (NFGR.compress)."""
     arrs: Dict[str, np.ndarray] = {}
-    leaves = [t for layer in params["layers"] for t in layer.values()]
-    for i, t in enumerate(leaves):
+    for i, t in enumerate(tree_leaves(params)):
         arrs[f"p{i}"] = t.detach().cpu().numpy()
     opt_leaves = [np.asarray(opt_state["count"], np.int32)] + \
         [t.detach().cpu().numpy() for t in opt_state["mu"] + opt_state["nu"]]

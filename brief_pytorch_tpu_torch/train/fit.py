@@ -7,18 +7,21 @@ on-device scan of training steps becomes a Python loop of steps:
   * each step samples a batch (train/samplers.py), and on a CUDA device
     with a supported chain runs the fused train-step kernel
     (ops/fused_train.py), which returns the loss and the gradients
-    directly; otherwise autograd through the torch chain gives them.  The
-    gate mirrors fit.py:331-336: Compress.fused_train (default true), the
-    chain and loss supported, a CUDA device, not `half`;
+    directly; otherwise (res / skip / encoder chains, the MFNs, the CPU)
+    autograd through the model's apply gives them.  The gate mirrors
+    fit.py:331-336: Compress.fused_train (default true), the chain and
+    loss supported, a CUDA device, not `half`;
   * the optimizer (train/optim.py, optax's rules) updates the parameters
     in place;
   * losses stay on the device until a checkpoint, so the loop never waits
     for the card between steps.
 
-At each checkpoint it writes the reference's artifacts — raw weight
-binaries and sideinfos.yaml under steps{N}/compressed/, the decoded volume,
-performance.csv — decoding through the fused grid kernel on the card
-(train/decode.py), and the atomic trainstate.npz.
+At each checkpoint it writes the reference's artifacts — the module (raw
+weight binaries, encoder.npz for FFN, params.npz for the MFNs:
+io/modelsave.py) and sideinfos.yaml under steps{N}/compressed/, the decoded
+volume, performance.csv — decoding through the fused grid kernel on the
+card where it supports the model (train/decode.py), and the atomic
+trainstate.npz.
 
 Not ported yet (ROADMAP.md): `half` (bf16 compute), Compress.data_shards
 > 1 (data parallelism), Compress.resume, and the randompoint sampler's
@@ -46,7 +49,9 @@ from brief_pytorch_tpu_torch.core.normalize import (get_type_max,
 from brief_pytorch_tpu_torch.eval.metrics import eval_performance, mip_ops
 from brief_pytorch_tpu_torch.io.image import (get_folder_size, read_img,
                                               save_img)
-from brief_pytorch_tpu_torch.io.modelsave import load_model, save_phi_module
+from brief_pytorch_tpu_torch.core.tree import tree_leaves, tree_unflatten
+from brief_pytorch_tpu_torch.io.modelsave import (load_model, load_phi_module,
+                                                  save_phi_module)
 from brief_pytorch_tpu_torch.models import sizing
 from brief_pytorch_tpu_torch.models.phi import (get_param_count, init_phi,
                                                 params_from_numpy)
@@ -147,7 +152,8 @@ class NFGR:
         model, params, features, theory_size = self.prepare_module(ideal)
         init_net = cfg.param.get("init_net_path", "none")
         if init_net and init_net != "none":
-            params = params_from_numpy(load_model(init_net), dev)
+            params = {**params, **params_from_numpy(load_model(init_net),
+                                                    dev)}
         sideinfos = {**sideinfos,
                      "data_shape": list(data_norm.shape),
                      "phi_features": features,
@@ -324,22 +330,23 @@ class NFGR:
     @staticmethod
     def _autograd_step(params, gen, *, model, sampler, data, weight,
                        loss_name, beta, weight_thres):
-        """(loss, grads) by autograd through the torch chain."""
+        """(loss, grads) by autograd through the model's apply, for any
+        parameter tree; a leaf the loss does not reach (FFN's frozen bvals)
+        gets a zero gradient."""
         coords, vals, wts = sampler.sample(gen, data, weight)
-        leaves = [t for layer in params["layers"] for t in layer.values()]
+        leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         try:
             pred = model.apply(params, coords)
             loss = make_loss(loss_name, beta)(vals, pred, wts, weight_thres)
-            flat = torch.autograd.grad(loss, leaves)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        it = iter(flat)
-        grads = {"layers": [{k: next(it) for k in layer}
-                            for layer in params["layers"]]}
-        return loss, grads
+        flat = [torch.zeros_like(t) if g is None else g
+                for t, g in zip(leaves, flat)]
+        return loss, tree_unflatten(params, flat)
 
     # -------------------------------------------------------------- utils --
     def _decode(self, model, params, sideinfos) -> np.ndarray:
@@ -403,14 +410,15 @@ class NFGR:
             raise NotImplementedError(
                 "Compress.half (bf16 compute) is not ported yet (ROADMAP.md)")
         sideinfos = cfglib.load(sideinfos_path)
-        if os.path.exists(opj(module_path, "params.npz")):
-            raise NotImplementedError(
-                "npz modules (MFN families) are not ported yet (ROADMAP.md)")
         phi_cfg = dict(opt.Module.phi)
         phi_cfg["features"] = sideinfos["phi_features"]
         phi_cfg["name"] = sideinfos["phi_name"]
         model = init_phi(phi_cfg)
-        params = params_from_numpy(load_model(module_path), dev)
+        # the archive's kind decides: params.npz (MFN), or raw binaries
+        # with encoder.npz beside them (FFN's frozen bvals)
+        like = model.init(torch.Generator().manual_seed(0), "cpu")
+        params = params_from_numpy(
+            load_phi_module(model, module_path, like), dev)
         dec = reconstruct_flattened(model, params, sideinfos["data_shape"],
                                     int(opt.Decompress.sample_size),
                                     opt.Compress.coords_mode)

@@ -23,10 +23,12 @@ a step never waits for the device.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from brief_pytorch_tpu_torch.core.tree import tree_leaves, tree_pairs
 
 
 def make_schedule(base_lr: float, sched_cfg: Dict | None) -> Callable:
@@ -63,15 +65,13 @@ def make_schedule(base_lr: float, sched_cfg: Dict | None) -> Callable:
     raise NotImplementedError(name)
 
 
-def _leaves(params: Dict) -> List[torch.Tensor]:
-    return [t for layer in params["layers"] for t in layer.values()]
-
-
 class Optimizer:
     """Adam, Adamax or SGD with a schedule, updating params in place.
 
+    params: any tree of dicts and lists of tensors (core/tree.py).
     state: {"count": int, "mu": [tensor], "nu": [tensor]} — the moments
-    in the order of the params' leaves (layer by layer, w then b)."""
+    in the order of the params' leaves (tree_leaves: a chain's layers one
+    by one, w then b)."""
 
     def __init__(self, name: str, lr: float, sched_cfg: Dict | None = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -82,7 +82,7 @@ class Optimizer:
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params: Dict) -> Dict:
-        leaves = _leaves(params)
+        leaves = tree_leaves(params)
         if self.name == "SGD":
             return {"count": 0, "mu": [], "nu": []}
         return {"count": 0,
@@ -91,7 +91,8 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: Dict, grads: Dict, state: Dict) -> None:
-        """One update of params (in place) from grads shaped like params."""
+        """One update of params (in place) from grads, a tree with the
+        params' keys."""
         lr = self.schedule(state["count"])
         state["count"] += 1
         t = state["count"]
@@ -99,7 +100,7 @@ class Optimizer:
         # bias corrections 1 - b**t rounded in float32, as optax computes them
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
-        for i, (p, g) in enumerate(zip(_leaves(params), _leaves(grads))):
+        for i, (p, g) in enumerate(tree_pairs(params, grads)):
             if self.name == "SGD":
                 p.add_(-lr * g)
                 continue

@@ -39,7 +39,35 @@ non-zero exit:
   8. opt/DivideTask/brain64.yaml (8 blocks of 32^3, randompoint, on the
      fleet kernel at phase 6's shape) and opt/DivideTask/default.yaml
      (adaptive blocks, fullbatch buckets through autograd) on the bundled
-     fixture for FIXTURE_STEPS steps each: artifacts written, PSNR finite.
+     fixture for FIXTURE_STEPS steps each: artifacts written, PSNR finite;
+  9. the batch-major fused forward kernel (ops/fused_siren.py) against its
+     plain version, timed beside it and its bound, at SIREN_CASES: the
+     slab the batch-major decode gives it (5 x 22, N = 10,112) and the
+     SingleTask default's full width (N = 262,144), a HiP-CT block's chain
+     (3-64x6-1, N = 100,003: a tail that is no multiple of any tile),
+     weights beyond shared memory (3-186x4-1), a SIREN_Pyramid chain,
+     SIREN_RELU and SIREN_SIGMOID, SIRENPos through make_fused_apply:
+     forward within 2e-6 + 2e-6 * max|plain| (2.4e-7 at most on the first
+     H100 run), gradients of (out^2).mean() for every w, b and for coords
+     within 1e-6 of autograd through model.apply (1.2e-7 at most), two runs
+     bitwise equal;
+ 10. the batch-major route at full width on phase 5's archive:
+     reconstruct_flattened(apply_fn=fused_apply_or(model, model.apply))
+     over the 64^3 grid in slabs of the yaml's Decompress.sample_size:
+     exactly ceil(262,144 / slab) launches of the forward kernel and none
+     of the grid kernel, within 2e-6 + 2e-6 * max|value| of the same
+     route through model.apply (normalized values reach 100), and after
+     inverse normalization within 1 LSB of the
+     default (grid-kernel) decode on >= 99.9% of voxels; both routes timed;
+ 11. every other φ family through the SingleTask command on the fixture
+     (FAMILIES, FAMILY_STEPS steps, one checkpoint): the five plain-chain
+     families on both kernels (one train launch per step), res-SIREN,
+     NeRF, FFN and the MFNs on neither (autograd, slab decode); artifacts
+     of the right kind, parameter count within 5% of the 80x budget, the
+     standalone decompress equal to the checkpoint's decode, PSNR above
+     its floor; then opt/DivideTask/brain64.yaml with MFNFourier (the
+     fleet's solo path) and with NeRF (a stacked skip/encoder bucket),
+     decompress_divide within 1 LSB of the merged checkpoint.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -47,6 +75,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import csv
 import json
 import math
@@ -79,6 +108,39 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 SINCOS_FLOPS = 25            # fast_sincos incl. the w0 multiplies
 SIN_FLOPS = 16               # fast_sin incl. the w0 multiply
+# phase 9: (label, family config, N, in the kernels line as)
+SIREN_BASE = {"coords_channel": 3, "data_channel": 1, "layers": 5, "w0": 20}
+SIREN_CASES = [
+    ("slab", {"name": "SIREN", "features": 22}, 10_112, "main"),
+    ("default", {"name": "SIREN", "features": 22}, N_COORDS, "at_262144"),
+    ("hipct-block", {"name": "SIREN", "features": 64, "layers": 7, "w0": 10},
+     100_003, "hipct_block"),
+    ("wide", {"name": "SIREN", "features": 186}, N_COORDS, "wide"),
+    ("pyramid", {"name": "SIREN_Pyramid", "features": 27, "features_dis": 3},
+     N_COORDS, None),
+    ("relu", {"name": "SIREN_RELU", "features": 22}, N_COORDS, None),
+    ("sigmoid", {"name": "SIREN_SIGMOID", "features": 22}, N_COORDS, None),
+    ("sirenpos", {"name": "SIRENPos", "features": 22, "T": [2.0, 3.0, 2.0]},
+     N_COORDS, None),
+]
+GRAD_N = 8192                # coordinates of phase 9's gradient check
+# phase 11: Module.phi keys per family (each sizes within 5% of the 80x
+# budget), whether both kernels run it, and its PSNR floor in dB after
+# FAMILY_STEPS steps (the first H100 run's value less 1 dB, PERF.md)
+FAMILY_STEPS = 1000
+FAMILIES = [
+    ("SIRENFT", {"ratio": 4}, True, 26.8),
+    ("SIREN_Pyramid", {"features_dis": 3}, True, 27.4),
+    ("SIRENPS", {"ratio": 1.25}, True, 26.8),
+    ("SIREN_RELU", {}, True, 40.4),
+    ("SIREN_SIGMOID", {}, True, 27.5),
+    ("SIREN", {"res": True}, False, 26.6),
+    ("NeRF", {}, False, 39.9),
+    ("FFN", {"embsize": 16}, False, 31.7),
+    ("MFNFourier", {}, False, 25.1),
+    ("MFNGabor", {}, False, 25.6),
+]
+DIVIDE_FAMILIES = [("MFNFourier", {}, 8), ("NeRF", {}, 0)]   # solo blocks
 
 
 def fail(msg: str) -> None:
@@ -284,10 +346,11 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
 
 
 def run_config(config: str, out_dir: str, steps: int, data_path=None,
-               fused_train: bool = True):
+               fused_train: bool = True, phi=None, project=None):
     """The CLI on `config` cut to `steps` steps with one checkpoint, no
-    MIPs (and the fused train kernel off unless `fused_train`); returns
-    (summary, run dir, the yaml's config)."""
+    MIPs (and the fused train kernel off unless `fused_train`; Module.phi
+    updated with `phi`, the run named `project`); returns (summary, run
+    dir, the yaml's config)."""
     from brief_pytorch_tpu_torch.cli import main as cli
     from brief_pytorch_tpu_torch.core import config as cfglib
     opt = cfglib.load(config)
@@ -303,7 +366,12 @@ def run_config(config: str, out_dir: str, steps: int, data_path=None,
     if not fused_train:
         c.Compress.fused_train = False
         opt.Log.project_name += "_autograd"
-    yaml_path = os.path.join(out_dir, os.path.basename(config))
+    for k, v in (phi or {}).items():
+        c.Module.phi[k] = v
+    if project is not None:
+        opt.Log.project_name = project
+    yaml_path = os.path.join(out_dir, f"{opt.Log.project_name}_"
+                             + os.path.basename(config))
     cfglib.save(opt, yaml_path)
     summary = cli.main(["-p", yaml_path, "-g", "0"])
     return summary, os.path.join(out_dir, opt.Log.project_name), opt
@@ -314,14 +382,302 @@ def last_psnr(run_dir: str) -> float:
         return float(list(csv.DictReader(f))[-1]["psnr"])
 
 
-def chunk_dirs(run_dir: str, steps: int):
+def chunk_dirs(run_dir: str, steps: int, prefix: str = "weight-"):
     module = os.path.join(run_dir, f"steps{steps}", "compressed", "module")
     names = sorted(os.listdir(module))
     for name in names:
-        if not any(f.startswith("weight-") for f in
+        if not any(f.startswith(prefix) for f in
                    os.listdir(os.path.join(module, name, "module"))):
-            fail(f"{module}/{name}: no weight-* binaries written")
+            fail(f"{module}/{name}: no {prefix}* written")
     return names
+
+
+def siren_check(dev, label: str, cfg: dict, n: int) -> dict:
+    """The batch-major forward kernel on one family at n coordinates:
+    against its plain version (forward; gradients of (out^2).mean() for
+    every w, b and for coords against autograd through model.apply on the
+    first GRAD_N coordinates), two runs bitwise equal; then timed beside
+    the plain version and the bound.  Fails the run on any disagreement;
+    returns the case's row."""
+    import torch
+    from brief_pytorch_tpu_torch.models.phi import init_phi
+    from brief_pytorch_tpu_torch.ops import fused_siren
+    from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
+                                                   make_pre_encode)
+    model = init_phi({**SIREN_BASE, **cfg})
+    params = model.init(torch.Generator().manual_seed(2), dev)
+    layers = params["layers"]
+    acts = chain_layer_specs(model.spec)
+    widths = fused_siren.chain_widths(model.spec)
+    plan = fused_siren.kernel_plan(widths)
+    if not fused_siren.supports(model):
+        fail(f"fused_siren does not support {cfg}")
+    rng = np.random.default_rng(n)
+    coords = torch.from_numpy(
+        rng.uniform(-1, 1, (n, widths[0])).astype(np.float32)).to(dev)
+    fused = fused_siren.make_fused_apply(model)
+    pre = make_pre_encode(model.spec)
+
+    def k():
+        return fused(params, coords)
+
+    def plain():
+        return fused_siren.fused_chain_apply_reference(layers, pre(coords),
+                                                       acts)
+
+    before = fused_siren.launches
+    out_k, out_p, again = k(), plain(), k()
+    torch.cuda.synchronize()
+    what = f"fused_siren {label} {widths} N={n}"
+    if fused_siren.launches != before + 2:
+        fail(f"{what}: {fused_siren.launches - before} launches for 2 calls")
+    if out_k.shape != (n, widths[-1]) or not torch.isfinite(out_k).all():
+        fail(f"{what}: shape {tuple(out_k.shape)} or non-finite values")
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    if not err <= 2e-6 + 2e-6 * scale:
+        fail(f"{what}: max abs err {err} (max |plain| {scale})")
+    if not torch.equal(out_k, again):
+        fail(f"{what}: two runs differ bitwise")
+    del out_k, out_p, again
+    # gradients: the kernel's autograd.Function against plain autograd
+    sub = coords[:GRAD_N].clone().requires_grad_(True)
+    leaves = [t.requires_grad_(True) for l in layers for t in l.values()]
+    g_k = torch.autograd.grad((fused(params, sub) ** 2).mean(),
+                              leaves + [sub])
+    g_p = torch.autograd.grad((model.apply(params, sub) ** 2).mean(),
+                              leaves + [sub])
+    for t in leaves:
+        t.requires_grad_(False)
+    gerr = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+    if not gerr <= 1e-6:
+        fail(f"{what}: gradient max abs err {gerr}")
+    with torch.no_grad():
+        ms = time_ms(k)
+        plain_ms = time_ms(plain, reps=10)
+    sine = sum(w for w, (a, _) in zip(widths[1:], acts) if a == "sine")
+    if model.spec.encoder == "sirenpos":
+        sine += widths[0]            # the warp ahead of the kernel
+    flops = n * (2 * chain_macs(widths) + SIN_FLOPS * sine)
+    n_bytes = 4 * (n * (widths[0] + widths[-1])
+                   + sum(l["w"].numel() + l["b"].numel() for l in layers))
+    b, by = bound_ms(n_bytes, flops)
+    layout = "shared" if plan["smem_weights"] else "device"
+    say("9-fused_siren", case=label, family=cfg["name"], widths=widths, n=n,
+        weights=layout, tile=plan["tile"],
+        threads_per_coord=plan["q"], max_abs_err=f"{err:.3e}",
+        grad_max_abs_err=f"{gerr:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b:.4f}", bound_by=by,
+        mcoords_per_s=f"{n / ms / 1e3:.1f}",
+        tolerance="2e-6+2e-6*max|plain|; grads 1e-6; 2 runs bitwise")
+    return dict(shape=f"{cfg['name']} {widths}, N={n}", weights=layout,
+                tile=plan["tile"], threads_per_coord=plan["q"],
+                max_abs_err=err, grad_max_abs_err=gerr, ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+
+def batch_major_decode(dev, cf, comp: str) -> dict:
+    """Phase 10 on the archive under `comp` (module/, sideinfos.yaml) of a
+    SingleTask run with the config node `cf`."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.core.normalize import invnormalize_data
+    from brief_pytorch_tpu_torch.io.modelsave import load_phi_module
+    from brief_pytorch_tpu_torch.models.phi import (init_phi,
+                                                    params_from_numpy)
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_siren
+    from brief_pytorch_tpu_torch.post.preprocess import preprocess
+    from brief_pytorch_tpu_torch.train.decode import (fused_apply_or,
+                                                      reconstruct_flattened)
+    side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
+    phi = dict(cf.Module.phi)
+    phi.update(features=side["phi_features"], name=side["phi_name"])
+    model = init_phi(phi)
+    params = params_from_numpy(
+        load_phi_module(model, os.path.join(comp, "module")), dev)
+    shape = list(side["data_shape"])
+    pop = int(np.prod(shape[:-1]))
+    sample_size = int(cf.Decompress.sample_size)
+    slab = max(128, -(-min(sample_size, pop) // 128) * 128)
+    mode = cf.Compress.coords_mode
+    apply_k = fused_apply_or(model, model.apply)
+    if apply_k == model.apply:
+        fail("fused_apply_or returned the default apply on the card")
+
+    def route(apply_fn):
+        return reconstruct_flattened(model, params, shape, sample_size, mode,
+                                     apply_fn=apply_fn)
+
+    fused_siren.launches = 0
+    fused_decode.launches = 0
+    out_k = route(apply_k)
+    launches = {"fused_siren": fused_siren.launches,
+                "fused_decode": fused_decode.launches}
+    want = -(-pop // slab)
+    if launches != {"fused_siren": want, "fused_decode": 0}:
+        fail(f"batch-major decode: launches {launches}, want {want} of the "
+             f"forward kernel and 0 of the grid kernel")
+    out_p = route(model.apply)
+    out_g = route(None)
+    if fused_decode.launches != 1:
+        fail("the default decode did not take the grid kernel")
+    err = float(np.abs(out_k - out_p).max())
+    scale = float(np.abs(out_p).max())      # normalized values reach 100
+    if out_k.shape != tuple(shape) or not np.isfinite(out_k).all() or \
+            not err <= 2e-6 + 2e-6 * scale:
+        fail(f"batch-major decode: shape {out_k.shape}, max abs err {err} "
+             f"(max |apply| {scale}) against the same route through "
+             "model.apply")
+
+    def volume(dec):
+        post = cf.Decompress.postprocess
+        return preprocess(invnormalize_data(dec, dict(side), **cf.Normalize),
+                          post.denoise.level, post.denoise.close, post.clip)
+
+    diff = np.abs(volume(out_k).astype(np.int64)
+                  - volume(out_g).astype(np.int64))
+    within = float((diff <= 1).mean())
+    if within < 0.999:
+        fail(f"batch-major decode: {within:.6f} of voxels within 1 LSB of "
+             "the grid kernel's decode")
+
+    def wall_ms(apply_fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            route(apply_fn)        # ends in the copy to the host: a sync
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    ms_k, ms_p, ms_g = wall_ms(apply_k), wall_ms(model.apply), wall_ms(None)
+    say("10-batch-major-decode", grid="64^3", slab=slab,
+        launches=json.dumps(launches), max_abs_err_vs_apply=f"{err:.3e}",
+        max_abs_apply=f"{scale:.3f}",
+        within_1lsb_of_grid_kernel=f"{within:.6f}", max_lsb=int(diff.max()),
+        wall_ms_forward_kernel=f"{ms_k:.3f}",
+        wall_ms_model_apply=f"{ms_p:.3f}", wall_ms_grid_kernel=f"{ms_g:.3f}",
+        mvox_per_s_forward_kernel=f"{pop / ms_k / 1e3:.1f}",
+        mvox_per_s_model_apply=f"{pop / ms_p / 1e3:.1f}",
+        mvox_per_s_grid_kernel=f"{pop / ms_g / 1e3:.1f}")
+    return dict(launches=launches["fused_siren"], slab=slab,
+                route_wall_ms=ms_k, apply_route_wall_ms=ms_p,
+                grid_route_wall_ms=ms_g, within_1lsb=within)
+
+
+def family_run(dev, out_dir: str, name: str, keys: dict, on_kernels: bool,
+               floor: float) -> None:
+    """Phase 11 for one family: the SingleTask command on the fixture."""
+    import torch
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.io.modelsave import load_phi_module
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.core.tree import tree_leaves
+    from brief_pytorch_tpu_torch.models.phi import init_phi
+    from brief_pytorch_tpu_torch.ops import (fused_decode, fused_siren,
+                                             fused_train)
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    project = name + ("_res" if keys.get("res") else "")
+    fused_train.launches = fused_decode.launches = fused_siren.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, opt = run_config(CONFIG, out_dir, FAMILY_STEPS, FIXTURE,
+                                       phi={"name": name, **keys},
+                                       project=project)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_train": fused_train.launches,
+                "fused_decode": fused_decode.launches,
+                "fused_siren": fused_siren.launches}
+    want = {"fused_train": FAMILY_STEPS if on_kernels else 0,
+            "fused_decode": 1 if on_kernels else 0, "fused_siren": 0}
+    if launches != want:
+        fail(f"{project}: launches {launches}, want {want}")
+    cf = opt.CompressFramework
+    comp = os.path.join(run_dir, f"steps{FAMILY_STEPS}", "compressed")
+    module = os.path.join(comp, "module")
+    files = sorted(os.listdir(module))
+    if name.startswith("MFN"):
+        kind_ok = files == ["params.npz"]
+    else:
+        kind_ok = any(f.startswith("weight-") for f in files) and \
+            ("encoder.npz" in files) == (name == "FFN") and \
+            "params.npz" not in files
+    if not kind_ok:
+        fail(f"{project}: module files {files}")
+    side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
+    if side["phi_name"] != name:
+        fail(f"{project}: sized as {side['phi_name']}")
+    model = init_phi({**dict(cf.Module.phi), "name": name,
+                      "features": side["phi_features"]})
+    like = model.init(torch.Generator().manual_seed(0), "cpu")
+    count = sum(int(np.asarray(a).size) for a in
+                tree_leaves(load_phi_module(model, module, like)))
+    ideal = os.path.getsize(FIXTURE) / cf.Compress.param.filesize_ratio
+    off = (4 * count - ideal) / ideal
+    if abs(off) > 0.05:
+        fail(f"{project}: {count} parameters, {off:+.3f} off the budget")
+    dec = NFGR.decompress(cf, module, os.path.join(comp, "sideinfos.yaml"),
+                          device=dev)
+    ck = read_img(os.path.join(
+        run_dir, f"steps{FAMILY_STEPS}", "decompressed",
+        os.path.basename(FIXTURE).replace(".tif", "_decompressed.tif")))
+    if dec.shape != ck.shape or not np.array_equal(dec, ck):
+        fail(f"{project}: standalone decompress differs from the "
+             "checkpoint's decode")
+    psnr = last_psnr(run_dir)
+    say("11-family", family=project, features=side["phi_features"],
+        params=count, budget_off=f"{off:+.4f}", files=files[:1] + files[-1:],
+        launches=json.dumps(launches), psnr=f"{psnr:.3f}", psnr_floor=floor,
+        ssim=f"{float(summary['ssim']):.4f}",
+        train_s=f"{summary['train_s']:.3f}",
+        steps_per_s=f"{FAMILY_STEPS / summary['train_s']:.1f}",
+        checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
+    if not math.isfinite(psnr) or psnr < floor:
+        fail(f"{project}: PSNR {psnr} below the floor {floor}")
+
+
+def divide_family_run(dev, out_dir: str, name: str, keys: dict, solo: int
+                      ) -> None:
+    """Phase 11's DivideTask runs: brain64.yaml with another family."""
+    import torch
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    fused_train.launches = fused_decode.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, opt = run_config(
+        os.path.join(DIVIDE, "brain64.yaml"), out_dir, FIXTURE_STEPS,
+        phi={"name": name, **keys}, project=f"brain64_{name}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if fused_train.launches or any(summary["fused"]) or \
+            len(summary["solo"]) != solo or \
+            len(summary["fleet"]) != (0 if solo else 1):
+        fail(f"brain64 {name}: {fused_train.launches} train launches, fused "
+             f"{summary['fused']}, solo {summary['solo']}, buckets "
+             f"{summary['fleet']}")
+    names = chunk_dirs(run_dir, FIXTURE_STEPS,
+                       "params.npz" if solo else "weight-")
+    comp = os.path.join(run_dir, f"steps{FIXTURE_STEPS}", "compressed")
+    dec = NFGR.decompress_divide(
+        opt.CompressFramework, os.path.join(comp, "sideinfos.yaml"),
+        os.path.join(comp, "module"), os.path.join(comp, "sideinfos"),
+        device=dev)
+    ck = read_img(os.path.join(
+        run_dir, f"steps{FIXTURE_STEPS}", "decompressed",
+        os.path.basename(FIXTURE).replace(".tif", "_decompressed.tif")))
+    diff = np.abs(dec.astype(np.int64) - ck.astype(np.int64))
+    psnr = last_psnr(run_dir)
+    if dec.shape != ck.shape or int(diff.max()) > 1 or \
+            fused_decode.launches or not math.isfinite(psnr):
+        fail(f"brain64 {name}: decompress_divide shape {dec.shape} vs "
+             f"{ck.shape}, max {int(diff.max())} LSB, "
+             f"{fused_decode.launches} grid-kernel launches, PSNR {psnr}")
+    say("11-divide-family", family=name, steps=FIXTURE_STEPS,
+        chunks=len(names), solo=len(summary["solo"]),
+        buckets=len(summary["fleet"]), max_lsb=int(diff.max()),
+        psnr=f"{psnr:.3f}", train_s=f"{summary['train_s']:.3f}",
+        checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
 
 
 def main() -> int:
@@ -331,7 +687,8 @@ def main() -> int:
         return 2
     from brief_pytorch_tpu_torch.core import config as cfglib
     from brief_pytorch_tpu_torch.models.phi import init_phi
-    from brief_pytorch_tpu_torch.ops import build, fused_decode, fused_train
+    from brief_pytorch_tpu_torch.ops import (build, fused_decode, fused_siren,
+                                             fused_train)
     from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
     from brief_pytorch_tpu_torch.ops.fast_math import (fast_sincos,
                                                        fast_sincos_device)
@@ -467,6 +824,8 @@ def main() -> int:
     from brief_pytorch_tpu_torch.train.fit import NFGR
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    archive5 = tempfile.mkdtemp(prefix="chip_smoke_archive_")   # for phase 10
+    atexit.register(shutil.rmtree, archive5, ignore_errors=True)
     try:
         opt = cfglib.load(CONFIG)
         opt.Dataset.data_path = FIXTURE
@@ -510,6 +869,8 @@ def main() -> int:
         if dec.shape != (64, 64, 64, 1) or dec.dtype != np.uint16 or \
                 not np.array_equal(dec, ck):
             fail("standalone decompress differs from the checkpoint decode")
+        shutil.copytree(comp, os.path.join(archive5, "compressed"))
+        cf5 = c
         train_s = summary["train_s"]
         say("5-compress", steps=COMPRESS_STEPS, launches=json.dumps(launches),
             psnr=f"{psnr:.3f}", ssim=f"{ssim:.4f}", psnr_floor=PSNR_FLOOR,
@@ -683,6 +1044,30 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- 9. kernel 3: the batch-major fused forward ----
+    siren_rows = {}
+    for label, cfg9, n9, key in SIREN_CASES:
+        row = siren_check(dev, label, cfg9, n9)
+        if key is not None:
+            siren_rows[key] = row
+
+    # ---- 10. the batch-major decode route on phase 5's archive ----
+    route10 = batch_major_decode(dev, cf5,
+                                 os.path.join(archive5, "compressed"))
+
+    # ---- 11. every other family through the commands ----
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        for name, keys, on_kernels, floor in FAMILIES:
+            family_run(dev, out_dir, name, keys, on_kernels, floor)
+        for name, keys, solo in DIVIDE_FAMILIES:
+            divide_family_run(dev, out_dir, name, keys, solo)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if fused_siren.launches:
+        fail(f"phase 11 launched the forward kernel {fused_siren.launches} "
+             "times: it is off every default path")
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
@@ -707,6 +1092,13 @@ def main() -> int:
          "bound_by": dec_rows[64]["bound_by"], "library_ms": None,
          "shape": f"SIREN {widths}, 64^3 grid",
          "at_256": dec_rows[256]},
+        {"name": "fused_chain_apply", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/fused_siren.cu",
+         "replaces": "brief_pytorch_tpu/ops/pallas_siren.py:116",
+         "launches": route10["launches"], "library_ms": None,
+         **siren_rows["main"],
+         **{k: v for k, v in siren_rows.items() if k != "main"},
+         "decode_route": route10},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

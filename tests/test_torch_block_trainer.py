@@ -373,3 +373,191 @@ def test_fleet_trains_toward_the_data():
     first = trainer._states[0].losses
     assert first.shape == (149, 3)
     assert (first[-1] < 0.5 * first[0]).all()
+
+
+# --- stacked res / skip / encoder chains, and the solo path -----------------
+STACKED_ZOO = [
+    ("SIREN", {"res": True}), ("SIRENFT", {"res": True, "ratio": 1.5}),
+    ("NeRF", {"frequencies": 3}), ("NeRF", {"frequencies": 2, "skip": False}),
+    ("FFN", {"embsize": 6, "scale": 3}),
+    ("FFN", {"embsize": 5, "skip": True}),
+    ("SIREN_Pyramid", {"features_dis": 1}), ("SIREN_SIGMOID", {}),
+]
+
+
+def _zoo_models(init, name, extra, widths=WIDTHS):
+    return [init({"name": name, **BASE, "features": f, **extra})
+            for f in widths]
+
+
+def _zoo_stacks(name, extra):
+    """The JAX fleet's stacks of a family carried into the port."""
+    spec, jlayers, jmasks, jenc = jbt.build_stacked(
+        _zoo_models(jinit, name, extra), jax.random.PRNGKey(3))
+    params, masks = tbt.stacked_from_numpy(
+        [{k: np.asarray(v) for k, v in l.items()} for l in jlayers],
+        [np.asarray(m) for m in jmasks])
+    enc = {k: torch.from_numpy(np.asarray(v)) for k, v in jenc.items()}
+    tmodels = _zoo_models(tinit, name, extra)
+    tspec, tparams, tmasks = tbt.build_stacked(tmodels, 0)
+    return (spec, jlayers, jmasks, jenc), (tspec, params, masks, enc), \
+        (tmodels, tparams, tmasks)
+
+
+@pytest.mark.parametrize("name,extra", STACKED_ZOO)
+def test_stacked_zoo_matches_jax(name, extra):
+    """build_stacked gives the JAX fleet's spec, dims and masks; the same
+    stacks through both stacked_apply and decode_blocks agree at 2e-6;
+    FFN's stacked bvals are the JAX fleet's, bit for bit."""
+    (spec, jlayers, jmasks, jenc), (tspec, params, masks, enc), \
+        (tmodels, tparams, tmasks) = _zoo_stacks(name, extra)
+    assert (tspec.entries, tspec.dims, tspec.skip_entry, tspec.encoder,
+            tuple(tspec.encoder_cfg)) == \
+        (spec.entries, spec.dims, spec.skip_entry, spec.encoder,
+         tuple(spec.encoder_cfg))
+    for a, b in zip(tmasks, jmasks):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert [tuple(l["w"].shape) for l in tparams["layers"]] == \
+        [tuple(l["w"].shape) for l in jlayers]
+    if name == "FFN":
+        np.testing.assert_array_equal(tparams["encoder"]["bvals"].numpy(),
+                                      np.asarray(jenc["bvals"]))
+    else:
+        assert "encoder" not in tparams
+    x = np.random.default_rng(0).uniform(-1, 1, (3, 50, 3)).astype(np.float32)
+    ref = jax.vmap(lambda l, m, e, c: jbt.stacked_apply(l, m, c, spec, e))(
+        jlayers, jmasks, jenc, jnp.asarray(x))
+    out = tbt.stacked_apply(params["layers"], masks, torch.from_numpy(x),
+                            tspec, enc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=2e-6)
+    shapes = np.array([[6, 7, 8], [5, 9, 4], [1, 11, 12]], np.int32)
+    vmax = int(np.prod(shapes, axis=1).max())
+    ref = jbt.decode_blocks(jlayers, jmasks, jenc, jnp.asarray(shapes),
+                            spec=spec, slab=128, coords_mode="-1,1",
+                            half=False, vmax=vmax)
+    out = tbt.decode_blocks(params["layers"], masks,
+                            torch.from_numpy(shapes).long(), tspec, slab=100,
+                            coords_mode="-1,1", vmax=vmax, enc=enc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("name,extra", STACKED_ZOO)
+def test_padded_zoo_decode_equals_unpadded_blocks(name, extra):
+    """Each block of the padded, masked fleet decode equals its own
+    unpadded network decoded alone, and padded units get zero gradient."""
+    models = _zoo_models(tinit, name, extra)
+    spec, params, masks = tbt.build_stacked(models, 2)
+    enc = params.get("encoder")
+    shapes = torch.tensor([[4, 5, 6], [3, 3, 3], [2, 7, 5]])
+    vmax = int(shapes.prod(1).max())
+    out = tbt.decode_blocks(params["layers"], masks, shapes, spec, slab=64,
+                            coords_mode="-1,1", vmax=vmax, enc=enc)
+    per_block = tbt.unstack_params(params["layers"], models, enc)
+    for bi, (m, p) in enumerate(zip(models, per_block)):
+        v = int(shapes[bi].prod())
+        axes = tbt.flat_to_axes24(torch.arange(v), shapes[bi])
+        coords = tbt.axes_to_coords(axes, shapes[bi], "-1,1")
+        np.testing.assert_allclose(out[bi, :v].numpy(),
+                                   m.apply(p, coords).numpy(), rtol=0,
+                                   atol=1e-6)
+        assert ("encoder" in p) == (name == "FFN")
+    leaves = [t.requires_grad_(True) for l in params["layers"]
+              for t in l.values()]
+    x = torch.rand(3, 20, 3) * 2 - 1
+    loss = (tbt.stacked_apply(params["layers"], masks, x, spec, enc)
+            ** 2).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    for l, layer in enumerate(params["layers"]):
+        gw, gb = next(it), next(it)
+        for bi, m in enumerate(models):
+            fi, fo = tbt._linear_dims(m.spec)[l]
+            assert int(torch.count_nonzero(gw[bi, fi:, :])) == 0
+            assert int(torch.count_nonzero(gw[bi, :, fo:])) == 0
+            assert int(torch.count_nonzero(gb[bi, fo:])) == 0
+    if enc is not None:
+        assert not enc["bvals"].requires_grad
+
+
+@pytest.mark.parametrize("name,extra", [("NeRF", {"frequencies": 3}),
+                                        ("FFN", {"embsize": 6}),
+                                        ("SIREN", {"res": True})])
+def test_fleet_trains_stacked_zoo_through_autograd(name, extra, tmp_path):
+    """A res / skip / encoder bucket is never a fused one; it trains through
+    autograd, leaves FFN's stacked bvals untouched, decodes, and writes its
+    state."""
+    cc = tcfg.loads(CC)
+    cc.lr_phi = 0.01
+    blocks = _blocks(thres=(0.0, 0.0, 0.0))
+    for b, f, level in zip(blocks, WIDTHS, (20.0, 50.0, 80.0)):
+        b["model"] = tinit({"name": name, **BASE, "features": f, **extra})
+        b["data_norm"][:] = level
+    trainer = tbt.BlockFleetTrainer(seed=0, device="cpu")
+    state = str(tmp_path / "state.npz")
+    trainer.train(blocks, cc, 40, checkpoints=[1, 40], state_path=state)
+    st = trainer._states[0]
+    assert trainer.fused_paths() == [False] and trainer.solo_blocks() == []
+    assert not tbt.fleet_fused_supported(st.spec, "datal2", "randompoint",
+                                         False)
+    assert (st.losses[-1] < st.losses[0]).all()
+    if name == "FFN":
+        fresh = tbt.build_stacked([b["model"] for b in blocks], 0)[1]
+        assert torch.equal(st.params["encoder"]["bvals"],
+                           fresh["encoder"]["bvals"])
+        assert all("encoder" in b["params"] for b in blocks)
+    dec = trainer.decode(blocks, cc)
+    for b, d in zip(blocks, dec):
+        assert d.shape == b["data_norm"].shape and np.isfinite(d).all()
+        own = b["model"].apply(
+            {k: v for k, v in b["params"].items()},
+            tbt.axes_to_coords(tbt.flat_to_axes24(
+                torch.arange(d.size), torch.tensor(d.shape[:-1])),
+                torch.tensor(d.shape[:-1]), "-1,1"))
+        np.testing.assert_allclose(d.reshape(-1, 1), own.detach().numpy(),
+                                   atol=2e-5)
+    with np.load(state) as z:
+        n_leaves = len([k for k in z.files if k.startswith("b0p")])
+        assert n_leaves == 2 * len(st.params["layers"]) + (name == "FFN")
+
+
+@pytest.mark.parametrize("name", ["MFNFourier", "MFNGabor"])
+@pytest.mark.parametrize("sampler", ["randompoint", "randomcube"])
+def test_solo_path_trains_mfn_blocks(name, sampler, tmp_path):
+    """MFN blocks do not stack: they train on the solo path in lockstep with
+    the chain bucket, checkpoint with the fleet, decode through their own
+    apply, and land in the fleet state as s{i}*."""
+    cc = tcfg.loads(CC)
+    cc.lr_phi = 0.01
+    cc.sampler.name = sampler
+    cc.sampler.cube_len = [3, 4, 4]
+    blocks = _blocks(thres=(0.0, 30.0, 0.0))
+    for i in (0, 2):
+        blocks[i]["model"] = tinit({"name": name, **BASE, "features": 6,
+                                    "input_scale": 4.0})
+        blocks[i]["data_norm"][:] = 40.0 + 10 * i
+    seen = []
+    trainer = tbt.BlockFleetTrainer(seed=0, device="cpu")
+    state = str(tmp_path / "state.npz")
+    trainer.train(blocks, cc, 30, checkpoints=[10, 30], state_path=state,
+                  checkpoint_cb=lambda s, b, p: seen.append(
+                      (s, [sorted(x) for x in p])))
+    assert trainer.solo_blocks() == [0, 2]
+    assert [len(st.models) for st in trainer._states] == [1]
+    mfn_keys = ["filters", "linear", "output"]
+    assert seen == [(10, [mfn_keys, ["layers"], mfn_keys]),
+                    (30, [mfn_keys, ["layers"], mfn_keys])]
+    for ss in trainer._solo:
+        assert ss.steps_done == 30 and ss.losses.shape == (20,)
+        assert float(ss.losses[-1]) < float(ss.losses[0])
+    assert len(trainer.last_losses) == 3
+    dec = trainer.decode(blocks, cc)
+    for b, d in zip(blocks, dec):
+        assert d.shape == b["data_norm"].shape and np.isfinite(d).all()
+    with np.load(state) as z:
+        assert {"s0p0", "s0o0", "s0key", "s1done", "b0p0"} <= set(z.files)
+        assert int(z["s1done"]) == 30
+        import json
+        fp = json.loads(bytes(z["fingerprint"].tobytes()))
+        assert fp["solo"] == [0, 2] and fp["buckets"] == [[1]]

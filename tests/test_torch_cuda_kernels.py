@@ -292,3 +292,137 @@ def test_too_wide_chain_raises_on_the_card(dev):
         ft.fused_train_grads(params["layers"], coords, values, weights,
                              chain_layer_specs(model.spec),
                              loss_name="datal2")
+
+
+# --- the batch-major fused forward kernel (ops/fused_siren.py) -------------
+def _coords(dev, n, cin=3, seed=5):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.uniform(-1, 1, (n, cin)).astype(np.float32)).to(dev)
+
+
+def _family(dev, name, seed=0, **extra):
+    cfg = {"name": name, "coords_channel": 3, "data_channel": 1,
+           "features": 22, "layers": 5, "w0": 20, **extra}
+    model = tphi.init_phi(cfg)
+    return model, model.init(torch.Generator().manual_seed(seed), dev)
+
+
+FUSED_SIREN_CASES = [
+    ("SIREN", dict(), 262144, True),                       # the default's width
+    ("SIREN", dict(features=64, layers=7, w0=10), 100003, True),   # HiP-CT block
+    ("SIREN", dict(features=186), 20011, False),           # weights beyond smem
+    ("SIREN_Pyramid", dict(features=40, features_dis=6), 5000, True),
+    ("SIRENFT", dict(ratio=2.5), 4099, True),
+    ("SIRENPS", dict(features=9, ratio=1.6), 4099, True),
+    ("SIREN_RELU", dict(), 4099, True),
+    ("SIREN_SIGMOID", dict(), 4099, True),
+    ("SIREN", dict(coords_channel=2, data_channel=3, features=16,
+                   layers=3), 130, True),
+    ("SIREN", dict(output_act=True), 1, True),
+]
+
+
+@pytest.mark.parametrize("name,extra,n,smem_weights", FUSED_SIREN_CASES)
+def test_fused_siren_matches_plain(dev, name, extra, n, smem_weights):
+    """Forward within 2e-6 + 2e-6 * max|plain| of the plain version (the
+    same multiply-adds in the same order, contracted into FMAs; 2.4e-7 at
+    most on an H100), the tail masked in the kernel, two runs bitwise
+    equal, one launch per call."""
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    model, params = _family(dev, name, **extra)
+    assert fs.supports(model)
+    widths = fs.chain_widths(model.spec)
+    assert fs.choose_plan(widths)["smem_weights"] == smem_weights
+    acts = chain_layer_specs(model.spec)
+    coords = _coords(dev, n, widths[0])
+    before = fs.launches
+    out = fs.fused_chain_apply(params["layers"], coords, acts)
+    assert fs.launches == before + 1
+    ref = fs.fused_chain_apply_reference(params["layers"], coords, acts)
+    again = fs.fused_chain_apply(params["layers"], coords, acts)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (n, widths[-1])
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= \
+        2e-6 + 2e-6 * float(ref.abs().max())
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("SIREN", dict(features=32, layers=4)),
+    ("SIREN_SIGMOID", dict()),
+    ("SIREN", dict(features=186)),
+])
+def test_fused_siren_gradients_match_autograd(dev, name, extra):
+    """Gradients of (out ** 2).mean() for every w, b and for coords within
+    1e-6 + 1e-5 * max|autograd| of autograd through model.apply."""
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    model, params = _family(dev, name, **extra)
+    coords = _coords(dev, 256).requires_grad_(True)
+    leaves = [t.requires_grad_(True) for l in params["layers"]
+              for t in l.values()]
+    fused = fs.make_fused_apply(model)
+    g1 = torch.autograd.grad((fused(params, coords) ** 2).mean(),
+                             leaves + [coords])
+    g2 = torch.autograd.grad((model.apply(params, coords) ** 2).mean(),
+                             leaves + [coords])
+    for a, b in zip(g1, g2):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= \
+            1e-6 + 1e-5 * float(b.abs().max())
+
+
+def test_fused_siren_sirenpos_and_gate(dev):
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    from brief_pytorch_tpu_torch.train.decode import fused_apply_or
+    model, params = _family(dev, "SIRENPos", features=16, layers=4,
+                            T=[2.0, 3.0, 2.0])
+    coords = _coords(dev, 300)
+    got = fs.make_fused_apply(model)(params, coords)
+    assert float((got - model.apply(params, coords)).abs().max()) <= 2e-5
+    for name, extra in [("SIREN", dict(res=True)), ("NeRF", dict()),
+                        ("FFN", dict(embsize=8)), ("MFNFourier", dict()),
+                        ("MFNGabor", dict())]:
+        other, _ = _family(dev, name, **extra)
+        assert not fs.supports(other)
+        assert fused_apply_or(other, other.apply, device=dev) == other.apply
+    assert fused_apply_or(model, model.apply, device=dev) != model.apply
+    assert fused_apply_or(model, model.apply, use_kernel=False,
+                          device=dev) == model.apply
+
+
+def test_fused_siren_slab_route_decodes(dev):
+    """reconstruct_flattened(apply_fn=...) runs the kernel once per slab of
+    sample_size voxels, never the grid kernel, and agrees with the same
+    route through model.apply within 2e-5."""
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    from brief_pytorch_tpu_torch.train.decode import (fused_apply_or,
+                                                      reconstruct_flattened)
+    model, params = _family(dev, "SIREN")
+    shape = (20, 21, 22, 1)
+    n0, g0 = fs.launches, fd.launches
+    out = reconstruct_flattened(model, params, shape, 1000, "-1,1",
+                                apply_fn=fused_apply_or(model, model.apply,
+                                                        device=dev))
+    assert fs.launches - n0 == -(-20 * 21 * 22 // 1024)
+    assert fd.launches == g0
+    ref = reconstruct_flattened(model, params, shape, 1000, "-1,1",
+                                apply_fn=model.apply)
+    assert out.shape == shape and np.abs(out - ref).max() <= 2e-5
+
+
+def test_fused_siren_rejects_bad_inputs(dev):
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    model, params = _family(dev, "SIREN", features=16, layers=3)
+    acts = chain_layer_specs(model.spec)
+    coords = _coords(dev, 64)
+    with pytest.raises(ValueError):
+        fs.fused_chain_apply(params["layers"], coords.T, acts)
+    with pytest.raises(ValueError):
+        fs.fused_chain_apply(params["layers"], coords.double(), acts)
+    with pytest.raises(ValueError):
+        fs.fused_chain_apply(params["layers"], coords, acts[:-1])
+    wide, _ = _family(dev, "SIREN", features=2048)
+    with pytest.raises(NotImplementedError, match="2048"):
+        fs.supports(wide)

@@ -168,3 +168,59 @@ def test_prep_only_exception_is_folded_into_the_block(tmp_path):
     feats = {b["name"]: b["sideinfos"]["phi_features"] for b in blocks}
     assert feats["d_0_31-h_0_31-w_0_31"] > feats["d_0_31-h_0_31-w_32_63"]
     assert not any("solo_cfg" in b for b in blocks)
+
+
+# --- families beyond SIREN through the DivideTask CLI -----------------------
+def _phi(opt_path, name, **keys):
+    with open(opt_path) as f:
+        opt = yaml.safe_load(f)
+    opt["CompressFramework"]["Module"]["phi"].update(name=name, **keys)
+    with open(opt_path, "w") as f:
+        yaml.safe_dump(opt, f)
+
+
+@pytest.mark.parametrize("name,keys,solo,files", [
+    ("MFNFourier", {}, 8, ["params.npz"]),
+    ("NeRF", {"frequencies": 2}, 0, None),
+    ("FFN", {"embsize": 4}, 0, None),
+])
+def test_divide_families_archive_and_decode_in_both_packages(
+        tmp_path, name, keys, solo, files):
+    """brain64.yaml with another φ family, STEPS steps on the CPU: MFN chunks
+    train on the solo path and archive as params.npz, NeRF / FFN chunks in
+    one stacked autograd bucket as raw binaries (+ encoder.npz); the port's
+    and the JAX package's decompress_divide read the archive to within 1
+    LSB of each other and of the checkpoint's merged volume."""
+    from brief_pytorch_tpu.train.fit import NFGR as JNFGR
+    from brief_pytorch_tpu_torch.cli import main as tcli
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    path, run_dir = _config(tmp_path, name)
+    _phi(path, name, **keys)
+    summary = tcli.main(["-p", path, "-g", "cpu"])
+    assert summary["steps"] == STEPS and np.isfinite(summary["psnr"])
+    assert len(summary["solo"]) == solo
+    assert summary["fused"] == ([] if solo else [False])
+    comp = os.path.join(run_dir, f"steps{STEPS}", "compressed")
+    chunks = sorted(os.listdir(os.path.join(comp, "module")))
+    assert len(chunks) == 8
+    for chunk in chunks:
+        got = sorted(os.listdir(os.path.join(comp, "module", chunk,
+                                             "module")))
+        if files is not None:
+            assert got == files
+        else:
+            assert any(f.startswith("weight-0-") for f in got)
+            assert ("encoder.npz" in got) == (name == "FFN")
+    args = (os.path.join(comp, "sideinfos.yaml"), os.path.join(comp, "module"),
+            os.path.join(comp, "sideinfos"))
+    ours = NFGR.decompress_divide(path, *args, device="cpu")
+    theirs = JNFGR.decompress_divide(path, *args)
+    ck = read_img(os.path.join(run_dir, f"steps{STEPS}", "decompressed",
+                               "brain-64_128-64_128-192_256_decompressed.tif"))
+    assert ours.shape == theirs.shape == ck.shape == (64, 64, 64, 1)
+    for other in (theirs, ck):
+        assert np.abs(ours.astype(np.int64) - other.astype(np.int64)).max() \
+            <= 1
+    with np.load(os.path.join(run_dir, "trainstate_fleet.npz")) as z:
+        assert ("s7done" in z.files) == bool(solo)

@@ -180,3 +180,113 @@ def test_unported_options_raise(runs):
     c.Compress.data_shards = 2
     with pytest.raises(NotImplementedError):
         TNFGR(c, device="cpu")
+
+
+# --- the whole φ zoo through NFGR.compress / NFGR.decompress ---------------
+# Each family trains a few steps in both packages (their own inits and
+# draws: only finiteness and the artifacts' kind and names are compared
+# between the runs), then each package decodes BOTH archives.  The same
+# weights through the two decoders differ by float32 rounding of the
+# coordinates and the sums: decoded uint16 voxels within 2 steps and PSNR
+# within 0.02 dB.
+ZOO = {
+    "SIREN": {"res": True}, "SIRENFT": {"ratio": 2.2},
+    "SIREN_Pyramid": {"features_dis": 2}, "SIRENPS": {"ratio": 1.3},
+    "SIREN_RELU": {}, "SIREN_SIGMOID": {}, "SIRENPos": {"T": [2.0, 3.0, 2.0]},
+    "NeRF": {"frequencies": 3}, "FFN": {"embsize": 8, "scale": 4},
+    "MFNFourier": {}, "MFNGabor": {},
+}
+ZOO_STEPS = 6
+
+
+@pytest.fixture(scope="module")
+def zoo_volume(tmp_path_factory):
+    root = tmp_path_factory.mktemp("zoo")
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, 12)] * 3, indexing="ij")
+    vol = 30000 + 12000 * np.sin(2 * x + y) * np.cos(2 * z)
+    path = str(root / "vol12.tif")
+    save_img(path, vol.astype(np.uint16)[..., None])
+    return path, vol.astype(np.uint16)[..., None]
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_family_archives_cross_the_packages(name, zoo_volume, tmp_path):
+    data_path, vol = zoo_volume
+    opt = jcfg.load("opt/SingleTask/default.yaml")
+    c = opt.CompressFramework
+    c.Compress.max_steps = ZOO_STEPS
+    c.Compress.checkpoints = "none"
+    c.Compress.param.filesize_ratio = 0
+    c.Compress.param.given_size = 3200
+    c.Module.phi.name = name
+    c.Module.phi.layers = 4
+    for k, v in ZOO[name].items():
+        c.Module.phi[k] = v
+    c.Decompress.mip = False
+    c.Decompress.sample_size = 500      # several slabs per decode
+    archives = {}
+    for pkg, nfgr, logger in [("jax", JNFGR, JLogger),
+                              ("torch", TNFGR, TLogger)]:
+        log = logger(project_name=pkg, outputs_dir=str(tmp_path),
+                     stdlog=False, tensorboard=False)
+        o = copy.deepcopy(c)
+        kw = {"device": "cpu"} if pkg == "torch" else {}
+        summary = nfgr(o, logger=log, seed=42, **kw).compress(data_path)
+        assert summary["steps"] == ZOO_STEPS and np.isfinite(summary["psnr"])
+        assert np.isfinite(summary["loss"])
+        comp = os.path.join(log.logdir, f"steps{ZOO_STEPS}", "compressed")
+        archives[pkg] = (os.path.join(comp, "module"),
+                         os.path.join(comp, "sideinfos.yaml"), o)
+    jfiles, tfiles = (sorted(os.listdir(archives[p][0]))
+                      for p in ("jax", "torch"))
+    assert jfiles == tfiles      # same sizing, same shapes, same kind
+    if name.startswith("MFN"):
+        assert tfiles == ["params.npz"]
+    else:
+        assert any(f.startswith("weight-0-") for f in tfiles)
+        assert ("encoder.npz" in tfiles) == (name == "FFN")
+    import yaml
+    sides = [yaml.safe_load(open(archives[p][1])) for p in ("jax", "torch")]
+    assert sides[0] == sides[1]
+    for src in ("jax", "torch"):
+        module, side, o = archives[src]
+        by_jax = JNFGR.decompress(copy.deepcopy(o), module, side)
+        by_torch = TNFGR.decompress(copy.deepcopy(o), module, side,
+                                    device="cpu")
+        assert by_torch.shape == by_jax.shape == vol.shape
+        assert by_torch.dtype == by_jax.dtype == np.uint16
+        diff = np.abs(by_torch.astype(np.int64) - by_jax.astype(np.int64))
+        assert diff.max() <= 2, (src, int(diff.max()))
+        assert abs(cal_psnr(vol, by_torch, 65535)
+                   - cal_psnr(vol, by_jax, 65535)) < 0.02, src
+
+
+def test_autograd_step_walks_any_tree():
+    """_autograd_step returns a gradient for every leaf of the tree, by the
+    tree's keys; FFN's frozen bvals get zeros and stay bit-equal under the
+    optimizer, as under optax in the JAX package."""
+    from brief_pytorch_tpu_torch.models.phi import init_phi
+    from brief_pytorch_tpu_torch.train.optim import make_optimizer
+    from brief_pytorch_tpu_torch.train.samplers import RandomPointSampler
+    model = init_phi({"name": "FFN", "coords_channel": 3, "data_channel": 1,
+                      "features": 8, "layers": 3, "embsize": 4})
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    bvals = params["encoder"]["bvals"].clone()
+    w0 = params["layers"][0]["w"].clone()
+    sampler = RandomPointSampler((6, 6, 6), "n11", 64)
+    data = torch.rand(216, 1)
+    gen = torch.Generator().manual_seed(1)
+    opt = make_optimizer("Adamax", 1e-2, {"name": "none"})
+    state = opt.init(params)
+    assert len(state["mu"]) == 2 * 3 + 1
+    for _ in range(3):
+        loss, grads = TNFGR._autograd_step(
+            params, gen, model=model, sampler=sampler, data=data, weight=None,
+            loss_name="datal2", beta=0.01, weight_thres=0.0)
+        assert list(grads) == list(params)
+        assert not grads["encoder"]["bvals"].any()
+        opt.step(params, grads, state)
+    assert torch.equal(params["encoder"]["bvals"], bvals)
+    assert not torch.equal(params["layers"][0]["w"], w0)
+    assert not any(t.requires_grad for t in
+                   [params["encoder"]["bvals"], params["layers"][0]["w"]])

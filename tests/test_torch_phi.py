@@ -97,18 +97,23 @@ def test_init_distribution_bounds_and_count():
 def test_params_numpy_round_trip():
     _, _, layers = _jax_params(_cfg())
     back = tphi.params_to_numpy(tphi.params_from_numpy(layers))
-    for a, b in zip(layers, back):
+    assert list(back) == ["layers"]      # a bare list of layers is a chain
+    for a, b in zip(layers, back["layers"]):
         for k in ("w", "b"):
             assert b[k].dtype == np.float32
             np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_unported_families_raise():
+    """Every family of the JAX registry is ported (tests/test_torch_phi_zoo.py
+    holds each against JAX); only a name outside it raises, as in JAX."""
+    from brief_pytorch_tpu.models.phi import ALLPHI as JALLPHI
+    assert list(tphi.ALLPHI) == list(JALLPHI)
     for name in ["NeRF", "FFN", "MFNGabor", "SIRENFT"]:
-        with pytest.raises(NotImplementedError):
-            tphi.init_phi({"name": name, "features": 8})
-    with pytest.raises(NotImplementedError):
-        tphi.init_phi(_cfg(res=True))
+        assert tphi.init_phi({"name": name, "features": 8}).name == name
+    assert tphi.init_phi(_cfg(res=True)).spec.entries[1].kind == "res"
+    with pytest.raises(KeyError):
+        tphi.init_phi({"name": "MLP", "features": 8})
 
 
 def test_sizing_default_config_gives_f22():
