@@ -21,12 +21,23 @@
 // What bounds it on an H100: operations.  At the single run's shapes
 // (SIREN 5 x 22, N = 262,144) it reads ~5 MB (3.3 TB/s: ~1.6 us) but does
 // ~2.4 GFLOP of chain products plus ~88 sincos per coordinate (67 TFLOP/s
-// float32: ~45 us); at the HiP-CT fleet's (4 blocks x 100,000, 3-66x6-1)
-// ~57 GFLOP on the padded widths.  Tensor cores are unused: this version
-// keeps float32 CUDA-core arithmetic so it agrees with the plain version
-// to float32 rounding.
+// float32: ~45 us); at the HiP-CT fleet's (4 blocks x 100,000, 3-64x6-1
+// padded from 49/52/58/64) ~41 GFLOP on the true widths, ~53 on the padded
+// ones.  Tensor cores are unused: this version keeps float32 CUDA-core
+// arithmetic so it agrees with the plain version to float32 rounding.
 //
-// Design:
+// Three layouts (ops/fused_train.py choose_plan takes the first that fits):
+//  * narrow (kSmemW, e.g. 5 x 22, 3-7x4-1): W, W^T, the biases and the
+//    block's gradient accumulator in shared memory beside the activation
+//    tile, one thread per coordinate (5 x 22: 11% of the float32 bound).
+//  * tiled (fused_train_tiled_kernel, e.g. 3-64x6-1, 3-66x6-1, 5 x 95):
+//    the weights once in shared memory, dW in registers; described below
+//    the two older layouts' code.  Paced by shared-memory reads and the
+//    sine evaluations (3-64x6-1 fleet: 23% of the bound).
+//  * wide (!kSmemW, e.g. 3-186x4-1): only the activation tile in shared
+//    memory; paced by one read of W from L2 per multiply-add (7.5%).
+//
+// Design of the narrow and wide layouts (fused_train_kernel):
 //  * A block owns a tile of T coordinates (T = blockDim.x, one per
 //    thread) and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
 //    its fleet block (a persistent grid of a few blocks per SM), so the
@@ -39,8 +50,8 @@
 //    - narrow chains: W padded for the forward, W^T padded for the
 //      backward, the biases and the block's gradient accumulator all live
 //      in shared memory;
-//    - wide chains (whose weights and accumulator do not fit beside the
-//      activation tile, e.g. 3-66x6-1 or 3-186x4-1): W is read from device
+//    - wide chains (whose weights do not fit in shared memory even once,
+//      e.g. 3-186x4-1): W is read from device
 //      memory through the read-only path in the same order of
 //      multiply-adds (so the two layouts give the same bits), and the
 //      block accumulates straight into its own row of partial sums in
@@ -382,6 +393,408 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[p] = s / m;
 }
 
+// ---------------------------------------------------------------------------
+// The tiled layout: a kernel of its own (the two layouts above keep their
+// code), for chains whose weights, stored once, fit in shared memory beside
+// a 32-coordinate activation tile, and whose dW fits the threads' registers.
+//
+// Why: in the wide layout every multiply-add of the forward and the input
+// gradient loads its W entry from L2, and the dW loop takes two shared
+// reads per multiply-add plus a device-memory read-modify-write of the
+// block's whole partial row per tile.  Here (3-64x6-1: 198,656 bytes, one
+// block of 256 threads per SM):
+//  * W of every layer once, as (round4(fin + 1), round4(fout)): the bias
+//    is row fin, and each layer's input block carries a row of ones, so
+//    the bias is one more multiply-add row of the same loops.  The input
+//    gradient reads the same rows along o: no W^T copy.
+//  * Activation rows of 32 floats (one 128-byte line), their 16-byte
+//    chunks XOR-permuted per row quad (elem), h_l / d_l blocks padded to
+//    row quads; padding rows stay 0, so padded units add exact zeros.
+//  * The forward and the input gradient: each thread a 4 x 2 micro-tile
+//    (4 outputs or inputs x 2 coordinates), 8 multiply-adds per one
+//    16-byte W read and one 8-byte activation read.  The last layer (one
+//    output) splits its inner dimension over 16 lanes and sums by
+//    shuffles.  The activation is picked once per micro-tile and the mask
+//    read ahead, so its 8 evaluations overlap.
+//  * dW: the (fin + 1) x fout gradient of every layer cut into 4 x 4
+//    tiles, dealt round-robin to the 256 threads (ops/fused_train.py
+//    dw_map: 6 slots, 96 registers at 3-64x6-1, 252 in all and no spill;
+//    the 8-slot instance, for chains such as 5 x 95, spills 164 bytes);
+//    after the tile's backward, each thread adds H^T G of its tiles over
+//    the 32 coordinates (16-byte reads: 64 multiply-adds per 8 reads) into
+//    registers it keeps for the whole persistent loop, and writes its
+//    block's partial row once at the end.  No atomics: reduce_partials_kernel adds the rows in
+//    order, so runs are bitwise equal.
+// Tried and dropped (PERF.md, section 6): 4 x 4 micro-tiles with the inner
+// dimension split over two lanes (slower), 512 threads (the dW registers
+// spill; slower), W rows padded against bank conflicts and the inner loops
+// unrolled twice (no change).
+// ---------------------------------------------------------------------------
+constexpr int kTile = 32;            // coordinates per tile: one 128-byte row
+constexpr int kTiledThreads = 256;
+constexpr int kCols = 2;             // coordinates per forward / dX micro-tile
+constexpr int kColGroups = kTile / kCols;
+constexpr int kTiledHead = 8;
+constexpr int kTiledPerLayer = 9;
+static_assert(kCols == 2, "the micro-tile loops are written for 2 columns");
+
+struct TiledDesc {
+  int n_layers, c_in, c_out, n_params, red_off, act_off, mask_width;
+  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers], p_off[kMaxLayers];
+  int w_off[kMaxLayers], x_row[kMaxLayers], h_row[kMaxLayers];
+  int g_row[kMaxLayers], mask_off[kMaxLayers];
+  float w0[kMaxLayers];
+};
+
+__host__ __device__ __forceinline__ int round_up4(int x) {
+  return (x + 3) & ~3;
+}
+
+// Float offset of coordinate u of activation row r.  A row is one 128-byte
+// line (kTile floats); the 4-float chunks of rows 4j .. 4j + 3 are
+// XOR-permuted by j & 7, so 16-byte reads of one chunk from 8 consecutive
+// row quads hit 8 distinct bank quads.  Rows of one quad share the
+// permutation: elem(4j + a, u) = elem(4j, u) + a * kTile.
+__device__ __forceinline__ int elem(int r, int u) {
+  return r * kTile + ((((u >> 2) ^ (r >> 2)) & 7) << 2) + (u & 3);
+}
+
+// h = act(z), d = act'(z) for the 4 x kCols outputs of a micro-tile, the
+// activation chosen once (so the 8 evaluations are independent
+// instructions the scheduler can interleave), times the unit mask m[k].
+template <int kAct>
+__device__ __forceinline__ void act_tile(const float (&z)[4][kCols], float w0,
+                                         const float (&m)[4],
+                                         float (&h)[4][kCols],
+                                         float (&dv)[4][kCols]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      brief::act_fwd(kAct, w0, z[k][c], &h[k][c], &dv[k][c]);
+      h[k][c] *= m[k];
+      dv[k][c] *= m[k];
+    }
+  }
+}
+
+// Rows [hr, hr + fout) = act(W^T x + b) of the tile and rows [dr, dr + fout)
+// = act'; x is rows [xr, xr + fin] (row xr + fin holds ones, W's row fin the
+// bias; both zero past it up to the row quad).  A thread owns 4 outputs x kCols coordinates; where the layer has fewer
+// such micro-tiles than threads (the last layer), `split` threads share
+// one, each a stride of the row quads, summed by shuffles.
+__device__ __forceinline__ void tiled_forward(
+    const float* __restrict__ W, float* A, int xr, int fin, int fout,
+    int act, float w0, int hr, int dr, const float* __restrict__ mask) {
+  const int t = threadIdx.x, fop = round_up4(fout);
+  const int n_mt = (fop >> 2) * kColGroups;
+  int split = 1;
+  while (split < 32 && 2 * split * n_mt <= kTiledThreads) split *= 2;
+  const int part = t & (split - 1);
+  for (int m = t / split; m < n_mt; m += kTiledThreads / split) {
+    const int o0 = (m / kColGroups) * 4, u0 = (m % kColGroups) * kCols;
+    float mo[4];   // the mask, read ahead of the products
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      mo[k] = mask != nullptr && o0 + k < fout ? __ldg(mask + o0 + k) : 1.f;
+    float z[4][kCols];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) z[k][0] = z[k][1] = 0.f;
+    for (int q = part; 4 * q <= fin; q += split) {
+      const float* x = A + elem(xr + 4 * q, u0);
+      const float* w = W + 4 * q * fop + o0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + j * fop);
+        const float2 xv = *reinterpret_cast<const float2*>(x + j * kTile);
+        z[0][0] = fmaf(wv.x, xv.x, z[0][0]);
+        z[0][1] = fmaf(wv.x, xv.y, z[0][1]);
+        z[1][0] = fmaf(wv.y, xv.x, z[1][0]);
+        z[1][1] = fmaf(wv.y, xv.y, z[1][1]);
+        z[2][0] = fmaf(wv.z, xv.x, z[2][0]);
+        z[2][1] = fmaf(wv.z, xv.y, z[2][1]);
+        z[3][0] = fmaf(wv.w, xv.x, z[3][0]);
+        z[3][1] = fmaf(wv.w, xv.y, z[3][1]);
+      }
+    }
+    // split > 1 only when all micro-tiles fit in one pass of whole warps
+    for (int s = 1; s < split; s <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        z[k][0] += __shfl_xor_sync(0xffffffffu, z[k][0], s);
+        z[k][1] += __shfl_xor_sync(0xffffffffu, z[k][1], s);
+      }
+    }
+    if (part != 0) continue;
+    float h[4][kCols], dv[4][kCols];
+    switch (act) {
+      case brief::kActSine: act_tile<brief::kActSine>(z, w0, mo, h, dv); break;
+      case brief::kActRelu: act_tile<brief::kActRelu>(z, w0, mo, h, dv); break;
+      case brief::kActSigmoid:
+        act_tile<brief::kActSigmoid>(z, w0, mo, h, dv);
+        break;
+      default: act_tile<brief::kActNone>(z, w0, mo, h, dv);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (o0 + k < fout) {
+        *reinterpret_cast<float2*>(A + elem(hr + o0 + k, u0)) =
+            make_float2(h[k][0], h[k][1]);
+        *reinterpret_cast<float2*>(A + elem(dr + o0 + k, u0)) =
+            make_float2(dv[k][0], dv[k][1]);
+      }
+    }
+  }
+}
+
+// Rows [dr, dr + fin) *= W g: the input gradient of a layer whose output
+// gradient is rows [gr, gr + round4(fout)) (zero past fout).  A thread owns
+// 4 inputs x kCols coordinates and walks W's rows along o, so no W^T copy.
+__device__ __forceinline__ void tiled_input_grad(const float* __restrict__ W,
+                                                 float* A, int fin, int fout,
+                                                 int gr, int dr) {
+  const int t = threadIdx.x, fop = round_up4(fout);
+  const int n_mt = ((fin + 3) >> 2) * kColGroups;
+  for (int m = t; m < n_mt; m += kTiledThreads) {
+    const int i0 = (m / kColGroups) * 4, u0 = (m % kColGroups) * kCols;
+    float z[4][kCols];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) z[a][0] = z[a][1] = 0.f;
+    for (int o = 0; o < fop; o += 4) {
+      const float* gq = A + elem(gr + o, u0);   // a row quad: one permutation
+      float2 g[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        g[b] = *reinterpret_cast<const float2*>(gq + b * kTile);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(W + (i0 + a) * fop + o);
+        z[a][0] = fmaf(w.x, g[0].x, z[a][0]);
+        z[a][1] = fmaf(w.x, g[0].y, z[a][1]);
+        z[a][0] = fmaf(w.y, g[1].x, z[a][0]);
+        z[a][1] = fmaf(w.y, g[1].y, z[a][1]);
+        z[a][0] = fmaf(w.z, g[2].x, z[a][0]);
+        z[a][1] = fmaf(w.z, g[2].y, z[a][1]);
+        z[a][0] = fmaf(w.w, g[3].x, z[a][0]);
+        z[a][1] = fmaf(w.w, g[3].y, z[a][1]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (i0 + a < fin) {
+        float2* p = reinterpret_cast<float2*>(A + elem(dr + i0 + a, u0));
+        const float2 dv = *p;
+        *p = make_float2(z[a][0] * dv.x, z[a][1] * dv.y);
+      }
+    }
+  }
+}
+
+// kSlots: dW tiles per thread.  slot_map (kSlots, kTiledThreads): the
+// tile (layer << 16 | ig << 8 | og, or -1) of entries (4 ig + a, 4 og + b),
+// a, b < 4, of the layer's (W; b) gradient, bias as row fin, that thread t
+// sums in registers for its whole run (ops/fused_train.py dw_map).
+template <int kSlots>
+__global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
+    const float* __restrict__ coords, const float* __restrict__ values,
+    const float* __restrict__ weights, const float* __restrict__ params,
+    const int* __restrict__ slot_map, float* __restrict__ partial, int n,
+    TiledDesc d, int loss, float beta, int has_thres,
+    const float* __restrict__ thres, const float* __restrict__ masks) {
+  extern __shared__ __align__(16) float sm[];
+  const int t = threadIdx.x, L = d.n_layers, fb = blockIdx.y;
+  coords += (size_t)fb * d.c_in * n;
+  values += (size_t)fb * d.c_out * n;
+  weights += (size_t)fb * d.c_out * n;
+  params += (size_t)fb * d.n_params;
+  const float* mk =
+      masks == nullptr ? nullptr : masks + (size_t)fb * d.mask_width;
+  const float thr = has_thres ? thres[fb] : 0.f;
+  float* A = sm + d.act_off;
+
+  // W of layer l as (round4(fin + 1), round4(fout)): row fin is the bias
+  // (it follows W in the packed parameters), zeros elsewhere
+  for (int l = 0; l < L; ++l) {
+    const int fin = d.fin[l], fout = d.fout[l], fop = round_up4(fout);
+    const float* W = params + d.p_off[l];
+    float* sw = sm + d.w_off[l];
+    for (int e = t; e < round_up4(fin + 1) * fop; e += kTiledThreads) {
+      const int i = e / fop, o = e - i * fop;
+      sw[e] = (i <= fin && o < fout) ? W[i * fout + o] : 0.f;
+    }
+  }
+  // activation rows: zeros (padding rows stay zero), then the ones row
+  // after each layer's input
+  const int n_rows = d.g_row[L - 1] + round_up4(d.fout[L - 1]);
+  for (int e = t; e < n_rows * kTile; e += kTiledThreads) A[e] = 0.f;
+  __syncthreads();
+  for (int e = t; e < L * kTile; e += kTiledThreads) {
+    const int l = e / kTile;
+    A[elem(d.x_row[l] + d.fin[l], e - l * kTile)] = 1.f;
+  }
+
+  // this thread's dW tiles: first rows of their H and G quads, times kTile
+  int hb[kSlots], gb[kSlots];
+  float acc[kSlots][16];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int code = slot_map[k * kTiledThreads + t];
+    hb[k] = gb[k] = -1;
+    if (code >= 0) {
+      const int l = code >> 16, ig = (code >> 8) & 255, og = code & 255;
+      hb[k] = (d.x_row[l] + 4 * ig) * kTile;
+      gb[k] = (d.g_row[l] + 4 * og) * kTile;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[k][j] = 0.f;
+  }
+  float loss_acc = 0.f;
+
+  const int n_tiles = (n + kTile - 1) / kTile;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * kTile;
+    for (int e = t; e < d.c_in * kTile; e += kTiledThreads) {
+      const int c = e / kTile, u = e - c * kTile, idx = base + u;
+      A[elem(c, u)] = idx < n ? coords[(size_t)c * n + idx] : 0.f;
+    }
+    __syncthreads();
+
+    // ---- forward: h_l and d_l of the tile ----
+    for (int l = 0; l < L; ++l) {
+      const float* ml =
+          mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
+      tiled_forward(sm + d.w_off[l], A, d.x_row[l], d.fin[l], d.fout[l],
+                    d.act[l], d.w0[l], d.h_row[l], d.g_row[l], ml);
+      __syncthreads();
+    }
+
+    // ---- loss and dL/dz of the last layer (padding lanes weigh 0) ----
+    const int last = L - 1;
+    for (int e = t; e < d.c_out * kTile; e += kTiledThreads) {
+      const int c = e / kTile, u = e - c * kTile, idx = base + u;
+      const bool valid = idx < n;
+      const float p = A[elem(d.h_row[last] + c, u)];
+      float y = 0.f, wv = 0.f;
+      if (valid) {
+        y = values[(size_t)c * n + idx];
+        wv = weights[(size_t)c * n + idx];
+      }
+      float weff = (has_thres && p <= thr) ? 1.f : wv;
+      weff = valid ? weff : 0.f;
+      const float er = p - y;
+      float le, g;
+      if (loss == 0) {  // datal2
+        le = er * er;
+        g = 2.f * weff * er;
+      } else {          // datasmoothl1
+        const float ae = fabsf(er);
+        le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
+        const float sg = (float)((er > 0.f) - (er < 0.f));
+        g = weff * (ae < beta ? er / beta : sg);
+      }
+      loss_acc += weff * le;
+      float* dg = A + elem(d.g_row[last] + c, u);
+      *dg = g * *dg;
+    }
+    __syncthreads();
+
+    // ---- input gradients, last layer first: g_{l-1} over d_{l-1} ----
+    for (int l = L - 1; l > 0; --l) {
+      tiled_input_grad(sm + d.w_off[l], A, d.fin[l], d.fout[l], d.g_row[l],
+                       d.g_row[l - 1]);
+      __syncthreads();
+    }
+
+    // ---- dW of every layer: each thread its 4 x 4 tiles, in registers ----
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (hb[k] < 0) continue;
+      const int hkey = (hb[k] >> 5) & 28, gkey = (gb[k] >> 5) & 28;
+#pragma unroll
+      for (int uc = 0; uc < kTile / 4; ++uc) {
+        float4 h[4], g[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          h[a] = *reinterpret_cast<const float4*>(
+              A + hb[k] + a * kTile + ((uc << 2) ^ hkey));
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          g[b] = *reinterpret_cast<const float4*>(
+              A + gb[k] + b * kTile + ((uc << 2) ^ gkey));
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            float s = acc[k][4 * a + b];
+            s = fmaf(h[a].x, g[b].x, s);
+            s = fmaf(h[a].y, g[b].y, s);
+            s = fmaf(h[a].z, g[b].z, s);
+            s = fmaf(h[a].w, g[b].w, s);
+            acc[k][4 * a + b] = s;
+          }
+        }
+      }
+    }
+    __syncthreads();   // the next tile overwrites the coordinates
+  }
+
+  // ---- this block's partial sums, written once: gradients, then loss ----
+  float* out = partial_row(partial, fb, d.n_params);
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int code = slot_map[k * kTiledThreads + t];
+    if (code < 0) continue;
+    const int l = code >> 16, ig = (code >> 8) & 255, og = code & 255;
+    const int fin = d.fin[l], fout = d.fout[l];
+    float* outl = out + d.p_off[l];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = 4 * ig + a, o = 4 * og + b;   // i == fin: the bias
+        if (i <= fin && o < fout) outl[i * fout + o] = acc[k][4 * a + b];
+      }
+    }
+  }
+  float* red = sm + d.red_off;
+  red[t] = loss_acc;
+  __syncthreads();
+  for (int s = kTiledThreads / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] += red[t + s];
+    __syncthreads();
+  }
+  if (t == 0) out[d.n_params] = red[0];
+}
+
+template <int kSlots>
+cudaError_t tiled_occupancy(int smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_train_tiled_kernel<kSlots>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fused_train_tiled_kernel<kSlots>, kTiledThreads,
+      smem_bytes);
+}
+
+template <int kSlots>
+cudaError_t launch_tiled(dim3 grid, int smem_bytes, cudaStream_t s,
+                         const float* coords, const float* values,
+                         const float* weights, const float* params,
+                         const int* slot_map, float* partial, int n,
+                         const TiledDesc& d, int loss, float beta,
+                         const float* thres, const float* masks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_train_tiled_kernel<kSlots>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  fused_train_tiled_kernel<kSlots><<<grid, kTiledThreads, smem_bytes, s>>>(
+      coords, values, weights, params, slot_map, partial, n, d, loss, beta,
+      thres != nullptr, thres, masks);
+  return cudaGetLastError();
+}
+
 template <bool kSmemW>
 cudaError_t occupancy(int block, int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -492,6 +905,81 @@ int brief_fused_train(const float* coords, const float* values,
     reduce_partials_kernel<false><<<rgrid, 256, 0, s>>>(partial, out, grid,
                                                         width, m);
   }
+  return (int)cudaGetLastError();
+}
+
+// The tiled layout's blocks per SM (kTiledThreads threads, `smem_bytes`)
+// for `slots` dW tiles per thread, and the device's SM count.
+int brief_fused_train_tiled_occupancy(int slots, int smem_bytes,
+                                      int* blocks_per_sm, int* sm_count) {
+  cudaError_t err;
+  switch (slots) {
+    case 4: err = tiled_occupancy<4>(smem_bytes, blocks_per_sm); break;
+    case 6: err = tiled_occupancy<6>(smem_bytes, blocks_per_sm); break;
+    case 8: err = tiled_occupancy<8>(smem_bytes, blocks_per_sm); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                     dev);
+}
+
+// The tiled layout.  meta: n_layers, c_in, c_out, n_params, red_off,
+// act_off, mask_width, slots, then per layer: fin, fout, act, p_off, w_off,
+// x_row, h_row, g_row, mask_off (-1: unmasked).  slot_map: (slots,
+// kTiledThreads) int32.  The other arguments as for brief_fused_train; the
+// kernel always runs in its fleet form (B = 1 for one chain).
+int brief_fused_train_tiled(const float* coords, const float* values,
+                            const float* weights, const float* params,
+                            const float* masks, const float* thres,
+                            const int* slot_map, float* partial, float* out,
+                            int n, int n_fleet, const int* meta,
+                            const float* w0s, int loss, float beta, int grid,
+                            int smem_bytes, void* stream) {
+  TiledDesc d;
+  d.n_layers = meta[0];
+  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
+      n_fleet > 65535)
+    return (int)cudaErrorInvalidValue;
+  d.c_in = meta[1];
+  d.c_out = meta[2];
+  d.n_params = meta[3];
+  d.red_off = meta[4];
+  d.act_off = meta[5];
+  d.mask_width = meta[6];
+  const int slots = meta[7];
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int* m = meta + kTiledHead + kTiledPerLayer * l;
+    d.fin[l] = m[0];
+    d.fout[l] = m[1];
+    d.act[l] = m[2];
+    d.p_off[l] = m[3];
+    d.w_off[l] = m[4];
+    d.x_row[l] = m[5];
+    d.h_row[l] = m[6];
+    d.g_row[l] = m[7];
+    d.mask_off[l] = masks == nullptr ? -1 : m[8];
+    d.w0[l] = w0s[l];
+  }
+  decltype(&launch_tiled<4>) fn;
+  switch (slots) {
+    case 4: fn = &launch_tiled<4>; break;
+    case 6: fn = &launch_tiled<6>; break;
+    case 8: fn = &launch_tiled<8>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = fn(dim3(grid, n_fleet), smem_bytes, s, coords, values,
+                       weights, params, slot_map, partial, n, d, loss, beta,
+                       thres, masks);
+  if (err != cudaSuccess) return (int)err;
+  const int width = d.n_params + 1;
+  reduce_partials_kernel<true><<<dim3((width + 255) / 256, n_fleet), 256, 0,
+                                 s>>>(partial, out, grid, width,
+                                      (float)((double)n * d.c_out));
   return (int)cudaGetLastError();
 }
 

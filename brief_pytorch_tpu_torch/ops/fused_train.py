@@ -18,12 +18,18 @@ Bound on an H100: operations.  At the SingleTask run's shapes (SIREN
 work (~45 us at 67 TFLOP/s); csrc/fused_train.cu says how its design
 answers that.
 
-Two shared-memory layouts (`plan`): narrow chains keep the weights and
-the gradient accumulator in shared memory beside the activation tile;
-wide chains keep only the activation tile there (T = 64 or 32
-coordinates) and read the weights from device memory.  `choose_plan`
-takes the first layout that fits; `kernel_plan` raises for a chain whose
-activation tile does not fit even at T = 32.
+Three shared-memory layouts; `choose_plan` takes the first that fits and
+`kernel_plan` raises for a chain none holds:
+  * narrow (`plan`, smem_weights; 5 x 22, brain64's 3-7x4-1): W, W^T and
+    the gradient accumulator beside a tile of up to 128 coordinates, one
+    thread per coordinate;
+  * tiled (`tiled_plan`; the HiP-CT bucket 3-64x6-1, 3-66x6-1, 5 x 95):
+    W once, beside a 32-coordinate tile; 256 threads work on register
+    micro-tiles of the three products and keep their share of dW
+    (`dw_map`) in registers for the whole call, written once;
+  * wide (`plan`, not smem_weights; 3-186x4-1): only the activation tile
+    (T = 64 or 32), W read from device memory.
+csrc/fused_train.cu says what bounds each.
 
 `fused_train_grads_fleet` launches the kernel for CUDA tensors and calls
 the plain version, `fused_train_grads_reference`, for CPU tensors; there
@@ -50,6 +56,9 @@ SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
 BLOCKS = (128, 64, 32)       # coordinates per tile (= threads per block)
 WIDE_BLOCKS = (64, 32)       # tiles of the wide-chain layout
 WIDE_THREADS = 512           # threads per block of the wide-chain layout
+TILED_THREADS = 256          # kTiledThreads of csrc/fused_train.cu
+TILED_TILE = 32              # kTile: coordinates per tile of the tiled layout
+TILED_SLOTS = (4, 6, 8)      # dW tiles per thread: the kernel's instances
 MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
 
 launches = 0                 # kernel launches, for proof that a run used it
@@ -61,6 +70,12 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p],
+    "brief_fused_train_tiled_occupancy": [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p],
+    "brief_fused_train_tiled": [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
 }
 
 
@@ -118,15 +133,84 @@ def plan(widths: Sequence[int], block: int, smem_weights: bool = True
             "dg_row": dg_row, "acc_off": acc_off, "red_off": red_off,
             "act_off": act_off, "stride": stride, "block": block,
             "threads": threads, "smem_weights": smem_weights,
+            "layout": "narrow" if smem_weights else "wide",
             "smem_bytes": 4 * (act_off + row * stride)}
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def dw_tiles(widths: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """The tiled layout's dW tiles in order: (layer, ig, og) for the 4 x 4
+    entries (4 ig + a, 4 og + b) of layer l's gradient seen as a
+    (fin + 1, fout) matrix, the bias as row fin (entries past it or past
+    fout are padding, computed and never written)."""
+    return [(l, ig, og) for l in range(len(widths) - 1)
+            for ig in range(_round4(widths[l] + 1) // 4)
+            for og in range(_round4(widths[l + 1]) // 4)]
+
+
+def dw_map(widths: Sequence[int], slots: int,
+           threads: int = TILED_THREADS) -> List[List[int]]:
+    """(slots, threads): the dW tile that thread t sums in registers in its
+    k-th slot, coded layer << 16 | ig << 8 | og, or -1 (none).  Tile j of
+    dw_tiles goes to thread j % threads, slot j // threads: 8 consecutive
+    threads take 8 consecutive column quads of one row quad, whose rows
+    the activation layout puts in 8 distinct bank quads."""
+    tiles = dw_tiles(widths)
+    if len(tiles) > slots * threads:
+        raise ValueError(f"{len(tiles)} dW tiles exceed {slots} slots of "
+                         f"{threads} threads")
+    codes = [l << 16 | ig << 8 | og for l, ig, og in tiles]
+    codes += [-1] * (slots * threads - len(codes))
+    return [codes[k * threads:(k + 1) * threads] for k in range(slots)]
+
+
+def tiled_plan(widths: Sequence[int]) -> Dict:
+    """Shared-memory layout (in floats) of the tiled layout: the weights of
+    every layer once, as (round4(fin + 1), round4(fout)) with the bias as
+    row fin; a loss reduction buffer of one float per thread; then
+    activation rows of TILED_TILE floats (one 128-byte line each): the
+    coordinates with a ones row after them, and for every layer h_l (with
+    a ones row: the next layer's bias input) and d_l / g_l, each block
+    padded to a multiple of 4 rows.  `slots`: dW tiles per thread, the
+    smallest of TILED_SLOTS that holds dw_tiles (0: none does)."""
+    n_layers = len(widths) - 1
+    off, n_params = 0, 0
+    p_off, w_off, h_row, g_row = [], [], [], []
+    for l in range(n_layers):
+        fin, fout = widths[l], widths[l + 1]
+        p_off.append(n_params)
+        n_params += fin * fout + fout
+        w_off.append(off)
+        off += _round4(fin + 1) * _round4(fout)
+    red_off = off
+    act_off = (off + TILED_THREADS + 31) // 32 * 32   # 128-byte rows
+    row = _round4(widths[0] + 1)
+    for l in range(n_layers):
+        h_row.append(row)
+        row += _round4(widths[l + 1] + 1)
+        g_row.append(row)
+        row += _round4(widths[l + 1])
+    n_tiles = len(dw_tiles(widths))
+    slots = next((s for s in TILED_SLOTS if n_tiles <= s * TILED_THREADS), 0)
+    return {"layout": "tiled", "n_params": n_params, "p_off": p_off,
+            "w_off": w_off, "x_row": [0] + h_row[:-1], "h_row": h_row,
+            "g_row": g_row, "red_off": red_off, "act_off": act_off,
+            "block": TILED_TILE, "threads": TILED_THREADS, "slots": slots,
+            "smem_bytes": 4 * (act_off + row * TILED_TILE)}
 
 
 def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
     """The layout and tile that keep the most coordinates resident per SM
     (an H100 SM has 228 KB of shared memory, 1 KB of it reserved per
-    block): the all-in-shared-memory layout when it fits at any tile, else
-    the wide-chain layout; None when even its 32-coordinate activation
-    tile does not fit a block's 227 KB."""
+    block): the narrow layout (weights, W^T and the gradient accumulator
+    in shared memory) when it fits at any tile; else the tiled layout
+    (weights once in shared memory, dW in registers) when its weights and
+    32-coordinate tile fit and its dW tiles fit TILED_SLOTS; else the wide
+    layout; None when even the wide layout's 32-coordinate activation tile
+    does not fit a block's 227 KB."""
     if len(widths) - 1 > MAX_LAYERS:
         return None
     for smem_weights, blocks in ((True, BLOCKS), (False, WIDE_BLOCKS)):
@@ -141,6 +225,10 @@ def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
                 best, best_resident = p, resident
         if best is not None:
             return best
+        if smem_weights:
+            p = tiled_plan(widths)
+            if p["slots"] and p["smem_bytes"] <= SMEM_LIMIT:
+                return p
     return None
 
 
@@ -259,21 +347,26 @@ def fused_train_grads_reference(layers, coords_t, values_t, weights_t,
 # --------------------------------------------------------------------------
 # CUDA kernel
 # --------------------------------------------------------------------------
-_OCCUPANCY: Dict[Tuple[int, bool, int, int], int] = {}
+_OCCUPANCY: Dict[Tuple[int, str, int, int, int], int] = {}
 
 
 def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
     """Persistent grid per fleet block: as many blocks in all as fit on the
     card at once, but no more than there are tiles."""
-    key = (device.index or 0, p["smem_weights"], p["threads"],
-           p["smem_bytes"])
+    key = (device.index or 0, p["layout"], p["threads"], p["smem_bytes"],
+           p.get("slots", 0))
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         from brief_pytorch_tpu_torch.ops import build
-        build.check(lib.brief_fused_train_occupancy(
-            int(p["smem_weights"]), p["threads"], p["smem_bytes"],
-            ctypes.addressof(per_sm), ctypes.addressof(sms)),
-            "fused_train occupancy")
+        if p["layout"] == "tiled":
+            err = lib.brief_fused_train_tiled_occupancy(
+                p["slots"], p["smem_bytes"], ctypes.addressof(per_sm),
+                ctypes.addressof(sms))
+        else:
+            err = lib.brief_fused_train_occupancy(
+                int(p["smem_weights"]), p["threads"], p["smem_bytes"],
+                ctypes.addressof(per_sm), ctypes.addressof(sms))
+        build.check(err, "fused_train occupancy")
         _OCCUPANCY[key] = max(1, per_sm.value) * sms.value
     per_fleet = -(-_OCCUPANCY[key] // n_fleet)
     return max(1, min(per_fleet, -(-n // p["block"])))
@@ -310,6 +403,20 @@ def _layer_widths(layers, c_in: int, lead: Tuple[int, ...]) -> List[int]:
     return widths
 
 
+_PLANS: Dict[Tuple[int, ...], Dict] = {}
+_SLOT_MAPS: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
+
+
+def _slot_map(widths, slots: int, device: torch.device) -> torch.Tensor:
+    """dw_map as an int32 tensor on `device`, made once per chain shape (a
+    step's launch then moves nothing from the host)."""
+    key = (tuple(widths), device)
+    if key not in _SLOT_MAPS:
+        _SLOT_MAPS[key] = torch.tensor(dw_map(widths, slots),
+                                       dtype=torch.int32, device=device)
+    return _SLOT_MAPS[key]
+
+
 def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
             masks: Optional[torch.Tensor], mask_off: Sequence[int],
             thres: Optional[torch.Tensor], loss_name: str, beta: float
@@ -324,18 +431,30 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
         raise NotImplementedError(loss_name)
     if len(acts) != len(widths) - 1:
         raise ValueError("one (act, w0) per layer")
-    p = kernel_plan(widths)
+    key = tuple(widths)
+    if key not in _PLANS:
+        _PLANS[key] = kernel_plan(widths)
+    p = _PLANS[key]
     if params.device != device or params.dtype != torch.float32:
         raise ValueError(f"weights: expected float32 on {device}")
     n_fleet, n = params.shape[0], coords.shape[-1]
     mask_width = 0 if masks is None else masks.shape[1]
-    meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
-            p["stride"], p["acc_off"], p["red_off"], p["act_off"],
-            int(p["smem_weights"]), mask_width, p["block"]]
-    for l, (act, _) in enumerate(acts):
-        meta += [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
-                 p["sw_off"][l], p["swt_off"][l], p["sb_off"][l],
-                 p["h_row"][l], p["dg_row"][l], mask_off[l]]
+    if p["layout"] == "tiled":
+        meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
+                p["red_off"], p["act_off"], mask_width, p["slots"]]
+        for l, (act, _) in enumerate(acts):
+            meta += [widths[l], widths[l + 1], ACTS.index(act),
+                     p["p_off"][l], p["w_off"][l], p["x_row"][l],
+                     p["h_row"][l], p["g_row"][l], mask_off[l]]
+    else:
+        meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
+                p["stride"], p["acc_off"], p["red_off"], p["act_off"],
+                int(p["smem_weights"]), mask_width, p["block"]]
+        for l, (act, _) in enumerate(acts):
+            meta += [widths[l], widths[l + 1], ACTS.index(act),
+                     p["p_off"][l], p["sw_off"][l], p["swt_off"][l],
+                     p["sb_off"][l], p["h_row"][l], p["dg_row"][l],
+                     mask_off[l]]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     w0_c = (ctypes.c_float * len(acts))(*[float(w0) for _, w0 in acts])
 
@@ -347,6 +466,18 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
                               device=device)
         out = torch.empty((n_fleet, width), dtype=torch.float32,
                           device=device)
+        if p["layout"] == "tiled":
+            build.check(lib.brief_fused_train_tiled(
+                coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
+                params.data_ptr(), 0 if masks is None else masks.data_ptr(),
+                0 if thres is None else thres.data_ptr(),
+                _slot_map(widths, p["slots"], device).data_ptr(),
+                partial.data_ptr(), out.data_ptr(), n, n_fleet, meta_c,
+                w0_c, LOSSES.index(loss_name), float(beta), grid,
+                p["smem_bytes"],
+                torch.cuda.current_stream(device).cuda_stream),
+                "fused_train tiled")
+            return out
         build.check(lib.brief_fused_train(
             coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
             params.data_ptr(), 0 if masks is None else masks.data_ptr(),

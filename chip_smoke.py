@@ -21,11 +21,14 @@ non-zero exit:
   6. the train kernel's fleet form at the shapes phases 7 and 8 give it
      (fleet_check): 4 blocks padded to 3-64x6-1, true widths
      FLEET_WIDTHS through unit masks, SIREN w0 = 10, N = 100,000 per
-     block (the wide layout), and brain64's 8 blocks of 3-7x4-1, w0 = 20,
-     N = 20,000 (the shared-memory layout), each with finite and -inf
-     thresholds, against its plain version for both losses and a
-     relu/sigmoid chain, each block against the one-chain kernel on its
-     unpadded chain, padded gradients exactly 0, three runs bitwise equal;
+     block (the tiled layout), and brain64's 8 blocks of 3-7x4-1, w0 = 20,
+     N = 20,000 (the narrow layout), and 4 blocks padded to 3-128x6-1,
+     true widths WIDE_FLEET_WIDTHS, N = 100,003 (the wide layout, which
+     takes any bucket padded past the tiled layout's reach), each with
+     finite and -inf thresholds, against its plain version for both
+     losses and a relu/sigmoid chain, each block against the one-chain
+     kernel on its unpadded chain, padded gradients exactly 0, three runs
+     bitwise equal;
      timed beside the plain version and the bound; the wide one-chain
      layout (3-186x4-1, N = 262,144) timed the same way;
   7. the DivideTask command on opt/DivideTask/hipct.yaml, verbatim but for
@@ -104,6 +107,8 @@ FLEET_WIDTHS = (49, 52, 58, 64)   # phase 7's true widths (padded to 64)
 FLEET_N = 100_000          # the hipct config's sample_size
 BRAIN64_WIDTHS = (7,) * 8  # brain64.yaml's 8 blocks (by_size at 80x)
 BRAIN64_N = 20_000         # brain64.yaml's sample_size
+WIDE_FLEET_WIDTHS = (98, 106, 117, 128)   # a bucket past the tiled layout
+WIDE_FLEET_N = 100_003     # the hipct sample_size, with a ragged tail
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 SINCOS_FLOPS = 25            # fast_sincos incl. the w0 multiplies
@@ -247,10 +252,11 @@ def hipct_volume(seed: int, shape=(64, 512, 512),
 
 
 def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
-                thres) -> dict:
+                thres, layout: str) -> dict:
     """The train kernel's fleet form on B = len(true_widths) SIREN chains
     padded to the widest (unit masks), n coordinates per block, per-block
-    thresholds `thres` (-inf: none): against its plain version for both
+    thresholds `thres` (-inf: none), in the kernel layout `layout` (the
+    plan must pick it): against its plain version for both
     losses and a relu/sigmoid chain, each block against the one-chain
     kernel on its unpadded chain, padded gradients exactly 0, three runs
     bitwise equal; then timed beside the plain version and the bound.
@@ -331,7 +337,8 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     b, by = bound_ms(n_bytes, flops)
     b_pad, _ = bound_ms(n_bytes, flops_pad)
     p = fused_train.choose_plan(padded)
-    layout = "shared" if p["smem_weights"] else "wide"
+    if p["layout"] != layout:
+        fail(f"{what}: layout {p['layout']}, not {layout}")
     say("6-fused_train_fleet", blocks=nb, n=n, padded=padded,
         true_widths=list(true_widths), thres=fthres.tolist(), layout=layout,
         tile=p["block"], max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
@@ -884,9 +891,12 @@ def main() -> int:
 
     # ---- 6. kernel 1, fleet form, at the fleets' shapes of phases 7, 8 ----
     hip_row = fleet_check(dev, rng, FLEET_WIDTHS, 7, 10.0, FLEET_N,
-                          [60.0, -math.inf, 40.0, -math.inf])
+                          [60.0, -math.inf, 40.0, -math.inf], "tiled")
     b64_row = fleet_check(dev, rng, BRAIN64_WIDTHS, 5, 20.0, BRAIN64_N,
-                          [60.0, -math.inf] * 4)
+                          [60.0, -math.inf] * 4, "narrow")
+    wfleet_row = fleet_check(dev, rng, WIDE_FLEET_WIDTHS, 7, 10.0,
+                             WIDE_FLEET_N, [60.0, -math.inf, 40.0, -math.inf],
+                             "wide")
 
     # the wide one-chain layout: the SingleTask default's width on a
     # volume of the HiP-CT demo's size
@@ -895,7 +905,7 @@ def main() -> int:
     wacts = chain_layer_specs(wmodel.spec)
     wwidths = [3] + [int(l["w"].shape[1]) for l in wlayers]
     wplan = fused_train.choose_plan(wwidths)
-    if wplan is None or wplan["smem_weights"] or \
+    if wplan is None or wplan["layout"] != "wide" or \
             not fused_train.supports_training(wmodel, "datal2"):
         fail(f"chain {wwidths}: no wide-layout plan ({wplan})")
 
@@ -1081,7 +1091,8 @@ def main() -> int:
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
          "launches": launches7["fused_train"], "library_ms": None,
          **{k: v for k, v in hip_row.items() if k != "padded"},
-         "narrow": {k: v for k, v in b64_row.items() if k != "padded"}},
+         "narrow": {k: v for k, v in b64_row.items() if k != "padded"},
+         "wide": {k: v for k, v in wfleet_row.items() if k != "padded"}},
         {"name": "fused_decode_grid", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_decode.py:172",

@@ -192,15 +192,19 @@ def _close(lk, gk, lp, gp):
             assert d <= 1e-4 * float(b[k].abs().max()) + 1e-6
 
 
-@pytest.mark.parametrize("true_widths,layers,n", [
-    ((8, 12, 10), 4, 5000),          # narrow: shared-memory layout
-    ((51, 54, 60, 66), 7, 20000),    # the HiP-CT bucket: wide layout
+@pytest.mark.parametrize("true_widths,layers,n,layout", [
+    ((8, 12, 10), 4, 5000, "narrow"),
+    ((51, 54, 60, 66), 7, 20000, "tiled"),      # 3-66x6-1
+    ((49, 52, 58, 64), 7, 100003, "tiled"),     # the HiP-CT bucket, ragged
+    ((98, 106, 117, 128), 7, 20003, "wide"),    # past the tiled layout
 ])
 @pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
-def test_fused_train_fleet_matches_plain(dev, true_widths, layers, n,
+def test_fused_train_fleet_matches_plain(dev, true_widths, layers, n, layout,
                                          loss_name):
     models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers,
                                                    n=n)
+    padded = [3] + [int(l["w"].shape[-1]) for l in layers_]
+    assert ft.choose_plan(padded)["layout"] == layout
     acts = chain_layer_specs(models[0].spec)
     kw = dict(loss_name=loss_name, beta=0.01)
     before = ft.launches
@@ -232,10 +236,12 @@ def test_fused_train_fleet_matches_plain(dev, true_widths, layers, n,
                ls, gs["layers"])
 
 
-def test_fused_train_fleet_relu_sigmoid_masked(dev):
-    models, layers_, um, (c, v, w), thres = _fleet(dev, (30, 24, 17), 5)
-    acts = (("relu", 1.0), ("sigmoid", 1.0), ("relu", 1.0), ("sigmoid", 1.0),
-            ("none", 1.0))
+@pytest.mark.parametrize("true_widths,layers", [((30, 24, 17), 5),
+                                                ((49, 52, 58, 64), 7)])
+def test_fused_train_fleet_relu_sigmoid_masked(dev, true_widths, layers):
+    models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers)
+    acts = tuple((("relu", 1.0), ("sigmoid", 1.0))[l % 2]
+                 for l in range(layers - 1)) + (("none", 1.0),)
     kw = dict(loss_name="datasmoothl1", beta=0.05)
     lk, gk = ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
                                         thres=thres, **kw)
@@ -245,11 +251,14 @@ def test_fused_train_fleet_relu_sigmoid_masked(dev):
     _close(lk, gk["layers"], lp, gp["layers"])
 
 
-@pytest.mark.parametrize("true_widths,layers", [((8, 12, 10), 4),
-                                                ((51, 54, 60, 66), 7)])
-def test_fused_train_fleet_is_deterministic(dev, true_widths, layers):
+@pytest.mark.parametrize("true_widths,layers,layout", [
+    ((8, 12, 10), 4, "narrow"), ((51, 54, 60, 66), 7, "tiled"),
+    ((49, 52, 58, 64), 7, "tiled"), ((98, 106, 117, 128), 7, "wide")])
+def test_fused_train_fleet_is_deterministic(dev, true_widths, layers, layout):
     models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers,
                                                    n=30000)
+    padded = [3] + [int(l["w"].shape[-1]) for l in layers_]
+    assert ft.choose_plan(padded)["layout"] == layout
     acts = chain_layer_specs(models[0].spec)
     runs = [ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
                                        thres=thres, loss_name="datal2")
@@ -260,15 +269,20 @@ def test_fused_train_fleet_is_deterministic(dev, true_widths, layers):
             assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
 
 
-@pytest.mark.parametrize("features,layers", [(66, 7), (186, 5)])
-def test_wide_chain_trains_on_the_kernel(dev, features, layers):
-    """The padded HiP-CT bucket (3-66x6-1) and the SingleTask default on a
-    volume of that size (3-186x4-1): supports_training holds, the plan is
-    the wide layout, and the kernel matches its plain version."""
+@pytest.mark.parametrize("features,layers,layout", [
+    (66, 7, "tiled"), (95, 5, "tiled"), (186, 5, "wide")])
+def test_wide_chain_trains_on_the_kernel(dev, features, layers, layout):
+    """Chains beyond the narrow layout: 3-66x6-1 and a SingleTask 5 x 95
+    (the tiled layout; 5 x 95 needs its largest dW slot count) and the
+    SingleTask default on a volume of the HiP-CT demo's size (3-186x4-1, the
+    wide layout): supports_training holds, the plan is the expected one,
+    and the kernel matches its plain version."""
     model, params = _chain(dev, features, layers)
     assert ft.supports_training(model, "datal2")
     p = ft.choose_plan(ft.chain_widths(model.spec))
-    assert not p["smem_weights"] and p["block"] in ft.WIDE_BLOCKS
+    assert p["layout"] == layout
+    if layout == "wide":
+        assert not p["smem_weights"] and p["block"] in ft.WIDE_BLOCKS
     acts = chain_layer_specs(model.spec)
     coords, values, weights = _batch(dev, 20000)
     kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.5)

@@ -278,23 +278,28 @@ def test_fleet_cpu_tensors_never_reach_the_kernel():
     assert ft.launches == before
 
 
-@pytest.mark.parametrize("widths,block", [
-    ([3] + [66] * 6 + [1], 64),      # the padded HiP-CT DivideTask bucket
-    ([3] + [186] * 4 + [1], 32),     # SingleTask default at HiP-CT size
+@pytest.mark.parametrize("widths,layout,block", [
+    ([3] + [66] * 6 + [1], "tiled", 32),   # the padded HiP-CT bucket, 3-66
+    ([3] + [186] * 4 + [1], "wide", 32),   # SingleTask default at HiP-CT size
 ])
-def test_wide_chains_get_the_wide_layout(widths, block):
-    """Chains whose weights and accumulator do not fit a block's shared
-    memory keep only the activation tile there: they still train on the
-    kernel (no silent autograd fallback)."""
+def test_wide_chains_get_the_wide_layout(widths, layout, block):
+    """Chains whose weights, W^T and accumulator do not fit a block's shared
+    memory still train on the kernel (no silent autograd fallback): in the
+    tiled layout when their weights, stored once, fit beside a
+    32-coordinate tile (3-66x6-1), else in the wide layout, which keeps only
+    the activation tile there (3-186x4-1)."""
     assert all(ft.plan(widths, b)["smem_bytes"] > ft.SMEM_LIMIT
                for b in ft.BLOCKS)
     p = ft.choose_plan(widths)
-    assert p is not None and not p["smem_weights"]
-    assert p["block"] == block and p["threads"] == ft.WIDE_THREADS
-    assert p["smem_bytes"] <= ft.SMEM_LIMIT
-    rows = widths[0] + 2 * sum(widths[1:])
-    assert p["smem_bytes"] == 4 * (p["act_off"] + rows * (block + 1))
-    assert p["act_off"] >= p["red_off"] + p["threads"]
+    assert p is not None and p["layout"] == layout
+    assert p["block"] == block and p["smem_bytes"] <= ft.SMEM_LIMIT
+    if layout == "wide":
+        assert not p["smem_weights"] and p["threads"] == ft.WIDE_THREADS
+        rows = widths[0] + 2 * sum(widths[1:])
+        assert p["smem_bytes"] == 4 * (p["act_off"] + rows * (block + 1))
+        assert p["act_off"] >= p["red_off"] + p["threads"]
+    else:
+        assert p["threads"] == ft.TILED_THREADS and p["slots"] in ft.TILED_SLOTS
     model = tphi.init_phi({"name": "SIREN", "features": widths[1],
                            "layers": len(widths) - 1, "w0": 10})
     assert ft.supports_training(model, "datal2")
