@@ -1,10 +1,13 @@
 """Image / volume I/O for the SingleTask path: TIFF volumes in and out,
 grayscale PNG out (MIP previews).
 
-Pure NumPy + the standard library: the minimal baseline-TIFF codec of
+NumPy + the standard library: the minimal baseline-TIFF codec of
 brief_pytorch_tpu/io/image.py:58-138 (uncompressed, grayscale, strips),
-plus a minimal PNG writer.  Layouts match the reference: 3-D -> (d, h, w, c);
-2-D -> (h, w, c).
+plus a minimal PNG writer.  A compressed TIFF (the repository's demo
+volumes under dataset/example are LZW with a horizontal predictor) is read
+as the reference reads every TIFF, through cv2.imreadmulti, imported only
+then; without cv2 it raises.  Layouts match the reference: 3-D ->
+(d, h, w, c); 2-D -> (h, w, c).
 """
 from __future__ import annotations
 
@@ -16,8 +19,25 @@ import numpy as np
 
 
 # ------------------------------------------------------------------ TIFF ---
+def _read_compressed_tiff(path: str, compression: int) -> np.ndarray:
+    """A compressed TIFF through cv2, as brief_pytorch_tpu/io/image.py:38-43
+    reads it."""
+    try:
+        import cv2
+    except ImportError:
+        raise ValueError(f"{path}: TIFF compression {compression} needs cv2 "
+                         "(opencv-python), which is not installed; the "
+                         "port's own reader takes uncompressed TIFF only"
+                         ) from None
+    ok, pages = cv2.imreadmulti(path, flags=cv2.IMREAD_UNCHANGED)
+    if not ok or not pages:
+        raise ValueError(f"{path}: cv2 could not read it")
+    return np.stack(pages)
+
+
 def read_tiff(path: str) -> np.ndarray:
-    """Minimal baseline-TIFF reader (uncompressed, grayscale, strips)."""
+    """Minimal baseline-TIFF reader (uncompressed, grayscale, strips); a
+    compressed file goes to cv2 (_read_compressed_tiff)."""
     with open(path, "rb") as f:
         data = f.read()
     endian = "<" if data[:2] == b"II" else ">"
@@ -46,7 +66,7 @@ def read_tiff(path: str) -> np.ndarray:
         h = tags[257][0]
         bits = tags.get(258, (8,))[0]
         if tags.get(259, (1,))[0] != 1:
-            raise ValueError(f"{path}: only uncompressed TIFF is supported")
+            return _read_compressed_tiff(path, tags[259][0])
         offsets = tags[273]
         counts = tags.get(279, (h * w * bits // 8,))
         raw = b"".join(data[o:o + c] for o, c in zip(offsets, counts))

@@ -27,17 +27,20 @@
 // arithmetic so it agrees with the plain version to float32 rounding.
 //
 // Three layouts (ops/fused_train.py choose_plan takes the first that fits):
-//  * narrow (kSmemW, e.g. 5 x 22, 3-7x4-1): W, W^T, the biases and the
-//    block's gradient accumulator in shared memory beside the activation
-//    tile, one thread per coordinate (5 x 22: 11% of the float32 bound).
+//  * narrow (fused_train_kernel, e.g. 5 x 22, 3-7x4-1): W, W^T, the
+//    biases and the block's gradient accumulator in shared memory beside
+//    the activation tile, one thread per coordinate (5 x 22: 11% of the
+//    float32 bound).
 //  * tiled (fused_train_tiled_kernel, e.g. 3-64x6-1, 3-66x6-1, 5 x 95):
 //    the weights once in shared memory, dW in registers; described below
-//    the two older layouts' code.  Paced by shared-memory reads and the
+//    the narrow layout's code.  Paced by shared-memory reads and the
 //    sine evaluations (3-64x6-1 fleet: 23% of the bound).
-//  * wide (!kSmemW, e.g. 3-186x4-1): only the activation tile in shared
-//    memory; paced by one read of W from L2 per multiply-add (7.5%).
+//  * wide (wide_train_kernel + wide_dw_kernel, e.g. 3-191x4-1,
+//    3-242x4-1, 3-128x6-1): W streamed through shared memory in slabs,
+//    h_l and d_l in a device-memory scratch, dW a split-K product over it;
+//    described at its code.
 //
-// Design of the narrow and wide layouts (fused_train_kernel):
+// Design of the narrow layout (fused_train_kernel):
 //  * A block owns a tile of T coordinates (T = blockDim.x, one per
 //    thread) and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
 //    its fleet block (a persistent grid of a few blocks per SM), so the
@@ -46,19 +49,8 @@
 //    thread (rows padded to T + 1 floats so that the weight-gradient
 //    phase, where a warp reads one column index across many rows, hits
 //    distinct banks).  Nothing per coordinate goes to device memory.
-//  * Two layouts of the rest (kSmemW):
-//    - narrow chains: W padded for the forward, W^T padded for the
-//      backward, the biases and the block's gradient accumulator all live
-//      in shared memory;
-//    - wide chains (whose weights do not fit in shared memory even once,
-//      e.g. 3-186x4-1): W is read from device
-//      memory through the read-only path in the same order of
-//      multiply-adds (so the two layouts give the same bits), and the
-//      block accumulates straight into its own row of partial sums in
-//      device memory, a group of entries per thread in flight at once.
-//      The tile is small (T = 64 or 32), so Q = 512 / T threads share a
-//      coordinate: each computes every Q-th chunk of 8 features of a
-//      layer, with a barrier between layers.
+//  * W padded for the forward, W^T padded for the backward, the biases
+//    and the block's gradient accumulator all live in shared memory.
 //  * Weight gradients: after a layer's output gradient g_l is in shared
 //    memory, thread t owns parameter entries e = t, t + T, ... of that
 //    layer and sums g_l[o] * h_{l-1}[i] over the tile's coordinates into
@@ -71,6 +63,7 @@
 #include <stdint.h>
 
 #include "chain.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -78,9 +71,8 @@ using brief::kChunk;
 using brief::kMaxLayers;
 using brief::round_up8;
 
-// The fleet's and the wide layout's fields come last: placed before w0
-// they make the compiler schedule the one-chain kernel's loops measurably
-// slower.
+// The fleet's fields come last: placed before w0 they make the compiler
+// schedule the one-chain kernel's loops measurably slower.
 struct TrainDesc {
   int n_layers, c_in, c_out, n_params, stride;
   int acc_off, red_off, act_off;
@@ -88,72 +80,12 @@ struct TrainDesc {
   int p_off[kMaxLayers], sw_off[kMaxLayers], swt_off[kMaxLayers];
   int sb_off[kMaxLayers], h_row[kMaxLayers], dg_row[kMaxLayers];
   float w0[kMaxLayers];
-  int mask_width, tile;
+  int mask_width;
   int mask_off[kMaxLayers];
 };
 
-constexpr int kMetaHead = 11;
+constexpr int kMetaHead = 9;
 constexpr int kMetaPerLayer = 10;
-constexpr int kGroup = 8;   // accumulator entries in flight per thread
-
-// layer_forward<true> of chain.cuh with W (fin, fout) row-major and the
-// bias after it, read from device memory, for the output chunks o0 =
-// o_begin, o_begin + o_step, ...: the same multiply-adds in the same order.
-__device__ __forceinline__ void layer_forward_global(
-    const float* __restrict__ W, float* A, int stride, int col, int in_row,
-    int fin, int fout, int act, float w0, int h_row, int d_row,
-    const float* __restrict__ mask, int o_begin, int o_step) {
-  const float* bias = W + fin * fout;
-  for (int o0 = o_begin; o0 < fout; o0 += o_step) {
-    float z[kChunk];
-    int oc[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      z[k] = 0.f;
-      oc[k] = min(o0 + k, fout - 1);
-    }
-    for (int i = 0; i < fin; ++i) {
-      const float x = A[(in_row + i) * stride + col];
-      const float* wr = W + i * fout;
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) z[k] = fmaf(__ldg(wr + oc[k]), x, z[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int o = o0 + k;
-      if (o < fout) {
-        float h, d;
-        brief::act_fwd(act, w0, z[k] + __ldg(bias + o), &h, &d);
-        if (mask != nullptr) {
-          const float m = __ldg(mask + o);
-          h *= m;
-          d *= m;
-        }
-        A[(h_row + o) * stride + col] = h;
-        A[(d_row + o) * stride + col] = d;
-      }
-    }
-  }
-}
-
-// Wide layout: entry e of a layer's packed (W, b) gradient summed over the
-// tile's T coordinates: sum_u g[o][u] * h[i][u] for e = i * fout + o < nw, else the
-// bias sum_u g[e - nw][u].
-__device__ __forceinline__ float tile_grad(const float* G, const float* H,
-                                           int S, int T, int nw, int fout,
-                                           int e) {
-  float s = 0.f;
-  if (e < nw) {
-    const int i = e / fout, o = e - i * fout;
-    const float* g = G + o * S;
-    const float* h = H + i * S;
-    for (int u = 0; u < T; ++u) s = fmaf(g[u], h[u], s);
-  } else {
-    const float* g = G + (e - nw) * S;
-    for (int u = 0; u < T; ++u) s += g[u];
-  }
-  return s;
-}
 
 // This block's row of partial sums (gradients, then the loss) in the
 // (B, gridDim.x, n_params + 1) scratch.
@@ -163,14 +95,13 @@ __device__ __forceinline__ float* partial_row(float* partial, int fb,
          ((size_t)fb * gridDim.x + blockIdx.x) * (size_t)(n_params + 1);
 }
 
-// kFleet: the fleet form (blockIdx.y selects the chain, masks per chain);
-// without it one chain and none of the fleet's address arithmetic (it
-// slows the one-chain path).  thres: one threshold per chain, read when
-// has_thres (-inf never fires).  In the shared-memory layout it waits in
-// the first slot of the loss reduction buffer, idle until the end, since a
-// register held across the kernel slows the one-chain loops; the wide
-// layout is faster with the register.
-template <bool kSmemW, bool kFleet>
+// The narrow layout.  kFleet: the fleet form (blockIdx.y selects the
+// chain, masks per chain); without it one chain and none of the fleet's
+// address arithmetic (it slows the one-chain path).  thres: one threshold
+// per chain, read when has_thres (-inf never fires); it waits in the first
+// slot of the loss reduction buffer, idle until the end, since a register
+// held across the kernel slows the one-chain loops.
+template <bool kFleet>
 __global__ void fused_train_kernel(const float* __restrict__ coords,
                                    const float* __restrict__ values,
                                    const float* __restrict__ weights,
@@ -181,12 +112,8 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
                                    const float* __restrict__ thres,
                                    const float* __restrict__ masks) {
   extern __shared__ __align__(16) float sm[];
-  // NT threads, T coordinates per tile, Q = NT / T threads per coordinate
-  // (1 in the narrow layout); thread t works on coordinate u of the tile
-  // and on the q-th share of each layer's features
-  const int NT = blockDim.x, t = threadIdx.x, S = d.stride, L = d.n_layers;
-  const int T = kSmemW ? NT : d.tile, Q = kSmemW ? 1 : NT / T;
-  const int u = kSmemW ? t : t % T, q = kSmemW ? 0 : t / T;
+  // T threads, one per coordinate of the tile
+  const int T = blockDim.x, t = threadIdx.x, S = d.stride, L = d.n_layers;
   const int fb = kFleet ? blockIdx.y : 0;          // fleet block
   const float* mk = nullptr;
   if (kFleet) {
@@ -196,62 +123,47 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
     params += (size_t)fb * d.n_params;
     if (masks != nullptr) mk = masks + (size_t)fb * d.mask_width;
   }
-  float thr = 0.f;
-  if (!kSmemW && has_thres) thr = thres[fb];
-  // the wide layout accumulates straight into its row of partial sums
-  float* acc = kSmemW ? sm + d.acc_off : partial_row(partial, fb, d.n_params);
+  float* acc = sm + d.acc_off;
   float* A = sm + d.act_off;
 
-  if (kSmemW) {
-    for (int l = 0; l < L; ++l) {
-      brief::load_weights(params + d.p_off[l], d.fin[l], d.fout[l],
-                          sm + d.sw_off[l], sm + d.swt_off[l],
-                          sm + d.sb_off[l]);
-    }
+  for (int l = 0; l < L; ++l) {
+    brief::load_weights(params + d.p_off[l], d.fin[l], d.fout[l],
+                        sm + d.sw_off[l], sm + d.swt_off[l],
+                        sm + d.sb_off[l]);
   }
-  for (int e = t; e < d.n_params; e += NT) acc[e] = 0.f;
-  if (kSmemW && t == 0 && has_thres) sm[d.red_off] = thres[fb];
+  for (int e = t; e < d.n_params; e += T) acc[e] = 0.f;
+  if (t == 0 && has_thres) sm[d.red_off] = thres[fb];
   float loss_acc = 0.f;
   __syncthreads();
 
   const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int idx = tile * T + u;
+    const int idx = tile * T + t;
     const bool valid = idx < n;
 
     // ---- forward: own column; h_l and d_l into shared memory ----
-    for (int c = q; c < d.c_in; c += Q) {
-      A[c * S + u] = valid ? coords[(size_t)c * n + idx] : 0.f;
+    for (int c = 0; c < d.c_in; ++c) {
+      A[c * S + t] = valid ? coords[(size_t)c * n + idx] : 0.f;
     }
     for (int l = 0; l < L; ++l) {
-      // the Q threads of a column share it: the layer's input must be whole
-      if (!kSmemW) __syncthreads();
       const int in_row = l == 0 ? 0 : d.h_row[l - 1];
       const float* ml =
           mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
-      if (kSmemW) {
-        brief::layer_forward<true>(sm + d.sw_off[l], sm + d.sb_off[l], A, S,
-                                   t, in_row, d.fin[l], d.fout[l], d.act[l],
-                                   d.w0[l], d.h_row[l], d.dg_row[l], ml);
-      } else {
-        layer_forward_global(params + d.p_off[l], A, S, u, in_row, d.fin[l],
-                             d.fout[l], d.act[l], d.w0[l], d.h_row[l],
-                             d.dg_row[l], ml, q * kChunk, Q * kChunk);
-      }
+      brief::layer_forward<true>(sm + d.sw_off[l], sm + d.sb_off[l], A, S,
+                                 t, in_row, d.fin[l], d.fout[l], d.act[l],
+                                 d.w0[l], d.h_row[l], d.dg_row[l], ml);
     }
-    if (!kSmemW) __syncthreads();
 
     // ---- loss and dL/dz of the last layer (padding lanes weigh 0) ----
     const int last = L - 1;
-    for (int c = q; c < d.c_out; c += Q) {
-      const float p = A[(d.h_row[last] + c) * S + u];
+    for (int c = 0; c < d.c_out; ++c) {
+      const float p = A[(d.h_row[last] + c) * S + t];
       float y = 0.f, wv = 0.f;
       if (valid) {
         y = values[(size_t)c * n + idx];
         wv = weights[(size_t)c * n + idx];
       }
-      float weff =
-          (has_thres && p <= (kSmemW ? sm[d.red_off] : thr)) ? 1.f : wv;
+      float weff = (has_thres && p <= sm[d.red_off]) ? 1.f : wv;
       weff = valid ? weff : 0.f;
       const float e = p - y;
       float le, g;
@@ -265,7 +177,7 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
         g = weff * (ae < beta ? e / beta : sg);
       }
       loss_acc += weff * le;
-      float* dg = &A[(d.dg_row[last] + c) * S + u];
+      float* dg = &A[(d.dg_row[last] + c) * S + t];
       *dg = g * *dg;
     }
     __syncthreads();
@@ -277,81 +189,49 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
       const float* H = A + (l == 0 ? 0 : d.h_row[l - 1]) * S;
       float* accl = acc + d.p_off[l];
       const int nw = fin * fout;
-      // weight and bias gradients: reads every column of g_l and h_{l-1}
-      if (kSmemW) {
-        // tile_grad written out: so the one-chain kernel schedules faster
-        for (int e = t; e < nw + fout; e += NT) {
-          float s = 0.f;
-          if (e < nw) {
-            const int i = e / fout, o = e - i * fout;
-            const float* g = G + o * S;
-            const float* h = H + i * S;
-            for (int v = 0; v < T; ++v) s = fmaf(g[v], h[v], s);
-          } else {
-            const float* g = G + (e - nw) * S;
-            for (int v = 0; v < T; ++v) s += g[v];
-          }
-          accl[e] += s;
+      // weight and bias gradients: reads every column of g_l and h_{l-1};
+      // thread t owns entries e = t, t + T, ... of the packed (W, b)
+      for (int e = t; e < nw + fout; e += T) {
+        float s = 0.f;
+        if (e < nw) {
+          const int i = e / fout, o = e - i * fout;
+          const float* g = G + o * S;
+          const float* h = H + i * S;
+          for (int v = 0; v < T; ++v) s = fmaf(g[v], h[v], s);
+        } else {
+          const float* g = G + (e - nw) * S;
+          for (int v = 0; v < T; ++v) s += g[v];
         }
-      } else {
-        // the accumulator is in device memory: kGroup of the thread's
-        // entries at a time, so their loads are in flight together
-        for (int e0 = t; e0 < nw + fout; e0 += kGroup * NT) {
-          float a[kGroup];
-#pragma unroll
-          for (int j = 0; j < kGroup; ++j) {
-            const int e = e0 + j * NT;
-            a[j] = e < nw + fout ? accl[e] : 0.f;
-          }
-#pragma unroll
-          for (int j = 0; j < kGroup; ++j) {
-            const int e = e0 + j * NT;
-            if (e < nw + fout)
-              accl[e] = a[j] + tile_grad(G, H, S, T, nw, fout, e);
-          }
-        }
+        accl[e] += s;
       }
       // input gradient into d_{l-1}, own column only
       if (l > 0) {
         float* D = A + d.dg_row[l - 1] * S;
         const float* swt = sm + d.swt_off[l];
-        const float* W = params + d.p_off[l];
         const int fip = round_up8(fin);
-        for (int i0 = q * kChunk; i0 < fin; i0 += Q * kChunk) {
+        for (int i0 = 0; i0 < fin; i0 += kChunk) {
           float z[kChunk];
 #pragma unroll
           for (int k = 0; k < kChunk; ++k) z[k] = 0.f;
-          if (kSmemW) {
-            for (int o = 0; o < fout; ++o) {
-              const float x = G[o * S + u];
-              const float4 wa =
-                  *reinterpret_cast<const float4*>(swt + o * fip + i0);
-              const float4 wb =
-                  *reinterpret_cast<const float4*>(swt + o * fip + i0 + 4);
-              z[0] = fmaf(wa.x, x, z[0]);
-              z[1] = fmaf(wa.y, x, z[1]);
-              z[2] = fmaf(wa.z, x, z[2]);
-              z[3] = fmaf(wa.w, x, z[3]);
-              z[4] = fmaf(wb.x, x, z[4]);
-              z[5] = fmaf(wb.y, x, z[5]);
-              z[6] = fmaf(wb.z, x, z[6]);
-              z[7] = fmaf(wb.w, x, z[7]);
-            }
-          } else {
-            int ic[kChunk];
-#pragma unroll
-            for (int k = 0; k < kChunk; ++k) ic[k] = min(i0 + k, fin - 1) * fout;
-            for (int o = 0; o < fout; ++o) {
-              const float x = G[o * S + u];
-#pragma unroll
-              for (int k = 0; k < kChunk; ++k)
-                z[k] = fmaf(__ldg(W + ic[k] + o), x, z[k]);
-            }
+          for (int o = 0; o < fout; ++o) {
+            const float x = G[o * S + t];
+            const float4 wa =
+                *reinterpret_cast<const float4*>(swt + o * fip + i0);
+            const float4 wb =
+                *reinterpret_cast<const float4*>(swt + o * fip + i0 + 4);
+            z[0] = fmaf(wa.x, x, z[0]);
+            z[1] = fmaf(wa.y, x, z[1]);
+            z[2] = fmaf(wa.z, x, z[2]);
+            z[3] = fmaf(wa.w, x, z[3]);
+            z[4] = fmaf(wb.x, x, z[4]);
+            z[5] = fmaf(wb.y, x, z[5]);
+            z[6] = fmaf(wb.z, x, z[6]);
+            z[7] = fmaf(wb.w, x, z[7]);
           }
 #pragma unroll
           for (int k = 0; k < kChunk; ++k) {
             const int i = i0 + k;
-            if (i < fin) D[i * S + u] = z[k] * D[i * S + u];
+            if (i < fin) D[i * S + t] = z[k] * D[i * S + t];
           }
         }
       }
@@ -361,14 +241,12 @@ __global__ void fused_train_kernel(const float* __restrict__ coords,
 
   // ---- this block's partial sums: gradients, then the loss ----
   float* out = partial_row(partial, fb, d.n_params);
-  if (kSmemW) {
-    for (int e = t; e < d.n_params; e += NT) out[e] = acc[e];
-  }
+  for (int e = t; e < d.n_params; e += T) out[e] = acc[e];
   float* red = sm + d.red_off;
   __syncthreads();   // every thread is done with the threshold in red[0]
   red[t] = loss_acc;
   __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
+  for (int s = T / 2; s > 0; s >>= 1) {
     if (t < s) red[t] += red[t + s];
     __syncthreads();
   }
@@ -394,12 +272,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled layout: a kernel of its own (the two layouts above keep their
+// The tiled layout: a kernel of its own (the narrow layout above keeps its
 // code), for chains whose weights, stored once, fit in shared memory beside
 // a 32-coordinate activation tile, and whose dW fits the threads' registers.
 //
-// Why: in the wide layout every multiply-add of the forward and the input
-// gradient loads its W entry from L2, and the dW loop takes two shared
+// Why: in the old wide layout every multiply-add of the forward and the input
+// gradient loaded its W entry from L2, and the dW loop took two shared
 // reads per multiply-add plus a device-memory read-modify-write of the
 // block's whole partial row per tile.  Here (3-64x6-1: 198,656 bytes, one
 // block of 256 threads per SM):
@@ -795,29 +673,414 @@ cudaError_t launch_tiled(dim3 grid, int smem_bytes, cudaStream_t s,
   return cudaGetLastError();
 }
 
-template <bool kSmemW>
 cudaError_t occupancy(int block, int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<kSmemW, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      fused_train_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_train_kernel<kSmemW, false>, block, smem_bytes);
+      blocks_per_sm, fused_train_kernel<false>, block, smem_bytes);
 }
 
-template <bool kSmemW, bool kFleet>
+template <bool kFleet>
 cudaError_t launch(dim3 grid, int block, int smem_bytes, cudaStream_t s,
                    const float* coords, const float* values,
                    const float* weights, const float* params, float* partial,
                    int n, const TrainDesc& d, int loss, float beta,
                    const float* thres, const float* masks) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<kSmemW, kFleet>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      fused_train_kernel<kFleet>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return err;
-  fused_train_kernel<kSmemW, kFleet><<<grid, block, smem_bytes, s>>>(
+  fused_train_kernel<kFleet><<<grid, block, smem_bytes, s>>>(
       coords, values, weights, params, partial, n, d, loss, beta,
       thres != nullptr, thres, masks);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The wide layout: for chains whose weights do not fit in shared memory
+// beside a tile (the SingleTask default on the 64x512x512 demo volumes,
+// 3-191x4-1 at 80x and 3-242x4-1 at 50x; fleet buckets padded past the
+// tiled layout, e.g. 3-128x6-1).  Kernels of its own, with their own
+// descriptor; the narrow and tiled layouts keep their code.
+//
+// Per call:
+//  (a) pack_weights_kernel (csrc/wide.cuh): every layer's W with its bias
+//      as one more row, zero-padded to (round64(fin + 1), round64(fout)),
+//      so that 16-byte cp.async copies of a slab are aligned;
+//  (b) wide_train_kernel: a persistent grid over tiles of kT coordinates;
+//      per tile the forward (wide::forward_block, one layer at a time,
+//      activations ping-ponging between two shared buffers), the loss and
+//      the input gradients (wide::input_grad_block).  h_l and d_l of
+//      every coordinate go to a scratch in device memory, feature-major
+//      with a row stride np = round64(N); the backward turns d_l into
+//      g_l in place.  Each block writes its loss partial;
+//  (c) wide_dw_kernel: dW_l = sum_u [h_{l-1}; 1][:, u] g_l[:, u]^T as a
+//      split-K product over the scratch: a block per (layer, 64 x 64 tile
+//      of (fin + 1) x fout, split of the coordinates), 32-coordinate
+//      chunks of both operands double-buffered through shared memory,
+//      4 x 4 register micro-tiles, its partial row written once;
+//  (d) reduce_wide_kernel: the splits' rows and the loss partials summed
+//      in a fixed order.  No float atomics, so runs are bitwise equal.
+// Why this way: in the old wide layout every multiply-add of the forward
+// and the input gradient loaded its W entry from L2, dW took two shared
+// reads per multiply-add plus a read-modify-write of the block's whole
+// partial row per tile, and all h_l, d_l of a tile had to fit in shared
+// memory (so 5-layer chains stopped at 217 features).  Here a W slab in
+// shared memory serves a whole tile (64 multiply-adds per float copied),
+// the products run on register micro-tiles, and shared memory holds two
+// layer rows of the tile and two slabs: any width whose round32(f + 1)
+// rows fit at kT = 8 (3,327 features) trains.
+// What bounds it: operations (3-191x4-1, N = 100,000: 66 GFLOP, 0.99 ms
+// at 67 TFLOP/s) and the scratch traffic (~1.2 GB there: h and d written,
+// d read and g written, h and g read by dW; 0.36 ms at 3.35 TB/s).
+// ---------------------------------------------------------------------------
+namespace wl = brief::wide;
+
+constexpr int kWideHead = 10;
+constexpr int kWidePerLayer = 11;
+constexpr int kDwThreads = 256;
+constexpr int kDwChunk = 32;     // coordinates per dW operand chunk
+constexpr int kDwStride = kDwChunk + 4;
+
+struct WideDesc {
+  int n_layers, c_in, c_out, n_params, mask_width, rows_max, np, rows_total;
+  int wp_total, n_dw_tiles;
+  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers];
+  int wp_off[kMaxLayers], colpad[kMaxLayers], x_row[kMaxLayers];
+  int h_row[kMaxLayers], g_row[kMaxLayers], mask_off[kMaxLayers];
+  int p_off[kMaxLayers], tile0[kMaxLayers + 1];
+  float w0[kMaxLayers];
+};
+
+// The loss of one output entry and its dL/dp times d (datal2 or
+// datasmoothl1, weight_thres override: p <= thr weighs 1).
+__device__ __forceinline__ float loss_grad(int loss, float beta, bool thr_on,
+                                           float thr, float p, float y,
+                                           float wv, bool valid, float dd,
+                                           float* loss_acc) {
+  float weff = (thr_on && p <= thr) ? 1.f : wv;
+  weff = valid ? weff : 0.f;
+  const float e = p - y;
+  float le, g;
+  if (loss == 0) {
+    le = e * e;
+    g = 2.f * weff * e;
+  } else {
+    const float ae = fabsf(e);
+    le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
+    const float sg = (float)((e > 0.f) - (e < 0.f));
+    g = weff * (ae < beta ? e / beta : sg);
+  }
+  *loss_acc += weff * le;
+  return g * dd;
+}
+
+// (b).  Grid (blocks, B), 4 * kT threads; shared memory: two buffers of
+// rows_max rows of kT floats, two slabs, the loss reduction buffer.
+template <int kT>
+__global__ void __launch_bounds__(4 * kT) wide_train_kernel(
+    const float* __restrict__ coords, const float* __restrict__ values,
+    const float* __restrict__ weights, const float* __restrict__ wp,
+    const float* __restrict__ masks, const float* __restrict__ thres,
+    float* __restrict__ scratch, float* __restrict__ lossp, int n,
+    WideDesc d, int loss, float beta) {
+  constexpr int kNT = 4 * kT, kCQ = kT / 4;
+  extern __shared__ __align__(16) float sm[];
+  const int t = threadIdx.x, cu = t % kCQ, q4 = 4 * (t / kCQ);
+  const int fb = blockIdx.y, L = d.n_layers;
+  coords += (size_t)fb * d.c_in * n;
+  values += (size_t)fb * d.c_out * n;
+  weights += (size_t)fb * d.c_out * n;
+  wp += (size_t)fb * d.wp_total;
+  scratch += (size_t)fb * d.rows_total * d.np;
+  const float* mk =
+      masks == nullptr ? nullptr : masks + (size_t)fb * d.mask_width;
+  const bool thr_on = thres != nullptr;
+  const float thr = thr_on ? thres[fb] : 0.f;
+  float* buf0 = sm;
+  float* buf1 = sm + d.rows_max * kT;
+  float* slab = sm + 2 * d.rows_max * kT;
+  float* red = slab + 2 * wl::kSlab;
+  const size_t np = (size_t)d.np;
+  float loss_acc = 0.f;
+  float acc[4][4];
+
+  const int n_tiles = d.np / kT;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * kT;
+    // coordinates (0 past n), a ones row, zeros to the slab boundary; the
+    // coordinates also to the scratch (dW of layer 0 reads them there)
+    const int c_end = wl::round_up(d.c_in + 1, wl::kKS);
+    for (int e = t; e < c_end * kT; e += kNT) {
+      const int r = e / kT, u = e - r * kT, idx = base + u;
+      float v = r == d.c_in ? 1.f : 0.f;
+      if (r < d.c_in) {
+        v = idx < n ? coords[(size_t)r * n + idx] : 0.f;
+        scratch[(size_t)r * np + idx] = v;
+      }
+      buf0[e] = v;
+    }
+    __syncthreads();
+
+    // ---- forward: h_l and d_l of the tile to the scratch ----
+    float* X = buf0;
+    float* Y = buf1;
+    for (int l = 0; l < L; ++l) {
+      const int fout = d.fout[l];
+      const float* Wl = wp + d.wp_off[l];
+      const float* ml =
+          mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
+      float* H = d.h_row[l] < 0 ? nullptr : scratch + d.h_row[l] * np + base;
+      float* D = scratch + d.g_row[l] * np + base;
+      for (int o0 = 0; o0 < fout; o0 += wl::kOB) {
+        wl::forward_block<kT>(Wl, d.colpad[l], o0,
+                              wl::round_up(d.fin[l] + 1, wl::kKS), X, slab,
+                              acc);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int o = o0 + q4 + a;
+          if (o >= fout) continue;
+          const float m = ml == nullptr ? 1.f : __ldg(ml + o);
+          float h[4], dv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            brief::act_fwd(d.act[l], d.w0[l], acc[a][c], &h[c], &dv[c]);
+            h[c] *= m;
+            dv[c] *= m;
+          }
+          const float4 h4 = make_float4(h[0], h[1], h[2], h[3]);
+          *reinterpret_cast<float4*>(Y + o * kT + 4 * cu) = h4;
+          if (H != nullptr)
+            *reinterpret_cast<float4*>(H + o * np + 4 * cu) = h4;
+          *reinterpret_cast<float4*>(D + o * np + 4 * cu) =
+              make_float4(dv[0], dv[1], dv[2], dv[3]);
+        }
+      }
+      wl::fill_rows<kT>(Y, fout, wl::round_up(fout + 1, wl::kKS), true);
+      __syncthreads();
+      float* sw = X;
+      X = Y;
+      Y = sw;
+    }
+
+    // ---- loss; g of the last layer over its d (padding weighs 0) ----
+    {
+      float* D = scratch + d.g_row[L - 1] * np + base;
+      for (int e = t; e < d.c_out * kT; e += kNT) {
+        const int c = e / kT, u = e - c * kT, idx = base + u;
+        const bool valid = idx < n;
+        float y = 0.f, wv = 0.f;
+        if (valid) {
+          y = values[(size_t)c * n + idx];
+          wv = weights[(size_t)c * n + idx];
+        }
+        const float g = loss_grad(loss, beta, thr_on, thr, X[e], y, wv,
+                                  valid, D[c * np + u], &loss_acc);
+        X[e] = g;
+        D[c * np + u] = g;
+      }
+      wl::fill_rows<kT>(X, d.c_out, wl::round_up(d.c_out, wl::kKS), false);
+      __syncthreads();
+    }
+
+    // ---- input gradients, last layer first: g_{l-1} over d_{l-1} ----
+    for (int l = L - 1; l > 0; --l) {
+      const int fin = d.fin[l];
+      float* D = scratch + d.g_row[l - 1] * np + base;
+      for (int i0 = 0; i0 < fin; i0 += wl::kOB) {
+        wl::input_grad_block<kT>(wp + d.wp_off[l], d.colpad[l], i0,
+                                 wl::round_up(d.fout[l], wl::kKS), X, slab,
+                                 acc);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = i0 + q4 + a;
+          if (i >= fin) continue;
+          float4* dp = reinterpret_cast<float4*>(D + i * np + 4 * cu);
+          const float4 dv = *dp;
+          const float4 g = make_float4(acc[a][0] * dv.x, acc[a][1] * dv.y,
+                                       acc[a][2] * dv.z, acc[a][3] * dv.w);
+          *reinterpret_cast<float4*>(Y + i * kT + 4 * cu) = g;
+          *dp = g;
+        }
+      }
+      wl::fill_rows<kT>(Y, fin, wl::round_up(fin, wl::kKS), false);
+      __syncthreads();
+      float* sw = X;
+      X = Y;
+      Y = sw;
+    }
+  }
+
+  // ---- this block's loss partial ----
+  red[t] = loss_acc;
+  __syncthreads();
+  for (int s = kNT / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] += red[t + s];
+    __syncthreads();
+  }
+  if (t == 0) lossp[(size_t)fb * gridDim.x + blockIdx.x] = red[0];
+}
+
+// (c).  Grid (n_dw_tiles, splits, B), kDwThreads threads.  Block (tile,
+// split) sums, over coordinates [split * chunk, min(np, (split + 1) *
+// chunk)), entries (i0 + to + 16 a, o0 + tu + 16 b) of its layer's
+// (fin + 1) x fout gradient (row fin: the bias, against a row of ones);
+// thread t: to = t / 16, tu = t % 16.  Rows 16 apart, read at a row stride
+// of 36 floats, put a warp's 16 G rows in 8 distinct bank quads.
+__global__ void __launch_bounds__(kDwThreads) wide_dw_kernel(
+    const float* __restrict__ scratch, float* __restrict__ partial,
+    WideDesc d, int chunk) {
+  __shared__ __align__(16) float sh[2][wl::kOB * kDwStride];
+  __shared__ __align__(16) float sg[2][wl::kOB * kDwStride];
+  const int t = threadIdx.x, to = t / 16, tu = t % 16;
+  const int fb = blockIdx.z, split = blockIdx.y, tile = blockIdx.x;
+  scratch += (size_t)fb * d.rows_total * d.np;
+  int l = 0;
+  while (tile >= d.tile0[l + 1]) ++l;
+  const int fin = d.fin[l], fout = d.fout[l];
+  const int n_ob = (fout + wl::kOB - 1) / wl::kOB;
+  const int i0 = (tile - d.tile0[l]) / n_ob * wl::kOB;
+  const int o0 = (tile - d.tile0[l]) % n_ob * wl::kOB;
+  const size_t np = (size_t)d.np;
+  const float* H = scratch + d.x_row[l] * np;
+  const float* G = scratch + d.g_row[l] * np;
+  const int lo = split * chunk, hi = min(d.np, lo + chunk);
+  const int n_chunks = (hi - lo) / kDwChunk;
+
+  auto load = [&](int k) {
+    const int u0 = lo + k * kDwChunk;
+    float* dh = sh[k & 1];
+    float* dg = sg[k & 1];
+    for (int j = t; j < 2 * wl::kOB * (kDwChunk / 4); j += kDwThreads) {
+      const int which = j / (wl::kOB * (kDwChunk / 4));
+      const int r = j / (kDwChunk / 4) % wl::kOB, q = j % (kDwChunk / 4);
+      if (which == 0) {
+        const int i = i0 + r;
+        if (i < fin)
+          wl::cp16(dh + r * kDwStride + 4 * q, H + i * np + u0 + 4 * q);
+        else if (i == fin)
+          *reinterpret_cast<float4*>(dh + r * kDwStride + 4 * q) =
+              make_float4(1.f, 1.f, 1.f, 1.f);
+      } else {
+        const int o = o0 + r;
+        if (o < fout)
+          wl::cp16(dg + r * kDwStride + 4 * q, G + o * np + u0 + 4 * q);
+      }
+    }
+    wl::cp_commit();
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  if (n_chunks > 0) load(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) {
+      load(k + 1);
+      wl::cp_wait<1>();
+    } else {
+      wl::cp_wait<0>();
+    }
+    __syncthreads();
+    const float* hh = sh[k & 1] + to * kDwStride;
+    const float* gg = sg[k & 1] + tu * kDwStride;
+    // the chunk's 32 terms summed apart, then added: a run of thousands
+    // of terms in one register loses ~1e-4 of a sum of like signs
+    float cs[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) cs[a][b] = 0.f;
+#pragma unroll 2
+    for (int u = 0; u < kDwChunk; u += 4) {
+      float4 h[4], g[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        h[a] = *reinterpret_cast<const float4*>(hh + 16 * a * kDwStride + u);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        g[b] = *reinterpret_cast<const float4*>(gg + 16 * b * kDwStride + u);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          float s = cs[a][b];
+          s = fmaf(h[a].x, g[b].x, s);
+          s = fmaf(h[a].y, g[b].y, s);
+          s = fmaf(h[a].z, g[b].z, s);
+          s = fmaf(h[a].w, g[b].w, s);
+          cs[a][b] = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] += cs[a][b];
+    __syncthreads();
+  }
+  float* out = partial + ((size_t)fb * gridDim.y + split) * d.n_params +
+               d.p_off[l];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + to + 16 * a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int o = o0 + tu + 16 * b;
+      if (i <= fin && o < fout) out[i * fout + o] = acc[a][b];
+    }
+  }
+}
+
+// (d).  out[fb][p] = sum over splits, in order, of partial[fb][s][p] / m
+// for p < n_params; out[fb][n_params] = the blocks' loss partials, in
+// order, / m.  fb = blockIdx.y.
+__global__ void reduce_wide_kernel(const float* __restrict__ partial,
+                                   const float* __restrict__ lossp,
+                                   float* __restrict__ out, int n_split,
+                                   int n_grid, int n_params, float m) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int fb = blockIdx.y;
+  if (p > n_params) return;
+  float s = 0.f;
+  if (p < n_params) {
+    partial += (size_t)fb * n_split * n_params + p;
+    for (int k = 0; k < n_split; ++k) s += partial[(size_t)k * n_params];
+  } else {
+    lossp += (size_t)fb * n_grid;
+    for (int k = 0; k < n_grid; ++k) s += lossp[k];
+  }
+  out[(size_t)fb * (n_params + 1) + p] = s / m;
+}
+
+template <int kT>
+cudaError_t wide_occupancy(int smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, wide_train_kernel<kT>, 4 * kT, smem_bytes);
+}
+
+template <int kT>
+cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
+                        const float* coords, const float* values,
+                        const float* weights, const float* wp,
+                        const float* masks, const float* thres,
+                        float* scratch, float* lossp, int n,
+                        const WideDesc& d, int loss, float beta) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  wide_train_kernel<kT><<<grid, 4 * kT, smem_bytes, s>>>(
+      coords, values, weights, wp, masks, thres, scratch, lossp, n, d, loss,
+      beta);
   return cudaGetLastError();
 }
 
@@ -825,14 +1088,12 @@ cudaError_t launch(dim3 grid, int block, int smem_bytes, cudaStream_t s,
 
 extern "C" {
 
-// Blocks of `block` threads using `smem_bytes` of dynamic shared memory
-// that fit on one SM at once for the layout `smem_weights`, and the
-// device's SM count.
-int brief_fused_train_occupancy(int smem_weights, int block, int smem_bytes,
+// The narrow layout's blocks of `block` threads using `smem_bytes` of
+// dynamic shared memory that fit on one SM at once, and the device's SM
+// count.
+int brief_fused_train_occupancy(int block, int smem_bytes,
                                 int* blocks_per_sm, int* sm_count) {
-  cudaError_t err = smem_weights
-                        ? occupancy<true>(block, smem_bytes, blocks_per_sm)
-                        : occupancy<false>(block, smem_bytes, blocks_per_sm);
+  cudaError_t err = occupancy(block, smem_bytes, blocks_per_sm);
   if (err != cudaSuccess) return (int)err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -841,9 +1102,9 @@ int brief_fused_train_occupancy(int smem_weights, int block, int smem_bytes,
                                      dev);
 }
 
-// meta: n_layers, c_in, c_out, n_params, stride, acc_off, red_off, act_off,
-// smem_weights, mask_width, tile (coordinates per tile; `block` threads),
-// then per layer: fin, fout, act, p_off, sw_off, swt_off, sb_off, h_row,
+// The narrow layout.  meta: n_layers, c_in, c_out, n_params, stride,
+// acc_off, red_off, act_off, mask_width (`block` threads, one per
+// coordinate of a tile), then per layer: fin, fout, act, p_off, sw_off, swt_off, sb_off, h_row,
 // dg_row, mask_off (-1: unmasked).
 // coords (B, c_in, n), values / weights (B, c_out, n), params
 // (B, n_params), masks (B, mask_width) or null, thres (B,) or null (no
@@ -869,9 +1130,7 @@ int brief_fused_train(const float* coords, const float* values,
   d.acc_off = meta[5];
   d.red_off = meta[6];
   d.act_off = meta[7];
-  const bool smem_weights = meta[8] != 0;
-  d.mask_width = meta[9];
-  d.tile = meta[10];
+  d.mask_width = meta[8];
   for (int l = 0; l < d.n_layers; ++l) {
     const int* m = meta + kMetaHead + kMetaPerLayer * l;
     d.fin[l] = m[0];
@@ -889,9 +1148,7 @@ int brief_fused_train(const float* coords, const float* values,
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid2(grid, n_fleet);
   const bool fleet = n_fleet > 1 || masks != nullptr;
-  decltype(&launch<true, true>) fn =
-      smem_weights ? (fleet ? &launch<true, true> : &launch<true, false>)
-                   : (fleet ? &launch<false, true> : &launch<false, false>);
+  decltype(&launch<true>) fn = fleet ? &launch<true> : &launch<false>;
   cudaError_t err = fn(grid2, block, smem_bytes, s, coords, values, weights,
                        params, partial, n, d, loss, beta, thres, masks);
   if (err != cudaSuccess) return (int)err;
@@ -980,6 +1237,103 @@ int brief_fused_train_tiled(const float* coords, const float* values,
   reduce_partials_kernel<true><<<dim3((width + 255) / 256, n_fleet), 256, 0,
                                  s>>>(partial, out, grid, width,
                                       (float)((double)n * d.c_out));
+  return (int)cudaGetLastError();
+}
+
+
+// The wide layout's blocks per SM (4 * tile threads, `smem_bytes`) and the
+// device's SM count.
+int brief_fused_train_wide_occupancy(int tile, int smem_bytes,
+                                     int* blocks_per_sm, int* sm_count) {
+  cudaError_t err;
+  switch (tile) {
+    case 64: err = wide_occupancy<64>(smem_bytes, blocks_per_sm); break;
+    case 32: err = wide_occupancy<32>(smem_bytes, blocks_per_sm); break;
+    case 16: err = wide_occupancy<16>(smem_bytes, blocks_per_sm); break;
+    case 8: err = wide_occupancy<8>(smem_bytes, blocks_per_sm); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                     dev);
+}
+
+// The wide layout (ops/fused_train.py wide_plan).  meta: n_layers, c_in,
+// c_out, n_params, mask_width, rows_max, np, rows_total, wp_total,
+// n_dw_tiles, then per layer: fin, fout, act, p_off, wp_off, colpad, x_row,
+// h_row, g_row, mask_off (-1: unmasked), tile0.  Scratch the caller
+// allocates: wp (B, wp_total) for the packed weights, scratch (B,
+// rows_total, np) for h_l and d_l / g_l, partial (B, n_split, n_params),
+// lossp (B, grid).  `tile` coordinates per tile (64, 32, 16 or 8), `grid`
+// blocks per fleet block, coordinates split into n_split chunks of `chunk`
+// (a multiple of 32) for dW.  The other arguments as for brief_fused_train.
+int brief_fused_train_wide(const float* coords, const float* values,
+                           const float* weights, const float* params,
+                           const float* masks, const float* thres, float* wp,
+                           float* scratch, float* partial, float* lossp,
+                           float* out, int n, int n_fleet, const int* meta,
+                           const float* w0s, int loss, float beta, int grid,
+                           int tile, int smem_bytes, int n_split, int chunk,
+                           void* stream) {
+  WideDesc d;
+  brief::wide::Packed pk;
+  d.n_layers = meta[0];
+  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
+      n_fleet > 65535 || n_split < 1 || n_split > 65535 || chunk % kDwChunk)
+    return (int)cudaErrorInvalidValue;
+  d.c_in = meta[1];
+  d.c_out = meta[2];
+  d.n_params = meta[3];
+  d.mask_width = meta[4];
+  d.rows_max = meta[5];
+  d.np = meta[6];
+  d.rows_total = meta[7];
+  d.wp_total = meta[8];
+  d.n_dw_tiles = meta[9];
+  pk.n_layers = d.n_layers;
+  pk.n_params = d.n_params;
+  pk.wp_total = d.wp_total;
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int* m = meta + kWideHead + kWidePerLayer * l;
+    d.fin[l] = pk.fin[l] = m[0];
+    d.fout[l] = pk.fout[l] = m[1];
+    d.act[l] = m[2];
+    d.p_off[l] = pk.p_off[l] = m[3];
+    d.wp_off[l] = pk.wp_off[l] = m[4];
+    d.colpad[l] = pk.colpad[l] = m[5];
+    d.x_row[l] = m[6];
+    d.h_row[l] = m[7];
+    d.g_row[l] = m[8];
+    d.mask_off[l] = masks == nullptr ? -1 : m[9];
+    d.tile0[l] = m[10];
+    d.w0[l] = w0s[l];
+  }
+  d.tile0[d.n_layers] = d.n_dw_tiles;
+  pk.wp_off[d.n_layers] = d.wp_total;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = brief::wide::pack_weights(params, wp, pk, n_fleet, s);
+  if (err != cudaSuccess) return (int)err;
+  decltype(&launch_wide<64>) fn;
+  switch (tile) {
+    case 64: fn = &launch_wide<64>; break;
+    case 32: fn = &launch_wide<32>; break;
+    case 16: fn = &launch_wide<16>; break;
+    case 8: fn = &launch_wide<8>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  err = fn(dim3(grid, n_fleet), smem_bytes, s, coords, values, weights, wp,
+           masks, thres, scratch, lossp, n, d, loss, beta);
+  if (err != cudaSuccess) return (int)err;
+  wide_dw_kernel<<<dim3(d.n_dw_tiles, n_split, n_fleet), kDwThreads, 0, s>>>(
+      scratch, partial, d, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_wide_kernel<<<dim3((d.n_params + 256) / 256, n_fleet), 256, 0, s>>>(
+      partial, lossp, out, n_split, grid, d.n_params,
+      (float)((double)n * d.c_out));
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,15 @@ Bound on an H100: operations.  A 256^3 grid at f = 22 writes 67 MB but
 does ~75 GFLOP of float32 work (~1.1 ms at 67 TFLOP/s);
 csrc/fused_decode.cu says how its design answers that.
 
+Two forms: chains whose weights fit a block's shared memory beside the
+activation buffers (`plan`, e.g. 5 x 22) keep all weights there; wider
+ones (`wide_plan`, e.g. the SingleTask default on the 64x512x512 demo
+volumes, 5 x 191 and 5 x 242) stream them through shared memory in slabs
+(ops/wide.py, csrc/wide.cuh).  `supports` takes the chains the JAX
+package's `supports` takes (weights up to 32 MB, at least 2 spatial
+axes) within the port's limits: up to MAX_LAYERS layers, 2 to 4 spatial
+axes, a widest layer that fits the wide form's 8-voxel tile.
+
 Coordinates: the lead axis is the affine lo + i * step (float32, no fused
 multiply-add), the other axes are axis_linspace values — the TPU kernel's
 formulas.  The slab path of the JAX package (train/decode._decode_scan)
@@ -33,19 +42,28 @@ import numpy as np
 import torch
 
 from brief_pytorch_tpu_torch.core.coords import axis_linspace, parse_coords_mode
+from brief_pytorch_tpu_torch.ops import wide
 from brief_pytorch_tpu_torch.ops.chain import ACTS, LayerSpec, chain_layer_specs
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
+SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
 BLOCKS = (128, 64, 32)       # voxels per block (= threads per block)
 MAX_PLANE_AXES = 3
+MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
+WEIGHT_BUDGET = 32 << 20     # bytes of W: the JAX kernel's gate
 
 launches = 0                 # kernel launches, for proof that a run used it
 
-_SIGNATURES = {"brief_fused_decode": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]}
+_SIGNATURES = {
+    "brief_fused_decode": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "brief_fused_decode_wide": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]}
 
 
 def _round8(x: int) -> int:
@@ -68,27 +86,43 @@ def plan(widths: Sequence[int], block: int) -> Dict:
         sb_off.append(off)
         off += _round8(fout)
     buf_rows = max(widths)
-    return {"p_off": p_off, "sw_off": sw_off, "sb_off": sb_off,
-            "act_off": off, "buf_rows": buf_rows, "stride": block,
-            "block": block, "smem_bytes": 4 * (off + 2 * buf_rows * block)}
+    return {"layout": "narrow", "p_off": p_off, "sw_off": sw_off,
+            "sb_off": sb_off, "act_off": off, "buf_rows": buf_rows,
+            "stride": block, "block": block,
+            "smem_bytes": 4 * (off + 2 * buf_rows * block)}
+
+
+def wide_plan(widths: Sequence[int], tile: int) -> Dict:
+    """The wide form's layout for `tile` voxels per block (4 * tile
+    threads): two buffers of rows_max rows of `tile` floats and two weight
+    slabs in shared memory; the weights packed in device memory."""
+    rows = wide.rows_max(widths)
+    return {"layout": "wide", "block": tile, "threads": 4 * tile,
+            "rows_max": rows, **wide.layer_meta(widths),
+            "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB)}
 
 
 def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The largest block whose layout fits a block's shared memory, or None
-    (the chain then decodes through the plain torch chain in slabs)."""
-    if len(widths) - 1 > 16:
+    """The largest block whose weights fit a block's shared memory beside
+    its activation buffers; else the wide form's tile that keeps the most
+    voxels resident per SM; None past MAX_LAYERS layers or when even the
+    wide form's 8-voxel tile does not fit."""
+    if len(widths) - 1 > MAX_LAYERS:
         return None
     for block in BLOCKS:
         p = plan(widths, block)
         if p["smem_bytes"] <= SMEM_LIMIT:
             return p
-    return None
+    tile = wide.choose_tile(lambda t: wide_plan(widths, t)["smem_bytes"],
+                            SMEM_LIMIT, SM_SMEM)
+    return None if tile is None else wide_plan(widths, tile)
 
 
 def supports(model, spatial=None) -> bool:
     """Whether the fused decode kernel can run this φ model: a plain chain
-    (SIRENPos folds into the coordinates) whose weights and activation
-    buffers fit a block's shared memory, over 2 to 4 spatial axes."""
+    (SIRENPos folds into the coordinates) whose weights take at most
+    WEIGHT_BUDGET bytes (the JAX kernel's gate) and which choose_plan
+    holds, over 2 to 4 spatial axes."""
     if spatial is not None and not 2 <= len(spatial) <= MAX_PLANE_AXES + 1:
         return False
     spec = getattr(model, "spec", None)
@@ -99,6 +133,9 @@ def supports(model, spatial=None) -> bool:
     except ValueError:
         return False
     widths = [spec.entries[0].fan_in] + [e.fan_out for e in spec.entries]
+    if sum(4 * a * b for a, b in zip(widths[:-1], widths[1:])) > \
+            WEIGHT_BUDGET:
+        return False
     return choose_plan(widths) is not None
 
 
@@ -213,8 +250,9 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
         raise ValueError("one (act, w0) per layer")
     p = choose_plan(widths)
     if p is None:
-        raise ValueError(f"chain widths {widths} exceed the kernel's shared "
-                         "memory (see supports)")
+        raise ValueError(f"chain widths {widths}: more than {MAX_LAYERS} "
+                         "layers or a layer wider than the wide form's "
+                         "tile holds (see supports)")
     params = torch.cat([t for layer in layers
                         for t in (layer["w"].reshape(-1), layer["b"])])
     if params.device != device or params.dtype != torch.float32:
@@ -225,12 +263,19 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     sizes = list(spatial[1:]) + [1] * (MAX_PLANE_AXES - n_plane)
     table_off = list(np.cumsum([0] + list(spatial[1:]))[:n_plane]) + \
         [0] * (MAX_PLANE_AXES - n_plane)
-    meta = [len(layers), widths[0], widths[-1], p["stride"], p["act_off"],
-            p["buf_rows"], n_plane, int(enc_periods is not None)] + sizes + \
-        [int(t) for t in table_off]
+    if p["layout"] == "wide":
+        meta = [len(layers), widths[0], widths[-1], p["rows_max"], n_plane,
+                int(enc_periods is not None), p["n_params"],
+                p["wp_off"][-1]]
+    else:
+        meta = [len(layers), widths[0], widths[-1], p["stride"],
+                p["act_off"], p["buf_rows"], n_plane,
+                int(enc_periods is not None)]
+    meta += sizes + [int(t) for t in table_off]
     for l, (act, _) in enumerate(acts):
-        meta += [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
-                 p["sw_off"][l], p["sb_off"][l]]
+        meta += [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l]]
+        meta += [p["wp_off"][l], p["colpad"][l]] if p["layout"] == "wide" \
+            else [p["sw_off"][l], p["sb_off"][l]]
     fmeta = [lo, step, scale] + [float(w0) for _, w0 in acts]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     fmeta_c = (ctypes.c_float * len(fmeta))(*fmeta)
@@ -239,6 +284,17 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     out = torch.empty((pop, widths[-1]), dtype=torch.float32, device=device)
     lib = build.library("fused_decode", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
+        if p["layout"] == "wide":
+            wp = torch.empty(p["wp_off"][-1], dtype=torch.float32,
+                             device=device)
+            build.check(lib.brief_fused_decode_wide(
+                params.data_ptr(), wp.data_ptr(), tables.data_ptr(),
+                out.data_ptr(), pop, meta_c, fmeta_c, p["block"],
+                p["smem_bytes"],
+                torch.cuda.current_stream(device).cuda_stream),
+                "fused_decode wide")
+            launches += 1
+            return out
         build.check(lib.brief_fused_decode(
             params.data_ptr(), tables.data_ptr(), out.data_ptr(), pop, meta_c,
             fmeta_c, p["block"], p["smem_bytes"],

@@ -18,17 +18,22 @@ Bound on an H100: operations.  At the SingleTask run's shapes (SIREN
 work (~45 us at 67 TFLOP/s); csrc/fused_train.cu says how its design
 answers that.
 
-Three shared-memory layouts; `choose_plan` takes the first that fits and
-`kernel_plan` raises for a chain none holds:
-  * narrow (`plan`, smem_weights; 5 x 22, brain64's 3-7x4-1): W, W^T and
-    the gradient accumulator beside a tile of up to 128 coordinates, one
-    thread per coordinate;
+Three layouts; `choose_plan` takes the first that fits and `kernel_plan`
+raises for a chain none holds:
+  * narrow (`plan`; 5 x 22, brain64's 3-7x4-1): W, W^T and the gradient
+    accumulator in shared memory beside a tile of up to 128 coordinates,
+    one thread per coordinate;
   * tiled (`tiled_plan`; the HiP-CT bucket 3-64x6-1, 3-66x6-1, 5 x 95):
     W once, beside a 32-coordinate tile; 256 threads work on register
     micro-tiles of the three products and keep their share of dW
     (`dw_map`) in registers for the whole call, written once;
-  * wide (`plan`, not smem_weights; 3-186x4-1): only the activation tile
-    (T = 64 or 32), W read from device memory.
+  * wide (`wide_plan`; the SingleTask default on the 64x512x512 demo
+    volumes, 3-191x4-1 and 3-242x4-1, and fleet buckets past the tiled
+    layout such as 3-128x6-1): W streamed through shared memory in slabs
+    (ops/wide.py, csrc/wide.cuh), h_l and d_l of every coordinate in a
+    device-memory scratch, dW a split-K product over it (`dw_split`).
+    Any chain of up to MAX_LAYERS layers whose widest layer fits a tile
+    of 8 coordinates (3,327 features) trains.
 csrc/fused_train.cu says what bounds each.
 
 `fused_train_grads_fleet` launches the kernel for CUDA tensors and calls
@@ -37,7 +42,7 @@ is no fallback from one to the other.  `fused_train_grads` is its one-chain
 form (a fleet of one, which the C side runs without the fleet's parts).
 Scope: acts sine, relu, sigmoid, none; losses datal2, datasmoothl1;
 float32.  Not ported yet (ROADMAP.md): bf16 inputs (`half`, which the
-trainers refuse) and chains too wide for the smallest tile (kernel_plan
+trainers refuse) and chains of more than MAX_LAYERS layers (kernel_plan
 raises NotImplementedError).
 """
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from brief_pytorch_tpu_torch.ops import wide
 from brief_pytorch_tpu_torch.ops.chain import ACTS, LayerSpec, chain_layer_specs
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sincos
 
@@ -54,17 +60,17 @@ LOSSES = ("datal2", "datasmoothl1")
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
 BLOCKS = (128, 64, 32)       # coordinates per tile (= threads per block)
-WIDE_BLOCKS = (64, 32)       # tiles of the wide-chain layout
-WIDE_THREADS = 512           # threads per block of the wide-chain layout
 TILED_THREADS = 256          # kTiledThreads of csrc/fused_train.cu
 TILED_TILE = 32              # kTile: coordinates per tile of the tiled layout
 TILED_SLOTS = (4, 6, 8)      # dW tiles per thread: the kernel's instances
 MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
+DW_CHUNK = 32                # kDwChunk: coordinates per dW operand chunk
+DW_BLOCKS = 1056             # dW blocks aimed at per call: 8 per H100 SM
 
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {
-    "brief_fused_train_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    "brief_fused_train_occupancy": [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_void_p],
     "brief_fused_train": [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -76,6 +82,12 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p],
+    "brief_fused_train_wide_occupancy": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p, ctypes.c_void_p],
+    "brief_fused_train_wide": [ctypes.c_void_p] * 11 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -83,19 +95,14 @@ def _round8(x: int) -> int:
     return (x + 7) // 8 * 8
 
 
-def plan(widths: Sequence[int], block: int, smem_weights: bool = True
-         ) -> Dict:
-    """Shared-memory layout (in floats) of the kernel for a chain of
-    `widths` = (c_in, f_1, ..., c_out) and `block` coordinates per tile.
-
-    smem_weights: the weights W (fin, round8(fout)) and W^T (fout,
-    round8(fin)) and the bias of every layer, then the per-block gradient
-    accumulator; otherwise neither (the kernel reads W from device memory
-    and accumulates in device memory, and WIDE_THREADS threads share the
-    tile).  Then a loss reduction buffer of one float per thread and the
-    activation rows (coordinates, then h_l and d_l of every layer), each
-    row block + 1 floats long."""
-    threads = block if smem_weights else WIDE_THREADS
+def plan(widths: Sequence[int], block: int) -> Dict:
+    """Shared-memory layout (in floats) of the narrow layout for a chain of
+    `widths` = (c_in, f_1, ..., c_out) and `block` coordinates per tile:
+    the weights W (fin, round8(fout)) and W^T (fout, round8(fin)) and the
+    bias of every layer, the per-block gradient accumulator, a loss
+    reduction buffer of one float per thread and the activation rows
+    (coordinates, then h_l and d_l of every layer), each row block + 1
+    floats long."""
     n_layers = len(widths) - 1
     off = 0
     p_off, sw_off, swt_off, sb_off, h_row, dg_row = [], [], [], [], [], []
@@ -104,22 +111,16 @@ def plan(widths: Sequence[int], block: int, smem_weights: bool = True
         fin, fout = widths[l], widths[l + 1]
         p_off.append(n_params)
         n_params += fin * fout + fout
-        if smem_weights:
-            sw_off.append(off)
-            off += fin * _round8(fout)
-            swt_off.append(off)
-            off += fout * _round8(fin)
-            sb_off.append(off)
-            off += _round8(fout)
-        else:
-            sw_off.append(0)
-            swt_off.append(0)
-            sb_off.append(0)
-    acc_off = off if smem_weights else 0
-    if smem_weights:
-        off += _round8(n_params)
+        sw_off.append(off)
+        off += fin * _round8(fout)
+        swt_off.append(off)
+        off += fout * _round8(fin)
+        sb_off.append(off)
+        off += _round8(fout)
+    acc_off = off
+    off += _round8(n_params)
     red_off = off
-    off += threads
+    off += block
     act_off = _round8(off)
     row = widths[0]
     for l in range(n_layers):
@@ -132,8 +133,7 @@ def plan(widths: Sequence[int], block: int, smem_weights: bool = True
             "swt_off": swt_off, "sb_off": sb_off, "h_row": h_row,
             "dg_row": dg_row, "acc_off": acc_off, "red_off": red_off,
             "act_off": act_off, "stride": stride, "block": block,
-            "threads": threads, "smem_weights": smem_weights,
-            "layout": "narrow" if smem_weights else "wide",
+            "threads": block, "layout": "narrow",
             "smem_bytes": 4 * (act_off + row * stride)}
 
 
@@ -202,6 +202,54 @@ def tiled_plan(widths: Sequence[int]) -> Dict:
             "smem_bytes": 4 * (act_off + row * TILED_TILE)}
 
 
+def wide_plan(widths: Sequence[int], tile: int) -> Dict:
+    """Layout of the wide layout for a chain of `widths` and `tile`
+    coordinates per tile (4 * tile threads).
+
+    Shared memory: two buffers of rows_max rows of `tile` floats, two
+    weight slabs, a loss buffer of one float per thread.  Scratch rows
+    (each np = round64(N) floats; B * rows_total of them per call): the
+    coordinates (x_row[0] = 0), then per layer h_l (h_row; none for the
+    last layer) and d_l / g_l (g_row); x_row[l] is the layer's input.
+    dW tiles: layer l's (fin + 1) x fout gradient in 64 x 64 tiles
+    (i-block, o-block), numbered from tile0[l], o-blocks fastest."""
+    n_layers = len(widths) - 1
+    meta = wide.layer_meta(widths)
+    rows = wide.rows_max(widths)
+    x_row, h_row, g_row, tile0 = [0], [], [], [0]
+    row = widths[0]
+    for l in range(n_layers):
+        fout = widths[l + 1]
+        if l < n_layers - 1:
+            h_row.append(row)
+            x_row.append(row)
+            row += fout
+        else:
+            h_row.append(-1)
+        g_row.append(row)
+        row += fout
+        tile0.append(tile0[-1] + -(-(widths[l] + 1) // wide.OB)
+                     * -(-fout // wide.OB))
+    threads = 4 * tile
+    return {"layout": "wide", "block": tile, "threads": threads,
+            "rows_max": rows, "rows_total": row, "x_row": x_row,
+            "h_row": h_row, "g_row": g_row, "tile0": tile0[:-1],
+            "n_dw_tiles": tile0[-1], "wp_total": meta["wp_off"][-1], **meta,
+            "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB + threads)}
+
+
+def dw_split(n: int, n_fleet: int, n_dw_tiles: int) -> Tuple[int, int, int]:
+    """(np, splits, chunk) of the wide layout's dW product at N = n:
+    coordinates [0, np) cut into `splits` runs of `chunk` (a multiple of
+    DW_CHUNK; the last run ends at np), so that the grid holds about
+    DW_BLOCKS blocks."""
+    np_ = wide.round_up(n, wide.OB)
+    want = -(-DW_BLOCKS // (n_dw_tiles * n_fleet))
+    splits = max(1, min(want, np_ // (4 * DW_CHUNK)))
+    chunk = wide.round_up(-(-np_ // splits), DW_CHUNK)
+    return np_, -(-np_ // chunk), chunk
+
+
 def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
     """The layout and tile that keep the most coordinates resident per SM
     (an H100 SM has 228 KB of shared memory, 1 KB of it reserved per
@@ -209,27 +257,27 @@ def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
     in shared memory) when it fits at any tile; else the tiled layout
     (weights once in shared memory, dW in registers) when its weights and
     32-coordinate tile fit and its dW tiles fit TILED_SLOTS; else the wide
-    layout; None when even the wide layout's 32-coordinate activation tile
-    does not fit a block's 227 KB."""
+    layout; None past MAX_LAYERS layers or when even the wide layout's
+    8-coordinate tile does not fit a block's 227 KB."""
     if len(widths) - 1 > MAX_LAYERS:
         return None
-    for smem_weights, blocks in ((True, BLOCKS), (False, WIDE_BLOCKS)):
-        best, best_resident = None, 0
-        for block in blocks:
-            p = plan(widths, block, smem_weights)
-            if p["smem_bytes"] > SMEM_LIMIT:
-                continue
-            resident = block * min(2048 // p["threads"],
-                                   SM_SMEM // (p["smem_bytes"] + 1024))
-            if resident > best_resident:
-                best, best_resident = p, resident
-        if best is not None:
-            return best
-        if smem_weights:
-            p = tiled_plan(widths)
-            if p["slots"] and p["smem_bytes"] <= SMEM_LIMIT:
-                return p
-    return None
+    best, best_resident = None, 0
+    for block in BLOCKS:
+        p = plan(widths, block)
+        if p["smem_bytes"] > SMEM_LIMIT:
+            continue
+        resident = block * min(2048 // p["threads"],
+                               SM_SMEM // (p["smem_bytes"] + 1024))
+        if resident > best_resident:
+            best, best_resident = p, resident
+    if best is not None:
+        return best
+    p = tiled_plan(widths)
+    if p["slots"] and p["smem_bytes"] <= SMEM_LIMIT:
+        return p
+    tile = wide.choose_tile(lambda t: wide_plan(widths, t)["smem_bytes"],
+                            SMEM_LIMIT, SM_SMEM)
+    return None if tile is None else wide_plan(widths, tile)
 
 
 def kernel_plan(widths: Sequence[int]) -> Dict:
@@ -239,10 +287,10 @@ def kernel_plan(widths: Sequence[int]) -> Dict:
     p = choose_plan(widths)
     if p is None:
         raise NotImplementedError(
-            f"chain widths {widths}: more than {MAX_LAYERS} layers, or an "
-            f"activation tile of 32 coordinates beyond a block's shared "
-            f"memory; such chains on the train kernel are not ported yet "
-            f"(ROADMAP.md, 'Still to port')")
+            f"chain widths {widths}: more than {MAX_LAYERS} layers, or a "
+            f"layer wider than the wide layout's 8-coordinate tile holds; "
+            f"such chains on the train kernel are not ported yet "
+            f"(ROADMAP.md)")
     return p
 
 
@@ -362,10 +410,14 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
             err = lib.brief_fused_train_tiled_occupancy(
                 p["slots"], p["smem_bytes"], ctypes.addressof(per_sm),
                 ctypes.addressof(sms))
+        elif p["layout"] == "wide":
+            err = lib.brief_fused_train_wide_occupancy(
+                p["block"], p["smem_bytes"], ctypes.addressof(per_sm),
+                ctypes.addressof(sms))
         else:
             err = lib.brief_fused_train_occupancy(
-                int(p["smem_weights"]), p["threads"], p["smem_bytes"],
-                ctypes.addressof(per_sm), ctypes.addressof(sms))
+                p["threads"], p["smem_bytes"], ctypes.addressof(per_sm),
+                ctypes.addressof(sms))
         build.check(err, "fused_train occupancy")
         _OCCUPANCY[key] = max(1, per_sm.value) * sms.value
     per_fleet = -(-_OCCUPANCY[key] // n_fleet)
@@ -404,6 +456,30 @@ def _layer_widths(layers, c_in: int, lead: Tuple[int, ...]) -> List[int]:
 
 
 _PLANS: Dict[Tuple[int, ...], Dict] = {}
+_WIDE_BUFFERS: Dict[torch.device, Tuple[Tuple[int, ...],
+                                        Dict[str, torch.Tensor]]] = {}
+
+
+def _wide_buffers(device: torch.device, p: Dict, n_fleet: int, np_: int,
+                  grid: int, splits: int) -> Dict[str, torch.Tensor]:
+    """The wide layout's device scratch: the packed weights, h_l and d_l /
+    g_l of every coordinate, dW's partial rows and the loss partials.
+    Kept for the last shape per device and reused by every call of that
+    shape (a training run's steps); a new shape frees it first."""
+    key = (p["wp_total"], p["rows_total"], p["n_params"], n_fleet, np_,
+           grid, splits)
+    if device not in _WIDE_BUFFERS or _WIDE_BUFFERS[device][0] != key:
+        _WIDE_BUFFERS.pop(device, None)
+        empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                           device=device)
+        _WIDE_BUFFERS[device] = (key, {
+            "wp": empty(n_fleet, p["wp_total"]),
+            "scratch": empty(n_fleet, p["rows_total"], np_),
+            "partial": empty(n_fleet, splits, p["n_params"]),
+            "lossp": empty(n_fleet, grid)})
+    return _WIDE_BUFFERS[device][1]
+
+
 _SLOT_MAPS: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
 
 
@@ -439,7 +515,17 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
         raise ValueError(f"weights: expected float32 on {device}")
     n_fleet, n = params.shape[0], coords.shape[-1]
     mask_width = 0 if masks is None else masks.shape[1]
-    if p["layout"] == "tiled":
+    if p["layout"] == "wide":
+        np_, splits, chunk = dw_split(n, n_fleet, p["n_dw_tiles"])
+        meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
+                mask_width, p["rows_max"], np_, p["rows_total"],
+                p["wp_total"], p["n_dw_tiles"]]
+        for l, (act, _) in enumerate(acts):
+            meta += [widths[l], widths[l + 1], ACTS.index(act),
+                     p["p_off"][l], p["wp_off"][l], p["colpad"][l],
+                     p["x_row"][l], p["h_row"][l], p["g_row"][l],
+                     mask_off[l], p["tile0"][l]]
+    elif p["layout"] == "tiled":
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 p["red_off"], p["act_off"], mask_width, p["slots"]]
         for l, (act, _) in enumerate(acts):
@@ -449,7 +535,7 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
     else:
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 p["stride"], p["acc_off"], p["red_off"], p["act_off"],
-                int(p["smem_weights"]), mask_width, p["block"]]
+                mask_width]
         for l, (act, _) in enumerate(acts):
             meta += [widths[l], widths[l + 1], ACTS.index(act),
                      p["p_off"][l], p["sw_off"][l], p["swt_off"][l],
@@ -462,10 +548,24 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
     with torch.cuda.device(device):    # the C side launches on the current one
         grid = _grid(lib, device, p, n, n_fleet)
         width = p["n_params"] + 1
-        partial = torch.empty((n_fleet, grid, width), dtype=torch.float32,
-                              device=device)
         out = torch.empty((n_fleet, width), dtype=torch.float32,
                           device=device)
+        if p["layout"] == "wide":
+            bufs = _wide_buffers(device, p, n_fleet, np_, grid, splits)
+            build.check(lib.brief_fused_train_wide(
+                coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
+                params.data_ptr(), 0 if masks is None else masks.data_ptr(),
+                0 if thres is None else thres.data_ptr(),
+                bufs["wp"].data_ptr(), bufs["scratch"].data_ptr(),
+                bufs["partial"].data_ptr(), bufs["lossp"].data_ptr(),
+                out.data_ptr(), n, n_fleet, meta_c, w0_c,
+                LOSSES.index(loss_name), float(beta), grid, p["block"],
+                p["smem_bytes"], splits, chunk,
+                torch.cuda.current_stream(device).cuda_stream),
+                "fused_train wide")
+            return out
+        partial = torch.empty((n_fleet, grid, width), dtype=torch.float32,
+                              device=device)
         if p["layout"] == "tiled":
             build.check(lib.brief_fused_train_tiled(
                 coords.data_ptr(), values.data_ptr(), weights.data_ptr(),

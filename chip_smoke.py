@@ -7,19 +7,24 @@ NVIDIA card.
 Phases, each printing one line, each failure ending the run with a
 non-zero exit:
   1. the card's name and power limit (nvidia-smi) and torch's version;
-     build every CUDA kernel from ops/csrc (one nvcc per source, at once);
+     build every CUDA kernel from ops/csrc (one nvcc per source, at once;
+     the wide layout's products, csrc/wide.cuh, go into fused_train.cu
+     and fused_decode.cu);
   2. fast_sincos on the card against its plain version over |x| <= 200;
   3. the fused train-step kernel against its plain version at the default
      run's full width (SIREN 5 x 22, w0 = 20, N = 262,144), timed with CUDA
      events beside its plain version and its bound;
-  4. the grid-decode kernel the same way on the 64^3 and 256^3 grids;
+  4. the grid-decode kernel the same way on the 64^3 and 256^3 grids
+     (5 x 22, weights in shared memory) and, in its wide form, on the
+     64x512x512 grid of the demo volumes at DEMO_RUNS' widths (5 x 191,
+     5 x 242) beside the plain version in slabs of DECODE_SLAB voxels;
   5. the SingleTask command (cli.main, opt/SingleTask/default.yaml) on the
      bundled 64^3 fixture for COMPRESS_STEPS steps with one checkpoint:
      both kernels' launch counters above 0, PSNR above PSNR_FLOOR, the
      weight binaries written, and the standalone decompress of the
      artifacts equal to the checkpoint's decode;
   6. the train kernel's fleet form at the shapes phases 7 and 8 give it
-     (fleet_check): 4 blocks padded to 3-64x6-1, true widths
+     (fleet_check): 4 blocks padded to 3-66x6-1, true widths
      FLEET_WIDTHS through unit masks, SIREN w0 = 10, N = 100,000 per
      block (the tiled layout), and brain64's 8 blocks of 3-7x4-1, w0 = 20,
      N = 20,000 (the narrow layout), and 4 blocks padded to 3-128x6-1,
@@ -30,11 +35,12 @@ non-zero exit:
      kernel on its unpadded chain, padded gradients exactly 0, three runs
      bitwise equal;
      timed beside the plain version and the bound; the wide one-chain
-     layout (3-186x4-1, N = 262,144) timed the same way;
-  7. the DivideTask command on opt/DivideTask/hipct.yaml, verbatim but for
-     the data (a seeded 64x512x512 uint16 volume whose quadrants' contrast
-     makes by_var give four widths, which must be phase 6's), HIPCT_STEPS
-     steps with one checkpoint and no MIPs: one kernel launch per step,
+     layout at phase 12's chains (3-191x4-1, 3-242x4-1, N = 100,000)
+     checked against its plain version and timed the same way;
+  7. the DivideTask command on opt/DivideTask/hipct.yaml, verbatim (the
+     tracked demo volume dataset/example/hipct-0_64-0_512-0_512.tif, LZW;
+     by_var must give phase 6's FLEET_WIDTHS), HIPCT_STEPS steps with one
+     checkpoint and no MIPs: one kernel launch per step,
      the standalone decompress_divide launching the decode kernel once per
      chunk and within 1 LSB of the checkpoint's merged volume on >= 99.9%
      of voxels, PSNR above HIPCT_PSNR_FLOOR and within HIPCT_AUTOGRAD_DB
@@ -70,7 +76,16 @@ non-zero exit:
      standalone decompress equal to the checkpoint's decode, PSNR above
      its floor; then opt/DivideTask/brain64.yaml with MFNFourier (the
      fleet's solo path) and with NeRF (a stacked skip/encoder bucket),
-     decompress_divide within 1 LSB of the merged checkpoint.
+     decompress_divide within 1 LSB of the merged checkpoint;
+ 12. this slice's path: the SingleTask command (opt/SingleTask/default.yaml
+     verbatim but for the data, the tracked HiP-CT demo volume, and the
+     cuts below) at each of DEMO_RUNS: 80x (SIREN 5 x 191) for 500 steps
+     and 50x (5 x 242) for 200, one checkpoint, no MIPs; the sampler
+     randompoint at 100,000 (cube_size_guard), one launch of the train
+     kernel's wide layout per step, the decode kernel's wide form in the
+     checkpoint and in the standalone NFGR.decompress, whose volume equals
+     the checkpoint's; PSNR within DEMO_AUTOGRAD_DB of the same steps
+     through autograd (Compress.fused_train: false).
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -99,16 +114,24 @@ DIVIDE = os.path.join(ROOT, "opt", "DivideTask")
 COMPRESS_STEPS = 3000
 PSNR_FLOOR = 40.0          # dB; 41.985 measured on an H100 (PERF.md)
 N_COORDS = 64 ** 3         # randomcube over the whole 64^3 fixture
+HIPCT = os.path.join(ROOT, "dataset", "example",
+                     "hipct-0_64-0_512-0_512.tif")   # LZW, tracked
 HIPCT_STEPS = 500          # cut from the config's 80,000
-HIPCT_PSNR_FLOOR = 15.0    # dB; 16.371 on the first H100 run (PERF.md)
+HIPCT_PSNR_FLOOR = 24.0    # dB; 25.181 on the first H100 run (PERF.md)
 HIPCT_AUTOGRAD_DB = 0.5    # dB; the kernel run's PSNR against autograd's
 FIXTURE_STEPS = 300        # cut from the configs' 20,000
-FLEET_WIDTHS = (49, 52, 58, 64)   # phase 7's true widths (padded to 64)
+FLEET_WIDTHS = (51, 54, 60, 66)   # phase 7's true widths (padded to 66)
 FLEET_N = 100_000          # the hipct config's sample_size
 BRAIN64_WIDTHS = (7,) * 8  # brain64.yaml's 8 blocks (by_size at 80x)
 BRAIN64_N = 20_000         # brain64.yaml's sample_size
 WIDE_FLEET_WIDTHS = (98, 106, 117, 128)   # a bucket past the tiled layout
 WIDE_FLEET_N = 100_003     # the hipct sample_size, with a ragged tail
+# phase 12: (filesize_ratio, steps, SIREN width default.yaml gives the
+# demo volume at that ratio); cube_size_guard makes the step randompoint
+DEMO_RUNS = [(80, 500, 191), (50, 200, 242)]
+DEMO_N = 100_000           # default.yaml's sample_size
+DEMO_AUTOGRAD_DB = 0.5     # dB; the kernel run's PSNR against autograd's
+DECODE_SLAB = 1 << 20      # voxels per slab of the plain decode (phase 4)
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 SINCOS_FLOPS = 25            # fast_sincos incl. the w0 multiplies
@@ -220,37 +243,6 @@ def compare_grads(lk, gk, lp, gp, what: str) -> float:
     return err
 
 
-def hipct_volume(seed: int, shape=(64, 512, 512),
-                 ratio_widths=(51, 54, 60, 66)) -> np.ndarray:
-    """A (64, 512, 512, 1) uint16 volume made from `seed`: a sum of twelve
-    random plane waves, its four (h, w) quadrants scaled so that by_var
-    gives them budgets in the ratio of 7-layer SIRENs of `ratio_widths`
-    (5 f^2 + 10 f + 1 parameters).  hipct.yaml's 128x budget, 65,536
-    parameters, then gives the four blocks FLEET_WIDTHS."""
-    rng = np.random.default_rng(seed)
-    d, h, w = shape
-    z = np.linspace(0, 1, d, dtype=np.float32)[:, None, None]
-    y = np.linspace(0, 1, h, dtype=np.float32)[None, :, None]
-    x = np.linspace(0, 1, w, dtype=np.float32)[None, None, :]
-    field = np.zeros(shape, np.float32)
-    for _ in range(12):
-        k = rng.uniform(-6, 6, 3).astype(np.float32)
-        field += np.float32(rng.uniform(0.3, 1.0)) * np.cos(
-            np.float32(2 * np.pi) * (k[0] * z + k[1] * y + k[2] * x)
-            + np.float32(rng.uniform(0, 2 * np.pi)))
-    field /= np.abs(field).max()
-    quads = [(slice(None), slice(q // 2 * h // 2, (q // 2 + 1) * h // 2),
-              slice(q % 2 * w // 2, (q % 2 + 1) * w // 2)) for q in range(4)]
-    target = np.array([5 * f * f + 10 * f + 1 for f in ratio_widths],
-                      np.float64)
-    gain = np.sqrt(target / np.array([field[q].var() for q in quads]))
-    gain *= 1.4 / gain.max()
-    vol = np.empty(shape, np.float32)
-    for q, g in zip(quads, gain):
-        vol[q] = 32768 + 15000 * g * (field[q] - field[q].mean())
-    return np.rint(vol).astype(np.uint16)[..., None]
-
-
 def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
                 thres, layout: str) -> dict:
     """The train kernel's fleet form on B = len(true_widths) SIREN chains
@@ -353,11 +345,13 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
 
 
 def run_config(config: str, out_dir: str, steps: int, data_path=None,
-               fused_train: bool = True, phi=None, project=None):
+               fused_train: bool = True, phi=None, project=None,
+               ratio=None):
     """The CLI on `config` cut to `steps` steps with one checkpoint, no
     MIPs (and the fused train kernel off unless `fused_train`; Module.phi
-    updated with `phi`, the run named `project`); returns (summary, run
-    dir, the yaml's config)."""
+    updated with `phi`, the run named `project`, Compress.param's
+    filesize_ratio set to `ratio`); returns (summary, run dir, the yaml's
+    config)."""
     from brief_pytorch_tpu_torch.cli import main as cli
     from brief_pytorch_tpu_torch.core import config as cfglib
     opt = cfglib.load(config)
@@ -375,6 +369,8 @@ def run_config(config: str, out_dir: str, steps: int, data_path=None,
         opt.Log.project_name += "_autograd"
     for k, v in (phi or {}).items():
         c.Module.phi[k] = v
+    if ratio is not None:
+        c.Compress.param.filesize_ratio = ratio
     if project is not None:
         opt.Log.project_name = project
     yaml_path = os.path.join(out_dir, f"{opt.Log.project_name}_"
@@ -687,6 +683,79 @@ def divide_family_run(dev, out_dir: str, name: str, keys: dict, solo: int
         checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
 
 
+def demo_run(dev, out_dir: str, ratio: int, steps: int, features: int
+             ) -> dict:
+    """Phase 12 at one filesize_ratio: opt/SingleTask/default.yaml on the
+    HiP-CT demo volume through the command, on the kernels and through
+    autograd.  Fails the run on any miss; returns the run's numbers."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    project = f"demo_{ratio}x"
+    fused_train.launches = fused_decode.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, opt = run_config(CONFIG, out_dir, steps, HIPCT,
+                                       project=project, ratio=ratio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_train": fused_train.launches,
+                "fused_decode": fused_decode.launches}
+    cf = opt.CompressFramework
+    comp = os.path.join(run_dir, f"steps{steps}", "compressed")
+    side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
+    with np.load(os.path.join(run_dir, "trainstate.npz")) as z:
+        fp = json.loads(bytes(z["fingerprint"]).decode())
+    widths = [3] + [features] * 4 + [1]
+    if launches["fused_train"] != steps or launches["fused_decode"] < 1 or \
+            side["phi_features"] != features or not fp["fused"] or \
+            "RandomPointSampler" not in fp["sampler"] or \
+            int(cf.Compress.sampler.sample_size) != DEMO_N or \
+            fused_train.choose_plan(widths)["layout"] != "wide" or \
+            fused_decode.choose_plan(widths)["layout"] != "wide":
+        fail(f"{project}: launches {launches}, features "
+             f"{side['phi_features']} (want {features}), fingerprint {fp}")
+    fused_decode.launches = 0
+    dec = NFGR.decompress(cf, os.path.join(comp, "module"),
+                          os.path.join(comp, "sideinfos.yaml"), device=dev)
+    decompress_launches = fused_decode.launches
+    ck = read_img(os.path.join(
+        run_dir, f"steps{steps}", "decompressed",
+        os.path.basename(HIPCT).replace(".tif", "_decompressed.tif")))
+    if decompress_launches < 1 or dec.shape != (64, 512, 512, 1) or \
+            not np.array_equal(dec, ck):
+        fail(f"{project}: standalone decompress ({decompress_launches} "
+             "decode launches) differs from the checkpoint's decode")
+    psnr = last_psnr(run_dir)
+    fused_train.launches = 0
+    summary_a, run_dir_a, _ = run_config(CONFIG, out_dir, steps, HIPCT,
+                                         fused_train=False, ratio=ratio,
+                                         project=project + "_autograd")
+    psnr_a = last_psnr(run_dir_a)
+    if fused_train.launches:
+        fail(f"{project} autograd run: {fused_train.launches} kernel "
+             "launches")
+    train_s = summary["train_s"]
+    say("12-demo-singletask", ratio=ratio, steps=steps, widths=widths,
+        sampler=f"randompoint {DEMO_N}", launches=json.dumps(launches),
+        decompress_decode_launches=decompress_launches,
+        psnr=f"{psnr:.3f}", psnr_autograd=f"{psnr_a:.3f}",
+        psnr_autograd_margin=DEMO_AUTOGRAD_DB,
+        ssim=f"{float(summary['ssim']):.4f}",
+        ssim_autograd=f"{float(summary_a['ssim']):.4f}",
+        train_s=f"{train_s:.3f}", steps_per_s=f"{steps / train_s:.2f}",
+        steps_per_s_autograd=f"{steps / summary_a['train_s']:.2f}",
+        checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
+    if not math.isfinite(psnr) or not abs(psnr - psnr_a) <= DEMO_AUTOGRAD_DB:
+        fail(f"{project}: PSNR {psnr} on the kernels, {psnr_a} through "
+             f"autograd: more than {DEMO_AUTOGRAD_DB} dB apart")
+    return dict(launches=launches, decompress_decode_launches=
+                decompress_launches, psnr=psnr, psnr_autograd=psnr_a,
+                steps_per_s=steps / train_s, train_s=train_s,
+                checkpoint_s=summary["checkpoint_s"], wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -787,43 +856,65 @@ def main() -> int:
         ms=f"{ms1:.4f}", plain_ms=f"{plain1:.4f}", bound_ms=f"{b1:.4f}",
         bound_by=by1, tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6")
 
-    # ---- 4. kernel 2: grid decode, 64^3 (main path) and 256^3 ----
+    # ---- 4. kernel 2: grid decode, 64^3 (main path) and 256^3; the wide
+    # form on the demo volumes' 64x512x512 grid at phase 12's widths ----
     dec_rows = {}
-    for side in (64, 256):
-        spatial = (side, side, side)
+    dec_cases = [(64, (64, 64, 64), layers, acts),
+                 (256, (256, 256, 256), layers, acts)]
+    for _, _, f in DEMO_RUNS:
+        dmodel = init_phi({**phi, "features": f})
+        dec_cases.append((f, (64, 512, 512), dmodel.init(
+            torch.Generator().manual_seed(3), dev)["layers"],
+                          chain_layer_specs(dmodel.spec)))
+    for key, spatial, dlayers, dacts in dec_cases:
+        dwidths = [3] + [int(l["w"].shape[1]) for l in dlayers]
+        dplan = fused_decode.choose_plan(dwidths)
+        slab = DECODE_SLAB if dplan["layout"] == "wide" else None
 
         def k2():
-            return fused_decode.fused_decode_grid(layers, spatial, acts,
+            return fused_decode.fused_decode_grid(dlayers, spatial, dacts,
                                                   "-1,1")
 
         def p2():
             return fused_decode.fused_decode_grid_reference(
-                layers, spatial, acts, "-1,1")
+                dlayers, spatial, dacts, "-1,1", slab=slab)
 
+        pop = int(np.prod(spatial))
         out_k, out_p = k2(), p2()
         torch.cuda.synchronize()
-        if out_k.shape != (side ** 3, 1) or not torch.isfinite(out_k).all():
+        if out_k.shape != (pop, 1) or not torch.isfinite(out_k).all():
             fail(f"fused_decode {spatial}: shape {tuple(out_k.shape)} or "
                  "non-finite values")
         err2 = float((out_k - out_p).abs().max())
         scale = float(out_p.abs().max())
         if not err2 <= 1e-5 * scale + 1e-5:
-            fail(f"fused_decode {spatial}: max abs err {err2} "
+            fail(f"fused_decode {spatial} {dwidths}: max abs err {err2} "
                  f"(max |plain| {scale})")
         del out_k, out_p
-        ms2 = time_ms(k2)
-        plain2 = time_ms(p2, reps=20)
-        pop = side ** 3
-        flops2 = pop * (2 * macs + SIN_FLOPS * sine_units)
-        bytes2 = 4 * (pop * widths[-1] + sum(side for _ in spatial[1:])
-                      + sum(l["w"].numel() + l["b"].numel() for l in layers))
+        wide_case = dplan["layout"] == "wide"
+        ms2 = time_ms(k2, reps=10 if wide_case else 25)
+        plain2 = time_ms(p2, reps=3 if wide_case else 20, warmup=1)
+        dmacs = chain_macs(dwidths)
+        dsine = sum(w for w, (a, _) in zip(dwidths[1:], dacts)
+                    if a == "sine")
+        flops2 = pop * (2 * dmacs + SIN_FLOPS * dsine)
+        bytes2 = 4 * (pop * dwidths[-1] + sum(spatial[1:])
+                      + sum(l["w"].numel() + l["b"].numel()
+                            for l in dlayers))
         b2, by2 = bound_ms(bytes2, flops2)
-        dec_rows[side] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2,
-                              bound_ms=b2, bound_by=by2)
-        say("4-fused_decode", grid=f"{side}^3", max_abs_err=f"{err2:.3e}",
-            ms=f"{ms2:.4f}", plain_ms=f"{plain2:.4f}", bound_ms=f"{b2:.4f}",
-            bound_by=by2, mvox_per_s=f"{pop / ms2 / 1e3:.1f}",
+        grid = "x".join(map(str, spatial))
+        dec_rows[key] = dict(shape=f"SIREN {dwidths}, {grid} grid",
+                             layout=dplan["layout"], tile=dplan["block"],
+                             max_abs_err=err2, ms=ms2, plain_ms=plain2,
+                             bound_ms=b2, bound_by=by2)
+        say("4-fused_decode", grid=grid, widths=dwidths,
+            layout=dplan["layout"], tile=dplan["block"],
+            max_abs_err=f"{err2:.3e}", ms=f"{ms2:.4f}",
+            plain_ms=f"{plain2:.4f}", bound_ms=f"{b2:.4f}", bound_by=by2,
+            mvox_per_s=f"{pop / ms2 / 1e3:.1f}",
             tolerance="1e-5*max|plain|+1e-5")
+        if wide_case != (key in (191, 242)):
+            fail(f"fused_decode {dwidths}: layout {dplan['layout']}")
 
     # ---- 5. the SingleTask command on the 64^3 fixture ----
     from brief_pytorch_tpu_torch.cli import main as cli
@@ -898,49 +989,65 @@ def main() -> int:
                              WIDE_FLEET_N, [60.0, -math.inf, 40.0, -math.inf],
                              "wide")
 
-    # the wide one-chain layout: the SingleTask default's width on a
-    # volume of the HiP-CT demo's size
-    wmodel = init_phi({**phi, "features": 186})
-    wlayers = wmodel.init(torch.Generator().manual_seed(1), dev)["layers"]
-    wacts = chain_layer_specs(wmodel.spec)
-    wwidths = [3] + [int(l["w"].shape[1]) for l in wlayers]
-    wplan = fused_train.choose_plan(wwidths)
-    if wplan is None or wplan["layout"] != "wide" or \
-            not fused_train.supports_training(wmodel, "datal2"):
-        fail(f"chain {wwidths}: no wide-layout plan ({wplan})")
+    # the wide one-chain layout at phase 12's chains: the SingleTask
+    # default on the demo volumes at 80x and 50x, default.yaml's N
+    wide_rows = {}
+    wrng = np.random.default_rng(12)
+    to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    wc = to_dev(wrng.uniform(-1, 1, (3, DEMO_N)))
+    wv = to_dev(wrng.uniform(0, 100, (1, DEMO_N)))
+    ww = to_dev(wrng.uniform(1, 2, (1, DEMO_N)))
+    for _, _, f in DEMO_RUNS:
+        wmodel = init_phi({**phi, "features": f})
+        wlayers = wmodel.init(torch.Generator().manual_seed(1),
+                              dev)["layers"]
+        wacts = chain_layer_specs(wmodel.spec)
+        wwidths = [3] + [int(l["w"].shape[1]) for l in wlayers]
+        wplan = fused_train.choose_plan(wwidths)
+        if wplan is None or wplan["layout"] != "wide" or \
+                not fused_train.supports_training(wmodel, "datal2"):
+            fail(f"chain {wwidths}: no wide-layout plan ({wplan})")
 
-    def kwide():
-        return fused_train.fused_train_grads(wlayers, coords, values, weights,
-                                             wacts, **kw)
+        def kwide():
+            return fused_train.fused_train_grads(wlayers, wc, wv, ww, wacts,
+                                                 **kw)
 
-    def pwide():
-        return fused_train.fused_train_grads_reference(
-            wlayers, coords, values, weights, wacts, **kw)
+        def pwide():
+            return fused_train.fused_train_grads_reference(
+                wlayers, wc, wv, ww, wacts, **kw)
 
-    (lk, gk), (lp, gp) = kwide(), pwide()
-    torch.cuda.synchronize()
-    errw = compare_grads(lk, gk["layers"], lp, gp["layers"], "wide chain")
-    msw = time_ms(kwide)
-    plainw = time_ms(pwide, reps=10)
-    bw, byw = bound_ms(4 * (n * 5 + 2 * sum(l["w"].numel() + l["b"].numel()
-                                            for l in wlayers) + 1),
-                       train_flops(wwidths, wacts, n))
-    wide_row = dict(shape=f"SIREN {wwidths}, N={n}", tile=wplan["block"],
-                    max_abs_err=errw, ms=msw, plain_ms=plainw, bound_ms=bw,
-                    bound_by=byw)
-    say("6-fused_train_wide", widths=wwidths, n=n, tile=wplan["block"],
-        smem_bytes=wplan["smem_bytes"], max_abs_err=f"{errw:.3e}",
-        ms=f"{msw:.4f}", plain_ms=f"{plainw:.4f}", bound_ms=f"{bw:.4f}",
-        bound_by=byw)
+        (lk, gk), (lp, gp) = kwide(), pwide()
+        torch.cuda.synchronize()
+        errw = compare_grads(lk[None], [{k: v[None] for k, v in g.items()}
+                                        for g in gk["layers"]], lp[None],
+                             [{k: v[None] for k, v in g.items()}
+                              for g in gp["layers"]], f"wide chain {wwidths}")
+        for lr, gr in [kwide() for _ in range(2)]:
+            if not torch.equal(lr, lk) or not all(
+                    torch.equal(x[k], y[k]) for x, y in
+                    zip(gr["layers"], gk["layers"]) for k in ("w", "b")):
+                fail(f"wide chain {wwidths}: runs differ bitwise")
+        del gk, gp
+        msw = time_ms(kwide)
+        plainw = time_ms(pwide, reps=5)
+        bw, byw = bound_ms(4 * (DEMO_N * 5 + 2 * sum(
+            l["w"].numel() + l["b"].numel() for l in wlayers) + 1),
+            train_flops(wwidths, wacts, DEMO_N))
+        wide_rows[f] = dict(shape=f"SIREN {wwidths}, N={DEMO_N}",
+                            layout="wide", tile=wplan["block"],
+                            max_abs_err=errw, ms=msw, plain_ms=plainw,
+                            bound_ms=bw, bound_by=byw)
+        say("6-fused_train_wide", widths=wwidths, n=DEMO_N,
+            tile=wplan["block"], smem_bytes=wplan["smem_bytes"],
+            max_abs_err=f"{errw:.3e}", ms=f"{msw:.4f}",
+            plain_ms=f"{plainw:.4f}", bound_ms=f"{bw:.4f}", bound_by=byw,
+            tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; 3 runs "
+                      "bitwise")
 
     # ---- 7. the DivideTask command on the HiP-CT config ----
-    from brief_pytorch_tpu_torch.io.image import save_img
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_divide_")
     try:
-        t0 = time.perf_counter()
-        data_path = os.path.join(out_dir, "hipct-0_64-0_512-0_512.tif")
-        save_img(data_path, hipct_volume(42))
-        gen_s = time.perf_counter() - t0
+        data_path = HIPCT
         fused_train.launches = 0
         fused_decode.launches = 0
         t0 = time.perf_counter()
@@ -1008,7 +1115,7 @@ def main() -> int:
             steps_per_s_autograd=f"{HIPCT_STEPS / summary7a['train_s']:.2f}",
             coords_per_s=f"{HIPCT_STEPS * len(names) * FLEET_N / train7:.4g}",
             checkpoint_s=f"{summary7['checkpoint_s']:.3f}",
-            wall_s=f"{wall7:.3f}", data_gen_s=f"{gen_s:.3f}")
+            wall_s=f"{wall7:.3f}")
         if not math.isfinite(psnr7) or psnr7 < HIPCT_PSNR_FLOOR:
             fail(f"hipct PSNR {psnr7} below the floor {HIPCT_PSNR_FLOOR}")
         if not abs(psnr7 - psnr7a) <= HIPCT_AUTOGRAD_DB:
@@ -1078,14 +1185,21 @@ def main() -> int:
         fail(f"phase 11 launched the forward kernel {fused_siren.launches} "
              "times: it is off every default path")
 
+    # ---- 12. SingleTask on the demo volume: the wide layouts ----
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    try:
+        demo_rows = {f: demo_run(dev, out_dir, ratio, steps, f)
+                     for ratio, steps, f in DEMO_RUNS}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
          "launches": launches["fused_train"], "max_abs_err": err1,
          "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
-         "library_ms": None, "shape": f"SIREN {widths}, N={n}",
-         "wide": wide_row},
+         "library_ms": None, "shape": f"SIREN {widths}, N={n}"},
         {"name": "fused_train_grads_fleet", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
@@ -1102,7 +1216,26 @@ def main() -> int:
          "bound_ms": dec_rows[64]["bound_ms"],
          "bound_by": dec_rows[64]["bound_by"], "library_ms": None,
          "shape": f"SIREN {widths}, 64^3 grid",
-         "at_256": dec_rows[256]},
+         "at_256": {k: v for k, v in dec_rows[256].items() if k != "shape"}},
+        {"name": "fused_train_grads_wide", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
+                   "(+ csrc/wide.cuh)",
+         "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
+         "launches": demo_rows[191]["launches"]["fused_train"],
+         "library_ms": None, **wide_rows[191],
+         "at_242": {**wide_rows[242], "launches":
+                    demo_rows[242]["launches"]["fused_train"]},
+         "phase12": demo_rows},
+        {"name": "fused_decode_grid_wide", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
+                   "(+ csrc/wide.cuh)",
+         "replaces": "brief_pytorch_tpu/ops/pallas_decode.py:172",
+         "launches": demo_rows[191]["launches"]["fused_decode"]
+         + demo_rows[191]["decompress_decode_launches"],
+         "library_ms": None, **dec_rows[191],
+         "at_242": {**dec_rows[242], "launches":
+                    demo_rows[242]["launches"]["fused_decode"]
+                    + demo_rows[242]["decompress_decode_launches"]}},
         {"name": "fused_chain_apply", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_siren.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_siren.py:116",

@@ -270,19 +270,19 @@ def test_fused_train_fleet_is_deterministic(dev, true_widths, layers, layout):
 
 
 @pytest.mark.parametrize("features,layers,layout", [
-    (66, 7, "tiled"), (95, 5, "tiled"), (186, 5, "wide")])
+    (66, 7, "tiled"), (95, 5, "tiled"), (186, 5, "wide"), (512, 5, "wide")])
 def test_wide_chain_trains_on_the_kernel(dev, features, layers, layout):
     """Chains beyond the narrow layout: 3-66x6-1 and a SingleTask 5 x 95
-    (the tiled layout; 5 x 95 needs its largest dW slot count) and the
-    SingleTask default on a volume of the HiP-CT demo's size (3-186x4-1, the
-    wide layout): supports_training holds, the plan is the expected one,
-    and the kernel matches its plain version."""
+    (the tiled layout; 5 x 95 needs its largest dW slot count), the
+    SingleTask default at 3-186x4-1 and a 512-wide chain (the wide
+    layout): supports_training holds, the plan is the expected one, and
+    the kernel matches its plain version."""
     model, params = _chain(dev, features, layers)
     assert ft.supports_training(model, "datal2")
     p = ft.choose_plan(ft.chain_widths(model.spec))
     assert p["layout"] == layout
     if layout == "wide":
-        assert not p["smem_weights"] and p["block"] in ft.WIDE_BLOCKS
+        assert p["block"] in (64, 32, 16, 8)
     acts = chain_layer_specs(model.spec)
     coords, values, weights = _batch(dev, 20000)
     kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.5)
@@ -295,17 +295,77 @@ def test_wide_chain_trains_on_the_kernel(dev, features, layers, layout):
 
 
 def test_too_wide_chain_raises_on_the_card(dev):
-    """A chain whose 32-coordinate activation tile exceeds shared memory
-    has no autograd fallback on the card: the gate and the launch raise
-    NotImplementedError naming its widths."""
-    model, params = _chain(dev, 512, 5)
-    with pytest.raises(NotImplementedError, match="512"):
+    """A chain whose widest layer the wide layout's 8-coordinate tile does
+    not hold (3,400 features) has no autograd fallback on the card: the
+    gate and the launch raise NotImplementedError naming its widths."""
+    model, params = _chain(dev, 3400, 2)
+    with pytest.raises(NotImplementedError, match="3400"):
         ft.supports_training(model, "datal2")
     coords, values, weights = _batch(dev, 256)
-    with pytest.raises(NotImplementedError, match="512"):
+    with pytest.raises(NotImplementedError, match="3400"):
         ft.fused_train_grads(params["layers"], coords, values, weights,
                              chain_layer_specs(model.spec),
                              loss_name="datal2")
+
+
+# --- the wide layout at the demo volumes' SingleTask widths ---------------
+@pytest.mark.parametrize("thres", [0.5, None])
+@pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
+@pytest.mark.parametrize("features", [191, 242])
+def test_wide_layout_matches_plain(dev, features, loss_name, thres):
+    """opt/SingleTask/default.yaml's chain on the 64x512x512 demo volumes
+    (5 x 191 at 80x, 5 x 242 at 50x) in the wide layout, N = 20,003 (a
+    tail no tile divides): one launch, within the plain version's
+    tolerances."""
+    model, params = _chain(dev, features, 5)
+    assert ft.choose_plan(ft.chain_widths(model.spec))["layout"] == "wide"
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, 20003)
+    kw = dict(loss_name=loss_name, beta=0.01, weight_thres=thres)
+    before = ft.launches
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    assert ft.launches == before + 1
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    _close(lk[None], [{k: v[None] for k, v in g.items()} for g in
+                      gk["layers"]], lp[None],
+           [{k: v[None] for k, v in g.items()} for g in gp["layers"]])
+
+
+def test_wide_layout_is_deterministic(dev):
+    model, params = _chain(dev, 242, 5)
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, 100000)
+    runs = [ft.fused_train_grads(params["layers"], coords, values, weights,
+                                 acts, loss_name="datal2", weight_thres=0.5)
+            for _ in range(3)]
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        for a, b in zip(grads["layers"], runs[0][1]["layers"]):
+            assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+@pytest.mark.parametrize("features", [191, 242])
+def test_wide_decode_matches_plain(dev, features):
+    """The decode kernel's wide form on a 64x128x128 grid at the demo
+    volumes' SingleTask widths: one launch, within 1e-5 * max|plain| +
+    1e-5 of the plain version."""
+    model, params = _chain(dev, features, 5)
+    assert fd.supports(model, (64, 128, 128))
+    assert fd.choose_plan(ft.chain_widths(model.spec))["layout"] == "wide"
+    acts = chain_layer_specs(model.spec)
+    before = fd.launches
+    out = fd.fused_decode_grid(params["layers"], (64, 128, 128), acts, "-1,1")
+    assert fd.launches == before + 1
+    ref = fd.fused_decode_grid_reference(params["layers"], (64, 128, 128),
+                                         acts, "-1,1", slab=1 << 18)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (64 * 128 * 128, 1)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
 
 
 # --- the batch-major fused forward kernel (ops/fused_siren.py) -------------

@@ -98,8 +98,12 @@ def test_supports_gating():
     assert not fd.supports(model, (64,))
     assert not fd.supports(model, (2, 2, 2, 2, 2))
     assert fd.choose_plan([3, 22, 22, 22, 22, 1])["block"] == 128
-    # 512-wide weights alone take 1 MB of shared memory: the slab path
-    huge = tphi.init_phi({**cfg, "features": 512})
+    # 512-wide weights (3 MB) take the wide form; past the JAX kernel's
+    # 32 MB of weights (5 x 1,700: 34.7 MB), the slab path
+    wide = tphi.init_phi({**cfg, "features": 512})
+    assert fd.supports(wide, (4, 4, 4))
+    assert fd.choose_plan([3, 512, 512, 512, 512, 1])["layout"] == "wide"
+    huge = tphi.init_phi({**cfg, "features": 1700})
     assert not fd.supports(huge, (4, 4, 4))
 
 

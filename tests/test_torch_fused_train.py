@@ -110,13 +110,18 @@ def test_supports_training_and_plan():
     p = ft.choose_plan([3, 22, 22, 22, 22, 1])
     assert p["block"] == 128 and p["smem_bytes"] <= ft.SMEM_LIMIT
     assert ft.SM_SMEM // (p["smem_bytes"] + 1024) == 2
-    # a chain whose activation tile exceeds shared memory even at T = 32:
-    # the card has no autograd fallback for it, the gate raises
+    # a 512-wide chain takes the wide layout (it raised before the
+    # layout streamed its weights); past MAX_LAYERS layers the card has no
+    # autograd fallback, the gate raises
     wide = tphi.init_phi({**cfg, "features": 512})
-    assert ft.choose_plan(ft.chain_widths(wide.spec)) is None
-    with pytest.raises(NotImplementedError, match="512"):
-        ft.supports_training(wide, "datal2")
-    assert not ft.supports_training(wide, "nosuchloss")
+    assert ft.choose_plan(ft.chain_widths(wide.spec))["layout"] == "wide"
+    assert ft.supports_training(wide, "datal2")
+    deep = tphi.init_phi({**cfg, "layers": ft.MAX_LAYERS + 1})
+    assert len(ft.chain_widths(deep.spec)) == ft.MAX_LAYERS + 2
+    assert ft.choose_plan(ft.chain_widths(deep.spec)) is None
+    with pytest.raises(NotImplementedError, match="layers"):
+        ft.supports_training(deep, "datal2")
+    assert not ft.supports_training(deep, "nosuchloss")
 
 
 def test_plan_layout_is_disjoint_and_aligned():
@@ -286,18 +291,19 @@ def test_wide_chains_get_the_wide_layout(widths, layout, block):
     """Chains whose weights, W^T and accumulator do not fit a block's shared
     memory still train on the kernel (no silent autograd fallback): in the
     tiled layout when their weights, stored once, fit beside a
-    32-coordinate tile (3-66x6-1), else in the wide layout, which keeps only
-    the activation tile there (3-186x4-1)."""
+    32-coordinate tile (3-66x6-1), else in the wide layout, which keeps two
+    activation rows of the tile and two weight slabs there (3-186x4-1)."""
     assert all(ft.plan(widths, b)["smem_bytes"] > ft.SMEM_LIMIT
                for b in ft.BLOCKS)
     p = ft.choose_plan(widths)
     assert p is not None and p["layout"] == layout
     assert p["block"] == block and p["smem_bytes"] <= ft.SMEM_LIMIT
     if layout == "wide":
-        assert not p["smem_weights"] and p["threads"] == ft.WIDE_THREADS
-        rows = widths[0] + 2 * sum(widths[1:])
-        assert p["smem_bytes"] == 4 * (p["act_off"] + rows * (block + 1))
-        assert p["act_off"] >= p["red_off"] + p["threads"]
+        assert p["threads"] == 4 * block
+        rows = max(widths) + 1 + 31 >> 5 << 5
+        assert p["rows_max"] == rows
+        assert p["smem_bytes"] == 4 * (2 * rows * block + 2 * 64 * 36
+                                       + p["threads"])
     else:
         assert p["threads"] == ft.TILED_THREADS and p["slots"] in ft.TILED_SLOTS
     model = tphi.init_phi({"name": "SIREN", "features": widths[1],
@@ -307,5 +313,5 @@ def test_wide_chains_get_the_wide_layout(widths, layout, block):
 
 def test_narrow_chain_keeps_its_layout():
     p = ft.choose_plan([3, 22, 22, 22, 22, 1])
-    assert p["smem_weights"] and p["block"] == p["threads"] == 128
+    assert p["layout"] == "narrow" and p["block"] == p["threads"] == 128
     assert p["smem_bytes"] == 115316
