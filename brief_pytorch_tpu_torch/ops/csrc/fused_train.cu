@@ -18,47 +18,64 @@
 // derivative is its mask.  Its threshold is read per block (-inf: the
 // override never fires).
 //
-// What bounds it on an H100: operations.  At the single run's shapes
-// (SIREN 5 x 22, N = 262,144) it reads ~5 MB (3.3 TB/s: ~1.6 us) but does
-// ~2.4 GFLOP of chain products plus ~88 sincos per coordinate (67 TFLOP/s
-// float32: ~45 us); at the HiP-CT fleet's (4 blocks x 100,000, 3-64x6-1
-// padded from 49/52/58/64) ~41 GFLOP on the true widths, ~53 on the padded
-// ones.  Tensor cores are unused: this version keeps float32 CUDA-core
-// arithmetic so it agrees with the plain version to float32 rounding.
-//
 // Three layouts (ops/fused_train.py choose_plan takes the first that fits):
-//  * narrow (fused_train_kernel, e.g. 5 x 22, 3-7x4-1): W, W^T, the
-//    biases and the block's gradient accumulator in shared memory beside
-//    the activation tile, one thread per coordinate (5 x 22: 11% of the
-//    float32 bound).
-//  * tiled (fused_train_tiled_kernel, e.g. 3-64x6-1, 3-66x6-1, 5 x 95):
-//    the weights once in shared memory, dW in registers; described below
-//    the narrow layout's code.  Paced by shared-memory reads and the
-//    sine evaluations (3-64x6-1 fleet: 23% of the bound).
+//  * narrow (fused_train_kernel, e.g. 5 x 22, 3-7x4-1, the narrow φ
+//    families): warp-owned coordinate tiles, the three products on the
+//    tensor cores in 3xTF32; described below.
+//  * tiled (fused_train_tiled_kernel, e.g. 3-64x6-1, 3-66x6-1, 5 x 64,
+//    5 x 95): the weights once in shared memory, dW in registers, float32
+//    CUDA-core micro-tiles; described at its code.  Paced by shared-memory
+//    reads and the sine evaluations (3-64x6-1 fleet: 23% of the bound).
 //  * wide (wide_train_kernel + wide_dw_kernel, e.g. 3-191x4-1,
 //    3-242x4-1, 3-128x6-1): W streamed through shared memory in slabs,
 //    h_l and d_l in a device-memory scratch, dW a split-K product over it;
 //    described at its code.
 //
-// Design of the narrow layout (fused_train_kernel):
-//  * A block owns a tile of T coordinates (T = blockDim.x, one per
-//    thread) and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
-//    its fleet block (a persistent grid of a few blocks per SM), so the
-//    TPU grid's in-order accumulation becomes a loop inside the block.
-//  * h_l and d_l of the tile stay in shared memory, one column per
-//    thread (rows padded to T + 1 floats so that the weight-gradient
-//    phase, where a warp reads one column index across many rows, hits
-//    distinct banks).  Nothing per coordinate goes to device memory.
-//  * W padded for the forward, W^T padded for the backward, the biases
-//    and the block's gradient accumulator all live in shared memory.
-//  * Weight gradients: after a layer's output gradient g_l is in shared
-//    memory, thread t owns parameter entries e = t, t + T, ... of that
-//    layer and sums g_l[o] * h_{l-1}[i] over the tile's coordinates into
-//    the accumulator.  Each block writes one row of partial sums; a second
-//    kernel adds the rows of each fleet block in block order.  No float
-//    atomics: the result is the same on every run with the same grid.
-//  * The input gradient g_{l-1} = d_{l-1} * (W_l g_l) overwrites d_{l-1}
-//    in place, in the thread's own column.
+// The narrow layout (fused_train_kernel), for chains whose weights and a
+// tile's activations fit in shared memory with 8 or more warps per SM:
+//  * A block holds one or more groups of warps (5 x 22: two groups of 8).
+//    Warp w of a group owns coordinates 16w .. 16w + 15 of the group's
+//    tile and carries them through the forward, the loss and the input
+//    gradients alone (__syncwarp between layers); the group meets at a
+//    named barrier twice a tile, around dW; groups run out of step, so
+//    one's barriers hide behind the other's work.  The grid is persistent.
+//  * Every product is mma.sync.m16n8k8 TF32 on the tensor cores, in
+//    3xTF32: x = big + small (split_tf32), a b = as bb + ab bs + ab bb,
+//    which keeps float32 accuracy.  The forward [H, 1] [W; b] and the
+//    input gradient G W^T take the warp's 16 coordinates as M; each
+//    k-block's three products go out term by term across the n-tiles,
+//    so consecutive mma are independent.  dW = [H, 1]^T G contracts over
+//    the group's coordinates (K).
+//  * Shared memory: W of every layer as (fin + 1, fout) with the bias as
+//    row fin, and W^T, both split into big and small once per block and
+//    stored in B-fragment order (one 16-byte load per lane and fragment,
+//    no bank conflict), read in place from the caller's tensors (no
+//    packed copy per call); then one activation store per group,
+//    feature-major rows of 16 x warps + 4 floats: the coordinates and a
+//    ones row, h_l with a ones row (the next layer's bias input), d_l,
+//    which the backward overwrites with g_l in place, and the tile's
+//    values and weights (loaded a tile ahead).  With that row stride every
+//    fragment access (rows 2t + e by columns g, or rows g by columns t)
+//    hits 32 distinct banks.  5 x 22: 230,208 bytes, 16 warps per SM.
+//  * dW: each layer's (fin + 1) x fout gradient in 16 x 8 mma tiles, M
+//    over fout or fin + 1 (fewest jobs); a job is up to kJobTiles tiles
+//    of one M row, sharing its A operand; the jobs are dealt to the
+//    group's warps, whose accumulators stay in registers for the whole
+//    persistent loop; each group writes its own partial row once.  No
+//    atomics: reduce_partials_kernel adds the rows in a fixed order, so
+//    runs are bitwise equal.
+//  * kSmall (every layer one n-tile wide, e.g. brain64's 3-7x4-1): blocks
+//    of 8 warps, three to an SM (24 warps; at most 80 registers), one-tile
+//    chunks and jobs, dW's three products in three accumulators.
+// What bounds it on an H100: the tensor-core bound (3 x 2.388 GFLOP of
+// products at 495 TFLOP/s TF32: 14.5 us at 5 x 22, N = 262,144) and the
+// sines (0.577 GFLOP, 8.6 us at 67 TFLOP/s) are far below its time; it is
+// bound by instruction throughput (the sine epilogues, the TF32 splits,
+// fragment loads and stores) at 16 warps per SM, whose registers (128 a
+// thread) and shared memory (the store) leave no room for more.  Chains
+// whose weights and store do not fit with 8 warps per SM take the tiled
+// layout (faster there than the old one-thread-per-coordinate layout,
+// PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,25 +84,7 @@
 
 namespace {
 
-using brief::kChunk;
 using brief::kMaxLayers;
-using brief::round_up8;
-
-// The fleet's fields come last: placed before w0 they make the compiler
-// schedule the one-chain kernel's loops measurably slower.
-struct TrainDesc {
-  int n_layers, c_in, c_out, n_params, stride;
-  int acc_off, red_off, act_off;
-  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers];
-  int p_off[kMaxLayers], sw_off[kMaxLayers], swt_off[kMaxLayers];
-  int sb_off[kMaxLayers], h_row[kMaxLayers], dg_row[kMaxLayers];
-  float w0[kMaxLayers];
-  int mask_width;
-  int mask_off[kMaxLayers];
-};
-
-constexpr int kMetaHead = 9;
-constexpr int kMetaPerLayer = 10;
 
 // This block's row of partial sums (gradients, then the loss) in the
 // (B, gridDim.x, n_params + 1) scratch.
@@ -95,162 +94,591 @@ __device__ __forceinline__ float* partial_row(float* partial, int fb,
          ((size_t)fb * gridDim.x + blockIdx.x) * (size_t)(n_params + 1);
 }
 
-// The narrow layout.  kFleet: the fleet form (blockIdx.y selects the
-// chain, masks per chain); without it one chain and none of the fleet's
-// address arithmetic (it slows the one-chain path).  thres: one threshold
-// per chain, read when has_thres (-inf never fires); it waits in the first
-// slot of the loss reduction buffer, idle until the end, since a register
-// held across the kernel slows the one-chain loops.
-template <bool kFleet>
-__global__ void fused_train_kernel(const float* __restrict__ coords,
-                                   const float* __restrict__ values,
-                                   const float* __restrict__ weights,
-                                   const float* __restrict__ params,
-                                   float* __restrict__ partial, int n,
-                                   TrainDesc d, int loss, float beta,
-                                   int has_thres,
-                                   const float* __restrict__ thres,
-                                   const float* __restrict__ masks) {
-  extern __shared__ __align__(16) float sm[];
-  // T threads, one per coordinate of the tile
-  const int T = blockDim.x, t = threadIdx.x, S = d.stride, L = d.n_layers;
-  const int fb = kFleet ? blockIdx.y : 0;          // fleet block
-  const float* mk = nullptr;
-  if (kFleet) {
-    coords += (size_t)fb * d.c_in * n;
-    values += (size_t)fb * d.c_out * n;
-    weights += (size_t)fb * d.c_out * n;
-    params += (size_t)fb * d.n_params;
-    if (masks != nullptr) mk = masks + (size_t)fb * d.mask_width;
+// The loss of one output entry and its dL/dp times d (datal2 or
+// datasmoothl1, weight_thres override: p <= thr weighs 1).
+__device__ __forceinline__ float loss_grad(int loss, float beta, bool thr_on,
+                                           float thr, float p, float y,
+                                           float wv, bool valid, float dd,
+                                           float* loss_acc) {
+  float weff = (thr_on && p <= thr) ? 1.f : wv;
+  weff = valid ? weff : 0.f;
+  const float e = p - y;
+  float le, g;
+  if (loss == 0) {
+    le = e * e;
+    g = 2.f * weff * e;
+  } else {
+    const float ae = fabsf(e);
+    le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
+    const float sg = (float)((e > 0.f) - (e < 0.f));
+    g = weff * (ae < beta ? e / beta : sg);
   }
-  float* acc = sm + d.acc_off;
-  float* A = sm + d.act_off;
+  *loss_acc += weff * le;
+  return g * dd;
+}
 
-  for (int l = 0; l < L; ++l) {
-    brief::load_weights(params + d.p_off[l], d.fin[l], d.fout[l],
-                        sm + d.sw_off[l], sm + d.swt_off[l],
-                        sm + d.sb_off[l]);
+// ---------------------------------------------------------------------------
+// 3xTF32 on mma.sync.m16n8k8 (fragments as in the PTX ISA: lane = 4g + t;
+// A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B (8 x 8): b0 (t, g), b1 (t + 4, g); C (16 x 8): c0 (g, 2t), c1 (g,
+// 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)).
+// ---------------------------------------------------------------------------
+// x = big + small for 3xTF32 (ops/fused_train.py tf32_split): big is x
+// rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (half a TF32 ulp
+// added to the magnitude, the 13 low bits cleared: 2 instructions, where
+// cvt.rna compiles to 5 with its inf and NaN checks); small = x - big is
+// exact in float32 and goes in whole: the tensor core reads its top 19
+// bits (toward zero), so big + small errs by at most 2^-21 |x|.  A NaN
+// or inf x gives a NaN small, which the products carry on.
+__device__ __forceinline__ void split_tf32(float x, uint32_t* big,
+                                           uint32_t* small) {
+  const uint32_t b = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  *big = b;
+  *small = __float_as_uint(x - __uint_as_float(b));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A lane's two entries of a packed B fragment: {b0 big, b1 big, b0 small,
+// b1 small}
+__device__ __forceinline__ float4 pack_b(float w0, float w1) {
+  uint32_t b0, s0, b1, s1;
+  split_tf32(w0, &b0, &s0);
+  split_tf32(w1, &b1, &s1);
+  return make_float4(__uint_as_float(b0), __uint_as_float(b1),
+                     __uint_as_float(s0), __uint_as_float(s1));
+}
+
+// ---------------------------------------------------------------------------
+// The narrow layout (ops/fused_train.py plan).
+// ---------------------------------------------------------------------------
+constexpr int kNarrowMaxWarps = 16;
+constexpr int kSmallWarps = 8;     // the small instance: 3 blocks of 8 per SM
+constexpr int kChunkNT = 4;        // output n-tiles per pass of a product
+constexpr int kMaxStage = 8;       // staged input floats per lane and tile
+constexpr int kNarrowHead = 13;
+constexpr int kNarrowPerLayer = 15;
+constexpr int kJobTiles = 3;       // dW n-tiles of one job (one A row)
+constexpr int kMaxJobs = 4;        // dW jobs per warp
+
+struct NarrowDesc {
+  int n_layers, c_in, c_out, n_params, stride, act_off, red_off;
+  // groups of warps per block, each with its own store of `rows` rows;
+  // the values' and weights' rows; the masks' copy
+  int groups, rows, yw_row, mask_sm;
+  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers], p_off[kMaxLayers];
+  // forward B fragments: wf_off, kb x nt of them; input-gradient ones
+  // (W^T, layers >= 1): wb_off, kbb x ntb
+  int wf_off[kMaxLayers], kb[kMaxLayers], nt[kMaxLayers];
+  int wb_off[kMaxLayers], kbb[kMaxLayers], ntb[kMaxLayers];
+  // store rows: the layer's input (fin + 1 rows, the last a ones row), its
+  // h (fout + 1 rows; -1 for the last layer), its d / g (fout rows)
+  int x_row[kMaxLayers], h_row[kMaxLayers], g_row[kMaxLayers];
+  int mask_off[kMaxLayers];
+  // dW tiles: 1 when M is over fout (A = g, B = [h; 1]), else M over
+  // fin + 1
+  int dw_gmajor[kMaxLayers];
+  float w0[kMaxLayers];
+  // each layer's W (B, fin, fout), b (B, fout) and unit mask (B, fout) or
+  // null, as the caller holds them (no packed copy per call)
+  const float* w[kMaxLayers];
+  const float* b[kMaxLayers];
+  const float* m[kMaxLayers];
+  // dW jobs of warp w of a group: job[kMaxJobs * w + s], coded
+  // layer << 24 | m-tile << 16 | first n-tile << 8 | n-tiles (-1: none)
+  int job[kMaxJobs * kNarrowMaxWarps];
+};
+
+// Every layer's W as B fragments, big and small (float4 per lane):
+//  forward (kb, nt): lane 4g + t holds W'[8kb + 2t][8nt + g] and
+//    W'[8kb + 2t + 1][8nt + g], W' = [W; b] ((fin + 1) x fout, zeros past);
+//  input gradient (kb, nt), layers >= 1: W[8nt + g][8kb + 2t] and
+//    W[8nt + g][8kb + 2t + 1] (zeros past fin x fout).
+// The A fragments pair the same features (rows 2t and 2t + 1 of a k-block).
+// Chain fb's W'[i][o]: W[i][o] for i < fin, b[o] for i == fin.
+__device__ __forceinline__ void pack_narrow_weights(const NarrowDesc& d,
+                                                    int fb, float* sm) {
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int fin = d.fin[l], fout = d.fout[l], nt = d.nt[l];
+    const float* W = d.w[l] + (size_t)fb * fin * fout;
+    const float* bias = d.b[l] + (size_t)fb * fout;
+    auto wv = [&](int i, int o) {
+      return i < fin ? __ldg(W + i * fout + o) : __ldg(bias + o);
+    };
+    float4* wf = reinterpret_cast<float4*>(sm + d.wf_off[l]);
+    for (int e = threadIdx.x; e < d.kb[l] * nt * 32; e += blockDim.x) {
+      const int ln = e & 31, frag = e >> 5, kb = frag / nt;
+      const int i = 8 * kb + 2 * (ln & 3);
+      const int o = 8 * (frag - kb * nt) + (ln >> 2);
+      const bool ok = o < fout;
+      wf[e] = pack_b(ok && i <= fin ? wv(i, o) : 0.f,
+                     ok && i + 1 <= fin ? wv(i + 1, o) : 0.f);
+    }
+    if (l == 0) continue;
+    const int ntb = d.ntb[l];
+    float4* wb = reinterpret_cast<float4*>(sm + d.wb_off[l]);
+    for (int e = threadIdx.x; e < d.kbb[l] * ntb * 32; e += blockDim.x) {
+      const int ln = e & 31, frag = e >> 5, kb = frag / ntb;
+      const int o = 8 * kb + 2 * (ln & 3);
+      const int i = 8 * (frag - kb * ntb) + (ln >> 2);
+      const bool ok = i < fin;
+      wb[e] = pack_b(ok && o < fout ? wv(i, o) : 0.f,
+                     ok && o + 1 < fout ? wv(i, o + 1) : 0.f);
+    }
   }
-  for (int e = t; e < d.n_params; e += T) acc[e] = 0.f;
-  if (t == 0 && has_thres) sm[d.red_off] = thres[fb];
+}
+
+// A fragment of rows [row0, row0 + nrows) of the store (features; the
+// k-block's pairs 2t, 2t + 1 = f0, f0 + 1) x columns col, col + 8
+// (coordinates g, g + 8 of the warp), split; rows past nrows read 0.
+__device__ __forceinline__ void load_a(const float* A, int S, int row0,
+                                       int nrows, int f0, int col,
+                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  const float* p = A + (row0 + f0) * S + col;
+  const float v0 = f0 < nrows ? p[0] : 0.f;
+  const float v1 = f0 < nrows ? p[8] : 0.f;
+  const float v2 = f0 + 1 < nrows ? p[S] : 0.f;
+  const float v3 = f0 + 1 < nrows ? p[S + 8] : 0.f;
+  split_tf32(v0, &ab[0], &as[0]);
+  split_tf32(v1, &ab[1], &as[1]);
+  split_tf32(v2, &ab[2], &as[2]);
+  split_tf32(v3, &ab[3], &as[3]);
+}
+
+// C = the warp's 16 coordinates' rows [row0, row0 + nrows) (A, over
+// k-blocks of 8) times the packed B fragments wf (KB x NT), output n-tiles
+// nt0 .. nt0 + kN - 1.  The three products of each k-block go out term by
+// term across the n-tiles, so the mma that follow one another are
+// independent (one accumulator's chain would stall on each).
+template <int kN, int kC>
+__device__ __forceinline__ void product_n(float (&c)[kC][4],
+                                          const float* A, int S, int row0,
+                                          int nrows, int col, const float* wf,
+                                          int KB, int NT, int nt0, int lane,
+                                          int t) {
+  // below 3 n-tiles the cross terms go to a second accumulator, so that
+  // the chains stay at least 3 deep
+  constexpr int kX = kN < 3 ? kN : 1;
+  float c2[kX][4];
+#pragma unroll
+  for (int j = 0; j < kC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kX; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c2[j][e] = 0.f;
+  for (int kb = 0; kb < KB; ++kb) {
+    uint32_t ab[4], as[4];
+    load_a(A, S, row0, nrows, 8 * kb + 2 * t, col, ab, as);
+    float4 w[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      w[j] = reinterpret_cast<const float4*>(
+          wf)[(kb * NT + nt0 + j) * 32 + lane];
+    if (kN < 3) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_tf32(c2[j % kX], as, __float_as_uint(w[j].x),
+                 __float_as_uint(w[j].y));
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_tf32(c[j], ab, __float_as_uint(w[j].x), __float_as_uint(w[j].y));
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_tf32(c2[j % kX], ab, __float_as_uint(w[j].z),
+                 __float_as_uint(w[j].w));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_tf32(c[j], as, __float_as_uint(w[j].x), __float_as_uint(w[j].y));
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_tf32(c[j], ab, __float_as_uint(w[j].z), __float_as_uint(w[j].w));
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_tf32(c[j], ab, __float_as_uint(w[j].x), __float_as_uint(w[j].y));
+    }
+  }
+  if (kN < 3) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += c2[j % kX][e];
+  }
+}
+
+// product_n for the n-tiles nt0 .. min(NT, nt0 + kC) - 1
+template <int kC>
+__device__ __forceinline__ void product_chunk(float (&c)[kC][4],
+                                              const float* A, int S, int row0,
+                                              int nrows, int col,
+                                              const float* wf, int KB, int NT,
+                                              int nt0, int lane, int t) {
+  if (kC == 1) {
+    product_n<1, kC>(c, A, S, row0, nrows, col, wf, KB, NT, nt0, lane, t);
+    return;
+  }
+  switch (min(NT - nt0, kC)) {
+    case 1:
+      product_n<1, kC>(c, A, S, row0, nrows, col, wf, KB, NT, nt0, lane, t);
+      break;
+    case 2:
+      product_n<2, kC>(c, A, S, row0, nrows, col, wf, KB, NT, nt0, lane, t);
+      break;
+    case 3:
+      product_n<3, kC>(c, A, S, row0, nrows, col, wf, KB, NT, nt0, lane, t);
+      break;
+    default:
+      product_n<(kC < 4 ? kC : 4), kC>(c, A, S, row0, nrows, col, wf, KB, NT,
+                                       nt0, lane, t);
+  }
+}
+
+// A hidden layer's epilogue on a chunk of accumulators: h = act(z) and
+// d = act'(z) times the unit mask into rows hr + o and gr + o, the ones
+// row hr + fout; the activation fixed at compile time.  Branch-free within
+// an n-tile (the stores predicated), so its four evaluations interleave.
+template <int kAct, int kC>
+__device__ __forceinline__ void hidden_epilogue(
+    const float (&c)[kC][4], int nt0, int NT, float w0, int fout,
+    const float* ml, float* A, int S, int hr, int gr, int col, int t) {
+#pragma unroll
+  for (int j = 0; j < kC; ++j) {
+    if (nt0 + j < NT) {
+      float h[4], dv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        brief::act_fwd(kAct, w0, c[j][e], &h[e], &dv[e]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = 8 * (nt0 + j) + 2 * t + (e & 1);
+        const int u = col + 8 * (e >> 1);
+        float mo = o < fout ? 1.f : 0.f;
+        if (ml != nullptr && o < fout) mo = ml[o];
+        const float hv = o == fout ? 1.f : h[e] * mo;
+        if (o <= fout) A[(hr + o) * S + u] = hv;
+        if (o < fout) A[(gr + o) * S + u] = dv[e] * mo;
+      }
+    }
+  }
+}
+
+// A dW job: the m-tile m of a layer's dW and its n-tiles n0 .. n0 + cnt - 1,
+// sharing the A operand; A rows [ar, ar + an) (M), B rows [br, br + bn)
+// (N) of the store.
+struct DwJob {
+  int l, m, n0, cnt, ar, an, br, bn;
+};
+
+__device__ __forceinline__ DwJob dw_job(const NarrowDesc& d, int code) {
+  DwJob w;
+  w.l = code >> 24;
+  w.m = (code >> 16) & 0xff;
+  w.n0 = (code >> 8) & 0xff;
+  w.cnt = code & 0xff;
+  const int hr = d.x_row[w.l], hn = d.fin[w.l] + 1;
+  const int gr = d.g_row[w.l], gn = d.fout[w.l];
+  if (d.dw_gmajor[w.l]) {
+    w.ar = gr, w.an = gn, w.br = hr, w.bn = hn;
+  } else {
+    w.ar = hr, w.an = hn, w.br = gr, w.bn = gn;
+  }
+  return w;
+}
+
+// A global load that stays where it stands: the tile-ahead prefetch
+// must not be sunk to its use a tile later.
+__device__ __forceinline__ float load_early(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Grid (blocks per chain, B), 32 * NW threads (NW <= kNarrowMaxWarps) in
+// d.groups groups of warps; kJobs dW jobs per warp at most.  Group q of
+// block b is the virtual block b * groups + q: it walks tiles of 16 x its
+// warps coordinates, with its own store, its own named barrier (1 + q)
+// and its own row of partial sums.
+template <int kJobs, bool kSmall>
+__global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
+                                         : 32 * kNarrowMaxWarps,
+                                  kSmall ? 3 : 1) fused_train_kernel(
+    const float* __restrict__ coords, const float* __restrict__ values,
+    const float* __restrict__ weights, float* __restrict__ partial, int n,
+    NarrowDesc d, int loss, float beta, const float* __restrict__ thres) {
+  // kSmall: every layer one n-tile wide (f + 1 <= 8, e.g. brain64's
+  // 3-7x4-1): one-tile chunks and jobs, blocks of at most kSmallWarps
+  // warps and at most 80 registers a thread: three blocks share an SM
+  constexpr int kC = kSmall ? 1 : kChunkNT;
+  constexpr int kJT = kSmall ? 1 : kJobTiles;
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = d.groups, NWg = (blockDim.x >> 5) / G;
+  const int grp = warp / NWg, wg = warp - grp * NWg;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = d.stride, L = d.n_layers, BT = 16 * NWg, u0 = 16 * wg;
+  const int fb = blockIdx.y, c_in = d.c_in, c_out = d.c_out;
+  coords += (size_t)fb * c_in * n;
+  values += (size_t)fb * c_out * n;
+  weights += (size_t)fb * c_out * n;
+  const bool thr_on = thres != nullptr;
+  const float thr = thr_on ? thres[fb] : 0.f;
+  float* A = sm + d.act_off + grp * d.rows * S;   // this group's store
+  float* msk = sm + d.mask_sm;
+
+  pack_narrow_weights(d, fb, sm);
+  for (int l = 0; l < L; ++l) {   // this chain's unit masks, side by side
+    if (d.mask_off[l] < 0) continue;
+    for (int e = threadIdx.x; e < d.fout[l]; e += blockDim.x)
+      msk[d.mask_off[l] + e] = d.m[l][(size_t)fb * d.fout[l] + e];
+  }
+  // dW jobs: the A rows' and first B rows' store offsets of each
+  int pa_off[kJobs], pb_off[kJobs], cnt[kJobs];
+  bool a_lo[kJobs], a_hi[kJobs], b_ok[kJobs][kJT];
+#pragma unroll
+  for (int s = 0; s < kJobs; ++s) {
+    const int code = d.job[kMaxJobs * wg + s];
+    cnt[s] = 0;
+    a_lo[s] = a_hi[s] = false;
+    pa_off[s] = pb_off[s] = 0;
+#pragma unroll
+    for (int k = 0; k < kJT; ++k) b_ok[s][k] = false;
+    if (code >= 0) {
+      const DwJob w = dw_job(d, code);
+      const int ra = 16 * w.m + g, rb = 8 * w.n0 + g;
+      cnt[s] = w.cnt;
+      a_lo[s] = ra < w.an;
+      a_hi[s] = ra + 8 < w.an;
+#pragma unroll
+      for (int k = 0; k < kJT; ++k)
+        b_ok[s][k] = k < w.cnt && rb + 8 * k < w.bn;
+      pa_off[s] = (w.ar + ra) * S + t;
+      pb_off[s] = (w.br + rb) * S + t;
+    }
+  }
+  // dW: the three products in one sum, or (kSmall, one tile a job) in
+  // three, summed at the end, so that no chain of dependent mma is longer
+  // than the group's k-steps
+  constexpr int kT = kSmall ? 3 : 1;
+  float acc[kT][kJobs][kJT][4];
+#pragma unroll
+  for (int q = 0; q < kT; ++q)
+#pragma unroll
+    for (int s = 0; s < kJobs; ++s)
+#pragma unroll
+      for (int k = 0; k < kJT; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][s][k][e] = 0.f;
   float loss_acc = 0.f;
   __syncthreads();
 
-  const int n_tiles = (n + T - 1) / T;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int idx = tile * T + t;
-    const bool valid = idx < n;
-
-    // ---- forward: own column; h_l and d_l into shared memory ----
-    for (int c = 0; c < d.c_in; ++c) {
-      A[c * S + t] = valid ? coords[(size_t)c * n + idx] : 0.f;
+  // inputs of a tile, staged a tile ahead: coordinates, values, weights of
+  // the warp's 16 coordinates (channel e >> 4, coordinate e & 15)
+  const int n_stage = 16 * (c_in + 2 * c_out);
+  float st[kMaxStage];
+  auto fetch = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < kMaxStage; ++k) {
+      const int e = lane + 32 * k, ch = e >> 4, idx = base + (e & 15);
+      const float* src =
+          ch < c_in ? coords + (size_t)ch * n
+          : ch < c_in + c_out ? values + (size_t)(ch - c_in) * n
+          : weights + (size_t)(ch - c_in - c_out) * n;
+      st[k] = e < n_stage && idx < n ? load_early(src + idx) : 0.f;
     }
-    for (int l = 0; l < L; ++l) {
-      const int in_row = l == 0 ? 0 : d.h_row[l - 1];
-      const float* ml =
-          mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
-      brief::layer_forward<true>(sm + d.sw_off[l], sm + d.sb_off[l], A, S,
-                                 t, in_row, d.fin[l], d.fout[l], d.act[l],
-                                 d.w0[l], d.h_row[l], d.dg_row[l], ml);
-    }
-
-    // ---- loss and dL/dz of the last layer (padding lanes weigh 0) ----
-    const int last = L - 1;
-    for (int c = 0; c < d.c_out; ++c) {
-      const float p = A[(d.h_row[last] + c) * S + t];
-      float y = 0.f, wv = 0.f;
-      if (valid) {
-        y = values[(size_t)c * n + idx];
-        wv = weights[(size_t)c * n + idx];
+  };
+  const int n_tiles = (n + BT - 1) / BT;
+  const int vb = blockIdx.x * G + grp, n_vb = gridDim.x * G;
+  const int bar = 1 + grp, bar_threads = 32 * NWg;
+  if (vb < n_tiles) fetch(vb * BT + u0);
+  for (int tile = vb; tile < n_tiles; tile += n_vb) {
+    const int base = tile * BT + u0;   // the warp's first coordinate
+#pragma unroll
+    for (int k = 0; k < kMaxStage; ++k) {
+      const int e = lane + 32 * k, ch = e >> 4;
+      if (e < n_stage) {
+        const int row = ch < c_in ? d.x_row[0] + ch : d.yw_row + ch - c_in;
+        A[row * S + u0 + (e & 15)] = st[k];
       }
-      float weff = (has_thres && p <= sm[d.red_off]) ? 1.f : wv;
-      weff = valid ? weff : 0.f;
-      const float e = p - y;
-      float le, g;
-      if (loss == 0) {  // datal2
-        le = e * e;
-        g = 2.f * weff * e;
-      } else {          // datasmoothl1
-        const float ae = fabsf(e);
-        le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
-        const float sg = (float)((e > 0.f) - (e < 0.f));
-        g = weff * (ae < beta ? e / beta : sg);
-      }
-      loss_acc += weff * le;
-      float* dg = &A[(d.dg_row[last] + c) * S + t];
-      *dg = g * *dg;
     }
-    __syncthreads();
+    if (lane < 16) A[(d.x_row[0] + c_in) * S + u0 + lane] = 1.f;
+    if (tile + n_vb < n_tiles) fetch(base + n_vb * BT);
+    __syncwarp();
 
-    // ---- backward, last layer first ----
-    for (int l = L - 1; l >= 0; --l) {
-      const int fin = d.fin[l], fout = d.fout[l];
-      const float* G = A + d.dg_row[l] * S;
-      const float* H = A + (l == 0 ? 0 : d.h_row[l - 1]) * S;
-      float* accl = acc + d.p_off[l];
-      const int nw = fin * fout;
-      // weight and bias gradients: reads every column of g_l and h_{l-1};
-      // thread t owns entries e = t, t + T, ... of the packed (W, b)
-      for (int e = t; e < nw + fout; e += T) {
-        float s = 0.f;
-        if (e < nw) {
-          const int i = e / fout, o = e - i * fout;
-          const float* g = G + o * S;
-          const float* h = H + i * S;
-          for (int v = 0; v < T; ++v) s = fmaf(g[v], h[v], s);
-        } else {
-          const float* g = G + (e - nw) * S;
-          for (int v = 0; v < T; ++v) s += g[v];
+    // ---- forward: Z = [H, 1] W' per layer; h (with its ones row) and d
+    // into the store; the last layer's loss and dL/dz into its g rows ----
+    for (int l = 0; l < L - 1; ++l) {
+      const int fout = d.fout[l], NT = d.nt[l], act = d.act[l];
+      const float w0 = d.w0[l];
+      const float* wf = sm + d.wf_off[l];
+      const float* ml = d.mask_off[l] < 0 ? nullptr : msk + d.mask_off[l];
+      const int hr = d.h_row[l], gr = d.g_row[l];
+      for (int nt0 = 0; nt0 < NT; nt0 += kC) {
+        float c[kC][4];
+        product_chunk(c, A, S, d.x_row[l], d.fin[l] + 1, u0 + g, wf,
+                      d.kb[l], NT, nt0, lane, t);
+        switch (act) {
+          case brief::kActSine:
+            hidden_epilogue<brief::kActSine, kC>(c, nt0, NT, w0, fout, ml, A, S,
+                                             hr, gr, u0 + g, t);
+            break;
+          case brief::kActRelu:
+            hidden_epilogue<brief::kActRelu, kC>(c, nt0, NT, w0, fout, ml, A, S,
+                                             hr, gr, u0 + g, t);
+            break;
+          case brief::kActSigmoid:
+            hidden_epilogue<brief::kActSigmoid, kC>(c, nt0, NT, w0, fout, ml, A,
+                                                S, hr, gr, u0 + g, t);
+            break;
+          default:
+            hidden_epilogue<brief::kActNone, kC>(c, nt0, NT, w0, fout, ml, A, S,
+                                             hr, gr, u0 + g, t);
         }
-        accl[e] += s;
       }
-      // input gradient into d_{l-1}, own column only
-      if (l > 0) {
-        float* D = A + d.dg_row[l - 1] * S;
-        const float* swt = sm + d.swt_off[l];
-        const int fip = round_up8(fin);
-        for (int i0 = 0; i0 < fin; i0 += kChunk) {
-          float z[kChunk];
+      __syncwarp();
+    }
+    {
+      const int l = L - 1, NT = d.nt[l], gr = d.g_row[l];
+      const float* ml = d.mask_off[l] < 0 ? nullptr : msk + d.mask_off[l];
+      for (int nt0 = 0; nt0 < NT; nt0 += kC) {
+        float c[kC][4];
+        product_chunk(c, A, S, d.x_row[l], d.fin[l] + 1, u0 + g,
+                      sm + d.wf_off[l], d.kb[l], NT, nt0, lane, t);
 #pragma unroll
-          for (int k = 0; k < kChunk; ++k) z[k] = 0.f;
-          for (int o = 0; o < fout; ++o) {
-            const float x = G[o * S + t];
-            const float4 wa =
-                *reinterpret_cast<const float4*>(swt + o * fip + i0);
-            const float4 wb =
-                *reinterpret_cast<const float4*>(swt + o * fip + i0 + 4);
-            z[0] = fmaf(wa.x, x, z[0]);
-            z[1] = fmaf(wa.y, x, z[1]);
-            z[2] = fmaf(wa.z, x, z[2]);
-            z[3] = fmaf(wa.w, x, z[3]);
-            z[4] = fmaf(wb.x, x, z[4]);
-            z[5] = fmaf(wb.y, x, z[5]);
-            z[6] = fmaf(wb.z, x, z[6]);
-            z[7] = fmaf(wb.w, x, z[7]);
-          }
+        for (int j = 0; j < kC; ++j) {
 #pragma unroll
-          for (int k = 0; k < kChunk; ++k) {
-            const int i = i0 + k;
-            if (i < fin) D[i * S + t] = z[k] * D[i * S + t];
+          for (int e = 0; e < 4; ++e) {
+            const int o = 8 * (nt0 + j) + 2 * t + (e & 1);
+            const int u = u0 + g + 8 * (e >> 1);
+            float gv = 0.f;
+            if (nt0 + j < NT && o < c_out) {
+              float h, dv;
+              brief::act_fwd(d.act[l], d.w0[l], c[j][e], &h, &dv);
+              if (ml != nullptr) {
+                h *= ml[o];
+                dv *= ml[o];
+              }
+              const bool valid = base + g + 8 * (e >> 1) < n;
+              gv = loss_grad(loss, beta, thr_on, thr, h,
+                             A[(d.yw_row + o) * S + u],
+                             A[(d.yw_row + c_out + o) * S + u], valid, dv,
+                             &loss_acc);
+              A[(gr + o) * S + u] = gv;
+            }
           }
         }
       }
-      __syncthreads();
+      __syncwarp();
     }
+
+    // ---- input gradients: g_{l-1} = (g_l W_l^T) * d_{l-1}, in place ----
+    for (int l = L - 1; l >= 1; --l) {
+      const int fin = d.fin[l], NT = d.ntb[l], dr = d.g_row[l - 1];
+      for (int nt0 = 0; nt0 < NT; nt0 += kC) {
+        float c[kC][4];
+        product_chunk(c, A, S, d.g_row[l], d.fout[l], u0 + g,
+                      sm + d.wb_off[l], d.kbb[l], NT, nt0, lane, t);
+        // rows past fin stay inside the store (g_{l-1} is never its last
+        // region): read them, write only the layer's own
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          if (nt0 + j < NT) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 8 * (nt0 + j) + 2 * t + (e & 1);
+              float* p = A + (dr + i) * S + u0 + g + 8 * (e >> 1);
+              const float v = c[j][e] * *p;
+              if (i < fin) *p = v;
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    group_sync(bar, bar_threads);   // the group's h and g are in its store
+
+    // ---- dW over the group's 16 * NWg coordinates, into the jobs (all
+    // kJT tiles of a job computed, B zero past its own, so the mma
+    // go out term by term across independent accumulators) ----
+    for (int k0 = 0; k0 < BT; k0 += 8) {
+#pragma unroll
+      for (int s = 0; s < kJobs; ++s) {
+        if (cnt[s] > 0) {   // warp-uniform
+          const float* pa = A + pa_off[s] + k0;
+          uint32_t ab[4], as[4], bb[kJT][2], bs[kJT][2];
+          split_tf32(a_lo[s] ? pa[0] : 0.f, &ab[0], &as[0]);
+          split_tf32(a_hi[s] ? pa[8 * S] : 0.f, &ab[1], &as[1]);
+          split_tf32(a_lo[s] ? pa[4] : 0.f, &ab[2], &as[2]);
+          split_tf32(a_hi[s] ? pa[8 * S + 4] : 0.f, &ab[3], &as[3]);
+#pragma unroll
+          for (int k = 0; k < kJT; ++k) {
+            const float* pb = A + pb_off[s] + 8 * k * S + k0;
+            split_tf32(b_ok[s][k] ? pb[0] : 0.f, &bb[k][0], &bs[k][0]);
+            split_tf32(b_ok[s][k] ? pb[4] : 0.f, &bb[k][1], &bs[k][1]);
+          }
+#pragma unroll
+          for (int k = 0; k < kJT; ++k)
+            mma_tf32(acc[kT - 1][s][k], as, bb[k][0], bb[k][1]);
+#pragma unroll
+          for (int k = 0; k < kJT; ++k)
+            mma_tf32(acc[kT / 2][s][k], ab, bs[k][0], bs[k][1]);
+#pragma unroll
+          for (int k = 0; k < kJT; ++k)
+            mma_tf32(acc[0][s][k], ab, bb[k][0], bb[k][1]);
+        }
+      }
+    }
+    group_sync(bar, bar_threads);   // before the next tile overwrites it
   }
 
-  // ---- this block's partial sums: gradients, then the loss ----
-  float* out = partial_row(partial, fb, d.n_params);
-  for (int e = t; e < d.n_params; e += T) out[e] = acc[e];
+  // ---- this group's partial sums: each dW entry from its one job ----
+  float* out = partial + ((size_t)(fb * gridDim.x + blockIdx.x) * G + grp) *
+                             (size_t)(d.n_params + 1);
+#pragma unroll
+  for (int s = 0; s < kJobs; ++s) {
+    const int code = d.job[kMaxJobs * wg + s];
+    if (code >= 0) {
+      const DwJob w = dw_job(d, code);
+      const int fin = d.fin[w.l], fout = d.fout[w.l];
+#pragma unroll
+      for (int k = 0; k < kJT; ++k) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * w.m + g + 8 * (e >> 1);
+          const int q = 8 * (w.n0 + k) + 2 * t + (e & 1);
+          const int i = d.dw_gmajor[w.l] ? q : r;
+          const int o = d.dw_gmajor[w.l] ? r : q;
+          if (k < w.cnt && i <= fin && o < fout)
+            out[d.p_off[w.l] + i * fout + o] =
+                kSmall ? acc[0][s][k][e] + (acc[1][s][k][e] +
+                                            acc[kT - 1][s][k][e])
+                       : acc[0][s][k][e];
+        }
+      }
+    }
+  }
+  // the loss: lanes by shuffles, the group's warps in order
+  for (int s = 16; s > 0; s >>= 1)
+    loss_acc += __shfl_xor_sync(0xffffffffu, loss_acc, s);
   float* red = sm + d.red_off;
-  __syncthreads();   // every thread is done with the threshold in red[0]
-  red[t] = loss_acc;
+  if (lane == 0) red[warp] = loss_acc;
   __syncthreads();
-  for (int s = T / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] += red[t + s];
-    __syncthreads();
+  if (wg == 0 && lane == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < NWg; ++w) sum += red[grp * NWg + w];
+    out[d.n_params] = sum;
   }
-  if (t == 0) out[d.n_params] = red[0];
 }
 
 // out[fb][p] = (sum over blocks g, in order, of partial[fb][g][p]) / m,
@@ -272,9 +700,10 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled layout: a kernel of its own (the narrow layout above keeps its
-// code), for chains whose weights, stored once, fit in shared memory beside
-// a 32-coordinate activation tile, and whose dW fits the threads' registers.
+// The tiled layout: a kernel of its own, for chains whose weights, stored
+// once, fit in shared memory beside a 32-coordinate activation tile, and
+// whose dW fits the threads' registers, where the narrow layout's weights
+// (W and W^T, big and small) and activation store do not fit.
 //
 // Why: in the old wide layout every multiply-add of the forward and the input
 // gradient loaded its W entry from L2, and the dW loop took two shared
@@ -673,30 +1102,31 @@ cudaError_t launch_tiled(dim3 grid, int smem_bytes, cudaStream_t s,
   return cudaGetLastError();
 }
 
-cudaError_t occupancy(int block, int smem_bytes, int* blocks_per_sm) {
+template <int kJobs, bool kSmall>
+cudaError_t narrow_occupancy(int threads, int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      fused_train_kernel<kJobs, kSmall>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_train_kernel<false>, block, smem_bytes);
+      blocks_per_sm, fused_train_kernel<kJobs, kSmall>, threads, smem_bytes);
 }
 
-template <bool kFleet>
-cudaError_t launch(dim3 grid, int block, int smem_bytes, cudaStream_t s,
-                   const float* coords, const float* values,
-                   const float* weights, const float* params, float* partial,
-                   int n, const TrainDesc& d, int loss, float beta,
-                   const float* thres, const float* masks) {
+template <int kJobs, bool kSmall>
+cudaError_t launch_narrow(dim3 grid, int threads, int smem_bytes,
+                          cudaStream_t s, const float* coords,
+                          const float* values, const float* weights,
+                          float* partial, int n, const NarrowDesc& d,
+                          int loss, float beta, const float* thres) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<kFleet>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      fused_train_kernel<kJobs, kSmall>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  fused_train_kernel<kFleet><<<grid, block, smem_bytes, s>>>(
-      coords, values, weights, params, partial, n, d, loss, beta,
-      thres != nullptr, thres, masks);
+  fused_train_kernel<kJobs, kSmall><<<grid, threads, smem_bytes, s>>>(
+      coords, values, weights, partial, n, d, loss, beta, thres);
   return cudaGetLastError();
 }
+
 
 // ---------------------------------------------------------------------------
 // The wide layout: for chains whose weights do not fit in shared memory
@@ -753,29 +1183,6 @@ struct WideDesc {
   int p_off[kMaxLayers], tile0[kMaxLayers + 1];
   float w0[kMaxLayers];
 };
-
-// The loss of one output entry and its dL/dp times d (datal2 or
-// datasmoothl1, weight_thres override: p <= thr weighs 1).
-__device__ __forceinline__ float loss_grad(int loss, float beta, bool thr_on,
-                                           float thr, float p, float y,
-                                           float wv, bool valid, float dd,
-                                           float* loss_acc) {
-  float weff = (thr_on && p <= thr) ? 1.f : wv;
-  weff = valid ? weff : 0.f;
-  const float e = p - y;
-  float le, g;
-  if (loss == 0) {
-    le = e * e;
-    g = 2.f * weff * e;
-  } else {
-    const float ae = fabsf(e);
-    le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
-    const float sg = (float)((e > 0.f) - (e < 0.f));
-    g = weff * (ae < beta ? e / beta : sg);
-  }
-  *loss_acc += weff * le;
-  return g * dd;
-}
 
 // (b).  Grid (blocks, B), 4 * kT threads; shared memory: two buffers of
 // rows_max rows of kT floats, two slabs, the loss reduction buffer.
@@ -1088,12 +1495,23 @@ cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
 
 extern "C" {
 
-// The narrow layout's blocks of `block` threads using `smem_bytes` of
-// dynamic shared memory that fit on one SM at once, and the device's SM
-// count.
-int brief_fused_train_occupancy(int block, int smem_bytes,
-                                int* blocks_per_sm, int* sm_count) {
-  cudaError_t err = occupancy(block, smem_bytes, blocks_per_sm);
+// The narrow layout's blocks of `threads` threads using `smem_bytes` of
+// dynamic shared memory that fit on one SM at once (the instance for
+// `jobs` dW jobs per warp, small or not), and the device's SM count.
+int brief_fused_train_occupancy(int threads, int jobs, int small,
+                                int smem_bytes, int* blocks_per_sm,
+                                int* sm_count) {
+  decltype(&narrow_occupancy<1, false>) fn;
+  switch (jobs * 2 + (small ? 1 : 0)) {
+    case 2: fn = &narrow_occupancy<1, false>; break;
+    case 4: fn = &narrow_occupancy<2, false>; break;
+    case 8: fn = &narrow_occupancy<4, false>; break;
+    case 3: fn = &narrow_occupancy<1, true>; break;
+    case 5: fn = &narrow_occupancy<2, true>; break;
+    case 9: fn = &narrow_occupancy<4, true>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = fn(threads, smem_bytes, blocks_per_sm);
   if (err != cudaSuccess) return (int)err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -1102,64 +1520,90 @@ int brief_fused_train_occupancy(int block, int smem_bytes,
                                      dev);
 }
 
-// The narrow layout.  meta: n_layers, c_in, c_out, n_params, stride,
-// acc_off, red_off, act_off, mask_width (`block` threads, one per
-// coordinate of a tile), then per layer: fin, fout, act, p_off, sw_off, swt_off, sb_off, h_row,
-// dg_row, mask_off (-1: unmasked).
-// coords (B, c_in, n), values / weights (B, c_out, n), params
-// (B, n_params), masks (B, mask_width) or null, thres (B,) or null (no
-// override); partial: (B, grid, n_params + 1) scratch; out:
-// (B, n_params + 1), the gradients in the packed parameter layout followed
-// by the loss.  One unmasked chain (B = 1, no masks) runs the kernel
-// without the fleet's parts.
+// The narrow layout (ops/fused_train.py plan).  meta: n_layers, c_in,
+// c_out, n_params, stride, act_off, red_off, jobs (per warp), groups,
+// rows, yw_row, mask_sm, small (every layer one n-tile: the kSmall
+// instance), then per layer: fin, fout, act, p_off, wf_off, kb, nt,
+// wb_off, kbb, ntb, x_row, h_row, g_row, mask_off (-1: unmasked),
+// dw_gmajor; then kMaxJobs codes per warp of a group (-1: none).
+// coords (B, c_in, n), values / weights (B, c_out, n); layer_ptrs: per
+// layer W (B, fin, fout), b (B, fout) and its unit mask (B, fout) or null,
+// contiguous; thres (B,) or null (no override); partial: (B, grid *
+// groups, n_params + 1) scratch; out: (B, n_params + 1), the gradients in
+// the packed parameter layout followed by the loss.  `threads` = 32 x the
+// warps per block.
 int brief_fused_train(const float* coords, const float* values,
-                      const float* weights, const float* params,
-                      const float* masks, const float* thres, float* partial,
-                      float* out, int n, int n_fleet, const int* meta,
-                      const float* w0s, int loss, float beta, int grid,
-                      int block, int smem_bytes, void* stream) {
-  TrainDesc d;
+                      const float* weights, const float* const* layer_ptrs,
+                      const float* thres, float* partial, float* out, int n,
+                      int n_fleet, const int* meta, const float* w0s,
+                      int loss, float beta, int grid, int threads,
+                      int smem_bytes, void* stream) {
+  NarrowDesc d;
   d.n_layers = meta[0];
   if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
-      n_fleet > 65535)
+      n_fleet > 65535 || threads < 32 || threads % 32 ||
+      threads > 32 * kNarrowMaxWarps)
     return (int)cudaErrorInvalidValue;
   d.c_in = meta[1];
   d.c_out = meta[2];
   d.n_params = meta[3];
   d.stride = meta[4];
-  d.acc_off = meta[5];
+  d.act_off = meta[5];
   d.red_off = meta[6];
-  d.act_off = meta[7];
-  d.mask_width = meta[8];
+  const int jobs = meta[7];
+  d.groups = meta[8];
+  d.rows = meta[9];
+  d.yw_row = meta[10];
+  d.mask_sm = meta[11];
+  const int small = meta[12];
+  if (d.groups < 1 || (threads / 32) % d.groups || jobs > kMaxJobs)
+    return (int)cudaErrorInvalidValue;
   for (int l = 0; l < d.n_layers; ++l) {
-    const int* m = meta + kMetaHead + kMetaPerLayer * l;
+    const int* m = meta + kNarrowHead + kNarrowPerLayer * l;
     d.fin[l] = m[0];
     d.fout[l] = m[1];
     d.act[l] = m[2];
     d.p_off[l] = m[3];
-    d.sw_off[l] = m[4];
-    d.swt_off[l] = m[5];
-    d.sb_off[l] = m[6];
-    d.h_row[l] = m[7];
-    d.dg_row[l] = m[8];
-    d.mask_off[l] = masks == nullptr ? -1 : m[9];
+    d.wf_off[l] = m[4];
+    d.kb[l] = m[5];
+    d.nt[l] = m[6];
+    d.wb_off[l] = m[7];
+    d.kbb[l] = m[8];
+    d.ntb[l] = m[9];
+    d.x_row[l] = m[10];
+    d.h_row[l] = m[11];
+    d.g_row[l] = m[12];
+    d.w[l] = layer_ptrs[3 * l];
+    d.b[l] = layer_ptrs[3 * l + 1];
+    d.m[l] = layer_ptrs[3 * l + 2];
+    d.mask_off[l] = d.m[l] == nullptr ? -1 : m[13];
+    d.dw_gmajor[l] = m[14];
     d.w0[l] = w0s[l];
   }
+  const int* job = meta + kNarrowHead + kNarrowPerLayer * d.n_layers;
+  for (int k = 0; k < kMaxJobs * kNarrowMaxWarps; ++k) d.job[k] = job[k];
+  decltype(&launch_narrow<1, false>) fn;
+  switch (jobs * 2 + (small ? 1 : 0)) {
+    case 2: fn = &launch_narrow<1, false>; break;
+    case 4: fn = &launch_narrow<2, false>; break;
+    case 8: fn = &launch_narrow<4, false>; break;
+    case 3: fn = &launch_narrow<1, true>; break;
+    case 5: fn = &launch_narrow<2, true>; break;
+    case 9: fn = &launch_narrow<4, true>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid2(grid, n_fleet);
-  const bool fleet = n_fleet > 1 || masks != nullptr;
-  decltype(&launch<true>) fn = fleet ? &launch<true> : &launch<false>;
-  cudaError_t err = fn(grid2, block, smem_bytes, s, coords, values, weights,
-                       params, partial, n, d, loss, beta, thres, masks);
+  cudaError_t err = fn(dim3(grid, n_fleet), threads, smem_bytes, s, coords,
+                       values, weights, partial, n, d, loss, beta, thres);
   if (err != cudaSuccess) return (int)err;
-  const int width = d.n_params + 1;
+  const int width = d.n_params + 1, rows = grid * d.groups;
   const dim3 rgrid((width + 255) / 256, n_fleet);
   const float m = (float)((double)n * d.c_out);
-  if (fleet) {
-    reduce_partials_kernel<true><<<rgrid, 256, 0, s>>>(partial, out, grid,
+  if (n_fleet > 1) {
+    reduce_partials_kernel<true><<<rgrid, 256, 0, s>>>(partial, out, rows,
                                                        width, m);
   } else {
-    reduce_partials_kernel<false><<<rgrid, 256, 0, s>>>(partial, out, grid,
+    reduce_partials_kernel<false><<<rgrid, 256, 0, s>>>(partial, out, rows,
                                                         width, m);
   }
   return (int)cudaGetLastError();

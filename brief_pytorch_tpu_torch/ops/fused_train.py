@@ -15,14 +15,27 @@ divided by N * Cout and replaces autograd.
 
 Bound on an H100: operations.  At the SingleTask run's shapes (SIREN
 5 x 22, N = 262,144) the call moves ~5 MB but does ~3 GFLOP of float32
-work (~45 us at 67 TFLOP/s); csrc/fused_train.cu says how its design
-answers that.
+work (~45 us at 67 TFLOP/s).  The narrow layout runs its products on the
+tensor cores in 3xTF32 (`tf32_split`): 2.388 GFLOP of products, 14.5 us
+at 495 TFLOP/s TF32 times 3, and 0.577 GFLOP of sines, 8.6 us at 67
+TFLOP/s (chip_smoke.py's tc_bound_ms, 0.0145 ms).  Neither paces it:
+instruction throughput does (the sine epilogues, the TF32 splits,
+fragment loads and stores) at the 16 warps per SM that its registers and
+shared memory allow (PERF.md).
 
 Three layouts; `choose_plan` takes the first that fits and `kernel_plan`
 raises for a chain none holds:
-  * narrow (`plan`; 5 x 22, brain64's 3-7x4-1): W, W^T and the gradient
-    accumulator in shared memory beside a tile of up to 128 coordinates,
-    one thread per coordinate;
+  * narrow (`plan`, `narrow_plan`; 5 x 22, brain64's 3-7x4-1, the narrow
+    φ families; 5 layers up to 33 features, 7 up to 24): W and W^T split
+    into TF32 big and small parts in mma B-fragment order
+    (`pack_fragments`), read in place from the layers' tensors, and one
+    activation store per group of warps in shared memory; each warp
+    carries 16 coordinates through the forward and the input gradients
+    on mma.sync (no barrier between layers), and dW runs on the tensor
+    cores over the group's coordinates, in jobs (`dw_jobs`) whose
+    accumulators the warps keep in registers for the whole call.  Chains
+    the old one-thread-per-coordinate layout took beyond that reach (5 x
+    34-64, 7 x 25-48, ...) take the tiled layout, measured faster there;
   * tiled (`tiled_plan`; the HiP-CT bucket 3-64x6-1, 3-66x6-1, 5 x 95):
     W once, beside a 32-coordinate tile; 256 threads work on register
     micro-tiles of the three products and keep their share of dW
@@ -59,7 +72,17 @@ from brief_pytorch_tpu_torch.ops.fast_math import fast_sincos
 LOSSES = ("datal2", "datasmoothl1")
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
-BLOCKS = (128, 64, 32)       # coordinates per tile (= threads per block)
+# (groups, warps per group) of a narrow-layout block, at most 16 warps
+NARROW_GROUPS = ((1, 16), (2, 8), (4, 4), (1, 8), (2, 4), (4, 2), (1, 4),
+                 (2, 2), (1, 2), (1, 1))
+STAGE_CHANNELS = 16          # c_in + 2 c_out staged per tile (kMaxStage)
+NARROW_JOBS = (1, 2, 4)      # dW jobs per warp: the narrow kernel's instances
+MAX_JOBS = 4                 # kMaxJobs: job codes per warp in the table
+JOB_TILES = 3                # kJobTiles: dW tiles of one job
+NARROW_SM_WARPS = 16         # 32 * kNarrowMaxWarps threads, 128 registers each
+SMALL_WARPS = 8              # kSmallWarps: warps per block of a small chain
+NARROW_MIN_WARPS = 8         # fewer resident per SM: the tiled layout
+FRAG = 128                   # floats of one packed B fragment (32 lanes x 4)
 TILED_THREADS = 256          # kTiledThreads of csrc/fused_train.cu
 TILED_TILE = 32              # kTile: coordinates per tile of the tiled layout
 TILED_SLOTS = (4, 6, 8)      # dW tiles per thread: the kernel's instances
@@ -70,9 +93,8 @@ DW_BLOCKS = 1056             # dW blocks aimed at per call: 8 per H100 SM
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {
-    "brief_fused_train_occupancy": [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p, ctypes.c_void_p],
-    "brief_fused_train": [ctypes.c_void_p] * 8 + [
+    "brief_fused_train_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+    "brief_fused_train": [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p],
@@ -95,46 +117,153 @@ def _round8(x: int) -> int:
     return (x + 7) // 8 * 8
 
 
-def plan(widths: Sequence[int], block: int) -> Dict:
-    """Shared-memory layout (in floats) of the narrow layout for a chain of
-    `widths` = (c_in, f_1, ..., c_out) and `block` coordinates per tile:
-    the weights W (fin, round8(fout)) and W^T (fout, round8(fin)) and the
-    bias of every layer, the per-block gradient accumulator, a loss
-    reduction buffer of one float per thread and the activation rows
-    (coordinates, then h_l and d_l of every layer), each row block + 1
-    floats long."""
+def _tiles8(x: int) -> int:
+    return -(-x // 8)
+
+
+def plan(widths: Sequence[int], warps: int, groups: int = 1) -> Dict:
+    """Layout of the narrow layout (csrc/fused_train.cu fused_train_kernel)
+    for a chain of `widths` = (c_in, f_1, ..., c_out) and blocks of
+    `groups` groups of `warps` warps (16 coordinates each; a group walks
+    tiles of `block` = 16 * warps coordinates alone); offsets in floats.
+
+    Shared memory: every layer's B fragments (16 bytes a lane, big and
+    small of two entries; FRAG floats each): the forward's kb x nt over
+    [W; b] ((fin + 1) x fout) and, from layer 1, the input gradient's
+    kbb x ntb over W^T; then one activation store per group (`rows` rows
+    of `stride` = block + 4 floats): the coordinates and a ones row
+    (x_row[0]), per layer h with a ones row (h_row; not for the last
+    layer) and d / g (g_row), the tile's values and weights (yw_row, 2
+    c_out rows); x_row[l] is layer l's input; then the unit masks (one
+    float per hidden unit, mask_sm) and one float per warp for the loss.
+    `small`: every layer one n-tile wide (the kernel's kSmall instance).
+    dW: layer l's (fin + 1) x fout gradient in 16 x 8 mma tiles
+    (n_tiles in all), M over fout when that gives the fewest jobs, then
+    tiles (dw_gmajor);
+    `dw_jobs` cuts each row of M tiles into jobs of up to JOB_TILES that
+    share their A operand, `job_table` deals them to the warps of a group
+    and `jobs` is the smallest of NARROW_JOBS that holds every warp's (0:
+    none does)."""
     n_layers = len(widths) - 1
-    off = 0
-    p_off, sw_off, swt_off, sb_off, h_row, dg_row = [], [], [], [], [], []
-    n_params = 0
+    off, n_params = 0, 0
+    p_off, wf_off, kb, nt = [], [], [], []
     for l in range(n_layers):
         fin, fout = widths[l], widths[l + 1]
         p_off.append(n_params)
-        n_params += fin * fout + fout
-        sw_off.append(off)
-        off += fin * _round8(fout)
-        swt_off.append(off)
-        off += fout * _round8(fin)
-        sb_off.append(off)
-        off += _round8(fout)
-    acc_off = off
-    off += _round8(n_params)
-    red_off = off
-    off += block
-    act_off = _round8(off)
-    row = widths[0]
+        n_params += (fin + 1) * fout
+        wf_off.append(off)
+        kb.append(_tiles8(fin + 1))
+        nt.append(_tiles8(fout + (l < n_layers - 1)))
+        off += kb[-1] * nt[-1] * FRAG
+    wb_off, kbb, ntb = [-1], [0], [0]
+    for l in range(1, n_layers):
+        fin, fout = widths[l], widths[l + 1]
+        wb_off.append(off)
+        kbb.append(_tiles8(fout))
+        ntb.append(_tiles8(fin))
+        off += kbb[-1] * ntb[-1] * FRAG
+    act_off = off
+    x_row, h_row, g_row = [0], [], []
+    row = widths[0] + 1
     for l in range(n_layers):
-        h_row.append(row)
-        row += widths[l + 1]
-        dg_row.append(row)
-        row += widths[l + 1]
-    stride = block + 1
-    return {"n_params": n_params, "p_off": p_off, "sw_off": sw_off,
-            "swt_off": swt_off, "sb_off": sb_off, "h_row": h_row,
-            "dg_row": dg_row, "acc_off": acc_off, "red_off": red_off,
-            "act_off": act_off, "stride": stride, "block": block,
-            "threads": block, "layout": "narrow",
-            "smem_bytes": 4 * (act_off + row * stride)}
+        fout = widths[l + 1]
+        if l < n_layers - 1:
+            h_row.append(row)
+            x_row.append(row)
+            row += fout + 1
+        else:
+            h_row.append(-1)
+        g_row.append(row)
+        row += fout
+    yw_row = row
+    row += 2 * widths[-1]
+    small = max(kb + nt + kbb[1:] + ntb[1:]) == 1
+    job_tiles = 1 if small else JOB_TILES
+    gmajor = [int(_job_count(f, i + 1, job_tiles)
+                  <= _job_count(i + 1, f, job_tiles))
+              for i, f in zip(widths[:-1], widths[1:])]
+    jobs = dw_jobs(widths, gmajor, job_tiles)
+    table, per_warp = job_table(jobs, warps)
+    block = 16 * warps
+    stride = block + 4
+    mask_sm = act_off + groups * row * stride
+    red_off = mask_sm + _round4(sum(widths[1:-1]))
+    n_jobs = next((j for j in NARROW_JOBS if per_warp <= j), 0)
+    if widths[0] + 2 * widths[-1] > STAGE_CHANNELS:
+        n_jobs = 0   # the staged inputs exceed the kernel's registers
+    return {"layout": "narrow", "n_params": n_params, "p_off": p_off,
+            "wf_off": wf_off, "kb": kb, "nt": nt, "wb_off": wb_off,
+            "kbb": kbb, "ntb": ntb, "act_off": act_off, "rows": row,
+            "x_row": x_row, "h_row": h_row, "g_row": g_row,
+            "yw_row": yw_row, "dw_gmajor": gmajor, "dw_jobs": jobs,
+            "job_table": table, "n_tiles": sum(j[3] for j in jobs),
+            "jobs": n_jobs, "small": small, "warps": warps,
+            "groups": groups, "block": block,
+            "threads": 32 * warps * groups, "stride": stride,
+            "mask_sm": mask_sm, "red_off": red_off,
+            "smem_bytes": 4 * (red_off + 32)}
+
+
+def _job_count(m: int, n: int, job_tiles: int) -> Tuple[int, int]:
+    """(dW jobs, tiles) of an m x n gradient with M over m."""
+    return -(-m // 16) * -(-_tiles8(n) // job_tiles), -(-m // 16) * _tiles8(n)
+
+
+def dw_jobs(widths: Sequence[int], gmajor: Sequence[int],
+            job_tiles: int = JOB_TILES) -> List[Tuple[int, int, int, int]]:
+    """The narrow layout's dW jobs (layer, m-tile, first n-tile, n-tiles):
+    every row of 16 x 8 tiles of a layer's (fin + 1) x fout gradient (M
+    over fout where gmajor) cut into runs of up to `job_tiles` tiles that
+    share the row's A operand (JOB_TILES; 1 for a small chain)."""
+    jobs = []
+    for l, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
+        m, nn = (fout, fin + 1) if gmajor[l] else (fin + 1, fout)
+        for mt in range(-(-m // 16)):
+            for n0 in range(0, _tiles8(nn), job_tiles):
+                jobs.append((l, mt, n0, min(job_tiles, _tiles8(nn) - n0)))
+    return jobs
+
+
+def job_table(jobs, warps: int) -> Tuple[List[int], int]:
+    """(codes, most jobs of one warp): the jobs dealt round-robin to a
+    group's warps (every job costs the same: the kernel runs all
+    JOB_TILES tiles of one, B zero past its own); MAX_JOBS codes per warp,
+    layer << 24 | m-tile << 16 | first n-tile << 8 | n-tiles, -1 past."""
+    codes = [-1] * (MAX_JOBS * NARROW_SM_WARPS)
+    for j, (l, mt, n0, cnt) in enumerate(jobs):
+        w, s = j % warps, j // warps
+        if s < MAX_JOBS:
+            codes[MAX_JOBS * w + s] = l << 24 | mt << 16 | n0 << 8 | cnt
+    return codes, -(-len(jobs) // warps)
+
+
+def resident_warps(p: Dict) -> int:
+    """Warps of the narrow layout resident per SM at plan p: blocks by
+    shared memory (1 KB reserved per block), at most NARROW_SM_WARPS (the
+    kernel's launch bound gives it 128 registers a thread; for a small
+    chain, three blocks of at most SMALL_WARPS warps, 80 registers)."""
+    if not p["jobs"] or p["smem_bytes"] > SMEM_LIMIT:
+        return 0
+    block_warps = p["warps"] * p["groups"]
+    if p["small"] and block_warps > SMALL_WARPS:
+        return 0
+    cap = 3 * SMALL_WARPS if p["small"] else NARROW_SM_WARPS
+    return min(cap // block_warps * block_warps,
+               block_warps * (SM_SMEM // (p["smem_bytes"] + 1024)))
+
+
+def narrow_plan(widths: Sequence[int]) -> Optional[Dict]:
+    """The narrow plan with the most resident warps per SM, then the fewest
+    dW jobs per warp (the dW phase waits for the busiest warp), then the
+    most groups per block (their barriers interleave), or None where none
+    of NARROW_GROUPS fits."""
+    best, best_key = None, (0, 0, 0)
+    for groups, warps in NARROW_GROUPS:
+        p = plan(widths, warps, groups)
+        key = (resident_warps(p), -p["jobs"], groups)
+        if key[0] and key > best_key:
+            best, best_key = p, key
+    return best
 
 
 def _round4(x: int) -> int:
@@ -251,27 +380,19 @@ def dw_split(n: int, n_fleet: int, n_dw_tiles: int) -> Tuple[int, int, int]:
 
 
 def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The layout and tile that keep the most coordinates resident per SM
-    (an H100 SM has 228 KB of shared memory, 1 KB of it reserved per
-    block): the narrow layout (weights, W^T and the gradient accumulator
-    in shared memory) when it fits at any tile; else the tiled layout
-    (weights once in shared memory, dW in registers) when its weights and
-    32-coordinate tile fit and its dW tiles fit TILED_SLOTS; else the wide
-    layout; None past MAX_LAYERS layers or when even the wide layout's
-    8-coordinate tile does not fit a block's 227 KB."""
+    """The layout for a chain: the narrow layout (W, W^T and the activation
+    store of a block's coordinates in shared memory, products on the tensor
+    cores) when it keeps at least NARROW_MIN_WARPS warps resident per SM;
+    else the tiled layout (weights once in shared memory, dW in registers)
+    when its weights and 32-coordinate tile fit and its dW tiles fit
+    TILED_SLOTS; else the wide layout; None past MAX_LAYERS layers or when
+    even the wide layout's 8-coordinate tile does not fit a block's
+    227 KB."""
     if len(widths) - 1 > MAX_LAYERS:
         return None
-    best, best_resident = None, 0
-    for block in BLOCKS:
-        p = plan(widths, block)
-        if p["smem_bytes"] > SMEM_LIMIT:
-            continue
-        resident = block * min(2048 // p["threads"],
-                               SM_SMEM // (p["smem_bytes"] + 1024))
-        if resident > best_resident:
-            best, best_resident = p, resident
-    if best is not None:
-        return best
+    p = narrow_plan(widths)
+    if p is not None and resident_warps(p) >= NARROW_MIN_WARPS:
+        return p
     p = tiled_plan(widths)
     if p["slots"] and p["smem_bytes"] <= SMEM_LIMIT:
         return p
@@ -318,6 +439,51 @@ def supports_training(model, loss_name: str) -> bool:
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded as cvt.rna.tf32.f32 rounds: to 10 mantissa bits, the
+    nearest, ties away from zero (inf and NaN kept)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 x as the narrow kernel feeds them to the
+    tensor cores for 3xTF32 (csrc/fused_train.cu split_tf32): big = x
+    rounded as cvt.rna.tf32.f32 rounds it, small = x - big (exact in
+    float32) as the tensor core reads it, its 13 low bits dropped.  big +
+    small is within 2^-21 |x| of x, and a b = as bb + ab bs + ab bb keeps
+    float32 accuracy."""
+    big = _tf32(x)
+    small = (x - big).contiguous().view(torch.int32) & -0x2000
+    return big, small.view(torch.float32)
+
+
+def pack_fragments(m: torch.Tensor, kb: int, nt: int) -> torch.Tensor:
+    """The (kb, nt, 32, 4) B fragments of the (K, N) matrix m as the narrow
+    kernel packs them in shared memory (pack_narrow_weights): lane 4g + t
+    of fragment (k, j) holds big and big, small and small of
+    m[8k + 2t][8j + g] and m[8k + 2t + 1][8j + g], zeros past m.  The
+    forward packs m = [W; b], the input gradient m = W^T."""
+    full = torch.zeros(8 * kb, 8 * nt, dtype=torch.float32)
+    full[:m.shape[0], :m.shape[1]] = m
+    pairs = full.view(kb, 4, 2, nt, 8).permute(0, 3, 4, 1, 2)  # k j g t e
+    big, small = tf32_split(pairs.reshape(kb, nt, 32, 2))
+    return torch.cat([big, small], dim=-1)
+
+
+def unpack_fragments(frags: torch.Tensor, rows: int, cols: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) matrices of pack_fragments' output, cut to
+    (rows, cols)."""
+    kb, nt = frags.shape[:2]
+    out = []
+    for part in (frags[..., :2], frags[..., 2:]):
+        full = part.reshape(kb, nt, 8, 4, 2).permute(0, 3, 4, 1, 2)
+        out.append(full.reshape(8 * kb, 8 * nt)[:rows, :cols])
+    return out[0], out[1]
+
+
 def _act_fwd(z: torch.Tensor, act: str, w0: float):
     """(act(z), d act/dz); None for the identity."""
     if act == "sine":
@@ -400,9 +566,10 @@ _OCCUPANCY: Dict[Tuple[int, str, int, int, int], int] = {}
 
 def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
     """Persistent grid per fleet block: as many blocks in all as fit on the
-    card at once, but no more than there are tiles."""
+    card at once (at least one per chain), but no more than there are
+    tiles."""
     key = (device.index or 0, p["layout"], p["threads"], p["smem_bytes"],
-           p.get("slots", 0))
+           p.get("slots", p.get("jobs", 0)), p.get("small", False))
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         from brief_pytorch_tpu_torch.ops import build
@@ -416,12 +583,15 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
                 ctypes.addressof(sms))
         else:
             err = lib.brief_fused_train_occupancy(
-                p["threads"], p["smem_bytes"], ctypes.addressof(per_sm),
-                ctypes.addressof(sms))
+                p["threads"], p["jobs"], int(p["small"]), p["smem_bytes"],
+                ctypes.addressof(per_sm), ctypes.addressof(sms))
         build.check(err, "fused_train occupancy")
         _OCCUPANCY[key] = max(1, per_sm.value) * sms.value
-    per_fleet = -(-_OCCUPANCY[key] // n_fleet)
-    return max(1, min(per_fleet, -(-n // p["block"])))
+    # a fleet shares the resident blocks: rounding up would start a second
+    # wave of a few blocks
+    per_fleet = max(1, _OCCUPANCY[key] // n_fleet)
+    return max(1, min(per_fleet,
+                      -(-n // (p["block"] * p.get("groups", 1)))))
 
 
 def _check_batch(widths, coords, values, weights, lead: Tuple[int, ...]):
@@ -493,13 +663,23 @@ def _slot_map(widths, slots: int, device: torch.device) -> torch.Tensor:
     return _SLOT_MAPS[key]
 
 
-def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
+def _plan(widths: Sequence[int]) -> Dict:
+    """kernel_plan, made once per chain shape."""
+    key = tuple(widths)
+    if key not in _PLANS:
+        _PLANS[key] = kernel_plan(widths)
+    return _PLANS[key]
+
+
+def _launch(params, coords, values, weights, widths, acts,
             masks: Optional[torch.Tensor], mask_off: Sequence[int],
             thres: Optional[torch.Tensor], loss_name: str, beta: float
             ) -> torch.Tensor:
-    """One launch for n_fleet = params.shape[0] chains; returns
+    """One launch for n_fleet = coords.shape[0] chains; returns
     (n_fleet, n_params + 1): the gradients in the packed layout, then the
-    loss, divided by N * Cout."""
+    loss, divided by N * Cout.  params: (n_fleet, n_params) for the tiled
+    and wide layouts; for the narrow one, a list per layer of (w, b, mask
+    or None), which the kernel reads in place (masks is then None)."""
     from brief_pytorch_tpu_torch.ops import build
 
     device = coords.device
@@ -507,13 +687,8 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
         raise NotImplementedError(loss_name)
     if len(acts) != len(widths) - 1:
         raise ValueError("one (act, w0) per layer")
-    key = tuple(widths)
-    if key not in _PLANS:
-        _PLANS[key] = kernel_plan(widths)
-    p = _PLANS[key]
-    if params.device != device or params.dtype != torch.float32:
-        raise ValueError(f"weights: expected float32 on {device}")
-    n_fleet, n = params.shape[0], coords.shape[-1]
+    p = _plan(widths)
+    n_fleet, n = coords.shape[0], coords.shape[-1]
     mask_width = 0 if masks is None else masks.shape[1]
     if p["layout"] == "wide":
         np_, splits, chunk = dw_split(n, n_fleet, p["n_dw_tiles"])
@@ -534,13 +709,16 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
                      p["h_row"][l], p["g_row"][l], mask_off[l]]
     else:
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
-                p["stride"], p["acc_off"], p["red_off"], p["act_off"],
-                mask_width]
+                p["stride"], p["act_off"], p["red_off"], p["jobs"],
+                p["groups"], p["rows"], p["yw_row"], p["mask_sm"],
+                int(p["small"])]
         for l, (act, _) in enumerate(acts):
             meta += [widths[l], widths[l + 1], ACTS.index(act),
-                     p["p_off"][l], p["sw_off"][l], p["swt_off"][l],
-                     p["sb_off"][l], p["h_row"][l], p["dg_row"][l],
-                     mask_off[l]]
+                     p["p_off"][l], p["wf_off"][l], p["kb"][l], p["nt"][l],
+                     p["wb_off"][l], p["kbb"][l], p["ntb"][l], p["x_row"][l],
+                     p["h_row"][l], p["g_row"][l], mask_off[l],
+                     p["dw_gmajor"][l]]
+        meta += p["job_table"]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     w0_c = (ctypes.c_float * len(acts))(*[float(w0) for _, w0 in acts])
 
@@ -564,8 +742,8 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
                 torch.cuda.current_stream(device).cuda_stream),
                 "fused_train wide")
             return out
-        partial = torch.empty((n_fleet, grid, width), dtype=torch.float32,
-                              device=device)
+        partial = torch.empty((n_fleet, grid * p.get("groups", 1), width),
+                              dtype=torch.float32, device=device)
         if p["layout"] == "tiled":
             build.check(lib.brief_fused_train_tiled(
                 coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
@@ -578,9 +756,11 @@ def _launch(params: torch.Tensor, coords, values, weights, widths, acts,
                 torch.cuda.current_stream(device).cuda_stream),
                 "fused_train tiled")
             return out
+        ptrs = [0 if x is None else x.data_ptr() for layer in params
+                for x in layer]
         build.check(lib.brief_fused_train(
             coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
-            params.data_ptr(), 0 if masks is None else masks.data_ptr(),
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
             0 if thres is None else thres.data_ptr(), partial.data_ptr(),
             out.data_ptr(), n, n_fleet, meta_c, w0_c,
             LOSSES.index(loss_name), float(beta), grid, p["threads"],
@@ -666,30 +846,38 @@ def fused_train_grads_fleet(layers, coords: torch.Tensor,
     n_fleet = coords.shape[0]
     widths = _layer_widths(layers, coords.shape[1], (n_fleet,))
     _check_batch(widths, coords, values, weights, (n_fleet,))
-    if n_fleet == 1:    # one chain: the 1-D concatenation is the faster one
-        params = torch.cat([t.reshape(-1) for layer in layers
-                            for t in (layer["w"], layer["b"])])[None]
-    else:
-        params = torch.cat([t for layer in layers
-                            for t in (layer["w"].reshape(n_fleet, -1),
-                                      layer["b"])], dim=1)
-    masks, mask_off, off = None, [], 0
-    if unit_masks is not None:
-        rows = []
-        for l, mk in enumerate(unit_masks):
-            if mk is None:
-                mask_off.append(-1)
-                continue
+    for layer in layers:
+        for t in (layer["w"], layer["b"]):
+            if t.device != coords.device or t.dtype != torch.float32:
+                raise ValueError(f"weights: expected float32 on "
+                                 f"{coords.device}")
+    mask_list, mask_off, off = [], [], 0
+    for l in range(len(layers)):
+        mk = None if unit_masks is None or l >= len(unit_masks) \
+            else unit_masks[l]
+        if mk is not None:
             if tuple(mk.shape) != (n_fleet, widths[l + 1]):
                 raise ValueError(f"unit mask {l}: expected "
                                  f"{(n_fleet, widths[l + 1])}, got "
                                  f"{tuple(mk.shape)}")
-            mask_off.append(off)
-            off += widths[l + 1]
-            rows.append(mk)
-        if rows:
-            masks = torch.cat(rows, dim=1).to(torch.float32).contiguous()
-    mask_off += [-1] * (len(layers) - len(mask_off))
+            mk = mk.to(torch.float32).contiguous()
+        mask_off.append(-1 if mk is None else off)
+        off += 0 if mk is None else widths[l + 1]
+        mask_list.append(mk)
+    if _plan(widths)["layout"] == "narrow":   # read in place: no copies
+        params = [(layer["w"].contiguous(), layer["b"].contiguous(), mk)
+                  for layer, mk in zip(layers, mask_list)]
+        masks = None
+    else:
+        if n_fleet == 1:    # one chain: the 1-D concatenation is the faster
+            params = torch.cat([t.reshape(-1) for layer in layers
+                                for t in (layer["w"], layer["b"])])[None]
+        else:
+            params = torch.cat([t for layer in layers
+                                for t in (layer["w"].reshape(n_fleet, -1),
+                                          layer["b"])], dim=1)
+        rows = [mk for mk in mask_list if mk is not None]
+        masks = torch.cat(rows, dim=1).contiguous() if rows else None
     if thres is not None:
         if tuple(thres.shape) != (n_fleet,) or thres.device != coords.device:
             raise ValueError(f"thres: expected ({n_fleet},) on "

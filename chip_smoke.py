@@ -12,8 +12,12 @@ non-zero exit:
      and fused_decode.cu);
   2. fast_sincos on the card against its plain version over |x| <= 200;
   3. the fused train-step kernel against its plain version at the default
-     run's full width (SIREN 5 x 22, w0 = 20, N = 262,144), timed with CUDA
-     events beside its plain version and its bound;
+     run's full width (SIREN 5 x 22, w0 = 20, N = 262,144; the narrow
+     layout, products on the tensor cores in 3xTF32), timed with CUDA
+     events beside its plain version, its float32 bound and its
+     tensor-core bound (tc_bound_ms), naming the layout that ran; then the
+     same for TRAIN_CASES, the chains the old narrow layout also took: a
+     SIREN_Pyramid chain (narrow) and its edges 5 x 64 and 7 x 48 (tiled);
   4. the grid-decode kernel the same way on the 64^3 and 256^3 grids
      (5 x 22, weights in shared memory) and, in its wide form, on the
      64x512x512 grid of the demo volumes at DEMO_RUNS' widths (5 x 191,
@@ -27,7 +31,8 @@ non-zero exit:
      (fleet_check): 4 blocks padded to 3-66x6-1, true widths
      FLEET_WIDTHS through unit masks, SIREN w0 = 10, N = 100,000 per
      block (the tiled layout), and brain64's 8 blocks of 3-7x4-1, w0 = 20,
-     N = 20,000 (the narrow layout), and 4 blocks padded to 3-128x6-1,
+     N = 20,000 (the narrow layout, with its tc_bound_ms), and 4 blocks
+     padded to 3-128x6-1,
      true widths WIDE_FLEET_WIDTHS, N = 100,003 (the wide layout, which
      takes any bucket padded past the tiled layout's reach), each with
      finite and -inf thresholds, against its plain version for both
@@ -134,6 +139,7 @@ DEMO_AUTOGRAD_DB = 0.5     # dB; the kernel run's PSNR against autograd's
 DECODE_SLAB = 1 << 20      # voxels per slab of the plain decode (phase 4)
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
 SINCOS_FLOPS = 25            # fast_sincos incl. the w0 multiplies
 SIN_FLOPS = 16               # fast_sin incl. the w0 multiply
 # phase 9: (label, family config, N, in the kernels line as)
@@ -152,6 +158,14 @@ SIREN_CASES = [
      N_COORDS, None),
 ]
 GRAD_N = 8192                # coordinates of phase 9's gradient check
+# phase 3: chains the old narrow layout took, beyond the default's 5 x 22:
+# (label, family config, the layout the plan must pick)
+TRAIN_CASES = [
+    ("pyramid", {"name": "SIREN_Pyramid", "features": 27,
+                 "features_dis": 3}, "narrow"),
+    ("edge-5x64", {"name": "SIREN", "features": 64}, "tiled"),
+    ("edge-7x48", {"name": "SIREN", "features": 48, "layers": 7}, "tiled"),
+]
 # phase 11: Module.phi keys per family (each sizes within 5% of the 80x
 # budget), whether both kernels run it, and its PSNR floor in dB after
 # FAMILY_STEPS steps (the first H100 run's value less 1 dB, PERF.md)
@@ -211,6 +225,23 @@ def bound_ms(n_bytes: float, n_flops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def tc_bound_ms(n_bytes: float, product_flops: float, other_flops: float):
+    """The least time of a kernel whose products run on the tensor cores in
+    3xTF32: the largest of bytes / 3.35 TB/s, 3 x the product flops / 495
+    TFLOP/s and the other (sine, elementwise) flops / 67 TFLOP/s."""
+    return max(n_bytes / H100_BYTES_PER_S, 3 * product_flops / H100_TF32_FLOPS,
+               other_flops / H100_F32_FLOPS) * 1e3
+
+
+def train_tc_bound_ms(widths, acts, n: int, n_bytes: float) -> float:
+    """tc_bound_ms of one fused train call on n coordinates of a chain:
+    the three products of train_flops on the tensor cores, its sines on
+    the CUDA cores (true widths, not the padding)."""
+    sine = n * SINCOS_FLOPS * sum(w for w, (a, _) in zip(widths[1:], acts)
+                                  if a == "sine")
+    return tc_bound_ms(n_bytes, train_flops(widths, acts, n) - sine, sine)
+
+
 def chain_macs(widths) -> int:
     return sum(a * b for a, b in zip(widths[:-1], widths[1:]))
 
@@ -241,6 +272,67 @@ def compare_grads(lk, gk, lp, gp, what: str) -> float:
                 fail(f"{what}: grad {key}{l}: max abs err {d} "
                      f"(max |plain| {scale})")
     return err
+
+
+def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict
+                ) -> dict:
+    """The one-chain train kernel on a chain of the φ config `phi` (w0,
+    layers and channels from the SingleTask default) at n coordinates:
+    the plan must pick `layout`; against its plain version (compare_grads'
+    tolerances), two more runs bitwise equal, timed beside the plain
+    version, bound_ms and (narrow) tc_bound_ms.  Returns its JSON row."""
+    import torch
+    from brief_pytorch_tpu_torch.models.phi import init_phi
+    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
+    model = init_phi({**SIREN_BASE, **phi})
+    layers = model.init(torch.Generator().manual_seed(2), dev)["layers"]
+    acts = chain_layer_specs(model.spec)
+    widths = fused_train.chain_widths(model.spec)
+    p = fused_train.choose_plan(widths)
+    if p is None or p["layout"] != layout:
+        fail(f"chain {widths}: layout {p and p['layout']}, not {layout}")
+    rng = np.random.default_rng(3)
+    to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    c = to_dev(rng.uniform(-1, 1, (3, n)))
+    v = to_dev(rng.uniform(0, 100, (1, n)))
+    w = to_dev(rng.uniform(1, 2, (1, n)))
+
+    def k():
+        return fused_train.fused_train_grads(layers, c, v, w, acts, **kw)
+
+    def pl():
+        return fused_train.fused_train_grads_reference(layers, c, v, w, acts,
+                                                       **kw)
+
+    (lk, gk), (lp, gp) = k(), pl()
+    torch.cuda.synchronize()
+    one = lambda g: [{a: b[None] for a, b in x.items()} for x in g["layers"]]
+    err = compare_grads(lk[None], one(gk), lp[None], one(gp),
+                        f"{label} {widths}")
+    for lr, gr in [k() for _ in range(2)]:
+        if not torch.equal(lr, lk) or not all(
+                torch.equal(x[key], y[key]) for x, y in
+                zip(gr["layers"], gk["layers"]) for key in ("w", "b")):
+            fail(f"{label} {widths}: runs differ bitwise")
+    ms = time_ms(k)
+    plain = time_ms(pl, reps=5)
+    n_bytes = 4 * (n * 5 + 2 * sum(l["w"].numel() + l["b"].numel()
+                                   for l in layers) + 1)
+    b, by = bound_ms(n_bytes, train_flops(widths, acts, n))
+    row = dict(shape=f"SIREN {widths}, N={n}", layout=layout,
+               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+               bound_by=by)
+    if layout == "narrow":
+        row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
+    say("3-fused_train", case=label, widths=widths, n=n, layout=layout,
+        max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+        bound_ms=f"{b:.4f}", bound_by=by,
+        **({"tc_bound_ms": f"{row['tc_bound_ms']:.4f}"}
+           if layout == "narrow" else {}),
+        tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; 3 runs "
+                  "bitwise")
+    return row
 
 
 def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
@@ -328,6 +420,8 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
                    + sum(m.numel() for m in masks[:-1]))
     b, by = bound_ms(n_bytes, flops)
     b_pad, _ = bound_ms(n_bytes, flops_pad)
+    tc = sum(train_tc_bound_ms([3] + [f] * (layers - 1) + [1], acts, n,
+                               n_bytes / nb) for f in true_widths)
     p = fused_train.choose_plan(padded)
     if p["layout"] != layout:
         fail(f"{what}: layout {p['layout']}, not {layout}")
@@ -336,12 +430,14 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
         tile=p["block"], max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain:.4f}", bound_ms=f"{b:.4f}",
         bound_padded_ms=f"{b_pad:.4f}", bound_by=by,
+        **({"tc_bound_ms": f"{tc:.4f}"} if layout == "narrow" else {}),
         tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; padded "
                   "grads 0; 3 runs bitwise")
     return dict(shape=f"{nb} x SIREN {padded} (true {list(true_widths)}), "
                       f"N={n} per block", layout=layout, tile=p["block"],
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_padded_ms=b_pad, bound_by=by, padded=padded)
+                bound_padded_ms=b_pad, bound_by=by, padded=padded,
+                **({"tc_bound_ms": tc} if layout == "narrow" else {}))
 
 
 def run_config(config: str, out_dir: str, steps: int, data_path=None,
@@ -852,9 +948,16 @@ def main() -> int:
     bytes1 = 4 * (n * (3 + 1 + 1) + 2 * (sum(l["w"].numel() + l["b"].numel()
                                              for l in layers) + 1))
     b1, by1 = bound_ms(bytes1, flops1)
-    say("3-fused_train", n=n, widths=widths, max_abs_err=f"{err1:.3e}",
-        ms=f"{ms1:.4f}", plain_ms=f"{plain1:.4f}", bound_ms=f"{b1:.4f}",
-        bound_by=by1, tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6")
+    tc1 = train_tc_bound_ms(widths, acts, n, bytes1)
+    layout1 = fused_train.choose_plan(widths)["layout"]
+    if layout1 != "narrow":
+        fail(f"fused_train {widths}: layout {layout1}, not narrow")
+    say("3-fused_train", case="default", n=n, widths=widths, layout=layout1,
+        max_abs_err=f"{err1:.3e}", ms=f"{ms1:.4f}", plain_ms=f"{plain1:.4f}",
+        bound_ms=f"{b1:.4f}", bound_by=by1, tc_bound_ms=f"{tc1:.4f}",
+        tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6")
+    train_rows = {label: chain_check(dev, label, cfg3, n, layout3, kw)
+                  for label, cfg3, layout3 in TRAIN_CASES}
 
     # ---- 4. kernel 2: grid decode, 64^3 (main path) and 256^3; the wide
     # form on the demo volumes' 64x512x512 grid at phase 12's widths ----
@@ -1199,7 +1302,8 @@ def main() -> int:
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
          "launches": launches["fused_train"], "max_abs_err": err1,
          "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
-         "library_ms": None, "shape": f"SIREN {widths}, N={n}"},
+         "tc_bound_ms": tc1, "library_ms": None, "layout": layout1,
+         "shape": f"SIREN {widths}, N={n}", **train_rows},
         {"name": "fused_train_grads_fleet", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",

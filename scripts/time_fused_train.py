@@ -5,15 +5,20 @@ against its plain version, on the card, with chip_smoke.py's timer
 
     python3 scripts/time_fused_train.py 3-191x4-1:100000 3-242x4-1:100000
     python3 scripts/time_fused_train.py --root outputs/parent 3-191x4-1:100000
+    python3 scripts/time_fused_train.py --layout tiled 3-22x4-1:262144
 
 A shape is c_in-f x hidden-c_out:N (SIREN, w0 = 20, datal2 with
-weight_thres 0.05, as chip_smoke.py phase 3), or a fleet
+weight_thres 0.05, as chip_smoke.py phase 3), c_in-f1,f2,...-c_out:N for
+uneven hidden widths (SIREN_Pyramid, SIRENFT; SIREN's initialisation
+rule per layer), or a fleet
 fleet:f1,f2,...:layers:N:w0 (chip_smoke.fleet_check: SIREN chains of true
 widths f1, f2, ... padded to the widest, thresholds 60, -inf, 40, -inf,
 ...; checked and timed as phase 6 does).  --root imports the package
 (and chip_smoke.py) from another checkout, e.g. a `git archive` of the
 parent commit, so that two builds can be timed in turns in one call.
-Prints one JSON line per shape, then the card's name and power limit.
+--layout forces a layout of the kernel (narrow, tiled or wide) where its
+plan fits, to time one shape in two layouts.  Prints one JSON line per
+shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -25,6 +30,46 @@ import subprocess
 import sys
 
 
+def force_layout(fused_train, layout: str) -> None:
+    """Make the package's plan choose `layout` wherever its plan fits."""
+    chosen = fused_train.choose_plan
+
+    def choose(widths):
+        if layout == "tiled":
+            p = fused_train.tiled_plan(widths)
+            ok = p["slots"] and p["smem_bytes"] <= fused_train.SMEM_LIMIT
+        elif layout == "wide":
+            tile = fused_train.wide.choose_tile(
+                lambda t: fused_train.wide_plan(widths, t)["smem_bytes"],
+                fused_train.SMEM_LIMIT, fused_train.SM_SMEM)
+            p, ok = fused_train.wide_plan(widths, tile or 8), tile is not None
+        else:   # the narrow layout at any occupancy it fits
+            best = getattr(fused_train, "narrow_plan", chosen)
+            p = best(widths)
+            ok = p is not None and p["layout"] == layout
+        if not ok:
+            raise SystemExit(f"{widths}: no {layout} plan")
+        return p
+
+    fused_train.choose_plan = choose
+    fused_train._PLANS.clear()
+
+
+def siren_layers(widths, w0: float, dev):
+    """SIREN's initialisation (the first layer U(-1/fin, 1/fin), the others
+    U(-sqrt(6/fin)/w0, sqrt(6/fin)/w0), biases likewise) for a chain of
+    any widths, from a fixed seed."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    layers = []
+    for l, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
+        r = 1.0 / fin if l == 0 else (6.0 / fin) ** 0.5 / w0
+        w, b = (torch.rand(s, generator=gen) * 2 * r - r
+                for s in ((fin, fout), (fout,)))
+        layers.append({"w": w.to(dev), "b": b.to(dev)})
+    return layers
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("shapes", nargs="+")
@@ -32,6 +77,8 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--plain", action="store_true",
                     help="time the plain version too")
+    ap.add_argument("--layout", choices=("auto", "narrow", "tiled", "wide"),
+                    default="auto")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -45,6 +92,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.layout != "auto":
+        force_layout(fused_train, args.layout)
     for shape in args.shapes:
         if shape.startswith("fleet:"):
             _, fs, layers_, n, w0 = shape.split(":")
@@ -62,15 +111,24 @@ def main(argv=None) -> int:
                   flush=True)
             continue
         m = re.fullmatch(r"(\d+)-(\d+)x(\d+)-(\d+):(\d+)", shape)
-        if m is None:
+        u = re.fullmatch(r"(\d+)-([\d,]+)-(\d+):(\d+)", shape)
+        if m is not None:
+            c_in, f, hidden, c_out, n = map(int, m.groups())
+            model = init_phi({"name": "SIREN", "coords_channel": c_in,
+                              "data_channel": c_out, "features": f,
+                              "layers": hidden + 1, "w0": 20})
+            layers = model.init(torch.Generator().manual_seed(1),
+                                dev)["layers"]
+            acts = chain_layer_specs(model.spec)
+            widths = [c_in] + [f] * hidden + [c_out]
+        elif u is not None:
+            c_in, c_out, n = int(u[1]), int(u[3]), int(u[4])
+            widths = [c_in] + [int(f) for f in u[2].split(",")] + [c_out]
+            layers = siren_layers(widths, 20.0, dev)
+            acts = tuple(("sine", 20.0) for _ in widths[2:]) + (("none",
+                                                                 1.0),)
+        else:
             raise SystemExit(f"bad shape {shape!r}")
-        c_in, f, hidden, c_out, n = map(int, m.groups())
-        model = init_phi({"name": "SIREN", "coords_channel": c_in,
-                          "data_channel": c_out, "features": f,
-                          "layers": hidden + 1, "w0": 20})
-        layers = model.init(torch.Generator().manual_seed(1), dev)["layers"]
-        acts = chain_layer_specs(model.spec)
-        widths = [c_in] + [f] * hidden + [c_out]
         rng = np.random.default_rng(0)
         to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
         coords = to_dev(rng.uniform(-1, 1, (c_in, n)))
@@ -97,8 +155,9 @@ def main(argv=None) -> int:
         n_par = sum(l["w"].numel() + l["b"].numel() for l in layers)
         b, by = cs.bound_ms(4 * (n * (c_in + 2 * c_out) + 2 * n_par + 1),
                             cs.train_flops(widths, acts, n))
+        layout = fused_train.choose_plan(widths)["layout"]
         print(json.dumps({"root": args.root, "shape": shape,
-                          "layout": fused_train.choose_plan(widths)["layout"],
+                          "widths": widths, "layout": layout,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain,
                           "bound_ms": b, "bound_by": by}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

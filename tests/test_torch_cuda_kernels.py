@@ -500,3 +500,102 @@ def test_fused_siren_rejects_bad_inputs(dev):
     wide, _ = _family(dev, "SIREN", features=2048)
     with pytest.raises(NotImplementedError, match="2048"):
         fs.supports(wide)
+
+
+# --- the narrow layout: warp-owned tiles, 3xTF32 on the tensor cores -------
+def _plain_close(model, params, coords, values, weights, **kw):
+    acts = chain_layer_specs(model.spec)
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    _close(lk[None], [{k: v[None] for k, v in g.items()}
+                      for g in gk["layers"]], lp[None],
+           [{k: v[None] for k, v in g.items()} for g in gp["layers"]])
+    return lk, gk
+
+
+@pytest.mark.parametrize("n", [262144, 262144 - 51])
+@pytest.mark.parametrize("loss_name,thres", [("datal2", 0.5),
+                                             ("datasmoothl1", None)])
+def test_narrow_layout_single_task_chain(dev, n, loss_name, thres):
+    """5 x 22 at the SingleTask default's N (and a tail that is no multiple
+    of a group's 128-coordinate tile) on the narrow layout."""
+    model, params = _chain(dev, 22, 5)
+    assert ft.choose_plan(ft.chain_widths(model.spec))["layout"] == "narrow"
+    coords, values, weights = _batch(dev, n)
+    _plain_close(model, params, coords, values, weights,
+                 loss_name=loss_name, beta=0.01, weight_thres=thres)
+
+
+@pytest.mark.parametrize("name,extra,layout", [
+    ("SIREN_Pyramid", {"features": 27, "features_dis": 3}, "narrow"),
+    ("SIREN", {"features": 33}, "narrow"),              # its last width
+    ("SIREN", {"features": 64}, "tiled"),               # the old edges
+    ("SIREN", {"features": 48, "layers": 7}, "tiled"),
+])
+def test_narrow_layout_reach(dev, name, extra, layout):
+    """The chains the old narrow layout took up to its edges: each on the
+    layout the plan picks, against the plain version."""
+    model = tphi.init_phi({"name": name, "coords_channel": 3,
+                           "data_channel": 1, "layers": 5, "w0": 20,
+                           **extra})
+    params = model.init(torch.Generator().manual_seed(4), dev)
+    assert ft.choose_plan(ft.chain_widths(model.spec))["layout"] == layout
+    coords, values, weights = _batch(dev, 30011)
+    _plain_close(model, params, coords, values, weights,
+                 loss_name="datal2", beta=0.01, weight_thres=0.5)
+
+
+@pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
+@pytest.mark.parametrize("acts", ["sine", "relu_sigmoid"])
+def test_narrow_layout_brain64_fleet(dev, loss_name, acts):
+    """brain64's fleet (8 blocks of 3-7x4-1, 20,000 coordinates each, on
+    the small-chain instance) with finite and -inf thresholds, padded
+    units masked (true widths 5-7): against the plain version, padded
+    gradients exactly 0, three runs bitwise equal."""
+    models, layers_, um, (c, v, w), _ = _fleet(
+        dev, (7, 5, 7, 6, 7, 7, 5, 7), layers=5, n=20000)
+    thres = torch.tensor([0.4, -np.inf] * 4, device=dev)
+    padded = [3] + [int(l["w"].shape[-1]) for l in layers_]
+    p = ft.choose_plan(padded)
+    assert p["layout"] == "narrow" and p["small"]
+    spec = chain_layer_specs(models[0].spec)
+    if acts == "relu_sigmoid":
+        spec = tuple((("relu", 1.0), ("sigmoid", 1.0))[l % 2]
+                     for l in range(len(spec) - 1)) + (("none", 1.0),)
+    kw = dict(loss_name=loss_name, beta=0.01)
+    runs = [ft.fused_train_grads_fleet(layers_, c, v, w, spec, unit_masks=um,
+                                       thres=thres, **kw) for _ in range(3)]
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, spec,
+                                            weight_thres=thres,
+                                            unit_masks=um, **kw)
+    torch.cuda.synchronize()
+    lk, gk = runs[0]
+    _close(lk, gk["layers"], lp, gp["layers"])
+    for i, m in enumerate(models):
+        dims = [(e.fan_in, e.fan_out) for e in m.spec.entries]
+        for (a, b), g in zip(dims, gk["layers"]):
+            assert int(torch.count_nonzero(g["w"][i, a:, :])) == 0
+            assert int(torch.count_nonzero(g["w"][i, :, b:])) == 0
+            assert int(torch.count_nonzero(g["b"][i, b:])) == 0
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, lk)
+        for a, b in zip(grads["layers"], gk["layers"]):
+            assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+def test_narrow_layout_is_deterministic(dev):
+    """Three runs of 5 x 22 at N = 262,144 are bitwise equal (each dW entry
+    summed in one warp's registers, the blocks' rows in a fixed order)."""
+    model, params = _chain(dev, 22, 5)
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, 262144)
+    runs = [ft.fused_train_grads(params["layers"], coords, values, weights,
+                                 acts, loss_name="datal2", weight_thres=0.5)
+            for _ in range(3)]
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        for a, b in zip(grads["layers"], runs[0][1]["layers"]):
+            assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])

@@ -106,10 +106,11 @@ def test_supports_training_and_plan():
     assert ft.supports_training(model, "datal2")
     assert ft.supports_training(model, "datasmoothl1")
     assert not ft.supports_training(model, "nosuchloss")
-    # the default chain: tiles of 128 coordinates, two blocks per SM
+    # the default chain: the narrow layout, one block of 16 warps per SM
     p = ft.choose_plan([3, 22, 22, 22, 22, 1])
-    assert p["block"] == 128 and p["smem_bytes"] <= ft.SMEM_LIMIT
-    assert ft.SM_SMEM // (p["smem_bytes"] + 1024) == 2
+    assert p["layout"] == "narrow" and p["smem_bytes"] <= ft.SMEM_LIMIT
+    assert ft.SM_SMEM // (p["smem_bytes"] + 1024) == 1
+    assert ft.resident_warps(p) == p["threads"] // 32 == 16
     # a 512-wide chain takes the wide layout (it raised before the
     # layout streamed its weights); past MAX_LAYERS layers the card has no
     # autograd fallback, the gate raises
@@ -126,28 +127,31 @@ def test_supports_training_and_plan():
 
 def test_plan_layout_is_disjoint_and_aligned():
     widths = [3, 22, 22, 22, 22, 1]
-    p = ft.plan(widths, 64)
-    regions = []
-    for l in range(len(widths) - 1):
-        fin, fout = widths[l], widths[l + 1]
-        r8 = lambda x: (x + 7) // 8 * 8
-        regions += [(p["sw_off"][l], fin * r8(fout)),
-                    (p["swt_off"][l], fout * r8(fin)),
-                    (p["sb_off"][l], r8(fout))]
-    regions += [(p["acc_off"], p["n_params"]), (p["red_off"], 64)]
+    p = ft.plan(widths, 8, 2)
+    L = len(widths) - 1
+    regions = [(p["wf_off"][l], p["kb"][l] * p["nt"][l] * ft.FRAG)
+               for l in range(L)]
+    regions += [(p["wb_off"][l], p["kbb"][l] * p["ntb"][l] * ft.FRAG)
+                for l in range(1, L)]
+    regions += [(p["act_off"] + q * p["rows"] * p["stride"],
+                 p["rows"] * p["stride"]) for q in range(p["groups"])]
+    regions += [(p["mask_sm"], sum(widths[1:-1])), (p["red_off"], 32)]
     regions.sort()
     for (a, n), (b, _) in zip(regions, regions[1:]):
         assert a + n <= b
-    assert all(off % 8 == 0 for off, _ in regions)   # float4 loads
-    assert regions[-1][0] + regions[-1][1] <= p["act_off"]
-    # activation rows: the coordinates, then h_l and d_l of every layer
-    spans = [(0, widths[0])] + [(p[k][l], widths[l + 1]) for l in range(5)
-                                for k in ("h_row", "dg_row")]
+    assert all(off % 4 == 0 for off, _ in regions)   # float4 loads
+    assert p["smem_bytes"] == 4 * (p["red_off"] + 32)
+    # store rows: the coordinates and a ones row, then h_l (with a ones
+    # row) and d_l / g_l of every layer, the values and weights
+    spans = [(0, widths[0] + 1)] + [
+        (p["h_row"][l], widths[l + 1] + 1) for l in range(L - 1)] + [
+        (p["g_row"][l], widths[l + 1]) for l in range(L)] + [
+        (p["yw_row"], 2 * widths[-1])]
     spans.sort()
     for (a, n), (b, _) in zip(spans, spans[1:]):
-        assert a + n <= b
-    rows = spans[-1][0] + spans[-1][1]
-    assert p["smem_bytes"] == 4 * (p["act_off"] + rows * p["stride"])
+        assert a + n == b
+    assert spans[-1][0] + spans[-1][1] == p["rows"]
+    assert p["block"] == 128 and p["stride"] == 132
     assert p["n_params"] == sum(a * b + b for a, b in
                                 zip(widths[:-1], widths[1:]))
 
@@ -293,8 +297,7 @@ def test_wide_chains_get_the_wide_layout(widths, layout, block):
     tiled layout when their weights, stored once, fit beside a
     32-coordinate tile (3-66x6-1), else in the wide layout, which keeps two
     activation rows of the tile and two weight slabs there (3-186x4-1)."""
-    assert all(ft.plan(widths, b)["smem_bytes"] > ft.SMEM_LIMIT
-               for b in ft.BLOCKS)
+    assert ft.narrow_plan(widths) is None
     p = ft.choose_plan(widths)
     assert p is not None and p["layout"] == layout
     assert p["block"] == block and p["smem_bytes"] <= ft.SMEM_LIMIT
@@ -312,6 +315,11 @@ def test_wide_chains_get_the_wide_layout(widths, layout, block):
 
 
 def test_narrow_chain_keeps_its_layout():
+    """5 x 22 keeps the narrow layout: two groups of 8 warps (128
+    coordinates a tile each) in one 512-thread block per SM, one dW job a
+    warp, products on the tensor cores (not the small-chain instance)."""
     p = ft.choose_plan([3, 22, 22, 22, 22, 1])
-    assert p["layout"] == "narrow" and p["block"] == p["threads"] == 128
-    assert p["smem_bytes"] == 115316
+    assert p["layout"] == "narrow" and p["threads"] == 512
+    assert (p["groups"], p["warps"], p["block"]) == (2, 8, 128)
+    assert p["jobs"] == 1 and not p["small"]
+    assert p["smem_bytes"] == 230208

@@ -41,8 +41,8 @@ def test_choose_plan_picks_the_layout(widths, layout):
         return
     assert p["layout"] == layout and p["smem_bytes"] <= ft.SMEM_LIMIT
     if layout == "tiled":   # only where the narrow layout does not fit
-        assert all(ft.plan(widths, b)["smem_bytes"] > ft.SMEM_LIMIT
-                   for b in ft.BLOCKS)
+        n = ft.narrow_plan(widths)
+        assert n is None or ft.resident_warps(n) < ft.NARROW_MIN_WARPS
 
 
 @pytest.mark.parametrize("widths", [
