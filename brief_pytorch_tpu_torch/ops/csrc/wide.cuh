@@ -1,7 +1,6 @@
-// The layer products of the wide layout, shared by the fused train kernel
-// (csrc/fused_train.cu, wide layout) and the fused decode kernel
-// (csrc/fused_decode.cu, wide form): chains whose weights do not fit in
-// shared memory.  ops/wide.py is the Python side of this file.
+// The layer products of the fused train kernel's wide layout
+// (csrc/fused_train.cu): chains whose weights do not fit in shared
+// memory.  ops/wide.py is the Python side of this file.
 //
 // A block works on a tile of kT coordinates (kT in 64, 32, 16, 8) with
 // 4 * kT threads.  The tile's activations live in shared memory as rows of

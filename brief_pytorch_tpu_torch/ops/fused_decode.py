@@ -7,24 +7,36 @@ Replaces the Pallas TPU kernel of brief_pytorch_tpu/ops/pallas_decode.py
 the chain's forward over every voxel of the grid, each voxel's
 coordinates built from its grid index.
 
-Bound on an H100: operations.  A 256^3 grid at f = 22 writes 67 MB but
-does ~75 GFLOP of float32 work (~1.1 ms at 67 TFLOP/s);
-csrc/fused_decode.cu says how its design answers that.
+Bound on an H100: operations.  Every product runs on the tensor cores in
+3xTF32 (mma.sync.m16n8k8; the weights split into TF32 big and small parts
+once per call, in the B-fragment order of ops/fused_train.py
+`pack_fragments`): 3 x the product flops at 495 TFLOP/s, beside the sines
+at 67 TFLOP/s (64x512x512 at 5 x 191: ~22 ms; 64^3 at 5 x 22: ~5.5 us,
+paced by the sines).  csrc/fused_decode.cu says how its design answers
+that.
 
-Two forms: chains whose weights fit a block's shared memory beside the
-activation buffers (`plan`, e.g. 5 x 22) keep all weights there; wider
-ones (`wide_plan`, e.g. the SingleTask default on the 64x512x512 demo
-volumes, 5 x 191 and 5 x 242) stream them through shared memory in slabs
-(ops/wide.py, csrc/wide.cuh).  `supports` takes the chains the JAX
-package's `supports` takes (weights up to 32 MB, at least 2 spatial
-axes) within the port's limits: up to MAX_LAYERS layers, 2 to 4 spatial
-axes, a widest layer that fits the wide form's 8-voxel tile.
+Two forms (`choose_plan`):
+  * narrow (`narrow_plan`; 5 x 22, the HiP-CT chunks 3-66x6-1): every
+    layer's pre-split weights resident in shared memory for the life of a
+    persistent block; each warp carries 16 voxels through the chain with
+    a layer's input and output in registers (kNT n-tiles each, NARROW_NT);
+  * wide (`wide_plan`; the SingleTask default on the 64x512x512 demo
+    volumes, 5 x 191 and 5 x 242): blocks of 128 voxels, the pre-split
+    weights streamed through shared memory in k-block slabs, each warp
+    kNW n-tiles of all 8 voxel tiles; the layer's input in shared memory
+    (or, past 256 features, in a device scratch); as many slabs in flight
+    as shared memory holds (up to MAX_STAGES).
+`supports` takes the chains the JAX package's `supports` takes (weights
+up to 32 MB, at least 2 spatial axes) within the port's limits: up to
+MAX_LAYERS layers, 2 to 4 spatial axes, no layer wider than MAX_WIDTH.
 
 Coordinates: the lead axis is the affine lo + i * step (float32, no fused
 multiply-add), the other axes are axis_linspace values — the TPU kernel's
-formulas.  The slab path of the JAX package (train/decode._decode_scan)
-uses the affine index_to_coords on every axis; the two differ by a float32
-rounding of the coordinate, ~1e-5 in the decoded values.
+formulas.  The kernel splits the flat voxel index with 32-bit
+multiply-shift divisions (`fast_divisor`) below 2^31 voxels.  The slab
+path of the JAX package (train/decode._decode_scan) uses the affine
+index_to_coords on every axis; the two differ by a float32 rounding of
+the coordinate, ~1e-5 in the decoded values.
 
 `fused_decode_grid` launches the kernel for a CUDA device and calls the
 plain version, `fused_decode_grid_reference`, for the CPU; there is no
@@ -35,87 +47,170 @@ memory); the plain version honours it as its slab size.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from brief_pytorch_tpu_torch.core.coords import axis_linspace, parse_coords_mode
-from brief_pytorch_tpu_torch.ops import wide
 from brief_pytorch_tpu_torch.ops.chain import ACTS, LayerSpec, chain_layer_specs
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
+from brief_pytorch_tpu_torch.ops.fused_train import pack_fragments
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
-BLOCKS = (128, 64, 32)       # voxels per block (= threads per block)
 MAX_PLANE_AXES = 3
 MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
+MAX_WIDTH = 3327             # widest layer: bounds the wide form's scratch
+                             # (132 blocks x 2 x 3,328 rows x 132 floats)
 WEIGHT_BUDGET = 32 << 20     # bytes of W: the JAX kernel's gate
+WARPS = 8                    # warps a block, both forms
+# narrow form: kNT (n-tiles of registers) -> (16-voxel m-tiles a warp,
+# blocks of 8 warps per SM its launch bounds guarantee: 2 at <= 128
+# registers, 1 at <= 255)
+NARROW_NT = {3: (2, 2), 6: (1, 2), 9: (2, 1), 12: (1, 1)}
+WIDE_M = 8                   # wide form: 16-voxel m-tiles a block tile
+WIDE_STRIDE = 16 * WIDE_M + 4   # floats per activation row
+MAX_STAGES = 8               # wide form: slabs in the ring, at most
+BARRIER_BYTES = 16 * MAX_STAGES   # wide form: the ring's barriers
+FRAG_BYTES = 512             # one B fragment: 32 lanes x 4 floats
 
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {
     "brief_fused_decode": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
-    "brief_fused_decode_wide": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]}
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]}
 
 
-def _round8(x: int) -> int:
-    return (x + 7) // 8 * 8
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def plan(widths: Sequence[int], block: int) -> Dict:
-    """Shared-memory layout (in floats): per layer W (fin, round8(fout))
-    and the bias, then two activation buffers of max(widths) rows of
-    `block` floats."""
-    off = 0
-    p_off, sw_off, sb_off = [], [], []
-    n_params = 0
-    for l in range(len(widths) - 1):
-        fin, fout = widths[l], widths[l + 1]
-        p_off.append(n_params)
-        n_params += fin * fout + fout
-        sw_off.append(off)
-        off += fin * _round8(fout)
-        sb_off.append(off)
-        off += _round8(fout)
-    buf_rows = max(widths)
-    return {"layout": "narrow", "p_off": p_off, "sw_off": sw_off,
-            "sb_off": sb_off, "act_off": off, "buf_rows": buf_rows,
-            "stride": block, "block": block,
-            "smem_bytes": 4 * (off + 2 * buf_rows * block)}
+def packed_layout(widths: Sequence[int]) -> Dict[str, List[int]]:
+    """Where pack_kernel puts each layer's pre-split weights: kb x nt B
+    fragments of W (fin, fout) from float4 frag_off[l] (pack_fragments'
+    order), then the biases, each zero-padded to 8, from float
+    bias_off[l]; packed_floats in all."""
+    kb = [_cdiv(f, 8) for f in widths[:-1]]
+    nt = [_cdiv(f, 8) for f in widths[1:]]
+    frag_off = [0]
+    for k, n in zip(kb, nt):
+        frag_off.append(frag_off[-1] + 32 * k * n)
+    bias_off = [4 * frag_off[-1]]
+    for n in nt:
+        bias_off.append(bias_off[-1] + 8 * n)
+    return {"kb": kb, "nt": nt, "frag_off": frag_off[:-1],
+            "bias_off": bias_off[:-1], "packed_floats": bias_off[-1]}
 
 
-def wide_plan(widths: Sequence[int], tile: int) -> Dict:
-    """The wide form's layout for `tile` voxels per block (4 * tile
-    threads): two buffers of rows_max rows of `tile` floats and two weight
-    slabs in shared memory; the weights packed in device memory."""
-    rows = wide.rows_max(widths)
-    return {"layout": "wide", "block": tile, "threads": 4 * tile,
-            "rows_max": rows, **wide.layer_meta(widths),
-            "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB)}
+def narrow_plan(widths: Sequence[int]) -> Optional[Dict]:
+    """The narrow form: the packed weights in shared memory, kNT n-tiles
+    of registers (the smallest instance holding the widest layer); None
+    past 12 n-tiles or when the weights do not fit a block."""
+    lay = packed_layout(widths)
+    need = max(lay["nt"])
+    inst = min((k for k in NARROW_NT if k >= need), default=None)
+    smem = 4 * lay["packed_floats"]
+    if inst is None or smem > SMEM_LIMIT:
+        return None
+    m_tiles, reg_blocks = NARROW_NT[inst]
+    blocks = min(SM_SMEM // (smem + 1024), reg_blocks)
+    return {"layout": "narrow", "inst": inst, "tile": 16 * m_tiles,
+            "smem_bytes": smem,
+            "blocks_per_sm": blocks, "warps_per_sm": WARPS * blocks,
+            "rows": 0, "global": False, **lay}
+
+
+def wide_plan(widths: Sequence[int]) -> Dict:
+    """The wide form: kNW n-tiles a warp (a layer in one pass up to 32
+    n-tiles, 256 features); the layer input's rows (8 x the most
+    k-blocks) of WIDE_STRIDE floats in shared memory, or, past 256
+    features, two such buffers per block in a device scratch (`global`);
+    beside them a ring of as many slabs of 8 x kNW fragments as fit, up
+    to MAX_STAGES."""
+    lay = packed_layout(widths)
+    nw = min(4, _cdiv(max(lay["nt"]), WARPS))
+    rows = 8 * max(lay["kb"])
+    glob = max(lay["nt"]) > WARPS * nw
+    fixed = BARRIER_BYTES + (0 if glob else 4 * rows * WIDE_STRIDE)
+    slab = WARPS * nw * FRAG_BYTES
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slab)
+    return {"layout": "wide", "inst": nw, "tile": 16 * WIDE_M,
+            "smem_bytes": fixed + stages * slab,
+            "stages": stages, "blocks_per_sm": 1, "warps_per_sm": WARPS,
+            "rows": rows, "global": glob, **lay}
+
+
+@functools.lru_cache(maxsize=None)
+def _choose(widths: Tuple[int, ...]) -> Optional[Dict]:
+    if len(widths) - 1 > MAX_LAYERS or max(widths) > MAX_WIDTH or \
+            widths[0] > MAX_PLANE_AXES + 1:
+        return None
+    return narrow_plan(widths) or wide_plan(widths)
 
 
 def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The largest block whose weights fit a block's shared memory beside
-    its activation buffers; else the wide form's tile that keeps the most
-    voxels resident per SM; None past MAX_LAYERS layers or when even the
-    wide form's 8-voxel tile does not fit."""
-    if len(widths) - 1 > MAX_LAYERS:
-        return None
-    for block in BLOCKS:
-        p = plan(widths, block)
-        if p["smem_bytes"] <= SMEM_LIMIT:
-            return p
-    tile = wide.choose_tile(lambda t: wide_plan(widths, t)["smem_bytes"],
-                            SMEM_LIMIT, SM_SMEM)
-    return None if tile is None else wide_plan(widths, tile)
+    """The narrow form where it fits, else the wide form; None past
+    MAX_LAYERS layers, MAX_WIDTH features or 4 coordinates.  The plan
+    states its form (`layout`), instance (`inst`: kNT or kNW), voxels a
+    warp or block tile (`tile`), shared memory and warps per SM."""
+    p = _choose(tuple(int(w) for w in widths))
+    return None if p is None else dict(p)
+
+
+def fast_divisor(d: int) -> Tuple[int, int]:
+    """(mul, shift) with n // d == (n * mul >> 32) >> shift for every
+    0 <= n < 2^31 (mul = ceil(2^(31 + l) / d), l = ceil(log2 d), below
+    2^32); (0, 0) for d = 1, which the kernel takes as n itself."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"divisor {d} out of range")
+    if d == 1:
+        return 0, 0
+    l = (d - 1).bit_length()
+    return ((1 << (31 + l)) + d - 1) // d, l - 1
+
+
+def fast_div(n, mul: int, shift: int):
+    """The kernel's n // d (csrc/fused_decode.cu fast_div) on int64
+    numpy arrays."""
+    n = np.asarray(n, dtype=np.int64)
+    if mul == 0:
+        return n
+    return ((n.astype(np.uint64) * np.uint64(mul)) >> np.uint64(32 + shift)
+            ).astype(np.int64)
+
+
+def split_index(v, spatial: Sequence[int]):
+    """(lead, [axis indices]) of flat voxel indices v < 2^31 as the kernel
+    splits them: fast_div by the plane, then by each plane axis from the
+    last."""
+    v = np.asarray(v, dtype=np.int64)
+    plane = int(np.prod(spatial[1:]))
+    lead = fast_div(v, *fast_divisor(plane))
+    p = v - lead * plane
+    idx = [None] * (len(spatial) - 1)
+    for a in range(len(spatial) - 2, -1, -1):
+        q = fast_div(p, *fast_divisor(int(spatial[a + 1])))
+        idx[a] = p - q * int(spatial[a + 1])
+        p = q
+    return lead, idx
+
+
+def pack_weights(layers, widths: Sequence[int]) -> torch.Tensor:
+    """pack_kernel's output on the CPU: (packed_floats,) float32."""
+    lay = packed_layout(widths)
+    parts = [pack_fragments(layer["w"].float().cpu(), k, n).reshape(-1)
+             for layer, k, n in zip(layers, lay["kb"], lay["nt"])]
+    for layer, n in zip(layers, lay["nt"]):
+        b = torch.zeros(8 * n)
+        b[:layer["b"].shape[0]] = layer["b"].float().cpu()
+        parts.append(b)
+    return torch.cat(parts)
 
 
 def supports(model, spatial=None) -> bool:
@@ -179,9 +274,12 @@ def _act(z: torch.Tensor, act: str, w0: float) -> torch.Tensor:
 def fused_decode_grid_reference(layers, spatial: Sequence[int],
                                 acts: LayerSpec, mode: str = "n11", *,
                                 enc_periods=None,
-                                slab: Optional[int] = None) -> torch.Tensor:
+                                slab: Optional[int] = None,
+                                voxels: Optional[Tuple[int, int]] = None
+                                ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, `slab` voxels at a time
-    (default: all at once), on the device of the weights."""
+    (default: all at once), on the device of the weights; only the flat
+    voxels [start, stop) when `voxels` is given."""
     spatial = tuple(int(s) for s in spatial)
     device = layers[0]["w"].device
     pop = int(np.prod(spatial))
@@ -190,10 +288,11 @@ def fused_decode_grid_reference(layers, spatial: Sequence[int],
     lo, step, scale = _lead_affine(spatial, mode, enc_periods)
     lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
     step_t = torch.tensor(step, dtype=torch.float32, device=device)
-    slab = pop if not slab else int(slab)
+    first, stop = (0, pop) if voxels is None else voxels
+    slab = stop - first if not slab else int(slab)
     outs = []
-    for start in range(0, pop, slab):
-        v = torch.arange(start, min(pop, start + slab), device=device)
+    for start in range(first, stop, slab):
+        v = torch.arange(start, min(stop, start + slab), device=device)
         lead = torch.div(v, plane, rounding_mode="floor")
         p = v - lead * plane
         z0 = lo_t + lead.to(torch.float32) * step_t
@@ -246,58 +345,60 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
             raise ValueError(f"layer {l}: w {tuple(layer['w'].shape)} / b "
                              f"{tuple(layer['b'].shape)} do not chain from "
                              f"{len(spatial)} coordinates")
+        for t in (layer["w"], layer["b"]):
+            if t.device != device or t.dtype != torch.float32:
+                raise ValueError(f"weights: expected float32 on {device}")
     if len(acts) != len(layers):
         raise ValueError("one (act, w0) per layer")
     p = choose_plan(widths)
     if p is None:
         raise ValueError(f"chain widths {widths}: more than {MAX_LAYERS} "
-                         "layers or a layer wider than the wide form's "
-                         "tile holds (see supports)")
-    params = torch.cat([t for layer in layers
-                        for t in (layer["w"].reshape(-1), layer["b"])])
-    if params.device != device or params.dtype != torch.float32:
-        raise ValueError(f"weights: expected float32 on {device}")
+                         f"layers or a layer wider than {MAX_WIDTH} "
+                         "features (see supports)")
+    pop = int(np.prod(spatial))
+    n_tiles = _cdiv(pop, p["tile"])
+    if n_tiles >= 1 << 31:
+        raise ValueError(f"grid {spatial}: {pop} voxels is too many")
     tables = _plane_tables(spatial, mode, enc_periods, device)
     lo, step, scale = _lead_affine(spatial, mode, enc_periods)
     n_plane = len(spatial) - 1
     sizes = list(spatial[1:]) + [1] * (MAX_PLANE_AXES - n_plane)
-    table_off = list(np.cumsum([0] + list(spatial[1:]))[:n_plane]) + \
-        [0] * (MAX_PLANE_AXES - n_plane)
-    if p["layout"] == "wide":
-        meta = [len(layers), widths[0], widths[-1], p["rows_max"], n_plane,
-                int(enc_periods is not None), p["n_params"],
-                p["wp_off"][-1]]
-    else:
-        meta = [len(layers), widths[0], widths[-1], p["stride"],
-                p["act_off"], p["buf_rows"], n_plane,
-                int(enc_periods is not None)]
-    meta += sizes + [int(t) for t in table_off]
+    table_off = [int(o) for o in np.cumsum([0] + list(spatial[1:]))[:n_plane]]
+    table_off += [0] * (MAX_PLANE_AXES - n_plane)
+    index64 = pop >= 1 << 31
+    divisors = [0, 0] * (1 + MAX_PLANE_AXES)
+    if not index64:
+        divisors = [x for d in [pop // spatial[0]] + sizes
+                    for x in fast_divisor(d)]
+        divisors = [x - (1 << 32) if x >= 1 << 31 else x for x in divisors]
+    meta = [len(layers), widths[0], widths[-1], n_plane,
+            int(enc_periods is not None), int(index64), n_tiles, p["rows"],
+            p["packed_floats"], p.get("stages", 0)] + sizes + table_off + \
+        divisors
     for l, (act, _) in enumerate(acts):
-        meta += [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l]]
-        meta += [p["wp_off"][l], p["colpad"][l]] if p["layout"] == "wide" \
-            else [p["sw_off"][l], p["sb_off"][l]]
+        meta += [widths[l], widths[l + 1], p["kb"][l], p["nt"][l],
+                 p["frag_off"][l], p["bias_off"][l], ACTS.index(act)]
     fmeta = [lo, step, scale] + [float(w0) for _, w0 in acts]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     fmeta_c = (ctypes.c_float * len(fmeta))(*fmeta)
+    wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
+    wb_c = (ctypes.c_void_p * len(wb))(*[t.data_ptr() for t in wb])
 
-    pop = int(np.prod(spatial))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_block = p["tile"] * (WARPS if p["layout"] == "narrow" else 1)
+    grid = min(_cdiv(pop, per_block), sms * p["blocks_per_sm"])
+    form = 0 if p["layout"] == "narrow" else 2 if p["global"] else 1
     out = torch.empty((pop, widths[-1]), dtype=torch.float32, device=device)
+    packed = torch.empty(p["packed_floats"], dtype=torch.float32,
+                         device=device)
+    scratch = torch.empty(grid * 2 * p["rows"] * WIDE_STRIDE if p["global"]
+                          else 0, dtype=torch.float32, device=device)
     lib = build.library("fused_decode", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
-        if p["layout"] == "wide":
-            wp = torch.empty(p["wp_off"][-1], dtype=torch.float32,
-                             device=device)
-            build.check(lib.brief_fused_decode_wide(
-                params.data_ptr(), wp.data_ptr(), tables.data_ptr(),
-                out.data_ptr(), pop, meta_c, fmeta_c, p["block"],
-                p["smem_bytes"],
-                torch.cuda.current_stream(device).cuda_stream),
-                "fused_decode wide")
-            launches += 1
-            return out
         build.check(lib.brief_fused_decode(
-            params.data_ptr(), tables.data_ptr(), out.data_ptr(), pop, meta_c,
-            fmeta_c, p["block"], p["smem_bytes"],
+            tables.data_ptr(), out.data_ptr(), packed.data_ptr(),
+            scratch.data_ptr() if p["global"] else None, wb_c, pop, meta_c,
+            fmeta_c, form, p["inst"], grid, p["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream), "fused_decode")
     launches += 1
     return out

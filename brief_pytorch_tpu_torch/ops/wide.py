@@ -1,7 +1,6 @@
-"""The Python side of csrc/wide.cuh: the layer products of the kernels'
-wide layout (the train kernel's, ops/fused_train.py, and the decode
-kernel's, ops/fused_decode.py), for chains whose weights do not fit in
-shared memory.
+"""The Python side of csrc/wide.cuh: the layer products of the train
+kernel's wide layout (ops/fused_train.py), for chains whose weights do
+not fit in shared memory.
 
 A block takes a tile of T coordinates (one of TILES) with 4 T threads and
 holds two buffers of activation rows (rows_max(widths) rows of T floats)

@@ -8,8 +8,9 @@ Phases, each printing one line, each failure ending the run with a
 non-zero exit:
   1. the card's name and power limit (nvidia-smi) and torch's version;
      build every CUDA kernel from ops/csrc (one nvcc per source, at once;
-     the wide layout's products, csrc/wide.cuh, go into fused_train.cu
-     and fused_decode.cu);
+     the wide layout's products, csrc/wide.cuh, go into fused_train.cu,
+     the 3xTF32 mma helpers, csrc/tf32.cuh, into fused_train.cu and
+     fused_decode.cu);
   2. fast_sincos on the card against its plain version over |x| <= 200;
   3. the fused train-step kernel against its plain version at the default
      run's full width (SIREN 5 x 22, w0 = 20, N = 262,144; the narrow
@@ -18,10 +19,14 @@ non-zero exit:
      tensor-core bound (tc_bound_ms), naming the layout that ran; then the
      same for TRAIN_CASES, the chains the old narrow layout also took: a
      SIREN_Pyramid chain (narrow) and its edges 5 x 64 and 7 x 48 (tiled);
-  4. the grid-decode kernel the same way on the 64^3 and 256^3 grids
-     (5 x 22, weights in shared memory) and, in its wide form, on the
-     64x512x512 grid of the demo volumes at DEMO_RUNS' widths (5 x 191,
-     5 x 242) beside the plain version in slabs of DECODE_SLAB voxels;
+  4. the grid-decode kernel the same way (decode_check) on the 64^3 and
+     256^3 grids (5 x 22) and the widest HiP-CT chunk of phase 7
+     (3-66x6-1, SIREN w0 = 10, 64x256x256), all in its narrow form, and,
+     in its wide form, on the 64x512x512 grid of the demo volumes at
+     DEMO_RUNS' widths (5 x 191, 5 x 242), beside the plain version (in
+     slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise
+     equal; both bounds (decode_bounds: float32 and tensor-core), the
+     form, its tile and warps per SM printed;
   5. the SingleTask command (cli.main, opt/SingleTask/default.yaml) on the
      bundled 64^3 fixture for COMPRESS_STEPS steps with one checkpoint:
      both kernels' launch counters above 0, PSNR above PSNR_FLOOR, the
@@ -332,6 +337,77 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict
            if layout == "narrow" else {}),
         tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; 3 runs "
                   "bitwise")
+    return row
+
+
+def decode_bounds(widths, acts, spatial, n_params: int):
+    """(bound_ms, bound_by, tc_bound_ms) of one grid decode: the bytes are
+    the output, the plane tables and the weights, each once; the float32
+    bound counts 2 flops a multiply-add and SIN_FLOPS a sine unit; the
+    tensor-core bound puts the products on the tensor cores in 3xTF32
+    (tc_bound_ms), the sines on the CUDA cores."""
+    pop = int(np.prod(spatial))
+    products = pop * 2 * chain_macs(widths)
+    sine = pop * SIN_FLOPS * sum(w for w, (a, _) in zip(widths[1:], acts)
+                                 if a == "sine")
+    n_bytes = 4 * (pop * widths[-1] + sum(spatial[1:]) + n_params)
+    b, by = bound_ms(n_bytes, products + sine)
+    return b, by, tc_bound_ms(n_bytes, products, sine)
+
+
+def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
+                 reps: int = 25, plain_reps: int = 20) -> dict:
+    """The grid-decode kernel on one chain and grid: finite values of the
+    right shape within 1e-5 * max|plain| + 1e-5 of the plain version (in
+    slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise equal;
+    timed beside the plain version (plain_reps 0: not timed) and both
+    bounds.  Returns its row."""
+    import torch
+    from brief_pytorch_tpu_torch.ops import fused_decode
+    widths = [len(spatial)] + [int(l["w"].shape[1]) for l in layers]
+    p = fused_decode.choose_plan(widths)
+    pop = int(np.prod(spatial))
+    slab = DECODE_SLAB if pop > 1 << 24 or p["layout"] == "wide" else None
+
+    def k():
+        return fused_decode.fused_decode_grid(layers, spatial, acts, mode)
+
+    def pl():
+        return fused_decode.fused_decode_grid_reference(layers, spatial,
+                                                        acts, mode, slab=slab)
+
+    out_k, out_p = k(), pl()
+    torch.cuda.synchronize()
+    if out_k.shape != (pop, widths[-1]) or not torch.isfinite(out_k).all():
+        fail(f"fused_decode {label} {spatial}: shape {tuple(out_k.shape)} or "
+             "non-finite values")
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    if not err <= 1e-5 * scale + 1e-5:
+        fail(f"fused_decode {label} {spatial} {widths}: max abs err {err} "
+             f"(max |plain| {scale})")
+    del out_p
+    for _ in range(2):
+        if not torch.equal(k(), out_k):
+            fail(f"fused_decode {label} {spatial}: calls differ bitwise")
+    del out_k
+    ms = time_ms(k, reps=reps)
+    plain = time_ms(pl, reps=plain_reps, warmup=1) if plain_reps else None
+    b, by, tc = decode_bounds(widths, acts, spatial, sum(
+        l["w"].numel() + l["b"].numel() for l in layers))
+    grid = "x".join(map(str, spatial))
+    tile = p.get("tile", p.get("block"))
+    row = dict(shape=f"SIREN {widths}, {grid} grid", layout=p["layout"],
+               tile=tile, inst=p.get("inst"),
+               warps_per_sm=p.get("warps_per_sm"), max_abs_err=err, ms=ms,
+               plain_ms=plain, bound_ms=b, bound_by=by, tc_bound_ms=tc)
+    say("4-fused_decode", case=label, grid=grid, widths=widths,
+        layout=p["layout"], tile=tile, inst=p.get("inst"),
+        warps_per_sm=p.get("warps_per_sm"), max_abs_err=f"{err:.3e}",
+        ms=f"{ms:.4f}", plain_ms=plain and f"{plain:.4f}", bound_ms=f"{b:.4f}",
+        bound_by=by, tc_bound_ms=f"{tc:.4f}",
+        mvox_per_s=f"{pop / ms / 1e3:.1f}",
+        tolerance="1e-5*max|plain|+1e-5; 3 calls bitwise")
     return row
 
 
@@ -959,65 +1035,30 @@ def main() -> int:
     train_rows = {label: chain_check(dev, label, cfg3, n, layout3, kw)
                   for label, cfg3, layout3 in TRAIN_CASES}
 
-    # ---- 4. kernel 2: grid decode, 64^3 (main path) and 256^3; the wide
-    # form on the demo volumes' 64x512x512 grid at phase 12's widths ----
-    dec_rows = {}
-    dec_cases = [(64, (64, 64, 64), layers, acts),
-                 (256, (256, 256, 256), layers, acts)]
+    # ---- 4. kernel 2: grid decode, 64^3 (main path) and 256^3 at 5 x 22,
+    # the widest HiP-CT chunk of phase 7, and the wide form on the demo
+    # volumes' 64x512x512 grid at phase 12's widths ----
+    dec_cases = [(64, "narrow", (64, 64, 64), layers, acts),
+                 (256, "narrow", (256, 256, 256), layers, acts)]
+    hmodel = init_phi({**phi, "features": max(FLEET_WIDTHS), "layers": 7,
+                       "w0": 10})
+    dec_cases.append(("hipct", "narrow", (64, 256, 256), hmodel.init(
+        torch.Generator().manual_seed(4), dev)["layers"],
+                      chain_layer_specs(hmodel.spec)))
     for _, _, f in DEMO_RUNS:
         dmodel = init_phi({**phi, "features": f})
-        dec_cases.append((f, (64, 512, 512), dmodel.init(
+        dec_cases.append((f, "wide", (64, 512, 512), dmodel.init(
             torch.Generator().manual_seed(3), dev)["layers"],
                           chain_layer_specs(dmodel.spec)))
-    for key, spatial, dlayers, dacts in dec_cases:
-        dwidths = [3] + [int(l["w"].shape[1]) for l in dlayers]
-        dplan = fused_decode.choose_plan(dwidths)
-        slab = DECODE_SLAB if dplan["layout"] == "wide" else None
-
-        def k2():
-            return fused_decode.fused_decode_grid(dlayers, spatial, dacts,
-                                                  "-1,1")
-
-        def p2():
-            return fused_decode.fused_decode_grid_reference(
-                dlayers, spatial, dacts, "-1,1", slab=slab)
-
-        pop = int(np.prod(spatial))
-        out_k, out_p = k2(), p2()
-        torch.cuda.synchronize()
-        if out_k.shape != (pop, 1) or not torch.isfinite(out_k).all():
-            fail(f"fused_decode {spatial}: shape {tuple(out_k.shape)} or "
-                 "non-finite values")
-        err2 = float((out_k - out_p).abs().max())
-        scale = float(out_p.abs().max())
-        if not err2 <= 1e-5 * scale + 1e-5:
-            fail(f"fused_decode {spatial} {dwidths}: max abs err {err2} "
-                 f"(max |plain| {scale})")
-        del out_k, out_p
-        wide_case = dplan["layout"] == "wide"
-        ms2 = time_ms(k2, reps=10 if wide_case else 25)
-        plain2 = time_ms(p2, reps=3 if wide_case else 20, warmup=1)
-        dmacs = chain_macs(dwidths)
-        dsine = sum(w for w, (a, _) in zip(dwidths[1:], dacts)
-                    if a == "sine")
-        flops2 = pop * (2 * dmacs + SIN_FLOPS * dsine)
-        bytes2 = 4 * (pop * dwidths[-1] + sum(spatial[1:])
-                      + sum(l["w"].numel() + l["b"].numel()
-                            for l in dlayers))
-        b2, by2 = bound_ms(bytes2, flops2)
-        grid = "x".join(map(str, spatial))
-        dec_rows[key] = dict(shape=f"SIREN {dwidths}, {grid} grid",
-                             layout=dplan["layout"], tile=dplan["block"],
-                             max_abs_err=err2, ms=ms2, plain_ms=plain2,
-                             bound_ms=b2, bound_by=by2)
-        say("4-fused_decode", grid=grid, widths=dwidths,
-            layout=dplan["layout"], tile=dplan["block"],
-            max_abs_err=f"{err2:.3e}", ms=f"{ms2:.4f}",
-            plain_ms=f"{plain2:.4f}", bound_ms=f"{b2:.4f}", bound_by=by2,
-            mvox_per_s=f"{pop / ms2 / 1e3:.1f}",
-            tolerance="1e-5*max|plain|+1e-5")
-        if wide_case != (key in (191, 242)):
-            fail(f"fused_decode {dwidths}: layout {dplan['layout']}")
+    dec_rows = {}
+    for key, form, spatial, dlayers, dacts in dec_cases:
+        wide_case = form == "wide"
+        dec_rows[key] = decode_check(dev, str(key), spatial, dlayers, dacts,
+                                     reps=10 if wide_case else 25,
+                                     plain_reps=3 if wide_case else 20)
+        if dec_rows[key]["layout"] != form:
+            fail(f"fused_decode {key}: layout {dec_rows[key]['layout']}, "
+                 f"not {form}")
 
     # ---- 5. the SingleTask command on the 64^3 fixture ----
     from brief_pytorch_tpu_torch.cli import main as cli
@@ -1319,8 +1360,10 @@ def main() -> int:
          "plain_ms": dec_rows[64]["plain_ms"],
          "bound_ms": dec_rows[64]["bound_ms"],
          "bound_by": dec_rows[64]["bound_by"], "library_ms": None,
-         "shape": f"SIREN {widths}, 64^3 grid",
-         "at_256": {k: v for k, v in dec_rows[256].items() if k != "shape"}},
+         **{k: dec_rows[64][k] for k in ("tc_bound_ms", "layout", "tile",
+                                         "inst", "warps_per_sm", "shape")},
+         "at_256": {k: v for k, v in dec_rows[256].items() if k != "shape"},
+         "hipct_chunk": {**dec_rows["hipct"], "launches": decode_launches7}},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
                    "(+ csrc/wide.cuh)",
@@ -1332,7 +1375,7 @@ def main() -> int:
          "phase12": demo_rows},
         {"name": "fused_decode_grid_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
-                   "(+ csrc/wide.cuh)",
+                   "(+ csrc/tf32.cuh)",
          "replaces": "brief_pytorch_tpu/ops/pallas_decode.py:172",
          "launches": demo_rows[191]["launches"]["fused_decode"]
          + demo_rows[191]["decompress_decode_launches"],

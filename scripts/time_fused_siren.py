@@ -1,0 +1,49 @@
+#!/usr/bin/env python3
+"""Time the batch-major forward kernel of brief_pytorch_tpu_torch
+(ops/fused_siren.py) at chip_smoke.py's SIREN_CASES with that checkout's
+chip_smoke.siren_check (checked against its plain version and autograd,
+CUDA events, median of 25).
+
+    python3 scripts/time_fused_siren.py
+    python3 scripts/time_fused_siren.py --root outputs/parent
+
+--root imports the package and chip_smoke.py from another checkout, e.g.
+a `git archive` of the parent commit, so that two builds can be timed in
+turns in one call.  Prints one JSON line per case, then the card's name
+and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        print("FAIL no CUDA card", flush=True)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    for label, cfg, n, _ in cs.SIREN_CASES:
+        row = cs.siren_check(dev, label, cfg, n)
+        print(json.dumps({"root": args.root, "case": label, "n": n,
+                          "ms": row["ms"], "bound_ms": row["bound_ms"]}),
+              flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

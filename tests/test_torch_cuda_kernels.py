@@ -368,6 +368,97 @@ def test_wide_decode_matches_plain(dev, features):
         1e-5 * float(ref.abs().max()) + 1e-5
 
 
+def _siren_layers(dev, widths, seed, w0=20.0):
+    rng = np.random.default_rng(seed)
+    layers = []
+    for l, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
+        r = 1.0 / fin if l == 0 else np.sqrt(6.0 / fin) / w0
+        layers.append({k: torch.from_numpy(
+            rng.uniform(-r, r, shape).astype(np.float32)).to(dev)
+            for k, shape in (("w", (fin, fout)), ("b", (fout,)))})
+    return layers
+
+
+DECODE_FORMS = [
+    # (hidden widths, grid, plan: form, instance, activations in scratch)
+    ((22, 22, 22, 22), (13, 17, 19), ("narrow", 3, False)),
+    ((7, 7, 7, 7), (5, 33), ("narrow", 3, False)),
+    ((60, 15, 15, 15), (7, 9, 11), ("narrow", 9, False)),
+    ((40, 40, 40), (3, 4, 5, 7), ("narrow", 6, False)),
+    ((66,) * 6, (9, 31, 29), ("narrow", 9, False)),
+    ((88, 88, 88, 88), (6, 29, 23), ("narrow", 12, False)),
+    ((64,) * 15, (5, 27, 19), ("wide", 1, False)),
+    ((96, 96, 96, 96), (7, 23, 21), ("wide", 2, False)),
+    ((191, 191, 191, 191), (5, 41, 37), ("wide", 3, False)),
+    ((242, 242, 242, 242), (3, 43, 47), ("wide", 4, False)),
+    ((300, 257, 40), (4, 19, 23), ("wide", 4, True)),
+]
+
+
+@pytest.mark.parametrize("act", ["sine", "relu", "sigmoid", "none"])
+@pytest.mark.parametrize("hidden,spatial,form", DECODE_FORMS,
+                         ids=[f"{f[0]}{f[1]}{'g' if f[2] else ''}-"
+                              f"{'x'.join(map(str, h[:2]))}"
+                              for h, _, f in DECODE_FORMS])
+def test_decode_forms_match_plain(dev, hidden, spatial, form, act):
+    """Every instance of both forms of the tensor-core decode (plans:
+    ops/fused_decode.py choose_plan), on grids whose voxel count is no
+    multiple of any tile, with each activation in the hidden layers and
+    two outputs: within 1e-5 * max|plain| + 1e-5 of the plain version, one
+    launch a call, two calls bitwise equal."""
+    widths = [len(spatial)] + list(hidden) + [2]
+    p = fd.choose_plan(widths)
+    assert (p["layout"], p["inst"], p["global"]) == form
+    layers = _siren_layers(dev, widths, seed=len(hidden))
+    w0 = 20.0 if act == "sine" else 1.0
+    acts = ((act, w0),) * (len(widths) - 2) + (("none", 1.0),)
+    before = fd.launches
+    out = fd.fused_decode_grid(layers, spatial, acts, "n11")
+    assert fd.launches == before + 1
+    ref = fd.fused_decode_grid_reference(layers, spatial, acts, "n11")
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (int(np.prod(spatial)), 2)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
+    assert torch.equal(fd.fused_decode_grid(layers, spatial, acts, "n11"),
+                       out)
+
+
+@pytest.mark.parametrize("hidden", [(22, 22, 22, 22), (100, 100)])
+def test_decode_sirenpos_both_forms(dev, hidden):
+    """The SIRENPos warp folded into the lead coordinate and the tables,
+    in both forms."""
+    spatial, periods = (9, 10, 11), (2.0, 3.0, 2.0)
+    widths = [3] + list(hidden) + [1]
+    layers = _siren_layers(dev, widths, seed=7)
+    acts = (("sine", 20.0),) * len(hidden) + (("none", 1.0),)
+    out = fd.fused_decode_grid(layers, spatial, acts, "n11",
+                               enc_periods=periods)
+    ref = fd.fused_decode_grid_reference(layers, spatial, acts, "n11",
+                                         enc_periods=periods)
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
+
+
+def test_decode_past_2_31_voxels(dev):
+    """A grid of 2^31 voxels or more takes the kernel's 64-bit index
+    split: the first voxels and those around and past 2^31 against the
+    plain version."""
+    spatial = (1, 46341, 46341)          # 2,147,488,281 voxels
+    layers = _siren_layers(dev, [3, 8, 1], seed=9)
+    acts = (("sine", 20.0), ("none", 1.0))
+    out = fd.fused_decode_grid(layers, spatial, acts, "n11")
+    pop = int(np.prod(spatial))
+    for start, stop in ((0, 1 << 20), ((1 << 31) - (1 << 19), pop)):
+        ref = fd.fused_decode_grid_reference(layers, spatial, acts, "n11",
+                                             voxels=(start, stop))
+        got = out[start:stop]
+        assert float((got - ref).abs().max()) <= \
+            1e-5 * float(ref.abs().max()) + 1e-5
+    del out
+
+
 # --- the batch-major fused forward kernel (ops/fused_siren.py) -------------
 def _coords(dev, n, cin=3, seed=5):
     rng = np.random.default_rng(seed)

@@ -97,7 +97,7 @@ def test_supports_gating():
     assert fd.supports(model, (64, 64))
     assert not fd.supports(model, (64,))
     assert not fd.supports(model, (2, 2, 2, 2, 2))
-    assert fd.choose_plan([3, 22, 22, 22, 22, 1])["block"] == 128
+    assert fd.choose_plan([3, 22, 22, 22, 22, 1])["layout"] == "narrow"
     # 512-wide weights (3 MB) take the wide form; past the JAX kernel's
     # 32 MB of weights (5 x 1,700: 34.7 MB), the slab path
     wide = tphi.init_phi({**cfg, "features": 512})

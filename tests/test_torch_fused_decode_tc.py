@@ -1,0 +1,266 @@
+"""The decode kernel's tensor-core design on the CPU
+(brief_pytorch_tpu_torch/ops/fused_decode.py `choose_plan`,
+`packed_layout`, `pack_weights`, `fast_divisor`, `split_index`;
+csrc/fused_decode.cu): its 3xTF32 arithmetic emulated in plain torch, the
+pre-split weight packing, the plan at the shapes the main paths decode,
+and the 32-bit index split.  The kernel itself runs on the card only
+(tests/test_torch_cuda_kernels.py).
+
+The emulation runs the kernel's products as it orders them: the bias
+starts each accumulator, then per k-block of 8 inputs c += a_small b_big,
+c += a_big b_small, c += a_big b_big, with B big and small read back from
+`pack_weights` (the kernel's packed copy) and A split by
+fused_train.tf32_split; voxels in the plan's tiles (16 or 32 a warp in
+the narrow form, 128 a block in the wide one), coordinates from the
+kernel's index split.  Tolerances: against the float32 plain version, the card
+tests' 1e-5 * max|plain| + 1e-5; against the JAX kernel in interpret
+mode, tests/test_torch_fused_decode.py's atol 1e-5.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from brief_pytorch_tpu.ops import pallas_decode as pd
+from brief_pytorch_tpu_torch.ops import fused_decode as fd
+from brief_pytorch_tpu_torch.ops import fused_train as ft
+
+SINGLE = [3, 22, 22, 22, 22, 1]           # SingleTask default, 64^3 at 80x
+HIPCT = [3] + [66] * 6 + [1]              # the widest HiP-CT chunk
+DEMO80 = [3, 191, 191, 191, 191, 1]       # SingleTask on a demo volume, 80x
+DEMO50 = [3, 242, 242, 242, 242, 1]       # the same at 50x
+SIRENFT = [3, 60, 15, 15, 15, 1]          # an uneven chain
+SINE = ("sine", 20.0)
+
+
+def _layers(widths, seed, w0=20.0):
+    """SIREN's initialisation rule per layer, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    layers = []
+    for l, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
+        r = 1.0 / fin if l == 0 else np.sqrt(6.0 / fin) / w0
+        layers.append({"w": rng.uniform(-r, r, (fin, fout)).astype(np.float32),
+                       "b": rng.uniform(-r, r, fout).astype(np.float32)})
+    return layers
+
+
+def _torch(layers):
+    return [{k: torch.from_numpy(v) for k, v in l.items()} for l in layers]
+
+
+def _coords(spatial, mode, enc_periods):
+    """(pop, c_in) coordinates as the kernel builds them: the index split
+    of split_index, the lead axis lo + i * step in float32 (two roundings,
+    no fused multiply-add), the plane axes from the wrapper's tables."""
+    pop = int(np.prod(spatial))
+    lead, idx = fd.split_index(np.arange(pop), spatial)
+    lo, step, scale = fd._lead_affine(spatial, mode, enc_periods)
+    z0 = np.float32(lo) + lead.astype(np.float32) * np.float32(step)
+    z0 = torch.from_numpy(z0.astype(np.float32))
+    if enc_periods is not None:
+        z0 = fd.fast_sin(torch.tensor(scale) * z0)
+    tables = fd._plane_tables(spatial, mode, enc_periods, "cpu")
+    off = np.cumsum([0] + list(spatial[1:]))
+    cols = [z0] + [tables[int(off[a]) + torch.from_numpy(i)]
+                   for a, i in enumerate(idx)]
+    return torch.stack(cols, dim=1)
+
+
+def emulate(layers, spatial, acts, mode="n11", enc_periods=None):
+    """The kernel's function with its 3xTF32 arithmetic, tile by tile."""
+    widths = [len(spatial)] + [l["w"].shape[1] for l in layers]
+    plan = fd.choose_plan(widths)
+    lay = fd.packed_layout(widths)
+    packed = fd.pack_weights(layers, widths)
+    mats = []
+    for l, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
+        kb, nt = lay["kb"][l], lay["nt"][l]
+        f0 = 4 * lay["frag_off"][l]
+        frags = packed[f0:f0 + 128 * kb * nt].view(kb, nt, 32, 4)
+        bb, bs = ft.unpack_fragments(frags, 8 * kb, fout)
+        b0 = lay["bias_off"][l]
+        mats.append((bb, bs, packed[b0:b0 + fout]))
+    x_all = _coords(spatial, mode, enc_periods)
+    pop, tile = x_all.shape[0], plan["tile"]
+    out = []
+    for v0 in range(0, pop, tile):
+        h = torch.zeros(tile, 8)
+        x = x_all[v0:v0 + tile]
+        h[:x.shape[0], :x.shape[1]] = x
+        for (bb, bs, bias), (act, w0) in zip(mats, acts):
+            c = bias.expand(tile, -1).clone()
+            for k in range(0, bb.shape[0], 8):
+                ab, as_ = ft.tf32_split(h[:, k:k + 8].contiguous())
+                c = c + as_ @ bb[k:k + 8]
+                c = c + ab @ bs[k:k + 8]
+                c = c + ab @ bb[k:k + 8]
+            h = fd._act(c, act, w0)
+            pad = -h.shape[1] % 8
+            h = torch.cat([h, fd._act(torch.zeros(tile, pad), act, w0)], 1)
+        out.append(h[:min(tile, pop - v0), :widths[-1]])
+    return torch.cat(out)
+
+
+def _pallas(layers, spatial, acts, mode, enc_periods):
+    jl = [{k: jnp.asarray(v) for k, v in l.items()} for l in layers]
+    return np.asarray(pd.fused_decode_grid(jl, spatial, acts, mode, tile=128,
+                                           interpret=True,
+                                           enc_periods=enc_periods))
+
+
+CASES = [
+    # (label, widths, acts of the hidden layers, grid, mode, enc_periods)
+    ("single", SINGLE, SINE, (5, 6, 7), "n11", None),
+    ("sirenpos", SINGLE, SINE, (5, 4, 6), "n11", (2.0, 3.0, 2.0)),
+    ("relu", SINGLE, ("relu", 1.0), (4, 9), "0,1", None),
+    ("sigmoid", SINGLE, ("sigmoid", 1.0), (3, 4, 5, 6), "-1,1", None),
+    ("uneven", SIRENFT, SINE, (3, 7, 11), "n11", None),
+    ("hipct", HIPCT, ("sine", 10.0), (2, 9, 13), "n11", None),
+    ("wide", [3, 100, 100, 100, 1], SINE, (3, 5, 17), "n11", None),
+    ("wide-191", [3, 191, 191, 1], SINE, (2, 3, 45), "-1,1", None),
+]
+
+
+@pytest.mark.parametrize("label,widths,hidden,spatial,mode,enc", CASES,
+                         ids=[c[0] for c in CASES])
+def test_emulated_3xtf32_matches_plain_and_pallas(label, widths, hidden,
+                                                  spatial, mode, enc):
+    widths = [len(spatial)] + widths[1:]
+    layers = _layers(widths, seed=len(label))
+    acts = (hidden,) * (len(widths) - 2) + (("none", 1.0),)
+    emu = emulate(_torch(layers), spatial, acts, mode, enc)
+    plain = fd.fused_decode_grid_reference(_torch(layers), spatial, acts,
+                                           mode, enc_periods=enc)
+    assert emu.shape == plain.shape == (int(np.prod(spatial)), widths[-1])
+    assert float((emu - plain).abs().max()) <= \
+        1e-5 * float(plain.abs().max()) + 1e-5
+    ref = _pallas(layers, spatial, acts, mode, enc)
+    np.testing.assert_allclose(emu.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("widths", [SINGLE, HIPCT, SIRENFT, [4, 9, 3],
+                                    [2, 8, 16, 5], DEMO80])
+def test_packed_weights_round_trip(widths):
+    """pack_weights holds each layer's W as B fragments, big + small
+    within 2^-21 |w| of it (big the TF32 rounding, zeros past W), then
+    the biases, zero-padded to 8; the layout tiles the buffer."""
+    layers = _torch(_layers(widths, seed=3))
+    lay = fd.packed_layout(widths)
+    packed = fd.pack_weights(layers, widths)
+    assert packed.shape == (lay["packed_floats"],)
+    ends = [4 * o for o in lay["frag_off"][1:]] + [lay["bias_off"][0]]
+    for l, layer in enumerate(layers):
+        fin, fout = layer["w"].shape
+        kb, nt = lay["kb"][l], lay["nt"][l]
+        f0 = 4 * lay["frag_off"][l]
+        assert ends[l] - f0 == 128 * kb * nt
+        big, small = ft.unpack_fragments(
+            packed[f0:ends[l]].view(kb, nt, 32, 4), 8 * kb, 8 * nt)
+        want_b, want_s = ft.tf32_split(layer["w"])
+        assert torch.equal(big[:fin, :fout], want_b)
+        assert torch.equal(small[:fin, :fout], want_s)
+        assert not big[fin:].any() and not big[:, fout:].any()
+        assert not small[fin:].any() and not small[:, fout:].any()
+        assert float(((big + small)[:fin, :fout] - layer["w"]).abs().max()) \
+            <= 2.0 ** -21 * float(layer["w"].abs().max())
+        b0 = lay["bias_off"][l]
+        assert torch.equal(packed[b0:b0 + fout], layer["b"])
+        assert not packed[b0 + fout:b0 + 8 * nt].any()
+    assert lay["bias_off"][-1] + 8 * lay["nt"][-1] == lay["packed_floats"]
+
+
+@pytest.mark.parametrize("widths,layout,inst,tile,warps", [
+    (SINGLE, "narrow", 3, 32, 16),
+    (HIPCT, "narrow", 9, 32, 8),
+    (DEMO80, "wide", 3, 128, 8),
+    (DEMO50, "wide", 4, 128, 8),
+])
+def test_plan_at_the_main_paths_shapes(widths, layout, inst, tile, warps):
+    """The five decode shapes of PERF.md (64^3 and 256^3 share 5 x 22):
+    the form, its instance and tile, shared memory within a block's limit,
+    and the warps per SM the plan states (>= 16 at 5 x 22, >= 8 at the
+    HiP-CT chunk, 4 before)."""
+    p = fd.choose_plan(widths)
+    assert (p["layout"], p["inst"], p["tile"]) == (layout, inst, tile)
+    assert p["smem_bytes"] <= fd.SMEM_LIMIT
+    assert p["warps_per_sm"] == warps
+    assert not p["global"]
+    if layout == "narrow":
+        # the pre-split weights are what the block holds
+        assert p["smem_bytes"] == 4 * p["packed_floats"]
+    else:
+        # a ring of slabs of one k-block for 8 x kNW n-tiles (as many as
+        # fit, 3 at least), and the 128-voxel tile's input rows (every
+        # k-block of the widest layer)
+        assert p["rows"] == 8 * max(p["kb"])
+        assert 8 * inst >= max(p["nt"]) > 8 * (inst - 1)
+        assert 3 <= p["stages"] <= fd.MAX_STAGES
+        assert p["smem_bytes"] == fd.BARRIER_BYTES + \
+            p["stages"] * 8 * inst * 512 + 4 * p["rows"] * fd.WIDE_STRIDE
+
+
+@pytest.mark.parametrize("widths,layout,glob", [
+    ([3, 7, 7, 7, 7, 1], "narrow", False),        # brain64's chunks
+    ([3] + [88] * 4 + [1], "narrow", False),      # 12 n-tiles of registers
+    ([3] + [96] * 4 + [1], "wide", False),        # its weights overflow
+    ([3] + [64] * 15 + [1], "wide", False),       # 16 layers of 64
+    ([3, 512, 512, 512, 512, 1], "wide", True),   # past 256 features
+    ([3, 3327, 1], "wide", True),                 # the widest
+])
+def test_plan_reach(widths, layout, glob):
+    """Every chain of up to MAX_LAYERS layers and MAX_WIDTH features has a
+    form (the chains the kernel took before); past 256 features the wide
+    form keeps its activations in a device scratch."""
+    p = fd.choose_plan(widths)
+    assert (p["layout"], p["global"]) == (layout, glob)
+    assert p["smem_bytes"] <= fd.SMEM_LIMIT
+    assert fd.choose_plan([3, 3328, 1]) is None
+    assert fd.choose_plan([3] + [8] * 16 + [1]) is None
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 64, 100, 255, 256, 257, 511, 512,
+                               4097, 65535, 65536, 65537, 262144,
+                               (1 << 30) - 1, 1 << 30, (1 << 30) + 1,
+                               (1 << 31) - 1])
+def test_fast_divisor_is_exact_below_2_31(d):
+    """n // d as the kernel computes it (high word of n * mul, shifted),
+    for n at both ends of [0, 2^31), around multiples of d, and at
+    random."""
+    mul, shift = fd.fast_divisor(d)
+    assert 0 <= mul < 1 << 32
+    rng = np.random.default_rng(d % 1000)
+    top = (1 << 31) - 1
+    n = np.concatenate([
+        np.arange(0, 4096), np.arange(top - 4096, top + 1),
+        rng.integers(0, 1 << 31, 100_000),
+        np.clip(np.arange(1, 200)[:, None] * d + np.arange(-2, 3)[None],
+                0, top).ravel(),
+        (top // d) * d + np.arange(-3, 1)])
+    n = n[(n >= 0) & (n <= top)]
+    np.testing.assert_array_equal(fd.fast_div(n, mul, shift), n // d)
+
+
+@pytest.mark.parametrize("spatial", [(64, 64, 64), (64, 512, 512),
+                                     (64, 256, 256), (37, 41), (3, 4, 5, 6),
+                                     (1, 6, 7), (2047, 1023, 1025),
+                                     (3, 715827882), (13, 11, 15015533)])
+def test_split_index_matches_the_64bit_split(spatial):
+    """The kernel's 32-bit split gives the axis indices the 64-bit / and %
+    gave, on the first and last voxels (ragged tails), around every lead
+    row, and at random; grids of up to 2^31 - 1 voxels."""
+    pop = int(np.prod(spatial))
+    assert pop < 1 << 31
+    plane = pop // spatial[0]
+    rng = np.random.default_rng(pop % 997)
+    v = np.concatenate([np.arange(min(pop, 5000)),
+                        np.arange(max(0, pop - 5000), pop),
+                        rng.integers(0, pop, 50_000),
+                        np.clip(np.arange(spatial[0])[:, None] * plane
+                                + np.arange(-1, 2)[None], 0, pop - 1).ravel()])
+    lead, idx = fd.split_index(v, spatial)
+    np.testing.assert_array_equal(lead, v // plane)
+    p = v - (v // plane) * plane
+    for a in range(len(spatial) - 2, -1, -1):
+        np.testing.assert_array_equal(idx[a], p % spatial[a + 1])
+        p = p // spatial[a + 1]
