@@ -12,8 +12,9 @@ Bound on an H100: operations.  Every product runs on the tensor cores in
 once per call, in the B-fragment order of ops/fused_train.py
 `pack_fragments`): 3 x the product flops at 495 TFLOP/s, beside the sines
 at 67 TFLOP/s (64x512x512 at 5 x 191: ~22 ms; 64^3 at 5 x 22: ~5.5 us,
-paced by the sines).  csrc/fused_decode.cu says how its design answers
-that.
+paced by the sines).  csrc/chain_tc.cuh (the tensor-core chain it
+shares with ops/fused_siren.py) and csrc/fused_decode.cu say how its
+design answers that.
 
 Two forms (`choose_plan`):
   * narrow (`narrow_plan`; 5 x 22, the HiP-CT chunks 3-66x6-1): every
@@ -110,10 +111,11 @@ def packed_layout(widths: Sequence[int]) -> Dict[str, List[int]]:
 
 def narrow_plan(widths: Sequence[int]) -> Optional[Dict]:
     """The narrow form: the packed weights in shared memory, kNT n-tiles
-    of registers (the smallest instance holding the widest layer); None
-    past 12 n-tiles or when the weights do not fit a block."""
+    of registers (the smallest instance holding the widest layer and the
+    input's k-blocks); None past 12 of either or when the weights do not
+    fit a block."""
     lay = packed_layout(widths)
-    need = max(lay["nt"])
+    need = max(lay["nt"] + lay["kb"][:1])
     inst = min((k for k in NARROW_NT if k >= need), default=None)
     smem = 4 * lay["packed_floats"]
     if inst is None or smem > SMEM_LIMIT:
@@ -130,13 +132,16 @@ def wide_plan(widths: Sequence[int]) -> Dict:
     """The wide form: kNW n-tiles a warp (a layer in one pass up to 32
     n-tiles, 256 features); the layer input's rows (8 x the most
     k-blocks) of WIDE_STRIDE floats in shared memory, or, past 256
-    features, two such buffers per block in a device scratch (`global`);
-    beside them a ring of as many slabs of 8 x kNW fragments as fit, up
-    to MAX_STAGES."""
+    features or where those rows leave no room for two slabs, two such
+    buffers per block in a device scratch (`global`, kNW 4); beside them
+    a ring of as many slabs of 8 x kNW fragments as fit, up to
+    MAX_STAGES."""
     lay = packed_layout(widths)
     nw = min(4, _cdiv(max(lay["nt"]), WARPS))
     rows = 8 * max(lay["kb"])
-    glob = max(lay["nt"]) > WARPS * nw
+    glob = max(lay["nt"]) > WARPS * nw or BARRIER_BYTES + 4 * rows * \
+        WIDE_STRIDE + 2 * WARPS * nw * FRAG_BYTES > SMEM_LIMIT
+    nw = 4 if glob else nw
     fixed = BARRIER_BYTES + (0 if glob else 4 * rows * WIDE_STRIDE)
     slab = WARPS * nw * FRAG_BYTES
     stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slab)

@@ -10,14 +10,27 @@ gradient re-runs the plain chain under autograd (the JAX package has no
 backward kernel here either).
 
 Bound on an H100: operations.  SIREN 5 x 22 on N = 262,144 coordinates
-moves ~4.2 MB but does ~1.1 GFLOP of float32 work (~16 us at 67 TFLOP/s);
-csrc/fused_siren.cu says how its design answers that.
+moves ~4.2 MB but does ~0.8 GFLOP of products (3xTF32 on the tensor
+cores: ~5 us) and 88 sines a coordinate (~5.5 us on the CUDA cores).
 
-Two layouts (`plan`): chains whose padded weights fit a block's shared
-memory beside the activation tile keep them there; wider chains keep only
-the tile there and read a padded copy of the weights from device memory.
-`choose_plan` takes the first that fits; `kernel_plan` raises for a chain
-neither holds.
+The kernel is the decode kernel's tensor-core chain (csrc/chain_tc.cuh,
+ops/fused_decode.py) with layer 0's input read from the rows of the
+(N, C) array (csrc/fused_siren.cu).  `choose_plan` states its form as
+fused_decode's plans do:
+  * narrow (`fused_decode.narrow_plan`: the pre-split weights fit a
+    block's shared memory, at most 12 n-tiles and input k-blocks): each
+    block splits the weights while it loads them, so a call is one
+    launch;
+  * wide (`fused_decode.wide_plan`, every other chain): the weights split
+    once per call and streamed through a TMA slab ring, 128-row tiles,
+    the activations in a device scratch past 256 features.
+It takes every plain chain of up to MAX_LAYERS layers and MAX_WIDTH
+features, C included; `kernel_plan` raises NotImplementedError beyond.
+Its sums keep float32's accuracy where the tensor core's own truncate
+(each k-block's three 3xTF32 products summed from zero and added in
+float32, the small parts rounded: chain_tc.cuh's kNearest);
+`chain_tc_model` is that arithmetic on the CPU, through
+`mma_tf32_model`, the card's mma.sync sum bit for bit.
 
 `fused_chain_apply` launches the kernel for CUDA tensors and calls the
 plain version, `fused_chain_apply_reference`, for CPU tensors; there is no
@@ -27,79 +40,46 @@ float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from brief_pytorch_tpu_torch.ops import fused_decode
 from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
                                                chain_layer_specs,
                                                make_pre_encode)
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
-
-SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
-SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
-TILES = (128, 64, 32)        # coordinates per block
-MAX_THREADS = 512            # threads per block (__launch_bounds__)
-MIN_RESIDENT = 512           # threads per SM below which coordinates are split
-MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
+from brief_pytorch_tpu_torch.ops.fused_decode import (MAX_LAYERS, MAX_WIDTH,
+                                                      WARPS, WIDE_STRIDE)
+from brief_pytorch_tpu_torch.ops.fused_train import tf32_split
 
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {"brief_fused_siren": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]}
 
 
-def _round8(x: int) -> int:
-    return (x + 7) // 8 * 8
-
-
-def plan(widths: Sequence[int], tile: int, smem_weights: bool = True) -> Dict:
-    """Layout of the kernel for a chain of `widths` = (c_in, f_1, ...,
-    c_out) and `tile` coordinates per block.
-
-    Padded parameters, per layer W (fin, round8(fout)) then the bias
-    (round8(fout)): in shared memory (smem_weights) or in a device-memory
-    scratch of `padded` floats.  Then two activation buffers of
-    max(widths) rows of `tile` floats.  `q` threads share a coordinate,
-    each computing every q-th chunk of 8 features of a layer: 1 when the SM
-    holds MIN_RESIDENT coordinates anyway, else enough to reach it."""
-    n_layers = len(widths) - 1
-    p_off, pw_off, n_params, padded = [], [], 0, 0
-    for l in range(n_layers):
-        fin, fout = widths[l], widths[l + 1]
-        p_off.append(n_params)
-        n_params += fin * fout + fout
-        pw_off.append(padded)
-        padded += (fin + 1) * _round8(fout)
-    buf_rows = max(widths)
-    act_off = padded if smem_weights else 0
-    smem_bytes = 4 * (act_off + 2 * buf_rows * tile)
-    resident = tile * max(1, SM_SMEM // (smem_bytes + 1024))
-    chunks = _round8(max(widths[1:])) // 8
-    q = 1
-    while q * resident < MIN_RESIDENT and 2 * q <= chunks and \
-            2 * q * tile <= MAX_THREADS:
-        q *= 2
-    return {"n_params": n_params, "padded": padded, "p_off": p_off,
-            "pw_off": pw_off, "act_off": act_off, "buf_rows": buf_rows,
-            "tile": tile, "q": q, "threads": q * tile,
-            "smem_weights": smem_weights, "smem_bytes": smem_bytes}
+@functools.lru_cache(maxsize=None)
+def _choose(widths: Tuple[int, ...]) -> Optional[Dict]:
+    if len(widths) - 1 > MAX_LAYERS or max(widths) > MAX_WIDTH:
+        return None
+    return fused_decode.narrow_plan(widths) or \
+        fused_decode.wide_plan(widths)
 
 
 def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The largest tile whose layout fits a block's shared memory, the
-    weights in shared memory if they fit at any tile; None when even 32
-    coordinates' activations do not fit, or the chain is too deep."""
-    if len(widths) - 1 > MAX_LAYERS:
-        return None
-    for smem_weights in (True, False):
-        for tile in TILES:
-            p = plan(widths, tile, smem_weights)
-            if p["smem_bytes"] <= SMEM_LIMIT:
-                return p
-    return None
+    """The narrow form where it fits, else the wide form; None past
+    MAX_LAYERS layers or MAX_WIDTH features (C included).  The plan states
+    its form (`layout`), instance (`inst`: kNT or kNW), rows a warp or
+    block tile (`tile`), shared memory (`smem_bytes`), warps per SM and
+    whether the wide form's activations live in a device scratch
+    (`global`)."""
+    p = _choose(tuple(int(w) for w in widths))
+    return None if p is None else dict(p)
 
 
 def kernel_plan(widths: Sequence[int]) -> Dict:
@@ -108,10 +88,9 @@ def kernel_plan(widths: Sequence[int]) -> Dict:
     p = choose_plan(widths)
     if p is None:
         raise NotImplementedError(
-            f"chain widths {list(widths)}: more than {MAX_LAYERS} layers, or "
-            f"two activation buffers of 32 coordinates beyond a block's "
-            f"shared memory; such chains on the fused forward kernel are "
-            f"not ported yet (ROADMAP.md, 'Still to port')")
+            f"chain widths {list(widths)}: more than {MAX_LAYERS} layers or "
+            f"a width past {MAX_WIDTH} features; the fused forward kernel "
+            f"takes at most {MAX_LAYERS} layers of at most {MAX_WIDTH}")
     return p
 
 
@@ -121,8 +100,9 @@ def chain_widths(spec) -> List[int]:
 
 def supports(model) -> bool:
     """Whether the fused kernel can run this φ model: a plain chain
-    (SIRENPos folds into the coordinates).  Raises NotImplementedError for
-    such a chain that no layout holds (kernel_plan)."""
+    (SIRENPos folds into the coordinates), as the JAX package's
+    `supports`.  Raises NotImplementedError for such a chain past the
+    kernel's limits (kernel_plan)."""
     spec = getattr(model, "spec", None)
     if spec is None:
         return False
@@ -161,6 +141,88 @@ def fused_chain_apply_reference(layers, coords: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# the kernel's arithmetic on the CPU
+# --------------------------------------------------------------------------
+def tf32_split_nearest(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 x as the kernel splits it (csrc/tf32.cuh
+    split_tf32_nearest): big = x rounded as cvt.rna.tf32.f32 rounds it,
+    small = x - big rounded the same way."""
+    big = tf32_split(x)[0]
+    return big, tf32_split(x - big)[0]
+
+
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) as int32, -1000 for 0."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, -1000, e - 1)
+
+
+def mma_tf32_model(c: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """c + a b as one mma.sync.m16n8k8 TF32 sums it on an H100: c (..., n,
+    o) float32, a (..., n, 8) and b (..., 8, o) TF32 values, leading
+    dimensions batched.  The 8 products are exact.  Each product's
+    exponent is taken as the sum of its factors' (floor of log2 |x|);
+    with E the largest of these and c's, each product and c is truncated
+    toward zero to a multiple of 2^(E - 25), the terms are summed, and the
+    sum is rounded to float32 toward zero.  Equal to the card's mma.sync
+    bit for bit (scripts/mma_tf32_sums.py)."""
+    e = (_exponent(a)[..., None] + _exponent(b)[..., None, :, :]).amax(-2)
+    e = torch.maximum(e, _exponent(c)).clamp_min(-1000)
+    q = torch.exp2((e - 25).double())
+    p = a.double()[..., None] * b.double()[..., None, :, :]
+    s = (torch.trunc(p / q[..., None, :]).sum(-2)
+         + torch.trunc(c.double() / q)) * q
+    f = s.float()
+    return torch.where(f.double().abs() > s.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
+                   nearest: bool = True) -> torch.Tensor:
+    """The chain as csrc/chain_tc.cuh computes it on an H100, on the CPU:
+    layer 0's input zero-padded to k-blocks of 8 features, the bias
+    starting each accumulator, then per k-block the 3xTF32 terms a_small
+    b_big, a_big b_small, a_big b_big through mma_tf32_model.  nearest
+    (kernel 3's sums): both operands split by tf32_split_nearest, the
+    three terms summed from zero and added to the accumulator in float32;
+    else (kernel 2's) split by fused_train.tf32_split and summed into the
+    accumulator.  Rows are independent, so no tiles are needed; kernel 3's
+    k-block sums are independent too and go in batches of k-blocks."""
+    split = tf32_split_nearest if nearest else tf32_split
+    n, c_in = coords.shape
+    h = torch.zeros(n, -(-c_in // 8) * 8)
+    h[:, :c_in] = coords.float()
+    for layer, (act, w0) in zip(layers, acts):
+        w = layer["w"].float().cpu()
+        fin, fout = w.shape
+        wp = torch.zeros(h.shape[1], fout)
+        wp[:fin] = w
+        bb, bs = split(wp)
+        c = layer["b"].float().cpu().expand(n, -1).clone()
+        kb = wp.shape[0] // 8
+        ab, as_ = split(h.view(n, kb, 8).transpose(0, 1).contiguous())
+        bb, bs = bb.view(kb, 8, fout), bs.view(kb, 8, fout)
+        if nearest:
+            step = max(1, (1 << 22) // (n * 9 * fout))    # k-blocks a batch
+            for k0 in range(0, kb, step):
+                k = slice(k0, k0 + step)
+                s = mma_tf32_model(torch.zeros(ab[k].shape[0], n, fout),
+                                   as_[k], bb[k])
+                s = mma_tf32_model(s, ab[k], bs[k])
+                for sk in mma_tf32_model(s, ab[k], bb[k]):
+                    c = c + sk
+        else:
+            for k in range(kb):
+                c = mma_tf32_model(c, as_[k], bb[k])
+                c = mma_tf32_model(c, ab[k], bs[k])
+                c = mma_tf32_model(c, ab[k], bb[k])
+        h = _act(c, act, w0)
+        h = torch.cat([h, _act(torch.zeros(n, -fout % 8), act, w0)], 1)
+    return h[:, :int(layers[-1]["w"].shape[1])]
+
+
+# --------------------------------------------------------------------------
 # CUDA kernel
 # --------------------------------------------------------------------------
 def _check(layers, coords: torch.Tensor, acts: LayerSpec) -> List[int]:
@@ -191,30 +253,42 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
     device = coords.device
     widths = _check(layers, coords, acts)
     p = kernel_plan(widths)
-    coords = coords.contiguous()
-    params = torch.cat([t.reshape(-1) for layer in layers
-                        for t in (layer["w"], layer["b"])])
     n = coords.shape[0]
     out = torch.empty((n, widths[-1]), dtype=torch.float32, device=device)
     if n == 0:
         return out
-    scratch = None if p["smem_weights"] else torch.empty(
-        p["padded"], dtype=torch.float32, device=device)
-    meta = [len(layers), widths[0], widths[-1], p["tile"], p["act_off"],
-            p["buf_rows"], p["padded"]]
+    coords = coords.contiguous()
+    n_tiles = -(-n // p["tile"])
+    if n_tiles >= 1 << 31:
+        raise ValueError(f"{n} coordinates is too many")
+    meta = [len(layers), widths[0], widths[-1], n_tiles, p["rows"],
+            p["packed_floats"], p.get("stages", 0)]
     for l, (act, _) in enumerate(acts):
-        meta += [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
-                 p["pw_off"][l]]
+        meta += [widths[l], widths[l + 1], p["kb"][l], p["nt"][l],
+                 p["frag_off"][l], p["bias_off"][l], ACTS.index(act)]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     w0_c = (ctypes.c_float * len(acts))(*[float(w0) for _, w0 in acts])
+    wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
+    wb_c = (ctypes.c_void_p * len(wb))(*[t.data_ptr() for t in wb])
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    narrow = p["layout"] == "narrow"
+    per_block = p["tile"] * (WARPS if narrow else 1)
+    grid = min(-(-n // per_block), sms * p["blocks_per_sm"])
+    form = 0 if narrow else 2 if p["global"] else 1
+    packed = None if narrow else torch.empty(
+        p["packed_floats"], dtype=torch.float32, device=device)
+    scratch = torch.empty(grid * 2 * p["rows"] * WIDE_STRIDE,
+                          dtype=torch.float32, device=device) \
+        if p["global"] else None
     lib = build.library("fused_siren", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
         build.check(lib.brief_fused_siren(
-            coords.data_ptr(), params.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), out.data_ptr(), n,
-            meta_c, w0_c, int(p["smem_weights"]), p["threads"],
-            p["smem_bytes"], torch.cuda.current_stream(device).cuda_stream),
-            "fused_siren")
+            coords.data_ptr(), out.data_ptr(),
+            None if packed is None else packed.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), wb_c, n, meta_c,
+            w0_c, form, p["inst"], grid, p["smem_bytes"],
+            torch.cuda.current_stream(device).cuda_stream), "fused_siren")
     launches += 1
     return out
 

@@ -9,8 +9,9 @@ CUDA events, median of 25).
 
 --root imports the package and chip_smoke.py from another checkout, e.g.
 a `git archive` of the parent commit, so that two builds can be timed in
-turns in one call.  Prints one JSON line per case, then the card's name
-and power limit.
+turns in one call.  Prints one JSON line per case (its form and
+tensor-core bound where that checkout's siren_check reports them), then
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -37,8 +38,11 @@ def main(argv=None) -> int:
     for label, cfg, n, _ in cs.SIREN_CASES:
         row = cs.siren_check(dev, label, cfg, n)
         print(json.dumps({"root": args.root, "case": label, "n": n,
-                          "ms": row["ms"], "bound_ms": row["bound_ms"]}),
-              flush=True)
+                          "ms": row["ms"], "bound_ms": row["bound_ms"],
+                          "tc_bound_ms": row.get("tc_bound_ms"),
+                          "layout": row.get("layout"),
+                          "inst": row.get("inst"),
+                          "max_abs_err": row["max_abs_err"]}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

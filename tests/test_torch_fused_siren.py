@@ -146,29 +146,32 @@ def test_supports_is_the_jax_gate(name, extra, want):
 
 
 def test_plans():
-    """Narrow chains keep the weights in shared memory, one thread per
-    coordinate; wider ones split a coordinate over several threads; chains
-    whose weights exceed shared memory read them from device memory; the
-    chains the train and decode kernels accept are accepted."""
+    """The kernel's forms are the decode kernel's: narrow chains keep the
+    pre-split weights in shared memory, warp tiles of 16 or 32 rows in
+    registers; wider ones stream them through the wide form's slab ring
+    (3-186x4-1 with its activations in shared memory, past 256 features
+    in a device scratch); the chains the train and decode kernels accept
+    are accepted; a width past 3,327 features raises, naming the limit."""
     from brief_pytorch_tpu_torch.ops import fused_train as ft
     p = fs.choose_plan([3, 22, 22, 22, 22, 1])
-    assert p["smem_weights"] and p["tile"] == 128 and p["q"] == 1
+    assert (p["layout"], p["inst"], p["tile"]) == ("narrow", 3, 32)
+    assert p["smem_bytes"] == 4 * p["packed_floats"] <= fd.SMEM_LIMIT
     p = fs.choose_plan([3] + [64] * 6 + [1])
-    assert p["smem_weights"] and p["threads"] == 512 and p["q"] == 4
+    assert (p["layout"], p["inst"], p["warps_per_sm"]) == ("narrow", 9, 8)
     p = fs.choose_plan([3, 186, 186, 186, 186, 1])
-    assert not p["smem_weights"] and p["smem_bytes"] <= fs.SMEM_LIMIT
-    assert p["padded"] == 4 * 192 + 3 * 187 * 192 + 187 * 8
+    assert (p["layout"], p["inst"], p["global"]) == ("wide", 3, False)
+    assert p["smem_bytes"] <= fd.SMEM_LIMIT and p["rows"] == 8 * 24
     for widths in ([3, 217, 217, 217, 217, 1], [3] + [145] * 6 + [1],
-                   [2, 8, 1], [3] + [40] * 15 + [1]):
+                   [2, 8, 1], [3] + [40] * 15 + [1], [3, 2048, 2048, 1]):
         assert ft.choose_plan(widths) is not None
         p = fs.kernel_plan(widths)
-        assert p["threads"] % p["tile"] == 0 and p["threads"] <= 512
-        assert p["pw_off"][-1] + (widths[-2] + 1) * 8 == p["padded"]
+        assert p == fd.narrow_plan(widths) or p == fd.wide_plan(widths)
+        assert p["smem_bytes"] <= fd.SMEM_LIMIT
     assert fs.choose_plan([3] + [8] * 17 + [1]) is None
-    with pytest.raises(NotImplementedError, match="2048"):
-        fs.kernel_plan([3, 2048, 2048, 1])
-    with pytest.raises(NotImplementedError, match="2048"):
-        fs.supports(tphi.init_phi(_cfg(features=2048)))
+    with pytest.raises(NotImplementedError, match="3327"):
+        fs.kernel_plan([3, 3328, 3328, 1])
+    with pytest.raises(NotImplementedError, match="3327"):
+        fs.supports(tphi.init_phi(_cfg(features=3328)))
 
 
 def test_fused_apply_or_returns_the_default_on_the_cpu():
