@@ -1,15 +1,17 @@
-"""Config system: YAML + attribute access, OmegaConf-compatible in behaviour
-for what the SingleTask path needs.
+"""Config system: YAML + attribute access + dotlist, OmegaConf-compatible
+in behaviour for what the port needs.
 
 Accepts the reference's opt/*.yaml files verbatim: nested dicts become
-attribute-accessible `Config` nodes, lists stay lists.  Trimmed copy of
-brief_pytorch_tpu/core/config.py (load / loads / save / merge and
-`Config`).
+attribute-accessible `Config` nodes, lists stay lists.  Copy of
+brief_pytorch_tpu/core/config.py (load / loads / save / merge, `Config`
+with set_path, and the dotlists MultiTask expands:
+from_dotlist / to_dotlist).
 """
 from __future__ import annotations
 
 import copy
-from typing import Dict
+import io
+from typing import Dict, List
 
 import yaml
 
@@ -60,6 +62,25 @@ class Config(dict):
             return v
         return conv(self)
 
+    def set_path(self, dotted: str, value):
+        parts = dotted.split(".")
+        node = self
+        for part in parts[:-1]:
+            if part not in node or not isinstance(node[part], Config):
+                node[part] = Config()
+            node = node[part]
+        node[parts[-1]] = _parse_scalar(value) if isinstance(value, str) \
+            else value
+
+
+def _parse_scalar(text: str):
+    """Parse a dotlist RHS string using YAML scalar rules (so '0.001' ->
+    float, 'true' -> bool, '[1,2]' -> list, bare strings stay strings)."""
+    try:
+        return yaml.safe_load(io.StringIO(text))
+    except yaml.YAMLError:
+        return text
+
 
 def load(path: str) -> Config:
     with open(path, "r") as f:
@@ -88,4 +109,28 @@ def merge(base: Config, override: Dict) -> Config:
             else:
                 dst[k] = v
     rec(out, override)
+    return out
+
+
+def from_dotlist(dotlist: List[str]) -> Config:
+    """Build a Config from 'a.b.c=value' strings
+    (OmegaConf.from_dotlist equivalent, reference MultiTask.py:75)."""
+    cfg = Config()
+    for item in dotlist:
+        key, _, val = item.partition("=")
+        cfg.set_path(key.strip(), val.strip())
+    return cfg
+
+
+def to_dotlist(cfg: Config | Dict, prefix: str = "") -> List[str]:
+    """Flatten to 'a.b=c' strings (reference utils/misc.py:29-54)."""
+    out: List[str] = []
+    for k, v in cfg.items():
+        k = str(k)
+        if isinstance(v, dict):
+            out.extend(to_dotlist(v, prefix + k + "."))
+        elif v is None:
+            out.append(f"{prefix}{k}=~")
+        else:
+            out.append(f"{prefix}{k}={v}")
     return out

@@ -91,7 +91,7 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed.
 
     signatures: C function name -> ctypes argtypes; every function returns
-    an int (a cudaError_t)."""
+    an int (a cudaError_t, or a count)."""
     key = str(lib_path(name))
     if key not in _LIBS:
         build([name])

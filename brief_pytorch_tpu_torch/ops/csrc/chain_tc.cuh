@@ -5,8 +5,6 @@
 // differ only in where layer 0's input comes from, an input policy `In`:
 // kernel 2's GridInput builds it from the voxel index, kernel 3's RowInput
 // reads row v of an (N, C) array.  A policy provides
-//   static constexpr bool kPackInPlace;   // narrow form: split W on load
-//   static constexpr bool kNearest;       // the sums below
 //   template <int kNT, int kM> void narrow_input(float (&h)[kM][kNT][4],
 //       long long v0, int t, const ChainDesc& d) const;
 //   void wide_input(float* X, long long base, const ChainDesc& d) const;
@@ -18,9 +16,10 @@
 //    B-fragment order (ops/fused_train.py pack_fragments' layout: fragment
 //    (kb, nt) of W (fin, fout), lane 4g + t holding W[8kb + 2t][8nt + g]
 //    and W[8kb + 2t + 1][8nt + g], big, big, small, small), followed by
-//    the biases zero-padded to 8 (packed_entry): once per call into device
-//    memory by pack_kernel, or by each block while it fills its shared
-//    memory (kPackInPlace).
+//    the biases zero-padded to 8 (packed_entry): in the narrow form by
+//    each block while it fills its shared memory, so a call is one
+//    launch; in the wide form once per call into device memory by
+//    pack_kernel, for the TMA slab ring.
 //  * A C fragment (rows g, g + 8; outputs 2t, 2t + 1 of an n-tile) is the
 //    next layer's A fragment of the same lane when K pairs features 2t,
 //    2t + 1 of a k-block as the B packing does: no shuffle.
@@ -54,12 +53,11 @@
 //    equal to the card bit for bit: scripts/mma_tf32_sums.py).  Three such
 //    sums a k-block into one accumulator, the small parts truncated as
 //    well, put a trained SIREN 2.2x (max) and 3x (mean) further than
-//    float32 from float64.  With kNearest each k-block's three products
-//    are summed from zero and added to the accumulator with float32 adds
-//    (round to nearest), and the small parts are rounded to TF32
+//    float32 from float64.  So each k-block's three products are summed
+//    from zero and added to the accumulator with float32 adds (round to
+//    nearest), and the small parts are rounded to TF32
 //    (split_tf32_nearest): float32's accuracy, for 4 adds a 3 mma and
-//    2 more integer ops a split.  Kernel 3 takes it; kernel 2 keeps the
-//    truncating sums.
+//    2 more integer ops a split, in both forms and both kernels.
 //  * A row's value does not depend on the block or warp that computes it
 //    (tiles are fixed slices of the rows, no atomics): two calls are
 //    bitwise equal.  Rows past n are clamped to n - 1 and never stored.
@@ -178,7 +176,6 @@ __device__ __forceinline__ void activate(float* c, int act, float w0) {
 
 // Float4 e < packed_floats / 4 of the packed weights: a B fragment entry
 // of layer l below frag_off[L], else four padded biases.
-template <bool kNearest>
 __device__ __forceinline__ float4 packed_entry(const ChainDesc& d, int e) {
   const int L = d.n_layers;
   if (e < d.frag_off[L]) {
@@ -191,7 +188,7 @@ __device__ __forceinline__ float4 packed_entry(const ChainDesc& d, int e) {
     const int fin = d.fin[l], fout = d.fout[l];
     const float* W = d.w[l];
     const bool ok = o < fout;
-    return pack_b<kNearest>(
+    return pack_b<true>(
         ok && i < fin ? __ldg(W + (size_t)i * fout + o) : 0.f,
         ok && i + 1 < fin ? __ldg(W + (size_t)(i + 1) * fout + o) : 0.f);
   }
@@ -208,28 +205,19 @@ __device__ __forceinline__ float4 packed_entry(const ChainDesc& d, int e) {
 }
 
 // Every layer's packed weights into device memory, one float4 a thread.
-template <bool kNearest>
 __global__ void pack_kernel(float* __restrict__ packed, ChainDesc d) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (4 * e < d.packed_floats)
-    reinterpret_cast<float4*>(packed)[e] = packed_entry<kNearest>(d, e);
+    reinterpret_cast<float4*>(packed)[e] = packed_entry(d, e);
 }
 
 // A's big and small parts of an m-tile's k-block
-template <bool kNearest>
 __device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3,
                                         uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  if (kNearest) {
-    split_tf32_nearest(a0, &ab[0], &as[0]);
-    split_tf32_nearest(a1, &ab[1], &as[1]);
-    split_tf32_nearest(a2, &ab[2], &as[2]);
-    split_tf32_nearest(a3, &ab[3], &as[3]);
-  } else {
-    split_tf32(a0, &ab[0], &as[0]);
-    split_tf32(a1, &ab[1], &as[1]);
-    split_tf32(a2, &ab[2], &as[2]);
-    split_tf32(a3, &ab[3], &as[3]);
-  }
+  split_tf32_nearest(a0, &ab[0], &as[0]);
+  split_tf32_nearest(a1, &ab[1], &as[1]);
+  split_tf32_nearest(a2, &ab[2], &as[2]);
+  split_tf32_nearest(a3, &ab[3], &as[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -239,13 +227,11 @@ __device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3,
 // c[m][j] += h[m] W for n-tiles j < kJ of one layer and the warp's kM
 // m-tiles of 16 rows, k-blocks k < KB, in 3xTF32: B fragment (k, j) at
 // wf[(k NT + j) 32 + lane], n-tiles past NT repeating the last (their
-// outputs are never read).  No branch inside a k-block, so its 3 kJ kM
-// mma are scheduled together, term by term across the tiles (consecutive
-// mma are independent); each B fragment read feeds kM m-tiles.  kNearest:
-// the tiles in groups of 8, each tile's three products summed from zero
-// term by term across its group (8 mma between dependent ones, 32
-// registers of sums), then added to c.
-template <bool kNearest, int kNT, int kM, int kJ, bool kAllK>
+// outputs are never read).  No branch inside a k-block.  The tiles go in
+// groups of 8, each tile's three products summed from zero term by term
+// across its group (8 mma between dependent ones, 32 registers of sums),
+// then added to c; each B fragment read feeds kM m-tiles.
+template <int kNT, int kM, int kJ, bool kAllK>
 __device__ __forceinline__ void narrow_product(float (&c)[kM][kNT][4],
                                                const float (&h)[kM][kNT][4],
                                                const float4* wf, int KB,
@@ -259,71 +245,47 @@ __device__ __forceinline__ void narrow_product(float (&c)[kM][kNT][4],
       uint32_t ab[kM][4], as[kM][4];
 #pragma unroll
       for (int m = 0; m < kM; ++m)
-        split_a<kNearest>(h[m][k][0], h[m][k][2], h[m][k][1], h[m][k][3],
-                          ab[m], as[m]);
-      if (kNearest) {
-        // groups of kG n-tiles x kM m-tiles (8 tiles): each tile's three
-        // products summed from zero, term by term across the group, then
-        // added to c in float32
-        constexpr int kG = 8 / kM;
+        split_a(h[m][k][0], h[m][k][2], h[m][k][1], h[m][k][3], ab[m],
+                as[m]);
+      // groups of kG n-tiles x kM m-tiles (8 tiles): each tile's three
+      // products summed from zero, term by term across the group, then
+      // added to c in float32
+      constexpr int kG = 8 / kM;
 #pragma unroll
-        for (int j0 = 0; j0 < kJ; j0 += kG) {
-          float4 w[kG];
-          float s[kG][kM][4];
+      for (int j0 = 0; j0 < kJ; j0 += kG) {
+        float4 w[kG];
+        float s[kG][kM][4];
 #pragma unroll
-          for (int j = 0; j < kG; ++j)
-            if (j0 + j < kJ) w[j] = wf[k * NT * 32 + off[j0 + j]];
+        for (int j = 0; j < kG; ++j)
+          if (j0 + j < kJ) w[j] = wf[k * NT * 32 + off[j0 + j]];
 #pragma unroll
-          for (int j = 0; j < kG; ++j)
-#pragma unroll
-            for (int m = 0; m < kM; ++m)
-              if (j0 + j < kJ)
-                mma_tf32_zero(s[j][m], as[m], __float_as_uint(w[j].x),
-                              __float_as_uint(w[j].y));
-#pragma unroll
-          for (int j = 0; j < kG; ++j)
-#pragma unroll
-            for (int m = 0; m < kM; ++m)
-              if (j0 + j < kJ)
-                mma_tf32(s[j][m], ab[m], __float_as_uint(w[j].z),
-                         __float_as_uint(w[j].w));
-#pragma unroll
-          for (int j = 0; j < kG; ++j)
-#pragma unroll
-            for (int m = 0; m < kM; ++m)
-              if (j0 + j < kJ)
-                mma_tf32(s[j][m], ab[m], __float_as_uint(w[j].x),
-                         __float_as_uint(w[j].y));
-#pragma unroll
-          for (int j = 0; j < kG; ++j)
-#pragma unroll
-            for (int m = 0; m < kM; ++m)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                if (j0 + j < kJ) c[m][j0 + j][e] += s[j][m][e];
-        }
-      } else {
-        float4 w[kJ];
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) w[j] = wf[k * NT * 32 + off[j]];
-#pragma unroll
-        for (int j = 0; j < kJ; ++j)
+        for (int j = 0; j < kG; ++j)
 #pragma unroll
           for (int m = 0; m < kM; ++m)
-            mma_tf32(c[m][j], as[m], __float_as_uint(w[j].x),
-                     __float_as_uint(w[j].y));
+            if (j0 + j < kJ)
+              mma_tf32_zero(s[j][m], as[m], __float_as_uint(w[j].x),
+                            __float_as_uint(w[j].y));
 #pragma unroll
-        for (int j = 0; j < kJ; ++j)
-#pragma unroll
-          for (int m = 0; m < kM; ++m)
-            mma_tf32(c[m][j], ab[m], __float_as_uint(w[j].z),
-                     __float_as_uint(w[j].w));
-#pragma unroll
-        for (int j = 0; j < kJ; ++j)
+        for (int j = 0; j < kG; ++j)
 #pragma unroll
           for (int m = 0; m < kM; ++m)
-            mma_tf32(c[m][j], ab[m], __float_as_uint(w[j].x),
-                     __float_as_uint(w[j].y));
+            if (j0 + j < kJ)
+              mma_tf32(s[j][m], ab[m], __float_as_uint(w[j].z),
+                       __float_as_uint(w[j].w));
+#pragma unroll
+        for (int j = 0; j < kG; ++j)
+#pragma unroll
+          for (int m = 0; m < kM; ++m)
+            if (j0 + j < kJ)
+              mma_tf32(s[j][m], ab[m], __float_as_uint(w[j].x),
+                       __float_as_uint(w[j].y));
+#pragma unroll
+        for (int j = 0; j < kG; ++j)
+#pragma unroll
+          for (int m = 0; m < kM; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (j0 + j < kJ) c[m][j0 + j][e] += s[j][m][e];
       }
     }
   }
@@ -332,32 +294,32 @@ __device__ __forceinline__ void narrow_product(float (&c)[kM][kNT][4],
 // narrow_product over the fewest n-tiles of 1, 2, 3, 6, 9, 12 that cover NT
 // (a layer kNT k-blocks deep, as a hidden layer of the widest width or the
 // last layer after it is, without a branch per k-block)
-template <bool kNearest, int kNT, int kM>
+template <int kNT, int kM>
 __device__ __forceinline__ void narrow_layer(float (&c)[kM][kNT][4],
                                              const float (&h)[kM][kNT][4],
                                              const float4* wf, int KB, int NT,
                                              int lane) {
   if (KB == kNT && NT == kNT) {
-    narrow_product<kNearest, kNT, kM, kNT, true>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, kNT, true>(c, h, wf, KB, NT, lane);
   } else if (KB == kNT && NT == 1) {   // a last layer
-    narrow_product<kNearest, kNT, kM, 1, true>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, 1, true>(c, h, wf, KB, NT, lane);
   } else if (NT <= 1) {
-    narrow_product<kNearest, kNT, kM, 1, false>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, 1, false>(c, h, wf, KB, NT, lane);
   } else if (NT <= 2) {
-    narrow_product<kNearest, kNT, kM, 2, false>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, 2, false>(c, h, wf, KB, NT, lane);
   } else if (NT <= 3) {
-    narrow_product<kNearest, kNT, kM, 3, false>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, 3, false>(c, h, wf, KB, NT, lane);
   } else if (NT <= 6) {
-    narrow_product<kNearest, kNT, kM, min_c(6, kNT), false>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, min_c(6, kNT), false>(c, h, wf, KB, NT, lane);
   } else if (NT <= 9) {
-    narrow_product<kNearest, kNT, kM, min_c(9, kNT), false>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, min_c(9, kNT), false>(c, h, wf, KB, NT, lane);
   } else {
-    narrow_product<kNearest, kNT, kM, kNT, false>(c, h, wf, KB, NT, lane);
+    narrow_product<kNT, kM, kNT, false>(c, h, wf, KB, NT, lane);
   }
 }
 
 // Layer l of the narrow form for the warp's kM m-tiles: c = act(h W + b)
-template <bool kNearest, int kNT, int kM>
+template <int kNT, int kM>
 __device__ __forceinline__ void narrow_step(float (&c)[kM][kNT][4],
                                             const float (&h)[kM][kNT][4],
                                             const float* sm, const ChainDesc& d,
@@ -375,7 +337,7 @@ __device__ __forceinline__ void narrow_step(float (&c)[kM][kNT][4],
       c[m][j][1] = c[m][j][3] = bv.y;
     }
   }
-  narrow_layer<kNearest, kNT, kM>(c, h,
+  narrow_layer<kNT, kM>(c, h,
                         reinterpret_cast<const float4*>(sm) + d.frag_off[l],
                         d.kb[l], NT, lane);
   activate<4 * kNT * kM>(&c[0][0][0], d.act[l], d.w0[l]);
@@ -403,21 +365,16 @@ __device__ __forceinline__ void narrow_store(const float (&c)[kM][kNT][4],
 }
 
 // Grid-stride over tiles of 16 kM rows, one a warp; kNT n-tiles of
-// registers for a layer's input and for its output, per m-tile.
+// registers for a layer's input and for its output, per m-tile.  Each
+// block first splits every layer's W and b, read in place, into its
+// shared memory.
 template <class In, int kNT, int kM, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) chain_narrow_kernel(
-    const float* __restrict__ packed, const In in, float* __restrict__ out,
-    ChainDesc d) {
+    const In in, float* __restrict__ out, ChainDesc d) {
   extern __shared__ __align__(16) float sm[];
-  if (In::kPackInPlace) {
 #pragma unroll 4
-    for (int e = threadIdx.x; e < d.packed_floats / 4; e += kThreads)
-      reinterpret_cast<float4*>(sm)[e] = packed_entry<In::kNearest>(d, e);
-  } else {
-    for (int e = threadIdx.x; e < d.packed_floats / 4; e += kThreads)
-      reinterpret_cast<float4*>(sm)[e] =
-          __ldg(reinterpret_cast<const float4*>(packed) + e);
-  }
+  for (int e = threadIdx.x; e < d.packed_floats / 4; e += kThreads)
+    reinterpret_cast<float4*>(sm)[e] = packed_entry(d, e);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -432,12 +389,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) chain_narrow_kernel(
     // layers in pairs, h -> c -> h, so no copy between them
     float c[kM][kNT][4];
     for (int l = 0;; l += 2) {
-      narrow_step<In::kNearest, kNT, kM>(c, h, sm, d, l, lane, t);
+      narrow_step<kNT, kM>(c, h, sm, d, l, lane, t);
       if (l + 1 == L) {
         narrow_store<kNT, kM>(c, out, d, v0, l, t);
         break;
       }
-      narrow_step<In::kNearest, kNT, kM>(h, c, sm, d, l + 1, lane, t);
+      narrow_step<kNT, kM>(h, c, sm, d, l + 1, lane, t);
       if (l + 2 == L) {
         narrow_store<kNT, kM>(h, out, d, v0, l + 1, t);
         break;
@@ -451,12 +408,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) chain_narrow_kernel(
 // ---------------------------------------------------------------------------
 // One k-block of the wide form's product for one warp: c[j][m] += A_m B_j
 // in 3xTF32 for kJ of its n-tiles (slab fragments jb + js j) and kMt
-// m-tiles (A: rows 2t, 2t + 1 of the k-block, rows xa + 16 m and + 8),
-// every A fragment loaded and split first.  No branch inside, so its
-// 3 kJ kMt mma are scheduled together.  kNearest: every A fragment
-// loaded first, then the tiles in groups of 2 m-tiles, each tile's three
-// products summed from zero, then added.
-template <bool kNearest, int kNW, int kJ, int kMt>
+// m-tiles (A: rows 2t, 2t + 1 of the k-block, rows xa + 16 m and + 8).
+// No branch inside.  Every A fragment is loaded first (the scratch form's
+// come from device memory), then the tiles go in groups of 2 m-tiles x
+// kJ n-tiles, each A fragment split as its group needs it: each tile's
+// three products summed from zero, term by term across the group, then
+// added to c in float32.
+template <int kNW, int kJ, int kMt>
 __device__ __forceinline__ void wide_step(float (&c)[kNW][kWideM][4],
                                           const float4* ws, int jb, int js,
                                           const float* xa, int lane) {
@@ -464,82 +422,49 @@ __device__ __forceinline__ void wide_step(float (&c)[kNW][kWideM][4],
   float4 w[kJ];
 #pragma unroll
   for (int j = 0; j < kJ; ++j) w[j] = ws[(jb + js * j) * 32 + lane];
-  if (kNearest) {
-    // every A fragment loaded first (the scratch form's come from device
-    // memory), then groups of 2 m-tiles x kJ n-tiles, each A fragment
-    // split as its group needs it: each tile's three products summed from
-    // zero, term by term across the group, then added to c in float32
-    float a[kMt][4];
-#pragma unroll
-    for (int m = 0; m < kMt; ++m) {
-      const float* p = xa + 16 * m;
-      a[m][0] = p[0];
-      a[m][1] = p[8];
-      a[m][2] = p[S];
-      a[m][3] = p[S + 8];
-    }
-#pragma unroll
-    for (int m0 = 0; m0 < kMt; m0 += 2) {
-      constexpr int kG = kMt < 2 ? kMt : 2;
-      uint32_t ab[kG][4], as[kG][4];
-      float s[kG][kJ][4];
-#pragma unroll
-      for (int m = 0; m < kG; ++m)
-        split_a<true>(a[m0 + m][0], a[m0 + m][1], a[m0 + m][2],
-                      a[m0 + m][3], ab[m], as[m]);
-#pragma unroll
-      for (int m = 0; m < kG; ++m)
-#pragma unroll
-        for (int j = 0; j < kJ; ++j)
-          mma_tf32_zero(s[m][j], as[m], __float_as_uint(w[j].x),
-                        __float_as_uint(w[j].y));
-#pragma unroll
-      for (int m = 0; m < kG; ++m)
-#pragma unroll
-        for (int j = 0; j < kJ; ++j)
-          mma_tf32(s[m][j], ab[m], __float_as_uint(w[j].z),
-                   __float_as_uint(w[j].w));
-#pragma unroll
-      for (int m = 0; m < kG; ++m)
-#pragma unroll
-        for (int j = 0; j < kJ; ++j)
-          mma_tf32(s[m][j], ab[m], __float_as_uint(w[j].x),
-                   __float_as_uint(w[j].y));
-#pragma unroll
-      for (int m = 0; m < kG; ++m)
-#pragma unroll
-        for (int j = 0; j < kJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) c[j][m0 + m][e] += s[m][j][e];
-    }
-    return;
-  }
-  uint32_t ab[kMt][4], as[kMt][4];
+  float a[kMt][4];
 #pragma unroll
   for (int m = 0; m < kMt; ++m) {
     const float* p = xa + 16 * m;
-    split_a<false>(p[0], p[8], p[S], p[S + 8], ab[m], as[m]);
+    a[m][0] = p[0];
+    a[m][1] = p[8];
+    a[m][2] = p[S];
+    a[m][3] = p[S + 8];
   }
-  // term by term over all kJ x kMt accumulators: an mma's accumulator was
-  // last written kJ kMt mma earlier
 #pragma unroll
-  for (int m = 0; m < kMt; ++m)
+  for (int m0 = 0; m0 < kMt; m0 += 2) {
+    constexpr int kG = kMt < 2 ? kMt : 2;
+    uint32_t ab[kG][4], as[kG][4];
+    float s[kG][kJ][4];
 #pragma unroll
-    for (int j = 0; j < kJ; ++j)
-      mma_tf32(c[j][m], as[m], __float_as_uint(w[j].x),
-               __float_as_uint(w[j].y));
+    for (int m = 0; m < kG; ++m)
+      split_a(a[m0 + m][0], a[m0 + m][1], a[m0 + m][2], a[m0 + m][3], ab[m],
+              as[m]);
 #pragma unroll
-  for (int m = 0; m < kMt; ++m)
+    for (int m = 0; m < kG; ++m)
 #pragma unroll
-    for (int j = 0; j < kJ; ++j)
-      mma_tf32(c[j][m], ab[m], __float_as_uint(w[j].z),
-               __float_as_uint(w[j].w));
+      for (int j = 0; j < kJ; ++j)
+        mma_tf32_zero(s[m][j], as[m], __float_as_uint(w[j].x),
+                      __float_as_uint(w[j].y));
 #pragma unroll
-  for (int m = 0; m < kMt; ++m)
+    for (int m = 0; m < kG; ++m)
 #pragma unroll
-    for (int j = 0; j < kJ; ++j)
-      mma_tf32(c[j][m], ab[m], __float_as_uint(w[j].x),
-               __float_as_uint(w[j].y));
+      for (int j = 0; j < kJ; ++j)
+        mma_tf32(s[m][j], ab[m], __float_as_uint(w[j].z),
+                 __float_as_uint(w[j].w));
+#pragma unroll
+    for (int m = 0; m < kG; ++m)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        mma_tf32(s[m][j], ab[m], __float_as_uint(w[j].x),
+                 __float_as_uint(w[j].y));
+#pragma unroll
+    for (int m = 0; m < kG; ++m)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][m0 + m][e] += s[m][j][e];
+  }
 }
 
 // The wide form's slab ring of d.stages slabs: thread 0 streams every
@@ -656,18 +581,18 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
           const float* xa = X + (8 * kb + 2 * t) * S + 16 * m0 + g;
           if (msplit) {
             switch (np) {
-              case 1: wide_step<In::kNearest, kNW, 1, 1>(c, ws, jb, js, xa, lane); break;
-              case 2: wide_step<In::kNearest, kNW, min_c(2, kNW), 1>(c, ws, jb, js, xa, lane); break;
-              case 3: wide_step<In::kNearest, kNW, min_c(3, kNW), 1>(c, ws, jb, js, xa, lane); break;
-              default: wide_step<In::kNearest, kNW, min_c(4, kNW), 1>(c, ws, jb, js, xa, lane);
+              case 1: wide_step<kNW, 1, 1>(c, ws, jb, js, xa, lane); break;
+              case 2: wide_step<kNW, min_c(2, kNW), 1>(c, ws, jb, js, xa, lane); break;
+              case 3: wide_step<kNW, min_c(3, kNW), 1>(c, ws, jb, js, xa, lane); break;
+              default: wide_step<kNW, min_c(4, kNW), 1>(c, ws, jb, js, xa, lane);
             }
           } else {
             switch (cnt) {
               case 0: break;
-              case 1: wide_step<In::kNearest, kNW, 1, kWideM>(c, ws, jb, js, xa, lane); break;
-              case 2: wide_step<In::kNearest, kNW, min_c(2, kNW), kWideM>(c, ws, jb, js, xa, lane); break;
-              case 3: wide_step<In::kNearest, kNW, min_c(3, kNW), kWideM>(c, ws, jb, js, xa, lane); break;
-              default: wide_step<In::kNearest, kNW, min_c(4, kNW), kWideM>(c, ws, jb, js, xa, lane);
+              case 1: wide_step<kNW, 1, kWideM>(c, ws, jb, js, xa, lane); break;
+              case 2: wide_step<kNW, min_c(2, kNW), kWideM>(c, ws, jb, js, xa, lane); break;
+              case 3: wide_step<kNW, min_c(3, kNW), kWideM>(c, ws, jb, js, xa, lane); break;
+              default: wide_step<kNW, min_c(4, kNW), kWideM>(c, ws, jb, js, xa, lane);
             }
           }
           __syncwarp();
@@ -738,24 +663,22 @@ int launch(Kernel kernel, int grid, int smem_bytes, cudaStream_t s,
 
 // Host: launch form 0 (narrow, inst = kNT), 1 (wide, inst = kNW) or 2
 // (wide with its activations in `scratch`, inst 4) on stream s; packed
-// holds pack_kernel's output (the wide forms, and the narrow one unless
-// In::kPackInPlace).  Returns a cudaError_t.
+// holds pack_kernel's output for the wide forms (the narrow form splits
+// the weights itself and ignores it).  Returns a cudaError_t.
 template <class In>
 int launch_chain(const ChainDesc& d, const In& in, const float* packed,
                  float* out, float* scratch, int form, int inst, int grid,
                  int smem_bytes, cudaStream_t s) {
   if (form == 0) {
-    if (packed == nullptr && !In::kPackInPlace)
-      return (int)cudaErrorInvalidValue;
     switch (inst) {   // kNT, m-tiles a warp, blocks an SM
       case 3: return launch(chain_narrow_kernel<In, 3, 2, 2>, grid,
-                            smem_bytes, s, packed, in, out, d);
+                            smem_bytes, s, in, out, d);
       case 6: return launch(chain_narrow_kernel<In, 6, 1, 2>, grid,
-                            smem_bytes, s, packed, in, out, d);
+                            smem_bytes, s, in, out, d);
       case 9: return launch(chain_narrow_kernel<In, 9, 2, 1>, grid,
-                            smem_bytes, s, packed, in, out, d);
+                            smem_bytes, s, in, out, d);
       case 12: return launch(chain_narrow_kernel<In, 12, 1, 1>, grid,
-                             smem_bytes, s, packed, in, out, d);
+                             smem_bytes, s, in, out, d);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -15,9 +15,11 @@
 // Design: the tensor-core chain of csrc/chain_tc.cuh (its narrow form,
 // weights resident in shared memory and a warp's tiles in registers; its
 // wide form, a TMA ring of weight slabs and 128-voxel block tiles), with
-// layer 0's input from GridInput: pack_kernel splits the weights once per
-// call, and
-//  * coordinates are built as the TPU kernel builds them, bit for bit as
+// layer 0's input from GridInput.  The narrow form splits the weights in
+// each block, so a call is one launch; for the wide form pack_kernel
+// splits them once per call.  Each k-block's three products are summed
+// from zero and added in float32 (chain_tc.cuh), float32's accuracy.
+//  * Coordinates are built as the TPU kernel builds them, bit for bit as
 //    the plain version does: the lead axis lo + i * step (no fused
 //    multiply-add, SIRENPos-warped), the other axes from small
 //    axis_linspace tables the wrapper builds.  The flat voxel index
@@ -51,8 +53,6 @@ __device__ __forceinline__ int fast_div(int n, FastDiv f) {
 
 // Layer 0's input of voxel v: its coordinates, built from the grid.
 struct GridInput {
-  static constexpr bool kPackInPlace = false;
-  static constexpr bool kNearest = false;   // the truncating sums
   const float* tables;   // axis_linspace of each plane axis
   long long plane;
   int index64;           // pop >= 2^31: 64-bit index arithmetic
@@ -140,6 +140,10 @@ struct GridInput {
   }
 };
 
+// Device kernels brief_fused_decode has launched in this process: one a
+// call in the narrow form, two in the wide forms (pack_kernel first).
+unsigned long long kernels_launched = 0;
+
 }  // namespace
 
 extern "C" {
@@ -152,7 +156,7 @@ extern "C" {
 // enc_scale0, then w0 per layer.  wb: W then b of each layer (device
 // pointers).  form: 0 narrow (inst = kNT), 1 wide (inst = kNW), 2 wide
 // with its activations in `scratch`.  packed: (packed_floats,) scratch
-// for the split weights.
+// for the wide forms' split weights (unused by the narrow form).
 int brief_fused_decode(const float* tables, float* out, float* packed,
                        float* scratch, const void* const* wb, long long pop,
                        const int* meta, const float* fmeta, int form,
@@ -193,12 +197,24 @@ int brief_fused_decode(const float* tables, float* out, float* packed,
   in.enc_scale0 = fmeta[2];
 
   cudaStream_t s = (cudaStream_t)stream;
-  brief::pack_kernel<false>
-      <<<(d.packed_floats / 4 + 255) / 256, 256, 0, s>>>(packed, d);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return brief::launch_chain(d, in, packed, out, scratch, form, inst, grid,
-                             smem_bytes, s);
+  if (form != 0) {
+    if (packed == nullptr) return (int)cudaErrorInvalidValue;
+    brief::pack_kernel<<<(d.packed_floats / 4 + 255) / 256, 256, 0, s>>>(
+        packed, d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++kernels_launched;
+  }
+  const int err = brief::launch_chain(d, in, packed, out, scratch, form,
+                                      inst, grid, smem_bytes, s);
+  if (err == (int)cudaSuccess) ++kernels_launched;
+  return err;
+}
+
+// kernels_launched, the count of the kernels a call launches
+// (fused_decode.kernels_launched); its low 31 bits.
+int brief_fused_decode_kernels(void) {
+  return (int)(kernels_launched & 0x7fffffffull);
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@
 //    (consecutive threads on consecutive addresses);
 //  * rows past N are clamped to N - 1 and never stored; offsets are 64-bit
 //    (N * C may pass 2^31);
-//  * the sums are chain_tc.cuh's kNearest: each k-block's three products
+//  * the sums are chain_tc.cuh's: each k-block's three products
 //    summed from zero and added with a float32 add, the small parts
 //    rounded to TF32, so the chain keeps float32's accuracy (the tensor
 //    core truncates its sums).
@@ -50,8 +50,6 @@ using brief::kWideVox;
 
 // Layer 0's input of row v: row v of the (n, c_in) array x.
 struct RowInput {
-  static constexpr bool kPackInPlace = true;
-  static constexpr bool kNearest = true;    // float32's accuracy
   const float* x;
 
   // The narrow form: k-blocks k < ceil(c_in / 8) of rows v0 + 16 m and
@@ -135,8 +133,8 @@ int brief_fused_siren(const float* coords, float* out, float* packed,
   cudaStream_t s = (cudaStream_t)stream;
   if (form != 0) {
     if (packed == nullptr) return (int)cudaErrorInvalidValue;
-    brief::pack_kernel<true>
-        <<<(d.packed_floats / 4 + 255) / 256, 256, 0, s>>>(packed, d);
+    brief::pack_kernel<<<(d.packed_floats / 4 + 255) / 256, 256, 0, s>>>(
+        packed, d);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -32,7 +32,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t* big,
 }
 
 // split_tf32 with small rounded to TF32 as well (csrc/chain_tc.cuh's
-// kNearest): big + small errs by at most 2^-22 |x|, where the tensor
+// sums): big + small errs by at most 2^-22 |x|, where the tensor
 // core's truncation of a whole small errs by up to 2^-21 |x|.
 __device__ __forceinline__ void split_tf32_nearest(float x, uint32_t* big,
                                                    uint32_t* small) {

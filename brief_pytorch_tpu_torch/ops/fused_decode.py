@@ -8,9 +8,11 @@ the chain's forward over every voxel of the grid, each voxel's
 coordinates built from its grid index.
 
 Bound on an H100: operations.  Every product runs on the tensor cores in
-3xTF32 (mma.sync.m16n8k8; the weights split into TF32 big and small parts
-once per call, in the B-fragment order of ops/fused_train.py
-`pack_fragments`): 3 x the product flops at 495 TFLOP/s, beside the sines
+3xTF32 (mma.sync.m16n8k8; the weights split into TF32 big and small parts,
+both rounded to nearest, in the B-fragment order of ops/fused_train.py
+`pack_fragments`; each k-block's three products summed from zero and
+added in float32, float32's accuracy, where the tensor core's own sums
+truncate): 3 x the product flops at 495 TFLOP/s, beside the sines
 at 67 TFLOP/s (64x512x512 at 5 x 191: ~22 ms; 64^3 at 5 x 22: ~5.5 us,
 paced by the sines).  csrc/chain_tc.cuh (the tensor-core chain it
 shares with ops/fused_siren.py) and csrc/fused_decode.cu say how its
@@ -18,13 +20,15 @@ design answers that.
 
 Two forms (`choose_plan`):
   * narrow (`narrow_plan`; 5 x 22, the HiP-CT chunks 3-66x6-1): every
-    layer's pre-split weights resident in shared memory for the life of a
-    persistent block; each warp carries 16 voxels through the chain with
-    a layer's input and output in registers (kNT n-tiles each, NARROW_NT);
+    layer's weights, split by each persistent block while it loads them
+    (one launch a call), resident in its shared memory; each warp carries
+    16 voxels through the chain with a layer's input and output in
+    registers (kNT n-tiles each, NARROW_NT);
   * wide (`wide_plan`; the SingleTask default on the 64x512x512 demo
     volumes, 5 x 191 and 5 x 242): blocks of 128 voxels, the pre-split
     weights streamed through shared memory in k-block slabs, each warp
-    kNW n-tiles of all 8 voxel tiles; the layer's input in shared memory
+    kNW n-tiles of all 8 voxel tiles, the weights split once per call by
+    pack_kernel (two launches a call); the layer's input in shared memory
     (or, past 256 features, in a device scratch); as many slabs in flight
     as shared memory holds (up to MAX_STAGES).
 `supports` takes the chains the JAX package's `supports` takes (weights
@@ -58,7 +62,8 @@ import torch
 from brief_pytorch_tpu_torch.core.coords import axis_linspace, parse_coords_mode
 from brief_pytorch_tpu_torch.ops.chain import ACTS, LayerSpec, chain_layer_specs
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
-from brief_pytorch_tpu_torch.ops.fused_train import pack_fragments
+from brief_pytorch_tpu_torch.ops.fused_train import (pack_fragments,
+                                                    tf32_split_nearest)
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
@@ -85,7 +90,8 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]}
+        ctypes.c_void_p],
+    "brief_fused_decode_kernels": []}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -207,9 +213,11 @@ def split_index(v, spatial: Sequence[int]):
 
 
 def pack_weights(layers, widths: Sequence[int]) -> torch.Tensor:
-    """pack_kernel's output on the CPU: (packed_floats,) float32."""
+    """pack_kernel's output (and the narrow form's shared memory) on the
+    CPU: (packed_floats,) float32."""
     lay = packed_layout(widths)
-    parts = [pack_fragments(layer["w"].float().cpu(), k, n).reshape(-1)
+    parts = [pack_fragments(layer["w"].float().cpu(), k, n,
+                            tf32_split_nearest).reshape(-1)
              for layer, k, n in zip(layers, lay["kb"], lay["nt"])]
     for layer, n in zip(layers, lay["nt"]):
         b = torch.zeros(8 * n)
@@ -276,6 +284,36 @@ def _act(z: torch.Tensor, act: str, w0: float) -> torch.Tensor:
     raise ValueError(act)
 
 
+def grid_coords(spatial: Sequence[int], mode: str = "n11", *,
+                enc_periods=None, device="cpu",
+                voxels: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(stop - start, len(spatial)) float32 coordinates of the flat voxels
+    [start, stop) (default: all) as the kernel builds them: the lead axis
+    lo + i * step (two roundings, no fused multiply-add), the plane axes
+    from the axis_linspace tables, SIRENPos-warped where enc_periods is
+    given."""
+    spatial = tuple(int(s) for s in spatial)
+    plane = int(np.prod(spatial[1:]))
+    start, stop = (0, int(np.prod(spatial))) if voxels is None else voxels
+    tables = _plane_tables(spatial, mode, enc_periods, device)
+    lo, step, scale = _lead_affine(spatial, mode, enc_periods)
+    v = torch.arange(start, stop, device=device)
+    lead = torch.div(v, plane, rounding_mode="floor")
+    p = v - lead * plane
+    z0 = torch.tensor(lo, dtype=torch.float32, device=device) + \
+        lead.to(torch.float32) * torch.tensor(step, dtype=torch.float32,
+                                              device=device)
+    if enc_periods is not None:
+        z0 = fast_sin(torch.tensor(scale, device=device) * z0)
+    off = sum(spatial[1:])
+    rest = []
+    for n in reversed(spatial[1:]):
+        off -= n
+        rest.append(tables[off + torch.remainder(p, n)])
+        p = torch.div(p, n, rounding_mode="floor")
+    return torch.stack([z0] + rest[::-1], dim=1)
+
+
 def fused_decode_grid_reference(layers, spatial: Sequence[int],
                                 acts: LayerSpec, mode: str = "n11", *,
                                 enc_periods=None,
@@ -285,33 +323,14 @@ def fused_decode_grid_reference(layers, spatial: Sequence[int],
     """The kernel's function in plain PyTorch, `slab` voxels at a time
     (default: all at once), on the device of the weights; only the flat
     voxels [start, stop) when `voxels` is given."""
-    spatial = tuple(int(s) for s in spatial)
     device = layers[0]["w"].device
-    pop = int(np.prod(spatial))
-    plane = pop // spatial[0]
-    tables = _plane_tables(spatial, mode, enc_periods, device)
-    lo, step, scale = _lead_affine(spatial, mode, enc_periods)
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
-    step_t = torch.tensor(step, dtype=torch.float32, device=device)
-    first, stop = (0, pop) if voxels is None else voxels
+    first, stop = (0, int(np.prod(spatial))) if voxels is None else voxels
     slab = stop - first if not slab else int(slab)
     outs = []
     for start in range(first, stop, slab):
-        v = torch.arange(start, min(stop, start + slab), device=device)
-        lead = torch.div(v, plane, rounding_mode="floor")
-        p = v - lead * plane
-        z0 = lo_t + lead.to(torch.float32) * step_t
-        if enc_periods is not None:
-            z0 = fast_sin(torch.tensor(scale, device=device) * z0)
-        comps = [z0]
-        off = sum(spatial[1:])
-        rest = []
-        for n in reversed(spatial[1:]):
-            off -= n
-            rest.append(tables[off + torch.remainder(p, n)])
-            p = torch.div(p, n, rounding_mode="floor")
-        comps += rest[::-1]
-        h = torch.stack(comps, dim=1)
+        h = grid_coords(spatial, mode, enc_periods=enc_periods,
+                        device=device,
+                        voxels=(start, min(stop, start + slab)))
         for layer, (act, w0) in zip(layers, acts):
             h = _act(h @ layer["w"] + layer["b"], act, w0)
         outs.append(h)
@@ -394,19 +413,29 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     grid = min(_cdiv(pop, per_block), sms * p["blocks_per_sm"])
     form = 0 if p["layout"] == "narrow" else 2 if p["global"] else 1
     out = torch.empty((pop, widths[-1]), dtype=torch.float32, device=device)
-    packed = torch.empty(p["packed_floats"], dtype=torch.float32,
-                         device=device)
+    packed = torch.empty(p["packed_floats"] if form else 0,
+                         dtype=torch.float32, device=device)
     scratch = torch.empty(grid * 2 * p["rows"] * WIDE_STRIDE if p["global"]
                           else 0, dtype=torch.float32, device=device)
     lib = build.library("fused_decode", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
         build.check(lib.brief_fused_decode(
-            tables.data_ptr(), out.data_ptr(), packed.data_ptr(),
+            tables.data_ptr(), out.data_ptr(),
+            packed.data_ptr() if form else None,
             scratch.data_ptr() if p["global"] else None, wb_c, pop, meta_c,
             fmeta_c, form, p["inst"], grid, p["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream), "fused_decode")
     launches += 1
     return out
+
+
+def kernels_launched() -> int:
+    """Device kernels the decode library has launched in this process (its
+    own count, kept where it launches them): one a call in the narrow form,
+    two in the wide forms (pack_kernel, then the chain).  Needs the card."""
+    from brief_pytorch_tpu_torch.ops import build
+    return build.library("fused_decode",
+                         _SIGNATURES).brief_fused_decode_kernels()
 
 
 def decode_volume(model, params, spatial: Sequence[int], mode: str, *,

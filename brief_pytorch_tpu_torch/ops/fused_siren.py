@@ -28,7 +28,7 @@ It takes every plain chain of up to MAX_LAYERS layers and MAX_WIDTH
 features, C included; `kernel_plan` raises NotImplementedError beyond.
 Its sums keep float32's accuracy where the tensor core's own truncate
 (each k-block's three 3xTF32 products summed from zero and added in
-float32, the small parts rounded: chain_tc.cuh's kNearest);
+float32, the small parts rounded: chain_tc.cuh's sums, kernel 2's too);
 `chain_tc_model` is that arithmetic on the CPU, through
 `mma_tf32_model`, the card's mma.sync sum bit for bit.
 
@@ -52,7 +52,8 @@ from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
 from brief_pytorch_tpu_torch.ops.fused_decode import (MAX_LAYERS, MAX_WIDTH,
                                                       WARPS, WIDE_STRIDE)
-from brief_pytorch_tpu_torch.ops.fused_train import tf32_split
+from brief_pytorch_tpu_torch.ops.fused_train import (tf32_split,
+                                                    tf32_split_nearest)
 
 launches = 0                 # kernel launches, for proof that a run used it
 
@@ -143,14 +144,6 @@ def fused_chain_apply_reference(layers, coords: torch.Tensor,
 # --------------------------------------------------------------------------
 # the kernel's arithmetic on the CPU
 # --------------------------------------------------------------------------
-def tf32_split_nearest(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) of float32 x as the kernel splits it (csrc/tf32.cuh
-    split_tf32_nearest): big = x rounded as cvt.rna.tf32.f32 rounds it,
-    small = x - big rounded the same way."""
-    big = tf32_split(x)[0]
-    return big, tf32_split(x - big)[0]
-
-
 def _exponent(x: torch.Tensor) -> torch.Tensor:
     """floor(log2 |x|) as int32, -1000 for 0."""
     _, e = torch.frexp(x)
@@ -184,11 +177,14 @@ def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
     layer 0's input zero-padded to k-blocks of 8 features, the bias
     starting each accumulator, then per k-block the 3xTF32 terms a_small
     b_big, a_big b_small, a_big b_big through mma_tf32_model.  nearest
-    (kernel 3's sums): both operands split by tf32_split_nearest, the
-    three terms summed from zero and added to the accumulator in float32;
-    else (kernel 2's) split by fused_train.tf32_split and summed into the
-    accumulator.  Rows are independent, so no tiles are needed; kernel 3's
-    k-block sums are independent too and go in batches of k-blocks."""
+    (the sums of kernels 2 and 3): both operands split by
+    tf32_split_nearest, the three terms summed from zero and added to the
+    accumulator in float32; else (the tensor core's own sums, which the
+    kernels took before) split by fused_train.tf32_split and summed into
+    the accumulator.  Rows are independent, so no tiles are needed; the
+    k-block sums are independent too and go in batches of k-blocks.
+    Kernel 2's rows are its voxels' coordinates
+    (fused_decode.grid_coords)."""
     split = tf32_split_nearest if nearest else tf32_split
     n, c_in = coords.shape
     h = torch.zeros(n, -(-c_in // 8) * 8)

@@ -459,16 +459,26 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return big, small.view(torch.float32)
 
 
-def pack_fragments(m: torch.Tensor, kb: int, nt: int) -> torch.Tensor:
+def tf32_split_nearest(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 x as the tensor-core chain of kernels 2 and
+    3 splits it (csrc/tf32.cuh split_tf32_nearest): big = x rounded as
+    cvt.rna.tf32.f32 rounds it, small = x - big rounded the same way."""
+    big = tf32_split(x)[0]
+    return big, tf32_split(x - big)[0]
+
+
+def pack_fragments(m: torch.Tensor, kb: int, nt: int,
+                   split=tf32_split) -> torch.Tensor:
     """The (kb, nt, 32, 4) B fragments of the (K, N) matrix m as the narrow
     kernel packs them in shared memory (pack_narrow_weights): lane 4g + t
     of fragment (k, j) holds big and big, small and small of
-    m[8k + 2t][8j + g] and m[8k + 2t + 1][8j + g], zeros past m.  The
-    forward packs m = [W; b], the input gradient m = W^T."""
+    m[8k + 2t][8j + g] and m[8k + 2t + 1][8j + g], zeros past m, split by
+    `split` (kernels 2 and 3 pass tf32_split_nearest).  The forward packs
+    m = [W; b], the input gradient m = W^T."""
     full = torch.zeros(8 * kb, 8 * nt, dtype=torch.float32)
     full[:m.shape[0], :m.shape[1]] = m
     pairs = full.view(kb, 4, 2, nt, 8).permute(0, 3, 4, 1, 2)  # k j g t e
-    big, small = tf32_split(pairs.reshape(kb, nt, 32, 2))
+    big, small = split(pairs.reshape(kb, nt, 32, 2))
     return torch.cat([big, small], dim=-1)
 
 

@@ -35,10 +35,16 @@ chain structure (MFNFourier, MFNGabor) train on the solo path: one block at
 a time with the single-volume trainer's sampler and autograd step
 (train/fit.py), in lockstep with the buckets between checkpoints.
 
+The fleet's whole training state (every bucket's and solo block's
+parameters, optimizer state and generator, the solo blocks' steps) is
+written at every checkpoint, and `train(..., resume_path=...)` continues
+from it, bitwise equal to an uninterrupted run with the same checkpoint
+grid (JAX block_trainer.py:792-913).
+
 One card: no mesh.  Not ported (each raises NotImplementedError, see
 ROADMAP.md): solo blocks whose `exception` overrides step-level
-parameters, `half`, integer stacks (raw_gather), vector_len > 1, fleet
-resume, and more than one card.
+parameters, `half`, integer stacks (raw_gather), vector_len > 1, and more
+than one card.
 """
 from __future__ import annotations
 
@@ -58,8 +64,7 @@ from brief_pytorch_tpu_torch.core.tree import tree_leaves, tree_map
 from brief_pytorch_tpu_torch.models.phi import (ChainSpec, PhiModel,
                                                 _ChainModel, _act, encode)
 from brief_pytorch_tpu_torch.ops import fused_train
-from brief_pytorch_tpu_torch.train.checkpoint import (atomic_savez,
-                                                      fingerprint_bytes)
+from brief_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from brief_pytorch_tpu_torch.train.optim import make_optimizer
 from brief_pytorch_tpu_torch.train.samplers import (RandomCubeSampler,
                                                     RandomPointSampler,
@@ -542,7 +547,8 @@ class BlockFleetTrainer:
 
     def train(self, blocks: List[Dict], compress_cfg, max_steps: int,
               checkpoint_cb=None, checkpoints: Optional[List[int]] = None,
-              state_path: Optional[str] = None) -> List[Dict]:
+              state_path: Optional[str] = None,
+              resume_path: Optional[str] = None) -> List[Dict]:
         """blocks: dicts with keys data_norm, weight, model (PhiModel),
         name, weight_thres_norm.  Returns blocks with 'params' attached.
 
@@ -550,7 +556,10 @@ class BlockFleetTrainer:
         checkpoint_cb(step, blocks, per_block_params) fires at every entry
         of `checkpoints` with the whole fleet.  state_path: write the
         fleet's training state (stacked params, optimizer states,
-        generator states) there at every checkpoint, atomically."""
+        generator states) there at every checkpoint, atomically.
+        resume_path: a state file (or a run dir holding
+        trainstate_fleet.npz) written so under the same config; training
+        continues from its step, and checkpoints up to it are skipped."""
         cc = compress_cfg
         if bool(cc.half):
             raise NotImplementedError(f"Compress.half (bf16) {_NOT_PORTED}")
@@ -582,10 +591,16 @@ class BlockFleetTrainer:
                         for idxs in buckets.values()]
         self._solo = [self._prepare_solo(blocks, i, cc) for i in solo_idxs]
         fingerprint = self._fleet_fingerprint(blocks, cc, max_steps)
+        start_step = 0
+        if resume_path:
+            start_step = self._load_state(ckpt_lib.resolve_trainstate(
+                resume_path, "trainstate_fleet.npz"), fingerprint)
 
-        step = 0
+        step = start_step
         self.train_s = 0.0
         for ckpt in checkpoints or [max_steps]:
+            if ckpt <= start_step:
+                continue   # the stopped run wrote these artifacts
             n = ckpt - step
             if n > 0:
                 # queue every bucket's steps, then wait once: fetching the
@@ -613,7 +628,9 @@ class BlockFleetTrainer:
 
     def _fleet_fingerprint(self, blocks: List[Dict], cc, max_steps: int
                            ) -> Dict:
-        """Config axes a stored fleet state is only meaningful under."""
+        """Config axes a stored fleet state is only meaningful under;
+        max_steps is one (unlike the single trainer's), as in the JAX
+        package, whose solo blocks' checkpoint targets depend on it."""
         return {
             "kind": "fleet",
             "blocks": [str(b["name"]) for b in blocks],
@@ -631,26 +648,39 @@ class BlockFleetTrainer:
         }
 
     def _save_state(self, path: str, step: int, fingerprint: Dict) -> None:
-        """The whole fleet's training state, written atomically."""
+        """The whole fleet's training state, written atomically: b{i}p*,
+        b{i}o*, b{i}key per bucket, s{i}p*, s{i}o*, s{i}key, s{i}done per
+        solo block (train/checkpoint.py's leaf layout)."""
         arrs: Dict[str, np.ndarray] = {
             "step": np.asarray(int(step)),
-            "fingerprint": fingerprint_bytes(fingerprint)}
-        def pack(prefix: str, state) -> None:
-            for i, t in enumerate(tree_leaves(state.params)):
-                arrs[f"{prefix}p{i}"] = t.detach().cpu().numpy()
-            opt = [np.asarray(state.opt_state["count"], np.int32)] + \
-                [t.detach().cpu().numpy()
-                 for t in state.opt_state["mu"] + state.opt_state["nu"]]
-            for i, a in enumerate(opt):
-                arrs[f"{prefix}o{i}"] = a
+            "fingerprint": ckpt_lib.fingerprint_bytes(fingerprint)}
+        for prefix, state in self._named_states():
+            ckpt_lib.pack_tree(arrs, f"{prefix}p", state.params)
+            ckpt_lib.pack_opt(arrs, f"{prefix}o", state.opt_state)
             arrs[f"{prefix}key"] = state.gen.get_state().numpy()
-
-        for bi, st in enumerate(self._states):
-            pack(f"b{bi}", st)
         for si, ss in enumerate(self._solo):
-            pack(f"s{si}", ss)
             arrs[f"s{si}done"] = np.asarray(int(ss.steps_done))
-        atomic_savez(path, arrs)
+        ckpt_lib.atomic_savez(path, arrs)
+
+    def _load_state(self, path: str, fingerprint: Dict) -> int:
+        """Restore a _save_state file into the freshly prepared fleet, in
+        place; returns the stored step."""
+        with np.load(path) as z:
+            ckpt_lib.check_fingerprint(z, fingerprint, path)
+            for prefix, state in self._named_states():
+                ckpt_lib.unpack_tree(z, f"{prefix}p", state.params,
+                                     f"{prefix} params")
+                ckpt_lib.unpack_opt(z, f"{prefix}o", state.opt_state,
+                                    f"{prefix} opt_state")
+                ckpt_lib.unpack_generator(z, f"{prefix}key", state.gen)
+            for si, ss in enumerate(self._solo):
+                ss.steps_done = int(z[f"s{si}done"])
+            return int(z["step"])
+
+    def _named_states(self):
+        """(prefix, state) of every bucket (b{i}) and solo block (s{i})."""
+        return [(f"b{bi}", st) for bi, st in enumerate(self._states)] + \
+            [(f"s{si}", ss) for si, ss in enumerate(self._solo)]
 
     def _prepare_bucket(self, blocks: List[Dict], idxs: List[int], cc
                         ) -> _BucketState:

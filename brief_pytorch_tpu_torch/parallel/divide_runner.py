@@ -16,9 +16,10 @@ and the JAX package's NFGR.decompress_divide read it:
   <logdir>/divide.<ext>                                  (boundary viz)
   <logdir>/trainstate_fleet.npz                          (training state)
 
+Compress.resume (a state file or the stopped run's dir) continues a run.
 Not ported (NotImplementedError, ROADMAP.md): exceptions that override
 step-level parameters (they need the solo path with a config of their
-own), Compress.raw_gather, resume.
+own), Compress.raw_gather.
 """
 from __future__ import annotations
 
@@ -186,9 +187,6 @@ def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
     the last checkpoint with train_s / checkpoint_s (host seconds)."""
     cf_opt = opt.CompressFramework
     cc = cf_opt.Compress
-    if str(cc.get("resume", "none") or "none") != "none":
-        raise NotImplementedError(
-            "Compress.resume is not ported yet (ROADMAP.md)")
     data_path = opt.Dataset.data_path
     data = read_img(data_path)
     phi = cf_opt.Module.phi
@@ -274,9 +272,14 @@ def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
             summary.update(perf)
         summary["checkpoint_s"] += time.perf_counter() - t0
 
+    # the fleet's state lands beside the artifacts at every checkpoint, and
+    # Compress.resume continues a stopped run from it (JAX
+    # divide_runner.py:285-292)
+    resume = str(cc.get("resume", "none") or "none")
     trainer.train(blocks, cc, max_steps, checkpoint_cb=on_checkpoint,
                   checkpoints=checkpoints,
-                  state_path=opj(log.logdir, "trainstate_fleet.npz"))
+                  state_path=opj(log.logdir, "trainstate_fleet.npz"),
+                  resume_path=None if resume == "none" else resume)
     summary.update(train_s=trainer.train_s, fused=trainer.fused_paths(),
                    fleet=trainer.fleet_stats(), solo=trainer.solo_blocks())
     log.close()

@@ -21,11 +21,13 @@ weight binaries, encoder.npz for FFN, params.npz for the MFNs:
 io/modelsave.py) and sideinfos.yaml under steps{N}/compressed/, the decoded
 volume, performance.csv — decoding through the fused grid kernel on the
 card where it supports the model (train/decode.py), and the atomic
-trainstate.npz.
+trainstate.npz (train/checkpoint.py); Compress.resume continues a run from
+such a state, bitwise equal to an uninterrupted run with the same
+checkpoint grid.
 
 Not ported yet (ROADMAP.md): `half` (bf16 compute), Compress.data_shards
-> 1 (data parallelism), Compress.resume, and the randompoint sampler's
-vector_len / raw_gather options.
+> 1 (data parallelism), and the randompoint sampler's vector_len /
+raw_gather options.
 """
 from __future__ import annotations
 
@@ -60,7 +62,9 @@ from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
                                                make_pre_encode)
 from brief_pytorch_tpu_torch.post.preprocess import (parse_checkpoints,
                                                      parse_weight, preprocess)
-from brief_pytorch_tpu_torch.train.checkpoint import save_trainstate
+from brief_pytorch_tpu_torch.train.checkpoint import (load_trainstate,
+                                                      resolve_trainstate,
+                                                      save_trainstate)
 from brief_pytorch_tpu_torch.train.decode import reconstruct_flattened
 from brief_pytorch_tpu_torch.train.loss import make_loss
 from brief_pytorch_tpu_torch.train.optim import make_optimizer
@@ -125,9 +129,6 @@ class NFGR:
         log = self.logger
         dev = self.device
         cfg = self.opt.Compress
-        if str(cfg.get("resume", "none") or "none") != "none":
-            raise NotImplementedError(
-                "Compress.resume is not ported yet (ROADMAP.md)")
         data = read_img(data_path)
 
         # sampler size guard (reference main.py:325-334)
@@ -217,6 +218,10 @@ class NFGR:
         gen = torch.Generator(device=sampler.generator_device(dev))
         gen.manual_seed(self.seed)
 
+        # the config axes a stored state is only meaningful under (JAX
+        # fit.py:340-353); max_steps / checkpoints are left out, so a run
+        # may be resumed to train longer (bitwise equality with an
+        # uninterrupted run needs the same checkpoint grid)
         fingerprint = {
             "kind": "single", "phi_name": str(self.opt.Module.phi.name),
             "phi_features": int(features), "sampler": repr(sampler),
@@ -227,7 +232,13 @@ class NFGR:
             "fused": fused, "framework": "torch",
         }
 
-        step = 0
+        start_step = 0
+        resume = str(cfg.get("resume", "none") or "none")
+        if resume != "none":
+            start_step = load_trainstate(resolve_trainstate(resume), params,
+                                         opt_state, gen, fingerprint)
+
+        step = start_step
         summary = {}
         orig_data = None
         last_loss = float("nan")   # checkpoints may start at 0 steps
@@ -235,6 +246,8 @@ class NFGR:
         # checkpoint interval that fetches the losses) and in checkpoints
         train_s = checkpoint_s = 0.0
         for ckpt in checkpoints:
+            if ckpt <= start_step:
+                continue   # the stopped run wrote these artifacts
             n = ckpt - step
             t0 = time.perf_counter()
             if n > 0:

@@ -1,4 +1,5 @@
-"""Where the training loop's time goes, on the card.
+"""Where the training loop's time goes, on the card; and `trace`, the
+CLI's -profile.
 
     python -m brief_pytorch_tpu_torch.utils.profiling [-p yaml] [--steps N]
         [--data volume]
@@ -17,16 +18,41 @@ SingleTask config trains through NFGR.compress; a DivideTask config
   kernels             the ten kernels with the most device time, ms/step
   device, power_limit the card
 Needs a CUDA card.
+
+`trace(logdir)` (JAX utils/profiling.py:24, there a jax.profiler trace) is
+a torch.profiler trace of whatever runs inside it, written as
+<logdir>/trace.json (Chrome trace format: chrome://tracing, Perfetto):
+host ops, and the card's kernels where a card is present.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 
 import torch
 
 from brief_pytorch_tpu_torch.core import config as cfglib
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """torch.profiler over the block; the trace goes to
+    <logdir>/trace.json when it ends."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def _run(opt, steps: int) -> dict:

@@ -26,8 +26,15 @@ non-zero exit:
      in its wide form, on the 64x512x512 grid of the demo volumes at
      DEMO_RUNS' widths (5 x 191, 5 x 242), beside the plain version (in
      slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise
-     equal; both bounds (decode_bounds: float32 and tensor-core), the
-     form, its tile and warps per SM printed;
+     equal, and its distance from a float64 evaluation of the chain
+     (float64_chain on the kernel's coordinates), max and mean, at most
+     F64_RATIO x the plain version's; the kernels a call launches
+     (the decode library's own count, fused_decode.kernels_launched: 1
+     in the narrow form, which splits its weights in place, 2 in the
+     wide form); both bounds (decode_bounds: float32 and
+     tensor-core), the form, its tile and warps per SM printed; after
+     phase 5 the same checks on phase 5's trained chain over the 64^3
+     grid;
   5. the SingleTask command (cli.main, opt/SingleTask/default.yaml) on the
      bundled 64^3 fixture for COMPRESS_STEPS steps with one checkpoint:
      both kernels' launch counters above 0, PSNR above PSNR_FLOOR, the
@@ -56,6 +63,9 @@ non-zero exit:
      chunk and within 1 LSB of the checkpoint's merged volume on >= 99.9%
      of voxels, PSNR above HIPCT_PSNR_FLOOR and within HIPCT_AUTOGRAD_DB
      of the same run through autograd (Compress.fused_train: false);
+     then `python -m brief_pytorch_tpu_torch.post.deblock -stp` on its
+     checkpoint: the deblocked TIFF of the merged volume's shape and
+     dtype, changed only within 3 voxels of the blocks' boundaries;
   8. opt/DivideTask/brain64.yaml (8 blocks of 32^3, randompoint, on the
      fleet kernel at phase 6's shape) and opt/DivideTask/default.yaml
      (adaptive blocks, fullbatch buckets through autograd) on the bundled
@@ -102,7 +112,22 @@ non-zero exit:
      kernel's wide layout per step, the decode kernel's wide form in the
      checkpoint and in the standalone NFGR.decompress, whose volume equals
      the checkpoint's; PSNR within DEMO_AUTOGRAD_DB of the same steps
-     through autograd (Compress.fused_train: false).
+     through autograd (Compress.fused_train: false);
+ 13. resume at full width, through the command (resume_run): the
+     SingleTask default on the 64^3 fixture (5 x 22, kernel 1's narrow
+     layout) over RESUME_STEPS["single"] steps and hipct.yaml verbatim on
+     its demo volume (the 3-66x6-1 bucket, the tiled fleet layout) over
+     RESUME_STEPS["hipct"], checkpoints at half and at the end: a run
+     preempted right after its state at half, resumed with -resume, ends
+     with weight binaries equal byte for byte to the uninterrupted run's,
+     launching the train kernel for the second half only; a state of
+     another lr_phi raises;
+ 14. MultiTask (multitask_run): opt/MultiTask/default.yaml (the SingleTask
+     SIREN 5 x 22 on kernels 1 and 2, total_2_2_2 with 8 blocks on kernel
+     1's narrow fleet form; 2,000 steps each) with only the outputs dir
+     and the data path changed, through the MultiTask command: both
+     experiments finish, finite PSNRs, one train launch a step,
+     temp_opt_* removed.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -127,6 +152,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "dataset", "brain", "64x64x64",
                        "brain-64_128-64_128-192_256.tif")
 CONFIG = os.path.join(ROOT, "opt", "SingleTask", "default.yaml")
+MULTITASK = os.path.join(ROOT, "opt", "MultiTask", "default.yaml")
 DIVIDE = os.path.join(ROOT, "opt", "DivideTask")
 COMPRESS_STEPS = 3000
 PSNR_FLOOR = 40.0          # dB; 41.985 measured on an H100 (PERF.md)
@@ -134,6 +160,9 @@ N_COORDS = 64 ** 3         # randomcube over the whole 64^3 fixture
 HIPCT = os.path.join(ROOT, "dataset", "example",
                      "hipct-0_64-0_512-0_512.tif")   # LZW, tracked
 HIPCT_STEPS = 500          # cut from the config's 80,000
+# phase 13: steps of each resumed run (preempted at half), cut from the
+# configs' 20,000 and 80,000
+RESUME_STEPS = {"single": 2000, "hipct": 500}
 HIPCT_PSNR_FLOOR = 24.0    # dB; 25.181 on the first H100 run (PERF.md)
 HIPCT_AUTOGRAD_DB = 0.5    # dB; the kernel run's PSNR against autograd's
 FIXTURE_STEPS = 300        # cut from the configs' 20,000
@@ -176,13 +205,13 @@ SIREN_CASES = [
 # the default (2e-6, 2e-6)
 SIREN_TOL = {"wide-1024": (1e-5, 1e-5)}
 GRAD_N = 8192                # coordinates of phase 9's gradient check
-# phases 9 and 10: the kernel's distance from a float64 evaluation of the
-# chain (float64_chain), max and mean, at most this many times the plain
-# version's (phase 9) or model.apply's route (phase 10): float32's
+# phases 4, 9 and 10: the kernel's distance from a float64 evaluation of
+# the chain (float64_chain), max and mean, at most this many times the
+# plain version's (phases 4, 9) or model.apply's route (phase 10): float32's
 # accuracy.  The tensor core's truncating sums, three mma.sync a k-block
 # into one accumulator, were 2.3x (max) and 3.0x (mean) on phase 10's
 # trained chain.
-F64_RATIO = {"phase9": 2.0, "phase10": 1.5}
+F64_RATIO = {"phase4": 2.0, "phase9": 2.0, "phase10": 1.5}
 # phase 3: chains the old narrow layout took, beyond the default's 5 x 22:
 # (label, family config, the layout the plan must pick)
 TRAIN_CASES = [
@@ -212,6 +241,7 @@ DIVIDE_FAMILIES = [("MFNFourier", {}, 8), ("NeRF", {}, 0)]   # solo blocks
 
 def fail(msg: str) -> None:
     print(f"FAIL {msg}", flush=True)
+    print(f"FAIL {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -375,13 +405,70 @@ def decode_bounds(widths, acts, spatial, n_params: int):
     return b, by, tc_bound_ms(n_bytes, products, sine)
 
 
+def grid_coords(fused_decode, spatial, mode: str, dev, voxels):
+    """The coordinates the decode kernel builds for the flat voxels
+    [start, stop): the plain version's own (which builds them bit for bit
+    as the kernel does), through one identity layer (exact in float32),
+    so that every build of the package gives them."""
+    import torch
+    c = len(spatial)
+    eye = [{"w": torch.eye(c, device=dev), "b": torch.zeros(c, device=dev)}]
+    return fused_decode.fused_decode_grid_reference(
+        eye, spatial, (("none", 1.0),), mode, voxels=voxels)
+
+
+def f64_distances(fused_decode, out, plain, spatial, layers, acts,
+                  mode: str, dev) -> dict:
+    """Max and mean distance of the decode `out` and of its plain version
+    from float64_chain on the kernel's coordinates, DECODE_SLAB voxels at
+    a time, on the card."""
+    import torch
+    chain64 = float64_chain(layers, acts)
+    pop = out.shape[0]
+    d = {"max_err_vs_float64": 0.0, "plain_max_err_vs_float64": 0.0}
+    sums = {"": 0.0, "plain_": 0.0}
+    for start in range(0, pop, DECODE_SLAB):
+        stop = min(pop, start + DECODE_SLAB)
+        truth = chain64(grid_coords(fused_decode, spatial, mode, dev,
+                                    (start, stop)))
+        for name, x in (("", out), ("plain_", plain)):
+            e = (x[start:stop].double() - truth).abs()
+            key = f"{name}max_err_vs_float64"
+            d[key] = max(d[key], float(e.max()))
+            sums[name] += float(e.sum())
+        del truth
+    torch.cuda.synchronize()
+    for name, v in sums.items():
+        d[f"{name}mean_err_vs_float64"] = v / (pop * out.shape[1])
+    return d
+
+
+def kernels_per_call(fn, layout: str) -> int:
+    """How many kernels one call of fn(), a grid decode, launches on the
+    card, by the decode library's own count (fused_decode.kernels_launched);
+    torch's own kernels (the wrapper's coordinate tables) are not counted.
+    The narrow form must launch 1, the wide form 2 (pack_kernel first)."""
+    from brief_pytorch_tpu_torch.ops import fused_decode
+    before = fused_decode.kernels_launched()
+    fn()
+    n = fused_decode.kernels_launched() - before
+    want = 1 if layout == "narrow" else 2
+    if n != want:
+        fail(f"fused_decode {layout}: {n} kernels a call, want {want}")
+    return n
+
+
 def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
                  reps: int = 25, plain_reps: int = 20) -> dict:
     """The grid-decode kernel on one chain and grid: finite values of the
     right shape within 1e-5 * max|plain| + 1e-5 of the plain version (in
-    slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise equal;
-    timed beside the plain version (plain_reps 0: not timed) and both
-    bounds.  Returns its row."""
+    slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise equal,
+    its distance from a float64 evaluation of the chain (f64_distances),
+    max and mean, at most F64_RATIO["phase4"] x the plain version's; the
+    kernels one call launches (kernels_per_call: the narrow form splits
+    its weights in place, one launch; the wide form two, pack_kernel
+    first); timed beside the plain version (plain_reps 0: not timed) and
+    both bounds.  Returns its row."""
     import torch
     from brief_pytorch_tpu_torch.ops import fused_decode
     widths = [len(spatial)] + [int(l["w"].shape[1]) for l in layers]
@@ -406,11 +493,16 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
     if not err <= 1e-5 * scale + 1e-5:
         fail(f"fused_decode {label} {spatial} {widths}: max abs err {err} "
              f"(max |plain| {scale})")
+    f64 = f64_check(f"fused_decode {label} {spatial} {widths}", None, None,
+                    None, F64_RATIO["phase4"], f64_distances(
+                        fused_decode, out_k, out_p, spatial, layers, acts,
+                        mode, dev))
     del out_p
     for _ in range(2):
         if not torch.equal(k(), out_k):
             fail(f"fused_decode {label} {spatial}: calls differ bitwise")
     del out_k
+    per_call = kernels_per_call(k, p["layout"])
     ms = time_ms(k, reps=reps)
     plain = time_ms(pl, reps=plain_reps, warmup=1) if plain_reps else None
     b, by, tc = decode_bounds(widths, acts, spatial, sum(
@@ -419,15 +511,19 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
     tile = p.get("tile", p.get("block"))
     row = dict(shape=f"SIREN {widths}, {grid} grid", layout=p["layout"],
                tile=tile, inst=p.get("inst"),
-               warps_per_sm=p.get("warps_per_sm"), max_abs_err=err, ms=ms,
+               warps_per_sm=p.get("warps_per_sm"),
+               kernels_per_call=per_call, max_abs_err=err, **f64, ms=ms,
                plain_ms=plain, bound_ms=b, bound_by=by, tc_bound_ms=tc)
     say("4-fused_decode", case=label, grid=grid, widths=widths,
         layout=p["layout"], tile=tile, inst=p.get("inst"),
-        warps_per_sm=p.get("warps_per_sm"), max_abs_err=f"{err:.3e}",
+        warps_per_sm=p.get("warps_per_sm"), kernels_per_call=per_call,
+        max_abs_err=f"{err:.3e}",
+        **{k: f"{v:.3e}" for k, v in f64.items()},
         ms=f"{ms:.4f}", plain_ms=plain and f"{plain:.4f}", bound_ms=f"{b:.4f}",
         bound_by=by, tc_bound_ms=f"{tc:.4f}",
         mvox_per_s=f"{pop / ms / 1e3:.1f}",
-        tolerance="1e-5*max|plain|+1e-5; 3 calls bitwise")
+        tolerance=f"1e-5*max|plain|+1e-5; 3 calls bitwise; float64 "
+                  f"{F64_RATIO['phase4']:g}x plain")
     return row
 
 
@@ -605,14 +701,18 @@ def float64_chain(layers, acts, pre=None):
     return apply
 
 
-def f64_check(what: str, out, plain, truth, ratio: float) -> dict:
+def f64_check(what: str, out, plain, truth, ratio: float,
+              d: dict = None) -> dict:
     """Fails the run unless out's max and mean distance from truth are at
-    most `ratio` times plain's; returns the four distances."""
-    d = {}
-    for name, x in (("", out), ("plain_", plain)):
-        e = np.abs(np.asarray(x, np.float64) - truth)
-        d[f"{name}max_err_vs_float64"] = float(e.max())
-        d[f"{name}mean_err_vs_float64"] = float(e.mean())
+    most `ratio` times plain's; returns the four distances.  Where the
+    distances `d` are given (f64_distances), out, plain and truth are
+    not read."""
+    if d is None:
+        d = {}
+        for name, x in (("", out), ("plain_", plain)):
+            e = np.abs(np.asarray(x, np.float64) - truth)
+            d[f"{name}max_err_vs_float64"] = float(e.max())
+            d[f"{name}mean_err_vs_float64"] = float(e.mean())
     for k in ("max", "mean"):
         if not d[f"{k}_err_vs_float64"] <= \
                 ratio * d[f"plain_{k}_err_vs_float64"]:
@@ -715,27 +815,34 @@ def siren_check(dev, label: str, cfg: dict, n: int) -> dict:
                 plain_ms=plain_ms, bound_ms=b, bound_by=by, tc_bound_ms=tc)
 
 
-def batch_major_decode(dev, cf, comp: str) -> dict:
-    """Phase 10 on the archive under `comp` (module/, sideinfos.yaml) of a
-    SingleTask run with the config node `cf`."""
-    import torch
+def load_archive(dev, cf, comp: str):
+    """(model, params on dev, sideinfos) of the SingleTask archive under
+    `comp` (module/, sideinfos.yaml) of a run with the config node cf."""
     from brief_pytorch_tpu_torch.core import config as cfglib
-    from brief_pytorch_tpu_torch.core.normalize import invnormalize_data
     from brief_pytorch_tpu_torch.io.modelsave import load_phi_module
     from brief_pytorch_tpu_torch.models.phi import (init_phi,
                                                     params_from_numpy)
-    from brief_pytorch_tpu_torch.ops import fused_decode, fused_siren
-    from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
-                                                   make_pre_encode)
-    from brief_pytorch_tpu_torch.post.preprocess import preprocess
-    from brief_pytorch_tpu_torch.train.decode import (fused_apply_or,
-                                                      reconstruct_flattened)
     side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
     phi = dict(cf.Module.phi)
     phi.update(features=side["phi_features"], name=side["phi_name"])
     model = init_phi(phi)
     params = params_from_numpy(
         load_phi_module(model, os.path.join(comp, "module")), dev)
+    return model, params, side
+
+
+def batch_major_decode(dev, cf, comp: str) -> dict:
+    """Phase 10 on the archive under `comp` (module/, sideinfos.yaml) of a
+    SingleTask run with the config node `cf`."""
+    import torch
+    from brief_pytorch_tpu_torch.core.normalize import invnormalize_data
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_siren
+    from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
+                                                   make_pre_encode)
+    from brief_pytorch_tpu_torch.post.preprocess import preprocess
+    from brief_pytorch_tpu_torch.train.decode import (fused_apply_or,
+                                                      reconstruct_flattened)
+    model, params, side = load_archive(dev, cf, comp)
     shape = list(side["data_shape"])
     pop = int(np.prod(shape[:-1]))
     sample_size = int(cf.Decompress.sample_size)
@@ -1009,6 +1116,207 @@ def demo_run(dev, out_dir: str, ratio: int, steps: int, features: int
                 checkpoint_s=summary["checkpoint_s"], wall_s=wall)
 
 
+class Preempted(Exception):
+    """Raised right after a run wrote a training state: a preemption."""
+
+
+def tree_bytes(root: str) -> dict:
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def resume_run(dev, out_dir: str, label: str, config: str, steps: int,
+               data_path: str) -> dict:
+    """Phase 13 on one config: A, the run preempted right after it wrote
+    its training state at steps // 2 (the state writer raises Preempted
+    after writing); B, the same run uninterrupted; C, A's command plus
+    -resume <A's run dir>.  C's weight binaries at `steps` must equal B's
+    byte for byte, C must launch the train kernel steps // 2 times and
+    skip A's checkpoint; then C once more with another lr_phi must raise
+    ValueError (the fingerprint).  Fails the run on any miss; returns the
+    numbers."""
+    import torch
+    from brief_pytorch_tpu_torch.cli import main as cli
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.parallel.block_trainer import \
+        BlockFleetTrainer
+    from brief_pytorch_tpu_torch.train import fit
+    half = steps // 2
+    opt = cfglib.load(config)
+    opt.Dataset.data_path = data_path
+    opt.Log.update(outputs_dir=out_dir, stdlog=False, tensorboard=False,
+                   time=False)
+    c = opt.CompressFramework
+    c.Compress.max_steps = steps
+    c.Compress.checkpoints = f"every_{half}"
+    c.Decompress.mip = False
+    divide = c.Compress.divide.divide_type != "none"
+    paths = {}
+    for tag in ("A", "B", "C", "lr"):
+        opt.Log.project_name = f"{label}_{tag}"
+        if tag == "lr":
+            c.Compress.lr_phi = float(c.Compress.lr_phi) * 2
+        paths[tag] = os.path.join(out_dir, f"{label}_{tag}.yaml")
+        cfglib.save(opt, paths[tag])
+    run_dir = {t: os.path.join(out_dir, f"{label}_{t}") for t in paths}
+
+    def preempting(write):
+        def wrapper(*a, **kw):
+            write(*a, **kw)
+            if a[-2] == half:      # (..., step, fingerprint)
+                raise Preempted
+        return wrapper
+
+    owner, name = (BlockFleetTrainer, "_save_state") if divide else \
+        (fit, "save_trainstate")
+    write = getattr(owner, name)
+    setattr(owner, name, preempting(write))
+    launches = {}
+    try:
+        fused_train.launches = 0
+        try:
+            cli.main(["-p", paths["A"], "-g", "0"])
+            fail(f"{label}: run A was not preempted at step {half}")
+        except Preempted:
+            pass
+    finally:
+        setattr(owner, name, write)
+    launches["A"] = fused_train.launches
+    t0 = time.perf_counter()
+    for tag, extra in (("B", []), ("C", ["-resume", run_dir["A"]])):
+        fused_train.launches = 0
+        cli.main(["-p", paths[tag], "-g", "0"] + extra)
+        torch.cuda.synchronize()
+        launches[tag] = fused_train.launches
+    wall = time.perf_counter() - t0
+    module = os.path.join(f"steps{steps}", "compressed", "module")
+    b = tree_bytes(os.path.join(run_dir["B"], module))
+    got = tree_bytes(os.path.join(run_dir["C"], module))
+    state = "trainstate_fleet.npz" if divide else "trainstate.npz"
+    with np.load(os.path.join(run_dir["C"], state)) as z:
+        stored = int(z["step"])
+    if not b or got != b or launches != {"A": half, "B": steps, "C": half} \
+            or os.path.isdir(os.path.join(run_dir["C"], f"steps{half}")) \
+            or stored != steps:
+        fail(f"{label}: resumed weights equal the uninterrupted run's: "
+             f"{got == b} ({len(got)} vs {len(b)} files), launches "
+             f"{launches}, C's state at step {stored}")
+    try:
+        cli.main(["-p", paths["lr"], "-g", "0", "-resume", run_dir["A"]])
+        fail(f"{label}: a state of another lr_phi was resumed")
+    except ValueError as e:
+        if "different" not in str(e):
+            raise
+    say("13-resume", config=os.path.basename(config), label=label,
+        steps=steps, preempted_at=half, launches=json.dumps(launches),
+        files=len(b), bitwise_equal=True,
+        fingerprint_mismatch="ValueError", wall_s_b_and_c=f"{wall:.3f}")
+    return dict(launches=launches, files=len(b))
+
+
+def deblock_check(step_dir: str, data_path: str) -> dict:
+    """`python -m brief_pytorch_tpu_torch.post.deblock -stp <step_dir>`
+    on a DivideTask checkpoint: the output TIFF has the merged volume's
+    shape and dtype and differs from it only within 3 voxels of the
+    blocks' boundary planes (the h and w extents of the chunk names).
+    Fails the run on any miss; returns the numbers."""
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.partition.divide import parse_chunk_name
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "brief_pytorch_tpu_torch.post.deblock", "-stp",
+                        step_dir], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    stem = os.path.basename(data_path).replace(".tif", "_decompressed")
+    out_path = os.path.join(step_dir, "deblock",
+                            stem + "_deblocked_python.tif")
+    if p.returncode != 0 or not os.path.exists(out_path):
+        fail(f"deblock -stp {step_dir}: exit {p.returncode}, "
+             f"{p.stderr[-1500:]}")
+    src = read_img(os.path.join(step_dir, "decompressed", stem + ".tif"))
+    out = read_img(out_path)
+    if out.shape != src.shape or out.dtype != src.dtype:
+        fail(f"deblock: {out.shape} {out.dtype}, input {src.shape} "
+             f"{src.dtype}")
+    near = np.zeros(src.shape[1:3], bool)
+    for name in os.listdir(os.path.join(step_dir, "compressed", "module")):
+        ext = parse_chunk_name(name)
+        for axis, key in ((0, "h"), (1, "w")):
+            for edge in ext[key]:
+                lo, hi = max(0, edge - 3), edge + 4
+                if axis == 0:
+                    near[lo:hi, :] = True
+                else:
+                    near[:, lo:hi] = True
+    changed = out != src
+    outside = int((changed & ~near[None, :, :, None]).sum())
+    n_changed = int(changed.sum())
+    if outside or not n_changed:
+        fail(f"deblock: {n_changed} voxels changed, {outside} of them "
+             "further than 3 voxels from a block boundary")
+    say("7-deblock", step_dir=os.path.basename(step_dir),
+        shape=list(out.shape), dtype=str(out.dtype), changed=n_changed,
+        changed_share=f"{n_changed / out.size:.6f}",
+        max_change=int(np.abs(out.astype(np.int64)
+                              - src.astype(np.int64)).max()),
+        outside_3_voxels=outside, wall_s=f"{wall:.3f}")
+    return dict(changed=n_changed)
+
+
+def multitask_run(dev, out_dir: str) -> dict:
+    """Phase 14: opt/MultiTask/default.yaml copied into out_dir with only
+    Log.outputs_dir and the data path (made absolute) changed, through
+    the MultiTask command in this process: both experiments finish, each
+    writes a performance.csv of a finite PSNR, the train kernel launches
+    once a step of each, the grid kernel at SingleTask's checkpoint, and
+    temp_opt_* is gone.  Fails the run on any miss."""
+    import torch
+    from brief_pytorch_tpu_torch.cli import multitask
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    opt = cfglib.load(MULTITASK)
+    opt.Static.Log.outputs_dir = os.path.join(out_dir, "outputs")
+    opt.Static.Dataset.data_path = FIXTURE
+    grid = opt.Dynamic[0].PRODUCT
+    grid[0].CONCAT[0]["Dataset.data_path"] = FIXTURE
+    steps = int(grid[0].CONCAT[0]["CompressFramework.Compress.max_steps"])
+    projects = [e["Log.project_name"] for e in grid[1].CONCAT]
+    path = os.path.join(out_dir, "default.yaml")
+    cfglib.save(opt, path)
+    fused_train.launches = fused_decode.launches = 0
+    t0 = time.perf_counter()
+    queue = multitask.main(["-p", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_train": fused_train.launches,
+                "fused_decode": fused_decode.launches}
+    runs = sorted(os.listdir(os.path.join(out_dir, "outputs")))
+    # Log.time: true appends the start time to each run dir's name
+    psnr = {p: last_psnr(os.path.join(out_dir, "outputs", d))
+            for p in projects for d in runs if d.startswith(p + "_")}
+    left = [d for d in os.listdir(out_dir) if d.startswith("temp_opt_")]
+    if [t.status for t in queue.task_list] != ["finish"] * 2 or left or \
+            launches["fused_train"] != 2 * steps or \
+            launches["fused_decode"] < 1 or len(psnr) != len(projects) or \
+            not all(math.isfinite(v) for v in psnr.values()):
+        fail(f"multitask: statuses {[t.status for t in queue.task_list]}, "
+             f"launches {launches} ({steps} steps each), PSNR {psnr}, "
+             f"left {left}")
+    say("14-multitask", experiments=len(projects), steps=steps,
+        launches=json.dumps(launches),
+        **{f"psnr_{p}": f"{v:.3f}" for p, v in psnr.items()},
+        temp_opt_left=len(left), wall_s=f"{wall:.3f}")
+    return dict(launches=launches, psnr=psnr, wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1194,6 +1502,11 @@ def main() -> int:
             fail("standalone decompress differs from the checkpoint decode")
         shutil.copytree(comp, os.path.join(archive5, "compressed"))
         cf5 = c
+        # kernel 2 on the trained chain of this run (phase 4's checks)
+        model5, params5, _ = load_archive(dev, c, comp)
+        dec_rows["trained"] = decode_check(
+            dev, "trained", (64, 64, 64), params5["layers"],
+            chain_layer_specs(model5.spec), c.Compress.coords_mode)
         train_s = summary["train_s"]
         say("5-compress", steps=COMPRESS_STEPS, launches=json.dumps(launches),
             psnr=f"{psnr:.3f}", ssim=f"{ssim:.4f}", psnr_floor=PSNR_FLOOR,
@@ -1346,6 +1659,8 @@ def main() -> int:
         if not abs(psnr7 - psnr7a) <= HIPCT_AUTOGRAD_DB:
             fail(f"hipct PSNR {psnr7} on the kernel, {psnr7a} through "
                  f"autograd: more than {HIPCT_AUTOGRAD_DB} dB apart")
+        deblock_check(os.path.join(run_dir, f"steps{HIPCT_STEPS}"),
+                      data_path)
 
         # ---- 8. the bundled fixture: brain64 (kernel), default (autograd)
         for name, fused_want in (("brain64.yaml", [True]),
@@ -1418,6 +1733,25 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- 13. resume at full width: SingleTask 5 x 22, the HiP-CT fleet
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        resume_rows = {
+            "single": resume_run(dev, out_dir, "single", CONFIG,
+                                 RESUME_STEPS["single"], FIXTURE),
+            "hipct": resume_run(dev, out_dir, "hipct",
+                                os.path.join(DIVIDE, "hipct.yaml"),
+                                RESUME_STEPS["hipct"], HIPCT)}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- 14. MultiTask: opt/MultiTask/default.yaml's two experiments
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_multitask_")
+    try:
+        multitask_row = multitask_run(dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
@@ -1445,7 +1779,9 @@ def main() -> int:
          **{k: dec_rows[64][k] for k in ("tc_bound_ms", "layout", "tile",
                                          "inst", "warps_per_sm", "shape")},
          "at_256": {k: v for k, v in dec_rows[256].items() if k != "shape"},
-         "hipct_chunk": {**dec_rows["hipct"], "launches": decode_launches7}},
+         "hipct_chunk": {**dec_rows["hipct"], "launches": decode_launches7},
+         "trained_5x22": dec_rows["trained"],
+         "phase13": resume_rows, "phase14": multitask_row},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
                    "(+ csrc/wide.cuh)",

@@ -14,7 +14,9 @@ or c_in-f1,f2,...-c_out:grid[:w0] for uneven hidden widths; the grid has
 c_in axes, e.g. 64x512x512.  --root imports the package from another
 checkout, e.g. a `git archive` of the parent commit, so that two builds
 can be timed in turns in one call; the check, timer and bounds stay this
-checkout's chip_smoke.py.  --layout forces a form of the kernel (narrow
+checkout's chip_smoke.py (a build whose decode is further from float64
+than chip_smoke's F64_RATIO allows fails there unless --f64-ratio raises
+it).  --layout forces a form of the kernel (narrow
 or wide) where its plan fits.  Prints one JSON line per shape, then the
 card's name and power limit.
 """
@@ -65,12 +67,19 @@ def main(argv=None) -> int:
     ap.add_argument("--layout", choices=("auto", "narrow", "wide"),
                     default="auto")
     ap.add_argument("--plain-reps", type=int, default=3)
+    ap.add_argument("--f64-ratio", type=float, default=None,
+                    help="fail past this many times the plain version's "
+                         "distance from float64 (default chip_smoke's "
+                         "F64_RATIO['phase4']; a large value only reports "
+                         "it, e.g. for a parent build)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    if args.f64_ratio is not None:
+        cs.F64_RATIO["phase4"] = args.f64_ratio
     import torch
     from brief_pytorch_tpu_torch.ops import fused_decode
     if not torch.cuda.is_available():

@@ -405,7 +405,8 @@ def test_decode_forms_match_plain(dev, hidden, spatial, form, act):
     ops/fused_decode.py choose_plan), on grids whose voxel count is no
     multiple of any tile, with each activation in the hidden layers and
     two outputs: within 1e-5 * max|plain| + 1e-5 of the plain version, one
-    launch a call, two calls bitwise equal."""
+    launch a call (one kernel in the narrow form, two in the wide: the
+    library's own count), two calls bitwise equal."""
     widths = [len(spatial)] + list(hidden) + [2]
     p = fd.choose_plan(widths)
     assert (p["layout"], p["inst"], p["global"]) == form
@@ -413,8 +414,11 @@ def test_decode_forms_match_plain(dev, hidden, spatial, form, act):
     w0 = 20.0 if act == "sine" else 1.0
     acts = ((act, w0),) * (len(widths) - 2) + (("none", 1.0),)
     before = fd.launches
+    kernels = fd.kernels_launched()
     out = fd.fused_decode_grid(layers, spatial, acts, "n11")
     assert fd.launches == before + 1
+    assert fd.kernels_launched() - kernels == \
+        (1 if p["layout"] == "narrow" else 2)
     ref = fd.fused_decode_grid_reference(layers, spatial, acts, "n11")
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (int(np.prod(spatial)), 2)
@@ -439,6 +443,29 @@ def test_decode_sirenpos_both_forms(dev, hidden):
                                          enc_periods=periods)
     assert float((out - ref).abs().max()) <= \
         1e-5 * float(ref.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("hidden,spatial,form", [
+    ((22, 22, 22, 22), (13, 17, 19), "narrow"),
+    ((66,) * 6, (5, 31, 29), "narrow"),
+    ((191, 191, 191, 191), (3, 41, 37), "wide"),
+])
+def test_decode_sums_are_the_model(dev, hidden, spatial, form):
+    """On a relu chain (no sine, whose device and CPU copies may differ in
+    a last bit) both forms of the grid decode give
+    fused_siren.chain_tc_model's outputs bit for bit on the coordinates
+    the kernel builds (fused_decode.grid_coords): each k-block's three
+    products summed from zero and added in float32, the CPU twin of the
+    card's arithmetic; the narrow form in one launch a call."""
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    widths = [len(spatial)] + list(hidden) + [1]
+    assert fd.choose_plan(widths)["layout"] == form
+    layers = _siren_layers(dev, widths, seed=11)
+    acts = (("relu", 1.0),) * len(hidden) + (("none", 1.0),)
+    out = fd.fused_decode_grid(layers, spatial, acts, "n11").cpu()
+    coords = fd.grid_coords(spatial, "n11", device=dev).cpu()
+    cpu = [{k: t.cpu() for k, t in layer.items()} for layer in layers]
+    assert torch.equal(out, fs.chain_tc_model(cpu, coords, acts))
 
 
 def test_decode_past_2_31_voxels(dev):

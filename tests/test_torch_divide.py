@@ -145,9 +145,15 @@ def test_divide_cli_targets_the_card(tmp_path, monkeypatch):
                      "Compress": {"lr_phi": 0.01}}}}}, "solo path"),
 ])
 def test_unported_divide_options_raise(tmp_path, compress, match):
+    """Options the fleet cannot honour raise instead of being ignored:
+    raw_gather and exceptions that override step-level parameters are not
+    ported (NotImplementedError); resume is, and a resume path that holds
+    no training state raises FileNotFoundError before any training."""
     from brief_pytorch_tpu_torch.cli import main as tcli
     path, _ = _config(tmp_path, "unported", **compress)
-    with pytest.raises(NotImplementedError, match=match):
+    error = FileNotFoundError if "resume" in compress else \
+        NotImplementedError
+    with pytest.raises(error, match=match):
         tcli.main(["-p", path, "-g", "cpu"])
 
 

@@ -7,14 +7,17 @@ and the 32-bit index split.  The kernel itself runs on the card only
 (tests/test_torch_cuda_kernels.py).
 
 The emulation runs the kernel's products as it orders them: the bias
-starts each accumulator, then per k-block of 8 inputs c += a_small b_big,
-c += a_big b_small, c += a_big b_big, with B big and small read back from
-`pack_weights` (the kernel's packed copy) and A split by
-fused_train.tf32_split; voxels in the plan's tiles (16 or 32 a warp in
-the narrow form, 128 a block in the wide one), coordinates from the
-kernel's index split.  Tolerances: against the float32 plain version, the card
-tests' 1e-5 * max|plain| + 1e-5; against the JAX kernel in interpret
-mode, tests/test_torch_fused_decode.py's atol 1e-5.
+starts each accumulator, then per k-block of 8 inputs s = a_small b_big,
+s += a_big b_small, s += a_big b_big from zero and c += s in float32, with
+B big and small read back from `pack_weights` (the kernel's packed copy)
+and A split by fused_train.tf32_split_nearest; voxels in the plan's tiles
+(16 or 32 a warp in the narrow form, 128 a block in the wide one),
+coordinates from the kernel's index split.  The CPU model of the
+tensor core's sums, fused_siren.chain_tc_model on
+fused_decode.grid_coords, is held against a float64 evaluation.
+Tolerances: against the float32 plain version, the card tests' 1e-5 *
+max|plain| + 1e-5; against the JAX kernel in interpret mode,
+tests/test_torch_fused_decode.py's atol 1e-5.
 """
 import numpy as np
 import pytest
@@ -91,10 +94,10 @@ def emulate(layers, spatial, acts, mode="n11", enc_periods=None):
         for (bb, bs, bias), (act, w0) in zip(mats, acts):
             c = bias.expand(tile, -1).clone()
             for k in range(0, bb.shape[0], 8):
-                ab, as_ = ft.tf32_split(h[:, k:k + 8].contiguous())
-                c = c + as_ @ bb[k:k + 8]
-                c = c + ab @ bs[k:k + 8]
-                c = c + ab @ bb[k:k + 8]
+                ab, as_ = ft.tf32_split_nearest(h[:, k:k + 8].contiguous())
+                s = as_ @ bb[k:k + 8]
+                s = s + ab @ bs[k:k + 8]
+                c = c + (s + ab @ bb[k:k + 8])
             h = fd._act(c, act, w0)
             pad = -h.shape[1] % 8
             h = torch.cat([h, fd._act(torch.zeros(tile, pad), act, w0)], 1)
@@ -143,7 +146,8 @@ def test_emulated_3xtf32_matches_plain_and_pallas(label, widths, hidden,
                                     [2, 8, 16, 5], DEMO80])
 def test_packed_weights_round_trip(widths):
     """pack_weights holds each layer's W as B fragments, big + small
-    within 2^-21 |w| of it (big the TF32 rounding, zeros past W), then
+    within 2^-21 |w| of it (big and small each rounded to TF32, to
+    nearest, as the kernels' split_tf32_nearest does; zeros past W), then
     the biases, zero-padded to 8; the layout tiles the buffer."""
     layers = _torch(_layers(widths, seed=3))
     lay = fd.packed_layout(widths)
@@ -157,7 +161,7 @@ def test_packed_weights_round_trip(widths):
         assert ends[l] - f0 == 128 * kb * nt
         big, small = ft.unpack_fragments(
             packed[f0:ends[l]].view(kb, nt, 32, 4), 8 * kb, 8 * nt)
-        want_b, want_s = ft.tf32_split(layer["w"])
+        want_b, want_s = ft.tf32_split_nearest(layer["w"])
         assert torch.equal(big[:fin, :fout], want_b)
         assert torch.equal(small[:fin, :fout], want_s)
         assert not big[fin:].any() and not big[:, fout:].any()
@@ -264,3 +268,60 @@ def test_split_index_matches_the_64bit_split(spatial):
     for a in range(len(spatial) - 2, -1, -1):
         np.testing.assert_array_equal(idx[a], p % spatial[a + 1])
         p = p // spatial[a + 1]
+
+
+F64_RATIO = 2.0    # chip_smoke.py's: float32's accuracy, max and mean
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulations are many small float32 and float64 ops: one intra-op
+    thread, so that they do not contend with the other test processes'
+    threads (tests/test_torch_fused_siren_tc.py does the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _float64(layers, coords, acts):
+    """The chain with each layer's products and sums in float64, its
+    pre-activation rounded once to float32 (chip_smoke.float64_chain)."""
+    h = coords.double()
+    for layer, (act, w0) in zip(layers, acts):
+        z = (h @ layer["w"].double() + layer["b"].double()).float()
+        h = fd._act(z, act, w0).double()
+    return h
+
+
+@pytest.mark.parametrize("label,widths,w0,spatial", [
+    ("single", SINGLE, 20.0, (16, 16, 16)),
+    ("hipct", HIPCT, 10.0, (4, 32, 32)),
+    ("wide-191", [3, 191, 191, 1], 20.0, (2, 32, 40)),
+])
+def test_model_of_the_sums_keeps_float32_accuracy(label, widths, w0,
+                                                  spatial):
+    """Kernel 2's arithmetic on the CPU (fused_siren.chain_tc_model, the
+    tensor core's mma.sync sums bit for bit, on the coordinates the
+    kernel builds, fused_decode.grid_coords): each k-block's three
+    products summed from zero and added in float32 keep it within
+    F64_RATIO x the plain version's distance from a float64 evaluation,
+    max and mean; the tensor core's own truncating sums, which kernel 2
+    took before, do not (mean)."""
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    layers = _torch(_layers(widths, seed=len(label), w0=w0))
+    acts = (("sine", w0),) * (len(widths) - 2) + (("none", 1.0),)
+    coords = fd.grid_coords(spatial, "n11")
+    assert torch.equal(coords, _coords(spatial, "n11", None))
+    truth = _float64(layers, coords, acts)
+
+    def dist(out):
+        d = (out.double() - truth).abs()
+        return float(d.max()), float(d.mean())
+
+    plain = dist(fd.fused_decode_grid_reference(layers, spatial, acts, "n11"))
+    near = dist(fs.chain_tc_model(layers, coords, acts))
+    trunc = dist(fs.chain_tc_model(layers, coords, acts, nearest=False))
+    assert near[0] <= F64_RATIO * plain[0]
+    assert near[1] <= F64_RATIO * plain[1]
+    assert trunc[1] > F64_RATIO * plain[1]

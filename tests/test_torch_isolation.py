@@ -40,6 +40,17 @@ def test_package_has_files():
     assert "chip_smoke.py" in names
 
 
+@pytest.mark.parametrize("name", [
+    "train/checkpoint.py", "cli/main.py", "cli/multitask.py",
+    "sched/tasks.py", "sched/multitask.py", "post/deblock.py",
+    "core/typing.py", "utils/profiling.py"])
+def test_package_has_the_cli_resume_multitask_deblock(name):
+    """The modules of the CLI, resume, MultiTask and deblock are among
+    those whose imports test_no_jax_imports reads."""
+    names = {p.relative_to(ROOT).as_posix() for p in _files()}
+    assert f"brief_pytorch_tpu_torch/{name}" in names
+
+
 @pytest.mark.parametrize("path", _files(), ids=lambda p: p.name)
 def test_no_jax_imports(path):
     for mod in _imports(path):
@@ -72,3 +83,23 @@ def test_cli_without_device_flag_targets_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-p", str(ROOT / "opt/SingleTask/default.yaml")])
+
+
+def test_multitask_without_device_flag_targets_the_card(monkeypatch,
+                                                        tmp_path):
+    """MultiTask's in-process experiments run the port's cli.main.run on
+    card 0 unless -g says cpu: without CUDA every task errors (none runs
+    on the host) and temp_opt_<project>/ is removed."""
+    import shutil
+    from brief_pytorch_tpu_torch.cli import main as cli
+    from brief_pytorch_tpu_torch.cli import multitask as mcli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda *a: calls.append(a) or run(*a))
+    yaml_path = tmp_path / "default.yaml"
+    shutil.copy(ROOT / "opt/MultiTask/default.yaml", yaml_path)
+    queue = mcli.main(["-p", str(yaml_path)])
+    assert len(calls) == 8 and not queue.finish_list
+    assert [t.status for t in queue.error_list] == ["error"] * 2
+    assert not (tmp_path / "temp_opt_multi").exists()

@@ -157,7 +157,9 @@ def test_trainstate_npz(tmp_path):
     assert not os.path.exists(path + ".tmp")
     with np.load(path) as z:
         assert int(z["step"]) == 5
-        np.testing.assert_array_equal(z["p0"], np.ones((3, 2)))
+        # p{i} in jax.tree_util order (the JAX package's pack_tree): b, w
+        np.testing.assert_array_equal(z["p0"], np.zeros(2))
+        np.testing.assert_array_equal(z["p1"], np.ones((3, 2)))
         assert int(z["o0"]) == 5
         np.testing.assert_array_equal(z["o1"], np.full((3, 2), 0.5))
         np.testing.assert_array_equal(z["key"], gen.get_state().numpy())
