@@ -16,7 +16,7 @@ run dir (utils/profiling.py trace).  -gc -cc -t -m -dropslice -debug
 -substore are accepted for compatibility and change nothing, as in JAX
 (the reference's scheduler knobs and scratch dirs).  -coordinator -nprocs
 -procid (a run across hosts) raise NotImplementedError: data parallelism
-and more than one card are not ported (ROADMAP.md Queue 1 item 8).
+and more than one card are not ported (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -56,7 +56,8 @@ def run(opt_path: str, args=None) -> dict:
     profile_ctx = contextlib.nullcontext()
     if getattr(args, "profile", False):
         from brief_pytorch_tpu_torch.utils.profiling import trace
-        profile_ctx = trace(os.path.join(log.logdir, "profile"))
+        profile_ctx = trace(os.path.join(log.logdir, "profile"),
+                            os.path.join(log.logdir, "stderr.log"))
     with profile_ctx:
         if opt.CompressFramework.Compress.divide.divide_type != "none":
             from brief_pytorch_tpu_torch.parallel.divide_runner import \
@@ -90,11 +91,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-profile", action="store_true",
                    help="write a torch.profiler trace under the run dir")
     p.add_argument("-coordinator", type=str, default=None,
-                   help="not ported: raises (ROADMAP.md Queue 1 item 8)")
+                   help="not ported: raises (ROADMAP.md Queue 1 item 7)")
     p.add_argument("-nprocs", type=int, default=None,
-                   help="not ported: raises (ROADMAP.md Queue 1 item 8)")
+                   help="not ported: raises (ROADMAP.md Queue 1 item 7)")
     p.add_argument("-procid", type=int, default=None,
-                   help="not ported: raises (ROADMAP.md Queue 1 item 8)")
+                   help="not ported: raises (ROADMAP.md Queue 1 item 7)")
     p.add_argument("-resume", type=str, default=None,
                    help="continue a stopped run from its training state "
                         "(a run dir or the .npz itself); overrides "
@@ -108,7 +109,7 @@ def main(argv=None):
                                    args.procid)):
         raise NotImplementedError(
             f"{MULTIHOST}: data parallelism and more than one card are not "
-            "ported yet (ROADMAP.md Queue 1 item 8, data parallelism)")
+            "ported yet (ROADMAP.md Queue 1 item 7, data parallelism)")
     return run(args.p, args)
 
 

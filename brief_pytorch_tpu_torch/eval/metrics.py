@@ -6,8 +6,9 @@ utils/ssim.py:9-120: gaussian window 11, sigma 1.5, K=(0.01, 0.03),
 separable valid-mode filtering).  MSE and PSNR run in NumPy float32 like
 the JAX package; SSIM runs as separable torch convolutions on a chosen
 device.  3-D volumes are evaluated as 2-D SSIM per depth slice, then
-averaged (reference utils/misc.py:458-475).  MS-SSIM is not ported yet
-(ROADMAP.md).
+averaged (reference utils/misc.py:458-475).  MS-SSIM (cal_ms_ssim, JAX
+eval/metrics.py:160-222, reference utils/ssim.py:153-225) runs the same
+filters over 2 or 3 spatial axes on the chosen device.
 
 TF32 is switched off for the SSIM convolutions: cuDNN runs float32
 convolutions in TF32 by default, which keeps ~3 decimal digits — the JAX
@@ -66,24 +67,43 @@ def _filter_sep2d(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return _conv_last(x.transpose(-1, -2), win).transpose(-1, -2)
 
 
-def _ssim_map(x: torch.Tensor, y: torch.Tensor, data_range: float,
-              win_size: int = 11) -> torch.Tensor:
-    """Per-pixel SSIM of (n, c, h, w) pairs, in the JAX package's
-    float32-robust form: centred by the global mean before the variance
-    filters, variances clamped at 0."""
+def _filter_sep_nd(x: torch.Tensor, win: torch.Tensor, spatial_dims: int
+                   ) -> torch.Tensor:
+    """Separable valid-mode gaussian blur over the last `spatial_dims`
+    axes (2 or 3; JAX metrics.py:71-80)."""
+    x = _filter_sep2d(x, win)                    # along w, h
+    if spatial_dims == 2:
+        return x
+    if spatial_dims != 3:
+        raise NotImplementedError(spatial_dims)
+    return _conv_last(x.movedim(-3, -1), win).movedim(-1, -3)   # along d
+
+
+def _ssim_cs_maps(x: torch.Tensor, y: torch.Tensor, data_range: float,
+                  win_size: int = 11, spatial_dims: int = 2):
+    """Per-pixel (ssim_map, cs_map) of (n, c, *spatial) pairs, in the JAX
+    package's float32-robust form (metrics.py:83-111): centred by the
+    global mean before the variance filters, variances clamped at 0."""
     C1 = (0.01 * data_range) ** 2
     C2 = (0.03 * data_range) ** 2
     win = _gauss_kernel1d(win_size, 1.5, x.device)
+    filt = lambda z: _filter_sep_nd(z, win, spatial_dims)
     m = 0.5 * (x.mean() + y.mean())
     xc, yc = x - m, y - m
-    mu1 = _filter_sep2d(x, win)
-    mu2 = _filter_sep2d(y, win)
+    mu1 = filt(x)
+    mu2 = filt(y)
     mu1c, mu2c = mu1 - m, mu2 - m
-    s1 = torch.clamp_min(_filter_sep2d(xc * xc, win) - mu1c * mu1c, 0.0)
-    s2 = torch.clamp_min(_filter_sep2d(yc * yc, win) - mu2c * mu2c, 0.0)
-    s12 = _filter_sep2d(xc * yc, win) - mu1c * mu2c
+    s1 = torch.clamp_min(filt(xc * xc) - mu1c * mu1c, 0.0)
+    s2 = torch.clamp_min(filt(yc * yc) - mu2c * mu2c, 0.0)
+    s12 = filt(xc * yc) - mu1c * mu2c
     cs = (2 * s12 + C2) / (s1 + s2 + C2)
-    return ((2 * mu1 * mu2 + C1) / (mu1 * mu1 + mu2 * mu2 + C1)) * cs
+    return ((2 * mu1 * mu2 + C1) / (mu1 * mu1 + mu2 * mu2 + C1)) * cs, cs
+
+
+def _ssim_map(x: torch.Tensor, y: torch.Tensor, data_range: float,
+              win_size: int = 11) -> torch.Tensor:
+    """Per-pixel SSIM of (n, c, h, w) pairs."""
+    return _ssim_cs_maps(x, y, data_range, win_size)[0]
 
 
 @torch.no_grad()
@@ -113,6 +133,73 @@ def cal_ssim(origin: np.ndarray, decompressed: np.ndarray, data_range: float,
             total += float(_ssim_map(x, y, 1.0).mean(dim=(1, 2, 3)).sum())
         return total / a.shape[0]
     raise NotImplementedError(a.shape)
+
+
+MS_SSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def _avg_pool2(x: torch.Tensor, spatial_dims: int) -> torch.Tensor:
+    """2x mean pooling over the last `spatial_dims` axes, an odd extent
+    zero-padded on both sides with the pads counted in the mean
+    (reference utils/ssim.py:214-216, JAX metrics.py:163-177)."""
+    pads = []
+    for d in range(x.ndim - 1, x.ndim - 1 - spatial_dims, -1):
+        pads += [x.shape[d] % 2] * 2
+    x = F.pad(x, pads)
+    for d in range(x.ndim - spatial_dims, x.ndim):
+        n = x.shape[d] // 2
+        x = x.narrow(d, 0, 2 * n).unflatten(d, (n, 2)).sum(d + 1)
+    return x / float(2 ** spatial_dims)
+
+
+def _ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float,
+             win_size: int = 11, spatial_dims: int = 2) -> torch.Tensor:
+    """MS-SSIM of (n, c, *spatial) pairs (reference utils/ssim.py:153-225,
+    JAX metrics.py:180-199): 5 levels, per-level relu'd cs means, the
+    relu'd last-level ssim mean, their weighted geometric mean; the
+    scalar batch and channel mean."""
+    levels = len(MS_SSIM_WEIGHTS)
+    axes = tuple(range(2, 2 + spatial_dims))
+    mcs = []
+    ssim_pc = None
+    for i in range(levels):
+        ssim_map, cs_map = _ssim_cs_maps(x, y, data_range, win_size,
+                                         spatial_dims)
+        ssim_pc = ssim_map.mean(dim=axes)
+        if i < levels - 1:
+            mcs.append(torch.clamp_min(cs_map.mean(dim=axes), 0.0))
+            x = _avg_pool2(x, spatial_dims)
+            y = _avg_pool2(y, spatial_dims)
+    stack = torch.stack(mcs + [torch.clamp_min(ssim_pc, 0.0)])
+    w = torch.tensor(MS_SSIM_WEIGHTS, dtype=stack.dtype,
+                     device=stack.device).reshape(-1, 1, 1)
+    return torch.prod(stack ** w, dim=0).mean()
+
+
+@torch.no_grad()
+def cal_ms_ssim(origin: np.ndarray, decompressed: np.ndarray,
+                data_range: float, win_size: int = 11, device=None) -> float:
+    """MS-SSIM; (h, w, c) images filter and pool over 2 axes, (d, h, w, c)
+    volumes over 3 (the reference's 4-d / 5-d branches,
+    utils/ssim.py:181-185).  Needs min(h, w) > (win_size - 1) * 16 for
+    the 4 downsamplings (utils/ssim.py:195-197).  device: where the
+    filters run (None: the CUDA card); TF32 off, as in cal_ssim."""
+    device = resolve_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = np.asarray(origin, np.float32) / data_range
+    b = np.asarray(decompressed, np.float32) / data_range
+    if min(a.shape[-3:-1] if a.ndim == 4 else a.shape[:2]) <= \
+            (win_size - 1) * 16:
+        raise ValueError(
+            f"Image side must exceed {(win_size - 1) * 16} for ms-ssim")
+    if a.ndim not in (3, 4):
+        raise NotImplementedError(a.shape)
+    # (h, w, c) -> (1, c, h, w); (d, h, w, c) -> (1, c, d, h, w)
+    perm = (2, 0, 1) if a.ndim == 3 else (3, 0, 1, 2)
+    x = torch.from_numpy(a.transpose(perm)[None].copy()).to(device)
+    y = torch.from_numpy(b.transpose(perm)[None].copy()).to(device)
+    return float(_ms_ssim(x, y, 1.0, win_size, a.ndim - 1))
 
 
 def eval_performance(steps: int, data1: np.ndarray, data2: np.ndarray,

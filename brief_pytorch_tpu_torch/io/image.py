@@ -1,13 +1,19 @@
-"""Image / volume I/O for the SingleTask path: TIFF volumes in and out,
-grayscale PNG out (MIP previews).
+"""Image / volume I/O: TIFF volumes (3-D), PNG/JPG images (2-D), MP4
+video (3-D).
 
-NumPy + the standard library: the minimal baseline-TIFF codec of
-brief_pytorch_tpu/io/image.py:58-138 (uncompressed, grayscale, strips),
-plus a minimal PNG writer.  A compressed TIFF (the repository's demo
-volumes under dataset/example are LZW with a horizontal predictor) is read
-as the reference reads every TIFF, through cv2.imreadmulti, imported only
-then; without cv2 it raises.  Layouts match the reference: 3-D ->
-(d, h, w, c); 2-D -> (h, w, c).
+Torch-free port of brief_pytorch_tpu/io/image.py (reference
+utils/tool.py:32-103).  TIFF goes through the minimal baseline-TIFF codec
+of brief_pytorch_tpu/io/image.py:58-138 (uncompressed, grayscale,
+strips); a compressed TIFF (the repository's demo volumes under
+dataset/example are LZW with a horizontal predictor) is read as the
+reference reads every TIFF, through cv2.imreadmulti.  PNG/JPG and MP4 go
+through cv2 as in the JAX package (cv2.imread / cv2.imwrite, a DIVX
+cv2.VideoWriter at 25 fps, cv2.VideoCapture), except that a grayscale
+PNG of uint8 or uint16 is written by the port's own minimal writer, so
+the MIP previews need no cv2.  cv2 is imported only where it is used;
+without it those paths raise.  Layouts match the reference: 3-D ->
+(d, h, w, c), a video (frames, h, w, 3) in BGR as cv2 returns it; 2-D ->
+(h, w, c).
 """
 from __future__ import annotations
 
@@ -18,17 +24,32 @@ import zlib
 import numpy as np
 
 
+def _cv2(path: str, what: str):
+    """cv2, imported where a format needs it."""
+    try:
+        import cv2
+    except ImportError:
+        raise ValueError(f"{path}: {what} needs cv2 (opencv-python), which "
+                         "is not installed") from None
+    return cv2
+
+
+def get_dimension(path: str) -> int:
+    """2 for PNG/JPG, 3 for TIFF/MP4 (reference utils/tool.py:32-42)."""
+    ext = os.path.splitext(path)[-1].lower()
+    if ext in (".tif", ".tiff", ".mp4"):
+        return 3
+    if ext in (".png", ".jpg"):
+        return 2
+    raise NotImplementedError(ext)
+
+
 # ------------------------------------------------------------------ TIFF ---
 def _read_compressed_tiff(path: str, compression: int) -> np.ndarray:
     """A compressed TIFF through cv2, as brief_pytorch_tpu/io/image.py:38-43
     reads it."""
-    try:
-        import cv2
-    except ImportError:
-        raise ValueError(f"{path}: TIFF compression {compression} needs cv2 "
-                         "(opencv-python), which is not installed; the "
-                         "port's own reader takes uncompressed TIFF only"
-                         ) from None
+    cv2 = _cv2(path, f"TIFF compression {compression} (the port's own "
+                     "reader takes uncompressed TIFF only)")
     ok, pages = cv2.imreadmulti(path, flags=cv2.IMREAD_UNCHANGED)
     if not ok or not pages:
         raise ValueError(f"{path}: cv2 could not read it")
@@ -145,28 +166,73 @@ def save_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+# ----------------------------------------------------------------- video ---
+def read_video(path: str) -> np.ndarray:
+    """Every frame of a video, (frames, h, w, 3) uint8 BGR
+    (JAX io/image.py:140-151)."""
+    cv2 = _cv2(path, "video")
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    if not frames:
+        raise ValueError(f"{path}: cv2 read no frame")
+    return np.stack(frames)
+
+
+def save_video(fps: int, path: str, imgs: np.ndarray) -> None:
+    """(frames, h, w, 3) uint8 BGR -> a DIVX video (JAX
+    io/image.py:154-161)."""
+    cv2 = _cv2(path, "video")
+    h, w = imgs.shape[1], imgs.shape[2]
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc("D", "I", "V", "X"),
+                          fps, (w, h))
+    for img in imgs:
+        out.write(np.ascontiguousarray(img))
+    out.release()
+
+
 # -------------------------------------------------------------- dispatch ---
 def read_img(path: str) -> np.ndarray:
-    """TIFF volume -> (d, h, w, c) (reference utils/tool.py:73-92)."""
+    """3-D -> (d, h, w, c); 2-D -> (h, w, c) (reference
+    utils/tool.py:73-92)."""
     ext = os.path.splitext(path)[-1].lower()
-    if ext not in (".tif", ".tiff"):
-        raise NotImplementedError(
-            f"{ext}: the port reads TIFF volumes only so far (ROADMAP.md)")
-    img = read_tiff(path)
-    if img.ndim == 3:
-        img = img[..., None]
-    return img
+    if ext in (".tif", ".tiff", ".mp4"):
+        img = read_tiff(path) if ext != ".mp4" else read_video(path)
+        if img.ndim == 3:
+            img = img[..., None]
+        return img
+    if ext in (".png", ".jpg"):
+        img = _cv2(path, ext).imread(path, -1)
+        if img is None:
+            raise ValueError(f"{path}: cv2 could not read it")
+        if img.ndim == 2:
+            img = img[..., None]
+        return img
+    raise NotImplementedError(ext)
 
 
 def save_img(path: str, img: np.ndarray) -> None:
     ext = os.path.splitext(path)[-1].lower()
     if ext in (".tif", ".tiff"):
         save_tiff(path, img)
-    elif ext == ".png":
-        save_png(path, img)
+    elif ext == ".mp4":
+        save_video(25, path, img)
+    elif ext in (".png", ".jpg"):
+        img = np.asarray(img)
+        if img.ndim == 3 and img.shape[-1] == 1:
+            img = img[..., 0]
+        if ext == ".png" and img.ndim == 2 and \
+                img.dtype in (np.uint8, np.uint16):
+            save_png(path, img)
+        elif not _cv2(path, ext).imwrite(path, img):
+            raise ValueError(f"{path}: cv2 could not write it")
     else:
-        raise NotImplementedError(
-            f"{ext}: the port writes TIFF and PNG only so far (ROADMAP.md)")
+        raise NotImplementedError(ext)
 
 
 def get_folder_size(folder_path: str) -> int:

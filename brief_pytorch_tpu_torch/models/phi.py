@@ -21,7 +21,11 @@ default U(±1/sqrt(fan_in)); SIREN first layer U(±1/fan_in), hidden
 U(±sqrt(6/fan_in)/30)) drawn from a torch.Generator; the draws differ from
 the JAX PRNG's, so parity tests load the same numpy weights into both
 packages.  FFN's bvals are the reference's torch seed-0 draw, bit for bit.
-`compute_dtype` (bf16 compute) is not ported yet (ROADMAP.md).
+
+Every `apply` takes `compute_dtype` (Compress.half: torch.bfloat16), as
+JAX phi.py:88-92 does: each product's inputs and weights are rounded to
+that dtype and the products summed in float32 (`_matmul`), while the
+parameters stay float32; activations run in float32.
 """
 from __future__ import annotations
 
@@ -65,6 +69,18 @@ def init_linear(gen: torch.Generator, fan_in: int, fan_out: int, w_init: str,
     w = _uniform(gen, (fan_in, fan_out), w_bound, device)
     b = _uniform(gen, (fan_out,), 1.0 / math.sqrt(fan_in), device)
     return {"w": w, "b": b}
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype=None
+            ) -> torch.Tensor:
+    """x @ w; with a compute_dtype, both rounded to it and the products
+    summed in float32 (JAX phi.py:88-95, preferred_element_type float32).
+    The rounded values are exact in float32, so a float32 matmul of them
+    is that sum."""
+    if compute_dtype is None:
+        return x @ w
+    f32 = torch.float32
+    return x.to(compute_dtype).to(f32) @ w.to(compute_dtype).to(f32)
 
 
 def _act(name: str, w0: float, z: torch.Tensor) -> torch.Tensor:
@@ -124,8 +140,8 @@ def chain_init(gen: torch.Generator, spec: ChainSpec, device=None
     return layers
 
 
-def encode(coords: torch.Tensor, spec, encoder_params: Optional[Dict] = None
-           ) -> torch.Tensor:
+def encode(coords: torch.Tensor, spec, encoder_params: Optional[Dict] = None,
+           compute_dtype=None) -> torch.Tensor:
     """The coordinate encoder of a ChainSpec (or of the fleet's stacked
     spec: coords may carry leading batch axes, bvals then (B, embsize, c))."""
     from brief_pytorch_tpu_torch.ops.fast_math import fast_sin, fast_sincos
@@ -151,28 +167,30 @@ def encode(coords: torch.Tensor, spec, encoder_params: Optional[Dict] = None
     if spec.encoder == "ffn":
         # [sin(2 pi x B^T), cos(2 pi x B^T)], reference Networks.py:150-155
         bvals = encoder_params["bvals"]     # (embsize, coords_channel)
-        proj = (2.0 * math.pi * coords) @ bvals.transpose(-1, -2)
+        proj = _matmul(2.0 * math.pi * coords, bvals.transpose(-1, -2),
+                       compute_dtype)
         s, co = fast_sincos(proj)
         return torch.cat([s, co], dim=-1)
     raise ValueError(spec.encoder)
 
 
 def chain_apply(layers: Sequence[Dict], coords: torch.Tensor, spec: ChainSpec,
-                encoder_params: Optional[Dict] = None) -> torch.Tensor:
+                encoder_params: Optional[Dict] = None, compute_dtype=None
+                ) -> torch.Tensor:
     """(N, C) coords -> (N, Cout) through the chain (autograd-able)."""
-    x = encode(coords, spec, encoder_params)
+    x = encode(coords, spec, encoder_params, compute_dtype)
+    mm = lambda h, layer: _matmul(h, layer["w"], compute_dtype) + layer["b"]
     h = x
     li = 0
     for ei, e in enumerate(spec.entries):
         if ei == spec.skip_entry:
             h = torch.cat([x, h], dim=-1)
         if e.kind == "plain":
-            h = _act(e.act, e.w0, h @ layers[li]["w"] + layers[li]["b"])
+            h = _act(e.act, e.w0, mm(h, layers[li]))
             li += 1
         else:   # res: 0.5 * (sine(lin(sine(lin(h)))) + h)
-            t = _act("sine", e.w0, h @ layers[li]["w"] + layers[li]["b"])
-            t = _act("sine", e.w0,
-                     t @ layers[li + 1]["w"] + layers[li + 1]["b"])
+            t = _act("sine", e.w0, mm(h, layers[li]))
+            t = _act("sine", e.w0, mm(t, layers[li + 1]))
             h = 0.5 * (t + h)
             li += 2
     return h
@@ -193,7 +211,8 @@ class PhiModel:
     def init(self, gen: torch.Generator, device=None) -> Dict:
         raise NotImplementedError
 
-    def apply(self, params: Dict, coords: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: Dict, coords: torch.Tensor, compute_dtype=None
+              ) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -212,9 +231,9 @@ class _ChainModel(PhiModel):
     def init(self, gen, device=None):
         return {"layers": chain_init(gen, self.spec, device)}
 
-    def apply(self, params, coords):
+    def apply(self, params, coords, compute_dtype=None):
         return chain_apply(params["layers"], coords, self.spec,
-                           params.get("encoder"))
+                           params.get("encoder"), compute_dtype)
 
 
 def _sine_chain(dims: List[Tuple[int, int]], first_w0: float, n_first: int = 1,
@@ -410,9 +429,10 @@ class FFN(_ChainModel):
         return {"layers": chain_init(gen, self.spec, device),
                 "encoder": {"bvals": bvals.to(device)}}
 
-    def apply(self, params, coords):
+    def apply(self, params, coords, compute_dtype=None):
         enc = {"bvals": params["encoder"]["bvals"].detach()}
-        return chain_apply(params["layers"], coords, self.spec, enc)
+        return chain_apply(params["layers"], coords, self.spec, enc,
+                           compute_dtype)
 
 
 def _ffn_bvals(embsize, coords_channel, scale) -> torch.Tensor:
@@ -446,13 +466,14 @@ class _MFN(PhiModel):
             linear.append({"w": w, "b": b})
         return linear, init_linear(gen, self.f, self.o, "default", device)
 
-    def _apply_common(self, params, filters_out):
+    def _apply_common(self, params, filters_out, compute_dtype=None):
         h = filters_out[0]
         for i in range(1, len(filters_out)):
             lin = params["linear"][i - 1]
-            h = filters_out[i] * (h @ lin["w"] + lin["b"])
+            h = filters_out[i] * (_matmul(h, lin["w"], compute_dtype)
+                                  + lin["b"])
         out = params["output"]
-        y = h @ out["w"] + out["b"]
+        y = _matmul(h, out["w"], compute_dtype) + out["b"]
         return torch.sin(y) if self.output_act else y
 
 
@@ -471,13 +492,13 @@ class MFNFourier(_MFN):
             filters.append({"w": w, "b": b})
         return {"linear": linear, "output": out, "filters": filters}
 
-    def apply(self, params, coords):
+    def apply(self, params, coords, compute_dtype=None):
         # exact torch.sin here, not fast_sin: MFN filter arguments scale
         # with input_scale (reference default 256), which can exceed the
         # fast path's validated |x| <~ 2e3 reduction range
-        filt = [torch.sin(coords @ f["w"] + f["b"])
+        filt = [torch.sin(_matmul(coords, f["w"], compute_dtype) + f["b"])
                 for f in params["filters"]]
-        return self._apply_common(params, filt)
+        return self._apply_common(params, filt, compute_dtype)
 
 
 class MFNGabor(_MFN):
@@ -500,16 +521,16 @@ class MFNGabor(_MFN):
             filters.append({"w": w, "b": b, "mu": mu, "gamma": gamma})
         return {"linear": linear, "output": out, "filters": filters}
 
-    def apply(self, params, coords):
+    def apply(self, params, coords, compute_dtype=None):
         filt = []
         for f in params["filters"]:
             # D = ||x||^2 + ||mu||^2 - 2 x mu^T  (ref Networks.py:743-749)
             D = ((coords ** 2).sum(-1, keepdim=True)
                  + (f["mu"] ** 2).sum(-1)[None, :]
-                 - 2.0 * (coords @ f["mu"].T))
-            z = coords @ f["w"] + f["b"]
+                 - 2.0 * _matmul(coords, f["mu"].T, compute_dtype))
+            z = _matmul(coords, f["w"], compute_dtype) + f["b"]
             filt.append(torch.sin(z) * torch.exp(-0.5 * D * f["gamma"]))
-        return self._apply_common(params, filt)
+        return self._apply_common(params, filt, compute_dtype)
 
 
 # --------------------------------------------------------------------------

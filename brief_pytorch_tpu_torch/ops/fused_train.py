@@ -54,9 +54,10 @@ the plain version, `fused_train_grads_reference`, for CPU tensors; there
 is no fallback from one to the other.  `fused_train_grads` is its one-chain
 form (a fleet of one, which the C side runs without the fleet's parts).
 Scope: acts sine, relu, sigmoid, none; losses datal2, datasmoothl1;
-float32.  Not ported yet (ROADMAP.md): bf16 inputs (`half`, which the
-trainers refuse) and chains of more than MAX_LAYERS layers (kernel_plan
-raises NotImplementedError).
+float32.  `half` never reaches the kernel: the trainers take autograd
+for it, as the JAX gates do (train/fit.py:332, block_trainer.py:395).
+Not ported yet (ROADMAP.md): chains of more than MAX_LAYERS layers
+(kernel_plan raises NotImplementedError).
 """
 from __future__ import annotations
 

@@ -19,6 +19,16 @@ trains each block of a divided volume in its own process
   3. pads block voxel counts to a common Vmax and samples with per-block
      shapes, so adaptive blocking's uneven blocks share one program.
 
+Compress.sampler.vector_len L > 1 draws runs of L voxels (JAX
+block_trainer.py:491-546): with the voxel axis padded to a multiple of L,
+aligned rows of L voxels inside each block's valid prefix; beyond 2^24
+voxels, runs along the last axis.  L is clamped to the bucket's shortest
+last axis.  Under Compress.raw_gather the stack keeps the raw integer
+dtype and each gathered batch is dequantized with per-block (A, B)
+(`dq_scale`, `dq_offset`).  `half` runs every product in bfloat16 with
+float32 sums (models/phi.py compute_dtype) through autograd, never the
+kernel, and decodes the same way.
+
 Per-block semantics kept from the reference children: per-block
 normalisation, byte budgets, loss means, threshold, Adamax + MultiStepLR
 and the 80^3 cube guard on each block's own size.  Draws: randompoint
@@ -31,23 +41,28 @@ and corners.
 Chains with res entries, a skip concat or an encoder (res-SIREN, NeRF,
 FFN with its stacked frozen bvals) stack like plain ones and train through
 autograd, since `fleet_fused_supported` says no to them.  Families without
-chain structure (MFNFourier, MFNGabor) train on the solo path: one block at
-a time with the single-volume trainer's sampler and autograd step
-(train/fit.py), in lockstep with the buckets between checkpoints.
+chain structure (MFNFourier, MFNGabor), and blocks whose `exception`
+overrides step-level parameters (`solo_cfg`, parallel/divide_runner.py),
+train on the solo path: one block at a time with the single-volume
+trainer's sampler and step (train/fit.py) under the block's own Compress
+node: its sampler, optimizer, lr and loss, and its own max_steps, which
+the block reaches at the fleet's last checkpoint (each checkpoint advances
+it to the proportional step, JAX block_trainer.py:1203-1232).  A plain
+chain on the solo path trains on the fused train kernel's one-chain form
+on the card, as NFGR trains it; an MFN block through autograd.
 
 The fleet's whole training state (every bucket's and solo block's
 parameters, optimizer state and generator, the solo blocks' steps) is
 written at every checkpoint, and `train(..., resume_path=...)` continues
 from it, bitwise equal to an uninterrupted run with the same checkpoint
-grid (JAX block_trainer.py:792-913).
+grid (JAX block_trainer.py:792-913); its fingerprint records each solo
+block's own step-level config.
 
-One card: no mesh.  Not ported (each raises NotImplementedError, see
-ROADMAP.md): solo blocks whose `exception` overrides step-level
-parameters, `half`, integer stacks (raw_gather), vector_len > 1, and more
-than one card.
+One card: no mesh (more than one card is not ported, ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 from dataclasses import dataclass
@@ -68,9 +83,8 @@ from brief_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from brief_pytorch_tpu_torch.train.optim import make_optimizer
 from brief_pytorch_tpu_torch.train.samplers import (RandomCubeSampler,
                                                     RandomPointSampler,
-                                                    cube_size_guard)
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, 'Still to port')"
+                                                    cube_size_guard,
+                                                    device_raw, raw_to_float)
 
 
 # --------------------------------------------------------------------------
@@ -202,11 +216,12 @@ def stacked_from_numpy(layers, masks=None, device: DeviceLike = "cpu"):
 
 
 def stacked_apply(layers, masks, coords: torch.Tensor,
-                  spec: StackedChainSpec, enc: Optional[Dict] = None
-                  ) -> torch.Tensor:
+                  spec: StackedChainSpec, enc: Optional[Dict] = None,
+                  compute_dtype=None) -> torch.Tensor:
     """Batched forward of B padded chains: coords (B, N, C) -> (B, N, Cout).
     enc: the stacked frozen encoder parameters ('ffn': bvals (B, embsize,
-    c)), which get no gradient.
+    c)), which get no gradient.  compute_dtype: as in models/phi.py
+    (`half`: bfloat16 products, float32 sums).
 
     Masking after each hidden entry's activation zeroes padded units,
     which keeps the active network exact (adding 0.0 terms to a float sum
@@ -216,13 +231,18 @@ def stacked_apply(layers, masks, coords: torch.Tensor,
     the padded block."""
     if spec.encoder == "ffn":
         enc = {"bvals": enc["bvals"].detach()}
-    x = encode(coords, spec, enc)
+    x = encode(coords, spec, enc, compute_dtype)
     h = x
     li = 0
     n_ent = spec.n_entries
 
+    def rounded(t):     # compute_dtype's inputs, exact in float32
+        return t if compute_dtype is None else \
+            t.to(compute_dtype).to(torch.float32)
+
     def linear(h, layer):
-        return torch.baddbmm(layer["b"][:, None, :], h, layer["w"])
+        return torch.baddbmm(layer["b"][:, None, :], rounded(h),
+                             rounded(layer["w"]))
 
     for ei, (kind, act, w0) in enumerate(spec.entries):
         if ei == spec.skip_entry:
@@ -266,46 +286,92 @@ def unstack_params(params_layers, models: Sequence[PhiModel],
 class BlockBatch:
     """B normalised blocks padded to a common flat voxel count (host
     numpy; the trainer moves them to the card)."""
-    data: np.ndarray           # (B, Vmax, c) float32
+    data: np.ndarray           # (B, Vmax, c) float32, or the raw integer
+    #                            dtype when dq_scale is set (see build)
     weight: np.ndarray         # (B, Vmax, c) float32
     valid: np.ndarray          # (B,) int64 true voxel counts
     shapes: np.ndarray         # (B, ndim) int64 spatial extents
     vmax: int
     ndim: int
+    dq_scale: Optional[np.ndarray] = None    # (B,) float32 (integer stacks)
+    dq_offset: Optional[np.ndarray] = None
 
     @staticmethod
-    def build(blocks: List[Dict]) -> "BlockBatch":
+    def build(blocks: List[Dict], pad_multiple: int = 1) -> "BlockBatch":
         """blocks: dicts with 'data_norm' (*spatial, c) float32 and
-        'weight' of the same shape.  Integer stacks (the JAX package's
-        raw_gather) are not ported."""
-        if any(b.get("dequant") is not None for b in blocks):
-            raise NotImplementedError(f"integer stacks (raw_gather) "
-                                      f"{_NOT_PORTED}")
+        'weight' of the same shape; Vmax is padded to a multiple of
+        pad_multiple (the aligned vector_len gather needs Vmax % L == 0).
+
+        When every block also carries 'data_raw' (its preprocessed
+        integer chunk) and 'dequant' ((A, B) with data_norm == raw * A +
+        B, parallel/divide_runner.py), all of one dtype, the stack keeps
+        that raw dtype and the draws dequantize each gathered batch (JAX
+        block_trainer.py:281-332)."""
         ndim = blocks[0]["data_norm"].ndim - 1
         c = blocks[0]["data_norm"].shape[-1]
         vmax = max(int(np.prod(b["data_norm"].shape[:-1])) for b in blocks)
+        vmax = -(-vmax // pad_multiple) * pad_multiple
         B = len(blocks)
-        data = np.zeros((B, vmax, c), np.float32)
+        raw = all(b.get("dequant") is not None and
+                  b.get("data_raw") is not None for b in blocks) and \
+            len({b["data_raw"].dtype for b in blocks}) == 1
+        dq_scale = dq_offset = None
+        if raw:
+            data = np.zeros((B, vmax, c), blocks[0]["data_raw"].dtype)
+            dq_scale = np.asarray([b["dequant"][0] for b in blocks],
+                                  np.float32)
+            dq_offset = np.asarray([b["dequant"][1] for b in blocks],
+                                   np.float32)
+        else:
+            data = np.zeros((B, vmax, c), np.float32)
         weight = np.zeros((B, vmax, c), np.float32)
         valid = np.zeros((B,), np.int64)
         shapes = np.ones((B, ndim), np.int64)
         for i, b in enumerate(blocks):
             v = int(np.prod(b["data_norm"].shape[:-1]))
-            data[i, :v] = b["data_norm"].reshape(v, c)
+            data[i, :v] = (b["data_raw"] if raw else
+                           b["data_norm"]).reshape(v, c)
             weight[i, :v] = b["weight"].reshape(v, c)
             valid[i] = v
             shapes[i] = b["data_norm"].shape[:-1]
-        return BlockBatch(data, weight, valid, shapes, vmax, ndim)
+        return BlockBatch(data, weight, valid, shapes, vmax, ndim, dq_scale,
+                          dq_offset)
 
 
 # --------------------------------------------------------------------------
 # fleet draws (batched over the block axis)
 # --------------------------------------------------------------------------
+ALIGNED_LIMIT = 1 << 24   # flat_to_axes24 is exact below it
+
+
 def point_axes(u: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
     """randompoint: per-axis voxel indices min(floor(u * S), S - 1) of
     uniform u (B, S, ndim) in [0, 1) for blocks of shapes (B, ndim)."""
     s = shapes[:, None, :]
     return torch.minimum((u * s.to(u.dtype)).to(torch.int64), s - 1)
+
+
+def vector_rows(u: torch.Tensor, valid: torch.Tensor, L: int
+                ) -> torch.Tensor:
+    """randompoint, vector_len L, aligned form: the rows (B, n_runs) of L
+    voxels min(floor(u * R), R - 1), R = max(valid // L, 1), of uniform u
+    (B, n_runs): rows inside each block's valid prefix (a block's last
+    valid % L voxels are never drawn, as in JAX block_trainer.py:491-524)."""
+    rows = torch.clamp_min(valid // L, 1)[:, None]
+    return torch.minimum((u * rows.to(u.dtype)).to(torch.int64), rows - 1)
+
+
+def vector_run_starts(u: torch.Tensor, shapes: torch.Tensor, L: int
+                      ) -> torch.Tensor:
+    """randompoint, vector_len L, row-contained form: per-axis starts
+    (B, n_runs, ndim) of uniform u (B, n_runs, ndim) for runs of L voxels
+    along the last axis, min(floor(u * lim), lim - 1) with lim = S less
+    L - 1 on the last axis (JAX vector_run_starts, block_trainer.py:357)."""
+    ndim = shapes.shape[1]
+    cut = torch.zeros(ndim, dtype=shapes.dtype, device=shapes.device)
+    cut[-1] = L - 1
+    lim = (shapes - cut)[:, None, :]
+    return torch.minimum((u * lim.to(u.dtype)).to(torch.int64), lim - 1)
 
 
 def cube_corners(u: torch.Tensor, shapes: torch.Tensor,
@@ -339,42 +405,96 @@ def cube_gather_indices(corners: torch.Tensor, shapes: torch.Tensor,
 
 
 def _take(stack: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """stack (B, Vmax, c)[b, idx[b]] -> (B, S, c)."""
-    return torch.gather(stack, 1, idx[..., None].expand(
-        -1, -1, stack.shape[-1]))
+    """stack (B, Vmax, c)[b, idx[b]] -> (B, S, c) (advanced indexing,
+    which takes the raw integer stacks too)."""
+    b = torch.arange(stack.shape[0], device=stack.device)[:, None]
+    return stack[b, idx]
 
 
-def draw_batch(sampler: str, gen: torch.Generator, data: torch.Tensor,
-               weight: Optional[torch.Tensor], valid: torch.Tensor,
-               shapes: torch.Tensor, coords_mode: str, *, sample_size: int,
-               cube_count: int = 1, cube_len: Sequence[int] = ()):
+def vector_form(sampler: str, vector_len: int, vmax: int) -> str:
+    """The draw a bucket takes: 'aligned' or 'runs' for randompoint with
+    vector_len > 1 (aligned rows when L divides Vmax and Vmax <= 2^24,
+    JAX block_trainer.py:491), else the sampler's own."""
+    if sampler != "randompoint" or vector_len <= 1:
+        return sampler
+    return "aligned" if vmax % vector_len == 0 and vmax <= ALIGNED_LIMIT \
+        else "runs"
+
+
+def draw_uniform(form: str, gen: torch.Generator, B: int, ndim: int, *,
+                 sample_size: int, cube_count: int = 1, vector_len: int = 1,
+                 device=None) -> Optional[torch.Tensor]:
+    """The uniform draws of one step of a bucket drawn in `form`
+    (vector_form), on gen: what draw_batch turns into a batch."""
+    n_runs = -(-sample_size // vector_len)
+    shape = {"randomcube": (B, cube_count, ndim),
+             "randompoint": (B, sample_size, ndim),
+             "aligned": (B, n_runs),
+             "runs": (B, n_runs, ndim)}.get(form)
+    if shape is None:
+        if form != "fullbatch":
+            raise NotImplementedError(form)
+        return None
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def draw_batch(sampler: str, gen: Optional[torch.Generator],
+               data: torch.Tensor, weight: Optional[torch.Tensor],
+               valid: torch.Tensor, shapes: torch.Tensor, coords_mode: str,
+               *, sample_size: int, cube_count: int = 1,
+               cube_len: Sequence[int] = (), vector_len: int = 1,
+               dq_scale: Optional[torch.Tensor] = None,
+               dq_offset: Optional[torch.Tensor] = None,
+               raw_uint16: bool = False,
+               u: Optional[torch.Tensor] = None):
     """One step's batch for every block of a bucket, in one batched call:
     (coords (B, S, ndim), values (B, S, c), weights (B, S, c),
-    sample_valid (B, S, 1) or None)."""
-    B, vmax, _ = data.shape
+    sample_valid (B, S, 1) or None).  u: the step's uniform draws
+    (draw_uniform), drawn on gen when None.  An integer stack (device_raw;
+    raw_uint16: a uint16 one's int16 bit patterns) is dequantized per
+    block, values * dq_scale + dq_offset."""
+    B, vmax, c = data.shape
     ndim = shapes.shape[1]
+    form = vector_form(sampler, vector_len, vmax)
+    if u is None:
+        u = draw_uniform(form, gen, B, ndim, sample_size=sample_size,
+                         cube_count=cube_count, vector_len=vector_len,
+                         device=data.device)
     sample_valid = None
-    if sampler == "fullbatch":
+    if form == "fullbatch":
         idx = torch.arange(vmax, device=data.device).expand(B, vmax)
         axes = flat_to_axes24(idx, shapes[:, None, :])
-        sample_valid = (idx < valid[:, None])[..., None].to(data.dtype)
-        vals = data
-        wts = weight
+        sample_valid = (idx < valid[:, None])[..., None].to(torch.float32)
+        vals, wts = data, weight
+    elif form == "aligned":
+        L = vector_len
+        rows = vector_rows(u, valid, L)
+        idx = (rows[:, :, None] * L + torch.arange(L, device=data.device)
+               ).reshape(B, -1)[:, :sample_size]
+        row_take = lambda a: _take(a.reshape(B, vmax // L, L * c),
+                                   rows).reshape(B, -1, c)[:, :sample_size]
+        vals = row_take(data)
+        wts = None if weight is None else row_take(weight)
+        axes = flat_to_axes24(idx, shapes[:, None, :])
     else:
-        if sampler == "randomcube":
-            u = torch.rand((B, cube_count, ndim), generator=gen,
-                           device=data.device)
+        if form == "randomcube":
             axes = cube_positions(cube_corners(u, shapes, cube_len),
                                   cube_len).reshape(B, -1, ndim)
-        elif sampler == "randompoint":
-            u = torch.rand((B, sample_size, ndim), generator=gen,
-                           device=data.device)
-            axes = point_axes(u, shapes)
+        elif form == "runs":
+            L = vector_len
+            offs = torch.zeros((L, ndim), dtype=torch.int64,
+                               device=data.device)
+            offs[:, -1] = torch.arange(L, device=data.device)
+            axes = (vector_run_starts(u, shapes, L)[:, :, None, :]
+                    + offs).reshape(B, -1, ndim)[:, :sample_size]
         else:
-            raise NotImplementedError(sampler)
+            axes = point_axes(u, shapes)
         idx = (axes * row_major_strides(shapes)[:, None, :]).sum(-1)
         vals = _take(data, idx)
         wts = None if weight is None else _take(weight, idx)
+    if not vals.dtype.is_floating_point:
+        vals = raw_to_float(vals, raw_uint16) * dq_scale[:, None, None] \
+            + dq_offset[:, None, None]
     if wts is None:
         wts = torch.ones_like(vals)
     coords = axes_to_coords(axes, shapes[:, None, :], coords_mode)
@@ -429,16 +549,22 @@ class _BucketState:
     use_thres: bool = True
     sampler_name: str = "randompoint"  # effective: randompoint|randomcube|fullbatch
     cube_len: Tuple[int, ...] = ()     # clipped, static per bucket
+    vector_len: int = 1                # clamped to the bucket's min last axis
+    dq_scale: Optional[torch.Tensor] = None   # (B,) integer stacks
+    dq_offset: Optional[torch.Tensor] = None
+    half: bool = False
     fused: bool = False
     losses: Optional[torch.Tensor] = None   # (steps, B) of the last segment
 
 
 @dataclass
 class _SoloState:
-    """Training state of a block that cannot join a stacked bucket: a φ
-    family without chain structure (the MFNs' multiplicative filters).  It
-    trains alone with the single-volume trainer's sampler and autograd
-    step — what one reference child process did (main.py:277-280)."""
+    """Training state of a block that trains alone: a φ family without
+    chain structure (the MFNs' multiplicative filters), or a block whose
+    `exception` overrides step-level parameters.  It trains with the
+    single-volume trainer's sampler and step under its own Compress node
+    `cc` — what one reference child process did (main.py:277-280,
+    568-569)."""
     block_idx: int
     model: object
     params: Dict
@@ -449,8 +575,50 @@ class _SoloState:
     data: torch.Tensor
     weight: Optional[torch.Tensor]
     thres: float
+    cc: object = None              # this block's effective Compress node
+    total_steps: int = 0           # its own max_steps
+    fused: bool = False            # the one-chain train kernel
     steps_done: int = 0
     losses: Optional[torch.Tensor] = None   # (steps,) of the last segment
+
+
+def fleet_step(st: _BucketState, coords, vals, wts, sample_valid, *,
+               loss_name: str, beta: float):
+    """(losses (B,), grads) of one step of a bucket on a drawn batch: the
+    fused train kernel's fleet form, or autograd through stacked_apply
+    (bfloat16 products under `half`)."""
+    layers = st.params["layers"]
+    thres = st.thres if st.use_thres else None
+    if st.fused:
+        acts = tuple((a, float(w0)) for _, a, w0 in st.spec.entries)
+        unit_masks = list(st.masks[:-1]) + [None]   # the output is unmasked
+        return fused_train.fused_train_grads_fleet(
+            layers, coords.transpose(1, 2).contiguous(),
+            vals.transpose(1, 2).contiguous(),
+            wts.transpose(1, 2).contiguous(), acts, loss_name=loss_name,
+            beta=beta, unit_masks=unit_masks, thres=thres)
+    leaves = tree_leaves({"layers": layers})
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        pred = stacked_apply(layers, st.masks, coords, st.spec,
+                             st.params.get("encoder"),
+                             torch.bfloat16 if st.half else None)
+        if thres is not None:
+            wts = torch.where(pred <= thres[:, None, None], 1.0, wts)
+        err = _elem_loss(loss_name, beta, pred, vals) * wts
+        if sample_valid is None:
+            loss = err.mean(dim=(1, 2))
+        else:   # full batch: mean over each block's valid voxels
+            loss = (err * sample_valid).sum(dim=(1, 2)) / \
+                torch.clamp_min(st.valid.to(err.dtype), 1.0)
+        flat = torch.autograd.grad(loss.sum(), leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    it = iter(flat)
+    return loss.detach(), {"layers": [{k: next(it) for k in l}
+                                      for l in layers]}
 
 
 def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
@@ -460,45 +628,16 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
     (JAX block_trainer.py:404-631 as a step loop).  Updates st.params and
     st.opt_state in place; returns the losses (n_steps, B) on the device
     without waiting for it."""
-    acts = tuple((a, float(w0)) for _, a, w0 in st.spec.entries)
-    unit_masks = list(st.masks[:-1]) + [None]   # the output is unmasked
-    thres = st.thres if st.use_thres else None
-    layers = st.params["layers"]
-    enc = st.params.get("encoder")
-    trained = {"layers": layers}      # the frozen encoder is not stepped
-    leaves = tree_leaves(trained)
-    losses = []
+    trained = {"layers": st.params["layers"]}   # the frozen encoder is not
+    losses = []                                 # stepped
     for _ in range(n_steps):
-        coords, vals, wts, sample_valid = draw_batch(
+        batch = draw_batch(
             st.sampler_name, st.gen, st.data, st.weight, st.valid, st.shapes,
             coords_mode, sample_size=sample_size, cube_count=cube_count,
-            cube_len=st.cube_len)
-        if st.fused:
-            loss, grads = fused_train.fused_train_grads_fleet(
-                layers, coords.transpose(1, 2).contiguous(),
-                vals.transpose(1, 2).contiguous(),
-                wts.transpose(1, 2).contiguous(), acts, loss_name=loss_name,
-                beta=beta, unit_masks=unit_masks, thres=thres)
-        else:
-            for t in leaves:
-                t.requires_grad_(True)
-            try:
-                pred = stacked_apply(layers, st.masks, coords, st.spec, enc)
-                if thres is not None:
-                    wts = torch.where(pred <= thres[:, None, None], 1.0, wts)
-                err = _elem_loss(loss_name, beta, pred, vals) * wts
-                if sample_valid is None:
-                    loss = err.mean(dim=(1, 2))
-                else:   # full batch: mean over each block's valid voxels
-                    loss = (err * sample_valid).sum(dim=(1, 2)) / \
-                        torch.clamp_min(st.valid.to(err.dtype), 1.0)
-                flat = torch.autograd.grad(loss.sum(), leaves)
-            finally:
-                for t in leaves:
-                    t.requires_grad_(False)
-            it = iter(flat)
-            grads = {"layers": [{k: next(it) for k in l} for l in layers]}
-            loss = loss.detach()
+            cube_len=st.cube_len, vector_len=st.vector_len,
+            dq_scale=st.dq_scale, dq_offset=st.dq_offset,
+            raw_uint16=st.batch.data.dtype == np.uint16)
+        loss, grads = fleet_step(st, *batch, loss_name=loss_name, beta=beta)
         st.opt.step(trained, grads, st.opt_state)
         losses.append(loss)
     return torch.stack(losses)
@@ -507,22 +646,37 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
 @torch.no_grad()
 def decode_blocks(params_layers, masks, shapes: torch.Tensor,
                   spec: StackedChainSpec, *, slab: int, coords_mode: str,
-                  vmax: int, enc: Optional[Dict] = None) -> torch.Tensor:
+                  vmax: int, enc: Optional[Dict] = None,
+                  half: bool = False) -> torch.Tensor:
     """Batched padded grid decode: (B, Vmax, c) predictions, slab by slab
     of flat indices, coordinates from affine per-block formulas (JAX
-    block_trainer.py:634-661)."""
+    block_trainer.py:634-661); bfloat16 products under `half`."""
     out = []
     for s in range(0, vmax, slab):
         idx = torch.arange(s, min(vmax, s + slab), device=shapes.device)
         axes = flat_to_axes24(idx[None, :], shapes[:, None, :])
         coords = axes_to_coords(axes, shapes[:, None, :], coords_mode)
-        out.append(stacked_apply(params_layers, masks, coords, spec, enc))
+        out.append(stacked_apply(params_layers, masks, coords, spec, enc,
+                                 torch.bfloat16 if half else None))
     return torch.cat(out, dim=1)
 
 
 # --------------------------------------------------------------------------
 # the fleet
 # --------------------------------------------------------------------------
+def step_config(cc) -> Dict:
+    """The step-level parameters of a Compress node that a stacked bucket
+    shares and an `exception` may override, as plain values: a block
+    whose values differ from the fleet's trains solo
+    (parallel/divide_runner.py)."""
+    return {"sampler": cc.sampler.to_plain(),
+            "max_steps": int(cc.get("max_steps", 0)),
+            "lr": float(cc.lr_phi), "optimizer": str(cc.optimizer_name_phi),
+            "scheduler": cc.lr_scheduler_phi.to_plain(),
+            "loss": f"{cc.loss.name}/{float(cc.loss.get('beta', 0.01))}",
+            "half": bool(cc.half), "coords_mode": str(cc.coords_mode)}
+
+
 class BlockFleetTrainer:
     """Trains a fleet of per-block INRs as stacked buckets on one card.
 
@@ -561,27 +715,21 @@ class BlockFleetTrainer:
         trainstate_fleet.npz) written so under the same config; training
         continues from its step, and checkpoints up to it are skipped."""
         cc = compress_cfg
-        if bool(cc.half):
-            raise NotImplementedError(f"Compress.half (bf16) {_NOT_PORTED}")
-        if int(cc.sampler.get("vector_len", 1) or 1) > 1:
-            raise NotImplementedError(f"sampler vector_len > 1 {_NOT_PORTED}")
         buckets: Dict[tuple, List[int]] = {}
         solo_idxs: List[int] = []
         for i, blk in enumerate(blocks):
-            if blk.get("solo_cfg") is not None:
-                raise NotImplementedError(
-                    f"block {blk['name']}: an exception overriding step-level "
-                    f"parameters needs the fleet's solo path, which "
-                    f"{_NOT_PORTED}")
             m = blk["model"]
+            # a block whose exception overrides step-level parameters
+            # trains solo under its own Compress node (main.py:568-569)
+            blk_cc = blk.get("solo_cfg") or cc
             # the reference's 80^3 cube guard, on each block's own size
             shape = blk["data_norm"].shape[:-1]
             clipped = tuple(min(int(c), s) for c, s in
-                            zip(cc.sampler.cube_len, shape))
-            eff = cube_size_guard(cc.sampler.name, int(np.prod(shape)),
+                            zip(blk_cc.sampler.cube_len, shape))
+            eff = cube_size_guard(blk_cc.sampler.name, int(np.prod(shape)),
                                   int(np.prod(clipped)))
             blk["sampler_name"] = eff
-            if not isinstance(m, _ChainModel):
+            if not isinstance(m, _ChainModel) or blk.get("solo_cfg"):
                 solo_idxs.append(i)
                 continue
             sig = (type(m).__name__, _stack_signature(m.spec), eff,
@@ -589,7 +737,8 @@ class BlockFleetTrainer:
             buckets.setdefault(sig, []).append(i)
         self._states = [self._prepare_bucket(blocks, idxs, cc)
                         for idxs in buckets.values()]
-        self._solo = [self._prepare_solo(blocks, i, cc) for i in solo_idxs]
+        self._solo = [self._prepare_solo(blocks, i, cc, max_steps)
+                      for i in solo_idxs]
         fingerprint = self._fleet_fingerprint(blocks, cc, max_steps)
         start_step = 0
         if resume_path:
@@ -609,7 +758,7 @@ class BlockFleetTrainer:
                 for st in self._states:
                     st.losses = self._run_segment(st, cc, n)
                 for ss in self._solo:
-                    self._run_solo_to(ss, cc, ckpt)
+                    self._run_solo_to(ss, ckpt, max_steps)
                 self.last_losses = [st.losses[-1].cpu().numpy()
                                     for st in self._states] + \
                     [ss.losses[-1:].cpu().numpy() for ss in self._solo
@@ -630,7 +779,9 @@ class BlockFleetTrainer:
                            ) -> Dict:
         """Config axes a stored fleet state is only meaningful under;
         max_steps is one (unlike the single trainer's), as in the JAX
-        package, whose solo blocks' checkpoint targets depend on it."""
+        package, whose solo blocks' checkpoint targets depend on it; so is
+        each solo block's own step-level config, its kernel flag, each
+        bucket's vector_len and each block's raw gather."""
         return {
             "kind": "fleet",
             "blocks": [str(b["name"]) for b in blocks],
@@ -644,6 +795,11 @@ class BlockFleetTrainer:
             "loss": f"{cc.loss.name}/{float(cc.loss.get('beta', 0.01))}",
             "coords_mode": str(cc.coords_mode),
             "fused": self.fused_paths(),
+            "solo_cfg": [step_config(b["solo_cfg"]) if b.get("solo_cfg")
+                         else None for b in blocks],
+            "solo_fused": [bool(ss.fused) for ss in self._solo],
+            "vector_len": [int(st.vector_len) for st in self._states],
+            "dequant": [b.get("dequant") is not None for b in blocks],
             "framework": "torch",
         }
 
@@ -701,7 +857,13 @@ class BlockFleetTrainer:
             if all(tuple(b["data_norm"].shape[:-1]) == cube_len
                    for b in sub):
                 sampler_name = "fullbatch"
-        batch = BlockBatch.build(sub)
+        # runs of vector_len voxels, clamped to the bucket's shortest last
+        # axis; the voxel axis padded to a multiple of it (the aligned
+        # rows' Vmax % L == 0, JAX block_trainer.py:1001-1010)
+        vec = min(int(cc.sampler.get("vector_len", 1) or 1),
+                  min(int(b["data_norm"].shape[-2]) for b in sub)) \
+            if sampler_name == "randompoint" else 1
+        batch = BlockBatch.build(sub, pad_multiple=max(1, vec))
         # all-ones weights (the default) skip the weight stack entirely
         unit_weight = all(bool(np.all(b["weight"] == 1.0)) for b in sub)
 
@@ -725,69 +887,102 @@ class BlockFleetTrainer:
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed + 1)
-        to = lambda a: torch.from_numpy(a).to(dev)
+        to = lambda a: None if a is None else torch.from_numpy(a).to(dev)
         return _BucketState(
             block_idxs=list(idxs), models=models, spec=spec, params=params,
             opt_state=opt.init({"layers": params["layers"]}), masks=masks,
             batch=batch,
-            data=to(batch.data),
+            data=device_raw(batch.data, dev),
             weight=None if unit_weight else to(batch.weight),
             valid=to(batch.valid), shapes=to(batch.shapes), opt=opt,
             gen=gen, thres=thres, use_thres=bool(np.any(thres_host != 0.0)),
-            sampler_name=sampler_name, cube_len=cube_len, fused=fused)
+            sampler_name=sampler_name, cube_len=cube_len, vector_len=vec,
+            dq_scale=to(batch.dq_scale), dq_offset=to(batch.dq_offset),
+            half=bool(cc.half), fused=fused)
 
-    def _prepare_solo(self, blocks: List[Dict], idx: int, cc) -> _SoloState:
+    def _prepare_solo(self, blocks: List[Dict], idx: int, cc,
+                      fleet_max_steps: int) -> _SoloState:
         """The single-volume trainer's state for one block (JAX
-        block_trainer.py:1101-1165): its own init, sampler and optimizer."""
+        block_trainer.py:1101-1165): its own init (or warm start), and the
+        sampler, optimizer, loss and max_steps of its own Compress node
+        (`solo_cfg`, else the fleet's); on the card a plain chain trains
+        on the one-chain train kernel, as NFGR trains it."""
         dev = self.device
         blk = blocks[idx]
+        scc = blk.get("solo_cfg") or cc
         model = blk["model"]
         params = tree_map(lambda t: t.to(dev),
                           model.init(_block_generator(self.seed, idx)))
+        warm = blk.get("init_layers")
+        if warm is not None and isinstance(model, _ChainModel):
+            params["layers"] = [{k: torch.tensor(np.asarray(v, np.float32),
+                                                 device=dev)
+                                 for k, v in l.items()} for l in warm]
         spatial = tuple(int(s) for s in blk["data_norm"].shape[:-1])
         c = blk["data_norm"].shape[-1]
         unit_weight = bool(np.all(blk["weight"] == 1.0))
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         if blk["sampler_name"] == "randomcube":
             clipped = tuple(min(int(cl), s) for cl, s in
-                            zip(cc.sampler.cube_len, spatial))
-            sampler = RandomCubeSampler(spatial, cc.coords_mode,
-                                        int(cc.sampler.cube_count), clipped)
+                            zip(scc.sampler.cube_len, spatial))
+            sampler = RandomCubeSampler(spatial, scc.coords_mode,
+                                        int(scc.sampler.cube_count), clipped)
             data = to(blk["data_norm"])
             weight = None if unit_weight else to(blk["weight"])
         else:
-            sampler = RandomPointSampler(spatial, cc.coords_mode,
-                                         int(cc.sampler.sample_size))
-            data = to(blk["data_norm"].reshape(-1, c))
+            # the raw integer chunk where divide_runner recorded one
+            dq = blk.get("dequant")
+            raw = blk.get("data_raw") if dq is not None else None
+            sampler = RandomPointSampler(
+                spatial, scc.coords_mode, int(scc.sampler.sample_size),
+                min(int(scc.sampler.get("vector_len", 1) or 1),
+                    int(np.prod(spatial))),
+                *(dq if raw is not None else (1.0, 0.0)),
+                raw_uint16=raw is not None and raw.dtype == np.uint16)
+            data = device_raw(raw.reshape(-1, c), dev) if raw is not None \
+                else to(blk["data_norm"].reshape(-1, c))
             weight = None if unit_weight else \
                 to(blk["weight"].reshape(-1, c))
-        opt = make_optimizer(cc.optimizer_name_phi, float(cc.lr_phi),
-                             cc.lr_scheduler_phi)
+        opt = make_optimizer(scc.optimizer_name_phi, float(scc.lr_phi),
+                             scc.lr_scheduler_phi)
         gen = torch.Generator(device=sampler.generator_device(dev))
         gen.manual_seed((self.seed + 1) * 100003 + idx)
+        fused = bool(scc.get("fused_train", True)) and dev.type == "cuda" \
+            and not bool(scc.half) \
+            and fused_train.supports_training(model, scc.loss.name)
+        total = int(scc.get("max_steps", fleet_max_steps)) \
+            if blk.get("solo_cfg") else fleet_max_steps
         return _SoloState(
             block_idx=idx, model=model, params=params,
             opt_state=opt.init(params), opt=opt, gen=gen, sampler=sampler,
             data=data, weight=weight,
-            thres=float(blk.get("weight_thres_norm", 0.0)))
+            thres=float(blk.get("weight_thres_norm", 0.0)), cc=scc,
+            total_steps=total, fused=fused)
 
-    def _run_solo_to(self, ss: _SoloState, cc, fleet_step: int) -> None:
-        """Advance one solo block to the fleet's step.  (A block with a
-        max_steps of its own would get a proportional target, JAX
-        block_trainer.py:1205-1213; such blocks raise in `train`.)"""
-        self._run_solo_segment(ss, cc, fleet_step - ss.steps_done)
+    def _run_solo_to(self, ss: _SoloState, fleet_step: int,
+                     fleet_max_steps: int) -> None:
+        """Advance one solo block to its proportional step, round(
+        fleet_step * its max_steps / the fleet's): a block with a max_steps
+        of its own finishes at the fleet's last checkpoint (JAX
+        block_trainer.py:1203-1213)."""
+        target = round(fleet_step * ss.total_steps / max(1, fleet_max_steps))
+        self._run_solo_segment(ss, target - ss.steps_done)
 
-    def _run_solo_segment(self, ss: _SoloState, cc, n_steps: int) -> None:
-        """n_steps of the single-volume trainer's autograd step for one
-        solo block; the losses stay on the device."""
+    def _run_solo_segment(self, ss: _SoloState, n_steps: int) -> None:
+        """n_steps of the single-volume trainer's step (the fused kernel's
+        or autograd's) for one solo block under its own config; the losses
+        stay on the device."""
         from brief_pytorch_tpu_torch.train.fit import NFGR
+        cc = ss.cc
+        kw = dict(model=ss.model, sampler=ss.sampler, data=ss.data,
+                  weight=ss.weight, loss_name=cc.loss.name,
+                  beta=float(cc.loss.get("beta", 0.01)),
+                  weight_thres=ss.thres)
+        step = NFGR._fused_step if ss.fused else functools.partial(
+            NFGR._autograd_step, half=bool(cc.half))
         losses = []
         for _ in range(max(0, n_steps)):
-            loss, grads = NFGR._autograd_step(
-                ss.params, ss.gen, model=ss.model, sampler=ss.sampler,
-                data=ss.data, weight=ss.weight, loss_name=cc.loss.name,
-                beta=float(cc.loss.get("beta", 0.01)),
-                weight_thres=ss.thres)
+            loss, grads = step(ss.params, ss.gen, **kw)
             ss.opt.step(ss.params, grads, ss.opt_state)
             losses.append(loss.detach())
         if losses:
@@ -823,7 +1018,9 @@ class BlockFleetTrainer:
                 "families": type(st.models[0]).__name__,
                 "widths": [st.spec.dims[0][0]] + [o for _, o in
                                                   st.spec.dims],
-                "fused": bool(st.fused),
+                "fused": bool(st.fused), "vector_len": int(st.vector_len),
+                "data_dtype": str(st.batch.data.dtype),
+                "data_bytes": int(st.data.numel() * st.data.element_size()),
                 "voxel_occupancy": int(st.batch.valid.sum())
                 / (B * st.batch.vmax),
             })
@@ -853,7 +1050,8 @@ class BlockFleetTrainer:
                                 st.spec, slab=slab,
                                 coords_mode=cc.coords_mode,
                                 vmax=st.batch.vmax,
-                                enc=st.params.get("encoder")).cpu().numpy()
+                                enc=st.params.get("encoder"),
+                                half=bool(cc.half)).cpu().numpy()
             for i, bi in enumerate(st.block_idxs):
                 shape = blocks[bi]["data_norm"].shape
                 v = int(math.prod(shape[:-1]))
@@ -863,5 +1061,5 @@ class BlockFleetTrainer:
                 reconstruct_flattened
             results[ss.block_idx] = reconstruct_flattened(
                 ss.model, ss.params, blocks[ss.block_idx]["data_norm"].shape,
-                1 << 15, cc.coords_mode)
+                1 << 15, ss.cc.coords_mode, bool(ss.cc.half))
         return results

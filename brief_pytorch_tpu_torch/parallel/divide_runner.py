@@ -17,9 +17,14 @@ and the JAX package's NFGR.decompress_divide read it:
   <logdir>/trainstate_fleet.npz                          (training state)
 
 Compress.resume (a state file or the stopped run's dir) continues a run.
-Not ported (NotImplementedError, ROADMAP.md): exceptions that override
-step-level parameters (they need the solo path with a config of their
-own), Compress.raw_gather.
+A chunk whose `exception` overrides step-level parameters (sampler,
+max_steps, lr, optimizer, schedule, loss, half, coords_mode) carries its
+merged Compress node as `solo_cfg` and trains on the fleet's solo path
+with it, as the reference's child process did (main.py:568-569).  Under
+Compress.raw_gather each block of an integer volume keeps its raw chunk
+(`data_raw`) and the affine (`dequant`) that gives its normalized values,
+so the fleet stacks the raw dtype (JAX divide_runner.py:171-185).  2-D
+images partition into h_*-w_* chunks.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ from brief_pytorch_tpu_torch.io.image import (get_folder_size, read_img,
 from brief_pytorch_tpu_torch.io.modelsave import load_model, save_phi_module
 from brief_pytorch_tpu_torch.models import sizing
 from brief_pytorch_tpu_torch.models.phi import init_phi
-from brief_pytorch_tpu_torch.parallel.block_trainer import BlockFleetTrainer
+from brief_pytorch_tpu_torch.parallel.block_trainer import (
+    BlockFleetTrainer, step_config)
 from brief_pytorch_tpu_torch.partition.divide import (alloc_param,
                                                       cal_divide_num,
                                                       chunk_name,
@@ -51,6 +57,7 @@ from brief_pytorch_tpu_torch.partition.divide import (alloc_param,
                                                       merge_divided_data)
 from brief_pytorch_tpu_torch.post.preprocess import (parse_checkpoints,
                                                      parse_weight, preprocess)
+from brief_pytorch_tpu_torch.train.fit import raw_dequant
 
 
 def divide(cf_opt, data: np.ndarray, param_size: float):
@@ -106,14 +113,6 @@ def _adaptive_chunks(param_size: float, divide_type: str, data: np.ndarray):
     return chunks, save_data
 
 
-def _step_params(cc):
-    """The step-level hyperparameters a stacked bucket shares."""
-    return (cc.sampler.to_plain(), int(cc.max_steps), float(cc.lr_phi),
-            str(cc.optimizer_name_phi), cc.lr_scheduler_phi.to_plain(),
-            str(cc.loss.name), float(cc.loss.get("beta", 0.01)),
-            bool(cc.half), str(cc.coords_mode))
-
-
 def prepare_blocks(cf_opt, chunks: List[Dict]) -> List[Dict]:
     """What each reference child process did on its own chunk: loss
     weights, normalisation, network sizing, the normalized threshold."""
@@ -126,18 +125,20 @@ def prepare_blocks(cf_opt, chunks: List[Dict]) -> List[Dict]:
         blk_opt = cf_opt
         if chunk["name"] in exception_opt:
             blk_opt = cfglib.merge(cf_opt, dict(exception_opt[chunk["name"]]))
-            if _step_params(blk_opt.Compress) != _step_params(cf_opt.Compress):
-                # the reference's child trains with its own merged config;
-                # the fleet marks it for the solo path, which raises
+            if step_config(blk_opt.Compress) != step_config(cf_opt.Compress):
+                # the reference's child trains with its own merged config:
+                # the block trains on the fleet's solo path with it
                 blk["solo_cfg"] = blk_opt.Compress
-        if bool(blk_opt.Compress.get("raw_gather", False)):
-            raise NotImplementedError(
-                "Compress.raw_gather (integer stacks) is not ported yet "
-                "(ROADMAP.md)")
         chunk_pre = chunk["data"]
         blk["weight"] = parse_weight(chunk_pre, blk_opt.Compress.loss.weight)
         data_norm, side = normalize_data(chunk_pre, **blk_opt.Normalize)
         blk["data_norm"] = data_norm
+        if np.issubdtype(chunk_pre.dtype, np.integer) and \
+                bool(blk_opt.Compress.get("raw_gather", False)):
+            dequant = raw_dequant(str(blk_opt.Normalize.name), side)
+            if dequant is not None:
+                blk["dequant"] = dequant
+                blk["data_raw"] = chunk_pre
         given = blk_opt.Compress.param.given_size
         budget = float(given) if chunk["name"] in exception_opt and given > 0 \
             else chunk["param_size"]

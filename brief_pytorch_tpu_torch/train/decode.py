@@ -8,6 +8,10 @@ grid kernel does not support (see fused_decode.supports: res / skip /
 encoder chains, the MFNs) runs its own apply over index_to_coords slabs on
 either device.
 
+With `half` (Compress.half) the slab loop runs model.apply in bfloat16
+(compute_dtype) and the grid kernel is never used, as in JAX
+(train/decode.py:61-71: the half decode keeps the training numerics).
+
 With an `apply_fn` the slab loop runs that function instead, whatever the
 model, and the grid kernel is not used: the explicit batch-major route,
 for which `fused_apply_or` picks the fused forward kernel
@@ -17,6 +21,7 @@ axis_linspace values, a float32 rounding apart (~1e-5 in decoded values).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -35,24 +40,29 @@ def _round_up(x: int, m: int) -> int:
 @torch.no_grad()
 def reconstruct_flattened(model, params, data_shape: Sequence[int],
                           sample_size: int = 10000, coords_mode: str = "n11",
-                          *, apply_fn: Optional[Callable] = None
-                          ) -> np.ndarray:
+                          half: bool = False, *,
+                          apply_fn: Optional[Callable] = None) -> np.ndarray:
     """Evaluate φ over the full voxel grid; returns (*spatial, c) float32.
 
     data_shape: (*spatial, data_channel) as stored in sideinfos.  The
     device is that of the parameters.  apply_fn(params, coords): None takes
     the default route (the grid kernel where it supports the model, else
     model.apply in slabs); a function is run over slabs of sample_size
-    voxels (rounded up to a multiple of 128).
+    voxels (rounded up to a multiple of 128).  half: the default route is
+    model.apply in bfloat16 over slabs.
     """
     *spatial, c = [int(s) for s in data_shape]
     pop = int(np.prod(spatial))
     slab = max(128, _round_up(min(sample_size, pop), 128))
-    if apply_fn is None and fused_decode.supports(model, spatial):
+    if apply_fn is None and not half and \
+            fused_decode.supports(model, spatial):
         flat = fused_decode.decode_volume(model, params, spatial,
                                           coords_mode, slab=slab)
     else:
-        apply_fn = model.apply if apply_fn is None else apply_fn
+        if apply_fn is None:
+            apply_fn = functools.partial(
+                model.apply,
+                compute_dtype=torch.bfloat16 if half else None)
         device = tree_leaves(params)[0].device
         flat = torch.cat([
             apply_fn(params, index_to_coords(

@@ -7,10 +7,13 @@ on-device scan of training steps becomes a Python loop of steps:
   * each step samples a batch (train/samplers.py), and on a CUDA device
     with a supported chain runs the fused train-step kernel
     (ops/fused_train.py), which returns the loss and the gradients
-    directly; otherwise (res / skip / encoder chains, the MFNs, the CPU)
-    autograd through the model's apply gives them.  The gate mirrors
-    fit.py:331-336: Compress.fused_train (default true), the chain and
-    loss supported, a CUDA device, not `half`;
+    directly; otherwise (res / skip / encoder chains, the MFNs, the CPU,
+    `half`) autograd through the model's apply gives them.  The gate
+    mirrors fit.py:331-336: Compress.fused_train (default true), the chain
+    and loss supported, a CUDA device, not `half`.  `half` computes every
+    product from bfloat16 inputs and weights with float32 sums and float32
+    parameters (models/phi.py compute_dtype) and decodes in bfloat16
+    slabs, as JAX fit.py:1-12 does;
   * the optimizer (train/optim.py, optax's rules) updates the parameters
     in place;
   * losses stay on the device until a checkpoint, so the loop never waits
@@ -25,9 +28,14 @@ trainstate.npz (train/checkpoint.py); Compress.resume continues a run from
 such a state, bitwise equal to an uninterrupted run with the same
 checkpoint grid.
 
-Not ported yet (ROADMAP.md): `half` (bf16 compute), Compress.data_shards
-> 1 (data parallelism), and the randompoint sampler's vector_len /
-raw_gather options.
+The randompoint sampler takes Compress.sampler.vector_len (runs of
+consecutive voxels) and Compress.raw_gather (an integer volume kept on
+the device in its own dtype, dequantized after each gather; affine
+Normalize modes only, JAX fit.py:222-262).  2-D images (coords_channel 2)
+and videos (frames as the first axis, data_channel 3) run the same path;
+the decompressed file keeps the input's extension.
+
+Not ported yet (ROADMAP.md): Compress.data_shards > 1 (data parallelism).
 """
 from __future__ import annotations
 
@@ -70,7 +78,21 @@ from brief_pytorch_tpu_torch.train.loss import make_loss
 from brief_pytorch_tpu_torch.train.optim import make_optimizer
 from brief_pytorch_tpu_torch.train.samplers import (RandomCubeSampler,
                                                     RandomPointSampler,
-                                                    cube_size_guard)
+                                                    cube_size_guard,
+                                                    device_raw)
+
+
+def raw_dequant(normalize_name: str, sideinfos) -> Optional[tuple]:
+    """(A, B) with normalized == raw * A + B for an affine Normalize mode
+    (minmaxany_a_b, none), else None: Compress.raw_gather's dequantization
+    (JAX fit.py:243-252, divide_runner.py:171-185)."""
+    if "minmaxany" in normalize_name:
+        a, b = (float(x) for x in normalize_name.split("_")[1:])
+        A = (b - a) / (float(sideinfos["max"]) - float(sideinfos["min"]))
+        return A, a - float(sideinfos["min"]) * A
+    if normalize_name == "none":
+        return 1.0, 0.0
+    return None
 
 
 class NFGR:
@@ -83,9 +105,6 @@ class NFGR:
         device: None (the CUDA card), 'cpu', or a torch device."""
         self.opt = opt
         self.half = bool(opt.Compress.half)
-        if self.half:
-            raise NotImplementedError(
-                "Compress.half (bf16 compute) is not ported yet (ROADMAP.md)")
         if int(opt.Compress.get("data_shards", 1) or 1) > 1:
             raise NotImplementedError(
                 "Compress.data_shards > 1 is not ported yet (ROADMAP.md)")
@@ -167,14 +186,22 @@ class NFGR:
         mode = cfg.coords_mode
         c = data_norm.shape[-1]
         if cfg.sampler.name == "randompoint":
-            if int(cfg.sampler.get("vector_len", 1) or 1) > 1 or \
+            # Compress.raw_gather: the preprocessed integer volume stays on
+            # the device in its own dtype and the affine normalization
+            # follows each gather (JAX fit.py:222-262)
+            dequant = None
+            if np.issubdtype(data_pre.dtype, np.integer) and \
                     bool(cfg.get("raw_gather", False)):
-                raise NotImplementedError(
-                    "sampler vector_len / raw_gather are not ported yet "
-                    "(ROADMAP.md)")
-            sampler = RandomPointSampler(spatial, mode,
-                                         int(cfg.sampler.sample_size))
-            dev_data = torch.from_numpy(data_norm.reshape(-1, c)).to(dev)
+                dequant = raw_dequant(str(self.opt.Normalize.name),
+                                      sideinfos)
+            vector_len = int(cfg.sampler.get("vector_len", 1) or 1)
+            sampler = RandomPointSampler(
+                spatial, mode, int(cfg.sampler.sample_size),
+                min(vector_len, int(np.prod(spatial))),
+                *(dequant or (1.0, 0.0)),
+                raw_uint16=bool(dequant) and data_pre.dtype == np.uint16)
+            dev_data = device_raw(data_pre.reshape(-1, c), dev) if dequant \
+                else torch.from_numpy(data_norm.reshape(-1, c)).to(dev)
             dev_weight = None if unit_weight else \
                 torch.from_numpy(weight.reshape(-1, c)).to(dev)
         elif cfg.sampler.name == "randomcube":
@@ -210,11 +237,14 @@ class NFGR:
         # fused train kernel gate (fit.py:331-336 of the JAX package); a
         # chain too wide for the kernel raises NotImplementedError
         fused = bool(cfg.get("fused_train", True)) and dev.type == "cuda" \
+            and not self.half \
             and fused_train.supports_training(model, loss_name)
         step_fn = self._fused_step if fused else self._autograd_step
         step_args = dict(model=model, sampler=sampler, data=dev_data,
                          weight=dev_weight, loss_name=loss_name, beta=beta,
                          weight_thres=thres_norm)
+        if not fused:
+            step_args["half"] = self.half
         gen = torch.Generator(device=sampler.generator_device(dev))
         gen.manual_seed(self.seed)
 
@@ -342,16 +372,18 @@ class NFGR:
 
     @staticmethod
     def _autograd_step(params, gen, *, model, sampler, data, weight,
-                       loss_name, beta, weight_thres):
+                       loss_name, beta, weight_thres, half=False):
         """(loss, grads) by autograd through the model's apply, for any
-        parameter tree; a leaf the loss does not reach (FFN's frozen bvals)
-        gets a zero gradient."""
+        parameter tree (half: its products in bfloat16, JAX
+        fit.py:102-106); a leaf the loss does not reach (FFN's frozen
+        bvals) gets a zero gradient."""
         coords, vals, wts = sampler.sample(gen, data, weight)
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         try:
-            pred = model.apply(params, coords)
+            pred = model.apply(params, coords, compute_dtype=torch.bfloat16
+                               if half else None)
             loss = make_loss(loss_name, beta)(vals, pred, wts, weight_thres)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
@@ -365,7 +397,8 @@ class NFGR:
     def _decode(self, model, params, sideinfos) -> np.ndarray:
         dec = reconstruct_flattened(
             model, params, sideinfos["data_shape"],
-            int(self.opt.Decompress.sample_size), self.opt.Compress.coords_mode)
+            int(self.opt.Decompress.sample_size), self.opt.Compress.coords_mode,
+            self.half)
         dec = invnormalize_data(dec, sideinfos, **self.opt.Normalize)
         post = self.opt.Decompress.postprocess
         return preprocess(dec, post.denoise.level, post.denoise.close,
@@ -419,9 +452,6 @@ class NFGR:
         dev = resolve_device(device)
         if isinstance(opt, str):
             opt = cfglib.load(opt).CompressFramework
-        if bool(opt.Compress.half):
-            raise NotImplementedError(
-                "Compress.half (bf16 compute) is not ported yet (ROADMAP.md)")
         sideinfos = cfglib.load(sideinfos_path)
         phi_cfg = dict(opt.Module.phi)
         phi_cfg["features"] = sideinfos["phi_features"]
@@ -434,7 +464,8 @@ class NFGR:
             load_phi_module(model, module_path, like), dev)
         dec = reconstruct_flattened(model, params, sideinfos["data_shape"],
                                     int(opt.Decompress.sample_size),
-                                    opt.Compress.coords_mode)
+                                    opt.Compress.coords_mode,
+                                    bool(opt.Compress.half))
         dec = invnormalize_data(dec, dict(sideinfos), **opt.Normalize)
         post = opt.Decompress.postprocess
         return preprocess(dec, post.denoise.level, post.denoise.close,

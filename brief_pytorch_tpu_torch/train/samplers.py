@@ -1,11 +1,14 @@
 """Training samplers, drawing from an explicit torch.Generator.
 
 Torch port of brief_pytorch_tpu/train/samplers.py (reference
-main.py:38-163) for what the SingleTask path uses:
-  * RandomPointSampler with vector_len=1 — sample_size uniform draws with
-    replacement; coordinates are regenerated arithmetically from the drawn
-    flat indices (core/coords.index_to_coords).  The generator lives on the
-    data's device, so a step never waits for the host.
+main.py:38-163):
+  * RandomPointSampler — sample_size uniform draws with replacement
+    (vector_len 1), or sample_size / L runs of L consecutive voxels
+    (vector_len L > 1); coordinates are regenerated arithmetically from
+    the flat indices (core/coords.index_to_coords).  An integer volume
+    (Compress.raw_gather) is gathered raw and dequantized after the
+    gather.  The generator lives on the data's device, so a step never
+    waits for the host.
   * RandomCubeSampler — cube_count axis-aligned cubes from every stride-1
     position.  Corners are drawn on a CPU generator (the slice bounds are
     host integers); a cube that covers the whole volume has one position.
@@ -18,41 +21,126 @@ import math
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from brief_pytorch_tpu_torch.core.coords import index_to_coords
 
 
+def device_raw(arr: np.ndarray, device) -> torch.Tensor:
+    """An integer volume on `device` at its own width: uint16 as its int16
+    bit pattern, since torch's CUDA gathers take no uint16 (raw_to_float
+    reads it back)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    return torch.from_numpy(arr).to(device)
+
+
+def raw_to_float(raw: torch.Tensor, uint16: bool) -> torch.Tensor:
+    """Gathered raw integers -> float32; uint16: device_raw's int16 bit
+    patterns of a uint16 volume."""
+    x = raw.to(torch.int32)
+    return (x & 0xFFFF if uint16 else x).to(torch.float32)
+
+
 @dataclass(frozen=True)
 class RandomPointSampler:
     """Uniform random voxel batches (reference RandompointSampler,
-    main.py:126-163).  Only vector_len=1, the reference's iid draw, is
-    ported; the JAX package's contiguous-run option waits (ROADMAP.md)."""
+    main.py:126-163; JAX samplers.py:37-120).
+
+    vector_len 1 draws sample_size independent voxels, the reference's
+    iid draw.  vector_len L > 1 (Compress.sampler.vector_len) draws
+    ceil(sample_size / L) runs of L voxels consecutive in flat order, cut
+    to sample_size.  When L divides the population the runs are aligned
+    rows of a (pop / L, L * c) view, one gathered row a run, and every
+    voxel is equally likely; otherwise run starts are uniform on
+    [0, pop - L] and expanded to voxel indices (the marginal is uniform
+    except within L - 1 voxels of the ends).
+
+    An integer data_flat (Compress.raw_gather, from device_raw) is
+    gathered in its own width and turned into normalized float32 values
+    after the gather, raw * dequant_scale + dequant_offset: the affine
+    normalization the host applies, so the values agree with the float32
+    gather to float32 rounding.  raw_uint16: data_flat holds a uint16
+    volume's int16 bit patterns.
+    """
     spatial_shape: Tuple[int, ...]   # (d, h, w) or (h, w)
     coords_mode: str
     sample_size: int
+    vector_len: int = 1
+    dequant_scale: float = 1.0       # used only for integer data_flat
+    dequant_offset: float = 0.0
+    raw_uint16: bool = False
 
     @staticmethod
     def generator_device(data_device: torch.device) -> torch.device:
         return data_device
 
+    def _values(self, raw: torch.Tensor) -> torch.Tensor:
+        """A gathered raw batch -> normalized float32 training values."""
+        if raw.dtype.is_floating_point:
+            return raw
+        return raw_to_float(raw, self.raw_uint16) * self.dequant_scale \
+            + self.dequant_offset
+
+    def _coords(self, idx: torch.Tensor, data_flat: torch.Tensor):
+        dtype = data_flat.dtype if data_flat.dtype.is_floating_point \
+            else torch.float32
+        return index_to_coords(idx, self.spatial_shape, self.coords_mode,
+                               dtype)
+
     def sample_at(self, idx: torch.Tensor, data_flat: torch.Tensor,
                   weight_flat):
         """(coords, values, weights) of the flat voxel indices `idx`."""
-        vals = data_flat[idx]
+        vals = self._values(data_flat[idx])
         wts = weight_flat[idx] if weight_flat is not None \
             else torch.ones_like(vals)
-        coords = index_to_coords(idx, self.spatial_shape, self.coords_mode,
-                                 data_flat.dtype)
-        return coords, vals, wts
+        return self._coords(idx, data_flat), vals, wts
+
+    def n_runs(self) -> int:
+        return -(-self.sample_size // self.vector_len)
+
+    def run_indices(self, starts: torch.Tensor) -> torch.Tensor:
+        """Flat voxel indices of runs of vector_len voxels at `starts`,
+        run by run, cut to sample_size."""
+        L = self.vector_len
+        offs = torch.arange(L, device=starts.device)
+        return (starts[:, None] + offs[None, :]).reshape(-1)[
+            :self.sample_size]
+
+    def sample_rows(self, rows: torch.Tensor, data_flat: torch.Tensor,
+                    weight_flat):
+        """(coords, values, weights) of the aligned runs `rows` (indices
+        of the (pop / L, L * c) view): one gathered row a run."""
+        L = self.vector_len
+        pop, c = data_flat.shape
+        take = lambda a: a.reshape(pop // L, L * c)[rows].reshape(-1, c)[
+            :self.sample_size]
+        vals = self._values(take(data_flat))
+        wts = take(weight_flat) if weight_flat is not None \
+            else torch.ones_like(vals)
+        return self._coords(self.run_indices(rows * L), data_flat), vals, wts
 
     def sample(self, gen: torch.Generator, data_flat: torch.Tensor,
                weight_flat):
         """data_flat / weight_flat: (pop, c); weight_flat None means unit
         weights.  Returns (coords (S, ndim), values (S, c), weights (S, c))."""
-        idx = torch.randint(0, data_flat.shape[0], (self.sample_size,),
-                            generator=gen, device=data_flat.device)
-        return self.sample_at(idx, data_flat, weight_flat)
+        pop = data_flat.shape[0]
+        L = int(self.vector_len)
+        dev = data_flat.device
+        if L <= 1:
+            idx = torch.randint(0, pop, (self.sample_size,), generator=gen,
+                                device=dev)
+            return self.sample_at(idx, data_flat, weight_flat)
+        if pop % L == 0:
+            rows = torch.randint(0, pop // L, (self.n_runs(),),
+                                 generator=gen, device=dev)
+            return self.sample_rows(rows, data_flat, weight_flat)
+        starts = torch.randint(0, max(1, pop - L + 1), (self.n_runs(),),
+                               generator=gen, device=dev)
+        return self.sample_at(self.run_indices(starts), data_flat,
+                              weight_flat)
 
 
 @dataclass(frozen=True)

@@ -22,7 +22,11 @@ Needs a CUDA card.
 `trace(logdir)` (JAX utils/profiling.py:24, there a jax.profiler trace) is
 a torch.profiler trace of whatever runs inside it, written as
 <logdir>/trace.json (Chrome trace format: chrome://tracing, Perfetto):
-host ops, and the card's kernels where a card is present.
+host ops, and the card's kernels where a card is present.  Beside it,
+<logdir>/kernels.json counts the trace's device kernels by name.  A trace
+that holds no device kernel (the CPU, or a card whose CUPTI another tracer
+holds) is said so in a warning on standard error and in the run's log,
+not written silently.
 """
 from __future__ import annotations
 
@@ -31,16 +35,28 @@ import contextlib
 import json
 import os
 import subprocess
+import sys
+from collections import Counter
 
 import torch
 
 from brief_pytorch_tpu_torch.core import config as cfglib
 
 
+def device_kernels(prof) -> Counter:
+    """Launches of each device kernel in a stopped profiler's trace."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda)
+
+
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, log_path: str = None):
     """torch.profiler over the block; the trace goes to
-    <logdir>/trace.json when it ends."""
+    <logdir>/trace.json and its device kernels by name to
+    <logdir>/kernels.json when it ends.  Without a device kernel in the
+    trace, a warning goes to standard error and is appended to log_path
+    (the run's log) where one is given."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -53,6 +69,21 @@ def trace(logdir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        kernels = device_kernels(prof)
+        with open(os.path.join(logdir, "kernels.json"), "w") as f:
+            json.dump(dict(kernels.most_common()), f, indent=1)
+        if kernels:
+            msg = (f"profile: {sum(kernels.values())} device kernel "
+                   f"launches of {len(kernels)} kernels in {logdir}")
+        else:
+            msg = (f"WARNING profile: the trace in {logdir} holds no device "
+                   "kernel (" + ("no CUDA card" if len(activities) == 1 else
+                                 "CUPTI gave the profiler no kernel events; "
+                                 "is another tracer holding it?") + ")")
+        print(msg, file=sys.stderr, flush=True)
+        if log_path is not None and not kernels:
+            with open(log_path, "a") as f:
+                f.write(msg + "\n")
 
 
 def _run(opt, steps: int) -> dict:

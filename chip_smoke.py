@@ -127,7 +127,33 @@ non-zero exit:
      1's narrow fleet form; 2,000 steps each) with only the outputs dir
      and the data path changed, through the MultiTask command: both
      experiments finish, finite PSNRs, one train launch a step,
-     temp_opt_* removed.
+     temp_opt_* removed;
+ 15. media at full width (media_files: a 2048^2 uint16 PNG, the 4 x 4
+     mosaic of HiP-CT planes 0, 4, ..., 60; 64 frames of 512^2 x 3 uint8
+     BGR video from the HiP-CT and vessel planes, MP4, read back through
+     read_img), opt/SingleTask/default.yaml at 80x of the raw pixels
+     (given_size; the files are compressed): kernel 1 and kernel 2
+     against their plain versions at the widths the configs give (2
+     coordinates; c_out = 3 in both wide forms), then the SingleTask
+     command on each (media_run: one train launch a step, the decode
+     kernel in the checkpoint and the standalone decompress, which equals
+     the checkpoint's image, PSNR within DEMO_AUTOGRAD_DB of autograd's,
+     cal_ms_ssim on the card within 2e-4 of the CPU's) and the PNG with
+     total_1_2_2 (media_divide_run: 4 blocks of 1024^2 on the fleet form,
+     which fleet_check holds against its plain version at C = 2; the
+     h_*-w_* chunks; decompress_divide within 1 LSB on >= 99.9%);
+ 16. `half` (half_run): the SingleTask default on the 64^3 fixture for
+     HALF_STEPS steps, no kernel launched, the 2-byte sizing's width,
+     PSNR within HALF_DB of float32 autograd on the same network; then
+     brain64.yaml: finite PSNR, decompress_divide within 1 LSB;
+ 17. hipct.yaml (EXCEPTION_STEPS, HIPCT_STEPS steps): the one-chain
+     kernel at the solo block's chain, then a step-level exception for
+     the block by_var gives 66 features (exception_run: the block on the
+     one-chain kernel at its proportional steps, the other three on the
+     fleet kernel, decompress_divide within 1 LSB, resume_run bitwise),
+     and raw_gather / vector_len 8 (gather_run: PSNR within
+     HIPCT_AUTOGRAD_DB of phase 7's, steps/s and resident bytes beside
+     phase 7's).
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -159,6 +185,8 @@ PSNR_FLOOR = 40.0          # dB; 41.985 measured on an H100 (PERF.md)
 N_COORDS = 64 ** 3         # randomcube over the whole 64^3 fixture
 HIPCT = os.path.join(ROOT, "dataset", "example",
                      "hipct-0_64-0_512-0_512.tif")   # LZW, tracked
+VESSEL = os.path.join(ROOT, "dataset", "example",
+                      "vessel-0_64-0_512-0_512.tif")
 HIPCT_STEPS = 500          # cut from the config's 80,000
 # phase 13: steps of each resumed run (preempted at half), cut from the
 # configs' 20,000 and 80,000
@@ -178,6 +206,16 @@ DEMO_RUNS = [(80, 500, 191), (50, 200, 242)]
 DEMO_N = 100_000           # default.yaml's sample_size
 DEMO_AUTOGRAD_DB = 0.5     # dB; the kernel run's PSNR against autograd's
 DECODE_SLAB = 1 << 20      # voxels per slab of the plain decode (phase 4)
+# phase 15: steps of the PNG and MP4 SingleTask runs and the 2-D fleet
+MEDIA_STEPS = {"png": 500, "mp4": 200}
+MEDIA_DIVIDE_STEPS = 300
+MEDIA_N = 100_000          # default.yaml's sample_size (cube_size_guard)
+# phase 16: `half` runs and the PSNR band against float32 autograd
+HALF_STEPS = 1000
+HALF_DIVIDE_STEPS = 300
+HALF_DB = 1.0              # dB, fixed before the first card run
+# phase 17: hipct.yaml with a step-level exception (preempted at half)
+EXCEPTION_STEPS = 500
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
@@ -329,10 +367,11 @@ def compare_grads(lk, gk, lp, gp, what: str) -> float:
     return err
 
 
-def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict
-                ) -> dict:
+def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
+                phase: str = "3-fused_train") -> dict:
     """The one-chain train kernel on a chain of the φ config `phi` (w0,
-    layers and channels from the SingleTask default) at n coordinates:
+    layers and channels from the SingleTask default unless `phi` sets
+    them) at n coordinates:
     the plan must pick `layout`; against its plain version (compare_grads'
     tolerances), two more runs bitwise equal, timed beside the plain
     version, bound_ms and (narrow) tc_bound_ms.  Returns its JSON row."""
@@ -349,9 +388,10 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict
         fail(f"chain {widths}: layout {p and p['layout']}, not {layout}")
     rng = np.random.default_rng(3)
     to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    c = to_dev(rng.uniform(-1, 1, (3, n)))
-    v = to_dev(rng.uniform(0, 100, (1, n)))
-    w = to_dev(rng.uniform(1, 2, (1, n)))
+    cin, cout = widths[0], widths[-1]
+    c = to_dev(rng.uniform(-1, 1, (cin, n)))
+    v = to_dev(rng.uniform(0, 100, (cout, n)))
+    w = to_dev(rng.uniform(1, 2, (cout, n)))
 
     def k():
         return fused_train.fused_train_grads(layers, c, v, w, acts, **kw)
@@ -372,15 +412,15 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict
             fail(f"{label} {widths}: runs differ bitwise")
     ms = time_ms(k)
     plain = time_ms(pl, reps=5)
-    n_bytes = 4 * (n * 5 + 2 * sum(l["w"].numel() + l["b"].numel()
-                                   for l in layers) + 1)
+    n_bytes = 4 * (n * (cin + 2 * cout) + 2 * sum(
+        l["w"].numel() + l["b"].numel() for l in layers) + 1)
     b, by = bound_ms(n_bytes, train_flops(widths, acts, n))
     row = dict(shape=f"SIREN {widths}, N={n}", layout=layout,
                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                bound_by=by)
     if layout == "narrow":
         row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
-    say("3-fused_train", case=label, widths=widths, n=n, layout=layout,
+    say(phase, case=label, widths=widths, n=n, layout=layout,
         max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
         bound_ms=f"{b:.4f}", bound_by=by,
         **({"tc_bound_ms": f"{row['tc_bound_ms']:.4f}"}
@@ -459,7 +499,8 @@ def kernels_per_call(fn, layout: str) -> int:
 
 
 def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
-                 reps: int = 25, plain_reps: int = 20) -> dict:
+                 reps: int = 25, plain_reps: int = 20,
+                 phase: str = "4-fused_decode") -> dict:
     """The grid-decode kernel on one chain and grid: finite values of the
     right shape within 1e-5 * max|plain| + 1e-5 of the plain version (in
     slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise equal,
@@ -514,7 +555,7 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
                warps_per_sm=p.get("warps_per_sm"),
                kernels_per_call=per_call, max_abs_err=err, **f64, ms=ms,
                plain_ms=plain, bound_ms=b, bound_by=by, tc_bound_ms=tc)
-    say("4-fused_decode", case=label, grid=grid, widths=widths,
+    say(phase, case=label, grid=grid, widths=widths,
         layout=p["layout"], tile=tile, inst=p.get("inst"),
         warps_per_sm=p.get("warps_per_sm"), kernels_per_call=per_call,
         max_abs_err=f"{err:.3e}",
@@ -528,7 +569,8 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
 
 
 def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
-                thres, layout: str) -> dict:
+                thres, layout: str, cin: int = 3,
+                phase: str = "6-fused_train_fleet") -> dict:
     """The train kernel's fleet form on B = len(true_widths) SIREN chains
     padded to the widest (unit masks), n coordinates per block, per-block
     thresholds `thres` (-inf: none), in the kernel layout `layout` (the
@@ -542,16 +584,16 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     from brief_pytorch_tpu_torch.ops import fused_train
     from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
     from brief_pytorch_tpu_torch.parallel.block_trainer import build_stacked
-    models = [init_phi({"name": "SIREN", "coords_channel": 3,
+    models = [init_phi({"name": "SIREN", "coords_channel": cin,
                         "data_channel": 1, "features": f, "layers": layers,
                         "w0": w0}) for f in true_widths]
     _, params, masks = build_stacked(models, 0, device=dev)
     flayers = params["layers"]
-    padded = [3] + [int(l["w"].shape[-1]) for l in flayers]
+    padded = [cin] + [int(l["w"].shape[-1]) for l in flayers]
     acts = chain_layer_specs(models[-1].spec)
     nb = len(true_widths)
     to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    fc = to_dev(rng.uniform(-1, 1, (nb, 3, n)))
+    fc = to_dev(rng.uniform(-1, 1, (nb, cin, n)))
     fv = to_dev(rng.uniform(0, 100, (nb, 1, n)))
     fw = to_dev(rng.uniform(1, 2, (nb, 1, n)))
     fthres = torch.tensor(thres, dtype=torch.float32, device=dev)
@@ -604,20 +646,20 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
             fail(f"{what}: runs differ bitwise")
     ms = time_ms(k6)
     plain = time_ms(p6, reps=5)
-    flops = sum(train_flops([3] + [f] * (layers - 1) + [1], acts, n)
+    flops = sum(train_flops([cin] + [f] * (layers - 1) + [1], acts, n)
                 for f in true_widths)
     flops_pad = nb * train_flops(padded, acts, n)
     n_par = sum(l["w"].numel() + l["b"].numel() for l in flayers)
-    n_bytes = 4 * (nb * n * (3 + 1 + 1) + 2 * n_par + nb
+    n_bytes = 4 * (nb * n * (cin + 1 + 1) + 2 * n_par + nb
                    + sum(m.numel() for m in masks[:-1]))
     b, by = bound_ms(n_bytes, flops)
     b_pad, _ = bound_ms(n_bytes, flops_pad)
-    tc = sum(train_tc_bound_ms([3] + [f] * (layers - 1) + [1], acts, n,
+    tc = sum(train_tc_bound_ms([cin] + [f] * (layers - 1) + [1], acts, n,
                                n_bytes / nb) for f in true_widths)
     p = fused_train.choose_plan(padded)
     if p["layout"] != layout:
         fail(f"{what}: layout {p['layout']}, not {layout}")
-    say("6-fused_train_fleet", blocks=nb, n=n, padded=padded,
+    say(phase, blocks=nb, n=n, padded=padded,
         true_widths=list(true_widths), thres=fthres.tolist(), layout=layout,
         tile=p["block"], max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain:.4f}", bound_ms=f"{b:.4f}",
@@ -634,12 +676,13 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
 
 def run_config(config: str, out_dir: str, steps: int, data_path=None,
                fused_train: bool = True, phi=None, project=None,
-               ratio=None):
+               ratio=None, compress=None, decompress=None):
     """The CLI on `config` cut to `steps` steps with one checkpoint, no
     MIPs (and the fused train kernel off unless `fused_train`; Module.phi
     updated with `phi`, the run named `project`, Compress.param's
-    filesize_ratio set to `ratio`); returns (summary, run dir, the yaml's
-    config)."""
+    filesize_ratio set to `ratio`, Compress and Decompress merged with the
+    dicts `compress` and `decompress`); returns (summary, run dir, the
+    yaml's config)."""
     from brief_pytorch_tpu_torch.cli import main as cli
     from brief_pytorch_tpu_torch.core import config as cfglib
     opt = cfglib.load(config)
@@ -659,6 +702,9 @@ def run_config(config: str, out_dir: str, steps: int, data_path=None,
         c.Module.phi[k] = v
     if ratio is not None:
         c.Compress.param.filesize_ratio = ratio
+    if compress or decompress:
+        c.Compress = cfglib.merge(c.Compress, compress or {})
+        c.Decompress = cfglib.merge(c.Decompress, decompress or {})
     if project is not None:
         opt.Log.project_name = project
     yaml_path = os.path.join(out_dir, f"{opt.Log.project_name}_"
@@ -1132,15 +1178,16 @@ def tree_bytes(root: str) -> dict:
 
 
 def resume_run(dev, out_dir: str, label: str, config: str, steps: int,
-               data_path: str) -> dict:
+               data_path: str, per_step: float = 1.0) -> dict:
     """Phase 13 on one config: A, the run preempted right after it wrote
     its training state at steps // 2 (the state writer raises Preempted
     after writing); B, the same run uninterrupted; C, A's command plus
     -resume <A's run dir>.  C's weight binaries at `steps` must equal B's
     byte for byte, C must launch the train kernel steps // 2 times and
     skip A's checkpoint; then C once more with another lr_phi must raise
-    ValueError (the fingerprint).  Fails the run on any miss; returns the
-    numbers."""
+    ValueError (the fingerprint).  per_step: train launches a fleet step
+    (1.5 with a solo block at half the fleet's max_steps).  Fails the run
+    on any miss; returns the numbers."""
     import torch
     from brief_pytorch_tpu_torch.cli import main as cli
     from brief_pytorch_tpu_torch.core import config as cfglib
@@ -1202,7 +1249,9 @@ def resume_run(dev, out_dir: str, label: str, config: str, steps: int,
     state = "trainstate_fleet.npz" if divide else "trainstate.npz"
     with np.load(os.path.join(run_dir["C"], state)) as z:
         stored = int(z["step"])
-    if not b or got != b or launches != {"A": half, "B": steps, "C": half} \
+    want = {"A": round(half * per_step), "B": round(steps * per_step),
+            "C": round(half * per_step)}
+    if not b or got != b or launches != want \
             or os.path.isdir(os.path.join(run_dir["C"], f"steps{half}")) \
             or stored != steps:
         fail(f"{label}: resumed weights equal the uninterrupted run's: "
@@ -1315,6 +1364,405 @@ def multitask_run(dev, out_dir: str) -> dict:
         **{f"psnr_{p}": f"{v:.3f}" for p, v in psnr.items()},
         temp_opt_left=len(left), wall_s=f"{wall:.3f}")
     return dict(launches=launches, psnr=psnr, wall_s=wall)
+
+
+def sizing_width(phi: dict, budget: float) -> int:
+    """The SIREN width models/sizing gives `phi` at `budget` bytes."""
+    from brief_pytorch_tpu_torch.models import sizing
+    return int(sizing.estimate_module_size(budget, {"name": "SIREN", **phi},
+                                           False)[0])
+
+
+def media_files(out_dir: str) -> dict:
+    """Phase 15's inputs, written by the port's save_img into out_dir: a
+    2048 x 2048 uint16 PNG, the 4 x 4 mosaic of planes 0, 4, ..., 60 of
+    the HiP-CT demo volume; and 64 frames of 512 x 512 x 3 uint8 (B, G, R:
+    the top bytes of HiP-CT plane z, vessel plane z and HiP-CT plane
+    63 - z) as MP4.  Returns their paths and raw (uncompressed) bytes."""
+    from brief_pytorch_tpu_torch.io.image import read_img, save_img
+    hip = read_img(HIPCT)[..., 0]
+    ves = read_img(VESSEL)[..., 0]
+    tiles = [hip[4 * k] for k in range(16)]
+    mosaic = np.block([tiles[4 * i:4 * i + 4] for i in range(4)])[..., None]
+    png = os.path.join(out_dir, "hipct-mosaic-2048.png")
+    save_img(png, mosaic)
+    top = lambda a: (a >> 8).astype(np.uint8)
+    frames = np.stack([top(hip), top(ves), top(hip[::-1])], axis=-1)
+    mp4 = os.path.join(out_dir, "hipct-vessel-64.mp4")
+    save_img(mp4, frames)
+    back = read_img(mp4)
+    if back.shape != frames.shape or back.dtype != np.uint8:
+        fail(f"mp4: wrote {frames.shape}, read back {back.shape} "
+             f"{back.dtype}")
+    if not np.array_equal(read_img(png), mosaic):
+        fail("png: the mosaic does not read back equal")
+    return {"png": png, "png_raw": mosaic.nbytes, "mp4": mp4,
+            "mp4_raw": frames.nbytes}
+
+
+def media_config(kind: str) -> dict:
+    """Phase 15's overrides of opt/SingleTask/default.yaml: two
+    coordinates (PNG) or three channels of uint8 (MP4); the budget is 80x
+    of the raw pixels (given_size), since the files are compressed."""
+    if kind == "png":
+        return {"phi": {"coords_channel": 2},
+                "compress": {"sampler": {"cube_len": [10000000] * 2},
+                             "preprocess": {"denoise": {"close": [2, 2]}}},
+                "decompress": {"postprocess": {"denoise": {"close": [2, 2]}}}}
+    return {"phi": {"data_channel": 3},
+            "compress": {"preprocess": {"clip": [0, 255]},
+                         "loss": {"weight": ["value_255_255_1"],
+                                  "weight_thres": 255}},
+            "decompress": {"postprocess": {"clip": [0, 255]}}}
+
+
+def media_run(dev, out_dir: str, kind: str, path: str, raw_bytes: int,
+              steps: int) -> dict:
+    """Phase 15 (a) or (c): the SingleTask command on the PNG or the MP4,
+    on the kernels and through autograd: one train launch a step, the
+    decode kernel (its own count) in the checkpoint and in the standalone
+    NFGR.decompress, whose image equals the checkpoint's, PSNR within
+    DEMO_AUTOGRAD_DB of autograd's, cal_ms_ssim on the card within 2e-4 of
+    its value on the CPU.  Fails the run on any miss."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.eval.metrics import cal_ms_ssim
+    from brief_pytorch_tpu_torch.io.image import read_img, save_img
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    mc = media_config(kind)
+    comp_over = {**mc["compress"], "param": {"filesize_ratio": 0,
+                                             "given_size": raw_bytes / 80}}
+    runs = {}
+    for fused in (True, False):
+        fused_train.launches = 0
+        k0 = fused_decode.kernels_launched()
+        t0 = time.perf_counter()
+        summary, run_dir, opt = run_config(
+            CONFIG, out_dir, steps, path, fused_train=fused, phi=mc["phi"],
+            project=f"media_{kind}" + ("" if fused else "_autograd"),
+            compress=comp_over,
+            decompress=mc["decompress"])
+        torch.cuda.synchronize()
+        runs[fused] = dict(summary=summary, run_dir=run_dir, opt=opt,
+                           wall=time.perf_counter() - t0,
+                           train_launches=fused_train.launches,
+                           decode_kernels=fused_decode.kernels_launched()
+                           - k0)
+    r = runs[True]
+    cf = r["opt"].CompressFramework
+    with np.load(os.path.join(r["run_dir"], "trainstate.npz")) as z:
+        sampler = json.loads(bytes(z["fingerprint"]).decode())["sampler"]
+    comp = os.path.join(r["run_dir"], f"steps{steps}", "compressed")
+    side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
+    k0 = fused_decode.kernels_launched()
+    dec = NFGR.decompress(cf, os.path.join(comp, "module"),
+                          os.path.join(comp, "sideinfos.yaml"), device=dev)
+    standalone_kernels = fused_decode.kernels_launched() - k0
+    ext = os.path.splitext(path)[1]
+    stem = os.path.basename(path)[:-len(ext)]
+    ck_path = os.path.join(r["run_dir"], f"steps{steps}", "decompressed",
+                           f"{stem}_decompressed{ext}")
+    if ext == ".mp4":    # a lossy file: compare the same codec's output
+        mine = os.path.join(out_dir, f"standalone{ext}")
+        save_img(mine, dec)
+        same = np.array_equal(read_img(mine), read_img(ck_path))
+    else:
+        same = np.array_equal(dec, read_img(ck_path))
+    orig = read_img(path)
+    drange = float(np.iinfo(orig.dtype).max)
+    t0 = time.perf_counter()
+    ms_card = cal_ms_ssim(orig, dec, drange, device=dev)
+    ms_card_s = time.perf_counter() - t0
+    ms_cpu = cal_ms_ssim(orig, dec, drange, device="cpu")
+    psnr, psnr_a = last_psnr(r["run_dir"]), last_psnr(runs[False]["run_dir"])
+    widths = [int(cf.Module.phi.coords_channel)] + \
+        [int(side["phi_features"])] * 4 + [int(cf.Module.phi.data_channel)]
+    train_s = r["summary"]["train_s"]
+    say(f"15-media-{kind}", shape=list(orig.shape), dtype=str(orig.dtype),
+        steps=steps, widths=widths,
+        sampler=repr(sampler), train_launches=r["train_launches"],
+        train_launches_autograd=runs[False]["train_launches"],
+        decode_kernels_checkpoint=r["decode_kernels"],
+        decode_kernels_standalone=standalone_kernels,
+        standalone_equals_checkpoint=same, psnr=f"{psnr:.3f}",
+        psnr_autograd=f"{psnr_a:.3f}",
+        ssim=f"{float(r['summary']['ssim']):.4f}",
+        ms_ssim_card=f"{ms_card:.6f}", ms_ssim_cpu=f"{ms_cpu:.6f}",
+        ms_ssim_card_s=f"{ms_card_s:.3f}",
+        train_s=f"{train_s:.3f}", steps_per_s=f"{steps / train_s:.2f}",
+        steps_per_s_autograd=f"{steps / runs[False]['summary']['train_s']:.2f}",
+        checkpoint_s=f"{r['summary']['checkpoint_s']:.3f}",
+        wall_s=f"{r['wall']:.3f}")
+    if r["train_launches"] != steps or runs[False]["train_launches"] or \
+            r["decode_kernels"] < 1 or standalone_kernels < 1 or not same:
+        fail(f"media {kind}: launches {r['train_launches']} / "
+             f"{runs[False]['train_launches']} (want {steps} / 0), decode "
+             f"kernels {r['decode_kernels']} / {standalone_kernels}, "
+             f"standalone equal {same}")
+    if not math.isfinite(psnr) or not abs(psnr - psnr_a) <= DEMO_AUTOGRAD_DB:
+        fail(f"media {kind}: PSNR {psnr} on the kernels, {psnr_a} through "
+             f"autograd: more than {DEMO_AUTOGRAD_DB} dB apart")
+    if not abs(ms_card - ms_cpu) <= 2e-4:
+        fail(f"media {kind}: MS-SSIM {ms_card} on the card, {ms_cpu} on "
+             "the CPU")
+    return dict(widths=widths, psnr=psnr, psnr_autograd=psnr_a,
+                ms_ssim=ms_card, ms_ssim_cpu=ms_cpu,
+                train_launches=r["train_launches"],
+                decode_kernels=r["decode_kernels"] + standalone_kernels,
+                steps_per_s=steps / train_s, wall_s=r["wall"])
+
+
+def within_1lsb(dec, ck) -> tuple:
+    """(share of voxels within 1 LSB, the largest difference)."""
+    diff = np.abs(dec.astype(np.int64) - ck.astype(np.int64))
+    return float((diff <= 1).mean()), int(diff.max())
+
+
+def divide_decompress(dev, cf, run_dir: str, steps: int, data_path: str):
+    """NFGR.decompress_divide of a DivideTask checkpoint against its merged
+    decode: (share within 1 LSB, max LSB, decode kernels launched)."""
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.ops import fused_decode
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    comp = os.path.join(run_dir, f"steps{steps}", "compressed")
+    k0 = fused_decode.kernels_launched()
+    dec = NFGR.decompress_divide(
+        cf, os.path.join(comp, "sideinfos.yaml"),
+        os.path.join(comp, "module"), os.path.join(comp, "sideinfos"),
+        device=dev)
+    kernels = fused_decode.kernels_launched() - k0
+    ext = os.path.splitext(data_path)[1]
+    ck = read_img(os.path.join(
+        run_dir, f"steps{steps}", "decompressed",
+        os.path.basename(data_path)[:-len(ext)] + "_decompressed" + ext))
+    if dec.shape != ck.shape:
+        fail(f"decompress_divide {run_dir}: {dec.shape} vs {ck.shape}")
+    return (*within_1lsb(dec, ck), kernels)
+
+
+def media_divide_run(dev, out_dir: str, path: str, raw_bytes: int,
+                     steps: int) -> dict:
+    """Phase 15 (b): the PNG with divide_type total_1_2_2: a fleet of 4
+    blocks of 1024^2 on kernel 1's fleet form (one launch a step), the
+    four h_*-w_* chunks, decompress_divide within 1 LSB of the merged
+    checkpoint on >= 99.9% of pixels."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.ops import fused_train
+    mc = media_config("png")
+    comp_over = {**mc["compress"], "divide": {"divide_type": "total_1_2_2"},
+                 "param": {"filesize_ratio": 0, "given_size": raw_bytes / 80}}
+    fused_train.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, opt = run_config(
+        CONFIG, out_dir, steps, path, phi=mc["phi"], project="media_divide",
+        compress=comp_over, decompress=mc["decompress"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_train.launches
+    names = chunk_dirs(run_dir, steps)
+    within, max_lsb, kernels = divide_decompress(
+        dev, opt.CompressFramework, run_dir, steps, path)
+    want = ["h_0_1023-w_0_1023", "h_0_1023-w_1024_2047",
+            "h_1024_2047-w_0_1023", "h_1024_2047-w_1024_2047"]
+    psnr = last_psnr(run_dir)
+    say("15-media-divide", steps=steps, chunks=names,
+        buckets=summary["fleet"], launches=launches,
+        decompress_decode_kernels=kernels, within_1lsb=f"{within:.6f}",
+        max_lsb=max_lsb, psnr=f"{psnr:.3f}",
+        train_s=f"{summary['train_s']:.3f}",
+        steps_per_s=f"{steps / summary['train_s']:.2f}", wall_s=f"{wall:.3f}")
+    if names != want or summary["fused"] != [True] or launches != steps or \
+            within < 0.999 or kernels != 4 or not math.isfinite(psnr):
+        fail(f"media divide: chunks {names}, fused {summary['fused']}, "
+             f"launches {launches}, {within} within 1 LSB, {kernels} "
+             "decode kernels")
+    return dict(widths=summary["fleet"][0]["widths"], launches=launches,
+                psnr=psnr, within_1lsb=within,
+                steps_per_s=steps / summary["train_s"])
+
+
+def half_run(dev, out_dir: str) -> dict:
+    """Phase 16: `half` (bf16 products, float32 sums and parameters).  The
+    SingleTask default on the 64^3 fixture, HALF_STEPS steps: neither
+    kernel launched, the width of the 2-byte sizing, PSNR within HALF_DB
+    of the same steps and the same network in float32 through autograd
+    (filesize_ratio 40 at 4 bytes a parameter: half's parameter count, so
+    that only the products' precision differs).  Then brain64.yaml,
+    HALF_DIVIDE_STEPS steps: finite PSNR, no kernel, decompress_divide
+    within 1 LSB of the merged checkpoint on >= 99.9% of voxels."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.models import sizing
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    out = {}
+    for half in (True, False):
+        fused_train.launches = 0
+        k0 = fused_decode.kernels_launched()
+        summary, run_dir, opt = run_config(
+            CONFIG, out_dir, HALF_STEPS, FIXTURE, fused_train=half,
+            project="half" if half else "float32",
+            compress={"half": half}, ratio=80 if half else 40)
+        torch.cuda.synchronize()
+        comp = os.path.join(run_dir, f"steps{HALF_STEPS}", "compressed")
+        out[half] = dict(summary=summary, psnr=last_psnr(run_dir),
+                         train=fused_train.launches,
+                         decode=fused_decode.kernels_launched() - k0,
+                         width=int(cfglib.load(os.path.join(
+                             comp, "sideinfos.yaml"))["phi_features"]))
+    phi = dict(opt.CompressFramework.Module.phi)
+    want = sizing.estimate_module_size(os.path.getsize(FIXTURE) / 80, phi,
+                                       True)[0]
+    h, f = out[True], out[False]
+    fused_train.launches = 0
+    k0 = fused_decode.kernels_launched()
+    summary_d, run_dir_d, opt_d = run_config(
+        os.path.join(DIVIDE, "brain64.yaml"), out_dir, HALF_DIVIDE_STEPS,
+        compress={"half": True}, project="half_brain64")
+    divide_kernels = (fused_train.launches,
+                      fused_decode.kernels_launched() - k0)
+    psnr_d = last_psnr(run_dir_d)
+    within, max_lsb, _ = divide_decompress(
+        dev, opt_d.CompressFramework, run_dir_d, HALF_DIVIDE_STEPS, FIXTURE)
+    say("16-half", steps=HALF_STEPS, width=h["width"], width_float32=f["width"],
+        train_launches=h["train"], decode_kernels=h["decode"],
+        psnr=f"{h['psnr']:.3f}", psnr_float32_autograd=f"{f['psnr']:.3f}",
+        gap_db=f"{h['psnr'] - f['psnr']:.3f}", half_db=HALF_DB,
+        steps_per_s=f"{HALF_STEPS / h['summary']['train_s']:.2f}",
+        steps_per_s_float32_autograd=
+        f"{HALF_STEPS / f['summary']['train_s']:.2f}",
+        brain64_steps=HALF_DIVIDE_STEPS, brain64_psnr=f"{psnr_d:.3f}",
+        brain64_kernels=list(divide_kernels),
+        brain64_within_1lsb=f"{within:.6f}", brain64_max_lsb=max_lsb)
+    if h["train"] or h["decode"] or h["width"] != want or f["train"] or \
+            f["width"] != want or any(divide_kernels):
+        fail(f"half: launches {h['train']} / {h['decode']} (want 0 / 0), "
+             f"width {h['width']} (want {want}), float32 autograd "
+             f"{f['train']}, brain64 {divide_kernels}")
+    if not abs(h["psnr"] - f["psnr"]) <= HALF_DB:
+        fail(f"half: PSNR {h['psnr']} in bf16, {f['psnr']} in float32: "
+             f"more than {HALF_DB} dB apart")
+    if not math.isfinite(psnr_d) or within < 0.999:
+        fail(f"half brain64: PSNR {psnr_d}, {within} within 1 LSB")
+    return dict(width=h["width"], psnr=h["psnr"], psnr_float32=f["psnr"],
+                brain64_psnr=psnr_d, brain64_within_1lsb=within)
+
+
+def exception_config(out_dir: str) -> tuple:
+    """hipct.yaml with an exception for the block by_var gives 66
+    features: lr_phi 0.0005 and half of max_steps.  Returns (yaml path,
+    the block's name)."""
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.parallel.divide_runner import (
+        param_budget, plan_blocks)
+    from brief_pytorch_tpu_torch.post.preprocess import preprocess
+    opt = cfglib.load(os.path.join(DIVIDE, "hipct.yaml"))
+    c = opt.CompressFramework
+    pre = c.Compress.preprocess
+    data = preprocess(read_img(HIPCT), pre.denoise.level, pre.denoise.close,
+                      pre.clip)
+    _, blocks, _ = plan_blocks(c, data, param_budget(c.Compress, HIPCT))
+    name = [b["name"] for b in blocks
+            if b["sideinfos"]["phi_features"] == max(FLEET_WIDTHS)][0]
+    c.Compress.divide.exception = {name: {"Compress": {
+        "lr_phi": 0.0005, "max_steps": EXCEPTION_STEPS // 2}}}
+    path = os.path.join(out_dir, "hipct_exception.yaml")
+    cfglib.save(opt, path)
+    return path, name
+
+
+def exception_run(dev, out_dir: str) -> dict:
+    """Phase 17 (a): hipct.yaml with exception_config's step-level
+    exception, EXCEPTION_STEPS steps: the exception's block trains solo on
+    kernel 1's one-chain form (NFGR._fused_step), the other three on the
+    tiled fleet layout (one launch a step each); the solo block's steps at
+    the checkpoint are the proportional target; decompress_divide within
+    1 LSB on >= 99.9% of voxels; preempted at half and resumed, the weight
+    binaries equal the uninterrupted run's byte for byte (resume_run)."""
+    import torch
+    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    path, name = exception_config(out_dir)
+    solo_calls = [0]
+    step = NFGR._fused_step
+
+    def counted(*a, **kw):
+        solo_calls[0] += 1
+        return step(*a, **kw)
+
+    NFGR._fused_step = staticmethod(counted)
+    try:
+        fused_train.launches = 0
+        t0 = time.perf_counter()
+        summary, run_dir, opt = run_config(path, out_dir, EXCEPTION_STEPS,
+                                           HIPCT, project="exception")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fleet": fused_train.launches - solo_calls[0],
+                    "solo": solo_calls[0]}
+    finally:
+        NFGR._fused_step = staticmethod(step)
+    with np.load(os.path.join(run_dir, "trainstate_fleet.npz")) as z:
+        solo_done = int(z["s0done"])
+        fp = json.loads(bytes(z["fingerprint"]).decode())
+    within, max_lsb, kernels = divide_decompress(
+        dev, opt.CompressFramework, run_dir, EXCEPTION_STEPS, HIPCT)
+    target = round(EXCEPTION_STEPS * (EXCEPTION_STEPS // 2) / EXCEPTION_STEPS)
+    psnr = last_psnr(run_dir)
+    say("17-exception", block=name, steps=EXCEPTION_STEPS,
+        buckets=summary["fleet"], solo=summary["solo"],
+        launches=json.dumps(launches), solo_steps=solo_done,
+        solo_target=target, solo_fused=fp["solo_fused"],
+        within_1lsb=f"{within:.6f}", max_lsb=max_lsb,
+        decompress_decode_kernels=kernels, psnr=f"{psnr:.3f}",
+        train_s=f"{summary['train_s']:.3f}", wall_s=f"{wall:.3f}")
+    if launches != {"fleet": EXCEPTION_STEPS, "solo": target} or \
+            solo_done != target or summary["fused"] != [True] or \
+            fp["solo_fused"] != [True] or len(summary["solo"]) != 1 or \
+            summary["fleet"][0]["blocks"] != 3 or within < 0.999 or \
+            not math.isfinite(psnr):
+        fail(f"exception: launches {launches}, solo at {solo_done} (want "
+             f"{target}), fused {summary['fused']} / {fp['solo_fused']}, "
+             f"{within} within 1 LSB")
+    resumed = resume_run(dev, out_dir, "exception", path, EXCEPTION_STEPS,
+                         HIPCT, per_step=1.5)
+    return dict(launches=launches, solo_steps=solo_done, psnr=psnr,
+                within_1lsb=within, resume=resumed)
+
+
+def gather_run(dev, out_dir: str, label: str, compress: dict, psnr7: float,
+               steps_per_s7: float, bytes7: int) -> dict:
+    """Phase 17 (b) or (c): hipct.yaml verbatim but for `compress`,
+    HIPCT_STEPS steps on the fleet kernel: PSNR within HIPCT_AUTOGRAD_DB
+    of phase 7's run; steps/s and the stack's resident bytes beside
+    phase 7's."""
+    import torch
+    from brief_pytorch_tpu_torch.ops import fused_train
+    fused_train.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, _ = run_config(
+        os.path.join(DIVIDE, "hipct.yaml"), out_dir, HIPCT_STEPS, HIPCT,
+        project=label, compress=compress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    psnr = last_psnr(run_dir)
+    bucket = summary["fleet"][0]
+    sps = HIPCT_STEPS / summary["train_s"]
+    say(f"17-{label}", steps=HIPCT_STEPS, launches=fused_train.launches,
+        data_dtype=bucket["data_dtype"], data_bytes=bucket["data_bytes"],
+        data_bytes_phase7=bytes7, vector_len=bucket["vector_len"],
+        psnr=f"{psnr:.3f}", psnr_phase7=f"{psnr7:.3f}",
+        steps_per_s=f"{sps:.2f}", steps_per_s_phase7=f"{steps_per_s7:.2f}",
+        wall_s=f"{wall:.3f}")
+    if fused_train.launches != HIPCT_STEPS or summary["fused"] != [True] or \
+            not abs(psnr - psnr7) <= HIPCT_AUTOGRAD_DB:
+        fail(f"{label}: launches {fused_train.launches}, fused "
+             f"{summary['fused']}, PSNR {psnr} vs phase 7's {psnr7}")
+    return dict(psnr=psnr, steps_per_s=sps, data_dtype=bucket["data_dtype"],
+                data_bytes=bucket["data_bytes"],
+                vector_len=bucket["vector_len"])
 
 
 def main() -> int:
@@ -1752,6 +2200,86 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- 15. media at full width: a 2048^2 PNG (SingleTask, a 2-D
+    # fleet) and 64 frames of 512^2 BGR video ----
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_media_")
+    try:
+        files = media_files(out_dir)
+        media_rows = {}
+        for kind, cin, cout, spatial in (("png", 2, 1, (2048, 2048)),
+                                         ("mp4", 3, 3, (64, 512, 512))):
+            raw = files[f"{kind}_raw"]
+            mphi = {**SIREN_BASE, "name": "SIREN", "coords_channel": cin,
+                    "data_channel": cout}
+            f = sizing_width(mphi, raw / 80)
+            mmodel = init_phi({**mphi, "features": f})
+            mwidths = fused_train.chain_widths(mmodel.spec)
+            media_rows[kind] = {
+                "train": chain_check(
+                    dev, kind, {**mphi, "features": f}, MEDIA_N,
+                    fused_train.choose_plan(mwidths)["layout"], kw,
+                    phase="15-fused_train"),
+                "decode": decode_check(
+                    dev, kind, spatial, mmodel.init(
+                        torch.Generator().manual_seed(5), dev)["layers"],
+                    chain_layer_specs(mmodel.spec), reps=10, plain_reps=3,
+                    phase="15-fused_decode")}
+            run = media_run(dev, out_dir, kind, files[kind], raw,
+                            MEDIA_STEPS[kind])
+            if run["widths"] != mwidths:
+                fail(f"media {kind}: trained {run['widths']}, checked "
+                     f"{mwidths}")
+            media_rows[kind]["run"] = run
+        mdiv = media_divide_run(dev, out_dir, files["png"], files["png_raw"],
+                                MEDIA_DIVIDE_STEPS)
+        true2 = tuple(int(cfglib.load(os.path.join(
+            out_dir, "media_divide", f"steps{MEDIA_DIVIDE_STEPS}",
+            "compressed", "sideinfos", nm, "sideinfos.yaml"))["phi_features"])
+            for nm in sorted(os.listdir(os.path.join(
+                out_dir, "media_divide", f"steps{MEDIA_DIVIDE_STEPS}",
+                "compressed", "sideinfos"))))
+        fleet2d_row = fleet_check(
+            dev, rng, true2, 5, 20.0, MEDIA_N,
+            [60.0, -math.inf, 40.0, -math.inf],
+            fused_train.choose_plan([2] + mdiv["widths"][1:])["layout"],
+            cin=2, phase="15-fused_train_fleet")
+        if fleet2d_row["padded"] != mdiv["widths"]:
+            fail(f"media divide: trained {mdiv['widths']}, checked "
+                 f"{fleet2d_row['padded']}")
+        fleet2d_row["launches"] = mdiv["launches"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- 16. half: bf16 products, no kernel ----
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_half_")
+    try:
+        half_row = half_run(dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- 17. hipct.yaml: a step-level exception, raw_gather, vector_len
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_hipct_options_")
+    try:
+        solo_row = chain_check(dev, "hipct-solo",
+                               {"name": "SIREN", "layers": 7, "w0": 10,
+                                "features": max(FLEET_WIDTHS)}, FLEET_N,
+                               "tiled", kw,
+                               phase="17-fused_train")
+        exc = exception_run(dev, out_dir)
+        solo_row["launches"] = exc["launches"]["solo"]
+        steps_per_s7 = HIPCT_STEPS / train7
+        bytes7 = summary7["fleet"][0]["data_bytes"]
+        gather_rows = {
+            label: gather_run(dev, out_dir, label, over, psnr7,
+                              steps_per_s7, bytes7)
+            for label, over in (("raw_gather", {"raw_gather": True}),
+                                ("vector_len", {"sampler":
+                                                {"vector_len": 8}}))}
+        gather_rows["phase7"] = dict(psnr=psnr7, steps_per_s=steps_per_s7,
+                                     data_bytes=bytes7)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
@@ -1759,14 +2287,19 @@ def main() -> int:
          "launches": launches["fused_train"], "max_abs_err": err1,
          "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
          "tc_bound_ms": tc1, "library_ms": None, "layout": layout1,
-         "shape": f"SIREN {widths}, N={n}", **train_rows},
+         "shape": f"SIREN {widths}, N={n}", **train_rows,
+         "media_2d": {**media_rows["png"]["train"],
+                      "launches": media_rows["png"]["run"]["train_launches"]},
+         "hipct_solo": solo_row, "phase16_half": half_row},
         {"name": "fused_train_grads_fleet", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
          "launches": launches7["fused_train"], "library_ms": None,
          **{k: v for k, v in hip_row.items() if k != "padded"},
          "narrow": {k: v for k, v in b64_row.items() if k != "padded"},
-         "wide": {k: v for k, v in wfleet_row.items() if k != "padded"}},
+         "wide": {k: v for k, v in wfleet_row.items() if k != "padded"},
+         "media_2d_fleet": fleet2d_row, "phase17": {
+             "exception": exc, **gather_rows}},
         {"name": "fused_decode_grid", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",
@@ -1781,6 +2314,8 @@ def main() -> int:
          "at_256": {k: v for k, v in dec_rows[256].items() if k != "shape"},
          "hipct_chunk": {**dec_rows["hipct"], "launches": decode_launches7},
          "trained_5x22": dec_rows["trained"],
+         "media_2d": {**media_rows["png"]["decode"], "launches":
+                      media_rows["png"]["run"]["decode_kernels"]},
          "phase13": resume_rows, "phase14": multitask_row},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
@@ -1790,7 +2325,9 @@ def main() -> int:
          "library_ms": None, **wide_rows[191],
          "at_242": {**wide_rows[242], "launches":
                     demo_rows[242]["launches"]["fused_train"]},
-         "phase12": demo_rows},
+         "phase12": demo_rows,
+         "video_c3": {**media_rows["mp4"]["train"], "launches":
+                      media_rows["mp4"]["run"]["train_launches"]}},
         {"name": "fused_decode_grid_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",
@@ -1800,7 +2337,9 @@ def main() -> int:
          "library_ms": None, **dec_rows[191],
          "at_242": {**dec_rows[242], "launches":
                     demo_rows[242]["launches"]["fused_decode"]
-                    + demo_rows[242]["decompress_decode_launches"]}},
+                    + demo_rows[242]["decompress_decode_launches"]},
+         "video_c3": {**media_rows["mp4"]["decode"], "launches":
+                      media_rows["mp4"]["run"]["decode_kernels"]}},
         {"name": "fused_chain_apply", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_siren.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",

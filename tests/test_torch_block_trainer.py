@@ -350,14 +350,22 @@ def test_fleet_train_buckets_checkpoints_and_state(tmp_path):
     ({"sampler": {"vector_len": 4}}, "vector_len"),
 ])
 def test_unported_options_raise(override, match):
+    """half, vector_len and a block with a config of its own (solo_cfg)
+    raised here until they were ported; now each trains: the bucket takes
+    the option (bf16 products, runs of 4 voxels clamped to the shortest
+    last axis), the losses are finite, and the solo_cfg block trains on
+    the solo path."""
     cc = tcfg.merge(tcfg.loads(CC), override)
-    with pytest.raises(NotImplementedError, match=match):
-        tbt.BlockFleetTrainer(seed=0, device="cpu").train(_blocks(), cc, 2)
+    trainer = tbt.BlockFleetTrainer(seed=0, device="cpu")
+    trainer.train(_blocks(), cc, 2)
+    st = trainer._states[0]
+    assert {"half": st.half, "vector_len": st.vector_len == 4}[match]
+    assert all(np.isfinite(l).all() for l in trainer.last_losses)
     blocks = _blocks()
     blocks[1]["solo_cfg"] = tcfg.loads(CC)
-    with pytest.raises(NotImplementedError, match="solo path"):
-        tbt.BlockFleetTrainer(seed=0, device="cpu").train(
-            blocks, tcfg.loads(CC), 2)
+    trainer = tbt.BlockFleetTrainer(seed=0, device="cpu")
+    trainer.train(blocks, tcfg.loads(CC), 2)
+    assert trainer.solo_blocks() == [1] and trainer._solo[0].steps_done == 2
 
 
 def test_fleet_trains_toward_the_data():

@@ -108,7 +108,7 @@ def test_multitask_subprocess_pins_every_listed_device(monkeypatch):
 @pytest.mark.parametrize("flag,value", [("-coordinator", "host:1234"),
                                         ("-nprocs", "2"), ("-procid", "0")])
 def test_multihost_flags_raise(flag, value, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         cli.main(["-p", str(tmp_path / "never_read.yaml"), "-g", "cpu",
                   flag, value])
 
@@ -140,3 +140,22 @@ def test_profile_writes_a_trace(tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
     assert (tmp_path / "prof" / "performance.csv").exists()
+
+
+def test_profile_warns_when_the_trace_holds_no_device_kernel(tmp_path,
+                                                             capsys):
+    """utils/profiling.trace counts the trace's device kernels into
+    kernels.json; a trace without one (here: the CPU) is said so on
+    standard error and in the run's log instead of being written
+    silently."""
+    import torch
+    from brief_pytorch_tpu_torch.utils.profiling import trace
+    log = tmp_path / "stderr.log"
+    with trace(str(tmp_path / "profile"), str(log)):
+        (torch.ones(64) * 2).sum()
+    err = capsys.readouterr().err
+    assert "WARNING profile" in err and "no device kernel" in err
+    assert "no device kernel" in log.read_text()
+    assert json.loads((tmp_path / "profile" / "kernels.json").read_text()) \
+        == {}
+    assert (tmp_path / "profile" / "trace.json").exists()

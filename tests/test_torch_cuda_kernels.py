@@ -847,3 +847,85 @@ def test_narrow_layout_is_deterministic(dev):
         assert torch.equal(loss, runs[0][0])
         for a, b in zip(grads["layers"], runs[0][1]["layers"]):
             assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+# --- the media shapes: 2 coordinates, 3 output channels, 2-axis grids -------
+@pytest.mark.parametrize("cin,features,cout,n", [
+    (2, 92, 1, 100000),     # the 2048^2 PNG at 80x (SingleTask)
+    (3, 227, 3, 100000),    # 64 frames of 512^2 BGR at 80x (video)
+    (2, 22, 1, 4099),       # a narrow chain with a 2-wide first layer
+])
+@pytest.mark.parametrize("loss_name,thres", [("datal2", 0.5),
+                                             ("datasmoothl1", None)])
+def test_media_chains_train_on_the_kernel(dev, cin, features, cout, n,
+                                          loss_name, thres):
+    """Kernel 1 with C = 2 inputs (the k of the first layer padded) and
+    c_out = 3 outputs (the last layer's n-tile) against its plain
+    version: one launch, the module's tolerances."""
+    model, params = _chain(dev, features, 5, cin=cin, cout=cout)
+    acts = chain_layer_specs(model.spec)
+    assert ft.supports_training(model, loss_name)
+    coords, values, weights = _batch(dev, n, cin=cin, cout=cout)
+    kw = dict(loss_name=loss_name, beta=0.01, weight_thres=thres)
+    before = ft.launches
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    assert ft.launches == before + 1
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    _close(lk[None], [{k: v[None] for k, v in g.items()}
+                      for g in gk["layers"]], lp[None],
+           [{k: v[None] for k, v in g.items()} for g in gp["layers"]])
+
+
+@pytest.mark.parametrize("true_widths", [(40, 45, 47, 50), (7, 9, 12, 8)])
+def test_media_fleet_with_two_coordinates(dev, true_widths):
+    """Kernel 1's fleet form on blocks of a 2-D image (C = 2): against its
+    plain version, padded gradients exactly 0."""
+    from brief_pytorch_tpu_torch.parallel.block_trainer import build_stacked
+    models = [tphi.init_phi({"name": "SIREN", "coords_channel": 2,
+                             "data_channel": 1, "features": f, "layers": 5,
+                             "w0": 20}) for f in true_widths]
+    _, params, masks = build_stacked(models, 3, device=dev)
+    B, n = len(true_widths), 30000
+    rng = np.random.default_rng(4)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    c, v, w = (f(rng.uniform(-1, 1, (B, 2, n))), f(rng.uniform(0, 1, (B, 1, n))),
+               f(rng.uniform(1, 2, (B, 1, n))))
+    thres = torch.tensor([0.4, -np.inf, 0.6, -np.inf], device=dev)
+    um = list(masks[:-1]) + [None]
+    acts = chain_layer_specs(models[0].spec)
+    layers_ = params["layers"]
+    lk, gk = ft.fused_train_grads_fleet(layers_, c, v, w, acts,
+                                        loss_name="datal2", unit_masks=um,
+                                        thres=thres)
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, acts,
+                                            loss_name="datal2",
+                                            weight_thres=thres, unit_masks=um)
+    torch.cuda.synchronize()
+    _close(lk, gk["layers"], lp, gp["layers"])
+    for i, m in enumerate(models):
+        for e, g in zip(m.spec.entries, gk["layers"]):
+            assert int(torch.count_nonzero(g["w"][i, :, e.fan_out:])) == 0
+
+
+@pytest.mark.parametrize("spatial,features,cout,slab", [
+    ((2048, 2048), 92, 1, 1 << 20),       # the 2048^2 PNG, two axes
+    ((64, 512, 512), 227, 3, 1 << 19),    # the video, c_out = 3 (wide form)
+    ((96, 96), 17, 3, None),              # a small BGR image
+])
+def test_media_grids_decode_on_the_kernel(dev, spatial, features, cout, slab):
+    """Kernel 2 on a 2-axis grid (no lead axis) and with c_out = 3 against
+    its plain version: one call, within 1e-5 * max|plain| + 1e-5."""
+    model, params = _chain(dev, features, 5, cin=len(spatial), cout=cout)
+    assert fd.supports(model, spatial)
+    acts = chain_layer_specs(model.spec)
+    out = fd.fused_decode_grid(params["layers"], spatial, acts, "-1,1")
+    ref = fd.fused_decode_grid_reference(params["layers"], spatial, acts,
+                                         "-1,1", slab=slab)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (int(np.prod(spatial)), cout)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5

@@ -145,16 +145,23 @@ def test_divide_cli_targets_the_card(tmp_path, monkeypatch):
                      "Compress": {"lr_phi": 0.01}}}}}, "solo path"),
 ])
 def test_unported_divide_options_raise(tmp_path, compress, match):
-    """Options the fleet cannot honour raise instead of being ignored:
-    raw_gather and exceptions that override step-level parameters are not
-    ported (NotImplementedError); resume is, and a resume path that holds
-    no training state raises FileNotFoundError before any training."""
+    """A resume path that holds no training state raises FileNotFoundError
+    before any training.  raw_gather and exceptions that override
+    step-level parameters raised here until they were ported; now the run
+    honours them: the fleet stacks the raw uint16 chunks, or the
+    exception's block trains on the solo path."""
     from brief_pytorch_tpu_torch.cli import main as tcli
     path, _ = _config(tmp_path, "unported", **compress)
-    error = FileNotFoundError if "resume" in compress else \
-        NotImplementedError
-    with pytest.raises(error, match=match):
-        tcli.main(["-p", path, "-g", "cpu"])
+    if "resume" in compress:
+        with pytest.raises(FileNotFoundError, match=match):
+            tcli.main(["-p", path, "-g", "cpu"])
+        return
+    summary = tcli.main(["-p", path, "-g", "cpu"])
+    assert summary["steps"] == STEPS and np.isfinite(summary["psnr"])
+    if match == "raw_gather":
+        assert [b["data_dtype"] for b in summary["fleet"]] == ["uint16"]
+    else:
+        assert summary["solo"] == [0] and summary["fleet"][0]["blocks"] == 7
 
 
 def test_prep_only_exception_is_folded_into_the_block(tmp_path):

@@ -172,10 +172,11 @@ def test_cli_runs_on_cpu(tmp_path, runs):
 
 
 def test_unported_options_raise(runs):
+    """Compress.data_shards > 1 raises; `half` raised here until it was
+    ported and now constructs."""
     c = copy.deepcopy(runs["opt"].CompressFramework)
     c.Compress.half = True
-    with pytest.raises(NotImplementedError):
-        TNFGR(c, device="cpu")
+    assert TNFGR(c, device="cpu").half
     c.Compress.half = False
     c.Compress.data_shards = 2
     with pytest.raises(NotImplementedError):
