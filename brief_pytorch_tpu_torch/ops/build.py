@@ -9,6 +9,10 @@ that a cold start pays for the slowest file, not the sum.  A library is
 rebuilt when any csrc file is newer than it.  BRIEF_TPU_EXACT_SINE=1
 builds separate `_exact` libraries with -DBRIEF_EXACT_SINE.
 
+Host libraries (`host_library`, for native/rans.cpp) are built the same
+way with the host compiler (g++ or c++, else nvcc as one) into the same
+build/ directory.
+
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only host has no nvcc.
 """
@@ -19,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Optional
 
 from brief_pytorch_tpu_torch.ops.fast_math import exact_sine
 
@@ -107,3 +111,36 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _host_compiler() -> Optional[List[str]]:
+    for cc in ("g++", "c++", "clang++"):
+        path = shutil.which(cc)
+        if path:
+            return [path, "-fPIC"]
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(nvcc):
+        return [nvcc, "-Xcompiler", "-fPIC"]
+    return None
+
+
+def host_library(name: str, source: Path) -> Optional[Path]:
+    """build/lib<name>.so compiled from a C++ `source` with a plain C
+    interface, rebuilt when the source is newer; None when the machine has
+    no host compiler.  A compiler that fails raises RuntimeError."""
+    out = BUILD / f"lib{name}.so"
+    if out.exists() and out.stat().st_mtime >= source.stat().st_mtime:
+        return out
+    cc = _host_compiler()
+    if cc is None:
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    proc = subprocess.run(cc + ["-O2", "-std=c++17", "-shared", "-o",
+                                str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cc[0]} failed for {source}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -19,6 +19,10 @@ SingleTask config trains through NFGR.compress; a DivideTask config
   device, power_limit the card
 Needs a CUDA card.
 
+`timed_loop(step, n)` runs a training loop's step function n times and
+reads the same numbers of it from inside one run (the NFLR RD script and
+chip_smoke.py's phase 18 use it).
+
 `trace(logdir)` (JAX utils/profiling.py:24, there a jax.profiler trace) is
 a torch.profiler trace of whatever runs inside it, written as
 <logdir>/trace.json (Chrome trace format: chrome://tracing, Perfetto):
@@ -86,6 +90,70 @@ def trace(logdir: str, log_path: str = None):
                 f.write(msg + "\n")
 
 
+def kernel_ms(prof) -> dict:
+    """Device time (ms) of each CUDA kernel in a stopped profiler."""
+    kernels = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + t / 1e3
+    return kernels
+
+
+def timed_loop(step, n: int, warmup: int = 10, window: int = 20,
+               device=None) -> dict:
+    """Call step(i) for i in range(n) and time it.
+
+    On a CUDA device: `warmup` calls, then `window` calls under
+    torch.profiler (the summed kernel time per call), then the rest timed
+    by the host clock and by CUDA events on the current stream, ending in
+    a sync.  Returns wall_ms_per_step and event_ms_per_step (over the
+    rest), kernel_ms_per_step (the window), device_idle_share = 1 -
+    kernel / wall, steps_per_s, the five kernels with the most time, and
+    wall_s over all n calls.  On the CPU only the host clock is read."""
+    import time
+    cuda = device is not None and torch.device(device).type == "cuda"
+    t_all = time.perf_counter()
+    if not cuda or n < warmup + window + 10:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(i)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"steps": n, "wall_s": wall, "wall_ms_per_step":
+                1e3 * wall / max(n, 1), "steps_per_s": n / wall}
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(warmup, warmup + window):
+            step(i)
+        torch.cuda.synchronize()
+    kernels = kernel_ms(prof)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rest = n - warmup - window
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(warmup + window, n):
+        step(i)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / rest
+    kern = sum(kernels.values()) / window
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"steps": n, "wall_s": time.perf_counter() - t_all,
+            "wall_ms_per_step": wall_ms,
+            "event_ms_per_step": start.elapsed_time(end) / rest,
+            "kernel_ms_per_step": kern,
+            "device_idle_share": 1.0 - kern / wall_ms,
+            "steps_per_s": 1e3 / wall_ms,
+            "kernels": {k: v / window for k, v in top}}
+
+
 def _run(opt, steps: int) -> dict:
     c = opt.CompressFramework
     c.Compress.max_steps = steps
@@ -138,11 +206,7 @@ def main(argv=None) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _run(load(), args.steps)
-    kernels = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0.0)
-        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + t / 1e3
+    kernels = kernel_ms(prof)
     device_ms = sum(kernels.values()) / args.steps
     wall_ms = plain["train_s"] * 1e3 / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]

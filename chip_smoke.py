@@ -153,7 +153,33 @@ non-zero exit:
      fleet kernel, decompress_divide within 1 LSB, resume_run bitwise),
      and raw_gather / vector_len 8 (gather_run: PSNR within
      HIPCT_AUTOGRAD_DB of phase 7's, steps/s and resident bytes beside
-     phase 7's).
+     phase 7's);
+ 18. NFLR (brief_pytorch_tpu_torch.nflr, no kernel of its own: torch ops,
+     F.conv3d with TF32 off) at the RD script's widths on the 64^3
+     fixture (SIREN 5 x 48, y_channel 24, ps 8, ol 2: 1,331 patches,
+     681,472 coordinates a step, Lambda 8000), through nflr.rd's
+     train_on_volume / rd_point and the framework's train():
+     18a NFLR_Coding_Hyper_AutoDecoder for NFLR_STEPS["train"] steps and
+     NFLR_STEPS["sga"] SGA steps: steps/s, wall / CUDA-event / kernel ms
+     a step, the device's idle share, the loss at the first and the last
+     step (it must fall), file bytes, bits per voxel, PSNR on the uint16
+     range (above NFLR_PSNR_FLOOR) and SSIM; the decode from memory equal
+     to the decode from the file;
+     18b the other five frameworks for NFLR_SHORT steps each: the decode
+     from memory equal to the file's, a finite PSNR; the card's archive
+     decoded by a CPU framework on the same weights: for
+     NFLR_Coding_AutoDecoder (factorized tables, built on the host) the
+     same latents exactly and the volume within 1 LSB on >= 99.9% of
+     voxels; for the hyperprior variants whether the latents are the
+     same, reported;
+     18c the Hyper auto-decoder through train(): NFLR_RESUME_STEPS steps
+     with a state every half, preempted right after the state at half
+     and resumed, equal byte for byte to the uninterrupted run (the
+     trained module, every trainstate.npz leaf);
+     18d the rANS backend (native/rans.cpp built into build/) and the
+     pure-Python codec give the same bytes, and 18a's streams back, on
+     18a's symbols; the backend is printed.
+     No kernel of kernels 1-3 is launched in phase 18.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -216,6 +242,14 @@ HALF_DIVIDE_STEPS = 300
 HALF_DB = 1.0              # dB, fixed before the first card run
 # phase 17: hipct.yaml with a step-level exception (preempted at half)
 EXCEPTION_STEPS = 500
+# phase 18: NFLR at the RD script's widths (scripts/nflr_rd_torch.py)
+NFLR_LAMBDA = 8000.0
+NFLR_STEPS = {"train": 600, "sga": 200}
+NFLR_SHORT = {"train": 30, "sga": 30}
+NFLR_RESUME_STEPS = 400
+# dB, fixed before the first card run: 0.28 dB above the 24.92 dB of a
+# network that outputs 0 (the fixture's minimum everywhere; PERF.md)
+NFLR_PSNR_FLOOR = 25.2
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
@@ -1765,6 +1799,234 @@ def gather_run(dev, out_dir: str, label: str, compress: dict, psnr7: float,
                 vector_len=bucket["vector_len"])
 
 
+def short_kernel(name: str) -> str:
+    """A CUDA kernel's name without its namespace and launch wrapper,
+    keeping the functor that tells torch's elementwise kernels apart."""
+    for prefix in ("void ", "at::native::", "(anonymous namespace)::"):
+        name = name.replace(prefix, "")
+    return name[:160]
+
+
+def nflr_point(dev, out_dir: str, variant: str, steps: int,
+               sga_steps: int) -> tuple:
+    """One NFLR RD point on the fixture at the RD script's widths:
+    (framework, row).  Fails unless the decode from memory equals the
+    decode from the file and the PSNR is finite."""
+    from brief_pytorch_tpu_torch.nflr.framework import init_compressframework
+    from brief_pytorch_tpu_torch.nflr.rd import (rd_opt, rd_point,
+                                                 train_on_volume)
+    opt = rd_opt(variant, steps=steps, sga_steps=sga_steps,
+                 Lambda=NFLR_LAMBDA)
+    fw = init_compressframework(opt, device=dev)
+    t0 = time.perf_counter()
+    timing, losses = train_on_volume(fw, FIXTURE, steps, log=None)
+    t1 = time.perf_counter()
+    point = rd_point(fw, FIXTURE, os.path.join(out_dir, variant + ".zip"))
+    compress_s = time.perf_counter() - t1
+    if not point["bits_roundtrip_equal"] or \
+            not math.isfinite(point["psnr_uint16"]):
+        fail(f"nflr {variant}: decode from memory equals the file's: "
+             f"{point['bits_roundtrip_equal']}, PSNR {point['psnr_uint16']}")
+    row = {k: point[k] for k in ("file_bytes", "bits_per_voxel",
+                                 "psnr_uint16")}
+    row.update(steps=steps, sga_steps=sga_steps, train_s=t1 - t0,
+               compress_s=compress_s, first_loss=losses[0][1],
+               last_loss=losses[-1][1], path=os.path.join(
+                   out_dir, variant + ".zip"),
+               **{k: v for k, v in timing.items()
+                  if k not in ("steps", "wall_s")})
+    return fw, point, row
+
+
+def cpu_decode(fw, comp: str) -> dict:
+    """The card's archive decoded by a CPU framework on the same weights:
+    are the latents the same, and how far is the volume.  A hyperprior
+    archive's CPU decode may not decode at all (gy's scales on the CPU
+    can pick another table than on the card): that ValueError is
+    reported as `error`, a measurement; callers that need the decode
+    check `same_latents`."""
+    from brief_pytorch_tpu_torch.nflr.framework import init_compressframework
+    cpu = init_compressframework(fw.opt, device="cpu")
+    cpu._load_state_dict(fw._state_dict())
+    y_card, _ = fw.decompressing_data(comp, None)
+    try:
+        y_cpu, _ = cpu.decompressing_data(comp, None)
+    except ValueError as e:
+        return {"same_latents": False, "error": str(e)[:100]}
+    same = bool(np.array_equal(y_card, y_cpu))
+    within, max_lsb = within_1lsb(cpu.decompress(compressed_data_path=comp),
+                                  fw.decompress(compressed_data_path=comp))
+    return {"same_latents": same,
+            "latents_equal_share": float((y_card == y_cpu).mean()),
+            "latents_max_abs_diff": float(np.abs(y_card - y_cpu).max()),
+            "within_1lsb": within, "max_lsb": max_lsb}
+
+
+def rans_check(fw, compressed: dict) -> dict:
+    """18a's streams (z: factorized, y: Gaussian) decoded to their symbols,
+    re-encoded by the native backend and by the pure-Python codec: the
+    same bytes as the streams, and the same symbols back from both."""
+    import struct
+    from brief_pytorch_tpu_torch.nflr import entropy as em
+    from brief_pytorch_tpu_torch.nflr import rans
+    side = compressed["sideinfos"]
+    z_tables = em.factorized_build_tables(fw.params["emz"])
+    spatial = int(np.prod(side["z_shape"]))
+    z_ch = np.repeat(np.arange(len(z_tables["cdfs"])), spatial)
+    z = em.factorized_decompress(fw.params["emz"], z_tables,
+                                 compressed["z_strings"], side["z_shape"])
+    scales, _ = fw._scales_means(z)
+    g = fw._gaussian_tables()
+    y_idx = em.build_indexes(scales, g.scale_table)[0].ravel()
+    n_sym = 0
+    t_py = t_native = 0.0
+    for data, cdfs, ch in ((compressed["z_strings"][0], z_tables["cdfs"],
+                            z_ch),
+                           (compressed["y_strings"][0], g.cdfs, y_idx)):
+        (n,) = struct.unpack("<I", data[:4])
+        blob = data[4:4 + n]
+        sym = rans.decode_per_channel(blob, cdfs, ch)
+        t0 = time.perf_counter()
+        py = rans._encode_per_channel_py(sym, cdfs, ch)
+        t1 = time.perf_counter()
+        native = rans._native_encode(sym, cdfs, ch)
+        t2 = time.perf_counter()
+        t_py += t1 - t0
+        t_native += t2 - t1
+        back = rans._decode_per_channel_py(blob, cdfs, ch)
+        if py != blob or native != blob or not np.array_equal(back, sym):
+            fail(f"rANS: native and pure-Python bytes differ on 18a's "
+                 f"symbols ({len(sym)} symbols)")
+        n_sym += len(sym)
+    return {"backend": rans.backend(), "symbols": n_sym,
+            "python_encode_s": t_py, "native_encode_s": t_native}
+
+
+def nflr_resume(dev, out_dir: str) -> dict:
+    """18c: the Hyper auto-decoder through train(), NFLR_RESUME_STEPS steps
+    with a state every half: A preempted right after its state at half, B
+    uninterrupted, C = A resumed.  C's trained module and trainstate.npz
+    must equal B's byte for byte."""
+    import torch
+    from brief_pytorch_tpu_torch.nflr.framework import init_compressframework
+    from brief_pytorch_tpu_torch.nflr.rd import rd_opt
+    from brief_pytorch_tpu_torch.train import checkpoint as ckpt
+    steps, half = NFLR_RESUME_STEPS, NFLR_RESUME_STEPS // 2
+    data = os.path.join(out_dir, "resume_data")
+    os.makedirs(data, exist_ok=True)
+    shutil.copy(FIXTURE, data)
+
+    def opt(resume=None):
+        o = rd_opt("NFLR_Coding_Hyper_AutoDecoder", steps=steps,
+                   sga_steps=NFLR_SHORT["sga"], Lambda=NFLR_LAMBDA)
+        o.Train.update(train_data_dir=data, val_data_dir=data,
+                       state_every_n_step=half)
+        if resume:
+            o.Train.resume = resume
+        return o
+
+    runs = {t: os.path.join(out_dir, f"resume_{t}") for t in "ABC"}
+    write = ckpt.atomic_savez
+
+    def preempting(path, arrs):
+        write(path, arrs)
+        raise Preempted
+
+    ckpt.atomic_savez = preempting
+    try:
+        init_compressframework(opt(), device=dev).train(runs["A"])
+        fail(f"nflr resume: run A was not preempted at step {half}")
+    except Preempted:
+        pass
+    finally:
+        ckpt.atomic_savez = write
+    t0 = time.perf_counter()
+    init_compressframework(opt(), device=dev).train(runs["B"])
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    init_compressframework(opt(runs["A"]), device=dev).train(runs["A"])
+    module = os.path.join("trained_module", f"epoch_{steps - 1}_step_"
+                          f"{steps}.pt")
+    with open(os.path.join(runs["A"], module), "rb") as f, \
+            open(os.path.join(runs["B"], module), "rb") as g:
+        same_module = f.read() == g.read()
+    with np.load(os.path.join(runs["A"], "trainstate.npz")) as za, \
+            np.load(os.path.join(runs["B"], "trainstate.npz")) as zb:
+        differ = sorted(k for k in za.files
+                        if k not in zb.files or not np.array_equal(za[k],
+                                                                   zb[k]))
+        same_state = sorted(za.files) == sorted(zb.files) and not differ
+        stored = int(za["step"])
+    if not (same_module and same_state and stored == steps):
+        fail(f"nflr resume: module equal {same_module}, state equal "
+             f"{same_state} (leaves differing: {differ[:12]}), stored step "
+             f"{stored}")
+    return {"steps": steps, "preempted_at": half, "bitwise_equal": True,
+            "uninterrupted_wall_s": wall_b, "leaves": len(za.files)}
+
+
+def nflr_phase(dev, out_dir: str) -> dict:
+    """Phase 18: 18a, 18b, 18c, 18d (see the module docstring)."""
+    import torch
+    from brief_pytorch_tpu_torch.eval.metrics import cal_ssim
+    from brief_pytorch_tpu_torch.ops import (fused_decode, fused_siren,
+                                             fused_train)
+    fused_train.launches = fused_decode.launches = fused_siren.launches = 0
+    rows = {}
+    fw, point, row = nflr_point(dev, out_dir, "NFLR_Coding_Hyper_AutoDecoder",
+                                NFLR_STEPS["train"], NFLR_STEPS["sga"])
+    row["ssim"] = cal_ssim(point["orig"], np.moveaxis(point["decoded"][0],
+                                                       0, -1), 65535,
+                           device=dev)
+    rows["NFLR_Coding_Hyper_AutoDecoder"] = row
+    say("18a-nflr", variant="NFLR_Coding_Hyper_AutoDecoder",
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+           for k, v in row.items() if k not in ("kernels", "path")},
+        psnr_floor=NFLR_PSNR_FLOOR,
+        top_kernels=json.dumps({short_kernel(k): round(v, 4) for k, v in
+                                row.get("kernels", {}).items()}))
+    if not row["last_loss"] < row["first_loss"]:
+        fail(f"nflr 18a: the loss did not fall: {row['first_loss']} -> "
+             f"{row['last_loss']}")
+    if not row["psnr_uint16"] > NFLR_PSNR_FLOOR:
+        fail(f"nflr 18a: PSNR {row['psnr_uint16']} not above the floor "
+             f"{NFLR_PSNR_FLOOR}")
+    row["cpu_decode"] = cpu_decode(fw, row["path"])
+    say("18a-nflr-cpu-decode", **row["cpu_decode"])
+    rans_row = rans_check(fw, point["compressed"])
+    say("18d-rans", **rans_row, bytes_equal=True)
+    del fw, point
+    for variant in ("NFLR_AutoDecoder", "NFLR_AutoEncoder",
+                    "NFLR_Coding_AutoDecoder", "NFLR_Coding_AutoEncoder",
+                    "NFLR_Coding_Hyper_AutoEncoder"):
+        fw, point, row = nflr_point(dev, out_dir, variant,
+                                    NFLR_SHORT["train"], NFLR_SHORT["sga"])
+        say("18b-nflr", variant=variant,
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+               for k, v in row.items() if k not in ("kernels", "path")})
+        if "Coding" in variant:
+            row["cpu_decode"] = cpu_decode(fw, row["path"])
+        if variant == "NFLR_Coding_AutoDecoder":
+            cd = row["cpu_decode"]
+            if not cd["same_latents"] or cd.get("within_1lsb", 0) < 0.999:
+                fail(f"nflr 18b: the card's factorized archive decoded on "
+                     f"the CPU: {cd}")
+        rows[variant] = row
+        if "cpu_decode" in row:
+            say("18b-nflr-cpu-decode", variant=variant, **row["cpu_decode"])
+        del fw, point
+    resume = nflr_resume(dev, out_dir)
+    say("18c-nflr-resume", **resume)
+    torch.cuda.synchronize()
+    launched = {"fused_train": fused_train.launches,
+                "fused_decode": fused_decode.launches,
+                "fused_siren": fused_siren.launches}
+    if any(launched.values()):
+        fail(f"phase 18 launched kernels 1-3: {launched}")
+    return {"rows": rows, "resume": resume, "rans": rans_row,
+            "kernel_launches": launched}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2277,6 +2539,13 @@ def main() -> int:
                                                 {"vector_len": 8}}))}
         gather_rows["phase7"] = dict(psnr=psnr7, steps_per_s=steps_per_s7,
                                      data_bytes=bytes7)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- 18. NFLR at the RD script's widths ----
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_nflr_")
+    try:
+        nflr_phase(dev, out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
