@@ -6,7 +6,10 @@ with a plain C interface, build/lib<name>.so at the repository root, and
 loaded through ctypes.  Libraries are built at first use, from the
 repository's sources only; `build()` starts one nvcc per source at once so
 that a cold start pays for the slowest file, not the sum.  A library is
-rebuilt when any csrc file is newer than it.  BRIEF_TPU_EXACT_SINE=1
+rebuilt when any csrc file is newer than it.  Processes that build at
+once (ranks that start together) take turns on build/.lock, so one
+compiles and the others find its libraries fresh; the lock is released
+when its holder dies.  BRIEF_TPU_EXACT_SINE=1
 builds separate `_exact` libraries with -DBRIEF_EXACT_SINE.
 
 Host libraries (`host_library`, for native/rans.cpp) are built the same
@@ -18,7 +21,9 @@ CPU-only host has no nvcc.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -54,13 +59,31 @@ def _stale(name: str) -> bool:
     return out.stat().st_mtime < newest
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold build/.lock (an flock: released by the kernel if the holder
+    dies, so no stale lock survives a killed build)."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile the named sources that are missing or stale, all at once.
+    """Compile the named sources that are missing or stale, all at once,
+    under the build lock.
 
     Returns nvcc's output per source built (with -Xptxas -v: registers,
     shared memory and spills of each kernel); raises RuntimeError naming
     the source when nvcc fails."""
-    BUILD.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        return _build(list(names))
+
+
+def _build(names: List[str]) -> Dict[str, str]:
     nvcc = _nvcc()
     procs = {}
     for name in names:

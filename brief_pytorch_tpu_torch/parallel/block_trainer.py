@@ -58,7 +58,16 @@ from it, bitwise equal to an uninterrupted run with the same checkpoint
 grid (JAX block_trainer.py:792-913); its fingerprint records each solo
 block's own step-level config.
 
-One card: no mesh (more than one card is not ported, ROADMAP.md).
+More than one rank (a process group, parallel/mesh.py): `plan_fleet`
+gives every block one rank, and each rank trains only its own: its rows
+of a bucket (on the kernel's fleet form as on one rank) and its solo
+blocks.  A bucket keeps the widths, voxel padding, vector_len, threshold
+flag and draws of the whole bucket: each rank draws the whole bucket's
+uniforms from the bucket's generator and keeps its rows, so a block's
+draws do not depend on the number of ranks.  Checkpoints gather the
+ranks' blocks (parameters, decodes, the training state) on the host;
+rank 0 alone writes the state, which has the layout of a one-rank run,
+and every rank reads its own rows back from it.
 """
 from __future__ import annotations
 
@@ -79,6 +88,7 @@ from brief_pytorch_tpu_torch.core.tree import tree_leaves, tree_map
 from brief_pytorch_tpu_torch.models.phi import (ChainSpec, PhiModel,
                                                 _ChainModel, _act, encode)
 from brief_pytorch_tpu_torch.ops import fused_train
+from brief_pytorch_tpu_torch.parallel import mesh
 from brief_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from brief_pytorch_tpu_torch.train.optim import make_optimizer
 from brief_pytorch_tpu_torch.train.samplers import (RandomCubeSampler,
@@ -297,10 +307,13 @@ class BlockBatch:
     dq_offset: Optional[np.ndarray] = None
 
     @staticmethod
-    def build(blocks: List[Dict], pad_multiple: int = 1) -> "BlockBatch":
+    def build(blocks: List[Dict], pad_multiple: int = 1,
+              rows: Optional[Sequence[int]] = None) -> "BlockBatch":
         """blocks: dicts with 'data_norm' (*spatial, c) float32 and
         'weight' of the same shape; Vmax is padded to a multiple of
         pad_multiple (the aligned vector_len gather needs Vmax % L == 0).
+        rows: stack only these blocks (a rank's share of a bucket), with
+        Vmax and the dtype of all of them.
 
         When every block also carries 'data_raw' (its preprocessed
         integer chunk) and 'dequant' ((A, B) with data_norm == raw * A +
@@ -311,19 +324,20 @@ class BlockBatch:
         c = blocks[0]["data_norm"].shape[-1]
         vmax = max(int(np.prod(b["data_norm"].shape[:-1])) for b in blocks)
         vmax = -(-vmax // pad_multiple) * pad_multiple
-        B = len(blocks)
         raw = all(b.get("dequant") is not None and
                   b.get("data_raw") is not None for b in blocks) and \
             len({b["data_raw"].dtype for b in blocks}) == 1
+        dtype = blocks[0]["data_raw"].dtype if raw else np.float32
+        if rows is not None:
+            blocks = [blocks[i] for i in rows]
+        B = len(blocks)
         dq_scale = dq_offset = None
+        data = np.zeros((B, vmax, c), dtype)
         if raw:
-            data = np.zeros((B, vmax, c), blocks[0]["data_raw"].dtype)
             dq_scale = np.asarray([b["dequant"][0] for b in blocks],
                                   np.float32)
             dq_offset = np.asarray([b["dequant"][1] for b in blocks],
                                    np.float32)
-        else:
-            data = np.zeros((B, vmax, c), np.float32)
         weight = np.zeros((B, vmax, c), np.float32)
         valid = np.zeros((B,), np.int64)
         shapes = np.ones((B, ndim), np.int64)
@@ -531,9 +545,11 @@ def _elem_loss(loss_name: str, beta: float, pred, vals):
 # --------------------------------------------------------------------------
 @dataclass
 class _BucketState:
-    """Live training state of one stacked bucket."""
-    block_idxs: List[int]          # indices into the fleet's block list
-    models: List
+    """Live training state of one stacked bucket: the rows this rank
+    trains (all of them on one rank)."""
+    block_idxs: List[int]          # the bucket's indices into the block list
+    rows: List[int]                # this rank's positions in block_idxs
+    models: List                   # the bucket's models
     spec: StackedChainSpec
     params: Dict                   # {"layers": [{'w': (B,..), 'b': (B,..)}]}
     opt_state: Dict
@@ -554,7 +570,17 @@ class _BucketState:
     dq_offset: Optional[torch.Tensor] = None
     half: bool = False
     fused: bool = False
-    losses: Optional[torch.Tensor] = None   # (steps, B) of the last segment
+    occupancy: float = 1.0         # real voxels / the bucket's padded grid
+    losses: Optional[torch.Tensor] = None   # (steps, rows) of the last segment
+
+    @property
+    def own_idxs(self) -> List[int]:
+        """This rank's blocks, as indices into the fleet's block list."""
+        return [self.block_idxs[r] for r in self.rows]
+
+    @property
+    def own_models(self) -> List:
+        return [self.models[r] for r in self.rows]
 
 
 @dataclass
@@ -565,6 +591,7 @@ class _SoloState:
     single-volume trainer's sampler and step under its own Compress node
     `cc` — what one reference child process did (main.py:277-280,
     568-569)."""
+    slot: int                      # its place among the fleet's solo blocks
     block_idx: int
     model: object
     params: Dict
@@ -625,18 +652,28 @@ def run_block_segment(st: _BucketState, n_steps: int, *, loss_name: str,
                       beta: float, sample_size: int, coords_mode: str,
                       cube_count: int = 1) -> torch.Tensor:
     """n_steps of simultaneous training for all B blocks of a bucket
-    (JAX block_trainer.py:404-631 as a step loop).  Updates st.params and
-    st.opt_state in place; returns the losses (n_steps, B) on the device
-    without waiting for it."""
+    (JAX block_trainer.py:404-631 as a step loop), of this rank's rows.
+    Updates st.params and st.opt_state in place; returns the losses
+    (n_steps, rows) on the device without waiting for it."""
+    if not st.rows:
+        return torch.zeros((n_steps, 0), device=st.data.device)
     trained = {"layers": st.params["layers"]}   # the frozen encoder is not
     losses = []                                 # stepped
+    form = vector_form(st.sampler_name, st.vector_len, st.batch.vmax)
+    size = len(st.block_idxs)
     for _ in range(n_steps):
+        # the whole bucket's draws, this rank's rows of them
+        u = draw_uniform(form, st.gen, size, st.batch.ndim,
+                         sample_size=sample_size, cube_count=cube_count,
+                         vector_len=st.vector_len, device=st.data.device)
+        if u is not None and len(st.rows) < size:
+            u = u[st.rows]
         batch = draw_batch(
             st.sampler_name, st.gen, st.data, st.weight, st.valid, st.shapes,
             coords_mode, sample_size=sample_size, cube_count=cube_count,
             cube_len=st.cube_len, vector_len=st.vector_len,
             dq_scale=st.dq_scale, dq_offset=st.dq_offset,
-            raw_uint16=st.batch.data.dtype == np.uint16)
+            raw_uint16=st.batch.data.dtype == np.uint16, u=u)
         loss, grads = fleet_step(st, *batch, loss_name=loss_name, beta=beta)
         st.opt.step(trained, grads, st.opt_state)
         losses.append(loss)
@@ -677,8 +714,35 @@ def step_config(cc) -> Dict:
             "half": bool(cc.half), "coords_mode": str(cc.coords_mode)}
 
 
+def _solo_config(blk: Dict, cc, fleet_max_steps: int, device) -> Tuple:
+    """(Compress node, on the one-chain train kernel, max_steps) of a solo
+    block: its own node (`solo_cfg`) or the fleet's; a plain chain on a
+    card trains on the kernel, as NFGR trains it."""
+    scc = blk.get("solo_cfg") or cc
+    fused = bool(scc.get("fused_train", True)) and device.type == "cuda" \
+        and not bool(scc.half) \
+        and fused_train.supports_training(blk["model"], scc.loss.name)
+    total = int(scc.get("max_steps", fleet_max_steps)) \
+        if blk.get("solo_cfg") else fleet_max_steps
+    return scc, fused, total
+
+
+def _host_tree(tree):
+    """A tree of tensors as a tree of numpy arrays (what ranks gather)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _merge_rows(trees: Sequence, rows: Sequence[Sequence[int]]):
+    """Trees of (len(rows[k]), ...) arrays from each rank -> one tree of
+    the whole bucket's arrays, each rank's rows at their positions."""
+    order = np.argsort(np.concatenate([np.asarray(r, np.int64)
+                                       for r in rows]))
+    return tree_map(lambda *leaves: np.concatenate(leaves)[order], *trees)
+
+
 class BlockFleetTrainer:
-    """Trains a fleet of per-block INRs as stacked buckets on one card.
+    """Trains a fleet of per-block INRs as stacked buckets on one card, or
+    on each rank of a process group its own blocks.
 
     Buckets group blocks by (phi family, topology, effective sampler);
     widths inside a bucket are padded to the max.  Blocks that do not stack
@@ -688,29 +752,36 @@ class BlockFleetTrainer:
     reference's children all checkpoint at the same step numbers
     (main.py:585-607).  Segments are queued without waiting for the card;
     the one sync per checkpoint interval is the fetch of the last losses.
+    On several ranks every rank calls train() alike: its checkpoints are
+    collectives (the fleet's parameters, its decode and its state are
+    gathered on the host), and every rank reaches each callback.
     """
 
     def __init__(self, seed: int = 42, device: DeviceLike = None):
         self.seed = int(seed)
         self.device = resolve_device(device)
         self._states: List[_BucketState] = []
-        self._solo: List[_SoloState] = []
+        self._solo: List[_SoloState] = []       # this rank's solo blocks
+        self._solo_idxs: List[int] = []         # every solo block
         self.train_s = 0.0           # host seconds in the training steps
         # the last step's losses: per bucket (B,), then per solo block (1,)
+        # that has stepped; _solo_losses by its place among the solo blocks
         self.last_losses: List[np.ndarray] = []
+        self._solo_losses: Dict[int, np.ndarray] = {}
 
     def train(self, blocks: List[Dict], compress_cfg, max_steps: int,
               checkpoint_cb=None, checkpoints: Optional[List[int]] = None,
               state_path: Optional[str] = None,
               resume_path: Optional[str] = None) -> List[Dict]:
         """blocks: dicts with keys data_norm, weight, model (PhiModel),
-        name, weight_thres_norm.  Returns blocks with 'params' attached.
+        name, weight_thres_norm.  Returns blocks with 'params' attached
+        (every block's, on every rank).
 
         compress_cfg: the Compress config node (sampler, loss, lr, ...).
         checkpoint_cb(step, blocks, per_block_params) fires at every entry
         of `checkpoints` with the whole fleet.  state_path: write the
         fleet's training state (stacked params, optimizer states,
-        generator states) there at every checkpoint, atomically.
+        generator states) there at every checkpoint, atomically (rank 0).
         resume_path: a state file (or a run dir holding
         trainstate_fleet.npz) written so under the same config; training
         continues from its step, and checkpoints up to it are skipped."""
@@ -735,10 +806,18 @@ class BlockFleetTrainer:
             sig = (type(m).__name__, _stack_signature(m.spec), eff,
                    clipped if eff == "randomcube" else ())
             buckets.setdefault(sig, []).append(i)
-        self._states = [self._prepare_bucket(blocks, idxs, cc)
-                        for idxs in buckets.values()]
-        self._solo = [self._prepare_solo(blocks, i, cc, max_steps)
-                      for i in solo_idxs]
+        rank = mesh.rank()
+        bucket_ranks, solo_ranks = mesh.plan_fleet(
+            [len(v) for v in buckets.values()], len(solo_idxs), mesh.world())
+        self._states = [
+            self._prepare_bucket(blocks, idxs, cc,
+                                 [j for j, r in enumerate(ranks) if r == rank])
+            for idxs, ranks in zip(buckets.values(), bucket_ranks)]
+        self._solo_idxs = solo_idxs
+        self._solo = [self._prepare_solo(blocks, i, cc, max_steps, slot)
+                      for slot, (i, r) in enumerate(zip(solo_idxs,
+                                                        solo_ranks))
+                      if r == rank]
         fingerprint = self._fleet_fingerprint(blocks, cc, max_steps)
         start_step = 0
         if resume_path:
@@ -759,17 +838,15 @@ class BlockFleetTrainer:
                     st.losses = self._run_segment(st, cc, n)
                 for ss in self._solo:
                     self._run_solo_to(ss, ckpt, max_steps)
-                self.last_losses = [st.losses[-1].cpu().numpy()
-                                    for st in self._states] + \
-                    [ss.losses[-1:].cpu().numpy() for ss in self._solo
-                     if ss.losses is not None]
+                self._gather_losses()
                 self.train_s += time.perf_counter() - t0
             step = ckpt
             if checkpoint_cb is not None:
                 checkpoint_cb(step, blocks, self._fleet_params(blocks))
             # state after the artifacts: a run stopped mid-checkpoint keeps
-            # the previous state beside the previous artifacts
-            if state_path is not None:
+            # the previous state beside the previous artifacts; on several
+            # ranks every rank takes part in the gather
+            if state_path is not None or mesh.world() > 1:
                 self._save_state(state_path, step, fingerprint)
         for blk, p in zip(blocks, self._fleet_params(blocks)):
             blk["params"] = p
@@ -781,14 +858,15 @@ class BlockFleetTrainer:
         max_steps is one (unlike the single trainer's), as in the JAX
         package, whose solo blocks' checkpoint targets depend on it; so is
         each solo block's own step-level config, its kernel flag, each
-        bucket's vector_len and each block's raw gather."""
+        bucket's vector_len and each block's raw gather.  The ranks are
+        not: the state holds whole buckets, as one rank writes it."""
         return {
             "kind": "fleet",
             "blocks": [str(b["name"]) for b in blocks],
             "models": [type(b["model"]).__name__ for b in blocks],
             "buckets": [[int(i) for i in st.block_idxs]
                         for st in self._states],
-            "solo": [int(ss.block_idx) for ss in self._solo],
+            "solo": [int(i) for i in self._solo_idxs],
             "optimizer": str(cc.optimizer_name_phi), "lr": float(cc.lr_phi),
             "sampler": str(cc.sampler.name), "seed": self.seed,
             "max_steps": int(max_steps), "half": bool(cc.half),
@@ -797,54 +875,95 @@ class BlockFleetTrainer:
             "fused": self.fused_paths(),
             "solo_cfg": [step_config(b["solo_cfg"]) if b.get("solo_cfg")
                          else None for b in blocks],
-            "solo_fused": [bool(ss.fused) for ss in self._solo],
+            "solo_fused": [bool(_solo_config(blocks[i], cc, max_steps,
+                                             self.device)[1])
+                           for i in self._solo_idxs],
             "vector_len": [int(st.vector_len) for st in self._states],
             "dequant": [b.get("dequant") is not None for b in blocks],
             "framework": "torch",
         }
 
-    def _save_state(self, path: str, step: int, fingerprint: Dict) -> None:
-        """The whole fleet's training state, written atomically: b{i}p*,
-        b{i}o*, b{i}key per bucket, s{i}p*, s{i}o*, s{i}key, s{i}done per
-        solo block (train/checkpoint.py's leaf layout)."""
+    def _save_state(self, path: Optional[str], step: int,
+                    fingerprint: Dict) -> None:
+        """The whole fleet's training state, written atomically by rank 0
+        (path None: gather only): b{i}p*, b{i}o*, b{i}key per bucket,
+        s{i}p*, s{i}o*, s{i}key, s{i}done per solo block
+        (train/checkpoint.py's leaf layout).  Every rank sends its rows
+        and solo blocks (a collective)."""
+        local = {
+            "buckets": [(st.rows, _host_tree(st.params),
+                         _host_tree([st.opt_state["mu"], st.opt_state["nu"]]),
+                         st.opt_state["count"],
+                         st.gen.get_state().numpy() if st.rows else None)
+                        for st in self._states],
+            "solo": {ss.slot: (_host_tree(ss.params),
+                               _host_tree([ss.opt_state["mu"],
+                                           ss.opt_state["nu"]]),
+                               ss.opt_state["count"],
+                               ss.gen.get_state().numpy(), ss.steps_done)
+                     for ss in self._solo}}
+        pieces = mesh.all_addressable(local)
+        if path is None or not mesh.is_main():
+            return
         arrs: Dict[str, np.ndarray] = {
             "step": np.asarray(int(step)),
             "fingerprint": ckpt_lib.fingerprint_bytes(fingerprint)}
-        for prefix, state in self._named_states():
-            ckpt_lib.pack_tree(arrs, f"{prefix}p", state.params)
-            ckpt_lib.pack_opt(arrs, f"{prefix}o", state.opt_state)
-            arrs[f"{prefix}key"] = state.gen.get_state().numpy()
-        for si, ss in enumerate(self._solo):
-            arrs[f"s{si}done"] = np.asarray(int(ss.steps_done))
+        for bi in range(len(self._states)):
+            held = [pc["buckets"][bi] for pc in pieces
+                    if pc["buckets"][bi][0]]
+            rows = [h[0] for h in held]
+            params = _merge_rows([h[1] for h in held], rows)
+            mu, nu = _merge_rows([h[2] for h in held], rows)
+            ckpt_lib.pack_tree(arrs, f"b{bi}p", params)
+            ckpt_lib.pack_opt(arrs, f"b{bi}o",
+                              {"count": held[0][3], "mu": mu, "nu": nu})
+            arrs[f"b{bi}key"] = held[0][4]
+        solo = {k: v for pc in pieces for k, v in pc["solo"].items()}
+        for si in range(len(self._solo_idxs)):
+            params, (mu, nu), count, key, done = solo[si]
+            ckpt_lib.pack_tree(arrs, f"s{si}p", params)
+            ckpt_lib.pack_opt(arrs, f"s{si}o",
+                              {"count": count, "mu": mu, "nu": nu})
+            arrs[f"s{si}key"] = key
+            arrs[f"s{si}done"] = np.asarray(int(done))
         ckpt_lib.atomic_savez(path, arrs)
 
     def _load_state(self, path: str, fingerprint: Dict) -> int:
         """Restore a _save_state file into the freshly prepared fleet, in
-        place; returns the stored step."""
+        place (this rank's rows and solo blocks); returns the stored
+        step."""
         with np.load(path) as z:
             ckpt_lib.check_fingerprint(z, fingerprint, path)
-            for prefix, state in self._named_states():
-                ckpt_lib.unpack_tree(z, f"{prefix}p", state.params,
+            for bi, st in enumerate(self._states):
+                ckpt_lib.unpack_tree(z, f"b{bi}p", st.params,
+                                     f"b{bi} params", st.rows)
+                ckpt_lib.unpack_opt(z, f"b{bi}o", st.opt_state,
+                                    f"b{bi} opt_state", st.rows)
+                ckpt_lib.unpack_generator(z, f"b{bi}key", st.gen)
+            for ss in self._solo:
+                prefix = f"s{ss.slot}"
+                ckpt_lib.unpack_tree(z, f"{prefix}p", ss.params,
                                      f"{prefix} params")
-                ckpt_lib.unpack_opt(z, f"{prefix}o", state.opt_state,
+                ckpt_lib.unpack_opt(z, f"{prefix}o", ss.opt_state,
                                     f"{prefix} opt_state")
-                ckpt_lib.unpack_generator(z, f"{prefix}key", state.gen)
-            for si, ss in enumerate(self._solo):
-                ss.steps_done = int(z[f"s{si}done"])
+                ckpt_lib.unpack_generator(z, f"{prefix}key", ss.gen)
+                ss.steps_done = int(z[f"{prefix}done"])
             return int(z["step"])
 
-    def _named_states(self):
-        """(prefix, state) of every bucket (b{i}) and solo block (s{i})."""
-        return [(f"b{bi}", st) for bi, st in enumerate(self._states)] + \
-            [(f"s{si}", ss) for si, ss in enumerate(self._solo)]
-
-    def _prepare_bucket(self, blocks: List[Dict], idxs: List[int], cc
-                        ) -> _BucketState:
+    def _prepare_bucket(self, blocks: List[Dict], idxs: List[int], cc,
+                        rows: Optional[List[int]] = None) -> _BucketState:
+        """The state of bucket `idxs` for the rows (positions in idxs)
+        this rank trains, all of them by default.  Widths, init, voxel
+        padding, vector_len and the threshold flag are the whole
+        bucket's."""
         dev = self.device
         sub = [blocks[i] for i in idxs]
-        models = [b["model"] for b in sub]
+        rows = list(range(len(idxs))) if rows is None else list(rows)
         spec, params, masks = build_stacked(
-            models, self.seed, [b.get("init_layers") for b in sub], dev)
+            [b["model"] for b in sub], self.seed,
+            [b.get("init_layers") for b in sub], "cpu")
+        params = tree_map(lambda t: t[rows].to(dev), params)
+        masks = [m[rows].to(dev) for m in masks]
 
         # the clipped cube is bucket-static; when it covers every block
         # exactly, randomcube is the (cheaper, exact) full batch
@@ -863,9 +982,10 @@ class BlockFleetTrainer:
         vec = min(int(cc.sampler.get("vector_len", 1) or 1),
                   min(int(b["data_norm"].shape[-2]) for b in sub)) \
             if sampler_name == "randompoint" else 1
-        batch = BlockBatch.build(sub, pad_multiple=max(1, vec))
+        batch = BlockBatch.build(sub, pad_multiple=max(1, vec), rows=rows)
         # all-ones weights (the default) skip the weight stack entirely
         unit_weight = all(bool(np.all(b["weight"] == 1.0)) for b in sub)
+        voxels = [int(np.prod(b["data_norm"].shape[:-1])) for b in sub]
 
         # 0.0 is the "override disabled" sentinel (loss.py `if
         # weight_thres:`); per block it becomes -inf so `pred <= thres`
@@ -873,7 +993,7 @@ class BlockFleetTrainer:
         thres_host = np.asarray([float(b.get("weight_thres_norm", 0.0))
                                  for b in sub], np.float32)
         thres = torch.tensor(np.where(thres_host == 0.0, -np.inf,
-                                      thres_host).astype(np.float32),
+                                      thres_host).astype(np.float32)[rows],
                              device=dev)
         opt = make_optimizer(cc.optimizer_name_phi, float(cc.lr_phi),
                              cc.lr_scheduler_phi)
@@ -889,7 +1009,8 @@ class BlockFleetTrainer:
         gen.manual_seed(self.seed + 1)
         to = lambda a: None if a is None else torch.from_numpy(a).to(dev)
         return _BucketState(
-            block_idxs=list(idxs), models=models, spec=spec, params=params,
+            block_idxs=list(idxs), rows=rows,
+            models=[b["model"] for b in sub], spec=spec, params=params,
             opt_state=opt.init({"layers": params["layers"]}), masks=masks,
             batch=batch,
             data=device_raw(batch.data, dev),
@@ -898,18 +1019,20 @@ class BlockFleetTrainer:
             gen=gen, thres=thres, use_thres=bool(np.any(thres_host != 0.0)),
             sampler_name=sampler_name, cube_len=cube_len, vector_len=vec,
             dq_scale=to(batch.dq_scale), dq_offset=to(batch.dq_offset),
-            half=bool(cc.half), fused=fused)
+            half=bool(cc.half), fused=fused,
+            occupancy=sum(voxels) / (len(sub) * batch.vmax))
 
     def _prepare_solo(self, blocks: List[Dict], idx: int, cc,
-                      fleet_max_steps: int) -> _SoloState:
+                      fleet_max_steps: int, slot: int = 0) -> _SoloState:
         """The single-volume trainer's state for one block (JAX
         block_trainer.py:1101-1165): its own init (or warm start), and the
         sampler, optimizer, loss and max_steps of its own Compress node
         (`solo_cfg`, else the fleet's); on the card a plain chain trains
-        on the one-chain train kernel, as NFGR trains it."""
+        on the one-chain train kernel, as NFGR trains it.  slot: its place
+        among the fleet's solo blocks."""
         dev = self.device
         blk = blocks[idx]
-        scc = blk.get("solo_cfg") or cc
+        scc, fused, total = _solo_config(blk, cc, fleet_max_steps, dev)
         model = blk["model"]
         params = tree_map(lambda t: t.to(dev),
                           model.init(_block_generator(self.seed, idx)))
@@ -947,13 +1070,8 @@ class BlockFleetTrainer:
                              scc.lr_scheduler_phi)
         gen = torch.Generator(device=sampler.generator_device(dev))
         gen.manual_seed((self.seed + 1) * 100003 + idx)
-        fused = bool(scc.get("fused_train", True)) and dev.type == "cuda" \
-            and not bool(scc.half) \
-            and fused_train.supports_training(model, scc.loss.name)
-        total = int(scc.get("max_steps", fleet_max_steps)) \
-            if blk.get("solo_cfg") else fleet_max_steps
         return _SoloState(
-            block_idx=idx, model=model, params=params,
+            slot=slot, block_idx=idx, model=model, params=params,
             opt_state=opt.init(params), opt=opt, gen=gen, sampler=sampler,
             data=data, weight=weight,
             thres=float(blk.get("weight_thres_norm", 0.0)), cc=scc,
@@ -991,7 +1109,7 @@ class BlockFleetTrainer:
 
     def solo_blocks(self) -> List[int]:
         """Indices of the blocks that train on the solo path."""
-        return [ss.block_idx for ss in self._solo]
+        return list(self._solo_idxs)
 
     def _run_segment(self, st: _BucketState, cc, n_steps: int):
         return run_block_segment(
@@ -1001,6 +1119,33 @@ class BlockFleetTrainer:
             coords_mode=cc.coords_mode,
             cube_count=int(cc.sampler.cube_count))
 
+    def _gather_losses(self) -> None:
+        """The last step's losses of every bucket (B,) and solo block (1,)
+        that has trained, from every rank (a collective)."""
+        pieces = mesh.all_addressable({
+            "buckets": [(st.rows, st.losses[-1].cpu().numpy())
+                        for st in self._states],
+            "solo": {ss.slot: ss.losses[-1:].cpu().numpy()
+                     for ss in self._solo if ss.losses is not None}})
+        out = []
+        for bi in range(len(self._states)):
+            held = [pc["buckets"][bi] for pc in pieces]
+            out.append(_merge_rows([h[1] for h in held],
+                                   [h[0] for h in held]))
+        solo = {k: v for pc in pieces for k, v in pc["solo"].items()}
+        self._solo_losses = solo
+        self.last_losses = out + [solo[k] for k in sorted(solo)]
+
+    def block_losses(self) -> List[float]:
+        """The last step's loss of every block, in block order (NaN for a
+        solo block that has not stepped yet)."""
+        out = {i: float("nan") for i in self._solo_idxs}
+        for st, losses in zip(self._states, self.last_losses):
+            out.update(zip(st.block_idxs, (float(x) for x in losses)))
+        for slot, lv in self._solo_losses.items():
+            out[self._solo_idxs[slot]] = float(lv[0])
+        return [out[i] for i in range(len(out))]
+
     def fused_paths(self) -> List[bool]:
         """Per-bucket fused-kernel flags (True: the fused train kernel runs
         that bucket; False: autograd)."""
@@ -1008,42 +1153,43 @@ class BlockFleetTrainer:
 
     def fleet_stats(self) -> List[Dict]:
         """Per-bucket occupancy: how much of the padded voxel grid is real
-        data (fullbatch compute scales with the grid)."""
-        out = []
-        for st in self._states:
-            B = len(st.models)
-            out.append({
-                "blocks": B, "vmax": st.batch.vmax,
-                "sampler": st.sampler_name,
-                "families": type(st.models[0]).__name__,
-                "widths": [st.spec.dims[0][0]] + [o for _, o in
-                                                  st.spec.dims],
-                "fused": bool(st.fused), "vector_len": int(st.vector_len),
-                "data_dtype": str(st.batch.data.dtype),
-                "data_bytes": int(st.data.numel() * st.data.element_size()),
-                "voxel_occupancy": int(st.batch.valid.sum())
-                / (B * st.batch.vmax),
-            })
-        return out
+        data (fullbatch compute scales with the grid).  data_bytes: the
+        stack this rank holds."""
+        return [{
+            "blocks": len(st.block_idxs), "vmax": st.batch.vmax,
+            "sampler": st.sampler_name,
+            "families": type(st.models[0]).__name__,
+            "widths": [st.spec.dims[0][0]] + [o for _, o in st.spec.dims],
+            "fused": bool(st.fused), "vector_len": int(st.vector_len),
+            "data_dtype": str(st.batch.data.dtype),
+            "data_bytes": int(st.data.numel() * st.data.element_size()),
+            "voxel_occupancy": st.occupancy,
+        } for st in self._states]
 
     def _fleet_params(self, blocks: List[Dict]) -> List[Dict]:
-        """Per-block true-width params (CPU tensors), in block order."""
-        out: List[Optional[Dict]] = [None] * len(blocks)
+        """Per-block true-width params (CPU tensors), in block order, from
+        every rank (a collective)."""
+        local: Dict[int, Dict] = {}
         for st in self._states:
-            for bi, p in zip(st.block_idxs,
-                             unstack_params(st.params["layers"], st.models,
-                                            st.params.get("encoder"))):
-                out[bi] = p
+            local.update(zip(st.own_idxs, unstack_params(
+                st.params["layers"], st.own_models,
+                st.params.get("encoder"))))
         for ss in self._solo:
-            out[ss.block_idx] = tree_map(lambda t: t.detach().cpu().clone(),
-                                         ss.params)
-        return out
+            local[ss.block_idx] = tree_map(
+                lambda t: t.detach().cpu().clone(), ss.params)
+        merged = {k: v for pc in mesh.all_addressable(local)
+                  for k, v in pc.items()}
+        return [merged[i] for i in range(len(blocks))]
 
     def decode(self, blocks: List[Dict], cc) -> List[np.ndarray]:
         """Decode every block (batched padded grid inference) and return
-        per-block float32 arrays in their true shapes, in block order."""
-        results: List[Optional[np.ndarray]] = [None] * len(blocks)
+        per-block float32 arrays in their true shapes, in block order;
+        each rank decodes its own blocks, and every rank gets all (a
+        collective)."""
+        results: Dict[int, np.ndarray] = {}
         for st in self._states:
+            if not st.rows:
+                continue
             slab = max(128, min(1 << 15, st.batch.vmax))
             slab = ((slab + 127) // 128) * 128
             out = decode_blocks(st.params["layers"], st.masks, st.shapes,
@@ -1052,7 +1198,7 @@ class BlockFleetTrainer:
                                 vmax=st.batch.vmax,
                                 enc=st.params.get("encoder"),
                                 half=bool(cc.half)).cpu().numpy()
-            for i, bi in enumerate(st.block_idxs):
+            for i, bi in enumerate(st.own_idxs):
                 shape = blocks[bi]["data_norm"].shape
                 v = int(math.prod(shape[:-1]))
                 results[bi] = out[i, :v].reshape(shape)
@@ -1062,4 +1208,6 @@ class BlockFleetTrainer:
             results[ss.block_idx] = reconstruct_flattened(
                 ss.model, ss.params, blocks[ss.block_idx]["data_norm"].shape,
                 1 << 15, ss.cc.coords_mode, bool(ss.cc.half))
-        return results
+        merged = {k: v for pc in mesh.all_addressable(results)
+                  for k, v in pc.items()}
+        return [merged[i] for i in range(len(blocks))]

@@ -25,6 +25,13 @@ Compress.raw_gather each block of an integer volume keeps its raw chunk
 (`data_raw`) and the affine (`dequant`) that gives its normalized values,
 so the fleet stacks the raw dtype (JAX divide_runner.py:171-185).  2-D
 images partition into h_*-w_* chunks.
+
+On several ranks (a process group, parallel/mesh.py) every rank runs
+compress_divide alike and trains its share of the fleet; every rank
+reaches each checkpoint in lockstep (the fleet's parameters and decode
+are gathered), and rank 0 alone touches the filesystem: the artifacts,
+the merge, the metrics and the training state (JAX
+divide_runner.py:219-240).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from brief_pytorch_tpu_torch.io.image import (get_folder_size, read_img,
 from brief_pytorch_tpu_torch.io.modelsave import load_model, save_phi_module
 from brief_pytorch_tpu_torch.models import sizing
 from brief_pytorch_tpu_torch.models.phi import init_phi
+from brief_pytorch_tpu_torch.parallel import mesh
 from brief_pytorch_tpu_torch.parallel.block_trainer import (
     BlockFleetTrainer, step_config)
 from brief_pytorch_tpu_torch.partition.divide import (alloc_param,
@@ -183,9 +191,14 @@ def plan_blocks(cf_opt, data_pre: np.ndarray, param_size: float):
 
 
 def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
-    """Full DivideTask pipeline.  opt: the SingleTask root config; device:
-    None (the CUDA card), 'cpu', or a torch device.  Returns a summary of
-    the last checkpoint with train_s / checkpoint_s (host seconds)."""
+    """Full DivideTask pipeline.  opt: the SingleTask root config; log: the
+    run's logger (None: write nothing); device: None (the CUDA card),
+    'cpu', or a torch device.  Returns a summary of the last checkpoint
+    with train_s / checkpoint_s (host seconds) and every block's last
+    loss; on ranks other than 0 (which write nothing) without the
+    checkpoint's files and metrics."""
+    if not mesh.is_main():
+        log = None
     cf_opt = opt.CompressFramework
     cc = cf_opt.Compress
     data_path = opt.Dataset.data_path
@@ -201,13 +214,15 @@ def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
     pre = cc.preprocess
     data_pre = preprocess(data.copy(), pre.denoise.level, pre.denoise.close,
                           pre.clip)
-    pre_path = opj(log.logdir, opb(ops(data_path)[0]) + "_preprocessed"
-                   + ops(data_path)[-1])
-    save_img(pre_path, data_pre)
+    ext = ops(data_path)[-1]
+    if log is not None:
+        save_img(opj(log.logdir, opb(ops(data_path)[0]) + "_preprocessed"
+                     + ext), data_pre)
 
     n_chunks, blocks, divide_img = plan_blocks(
         cf_opt, data_pre, param_budget(cc, data_path))
-    save_img(opj(log.logdir, "divide" + ops(pre_path)[-1]), divide_img)
+    if log is not None:
+        save_img(opj(log.logdir, "divide" + ext), divide_img)
     orig_sideinfos["chunks_numbers"] = n_chunks
 
     max_steps = int(cc.max_steps)
@@ -218,6 +233,10 @@ def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
 
     def on_checkpoint(step, blks, per_block_params):
         t0 = time.perf_counter()
+        if log is None:     # another rank writes; the decode is collective
+            if cc.decompress:
+                trainer.decode(blks, cc)
+            return
         step_dir = opj(log.logdir, f"steps{step}")
         compressed = opj(step_dir, "compressed")
         module_dir = opj(compressed, "module")
@@ -279,9 +298,12 @@ def compress_divide(opt, log, device: DeviceLike = None) -> Dict:
     resume = str(cc.get("resume", "none") or "none")
     trainer.train(blocks, cc, max_steps, checkpoint_cb=on_checkpoint,
                   checkpoints=checkpoints,
-                  state_path=opj(log.logdir, "trainstate_fleet.npz"),
+                  state_path=None if log is None else
+                  opj(log.logdir, "trainstate_fleet.npz"),
                   resume_path=None if resume == "none" else resume)
     summary.update(train_s=trainer.train_s, fused=trainer.fused_paths(),
-                   fleet=trainer.fleet_stats(), solo=trainer.solo_blocks())
-    log.close()
+                   fleet=trainer.fleet_stats(), solo=trainer.solo_blocks(),
+                   losses=trainer.block_losses())
+    if log is not None:
+        log.close()
     return summary

@@ -35,7 +35,12 @@ Normalize modes only, JAX fit.py:222-262).  2-D images (coords_channel 2)
 and videos (frames as the first axis, data_channel 3) run the same path;
 the decompressed file keeps the input's extension.
 
-Not ported yet (ROADMAP.md): Compress.data_shards > 1 (data parallelism).
+Compress.data_shards: N > 1 trains one network on N ranks of a process
+group (parallel/mesh.py; the CLI starts them), each drawing its part of
+the batch from its shard of the volume, the gradients averaged by one
+all_reduce a step (parallel/data_parallel.py, JAX fit.py:214-310).  Rank
+0 alone writes the artifacts and trainstate.npz, which holds every
+rank's generator state.
 """
 from __future__ import annotations
 
@@ -68,6 +73,9 @@ from brief_pytorch_tpu_torch.models.phi import (get_param_count, init_phi,
 from brief_pytorch_tpu_torch.ops import fused_train
 from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
                                                make_pre_encode)
+from brief_pytorch_tpu_torch.parallel import mesh
+from brief_pytorch_tpu_torch.parallel.data_parallel import \
+    DataParallelTrainer
 from brief_pytorch_tpu_torch.post.preprocess import (parse_checkpoints,
                                                      parse_weight, preprocess)
 from brief_pytorch_tpu_torch.train.checkpoint import (load_trainstate,
@@ -105,9 +113,14 @@ class NFGR:
         device: None (the CUDA card), 'cpu', or a torch device."""
         self.opt = opt
         self.half = bool(opt.Compress.half)
-        if int(opt.Compress.get("data_shards", 1) or 1) > 1:
-            raise NotImplementedError(
-                "Compress.data_shards > 1 is not ported yet (ROADMAP.md)")
+        self.data_shards = int(opt.Compress.get("data_shards", 1) or 1)
+        if self.data_shards > 1 and mesh.world() != self.data_shards:
+            raise ValueError(
+                f"Compress.data_shards={self.data_shards} needs a process "
+                f"group of {self.data_shards} ranks, not {mesh.world()}: "
+                "run the CLI (python -m brief_pytorch_tpu_torch.cli.main, "
+                "which starts them), or -coordinator/-nprocs/-procid on "
+                "each rank, or set the group up before NFGR")
         self.logger = logger
         self.seed = int(seed)
         self.device = resolve_device(device)
@@ -145,7 +158,9 @@ class NFGR:
     def compress(self, data_path: str, stepstore: bool = False) -> Dict:
         """Compress one volume; writes checkpoint artifacts under the logger
         dir.  Returns a summary dict of the last checkpoint."""
-        log = self.logger
+        sharded = self.data_shards > 1
+        # the ranks of a data-parallel run share one output: rank 0 writes
+        log = self.logger if not sharded or mesh.is_main() else None
         dev = self.device
         cfg = self.opt.Compress
         data = read_img(data_path)
@@ -190,21 +205,35 @@ class NFGR:
             # the device in its own dtype and the affine normalization
             # follows each gather (JAX fit.py:222-262)
             dequant = None
-            if np.issubdtype(data_pre.dtype, np.integer) and \
-                    bool(cfg.get("raw_gather", False)):
+            if not sharded and np.issubdtype(data_pre.dtype, np.integer) \
+                    and bool(cfg.get("raw_gather", False)):
                 dequant = raw_dequant(str(self.opt.Normalize.name),
                                       sideinfos)
             vector_len = int(cfg.sampler.get("vector_len", 1) or 1)
+            if sharded and vector_len > 1:
+                raise ValueError(
+                    "Compress.sampler.vector_len is not supported with "
+                    "Compress.data_shards > 1 (the data-parallel trainer "
+                    "draws iid per-rank batches)")
             sampler = RandomPointSampler(
                 spatial, mode, int(cfg.sampler.sample_size),
                 min(vector_len, int(np.prod(spatial))),
                 *(dequant or (1.0, 0.0)),
                 raw_uint16=bool(dequant) and data_pre.dtype == np.uint16)
-            dev_data = device_raw(data_pre.reshape(-1, c), dev) if dequant \
-                else torch.from_numpy(data_norm.reshape(-1, c)).to(dev)
-            dev_weight = None if unit_weight else \
-                torch.from_numpy(weight.reshape(-1, c)).to(dev)
+            # the data-parallel trainer keeps its own shard instead
+            dev_data = dev_weight = None
+            if not sharded:
+                dev_data = device_raw(data_pre.reshape(-1, c), dev) \
+                    if dequant else \
+                    torch.from_numpy(data_norm.reshape(-1, c)).to(dev)
+                dev_weight = None if unit_weight else \
+                    torch.from_numpy(weight.reshape(-1, c)).to(dev)
         elif cfg.sampler.name == "randomcube":
+            if sharded:
+                raise ValueError(
+                    "Compress.data_shards requires the randompoint sampler "
+                    "(the volume is flattened and sharded over the ranks); "
+                    "got randomcube")
             clipped = tuple(min(int(n), s) for n, s in zip(cube_len, spatial))
             sampler = RandomCubeSampler(spatial, mode,
                                         int(cfg.sampler.cube_count), clipped)
@@ -225,28 +254,43 @@ class NFGR:
                                        max=sideinfos["max"])
         thres_norm = float(thres_norm)
 
-        opt = make_optimizer(cfg.optimizer_name_phi, float(cfg.lr_phi),
-                             cfg.lr_scheduler_phi)
-        opt_state = opt.init(params)
         max_steps = int(cfg.max_steps)
         checkpoints = parse_checkpoints(cfg.checkpoints, max_steps)
         loss_log_freq = int(cfg.loss_log_freq)
         loss_name = cfg.loss.name
         beta = float(cfg.loss.get("beta", 0.01))
 
-        # fused train kernel gate (fit.py:331-336 of the JAX package); a
-        # chain too wide for the kernel raises NotImplementedError
-        fused = bool(cfg.get("fused_train", True)) and dev.type == "cuda" \
-            and not self.half \
-            and fused_train.supports_training(model, loss_name)
-        step_fn = self._fused_step if fused else self._autograd_step
-        step_args = dict(model=model, sampler=sampler, data=dev_data,
-                         weight=dev_weight, loss_name=loss_name, beta=beta,
-                         weight_thres=thres_norm)
-        if not fused:
-            step_args["half"] = self.half
-        gen = torch.Generator(device=sampler.generator_device(dev))
-        gen.manual_seed(self.seed)
+        if sharded:
+            # one network, the batch split over the ranks, one all_reduce a
+            # step (parallel/data_parallel.py)
+            dp = DataParallelTrainer(model, self.seed, dev)
+            opt_state = dp.prepare(data_norm, weight, cfg, thres_norm, params)
+            fused, gen = dp.fused, dp.gen
+
+            def train_step():
+                return dp.step(params, opt_state)
+        else:
+            opt = make_optimizer(cfg.optimizer_name_phi, float(cfg.lr_phi),
+                                 cfg.lr_scheduler_phi)
+            opt_state = opt.init(params)
+            # fused train kernel gate (fit.py:331-336 of the JAX package);
+            # a chain too wide for the kernel raises NotImplementedError
+            fused = bool(cfg.get("fused_train", True)) \
+                and dev.type == "cuda" and not self.half \
+                and fused_train.supports_training(model, loss_name)
+            step_fn = self._fused_step if fused else self._autograd_step
+            step_args = dict(model=model, sampler=sampler, data=dev_data,
+                             weight=dev_weight, loss_name=loss_name,
+                             beta=beta, weight_thres=thres_norm)
+            if not fused:
+                step_args["half"] = self.half
+            gen = torch.Generator(device=sampler.generator_device(dev))
+            gen.manual_seed(self.seed)
+
+            def train_step():
+                loss, grads = step_fn(params, gen, **step_args)
+                opt.step(params, grads, opt_state)
+                return loss.detach()
 
         # the config axes a stored state is only meaningful under (JAX
         # fit.py:340-353); max_steps / checkpoints are left out, so a run
@@ -258,7 +302,8 @@ class NFGR:
             "optimizer": str(cfg.optimizer_name_phi),
             "lr": float(cfg.lr_phi),
             "loss": f"{loss_name}/{beta}/{thres_norm}",
-            "half": self.half, "data_shards": 1, "seed": self.seed,
+            "half": self.half, "data_shards": self.data_shards,
+            "seed": self.seed,
             "fused": fused, "framework": "torch",
         }
 
@@ -266,7 +311,8 @@ class NFGR:
         resume = str(cfg.get("resume", "none") or "none")
         if resume != "none":
             start_step = load_trainstate(resolve_trainstate(resume), params,
-                                         opt_state, gen, fingerprint)
+                                         opt_state, gen, fingerprint,
+                                         rank=mesh.rank() if sharded else 0)
 
         step = start_step
         summary = {}
@@ -281,12 +327,8 @@ class NFGR:
             n = ckpt - step
             t0 = time.perf_counter()
             if n > 0:
-                losses = []
-                for _ in range(n):
-                    loss, grads = step_fn(params, gen, **step_args)
-                    opt.step(params, grads, opt_state)
-                    losses.append(loss.detach())
-                losses = torch.stack(losses).cpu().numpy()
+                losses = torch.stack([train_step() for _ in range(n)]
+                                     ).cpu().numpy()
                 train_s += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 if log is not None:
@@ -296,6 +338,10 @@ class NFGR:
                             log.log_metrics({"loss": float(losses[i])}, gstep)
                 last_loss = float(losses[-1])
             step = ckpt
+            # every rank's generator state for rank 0's training state (a
+            # collective, so before the ranks part ways below)
+            key = np.stack(mesh.all_addressable(gen.get_state().numpy())) \
+                if sharded else gen
 
             # ---- checkpoint artifacts (reference main.py:404-453) ----
             if log is None:
@@ -347,12 +393,14 @@ class NFGR:
 
             # the full training state, atomically, after the artifacts
             save_trainstate(opj(log.logdir, "trainstate.npz"), params,
-                            opt_state, gen, step, fingerprint)
+                            opt_state, key, step, fingerprint)
 
             if stepstore and step < max_steps:
                 shutil.rmtree(step_dir)
             checkpoint_s += time.perf_counter() - t0
         summary.update(train_s=train_s, checkpoint_s=checkpoint_s)
+        if sharded:
+            summary["global_batch"] = dp.global_batch
         if log is not None:
             log.close()
         self.model, self.params, self.sideinfos = model, params, sideinfos
@@ -360,10 +408,21 @@ class NFGR:
 
     # -------------------------------------------------------------- steps --
     @staticmethod
-    def _fused_step(params, gen, *, model, sampler, data, weight, loss_name,
-                    beta, weight_thres):
-        """(loss, grads) from the fused train-step kernel."""
-        coords, vals, wts = sampler.sample(gen, data, weight)
+    def _fused_step(params, gen, *, sampler, data, weight, **kw):
+        """(loss, grads) from the fused train-step kernel on a drawn batch."""
+        return NFGR._fused_grads(params, *sampler.sample(gen, data, weight),
+                                 **kw)
+
+    @staticmethod
+    def _autograd_step(params, gen, *, sampler, data, weight, **kw):
+        """(loss, grads) by autograd on a drawn batch."""
+        return NFGR._autograd_grads(params,
+                                    *sampler.sample(gen, data, weight), **kw)
+
+    @staticmethod
+    def _fused_grads(params, coords, vals, wts, *, model, loss_name, beta,
+                     weight_thres):
+        """(loss, grads) of a batch from the fused train-step kernel."""
         coords = make_pre_encode(model.spec)(coords)
         return fused_train.fused_train_grads(
             params["layers"], coords.T.contiguous(), vals.T.contiguous(),
@@ -371,13 +430,12 @@ class NFGR:
             loss_name=loss_name, beta=beta, weight_thres=weight_thres or None)
 
     @staticmethod
-    def _autograd_step(params, gen, *, model, sampler, data, weight,
-                       loss_name, beta, weight_thres, half=False):
-        """(loss, grads) by autograd through the model's apply, for any
-        parameter tree (half: its products in bfloat16, JAX
+    def _autograd_grads(params, coords, vals, wts, *, model, loss_name, beta,
+                        weight_thres, half=False):
+        """(loss, grads) of a batch by autograd through the model's apply,
+        for any parameter tree (half: its products in bfloat16, JAX
         fit.py:102-106); a leaf the loss does not reach (FFN's frozen
         bvals) gets a zero gradient."""
-        coords, vals, wts = sampler.sample(gen, data, weight)
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)

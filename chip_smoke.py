@@ -180,6 +180,28 @@ non-zero exit:
      pure-Python codec give the same bytes, and 18a's streams back, on
      18a's symbols; the backend is printed.
      No kernel of kernels 1-3 is launched in phase 18.
+ 19. more than one rank (parallel/mesh.py), each a fresh interpreter
+     (this script with --rank) that owns the card.  This script needs
+     one card and NCCL refuses a card twice, so 19a and 19b put two ranks
+     on it over gloo: they check correctness and the collectives' cost,
+     not scaling.
+     19a data parallelism: phase 12's 80x run (default.yaml on the HiP-CT
+     demo volume, SIREN 5 x 191, randompoint 100,000) with
+     Compress.data_shards 2 through NFGR.compress for DP_STEPS steps:
+     kernel 1's wide layout DP_STEPS launches on each rank, 50,000
+     coordinates a rank, the parameters bitwise equal on both ranks, PSNR
+     within DP_DB of phase 12's, rank 0 alone writing, its standalone
+     decompress (kernel 2's wide form) equal to its checkpoint's decode;
+     then fused_train false (the JAX package's DP math) within DP_DB too;
+     19b hipct.yaml cut to FLEET19_STEPS steps on 2 ranks, 2 blocks each
+     on kernel 1's tiled fleet form: FLEET19_STEPS launches a rank,
+     per-block last losses within FLEET19_LOSS_RTOL and the merged PSNR
+     within FLEET19_DB of the same run on one rank, rank 0 writing the 4
+     chunk dirs, decompress_divide (kernel 2's narrow form, 4 launches)
+     within 1 LSB on >= 99.9% of voxels;
+     19c the CLI with -coordinator -nprocs 1 -procid 0 -g 0 (a group of
+     one over NCCL) on brain64.yaml cut to CLI19_STEPS steps: its module
+     files byte for byte those of the same command without the flags.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -250,6 +272,18 @@ NFLR_RESUME_STEPS = 400
 # dB, fixed before the first card run: 0.28 dB above the 24.92 dB of a
 # network that outputs 0 (the fixture's minimum everywhere; PERF.md)
 NFLR_PSNR_FLOOR = 25.2
+# phase 19: two ranks on the one card (gloo), a group of one over NCCL
+DP_STEPS = 500             # phase 12's 80x run
+DP_DB = 0.5                # dB; against phase 12's single-card PSNR
+FLEET19_STEPS = 200        # hipct.yaml, cut from 80,000
+# the 2-rank fleet against the 1-rank fleet on the card: the tiled
+# layout's grid per chain is the resident blocks over the chains of the
+# launch, so 2 chains a launch sum their partials in another order than
+# 4 do; fixed before the first card run
+FLEET19_LOSS_RTOL = 5e-3
+FLEET19_DB = 0.05          # dB
+CLI19_STEPS = 300          # brain64.yaml, cut from 20,000
+RANK_TIMEOUT = 300         # s; a rank past it fails the run
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
@@ -2027,6 +2061,287 @@ def nflr_phase(dev, out_dir: str) -> dict:
             "kernel_launches": launched}
 
 
+def params_digest(params) -> str:
+    """sha256 of a parameter tree's bytes, leaf by leaf."""
+    import hashlib
+    from brief_pytorch_tpu_torch.core.tree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank_job(dev, out_dir: str, rank: int) -> dict:
+    """19a on one rank: phase 12's 80x run with Compress.data_shards 2
+    through NFGR.compress, on the kernels and through autograd."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    from brief_pytorch_tpu_torch.utils.logger import MyLogger
+    res = {}
+    for label, fused in (("fused", True), ("autograd", False)):
+        opt = cfglib.load(CONFIG)
+        opt.Dataset.data_path = HIPCT
+        opt.Log.update(outputs_dir=out_dir, project_name=f"dp_{label}",
+                       tensorboard=False, time=False)
+        c = opt.CompressFramework
+        c.Compress.update(max_steps=DP_STEPS, checkpoints="none",
+                          data_shards=2, fused_train=fused)
+        c.Compress.param.filesize_ratio = DEMO_RUNS[0][0]
+        c.Decompress.mip = False
+        log = MyLogger(**opt.Log.to_plain()) if rank == 0 else None
+        fused_train.launches = fused_decode.launches = 0
+        t0 = time.perf_counter()
+        cf = NFGR(c, logger=log, seed=int(opt.Reproduc.seed), device=dev)
+        summary = cf.compress(HIPCT)
+        torch.cuda.synchronize()
+        row = dict(wall_s=time.perf_counter() - t0,
+                   train_s=summary["train_s"],
+                   launches=fused_train.launches,
+                   decode_launches=fused_decode.launches,
+                   global_batch=summary["global_batch"],
+                   widths=fused_train.chain_widths(cf.model.spec),
+                   digest=params_digest(cf.params),
+                   psnr=summary.get("psnr"))
+        if rank == 0 and fused:
+            comp = os.path.join(log.logdir, f"steps{DP_STEPS}", "compressed")
+            fused_decode.launches = 0
+            dec = NFGR.decompress(c, os.path.join(comp, "module"),
+                                  os.path.join(comp, "sideinfos.yaml"),
+                                  device=dev)
+            ck = read_img(os.path.join(
+                log.logdir, f"steps{DP_STEPS}", "decompressed",
+                os.path.basename(HIPCT).replace(".tif",
+                                                "_decompressed.tif")))
+            row.update(decompress_launches=fused_decode.launches,
+                       decompress_equal=bool(np.array_equal(dec, ck)))
+        res[label] = row
+    return res
+
+
+def fleet_rank_job(dev, out_dir: str, rank: int) -> dict:
+    """19b on one rank: hipct.yaml cut to FLEET19_STEPS steps; rank 0
+    alone has a logger, and decompresses the archive."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.parallel.divide_runner import \
+        compress_divide
+    from brief_pytorch_tpu_torch.utils.logger import MyLogger
+    opt = cfglib.load(os.path.join(DIVIDE, "hipct.yaml"))
+    opt.Dataset.data_path = HIPCT
+    opt.Log.update(outputs_dir=out_dir, project_name="fleet_2ranks",
+                   tensorboard=False, time=False)
+    c = opt.CompressFramework
+    c.Compress.update(max_steps=FLEET19_STEPS, checkpoints="none")
+    c.Decompress.mip = False
+    log = MyLogger(**opt.Log.to_plain()) if rank == 0 else None
+    fused_train.launches = 0
+    t0 = time.perf_counter()
+    summary = compress_divide(opt, log, device=dev)
+    torch.cuda.synchronize()
+    row = dict(wall_s=time.perf_counter() - t0, train_s=summary["train_s"],
+               checkpoint_s=summary["checkpoint_s"],
+               launches=fused_train.launches, fused=summary["fused"],
+               widths=summary["fleet"][0]["widths"],
+               losses=summary["losses"], psnr=summary.get("psnr"))
+    if rank == 0:
+        within, max_lsb, kernels = divide_decompress(
+            dev, c, log.logdir, FLEET19_STEPS, HIPCT)
+        row.update(within_1lsb=within, max_lsb=max_lsb,
+                   decompress_kernels=kernels,
+                   chunks=chunk_dirs(log.logdir, FLEET19_STEPS))
+    return row
+
+
+RANK_JOBS = {"19a": dp_rank_job, "19b": fleet_rank_job}
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 19 (`chip_smoke.py --rank <job> <coordinator>
+    <ranks> <rank> <out dir>`): joins a gloo group on card 0, runs the
+    job, writes <out dir>/<job>_rank<r>.json."""
+    import torch
+    from brief_pytorch_tpu_torch.parallel import mesh
+    job, coord, world, rank, out_dir = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh.multihost_init(coord, int(world), int(rank), backend="gloo",
+                        device=dev)
+    try:
+        row = RANK_JOBS[job](dev, os.path.join(out_dir, job), int(rank))
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(out_dir, f"{job}_rank{rank}.json"), "w") as f:
+        json.dump(row, f, default=float)
+    return 0
+
+
+def run_ranks(job: str, out_dir: str, n: int = 2) -> list:
+    """Phase 19's job on n ranks, each this script in a fresh interpreter
+    on card 0; a rank that fails (or outlives RANK_TIMEOUT) fails the run
+    and the others are killed.  Returns each rank's row."""
+    from brief_pytorch_tpu_torch.parallel import mesh
+    os.makedirs(os.path.join(out_dir, job), exist_ok=True)
+    coord = f"127.0.0.1:{mesh.free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--rank", job, coord, str(n), str(r),
+                               out_dir]) for r in range(n)]
+    try:
+        mesh.wait_ranks(procs, timeout=RANK_TIMEOUT)
+    except RuntimeError as e:
+        fail(f"phase {job}: {e}")
+    rows = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"{job}_rank{r}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def dp_phase(out_dir: str, psnr12: float) -> dict:
+    """19a: checks the two ranks' rows; returns the kernels line's row."""
+    t0 = time.perf_counter()
+    rows = run_ranks("19a", out_dir)
+    wall = time.perf_counter() - t0
+    f0, f1 = rows[0]["fused"], rows[1]["fused"]
+    a0, a1 = rows[0]["autograd"], rows[1]["autograd"]
+    from brief_pytorch_tpu_torch.ops import fused_train
+    layout = fused_train.choose_plan(f0["widths"])["layout"]
+    written = sorted(os.listdir(os.path.join(out_dir, "19a")))
+    if [f0["launches"], f1["launches"]] != [DP_STEPS] * 2 or \
+            layout != "wide" or f0["widths"] != [3, 191, 191, 191, 191, 1] \
+            or a0["launches"] or a1["launches"] or \
+            {f0["global_batch"], f1["global_batch"]} != {DEMO_N}:
+        fail(f"19a: train launches {f0['launches']}, {f1['launches']} "
+             f"({layout}, {f0['widths']}), autograd {a0['launches']}, "
+             f"{a1['launches']}, global batch {f0['global_batch']}")
+    if f0["digest"] != f1["digest"] or a0["digest"] != a1["digest"]:
+        fail("19a: the ranks' parameters differ")
+    if written != ["dp_autograd", "dp_fused"] or f1["psnr"] is not None \
+            or not f0["decompress_equal"] or f0["decompress_launches"] < 1 \
+            or f0["decode_launches"] < 1:
+        fail(f"19a: written {written}, rank 1 PSNR {f1['psnr']}, "
+             f"decompress equal {f0['decompress_equal']} "
+             f"({f0['decompress_launches']} decode launches)")
+    for label, row in (("kernels", f0), ("autograd", a0)):
+        if not abs(row["psnr"] - psnr12) <= DP_DB:
+            fail(f"19a {label}: PSNR {row['psnr']} against phase 12's "
+                 f"{psnr12}: more than {DP_DB} dB apart")
+    say("19a-data-parallel", ranks="2 on one card (gloo)", steps=DP_STEPS,
+        widths=f0["widths"], layout=layout,
+        global_batch=f0["global_batch"], per_rank=DEMO_N // 2,
+        launches=[f0["launches"], f1["launches"]],
+        params_bitwise_equal=True, psnr=f"{f0['psnr']:.3f}",
+        psnr_autograd=f"{a0['psnr']:.3f}", psnr_phase12=f"{psnr12:.3f}",
+        decompress_decode_launches=f0["decompress_launches"],
+        train_s=f"{f0['train_s']:.3f}",
+        steps_per_s_two_ranks_one_card=f"{DP_STEPS / f0['train_s']:.2f}",
+        steps_per_s_autograd=f"{DP_STEPS / a0['train_s']:.2f}",
+        wall_s=f"{wall:.3f}")
+    return dict(launches=[f0["launches"], f1["launches"]],
+                decode_launches=f0["decode_launches"]
+                + f0["decompress_launches"], psnr=f0["psnr"],
+                psnr_autograd=a0["psnr"], psnr_phase12=psnr12,
+                steps_per_s=DP_STEPS / f0["train_s"],
+                steps_per_s_autograd=DP_STEPS / a0["train_s"], wall_s=wall)
+
+
+def fleet_phase(out_dir: str) -> dict:
+    """19b: hipct.yaml on 2 ranks against the same run on one rank."""
+    import torch
+    from brief_pytorch_tpu_torch.ops import fused_train
+    fused_train.launches = 0
+    summary1, run_dir1, _ = run_config(
+        os.path.join(DIVIDE, "hipct.yaml"), out_dir, FLEET19_STEPS, HIPCT,
+        project="fleet_1rank")
+    torch.cuda.synchronize()
+    launches1 = fused_train.launches
+    psnr1 = last_psnr(run_dir1)
+    t0 = time.perf_counter()
+    rows = run_ranks("19b", out_dir)
+    wall = time.perf_counter() - t0
+    r0, r1 = rows
+    run_dir2 = os.path.join(out_dir, "19b", "fleet_2ranks")
+    psnr2 = last_psnr(run_dir2)
+    loss_err = float(np.max(np.abs(np.asarray(r0["losses"])
+                                   - summary1["losses"])
+                            / np.abs(summary1["losses"])))
+    if [r0["launches"], r1["launches"]] != [FLEET19_STEPS] * 2 or \
+            launches1 != FLEET19_STEPS or r0["fused"] != [True] or \
+            r0["widths"] != summary1["fleet"][0]["widths"]:
+        fail(f"19b: train launches {r0['launches']}, {r1['launches']} "
+             f"(one rank {launches1}), fused {r0['fused']}, widths "
+             f"{r0['widths']}")
+    if len(r0["chunks"]) != 4 or \
+            os.listdir(os.path.join(out_dir, "19b")) != ["fleet_2ranks"] \
+            or r1["psnr"] is not None or r0["losses"] != r1["losses"]:
+        fail(f"19b: rank 0 wrote {r0['chunks']}, "
+             f"{os.listdir(os.path.join(out_dir, '19b'))} under the ranks' "
+             f"dir, rank 1 PSNR {r1['psnr']}")
+    if r0["decompress_kernels"] != 4 or r0["within_1lsb"] < 0.999:
+        fail(f"19b decompress_divide: {r0['decompress_kernels']} decode "
+             f"kernels, {r0['within_1lsb']:.6f} of voxels within 1 LSB")
+    say("19b-fleet-ranks", ranks="2 on one card (gloo)",
+        steps=FLEET19_STEPS, widths=r0["widths"],
+        launches=[r0["launches"], r1["launches"]],
+        losses=[f"{x:.6g}" for x in r0["losses"]],
+        losses_one_rank=[f"{x:.6g}" for x in summary1["losses"]],
+        loss_max_rel=f"{loss_err:.3e}", loss_rtol=FLEET19_LOSS_RTOL,
+        psnr=f"{psnr2:.4f}", psnr_one_rank=f"{psnr1:.4f}",
+        psnr_margin=FLEET19_DB,
+        decompress_decode_kernels=r0["decompress_kernels"],
+        within_1lsb=f"{r0['within_1lsb']:.6f}", max_lsb=r0["max_lsb"],
+        train_s=f"{r0['train_s']:.3f}",
+        steps_per_s_two_ranks_one_card=f"{FLEET19_STEPS / r0['train_s']:.2f}",
+        steps_per_s_one_rank=f"{FLEET19_STEPS / summary1['train_s']:.2f}",
+        checkpoint_s=f"{r0['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
+    if not loss_err <= FLEET19_LOSS_RTOL or \
+            not abs(psnr2 - psnr1) <= FLEET19_DB:
+        fail(f"19b: per-block losses {loss_err:.3e} apart (rtol "
+             f"{FLEET19_LOSS_RTOL}), PSNR {psnr2} against one rank's "
+             f"{psnr1} (margin {FLEET19_DB} dB)")
+    return dict(launches=[r0["launches"], r1["launches"]],
+                decompress_kernels=r0["decompress_kernels"],
+                loss_max_rel=loss_err, psnr=psnr2, psnr_one_rank=psnr1,
+                steps_per_s=FLEET19_STEPS / r0["train_s"],
+                steps_per_s_one_rank=FLEET19_STEPS / summary1["train_s"],
+                wall_s=wall)
+
+
+def cli_group_phase(out_dir: str) -> dict:
+    """19c: the CLI's -coordinator -nprocs 1 -procid 0 -g 0 (NCCL, a group
+    of one) in its own interpreter against the same command without the
+    flags, here."""
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.parallel import mesh
+    _, run_dir, opt = run_config(os.path.join(DIVIDE, "brain64.yaml"),
+                                 out_dir, CLI19_STEPS, project="plain")
+    opt.Log.outputs_dir = os.path.join(out_dir, "flags")
+    yaml_path = os.path.join(out_dir, "flags.yaml")
+    cfglib.save(opt, yaml_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "brief_pytorch_tpu_torch.cli.main", "-p",
+         yaml_path, "-coordinator", f"127.0.0.1:{mesh.free_port()}",
+         "-nprocs", "1", "-procid", "0", "-g", "0"], cwd=ROOT,
+        timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    module = os.path.join(f"steps{CLI19_STEPS}", "compressed", "module")
+    plain = tree_bytes(os.path.join(run_dir, module))
+    flags = tree_bytes(os.path.join(out_dir, "flags", "plain", module)) \
+        if proc.returncode == 0 else {}
+    if proc.returncode != 0 or not plain or plain != flags:
+        fail(f"19c: the CLI with the flags exited {proc.returncode}; "
+             f"{len(plain)} module files, "
+             f"{sum(flags.get(k) == v for k, v in plain.items())} equal")
+    say("19c-cli-group-of-one", backend="nccl", steps=CLI19_STEPS,
+        module_files=len(plain), byte_for_byte=True, wall_s=f"{wall:.3f}")
+    return dict(module_files=len(plain), wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2549,6 +2864,17 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- 19. more than one rank: data parallelism and the fleet on two
+    # ranks sharing the card (gloo), the CLI's flags over NCCL ----
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        phase19 = {"data_parallel": dp_phase(out_dir,
+                                             demo_rows[191]["psnr"]),
+                   "fleet": fleet_phase(out_dir),
+                   "cli_group_of_one": cli_group_phase(out_dir)}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
@@ -2568,7 +2894,8 @@ def main() -> int:
          "narrow": {k: v for k, v in b64_row.items() if k != "padded"},
          "wide": {k: v for k, v in wfleet_row.items() if k != "padded"},
          "media_2d_fleet": fleet2d_row, "phase17": {
-             "exception": exc, **gather_rows}},
+             "exception": exc, **gather_rows},
+         "phase19_ranks": phase19["fleet"]},
         {"name": "fused_decode_grid", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",
@@ -2581,7 +2908,9 @@ def main() -> int:
          **{k: dec_rows[64][k] for k in ("tc_bound_ms", "layout", "tile",
                                          "inst", "warps_per_sm", "shape")},
          "at_256": {k: v for k, v in dec_rows[256].items() if k != "shape"},
-         "hipct_chunk": {**dec_rows["hipct"], "launches": decode_launches7},
+         "hipct_chunk": {**dec_rows["hipct"], "launches": decode_launches7,
+                         "phase19_rank0": phase19["fleet"][
+                             "decompress_kernels"]},
          "trained_5x22": dec_rows["trained"],
          "media_2d": {**media_rows["png"]["decode"], "launches":
                       media_rows["png"]["run"]["decode_kernels"]},
@@ -2596,7 +2925,8 @@ def main() -> int:
                     demo_rows[242]["launches"]["fused_train"]},
          "phase12": demo_rows,
          "video_c3": {**media_rows["mp4"]["train"], "launches":
-                      media_rows["mp4"]["run"]["train_launches"]}},
+                      media_rows["mp4"]["run"]["train_launches"]},
+         "phase19_ranks": phase19["data_parallel"]},
         {"name": "fused_decode_grid_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",
@@ -2608,7 +2938,8 @@ def main() -> int:
                     demo_rows[242]["launches"]["fused_decode"]
                     + demo_rows[242]["decompress_decode_launches"]},
          "video_c3": {**media_rows["mp4"]["decode"], "launches":
-                      media_rows["mp4"]["run"]["decode_kernels"]}},
+                      media_rows["mp4"]["run"]["decode_kernels"]},
+         "phase19_rank0": phase19["data_parallel"]["decode_launches"]},
         {"name": "fused_chain_apply", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_siren.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",
@@ -2627,4 +2958,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else main())

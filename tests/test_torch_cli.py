@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from brief_pytorch_tpu_torch.cli import main as cli
 from brief_pytorch_tpu_torch.core import config as tcfg
@@ -107,10 +108,26 @@ def test_multitask_subprocess_pins_every_listed_device(monkeypatch):
 
 @pytest.mark.parametrize("flag,value", [("-coordinator", "host:1234"),
                                         ("-nprocs", "2"), ("-procid", "0")])
-def test_multihost_flags_raise(flag, value, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
+def test_multihost_flags_raise(flag, value, tmp_path, monkeypatch):
+    """Each of -coordinator -nprocs -procid alone raises ValueError (they
+    go together); the three reach parallel/mesh.multihost_init with their
+    values and -g's device, and the run goes on as that rank."""
+    with pytest.raises(ValueError, match="go together"):
         cli.main(["-p", str(tmp_path / "never_read.yaml"), "-g", "cpu",
                   flag, value])
+    seen = {}
+    monkeypatch.setattr(cli.mesh, "multihost_init",
+                        lambda *a, **kw: seen.update(args=a, **kw) or True)
+    monkeypatch.setattr(cli.mesh, "shutdown", lambda: seen.update(down=1))
+    monkeypatch.setattr(cli, "run", lambda p, args: {"g": args.g})
+    flags = {"-coordinator": "host:1234", "-nprocs": "2", "-procid": "1"}
+    flags[flag] = {"-nprocs": "3", "-procid": "0"}.get(flag, value)
+    out = cli.main(["-p", "x.yaml", "-g", "cpu"]
+                   + [t for kv in flags.items() for t in kv])
+    assert seen["args"] == ("host:1234", int(flags["-nprocs"]),
+                            int(flags["-procid"]))
+    assert seen["device"] == torch.device("cpu") and seen["down"] == 1
+    assert out == {"g": "cpu"}
 
 
 def test_profile_writes_a_trace(tmp_path):

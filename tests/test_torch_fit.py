@@ -171,16 +171,29 @@ def test_cli_runs_on_cpu(tmp_path, runs):
                           "module")) == 8
 
 
-def test_unported_options_raise(runs):
-    """Compress.data_shards > 1 raises; `half` raised here until it was
-    ported and now constructs."""
+def test_unported_options_raise(runs, monkeypatch):
+    """`half` raised here until it was ported and now constructs;
+    Compress.data_shards > 1 raised until data parallelism was ported and
+    now needs a process group of that many ranks: without one it raises
+    ValueError naming the CLI and its flags.  With one (its size faked
+    here), compress refuses randomcube and vector_len > 1, as the JAX
+    package does (fit.py:226-232, 294-299)."""
     c = copy.deepcopy(runs["opt"].CompressFramework)
     c.Compress.half = True
     assert TNFGR(c, device="cpu").half
     c.Compress.half = False
     c.Compress.data_shards = 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="-coordinator"):
         TNFGR(c, device="cpu")
+    from brief_pytorch_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "world", lambda: 2)
+    for sampler, match in (({"name": "randomcube"}, "randompoint"),
+                           ({"name": "randompoint", "vector_len": 4},
+                            "vector_len")):
+        cs = copy.deepcopy(c)
+        cs.Compress.sampler.update(sampler)
+        with pytest.raises(ValueError, match=match):
+            TNFGR(cs, device="cpu").compress(runs["data_path"])
 
 
 # --- the whole φ zoo through NFGR.compress / NFGR.decompress ---------------
