@@ -1,31 +1,96 @@
-// One layer of an activation chain for one coordinate, shared by the
-// fused train and decode kernels.
+// What the fused kernels share about an activation chain: the activation
+// codes, an activation with its derivative, and the reader of their
+// per-layer tables.
 //
-// Activations live in shared memory, one column per thread: row r of the
-// block's activation buffer holds feature r of every coordinate of the
-// tile, at A[r * stride + thread].  A thread reads and writes only its own
-// column here, so no synchronisation is needed between layers.
-//
-// Weights live in shared memory as W (fin, fout_pad) with the columns
-// zero-padded to a multiple of kChunk floats, so one output chunk of
-// kChunk accumulators stays in registers while the input features stream
-// once from shared memory: two 16-byte broadcast loads of weights and one
-// load of the input per kChunk multiply-adds.
+// Every kernel keeps its chain's per-layer values (widths, offsets,
+// activations, w0, weight pointers) in a table in device memory, one
+// 16-byte-aligned row a layer, that the wrapper builds once per chain
+// (ops/chain.py layer_table) and passes by pointer: a chain may have any
+// number of layers.  The kernels that run at their register limit in
+// their hot loops (kernel 1's narrow layout, kernels 2 and 3) also take a
+// copy of the first kParamLayers rows among their launch parameters, and
+// are compiled twice: for chains of at most kParamLayers layers they read
+// that copy (indexed constant loads, which the compiler schedules early
+// and reloads rather than keeping live, as it did for the parameter arrays
+// these tables replace), for deeper ones the table (layer_field).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "fast_math.cuh"
 
 namespace brief {
 
-constexpr int kMaxLayers = 16;
-constexpr int kChunk = 8;
+constexpr int kParamLayers = 16;   // rows a launch's parameters also hold
 
 enum Act { kActNone = 0, kActSine = 1, kActRelu = 2, kActSigmoid = 3 };
 
-__host__ __device__ __forceinline__ int round_up8(int x) {
-  return (x + 7) & ~7;
+// A row of a per-layer table, read through the read-only cache in 16-byte
+// words; the words of fields a caller leaves unused are never loaded.  A
+// row is the same for every thread, so each load is one broadcast.
+template <class T>
+__device__ __forceinline__ T ld_row(const T* p) {
+  static_assert(sizeof(T) % 16 == 0 && alignof(T) == 16,
+                "a table row is a whole number of 16-byte words");
+  int4 w[sizeof(T) / 16];
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 16); ++i)
+    w[i] = __ldg(reinterpret_cast<const int4*>(p) + i);
+  T r;
+  memcpy(&r, w, sizeof(T));
+  return r;
+}
+
+// One field of a table row, loaded where it is used, through the read-only
+// cache.  The load is volatile, so the compiler neither hoists it out of a
+// loop nor keeps its value live across one: it treats the field as it would
+// an array in the launch's parameter space, which the kernels that run at
+// their register limit need (a row held in registers through a layer made
+// them spill).
+__device__ __forceinline__ int ld_use(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float ld_use(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ const float* ld_use(const float* const* p) {
+  unsigned long long v;
+  asm volatile("ld.global.nc.b64 %0, [%1];" : "=l"(v) : "l"(p));
+  return reinterpret_cast<const float*>(v);
+}
+
+// Field f of layer l's row: from the launch parameters' copy `head` (kDeep
+// false: a chain of at most kParamLayers layers) or from the table in
+// device memory where it is used (kDeep true: any depth).
+template <bool kDeep, class Row, class T>
+__device__ __forceinline__ T layer_field(const Row* table,
+                                         const Row (&head)[kParamLayers],
+                                         int l, T Row::*f) {
+  if constexpr (kDeep) {
+    return ld_use(&(table[l].*f));
+  } else {
+    return head[l].*f;
+  }
+}
+
+// Layer l's whole row, from the same place: for the set-up a block does
+// once (its weights into shared memory, its dW jobs).
+template <bool kDeep, class Row>
+__device__ __forceinline__ Row layer_row(const Row* table,
+                                         const Row (&head)[kParamLayers],
+                                         int l) {
+  if constexpr (kDeep) {
+    return ld_row(table + l);
+  } else {
+    return head[l];
+  }
 }
 
 // act(z) and d act/dz.  For sine one shared range reduction gives both.
@@ -52,90 +117,6 @@ __device__ __forceinline__ void act_fwd(int act, float w0, float z, float* h,
     default:
       *h = z;
       *d = 1.f;
-  }
-}
-
-__device__ __forceinline__ float act_only(int act, float w0, float z) {
-  switch (act) {
-    case kActSine: return fast_sin(w0 * z);
-    case kActRelu: return fmaxf(z, 0.f);
-    case kActSigmoid: return 1.f / (1.f + expf(-z));
-    default: return z;
-  }
-}
-
-// out rows [h_row, h_row + fout) = act(W^T in + b) for this thread's
-// column; with kStoreD also rows [d_row, d_row + fout) = act'(z).  A
-// non-null `mask` (fout 0/1 floats, device memory) multiplies both, as the
-// block fleet's width padding needs.
-template <bool kStoreD>
-__device__ __forceinline__ void layer_forward(
-    const float* __restrict__ sw, const float* __restrict__ sb, float* A,
-    int stride, int col, int in_row, int fin, int fout, int act, float w0,
-    int h_row, int d_row, const float* __restrict__ mask = nullptr) {
-  const int fop = round_up8(fout);
-  for (int o0 = 0; o0 < fout; o0 += kChunk) {
-    float z[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) z[k] = 0.f;
-    for (int i = 0; i < fin; ++i) {
-      const float x = A[(in_row + i) * stride + col];
-      const float4 wa = *reinterpret_cast<const float4*>(sw + i * fop + o0);
-      const float4 wb =
-          *reinterpret_cast<const float4*>(sw + i * fop + o0 + 4);
-      z[0] = fmaf(wa.x, x, z[0]);
-      z[1] = fmaf(wa.y, x, z[1]);
-      z[2] = fmaf(wa.z, x, z[2]);
-      z[3] = fmaf(wa.w, x, z[3]);
-      z[4] = fmaf(wb.x, x, z[4]);
-      z[5] = fmaf(wb.y, x, z[5]);
-      z[6] = fmaf(wb.z, x, z[6]);
-      z[7] = fmaf(wb.w, x, z[7]);
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int o = o0 + k;
-      if (o < fout) {
-        const float zz = z[k] + sb[o];
-        if (kStoreD) {
-          float h, d;
-          act_fwd(act, w0, zz, &h, &d);
-          if (mask != nullptr) {
-            const float m = __ldg(mask + o);
-            h *= m;
-            d *= m;
-          }
-          A[(h_row + o) * stride + col] = h;
-          A[(d_row + o) * stride + col] = d;
-        } else {
-          float h = act_only(act, w0, zz);
-          if (mask != nullptr) h *= __ldg(mask + o);
-          A[(h_row + o) * stride + col] = h;
-        }
-      }
-    }
-  }
-}
-
-// Copy layer weights W (fin, fout) row-major from global memory into a
-// zero-padded (fin, round_up8(fout)) shared tile; optionally also the
-// transpose (fout, round_up8(fin)).  Called by every thread of the block.
-__device__ __forceinline__ void load_weights(const float* __restrict__ W,
-                                             int fin, int fout, float* sw,
-                                             float* swt, float* sb) {
-  const int fop = round_up8(fout), fip = round_up8(fin);
-  for (int e = threadIdx.x; e < fin * fop; e += blockDim.x) {
-    const int i = e / fop, o = e - i * fop;
-    sw[e] = o < fout ? W[i * fout + o] : 0.f;
-  }
-  if (swt != nullptr) {
-    for (int e = threadIdx.x; e < fout * fip; e += blockDim.x) {
-      const int o = e / fip, i = e - o * fip;
-      swt[e] = i < fin ? W[i * fout + o] : 0.f;
-    }
-  }
-  for (int e = threadIdx.x; e < fout; e += blockDim.x) {
-    sb[e] = W[fin * fout + e];
   }
 }
 

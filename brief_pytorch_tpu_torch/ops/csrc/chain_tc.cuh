@@ -8,7 +8,10 @@
 //   template <int kNT, int kM> void narrow_input(float (&h)[kM][kNT][4],
 //       long long v0, int t, const ChainDesc& d) const;
 //   void wide_input(float* X, long long base, const ChainDesc& d) const;
-// and the caller launches through launch_chain<In>.
+// and the caller launches through launch_chain<In>.  The chain's layers
+// are rows of a table in device memory (ChainLayer, ops/fused_decode.py
+// chain_table), so a chain may have any depth; the wide form's scratch
+// rows hold any width.
 //
 // Design (ops/fused_decode.py narrow_plan / wide_plan pick the form):
 //  * M = 16 rows, N = 8 outputs, K = 8 inputs; the bias starts the
@@ -77,43 +80,38 @@ constexpr int kWideM = 8;                   // wide form: m-tiles a block tile
 constexpr int kWideVox = 16 * kWideM;       // rows a block tile
 constexpr int kWideStride = kWideVox + 4;   // activation row, floats
 constexpr int kMaxStages = 8;               // wide form: slabs in the ring
+constexpr int kGroupK = 32;                 // wide form: k-blocks a group
 constexpr int kBarFloats = 4 * kMaxStages;  // wide form: the ring's barriers
 
 __host__ __device__ constexpr int min_c(int a, int b) { return a < b ? a : b; }
 
+// Layer l's row of the chain's table: its W (fin, fout) and b (fout) as
+// the caller holds them, where the packed copy holds its fragments (from
+// float4 frag_off, kb x nt of them) and its biases (from float4 bias_off,
+// 8 nt floats zero-padded), its activation and w0.
+struct __align__(16) ChainLayer {
+  const float* w;
+  const float* b;
+  int frag_off, bias_off, fin, fout, kb, nt, act;
+  float w0;
+};
+static_assert(sizeof(ChainLayer) == 48, "ops/fused_decode.py CHAIN_ROW_WORDS");
+
 // The chain and the call's shape: n rows (voxels of kernel 2), c_in and
-// c_out features; the packed copy holds layer l's fragments from float4
-// frag_off[l] (kb x nt of them), its biases from float bias_off[l]; the
-// sentinels frag_off[L] = bias_off[0] / 4 and bias_off[L] = packed_floats.
+// c_out features, layer 0's input rows (8 kb of its k-blocks); `layer`:
+// n_layers rows in device memory; `head`: the first ones again, for the
+// kernels compiled for chains of at most kParamLayers layers.
 struct ChainDesc {
   long long n;
-  int n_layers, c_in, c_out, packed_floats, n_tiles, rows, stages;
-  int fin[kMaxLayers], fout[kMaxLayers], kb[kMaxLayers], nt[kMaxLayers];
-  int frag_off[kMaxLayers + 1], bias_off[kMaxLayers + 1], act[kMaxLayers];
-  float w0[kMaxLayers];
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
+  int n_layers, c_in, c_out, in_rows, n_tiles, rows, stages;
+  const ChainLayer* layer;
+  ChainLayer head[kParamLayers];
 };
 
-// Host: layer l's meta (fin, fout, kb, nt, frag_off, bias_off, act: 7
-// ints a layer from m), its w0 and its W, b device pointers (wb[2l],
-// wb[2l + 1]); n_layers and packed_floats must be set.
-inline void read_layers(ChainDesc& d, const int* m, const float* w0,
-                        const void* const* wb) {
-  for (int l = 0; l < d.n_layers; ++l) {
-    d.fin[l] = m[7 * l + 0];
-    d.fout[l] = m[7 * l + 1];
-    d.kb[l] = m[7 * l + 2];
-    d.nt[l] = m[7 * l + 3];
-    d.frag_off[l] = m[7 * l + 4];
-    d.bias_off[l] = m[7 * l + 5];
-    d.act[l] = m[7 * l + 6];
-    d.w0[l] = w0[l];
-    d.w[l] = static_cast<const float*>(wb[2 * l]);
-    d.b[l] = static_cast<const float*>(wb[2 * l + 1]);
-  }
-  d.frag_off[d.n_layers] = d.bias_off[0] / 4;
-  d.bias_off[d.n_layers] = d.packed_floats;
+// Field f of layer l (csrc/chain.cuh layer_field)
+template <bool kDeep, class T>
+__device__ __forceinline__ T lf(const ChainDesc& d, int l, T ChainLayer::*f) {
+  return layer_field<kDeep>(d.layer, d.head, l, f);
 }
 
 // Hopper's bulk copy (TMA, one thread for a whole contiguous slab) and
@@ -174,41 +172,44 @@ __device__ __forceinline__ void activate(float* c, int act, float w0) {
   }
 }
 
-// Float4 e < packed_floats / 4 of the packed weights: a B fragment entry
-// of layer l below frag_off[L], else four padded biases.
-__device__ __forceinline__ float4 packed_entry(const ChainDesc& d, int e) {
-  const int L = d.n_layers;
-  if (e < d.frag_off[L]) {
-    int l = 0;
-    while (e >= d.frag_off[l + 1]) ++l;
-    const int local = e - d.frag_off[l], lane = local & 31;
-    const int frag = local >> 5, kb = frag / d.nt[l];
-    const int i = 8 * kb + 2 * (lane & 3);
-    const int o = 8 * (frag - kb * d.nt[l]) + (lane >> 2);
-    const int fin = d.fin[l], fout = d.fout[l];
-    const float* W = d.w[l];
-    const bool ok = o < fout;
-    return pack_b<true>(
-        ok && i < fin ? __ldg(W + (size_t)i * fout + o) : 0.f,
-        ok && i + 1 < fin ? __ldg(W + (size_t)(i + 1) * fout + o) : 0.f);
-  }
-  float v[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int f = 4 * e + q;
-    int l = 0;
-    while (l + 1 < L && f >= d.bias_off[l + 1]) ++l;
-    const int o = f - d.bias_off[l];
-    v[q] = o < d.fout[l] ? __ldg(d.b[l] + o) : 0.f;
-  }
-  return make_float4(v[0], v[1], v[2], v[3]);
+// B fragment entry e < 32 kb nt of layer ly's packed weights.
+__device__ __forceinline__ float4 frag_entry(const ChainLayer& ly, int e) {
+  const int lane = e & 31, frag = e >> 5, kb = frag / ly.nt;
+  const int i = 8 * kb + 2 * (lane & 3);
+  const int o = 8 * (frag - kb * ly.nt) + (lane >> 2);
+  const bool ok = o < ly.fout;
+  return pack_b<true>(
+      ok && i < ly.fin ? __ldg(ly.w + (size_t)i * ly.fout + o) : 0.f,
+      ok && i + 1 < ly.fin ? __ldg(ly.w + (size_t)(i + 1) * ly.fout + o)
+                           : 0.f);
 }
 
-// Every layer's packed weights into device memory, one float4 a thread.
+// Layer ly's packed weights (fragments, then biases zero-padded to 8 nt)
+// into `packed`, entries first, first + step, ... of each.
+__device__ __forceinline__ void pack_layer(const ChainLayer& ly,
+                                           float* packed, int first,
+                                           int step) {
+  float4* frags = reinterpret_cast<float4*>(packed) + ly.frag_off;
+  float* bias = packed + 4 * (size_t)ly.bias_off;
+  const int n4 = 32 * ly.kb * ly.nt;
+  for (int e = first; e < n4; e += step) frags[e] = frag_entry(ly, e);
+  for (int o = first; o < 8 * ly.nt; o += step)
+    bias[o] = o < ly.fout ? __ldg(ly.b + o) : 0.f;
+}
+
+// Every layer's packed weights into device memory: layer blockIdx.y.
 __global__ void pack_kernel(float* __restrict__ packed, ChainDesc d) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (4 * e < d.packed_floats)
-    reinterpret_cast<float4*>(packed)[e] = packed_entry(d, e);
+  pack_layer(ld_row(d.layer + blockIdx.y), packed,
+             blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
+}
+
+// Host: pack_kernel on stream s, `blocks` blocks of 256 threads a layer
+// (ops/fused_decode.py sizes them for the largest layer).
+inline cudaError_t pack_chain(float* packed, const ChainDesc& d, int blocks,
+                              cudaStream_t s) {
+  if (packed == nullptr || blocks < 1) return cudaErrorInvalidValue;
+  pack_kernel<<<dim3(blocks, d.n_layers), 256, 0, s>>>(packed, d);
+  return cudaGetLastError();
 }
 
 // A's big and small parts of an m-tile's k-block
@@ -319,13 +320,13 @@ __device__ __forceinline__ void narrow_layer(float (&c)[kM][kNT][4],
 }
 
 // Layer l of the narrow form for the warp's kM m-tiles: c = act(h W + b)
-template <int kNT, int kM>
+template <int kNT, int kM, bool kDeep>
 __device__ __forceinline__ void narrow_step(float (&c)[kM][kNT][4],
                                             const float (&h)[kM][kNT][4],
                                             const float* sm, const ChainDesc& d,
                                             int l, int lane, int t) {
-  const int NT = d.nt[l];
-  const float* bias = sm + d.bias_off[l];
+  const int NT = lf<kDeep>(d, l, &ChainLayer::nt);
+  const float* bias = sm + 4 * lf<kDeep>(d, l, &ChainLayer::bias_off);
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
     const float2 bv = j < NT
@@ -338,17 +339,20 @@ __device__ __forceinline__ void narrow_step(float (&c)[kM][kNT][4],
     }
   }
   narrow_layer<kNT, kM>(c, h,
-                        reinterpret_cast<const float4*>(sm) + d.frag_off[l],
-                        d.kb[l], NT, lane);
-  activate<4 * kNT * kM>(&c[0][0][0], d.act[l], d.w0[l]);
+                        reinterpret_cast<const float4*>(sm) +
+                            lf<kDeep>(d, l, &ChainLayer::frag_off),
+                        lf<kDeep>(d, l, &ChainLayer::kb), NT, lane);
+  activate<4 * kNT * kM>(&c[0][0][0], lf<kDeep>(d, l, &ChainLayer::act),
+                         lf<kDeep>(d, l, &ChainLayer::w0));
 }
 
 // The last layer's outputs o < c_out of the warp's rows v < n
-template <int kNT, int kM>
+template <int kNT, int kM, bool kDeep>
 __device__ __forceinline__ void narrow_store(const float (&c)[kM][kNT][4],
                                              float* __restrict__ out,
                                              const ChainDesc& d, long long v0,
                                              int l, int t) {
+  const int NT = lf<kDeep>(d, l, &ChainLayer::nt);
 #pragma unroll
   for (int m = 0; m < kM; ++m) {
 #pragma unroll
@@ -357,7 +361,7 @@ __device__ __forceinline__ void narrow_store(const float (&c)[kM][kNT][4],
       for (int e = 0; e < 4; ++e) {
         const int o = 8 * j + 2 * t + (e & 1);
         const long long v = v0 + 16 * m + 8 * (e >> 1);
-        if (j < d.nt[l] && o < d.c_out && v < d.n)
+        if (j < NT && o < d.c_out && v < d.n)
           out[v * d.c_out + o] = c[m][j][e];
       }
     }
@@ -368,13 +372,13 @@ __device__ __forceinline__ void narrow_store(const float (&c)[kM][kNT][4],
 // registers for a layer's input and for its output, per m-tile.  Each
 // block first splits every layer's W and b, read in place, into its
 // shared memory.
-template <class In, int kNT, int kM, int kMinBlocks>
+template <class In, int kNT, int kM, int kMinBlocks, bool kDeep>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) chain_narrow_kernel(
     const In in, float* __restrict__ out, ChainDesc d) {
   extern __shared__ __align__(16) float sm[];
-#pragma unroll 4
-  for (int e = threadIdx.x; e < d.packed_floats / 4; e += kThreads)
-    reinterpret_cast<float4*>(sm)[e] = packed_entry(d, e);
+  for (int l = 0; l < d.n_layers; ++l)
+    pack_layer(layer_row<kDeep>(d.layer, d.head, l), sm, threadIdx.x,
+               kThreads);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -389,14 +393,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) chain_narrow_kernel(
     // layers in pairs, h -> c -> h, so no copy between them
     float c[kM][kNT][4];
     for (int l = 0;; l += 2) {
-      narrow_step<kNT, kM>(c, h, sm, d, l, lane, t);
+      narrow_step<kNT, kM, kDeep>(c, h, sm, d, l, lane, t);
       if (l + 1 == L) {
-        narrow_store<kNT, kM>(c, out, d, v0, l, t);
+        narrow_store<kNT, kM, kDeep>(c, out, d, v0, l, t);
         break;
       }
-      narrow_step<kNT, kM>(h, c, sm, d, l + 1, lane, t);
+      narrow_step<kNT, kM, kDeep>(h, c, sm, d, l + 1, lane, t);
       if (l + 2 == L) {
-        narrow_store<kNT, kM>(h, out, d, v0, l + 1, t);
+        narrow_store<kNT, kM, kDeep>(h, out, d, v0, l + 1, t);
         break;
       }
     }
@@ -475,7 +479,7 @@ __device__ __forceinline__ void wide_step(float (&c)[kNW][kWideM][4],
 // (n / stages) & 1 of barrier full.  The weights are the same for every
 // tile, so loads run ahead across layer and tile boundaries, during the
 // epilogues.
-template <int kP>
+template <int kP, bool kDeep>
 struct SlabRing {
   uint64_t* full;
   uint64_t* empty;
@@ -487,10 +491,11 @@ struct SlabRing {
   __device__ __forceinline__ void produce(const ChainDesc& d,
                                           const float* packed) {
     if (tile >= d.n_tiles) return;
-    const int st = stage, NT = d.nt[l];
+    const int st = stage, NT = lf<kDeep>(d, l, &ChainLayer::nt);
     if (reuse) mbar_wait(empty + st, phase ^ 1);
     bulk_load(slab + st * 32 * kP,
-              reinterpret_cast<const float4*>(packed) + d.frag_off[l] +
+              reinterpret_cast<const float4*>(packed) +
+                  lf<kDeep>(d, l, &ChainLayer::frag_off) +
                   ((size_t)kb * NT + nb) * 32,
               min(kP, NT - nb) * 512, full + st);
     if (++stage == d.stages) {
@@ -498,7 +503,7 @@ struct SlabRing {
       phase ^= 1;
       reuse = 1;
     }
-    if (++kb == d.kb[l]) {
+    if (++kb == lf<kDeep>(d, l, &ChainLayer::kb)) {
       kb = 0;
       nb += kP;
       if (nb >= NT) {
@@ -512,7 +517,7 @@ struct SlabRing {
   }
 };
 
-template <class In, int kNW, bool kGlobal>
+template <class In, int kNW, bool kGlobal, bool kDeep>
 __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
     const float* __restrict__ packed, const In in, float* __restrict__ out,
     float* __restrict__ scratch, ChainDesc d) {
@@ -520,7 +525,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
   constexpr int kSlab = 32 * kP;     // float4 per slab
   constexpr int S = kWideStride;
   extern __shared__ __align__(16) float sm[];
-  SlabRing<kP> ring;
+  SlabRing<kP, kDeep> ring;
   ring.full = reinterpret_cast<uint64_t*>(sm);
   ring.empty = ring.full + kMaxStages;
   ring.slab = reinterpret_cast<float4*>(sm + kBarFloats);
@@ -547,9 +552,10 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
     float* X = X0;
     float* Y = Y0;
     __syncthreads();   // the previous tile's last layer has read X
-    in.wide_input(X, base, d);   // rows 0 .. 8 kb[0] - 1 of layer 0's input
+    in.wide_input(X, base, d);   // rows 0 .. in_rows - 1 of layer 0's input
     for (int l = 0; l < L; ++l) {
-      const int KB = d.kb[l], NT = d.nt[l];
+      const int KB = lf<kDeep>(d, l, &ChainLayer::kb);
+      const int NT = lf<kDeep>(d, l, &ChainLayer::nt);
       const bool last = l + 1 == L;
       // each warp: m-tiles m0 .. m0 + mc - 1 and the pass's n-tiles
       // jb + js * j, j < kNW
@@ -567,7 +573,8 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
           const int n = jb + js * j;
           const float2 bv = n < np
               ? __ldg(reinterpret_cast<const float2*>(
-                    packed + d.bias_off[l] + 8 * (nb + n) + 2 * t))
+                    packed + 4 * (size_t)lf<kDeep>(d, l, &ChainLayer::bias_off) +
+                    8 * (nb + n) + 2 * t))
               : make_float2(0.f, 0.f);
 #pragma unroll
           for (int m = 0; m < kWideM; ++m) {
@@ -575,7 +582,26 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
             c[j][m][1] = c[j][m][3] = bv.y;
           }
         }
+        // A warp with one m-tile (msplit) and a long reduction sums its
+        // k-blocks in groups of kGroupK from zero, keeping the running
+        // total in the second m-tile's accumulators (free in this path),
+        // and adds each group's sum to it: float32's rounding then grows
+        // with the groups and the group's k-blocks, not with all k-blocks
+        // (a 20,971-wide input's 2,622 k-blocks in one running sum put
+        // the output 3.9x further from float64 than the plain version's).
+        // Only the scratch instance (kGlobal), which every layer past 256
+        // features takes: the code cost the others registers and 6%.
+        const bool grouped = kGlobal && msplit && KB > kGroupK;
         for (int kb = 0; kb < KB; ++kb) {
+          if (grouped && kb % kGroupK == 0) {   // a group starts from zero
+#pragma unroll
+            for (int j = 0; j < kNW; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                c[j][1][e] = c[j][0][e];
+                c[j][0][e] = 0.f;
+              }
+          }
           mbar_wait(ring.full + stage, phase);
           const float4* ws = ring.slab + stage * kSlab;
           const float* xa = X + (8 * kb + 2 * t) * S + 16 * m0 + g;
@@ -595,6 +621,12 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
               default: wide_step<kNW, min_c(4, kNW), kWideM>(c, ws, jb, js, xa, lane);
             }
           }
+          if (grouped && ((kb + 1) % kGroupK == 0 || kb + 1 == KB)) {
+#pragma unroll
+            for (int j = 0; j < kNW; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) c[j][0][e] += c[j][1][e];
+          }
           __syncwarp();
           if (lane == 0) mbar_arrive(ring.empty + stage);   // released
           if (++stage == d.stages) {
@@ -603,7 +635,9 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
           }
           if (threadIdx.x == 0) ring.produce(d, packed);
         }
-        activate<4 * kNW * kWideM>(&c[0][0][0], d.act[l], d.w0[l]);
+        activate<4 * kNW * kWideM>(&c[0][0][0],
+                                   lf<kDeep>(d, l, &ChainLayer::act),
+                                   lf<kDeep>(d, l, &ChainLayer::w0));
         if (last) {
 #pragma unroll
           for (int j = 0; j < kNW; ++j) {
@@ -662,22 +696,23 @@ int launch(Kernel kernel, int grid, int smem_bytes, cudaStream_t s,
 }
 
 // Host: launch form 0 (narrow, inst = kNT), 1 (wide, inst = kNW) or 2
-// (wide with its activations in `scratch`, inst 4) on stream s; packed
-// holds pack_kernel's output for the wide forms (the narrow form splits
-// the weights itself and ignores it).  Returns a cudaError_t.
-template <class In>
-int launch_chain(const ChainDesc& d, const In& in, const float* packed,
-                 float* out, float* scratch, int form, int inst, int grid,
-                 int smem_bytes, cudaStream_t s) {
+// (wide with its activations in `scratch`, inst 4) on stream s, the
+// instances for chains of any depth (kDeep) or of at most kParamLayers
+// layers; packed holds pack_kernel's output for the wide forms (the narrow
+// form splits the weights itself and ignores it).  Returns a cudaError_t.
+template <class In, bool kDeep>
+int launch_form(const ChainDesc& d, const In& in, const float* packed,
+                float* out, float* scratch, int form, int inst, int grid,
+                int smem_bytes, cudaStream_t s) {
   if (form == 0) {
     switch (inst) {   // kNT, m-tiles a warp, blocks an SM
-      case 3: return launch(chain_narrow_kernel<In, 3, 2, 2>, grid,
+      case 3: return launch(chain_narrow_kernel<In, 3, 2, 2, kDeep>, grid,
                             smem_bytes, s, in, out, d);
-      case 6: return launch(chain_narrow_kernel<In, 6, 1, 2>, grid,
+      case 6: return launch(chain_narrow_kernel<In, 6, 1, 2, kDeep>, grid,
                             smem_bytes, s, in, out, d);
-      case 9: return launch(chain_narrow_kernel<In, 9, 2, 1>, grid,
+      case 9: return launch(chain_narrow_kernel<In, 9, 2, 1, kDeep>, grid,
                             smem_bytes, s, in, out, d);
-      case 12: return launch(chain_narrow_kernel<In, 12, 1, 1>, grid,
+      case 12: return launch(chain_narrow_kernel<In, 12, 1, 1, kDeep>, grid,
                              smem_bytes, s, in, out, d);
       default: return (int)cudaErrorInvalidValue;
     }
@@ -686,19 +721,36 @@ int launch_chain(const ChainDesc& d, const In& in, const float* packed,
       d.stages > kMaxStages || (form == 2 && (scratch == nullptr || inst != 4)))
     return (int)cudaErrorInvalidValue;
   if (form == 2)
-    return launch(chain_wide_kernel<In, 4, true>, grid, smem_bytes, s,
+    return launch(chain_wide_kernel<In, 4, true, kDeep>, grid, smem_bytes, s,
                   packed, in, out, scratch, d);
   switch (inst) {
-    case 1: return launch(chain_wide_kernel<In, 1, false>, grid, smem_bytes,
-                          s, packed, in, out, scratch, d);
-    case 2: return launch(chain_wide_kernel<In, 2, false>, grid, smem_bytes,
-                          s, packed, in, out, scratch, d);
-    case 3: return launch(chain_wide_kernel<In, 3, false>, grid, smem_bytes,
-                          s, packed, in, out, scratch, d);
-    case 4: return launch(chain_wide_kernel<In, 4, false>, grid, smem_bytes,
-                          s, packed, in, out, scratch, d);
+    case 1: return launch(chain_wide_kernel<In, 1, false, kDeep>, grid,
+                          smem_bytes, s, packed, in, out, scratch, d);
+    case 2: return launch(chain_wide_kernel<In, 2, false, kDeep>, grid,
+                          smem_bytes, s, packed, in, out, scratch, d);
+    case 3: return launch(chain_wide_kernel<In, 3, false, kDeep>, grid,
+                          smem_bytes, s, packed, in, out, scratch, d);
+    case 4: return launch(chain_wide_kernel<In, 4, false, kDeep>, grid,
+                          smem_bytes, s, packed, in, out, scratch, d);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Host: launch_form, the instances that read the chain's rows from the
+// launch parameters where it has at most kParamLayers layers (`head`
+// filled from the host's copy of the table, `head_rows`), else those that
+// read the device table.
+template <class In>
+int launch_chain(ChainDesc& d, const void* head_rows, const In& in,
+                 const float* packed, float* out, float* scratch, int form,
+                 int inst, int grid, int smem_bytes, cudaStream_t s) {
+  if (d.n_layers > kParamLayers)
+    return launch_form<In, true>(d, in, packed, out, scratch, form, inst,
+                                 grid, smem_bytes, s);
+  if (head_rows == nullptr) return (int)cudaErrorInvalidValue;
+  memcpy(d.head, head_rows, d.n_layers * sizeof(ChainLayer));
+  return launch_form<In, false>(d, in, packed, out, scratch, form, inst, grid,
+                                smem_bytes, s);
 }
 
 }  // namespace brief

@@ -22,10 +22,15 @@
 //  * Coordinates are built as the TPU kernel builds them, bit for bit as
 //    the plain version does: the lead axis lo + i * step (no fused
 //    multiply-add, SIRENPos-warped), the other axes from small
-//    axis_linspace tables the wrapper builds.  The flat voxel index
-//    splits into axis indices with 32-bit multiply-shift divisions
-//    prepared on the host (ops/fused_decode.py fast_divisor); grids of
-//    2^31 voxels or more take 64-bit division.
+//    axis_linspace tables the wrapper builds.  Each axis is a row of the
+//    call's table (GridAxis, after the chain's layers).  The narrow form
+//    (grids of 2 to 4 axes) copies them into its launch parameters and
+//    splits the flat voxel index into the lead index and each plane
+//    axis's from the last; the wide form takes any number of axes, axis
+//    a's index of voxel v being v / stride_a - (v / stride_{a-1}) size_a.
+//    The divisions are 32-bit multiply-shifts prepared on the host
+//    (ops/fused_decode.py fast_divisor); grids of 2^31 voxels or more
+//    take 64-bit division.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,11 +39,25 @@
 namespace {
 
 using brief::ChainDesc;
-using brief::kMaxLayers;
 using brief::kWideStride;
 using brief::kWideVox;
 
-constexpr int kMaxPlaneAxes = 3;
+// Axis a of the grid: its voxel stride (the product of the later axes'
+// sizes; the plane for the lead axis), its size, its axis_linspace
+// table's offset (plane axes), and the multiply-shift divisions by its
+// stride and by its size (ops/fused_decode.py fast_divisor; mul 0 stands
+// for 1).
+struct __align__(16) GridAxis {
+  long long stride;
+  int size, table_off;
+  unsigned mul;
+  int shift;
+  unsigned size_mul;
+  int size_shift;
+};
+static_assert(sizeof(GridAxis) == 32, "ops/fused_decode.py AXIS_ROW_WORDS");
+
+constexpr int kMaxPlaneAxes = 3;   // the narrow form's grids: 2 to 4 axes
 
 // n / d for 0 <= n < 2^31 (ops/fused_decode.py fast_divisor): the high
 // word of n * mul shifted right; mul = 0 stands for d = 1.
@@ -53,23 +72,34 @@ __device__ __forceinline__ int fast_div(int n, FastDiv f) {
 
 // Layer 0's input of voxel v: its coordinates, built from the grid.
 struct GridInput {
-  const float* tables;   // axis_linspace of each plane axis
+  const float* tables;    // axis_linspace of each plane axis
+  const GridAxis* axes;   // c_in rows, device memory (the wide form)
   long long plane;
-  int index64;           // pop >= 2^31: 64-bit index arithmetic
+  int index64;            // pop >= 2^31: 64-bit index arithmetic
   int n_plane, has_enc;
+  // the narrow form's plane axes (grids of at most 4 axes), copied from
+  // the table into the launch parameters
   int size[kMaxPlaneAxes], table_off[kMaxPlaneAxes];
   FastDiv div_plane, div_axis[kMaxPlaneAxes];
   float lo, step, enc_scale0;
 
-  // Coordinate features 0 .. 3 of voxel v < pop (zeros past c_in).
+  // The lead coordinate of lead index q
+  __device__ __forceinline__ float lead(long long q) const {
+    const float z0 = __fadd_rn(lo, __fmul_rn((float)q, step));
+    return has_enc ? brief::fast_sin(__fmul_rn(enc_scale0, z0)) : z0;
+  }
+
+  // The narrow form: coordinate features 0 .. 3 of voxel v < pop (zeros
+  // past c_in): the lead index v / plane, then each plane axis's from the
+  // last, dividing the rest by its size.
   __device__ __forceinline__ void coords(long long v, float (&x)[4]) const {
     int idx[kMaxPlaneAxes];
-    long long lead;
+    long long q;
     if (!index64) {
       const int vi = (int)v;
-      const int q = fast_div(vi, div_plane);
-      int p = vi - q * (int)plane;
-      lead = q;
+      const int qi = fast_div(vi, div_plane);
+      int p = vi - qi * (int)plane;
+      q = qi;
 #pragma unroll
       for (int k = 0; k < kMaxPlaneAxes; ++k) {
         const int a = kMaxPlaneAxes - 1 - k;
@@ -81,8 +111,8 @@ struct GridInput {
         }
       }
     } else {
-      lead = v / plane;
-      long long p = v - lead * plane;
+      q = v / plane;
+      long long p = v - q * plane;
 #pragma unroll
       for (int k = 0; k < kMaxPlaneAxes; ++k) {
         const int a = kMaxPlaneAxes - 1 - k;
@@ -93,9 +123,7 @@ struct GridInput {
         }
       }
     }
-    float z0 = __fadd_rn(lo, __fmul_rn((float)lead, step));
-    if (has_enc) z0 = brief::fast_sin(__fmul_rn(enc_scale0, z0));
-    x[0] = z0;
+    x[0] = lead(q);
 #pragma unroll
     for (int a = 0; a < kMaxPlaneAxes; ++a)
       x[1 + a] = a < n_plane ? __ldg(tables + table_off[a] + idx[a]) : 0.f;
@@ -126,17 +154,33 @@ struct GridInput {
     }
   }
 
-  // The wide form: coordinates into rows 0 .. 3, zeros into rows 4 .. 7
+  // v / stride of axis a (the table's row), v < pop
+  __device__ __forceinline__ long long quot(long long v, int a) const {
+    if (index64) return v / __ldg(&axes[a].stride);
+    const unsigned mul = __ldg(&axes[a].mul);
+    return mul == 0u ? v
+                     : (long long)(__umulhi((unsigned)v, mul) >>
+                                   __ldg(&axes[a].shift));
+  }
+
+  // The wide form: coordinates into rows 0 .. c_in - 1 (any number of
+  // axes, from the table: axis a's index is v / stride_a - (v /
+  // stride_{a-1}) size_a), zeros into rows c_in .. in_rows - 1
   __device__ __forceinline__ void wide_input(float* X, long long base,
                                              const ChainDesc& d) const {
-    const int u = threadIdx.x % kWideVox, half = threadIdx.x / kWideVox;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (half == 0) {
-      const long long v = base + u;
-      coords(v < d.n ? v : d.n - 1, x);
+    for (int e = threadIdx.x; e < d.in_rows * kWideVox; e += brief::kThreads) {
+      const int r = e / kWideVox, u = e - r * kWideVox;
+      const long long v = base + u < d.n ? base + u : d.n - 1;
+      float x = 0.f;
+      if (r == 0) {
+        x = lead(quot(v, 0));
+      } else if (r < d.c_in) {
+        const int idx = (int)(quot(v, r) - quot(v, r - 1) *
+                              __ldg(&axes[r].size));
+        x = __ldg(tables + __ldg(&axes[r].table_off) + idx);
+      }
+      X[r * kWideStride + u] = x;
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) X[(4 * half + r) * kWideStride + u] = x[r];
   }
 };
 
@@ -149,64 +193,66 @@ unsigned long long kernels_launched = 0;
 extern "C" {
 
 // The decode of one grid (ops/fused_decode.py fused_decode_grid).
-// meta: n_layers, c_in, c_out, n_plane, has_enc, index64, n_tiles, rows,
-// packed_floats, stages (wide form), then size[3], table_off[3], then the divisors' (mul,
-// shift) of the plane and of each plane axis (8 ints), then per layer:
-// fin, fout, kb, nt, frag_off, bias_off, act.  fmeta: lo, step,
-// enc_scale0, then w0 per layer.  wb: W then b of each layer (device
-// pointers).  form: 0 narrow (inst = kNT), 1 wide (inst = kNW), 2 wide
-// with its activations in `scratch`.  packed: (packed_floats,) scratch
-// for the wide forms' split weights (unused by the narrow form).
+// meta: n_layers, c_in (the grid's axes), c_out, has_enc, index64,
+// n_tiles, rows, stages (wide form), in_rows, pack_blocks (wide form).
+// fmeta: lo, step, enc_scale0.  table: device memory, n_layers
+// ChainLayer rows then c_in GridAxis rows (ops/fused_decode.py
+// chain_table, axis_table); head: the same words in host memory.  form:
+// 0 narrow (inst = kNT), 1 wide (inst = kNW), 2 wide with its activations
+// in `scratch`.  packed: scratch for the wide forms' split weights (unused
+// by the narrow form).
 int brief_fused_decode(const float* tables, float* out, float* packed,
-                       float* scratch, const void* const* wb, long long pop,
+                       float* scratch, const void* table,
+                       const void* head, long long pop,
                        const int* meta, const float* fmeta, int form,
                        int inst, int grid, int smem_bytes, void* stream) {
   ChainDesc d;
   GridInput in;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || d.n_layers > kMaxLayers)
+  if (d.n_layers < 1 || table == nullptr || pop < 1)
     return (int)cudaErrorInvalidValue;
   d.c_in = meta[1];
   d.c_out = meta[2];
-  in.n_plane = meta[3];
-  in.has_enc = meta[4];
-  in.index64 = meta[5];
-  d.n_tiles = meta[6];
-  d.rows = meta[7];
-  d.packed_floats = meta[8];
-  d.stages = meta[9];
-  if (in.n_plane < 1 || in.n_plane > kMaxPlaneAxes || d.c_in > 4)
-    return (int)cudaErrorInvalidValue;
+  in.has_enc = meta[3];
+  in.index64 = meta[4];
+  d.n_tiles = meta[5];
+  d.rows = meta[6];
+  d.stages = meta[7];
+  d.in_rows = meta[8];
+  const int pack_blocks = meta[9];
+  if (d.c_in < 2) return (int)cudaErrorInvalidValue;
   d.n = pop;
+  d.layer = static_cast<const brief::ChainLayer*>(table);
   in.tables = tables;
-  in.plane = 1;
-  const int* m = meta + 10;
-  for (int a = 0; a < kMaxPlaneAxes; ++a) {
-    in.size[a] = m[a];
-    in.table_off[a] = m[kMaxPlaneAxes + a];
-    if (a < in.n_plane) in.plane *= m[a];
+  in.axes = reinterpret_cast<const GridAxis*>(d.layer + d.n_layers);
+  if (form == 0) {   // the narrow form's plane axes, from the host's copy
+    if (d.c_in > kMaxPlaneAxes + 1 || head == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const GridAxis* ax = reinterpret_cast<const GridAxis*>(
+        static_cast<const brief::ChainLayer*>(head) + d.n_layers);
+    in.n_plane = d.c_in - 1;
+    in.plane = ax[0].stride;
+    in.div_plane = FastDiv{ax[0].mul, ax[0].shift};
+    for (int a = 0; a < kMaxPlaneAxes; ++a) {
+      const bool on = a < in.n_plane;
+      in.size[a] = on ? ax[1 + a].size : 1;
+      in.table_off[a] = on ? ax[1 + a].table_off : 0;
+      in.div_axis[a] = on ? FastDiv{ax[1 + a].size_mul, ax[1 + a].size_shift}
+                          : FastDiv{0u, 0};
+    }
   }
-  m += 2 * kMaxPlaneAxes;
-  in.div_plane = FastDiv{(unsigned)m[0], m[1]};
-  for (int a = 0; a < kMaxPlaneAxes; ++a)
-    in.div_axis[a] = FastDiv{(unsigned)m[2 + 2 * a], m[3 + 2 * a]};
-  m += 2 + 2 * kMaxPlaneAxes;
-  brief::read_layers(d, m, fmeta + 3, wb);
   in.lo = fmeta[0];
   in.step = fmeta[1];
   in.enc_scale0 = fmeta[2];
 
   cudaStream_t s = (cudaStream_t)stream;
   if (form != 0) {
-    if (packed == nullptr) return (int)cudaErrorInvalidValue;
-    brief::pack_kernel<<<(d.packed_floats / 4 + 255) / 256, 256, 0, s>>>(
-        packed, d);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = brief::pack_chain(packed, d, pack_blocks, s);
     if (err != cudaSuccess) return (int)err;
     ++kernels_launched;
   }
-  const int err = brief::launch_chain(d, in, packed, out, scratch, form,
-                                      inst, grid, smem_bytes, s);
+  const int err = brief::launch_chain(d, head, in, packed, out, scratch,
+                                      form, inst, grid, smem_bytes, s);
   if (err == (int)cudaSuccess) ++kernels_launched;
   return err;
 }

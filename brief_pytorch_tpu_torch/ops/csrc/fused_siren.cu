@@ -24,11 +24,11 @@
 //    shared memory, so a call is one launch; lane (g, t) of a warp loads
 //    features 8k + 2t and 8k + 2t + 1 of rows v0 + 16 m + g and + 8
 //    straight from the row-major array into its C fragments;
-//  * the wide form (every other chain of at most 16 layers and 3,327
-//    features, any C up to that): pack_kernel splits the weights once per
-//    call for the TMA slab ring; each 128-row tile's input is copied from
-//    the contiguous rows into feature-major rows of 132 floats
-//    (consecutive threads on consecutive addresses);
+//  * the wide form (every other chain, of any depth and width, any C):
+//    pack_kernel splits the weights once per call for the TMA slab ring;
+//    each 128-row tile's input is copied from the contiguous rows into
+//    feature-major rows of 132 floats (consecutive threads on consecutive
+//    addresses), in a device scratch past 256 features;
 //  * rows past N are clamped to N - 1 and never stored; offsets are 64-bit
 //    (N * C may pass 2^31);
 //  * the sums are chain_tc.cuh's: each k-block's three products
@@ -43,7 +43,6 @@
 namespace {
 
 using brief::ChainDesc;
-using brief::kMaxLayers;
 using brief::kThreads;
 using brief::kWideStride;
 using brief::kWideVox;
@@ -86,7 +85,7 @@ struct RowInput {
   }
 
   // The wide form: rows 0 .. c_in - 1 of the block tile's input from the
-  // tile's contiguous 128 c_in floats, zeros in rows c_in .. 8 kb[0] - 1.
+  // tile's contiguous 128 c_in floats, zeros in rows c_in .. in_rows - 1.
   __device__ __forceinline__ void wide_input(float* X, long long base,
                                              const ChainDesc& d) const {
     const int C = d.c_in;
@@ -95,7 +94,7 @@ struct RowInput {
       const long long v = base + u;
       X[r * kWideStride + u] = __ldg(x + (v < d.n ? v : d.n - 1) * C + r);
     }
-    for (int e = threadIdx.x; e < (8 * d.kb[0] - C) * kWideVox;
+    for (int e = threadIdx.x; e < (d.in_rows - C) * kWideVox;
          e += kThreads)
       X[(C + e / kWideVox) * kWideStride + e % kWideVox] = 0.f;
   }
@@ -106,40 +105,39 @@ struct RowInput {
 extern "C" {
 
 // The forward of one call (ops/fused_siren.py _launch).  meta: n_layers,
-// c_in, c_out, n_tiles, rows, packed_floats, stages (wide form), then per
-// layer: fin, fout, kb, nt, frag_off, bias_off, act.  w0: one per layer.
-// wb: W then b of each layer (device pointers).  form: 0 narrow (inst =
-// kNT; packed unused), 1 wide (inst = kNW), 2 wide with its activations
-// in `scratch`; packed: (packed_floats,) device memory for the wide
+// c_in, c_out, n_tiles, rows, stages (wide form), in_rows, pack_blocks
+// (wide form).  table: device memory, n_layers ChainLayer rows
+// (ops/fused_decode.py chain_table); head: the same rows in host memory.
+// form: 0 narrow (inst = kNT; packed unused), 1 wide (inst = kNW), 2 wide
+// with its activations in `scratch`; packed: device memory for the wide
 // forms' split weights.
 int brief_fused_siren(const float* coords, float* out, float* packed,
-                      float* scratch, const void* const* wb, long long n,
-                      const int* meta, const float* w0, int form, int inst,
-                      int grid, int smem_bytes, void* stream) {
+                      float* scratch, const void* table,
+                      const void* head, long long n,
+                      const int* meta, int form, int inst, int grid,
+                      int smem_bytes, void* stream) {
   ChainDesc d;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n < 1)
+  if (d.n_layers < 1 || table == nullptr || n < 1)
     return (int)cudaErrorInvalidValue;
   d.n = n;
   d.c_in = meta[1];
   d.c_out = meta[2];
   d.n_tiles = meta[3];
   d.rows = meta[4];
-  d.packed_floats = meta[5];
-  d.stages = meta[6];
+  d.stages = meta[5];
+  d.in_rows = meta[6];
+  const int pack_blocks = meta[7];
   if (d.c_in < 1 || d.c_out < 1) return (int)cudaErrorInvalidValue;
-  brief::read_layers(d, meta + 7, w0, wb);
+  d.layer = static_cast<const brief::ChainLayer*>(table);
   const RowInput in{coords};
   cudaStream_t s = (cudaStream_t)stream;
   if (form != 0) {
-    if (packed == nullptr) return (int)cudaErrorInvalidValue;
-    brief::pack_kernel<<<(d.packed_floats / 4 + 255) / 256, 256, 0, s>>>(
-        packed, d);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = brief::pack_chain(packed, d, pack_blocks, s);
     if (err != cudaSuccess) return (int)err;
   }
-  return brief::launch_chain(d, in, form == 0 ? nullptr : packed, out,
-                             scratch, form, inst, grid, smem_bytes, s);
+  return brief::launch_chain(d, head, in, form == 0 ? nullptr : packed,
+                             out, scratch, form, inst, grid, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -85,7 +85,8 @@
 
 namespace {
 
-using brief::kMaxLayers;
+using brief::ld_row;
+using brief::ld_use;
 
 // This block's row of partial sums (gradients, then the loss) in the
 // (B, gridDim.x, n_params + 1) scratch.
@@ -130,38 +131,56 @@ constexpr int kNarrowMaxWarps = 16;
 constexpr int kSmallWarps = 8;     // the small instance: 3 blocks of 8 per SM
 constexpr int kChunkNT = 4;        // output n-tiles per pass of a product
 constexpr int kMaxStage = 8;       // staged input floats per lane and tile
-constexpr int kNarrowHead = 13;
-constexpr int kNarrowPerLayer = 15;
 constexpr int kJobTiles = 3;       // dW n-tiles of one job (one A row)
 constexpr int kMaxJobs = 4;        // dW jobs per warp
+
+// Layer l's row of the narrow layout's table (ops/fused_train.py
+// narrow_table).
+struct __align__(16) NarrowLayer {
+  // W (B, fin, fout), b (B, fout) and the unit mask (B, fout) or null, as
+  // the caller holds them (no packed copy per call)
+  const float* w;
+  const float* b;
+  const float* m;
+  int fin, fout, act, p_off;
+  // forward B fragments: wf_off, kb x nt of them; input-gradient ones
+  // (W^T, layers >= 1): wb_off, kbb x ntb
+  int wf_off, kb, nt, wb_off, kbb, ntb;
+  // store rows: the layer's input (fin + 1 rows, the last a ones row), its
+  // h (fout + 1 rows; -1 for the last layer), its d / g (fout rows)
+  int x_row, h_row, g_row;
+  int mask_off;    // in the block's copy of the masks (-1: none)
+  // dW tiles: 1 when M is over fout (A = g, B = [h; 1]), else M over
+  // fin + 1
+  int dw_gmajor;
+  float w0;
+};
+static_assert(sizeof(NarrowLayer) == 96, "ops/fused_train.py NARROW_ROW_WORDS");
 
 struct NarrowDesc {
   int n_layers, c_in, c_out, n_params, stride, act_off, red_off;
   // groups of warps per block, each with its own store of `rows` rows;
   // the values' and weights' rows; the masks' copy
   int groups, rows, yw_row, mask_sm;
-  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers], p_off[kMaxLayers];
-  // forward B fragments: wf_off, kb x nt of them; input-gradient ones
-  // (W^T, layers >= 1): wb_off, kbb x ntb
-  int wf_off[kMaxLayers], kb[kMaxLayers], nt[kMaxLayers];
-  int wb_off[kMaxLayers], kbb[kMaxLayers], ntb[kMaxLayers];
-  // store rows: the layer's input (fin + 1 rows, the last a ones row), its
-  // h (fout + 1 rows; -1 for the last layer), its d / g (fout rows)
-  int x_row[kMaxLayers], h_row[kMaxLayers], g_row[kMaxLayers];
-  int mask_off[kMaxLayers];
-  // dW tiles: 1 when M is over fout (A = g, B = [h; 1]), else M over
-  // fin + 1
-  int dw_gmajor[kMaxLayers];
-  float w0[kMaxLayers];
-  // each layer's W (B, fin, fout), b (B, fout) and unit mask (B, fout) or
-  // null, as the caller holds them (no packed copy per call)
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
-  const float* m[kMaxLayers];
+  const NarrowLayer* layer;   // n_layers rows, device memory
+  NarrowLayer head[brief::kParamLayers];   // the first rows again
   // dW jobs of warp w of a group: job[kMaxJobs * w + s], coded
   // layer << 24 | m-tile << 16 | first n-tile << 8 | n-tiles (-1: none)
   int job[kMaxJobs * kNarrowMaxWarps];
 };
+
+// Field f of layer l, and its whole row (csrc/chain.cuh layer_field,
+// layer_row)
+template <bool kDeep, class T>
+__device__ __forceinline__ T nf(const NarrowDesc& d, int l,
+                                T NarrowLayer::*f) {
+  return brief::layer_field<kDeep>(d.layer, d.head, l, f);
+}
+
+template <bool kDeep>
+__device__ __forceinline__ NarrowLayer nrow(const NarrowDesc& d, int l) {
+  return brief::layer_row<kDeep>(d.layer, d.head, l);
+}
 
 // Every layer's W as B fragments, big and small (float4 per lane):
 //  forward (kb, nt): lane 4g + t holds W'[8kb + 2t][8nt + g] and
@@ -170,17 +189,19 @@ struct NarrowDesc {
 //    W[8nt + g][8kb + 2t + 1] (zeros past fin x fout).
 // The A fragments pair the same features (rows 2t and 2t + 1 of a k-block).
 // Chain fb's W'[i][o]: W[i][o] for i < fin, b[o] for i == fin.
+template <bool kDeep>
 __device__ __forceinline__ void pack_narrow_weights(const NarrowDesc& d,
                                                     int fb, float* sm) {
   for (int l = 0; l < d.n_layers; ++l) {
-    const int fin = d.fin[l], fout = d.fout[l], nt = d.nt[l];
-    const float* W = d.w[l] + (size_t)fb * fin * fout;
-    const float* bias = d.b[l] + (size_t)fb * fout;
+    const NarrowLayer ly = nrow<kDeep>(d, l);
+    const int fin = ly.fin, fout = ly.fout, nt = ly.nt;
+    const float* W = ly.w + (size_t)fb * fin * fout;
+    const float* bias = ly.b + (size_t)fb * fout;
     auto wv = [&](int i, int o) {
       return i < fin ? __ldg(W + i * fout + o) : __ldg(bias + o);
     };
-    float4* wf = reinterpret_cast<float4*>(sm + d.wf_off[l]);
-    for (int e = threadIdx.x; e < d.kb[l] * nt * 32; e += blockDim.x) {
+    float4* wf = reinterpret_cast<float4*>(sm + ly.wf_off);
+    for (int e = threadIdx.x; e < ly.kb * nt * 32; e += blockDim.x) {
       const int ln = e & 31, frag = e >> 5, kb = frag / nt;
       const int i = 8 * kb + 2 * (ln & 3);
       const int o = 8 * (frag - kb * nt) + (ln >> 2);
@@ -189,9 +210,9 @@ __device__ __forceinline__ void pack_narrow_weights(const NarrowDesc& d,
                      ok && i + 1 <= fin ? wv(i + 1, o) : 0.f);
     }
     if (l == 0) continue;
-    const int ntb = d.ntb[l];
-    float4* wb = reinterpret_cast<float4*>(sm + d.wb_off[l]);
-    for (int e = threadIdx.x; e < d.kbb[l] * ntb * 32; e += blockDim.x) {
+    const int ntb = ly.ntb;
+    float4* wb = reinterpret_cast<float4*>(sm + ly.wb_off);
+    for (int e = threadIdx.x; e < ly.kbb * ntb * 32; e += blockDim.x) {
       const int ln = e & 31, frag = e >> 5, kb = frag / ntb;
       const int o = 8 * kb + 2 * (ln & 3);
       const int i = 8 * (frag - kb * ntb) + (ln >> 2);
@@ -345,15 +366,17 @@ struct DwJob {
   int l, m, n0, cnt, ar, an, br, bn;
 };
 
+template <bool kDeep>
 __device__ __forceinline__ DwJob dw_job(const NarrowDesc& d, int code) {
   DwJob w;
   w.l = code >> 24;
   w.m = (code >> 16) & 0xff;
   w.n0 = (code >> 8) & 0xff;
   w.cnt = code & 0xff;
-  const int hr = d.x_row[w.l], hn = d.fin[w.l] + 1;
-  const int gr = d.g_row[w.l], gn = d.fout[w.l];
-  if (d.dw_gmajor[w.l]) {
+  const NarrowLayer ly = nrow<kDeep>(d, w.l);
+  const int hr = ly.x_row, hn = ly.fin + 1;
+  const int gr = ly.g_row, gn = ly.fout;
+  if (ly.dw_gmajor) {
     w.ar = gr, w.an = gn, w.br = hr, w.bn = hn;
   } else {
     w.ar = hr, w.an = hn, w.br = gr, w.bn = gn;
@@ -378,7 +401,7 @@ __device__ __forceinline__ void group_sync(int id, int threads) {
 // block b is the virtual block b * groups + q: it walks tiles of 16 x its
 // warps coordinates, with its own store, its own named barrier (1 + q)
 // and its own row of partial sums.
-template <int kJobs, bool kSmall>
+template <int kJobs, bool kSmall, bool kDeep>
 __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
                                          : 32 * kNarrowMaxWarps,
                                   kSmall ? 3 : 1) fused_train_kernel(
@@ -405,11 +428,12 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
   float* A = sm + d.act_off + grp * d.rows * S;   // this group's store
   float* msk = sm + d.mask_sm;
 
-  pack_narrow_weights(d, fb, sm);
+  pack_narrow_weights<kDeep>(d, fb, sm);
   for (int l = 0; l < L; ++l) {   // this chain's unit masks, side by side
-    if (d.mask_off[l] < 0) continue;
-    for (int e = threadIdx.x; e < d.fout[l]; e += blockDim.x)
-      msk[d.mask_off[l] + e] = d.m[l][(size_t)fb * d.fout[l] + e];
+    const NarrowLayer ly = nrow<kDeep>(d, l);
+    if (ly.mask_off < 0) continue;
+    for (int e = threadIdx.x; e < ly.fout; e += blockDim.x)
+      msk[ly.mask_off + e] = ly.m[(size_t)fb * ly.fout + e];
   }
   // dW jobs: the A rows' and first B rows' store offsets of each
   int pa_off[kJobs], pb_off[kJobs], cnt[kJobs];
@@ -423,7 +447,7 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
 #pragma unroll
     for (int k = 0; k < kJT; ++k) b_ok[s][k] = false;
     if (code >= 0) {
-      const DwJob w = dw_job(d, code);
+      const DwJob w = dw_job<kDeep>(d, code);
       const int ra = 16 * w.m + g, rb = 8 * w.n0 + g;
       cnt[s] = w.cnt;
       a_lo[s] = ra < w.an;
@@ -472,30 +496,36 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
   if (vb < n_tiles) fetch(vb * BT + u0);
   for (int tile = vb; tile < n_tiles; tile += n_vb) {
     const int base = tile * BT + u0;   // the warp's first coordinate
+    const int x0 = nf<kDeep>(d, 0, &NarrowLayer::x_row);   // coordinates
 #pragma unroll
     for (int k = 0; k < kMaxStage; ++k) {
       const int e = lane + 32 * k, ch = e >> 4;
       if (e < n_stage) {
-        const int row = ch < c_in ? d.x_row[0] + ch : d.yw_row + ch - c_in;
+        const int row = ch < c_in ? x0 + ch : d.yw_row + ch - c_in;
         A[row * S + u0 + (e & 15)] = st[k];
       }
     }
-    if (lane < 16) A[(d.x_row[0] + c_in) * S + u0 + lane] = 1.f;
+    if (lane < 16) A[(x0 + c_in) * S + u0 + lane] = 1.f;
     if (tile + n_vb < n_tiles) fetch(base + n_vb * BT);
     __syncwarp();
 
     // ---- forward: Z = [H, 1] W' per layer; h (with its ones row) and d
     // into the store; the last layer's loss and dL/dz into its g rows ----
     for (int l = 0; l < L - 1; ++l) {
-      const int fout = d.fout[l], NT = d.nt[l], act = d.act[l];
-      const float w0 = d.w0[l];
-      const float* wf = sm + d.wf_off[l];
-      const float* ml = d.mask_off[l] < 0 ? nullptr : msk + d.mask_off[l];
-      const int hr = d.h_row[l], gr = d.g_row[l];
+      const int fout = nf<kDeep>(d, l, &NarrowLayer::fout);
+      const int NT = nf<kDeep>(d, l, &NarrowLayer::nt);
+      const int act = nf<kDeep>(d, l, &NarrowLayer::act);
+      const float w0 = nf<kDeep>(d, l, &NarrowLayer::w0);
+      const float* wf = sm + nf<kDeep>(d, l, &NarrowLayer::wf_off);
+      const int mo = nf<kDeep>(d, l, &NarrowLayer::mask_off);
+      const float* ml = mo < 0 ? nullptr : msk + mo;
+      const int hr = nf<kDeep>(d, l, &NarrowLayer::h_row);
+      const int gr = nf<kDeep>(d, l, &NarrowLayer::g_row);
       for (int nt0 = 0; nt0 < NT; nt0 += kC) {
         float c[kC][4];
-        product_chunk(c, A, S, d.x_row[l], d.fin[l] + 1, u0 + g, wf,
-                      d.kb[l], NT, nt0, lane, t);
+        product_chunk(c, A, S, nf<kDeep>(d, l, &NarrowLayer::x_row),
+                      nf<kDeep>(d, l, &NarrowLayer::fin) + 1, u0 + g, wf,
+                      nf<kDeep>(d, l, &NarrowLayer::kb), NT, nt0, lane, t);
         switch (act) {
           case brief::kActSine:
             hidden_epilogue<brief::kActSine, kC>(c, nt0, NT, w0, fout, ml, A, S,
@@ -517,12 +547,19 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
       __syncwarp();
     }
     {
-      const int l = L - 1, NT = d.nt[l], gr = d.g_row[l];
-      const float* ml = d.mask_off[l] < 0 ? nullptr : msk + d.mask_off[l];
+      const int l = L - 1;
+      const int NT = nf<kDeep>(d, l, &NarrowLayer::nt);
+      const int gr = nf<kDeep>(d, l, &NarrowLayer::g_row);
+      const int act = nf<kDeep>(d, l, &NarrowLayer::act);
+      const float w0 = nf<kDeep>(d, l, &NarrowLayer::w0);
+      const int mo = nf<kDeep>(d, l, &NarrowLayer::mask_off);
+      const float* ml = mo < 0 ? nullptr : msk + mo;
       for (int nt0 = 0; nt0 < NT; nt0 += kC) {
         float c[kC][4];
-        product_chunk(c, A, S, d.x_row[l], d.fin[l] + 1, u0 + g,
-                      sm + d.wf_off[l], d.kb[l], NT, nt0, lane, t);
+        product_chunk(c, A, S, nf<kDeep>(d, l, &NarrowLayer::x_row),
+                      nf<kDeep>(d, l, &NarrowLayer::fin) + 1, u0 + g,
+                      sm + nf<kDeep>(d, l, &NarrowLayer::wf_off),
+                      nf<kDeep>(d, l, &NarrowLayer::kb), NT, nt0, lane, t);
 #pragma unroll
         for (int j = 0; j < kC; ++j) {
 #pragma unroll
@@ -532,7 +569,7 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
             float gv = 0.f;
             if (nt0 + j < NT && o < c_out) {
               float h, dv;
-              brief::act_fwd(d.act[l], d.w0[l], c[j][e], &h, &dv);
+              brief::act_fwd(act, w0, c[j][e], &h, &dv);
               if (ml != nullptr) {
                 h *= ml[o];
                 dv *= ml[o];
@@ -552,11 +589,15 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
 
     // ---- input gradients: g_{l-1} = (g_l W_l^T) * d_{l-1}, in place ----
     for (int l = L - 1; l >= 1; --l) {
-      const int fin = d.fin[l], NT = d.ntb[l], dr = d.g_row[l - 1];
+      const int fin = nf<kDeep>(d, l, &NarrowLayer::fin);
+      const int NT = nf<kDeep>(d, l, &NarrowLayer::ntb);
+      const int dr = nf<kDeep>(d, l - 1, &NarrowLayer::g_row);
       for (int nt0 = 0; nt0 < NT; nt0 += kC) {
         float c[kC][4];
-        product_chunk(c, A, S, d.g_row[l], d.fout[l], u0 + g,
-                      sm + d.wb_off[l], d.kbb[l], NT, nt0, lane, t);
+        product_chunk(c, A, S, nf<kDeep>(d, l, &NarrowLayer::g_row),
+                      nf<kDeep>(d, l, &NarrowLayer::fout), u0 + g,
+                      sm + nf<kDeep>(d, l, &NarrowLayer::wb_off),
+                      nf<kDeep>(d, l, &NarrowLayer::kbb), NT, nt0, lane, t);
         // rows past fin stay inside the store (g_{l-1} is never its last
         // region): read them, write only the layer's own
 #pragma unroll
@@ -617,18 +658,19 @@ __global__ void __launch_bounds__(kSmall ? 32 * kSmallWarps
   for (int s = 0; s < kJobs; ++s) {
     const int code = d.job[kMaxJobs * wg + s];
     if (code >= 0) {
-      const DwJob w = dw_job(d, code);
-      const int fin = d.fin[w.l], fout = d.fout[w.l];
+      const DwJob w = dw_job<kDeep>(d, code);
+      const NarrowLayer ly = nrow<kDeep>(d, w.l);
+      const int fin = ly.fin, fout = ly.fout;
 #pragma unroll
       for (int k = 0; k < kJT; ++k) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = 16 * w.m + g + 8 * (e >> 1);
           const int q = 8 * (w.n0 + k) + 2 * t + (e & 1);
-          const int i = d.dw_gmajor[w.l] ? q : r;
-          const int o = d.dw_gmajor[w.l] ? r : q;
+          const int i = ly.dw_gmajor ? q : r;
+          const int o = ly.dw_gmajor ? r : q;
           if (k < w.cnt && i <= fin && o < fout)
-            out[d.p_off[w.l] + i * fout + o] =
+            out[ly.p_off + i * fout + o] =
                 kSmall ? acc[0][s][k][e] + (acc[1][s][k][e] +
                                             acc[kT - 1][s][k][e])
                        : acc[0][s][k][e];
@@ -709,16 +751,22 @@ constexpr int kTile = 32;            // coordinates per tile: one 128-byte row
 constexpr int kTiledThreads = 256;
 constexpr int kCols = 2;             // coordinates per forward / dX micro-tile
 constexpr int kColGroups = kTile / kCols;
-constexpr int kTiledHead = 8;
-constexpr int kTiledPerLayer = 9;
 static_assert(kCols == 2, "the micro-tile loops are written for 2 columns");
+
+// Layer l's row of the tiled layout's table (ops/fused_train.py
+// tiled_table): widths, activation, offset in the packed parameters, its
+// W's offset in shared memory, its activation rows (input, h, d / g), its
+// unit mask's offset in the chain's mask row (-1: none), w0.
+struct __align__(16) TiledLayer {
+  int fin, fout, act, p_off, w_off, x_row, h_row, g_row, mask_off;
+  float w0;
+  int pad[2];
+};
+static_assert(sizeof(TiledLayer) == 48, "ops/fused_train.py TILED_ROW_WORDS");
 
 struct TiledDesc {
   int n_layers, c_in, c_out, n_params, red_off, act_off, mask_width;
-  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers], p_off[kMaxLayers];
-  int w_off[kMaxLayers], x_row[kMaxLayers], h_row[kMaxLayers];
-  int g_row[kMaxLayers], mask_off[kMaxLayers];
-  float w0[kMaxLayers];
+  const TiledLayer* layer;   // n_layers rows, device memory
 };
 
 __host__ __device__ __forceinline__ int round_up4(int x) {
@@ -891,9 +939,10 @@ __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
   // W of layer l as (round4(fin + 1), round4(fout)): row fin is the bias
   // (it follows W in the packed parameters), zeros elsewhere
   for (int l = 0; l < L; ++l) {
-    const int fin = d.fin[l], fout = d.fout[l], fop = round_up4(fout);
-    const float* W = params + d.p_off[l];
-    float* sw = sm + d.w_off[l];
+    const TiledLayer ly = ld_row(d.layer + l);
+    const int fin = ly.fin, fout = ly.fout, fop = round_up4(fout);
+    const float* W = params + ly.p_off;
+    float* sw = sm + ly.w_off;
     for (int e = t; e < round_up4(fin + 1) * fop; e += kTiledThreads) {
       const int i = e / fop, o = e - i * fop;
       sw[e] = (i <= fin && o < fout) ? W[i * fout + o] : 0.f;
@@ -901,12 +950,14 @@ __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
   }
   // activation rows: zeros (padding rows stay zero), then the ones row
   // after each layer's input
-  const int n_rows = d.g_row[L - 1] + round_up4(d.fout[L - 1]);
+  const TiledLayer last_ly = ld_row(d.layer + L - 1);
+  const int n_rows = last_ly.g_row + round_up4(last_ly.fout);
   for (int e = t; e < n_rows * kTile; e += kTiledThreads) A[e] = 0.f;
   __syncthreads();
   for (int e = t; e < L * kTile; e += kTiledThreads) {
     const int l = e / kTile;
-    A[elem(d.x_row[l] + d.fin[l], e - l * kTile)] = 1.f;
+    const TiledLayer ly = ld_row(d.layer + l);
+    A[elem(ly.x_row + ly.fin, e - l * kTile)] = 1.f;
   }
 
   // this thread's dW tiles: first rows of their H and G quads, times kTile
@@ -918,8 +969,9 @@ __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
     hb[k] = gb[k] = -1;
     if (code >= 0) {
       const int l = code >> 16, ig = (code >> 8) & 255, og = code & 255;
-      hb[k] = (d.x_row[l] + 4 * ig) * kTile;
-      gb[k] = (d.g_row[l] + 4 * og) * kTile;
+      const TiledLayer ly = ld_row(d.layer + l);
+      hb[k] = (ly.x_row + 4 * ig) * kTile;
+      gb[k] = (ly.g_row + 4 * og) * kTile;
     }
 #pragma unroll
     for (int j = 0; j < 16; ++j) acc[k][j] = 0.f;
@@ -937,19 +989,19 @@ __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
 
     // ---- forward: h_l and d_l of the tile ----
     for (int l = 0; l < L; ++l) {
+      const TiledLayer ly = ld_row(d.layer + l);
       const float* ml =
-          mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
-      tiled_forward(sm + d.w_off[l], A, d.x_row[l], d.fin[l], d.fout[l],
-                    d.act[l], d.w0[l], d.h_row[l], d.g_row[l], ml);
+          mk == nullptr || ly.mask_off < 0 ? nullptr : mk + ly.mask_off;
+      tiled_forward(sm + ly.w_off, A, ly.x_row, ly.fin, ly.fout, ly.act,
+                    ly.w0, ly.h_row, ly.g_row, ml);
       __syncthreads();
     }
 
     // ---- loss and dL/dz of the last layer (padding lanes weigh 0) ----
-    const int last = L - 1;
     for (int e = t; e < d.c_out * kTile; e += kTiledThreads) {
       const int c = e / kTile, u = e - c * kTile, idx = base + u;
       const bool valid = idx < n;
-      const float p = A[elem(d.h_row[last] + c, u)];
+      const float p = A[elem(last_ly.h_row + c, u)];
       float y = 0.f, wv = 0.f;
       if (valid) {
         y = values[(size_t)c * n + idx];
@@ -969,15 +1021,16 @@ __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
         g = weff * (ae < beta ? er / beta : sg);
       }
       loss_acc += weff * le;
-      float* dg = A + elem(d.g_row[last] + c, u);
+      float* dg = A + elem(last_ly.g_row + c, u);
       *dg = g * *dg;
     }
     __syncthreads();
 
     // ---- input gradients, last layer first: g_{l-1} over d_{l-1} ----
     for (int l = L - 1; l > 0; --l) {
-      tiled_input_grad(sm + d.w_off[l], A, d.fin[l], d.fout[l], d.g_row[l],
-                       d.g_row[l - 1]);
+      const TiledLayer ly = ld_row(d.layer + l);
+      tiled_input_grad(sm + ly.w_off, A, ly.fin, ly.fout, ly.g_row,
+                       ld_row(d.layer + l - 1).g_row);
       __syncthreads();
     }
 
@@ -1021,8 +1074,9 @@ __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
     const int code = slot_map[k * kTiledThreads + t];
     if (code < 0) continue;
     const int l = code >> 16, ig = (code >> 8) & 255, og = code & 255;
-    const int fin = d.fin[l], fout = d.fout[l];
-    float* outl = out + d.p_off[l];
+    const TiledLayer ly = ld_row(d.layer + l);
+    const int fin = ly.fin, fout = ly.fout;
+    float* outl = out + ly.p_off;
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -1070,28 +1124,34 @@ cudaError_t launch_tiled(dim3 grid, int smem_bytes, cudaStream_t s,
   return cudaGetLastError();
 }
 
+// (the deep instance's: both instances have the same launch bounds)
 template <int kJobs, bool kSmall>
 cudaError_t narrow_occupancy(int threads, int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<kJobs, kSmall>,
+      fused_train_kernel<kJobs, kSmall, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_train_kernel<kJobs, kSmall>, threads, smem_bytes);
+      blocks_per_sm, fused_train_kernel<kJobs, kSmall, true>, threads,
+      smem_bytes);
 }
 
+// The instance that reads the layers' rows from the launch parameters
+// (at most kParamLayers layers) or from the device table.
 template <int kJobs, bool kSmall>
 cudaError_t launch_narrow(dim3 grid, int threads, int smem_bytes,
                           cudaStream_t s, const float* coords,
                           const float* values, const float* weights,
                           float* partial, int n, const NarrowDesc& d,
                           int loss, float beta, const float* thres) {
+  auto kernel = d.n_layers > brief::kParamLayers
+                    ? fused_train_kernel<kJobs, kSmall, true>
+                    : fused_train_kernel<kJobs, kSmall, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<kJobs, kSmall>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  fused_train_kernel<kJobs, kSmall><<<grid, threads, smem_bytes, s>>>(
-      coords, values, weights, partial, n, d, loss, beta, thres);
+  kernel<<<grid, threads, smem_bytes, s>>>(coords, values, weights, partial,
+                                           n, d, loss, beta, thres);
   return cudaGetLastError();
 }
 
@@ -1128,16 +1188,20 @@ cudaError_t launch_narrow(dim3 grid, int threads, int smem_bytes,
 // memory (so 5-layer chains stopped at 217 features).  Here a W slab in
 // shared memory serves a whole tile (64 multiply-adds per float copied),
 // the products run on register micro-tiles, and shared memory holds two
-// layer rows of the tile and two slabs: any width whose round32(f + 1)
-// rows fit at kT = 8 (3,327 features) trains.
+// layer rows of the tile and two slabs (the rows form, any width whose
+// round32(f + 1) rows fit at kT = 8: 3,327 features).  Past that the
+// streamed form (kStream) reads each layer's input, and the backward each
+// g_l, slab by slab from the scratch, which holds them anyway: shared
+// memory no longer grows with the width, and the limit is device memory,
+// B * rows_total * round64(N) floats of scratch.
 // What bounds it: operations (3-191x4-1, N = 100,000: 66 GFLOP, 0.99 ms
 // at 67 TFLOP/s) and the scratch traffic (~1.2 GB there: h and d written,
-// d read and g written, h and g read by dW; 0.36 ms at 3.35 TB/s).
+// d read and g written, h and g read by dW; 0.36 ms at 3.35 TB/s).  The
+// streamed form adds the input's reads from L2 for every 64-output block
+// of a layer.
 // ---------------------------------------------------------------------------
 namespace wl = brief::wide;
 
-constexpr int kWideHead = 10;
-constexpr int kWidePerLayer = 11;
 constexpr int kDwThreads = 256;
 constexpr int kDwChunk = 32;     // coordinates per dW operand chunk
 constexpr int kDwStride = kDwChunk + 4;
@@ -1145,16 +1209,14 @@ constexpr int kDwStride = kDwChunk + 4;
 struct WideDesc {
   int n_layers, c_in, c_out, n_params, mask_width, rows_max, np, rows_total;
   int wp_total, n_dw_tiles;
-  int fin[kMaxLayers], fout[kMaxLayers], act[kMaxLayers];
-  int wp_off[kMaxLayers], colpad[kMaxLayers], x_row[kMaxLayers];
-  int h_row[kMaxLayers], g_row[kMaxLayers], mask_off[kMaxLayers];
-  int p_off[kMaxLayers], tile0[kMaxLayers + 1];
-  float w0[kMaxLayers];
+  const wl::Layer* layer;   // n_layers rows, device memory (csrc/wide.cuh)
 };
 
-// (b).  Grid (blocks, B), 4 * kT threads; shared memory: two buffers of
-// rows_max rows of kT floats, two slabs, the loss reduction buffer.
-template <int kT>
+// (b).  Grid (blocks, B), 4 * kT threads.  Shared memory: the rows form,
+// two buffers of rows_max rows of kT floats, then two weight slabs; the
+// streamed form (kStream), two weight slabs, two operand slabs of kKS rows
+// and the last layer's c_out rows; then the loss reduction buffer.
+template <int kT, bool kStream>
 __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
     const float* __restrict__ coords, const float* __restrict__ values,
     const float* __restrict__ weights, const float* __restrict__ wp,
@@ -1177,7 +1239,9 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
   float* buf0 = sm;
   float* buf1 = sm + d.rows_max * kT;
   float* slab = sm + 2 * d.rows_max * kT;
-  float* red = slab + 2 * wl::kSlab;
+  float* xs = slab + 2 * wl::kSlab;              // kStream: operand slabs
+  float* pred = xs + (kStream ? 2 * wl::kKS * kT : 0);   // kStream
+  float* red = pred + (kStream ? d.c_out * kT : 0);
   const size_t np = (size_t)d.np;
   float loss_acc = 0.f;
   float acc[4][4];
@@ -1185,9 +1249,10 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
   const int n_tiles = d.np / kT;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * kT;
-    // coordinates (0 past n), a ones row, zeros to the slab boundary; the
-    // coordinates also to the scratch (dW of layer 0 reads them there)
-    const int c_end = wl::round_up(d.c_in + 1, wl::kKS);
+    // coordinates (0 past n) to the scratch (dW of layer 0 reads them
+    // there, and so does the streamed forward); the rows form also takes
+    // them, a ones row and zeros to the slab boundary into buf0
+    const int c_end = kStream ? d.c_in : wl::round_up(d.c_in + 1, wl::kKS);
     for (int e = t; e < c_end * kT; e += kNT) {
       const int r = e / kT, u = e - r * kT, idx = base + u;
       float v = r == d.c_in ? 1.f : 0.f;
@@ -1195,7 +1260,7 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
         v = idx < n ? coords[(size_t)r * n + idx] : 0.f;
         scratch[(size_t)r * np + idx] = v;
       }
-      buf0[e] = v;
+      if (!kStream) buf0[e] = v;
     }
     __syncthreads();
 
@@ -1203,16 +1268,25 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
     float* X = buf0;
     float* Y = buf1;
     for (int l = 0; l < L; ++l) {
-      const int fout = d.fout[l];
-      const float* Wl = wp + d.wp_off[l];
-      const float* ml =
-          mk == nullptr || d.mask_off[l] < 0 ? nullptr : mk + d.mask_off[l];
-      float* H = d.h_row[l] < 0 ? nullptr : scratch + d.h_row[l] * np + base;
-      float* D = scratch + d.g_row[l] * np + base;
+      const wl::Layer* ly = d.layer + l;
+      const int fout = ld_use(&ly->fout);
+      const bool last = l + 1 == L;
       for (int o0 = 0; o0 < fout; o0 += wl::kOB) {
-        wl::forward_block<kT>(Wl, d.colpad[l], o0,
-                              wl::round_up(d.fin[l] + 1, wl::kKS), X, slab,
-                              acc);
+        const int fin = ld_use(&ly->fin);
+        wl::forward_block<kT, kStream>(
+            wp + ld_use(&ly->wp_off), ld_use(&ly->colpad), o0,
+            wl::round_up(fin + 1, wl::kKS),
+            kStream ? scratch + ld_use(&ly->x_row) * np + base : X, np, fin,
+            xs, slab, acc);
+        const int mo = ld_use(&ly->mask_off), hr = ld_use(&ly->h_row);
+        const float* ml = mk == nullptr || mo < 0 ? nullptr : mk + mo;
+        float* H = hr < 0 ? nullptr : scratch + hr * np + base;
+        float* D = scratch + ld_use(&ly->g_row) * np + base;
+        // the layer's output rows in shared memory: the rows form's other
+        // buffer; the streamed form keeps only the last layer's
+        float* Yl = kStream ? (last ? pred : nullptr) : Y;
+        const int act = ld_use(&ly->act);
+        const float w0 = ld_use(&ly->w0);
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const int o = o0 + q4 + a;
@@ -1221,19 +1295,21 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
           float h[4], dv[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            brief::act_fwd(d.act[l], d.w0[l], acc[a][c], &h[c], &dv[c]);
+            brief::act_fwd(act, w0, acc[a][c], &h[c], &dv[c]);
             h[c] *= m;
             dv[c] *= m;
           }
           const float4 h4 = make_float4(h[0], h[1], h[2], h[3]);
-          *reinterpret_cast<float4*>(Y + o * kT + 4 * cu) = h4;
+          if (Yl != nullptr)
+            *reinterpret_cast<float4*>(Yl + o * kT + 4 * cu) = h4;
           if (H != nullptr)
             *reinterpret_cast<float4*>(H + o * np + 4 * cu) = h4;
           *reinterpret_cast<float4*>(D + o * np + 4 * cu) =
               make_float4(dv[0], dv[1], dv[2], dv[3]);
         }
       }
-      wl::fill_rows<kT>(Y, fout, wl::round_up(fout + 1, wl::kKS), true);
+      if (!kStream)
+        wl::fill_rows<kT>(Y, fout, wl::round_up(fout + 1, wl::kKS), true);
       __syncthreads();
       float* sw = X;
       X = Y;
@@ -1242,7 +1318,8 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
 
     // ---- loss; g of the last layer over its d (padding weighs 0) ----
     {
-      float* D = scratch + d.g_row[L - 1] * np + base;
+      float* P = kStream ? pred : X;   // the prediction, then g
+      float* D = scratch + ld_use(&d.layer[L - 1].g_row) * np + base;
       for (int e = t; e < d.c_out * kT; e += kNT) {
         const int c = e / kT, u = e - c * kT, idx = base + u;
         const bool valid = idx < n;
@@ -1251,23 +1328,28 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
           y = values[(size_t)c * n + idx];
           wv = weights[(size_t)c * n + idx];
         }
-        const float g = loss_grad(loss, beta, thr_on, thr, X[e], y, wv,
+        const float g = loss_grad(loss, beta, thr_on, thr, P[e], y, wv,
                                   valid, D[c * np + u], &loss_acc);
-        X[e] = g;
+        P[e] = g;
         D[c * np + u] = g;
       }
-      wl::fill_rows<kT>(X, d.c_out, wl::round_up(d.c_out, wl::kKS), false);
+      if (!kStream)
+        wl::fill_rows<kT>(X, d.c_out, wl::round_up(d.c_out, wl::kKS), false);
       __syncthreads();
     }
 
     // ---- input gradients, last layer first: g_{l-1} over d_{l-1} ----
     for (int l = L - 1; l > 0; --l) {
-      const int fin = d.fin[l];
-      float* D = scratch + d.g_row[l - 1] * np + base;
+      const wl::Layer* ly = d.layer + l;
+      const int fin = ld_use(&ly->fin);
       for (int i0 = 0; i0 < fin; i0 += wl::kOB) {
-        wl::input_grad_block<kT>(wp + d.wp_off[l], d.colpad[l], i0,
-                                 wl::round_up(d.fout[l], wl::kKS), X, slab,
-                                 acc);
+        const int fout = ld_use(&ly->fout);
+        wl::input_grad_block<kT, kStream>(
+            wp + ld_use(&ly->wp_off), ld_use(&ly->colpad), i0,
+            wl::round_up(fout, wl::kKS),
+            kStream ? scratch + ld_use(&ly->g_row) * np + base : X, np, fout,
+            xs, slab, acc);
+        float* D = scratch + ld_use(&d.layer[l - 1].g_row) * np + base;
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const int i = i0 + q4 + a;
@@ -1276,11 +1358,11 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
           const float4 dv = *dp;
           const float4 g = make_float4(acc[a][0] * dv.x, acc[a][1] * dv.y,
                                        acc[a][2] * dv.z, acc[a][3] * dv.w);
-          *reinterpret_cast<float4*>(Y + i * kT + 4 * cu) = g;
+          if (!kStream) *reinterpret_cast<float4*>(Y + i * kT + 4 * cu) = g;
           *dp = g;
         }
       }
-      wl::fill_rows<kT>(Y, fin, wl::round_up(fin, wl::kKS), false);
+      if (!kStream) wl::fill_rows<kT>(Y, fin, wl::round_up(fin, wl::kKS), false);
       __syncthreads();
       float* sw = X;
       X = Y;
@@ -1312,15 +1394,21 @@ __global__ void __launch_bounds__(kDwThreads) wide_dw_kernel(
   const int t = threadIdx.x, to = t / 16, tu = t % 16;
   const int fb = blockIdx.z, split = blockIdx.y, tile = blockIdx.x;
   scratch += (size_t)fb * d.rows_total * d.np;
-  int l = 0;
-  while (tile >= d.tile0[l + 1]) ++l;
-  const int fin = d.fin[l], fout = d.fout[l];
+  // this tile's layer: the last whose first tile is not past it
+  int lo_l = 0, hi_l = d.n_layers - 1;
+  while (lo_l < hi_l) {
+    const int mid = (lo_l + hi_l + 1) / 2;
+    if (__ldg(&d.layer[mid].tile0) <= tile) lo_l = mid;
+    else hi_l = mid - 1;
+  }
+  const wl::Layer ly = ld_row(d.layer + lo_l);
+  const int fin = ly.fin, fout = ly.fout;
   const int n_ob = (fout + wl::kOB - 1) / wl::kOB;
-  const int i0 = (tile - d.tile0[l]) / n_ob * wl::kOB;
-  const int o0 = (tile - d.tile0[l]) % n_ob * wl::kOB;
+  const int i0 = (tile - ly.tile0) / n_ob * wl::kOB;
+  const int o0 = (tile - ly.tile0) % n_ob * wl::kOB;
   const size_t np = (size_t)d.np;
-  const float* H = scratch + d.x_row[l] * np;
-  const float* G = scratch + d.g_row[l] * np;
+  const float* H = scratch + ly.x_row * np;
+  const float* G = scratch + ly.g_row * np;
   const int lo = split * chunk, hi = min(d.np, lo + chunk);
   const int n_chunks = (hi - lo) / kDwChunk;
 
@@ -1399,7 +1487,7 @@ __global__ void __launch_bounds__(kDwThreads) wide_dw_kernel(
     __syncthreads();
   }
   float* out = partial + ((size_t)fb * gridDim.y + split) * d.n_params +
-               d.p_off[l];
+               ly.p_off;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + to + 16 * a;
@@ -1432,17 +1520,17 @@ __global__ void reduce_wide_kernel(const float* __restrict__ partial,
   out[(size_t)fb * (n_params + 1) + p] = s / m;
 }
 
-template <int kT>
+template <int kT, bool kStream>
 cudaError_t wide_occupancy(int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      wide_train_kernel<kT, kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, wide_train_kernel<kT>, 4 * kT, smem_bytes);
+      blocks_per_sm, wide_train_kernel<kT, kStream>, 4 * kT, smem_bytes);
 }
 
-template <int kT>
+template <int kT, bool kStream>
 cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
                         const float* coords, const float* values,
                         const float* weights, const float* wp,
@@ -1450,10 +1538,10 @@ cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
                         float* scratch, float* lossp, int n,
                         const WideDesc& d, int loss, float beta) {
   cudaError_t err = cudaFuncSetAttribute(
-      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      wide_train_kernel<kT, kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  wide_train_kernel<kT><<<grid, 4 * kT, smem_bytes, s>>>(
+  wide_train_kernel<kT, kStream><<<grid, 4 * kT, smem_bytes, s>>>(
       coords, values, weights, wp, masks, thres, scratch, lossp, n, d, loss,
       beta);
   return cudaGetLastError();
@@ -1491,24 +1579,24 @@ int brief_fused_train_occupancy(int threads, int jobs, int small,
 // The narrow layout (ops/fused_train.py plan).  meta: n_layers, c_in,
 // c_out, n_params, stride, act_off, red_off, jobs (per warp), groups,
 // rows, yw_row, mask_sm, small (every layer one n-tile: the kSmall
-// instance), then per layer: fin, fout, act, p_off, wf_off, kb, nt,
-// wb_off, kbb, ntb, x_row, h_row, g_row, mask_off (-1: unmasked),
-// dw_gmajor; then kMaxJobs codes per warp of a group (-1: none).
-// coords (B, c_in, n), values / weights (B, c_out, n); layer_ptrs: per
-// layer W (B, fin, fout), b (B, fout) and its unit mask (B, fout) or null,
-// contiguous; thres (B,) or null (no override); partial: (B, grid *
-// groups, n_params + 1) scratch; out: (B, n_params + 1), the gradients in
-// the packed parameter layout followed by the loss.  `threads` = 32 x the
-// warps per block.
+// instance).  table: device memory, n_layers NarrowLayer rows (the
+// layers' W (B, fin, fout), b (B, fout) and unit masks (B, fout) read in
+// place) then kMaxJobs dW job codes per warp of a group (-1: none)
+// (ops/fused_train.py narrow_table); head: its words in host memory.
+// coords (B, c_in, n), values / weights (B, c_out, n); thres (B,) or null
+// (no override); partial: (B, grid * groups, n_params + 1) scratch; out:
+// (B, n_params + 1), the gradients in the packed parameter layout followed
+// by the loss.
+// `threads` = 32 x the warps per block.
 int brief_fused_train(const float* coords, const float* values,
-                      const float* weights, const float* const* layer_ptrs,
-                      const float* thres, float* partial, float* out, int n,
-                      int n_fleet, const int* meta, const float* w0s,
-                      int loss, float beta, int grid, int threads,
-                      int smem_bytes, void* stream) {
+                      const float* weights, const void* table,
+                      const void* head, const float* thres, float* partial,
+                      float* out, int n,
+                      int n_fleet, const int* meta, int loss, float beta,
+                      int grid, int threads, int smem_bytes, void* stream) {
   NarrowDesc d;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
+  if (d.n_layers < 1 || table == nullptr || n_fleet < 1 ||
       n_fleet > 65535 || threads < 32 || threads % 32 ||
       threads > 32 * kNarrowMaxWarps)
     return (int)cudaErrorInvalidValue;
@@ -1526,30 +1614,12 @@ int brief_fused_train(const float* coords, const float* values,
   const int small = meta[12];
   if (d.groups < 1 || (threads / 32) % d.groups || jobs > kMaxJobs)
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < d.n_layers; ++l) {
-    const int* m = meta + kNarrowHead + kNarrowPerLayer * l;
-    d.fin[l] = m[0];
-    d.fout[l] = m[1];
-    d.act[l] = m[2];
-    d.p_off[l] = m[3];
-    d.wf_off[l] = m[4];
-    d.kb[l] = m[5];
-    d.nt[l] = m[6];
-    d.wb_off[l] = m[7];
-    d.kbb[l] = m[8];
-    d.ntb[l] = m[9];
-    d.x_row[l] = m[10];
-    d.h_row[l] = m[11];
-    d.g_row[l] = m[12];
-    d.w[l] = layer_ptrs[3 * l];
-    d.b[l] = layer_ptrs[3 * l + 1];
-    d.m[l] = layer_ptrs[3 * l + 2];
-    d.mask_off[l] = d.m[l] == nullptr ? -1 : m[13];
-    d.dw_gmajor[l] = m[14];
-    d.w0[l] = w0s[l];
-  }
-  const int* job = meta + kNarrowHead + kNarrowPerLayer * d.n_layers;
-  for (int k = 0; k < kMaxJobs * kNarrowMaxWarps; ++k) d.job[k] = job[k];
+  if (head == nullptr) return (int)cudaErrorInvalidValue;
+  d.layer = static_cast<const NarrowLayer*>(table);
+  if (d.n_layers <= brief::kParamLayers)
+    memcpy(d.head, head, d.n_layers * sizeof(NarrowLayer));
+  memcpy(d.job, static_cast<const NarrowLayer*>(head) + d.n_layers,
+         sizeof(d.job));
   decltype(&launch_narrow<1, false>) fn;
   switch (jobs * 2 + (small ? 1 : 0)) {
     case 2: fn = &launch_narrow<1, false>; break;
@@ -1597,21 +1667,21 @@ int brief_fused_train_tiled_occupancy(int slots, int smem_bytes,
 }
 
 // The tiled layout.  meta: n_layers, c_in, c_out, n_params, red_off,
-// act_off, mask_width, slots, then per layer: fin, fout, act, p_off, w_off,
-// x_row, h_row, g_row, mask_off (-1: unmasked).  slot_map: (slots,
-// kTiledThreads) int32.  The other arguments as for brief_fused_train; the
-// kernel always runs in its fleet form (B = 1 for one chain).
+// act_off, mask_width, slots.  table: device memory, n_layers TiledLayer
+// rows (ops/fused_train.py tiled_table); a layer's mask_off counts only
+// when `masks` is given.  slot_map: (slots, kTiledThreads) int32.  The
+// other arguments as for brief_fused_train; the kernel always runs in its
+// fleet form (B = 1 for one chain).
 int brief_fused_train_tiled(const float* coords, const float* values,
                             const float* weights, const float* params,
                             const float* masks, const float* thres,
-                            const int* slot_map, float* partial, float* out,
-                            int n, int n_fleet, const int* meta,
-                            const float* w0s, int loss, float beta, int grid,
+                            const int* slot_map, const void* table,
+                            float* partial, float* out, int n, int n_fleet,
+                            const int* meta, int loss, float beta, int grid,
                             int smem_bytes, void* stream) {
   TiledDesc d;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
-      n_fleet > 65535)
+  if (d.n_layers < 1 || table == nullptr || n_fleet < 1 || n_fleet > 65535)
     return (int)cudaErrorInvalidValue;
   d.c_in = meta[1];
   d.c_out = meta[2];
@@ -1620,19 +1690,7 @@ int brief_fused_train_tiled(const float* coords, const float* values,
   d.act_off = meta[5];
   d.mask_width = meta[6];
   const int slots = meta[7];
-  for (int l = 0; l < d.n_layers; ++l) {
-    const int* m = meta + kTiledHead + kTiledPerLayer * l;
-    d.fin[l] = m[0];
-    d.fout[l] = m[1];
-    d.act[l] = m[2];
-    d.p_off[l] = m[3];
-    d.w_off[l] = m[4];
-    d.x_row[l] = m[5];
-    d.h_row[l] = m[6];
-    d.g_row[l] = m[7];
-    d.mask_off[l] = masks == nullptr ? -1 : m[8];
-    d.w0[l] = w0s[l];
-  }
+  d.layer = static_cast<const TiledLayer*>(table);
   decltype(&launch_tiled<4>) fn;
   switch (slots) {
     case 4: fn = &launch_tiled<4>; break;
@@ -1653,18 +1711,23 @@ int brief_fused_train_tiled(const float* coords, const float* values,
 }
 
 
-// The wide layout's blocks per SM (4 * tile threads, `smem_bytes`) and the
-// device's SM count.
-int brief_fused_train_wide_occupancy(int tile, int smem_bytes,
+// The wide layout's blocks per SM (4 * tile threads, `smem_bytes`; the
+// streamed form when `stream`) and the device's SM count.
+int brief_fused_train_wide_occupancy(int tile, int stream, int smem_bytes,
                                      int* blocks_per_sm, int* sm_count) {
-  cudaError_t err;
-  switch (tile) {
-    case 64: err = wide_occupancy<64>(smem_bytes, blocks_per_sm); break;
-    case 32: err = wide_occupancy<32>(smem_bytes, blocks_per_sm); break;
-    case 16: err = wide_occupancy<16>(smem_bytes, blocks_per_sm); break;
-    case 8: err = wide_occupancy<8>(smem_bytes, blocks_per_sm); break;
+  decltype(&wide_occupancy<64, false>) fn;
+  switch (tile * 2 + (stream ? 1 : 0)) {
+    case 128: fn = &wide_occupancy<64, false>; break;
+    case 64: fn = &wide_occupancy<32, false>; break;
+    case 32: fn = &wide_occupancy<16, false>; break;
+    case 16: fn = &wide_occupancy<8, false>; break;
+    case 129: fn = &wide_occupancy<64, true>; break;
+    case 65: fn = &wide_occupancy<32, true>; break;
+    case 33: fn = &wide_occupancy<16, true>; break;
+    case 17: fn = &wide_occupancy<8, true>; break;
     default: return (int)cudaErrorInvalidValue;
   }
+  cudaError_t err = fn(smem_bytes, blocks_per_sm);
   if (err != cudaSuccess) return (int)err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -1674,26 +1737,27 @@ int brief_fused_train_wide_occupancy(int tile, int smem_bytes,
 }
 
 // The wide layout (ops/fused_train.py wide_plan).  meta: n_layers, c_in,
-// c_out, n_params, mask_width, rows_max, np, rows_total, wp_total,
-// n_dw_tiles, then per layer: fin, fout, act, p_off, wp_off, colpad, x_row,
-// h_row, g_row, mask_off (-1: unmasked), tile0.  Scratch the caller
-// allocates: wp (B, wp_total) for the packed weights, scratch (B,
-// rows_total, np) for h_l and d_l / g_l, partial (B, n_split, n_params),
-// lossp (B, grid).  `tile` coordinates per tile (64, 32, 16 or 8), `grid`
-// blocks per fleet block, coordinates split into n_split chunks of `chunk`
-// (a multiple of 32) for dW.  The other arguments as for brief_fused_train.
+// c_out, n_params, mask_width, rows_max (0: the streamed form), np,
+// rows_total, wp_total, n_dw_tiles, pack_blocks (blocks of 256 threads a
+// layer for pack_weights), stream.  table: device memory, n_layers
+// wide::Layer rows (ops/fused_train.py wide_table); a layer's mask_off
+// counts only when `masks` is given.  Scratch the caller allocates: wp
+// (B, wp_total) for the packed weights, scratch (B, rows_total, np) for
+// h_l and d_l / g_l, partial (B, n_split, n_params), lossp (B, grid).
+// `tile` coordinates per tile (64, 32, 16 or 8), `grid` blocks per fleet
+// block, coordinates split into n_split chunks of `chunk` (a multiple of
+// 32) for dW.  The other arguments as for brief_fused_train.
 int brief_fused_train_wide(const float* coords, const float* values,
                            const float* weights, const float* params,
-                           const float* masks, const float* thres, float* wp,
-                           float* scratch, float* partial, float* lossp,
-                           float* out, int n, int n_fleet, const int* meta,
-                           const float* w0s, int loss, float beta, int grid,
-                           int tile, int smem_bytes, int n_split, int chunk,
-                           void* stream) {
+                           const float* masks, const float* thres,
+                           const void* table, float* wp, float* scratch,
+                           float* partial, float* lossp, float* out, int n,
+                           int n_fleet, const int* meta, int loss, float beta,
+                           int grid, int tile, int smem_bytes, int n_split,
+                           int chunk, void* stream) {
   WideDesc d;
-  brief::wide::Packed pk;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || d.n_layers > kMaxLayers || n_fleet < 1 ||
+  if (d.n_layers < 1 || table == nullptr || n_fleet < 1 ||
       n_fleet > 65535 || n_split < 1 || n_split > 65535 || chunk % kDwChunk)
     return (int)cudaErrorInvalidValue;
   d.c_in = meta[1];
@@ -1705,35 +1769,23 @@ int brief_fused_train_wide(const float* coords, const float* values,
   d.rows_total = meta[7];
   d.wp_total = meta[8];
   d.n_dw_tiles = meta[9];
-  pk.n_layers = d.n_layers;
-  pk.n_params = d.n_params;
-  pk.wp_total = d.wp_total;
-  for (int l = 0; l < d.n_layers; ++l) {
-    const int* m = meta + kWideHead + kWidePerLayer * l;
-    d.fin[l] = pk.fin[l] = m[0];
-    d.fout[l] = pk.fout[l] = m[1];
-    d.act[l] = m[2];
-    d.p_off[l] = pk.p_off[l] = m[3];
-    d.wp_off[l] = pk.wp_off[l] = m[4];
-    d.colpad[l] = pk.colpad[l] = m[5];
-    d.x_row[l] = m[6];
-    d.h_row[l] = m[7];
-    d.g_row[l] = m[8];
-    d.mask_off[l] = masks == nullptr ? -1 : m[9];
-    d.tile0[l] = m[10];
-    d.w0[l] = w0s[l];
-  }
-  d.tile0[d.n_layers] = d.n_dw_tiles;
-  pk.wp_off[d.n_layers] = d.wp_total;
+  const int pack_blocks = meta[10], stream_form = meta[11];
+  d.layer = static_cast<const wl::Layer*>(table);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = brief::wide::pack_weights(params, wp, pk, n_fleet, s);
+  cudaError_t err = wl::pack_weights(params, wp, d.layer, d.n_layers,
+                                     d.n_params, d.wp_total, n_fleet,
+                                     pack_blocks, s);
   if (err != cudaSuccess) return (int)err;
-  decltype(&launch_wide<64>) fn;
-  switch (tile) {
-    case 64: fn = &launch_wide<64>; break;
-    case 32: fn = &launch_wide<32>; break;
-    case 16: fn = &launch_wide<16>; break;
-    case 8: fn = &launch_wide<8>; break;
+  decltype(&launch_wide<64, false>) fn;
+  switch (tile * 2 + (stream_form ? 1 : 0)) {
+    case 128: fn = &launch_wide<64, false>; break;
+    case 64: fn = &launch_wide<32, false>; break;
+    case 32: fn = &launch_wide<16, false>; break;
+    case 16: fn = &launch_wide<8, false>; break;
+    case 129: fn = &launch_wide<64, true>; break;
+    case 65: fn = &launch_wide<32, true>; break;
+    case 33: fn = &launch_wide<16, true>; break;
+    case 17: fn = &launch_wide<8, true>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   err = fn(dim3(grid, n_fleet), smem_bytes, s, coords, values, weights, wp,

@@ -3,18 +3,24 @@
 // memory.  ops/wide.py is the Python side of this file.
 //
 // A block works on a tile of kT coordinates (kT in 64, 32, 16, 8) with
-// 4 * kT threads.  The tile's activations live in shared memory as rows of
-// kT floats (row r = feature r of every coordinate of the tile); a layer
-// reads one buffer of rows and writes the other.  Each layer's weights
-// stay in device memory in a packed copy, zero-padded to (rowpad, colpad)
-// = (round64(fin + 1), round64(fout)) with the bias as row fin (the input
-// buffer carries a row of ones at fin, so the bias is one more row of the
-// same product).  The products stream that copy through shared memory in
-// slabs of kKS rows (forward) or kKS columns (input gradient), double
-// buffered with cp.async, so a slab's 16-byte copies overlap the products
-// on the previous one; nothing but two activation buffers and two slabs
-// is held per block, so a width needs only 2 * round32(width + 1) * kT
-// floats of shared memory.
+// 4 * kT threads.  The tile's activations are rows of kT floats (row r =
+// feature r of every coordinate of the tile).  Each layer's weights stay
+// in device memory in a packed copy, zero-padded to (rowpad, colpad) =
+// (round64(fin + 1), round64(fout)) with the bias as row fin (the input
+// carries a row of ones at fin, so the bias is one more row of the same
+// product).  The products stream that copy through shared memory in slabs
+// of kKS rows (forward) or kKS columns (input gradient), double buffered
+// with cp.async, so a slab's 16-byte copies overlap the products on the
+// previous one.
+//
+// Where the activation operand lives:
+//  * rows (kStream false): two buffers of rows in shared memory, a layer
+//    reading one and writing the other: 2 * round32(width + 1) * kT
+//    floats, which at kT = 8 holds up to 3,327 features;
+//  * streamed (kStream true), for wider layers: the layer's input rows
+//    come slab by slab from the device scratch that holds every h_l and
+//    g_l anyway, copied beside the weight slab into two buffers of kKS
+//    rows, so shared memory no longer grows with the width.
 //
 // A product block is 64 outputs (or inputs) x kT coordinates; thread t
 // owns the 4 x 4 micro-tile of outputs 4 * (t / (kT / 4)) + a and
@@ -53,48 +59,81 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kN));
 }
 
-// The packed weights of every layer of one chain (ops/wide.py
-// packed_layout); the packed parameters are (W (fin, fout), b) per layer.
-struct Packed {
-  int n_layers, n_params, wp_total;
-  int fin[kMaxLayers], fout[kMaxLayers], p_off[kMaxLayers];
-  int wp_off[kMaxLayers + 1], colpad[kMaxLayers];
+// Layer l's row of the wide layout's table (ops/fused_train.py
+// wide_table): its widths and activation, its parameters' offset in the
+// packed parameters (W (fin, fout), then b), its packed copy's offset and
+// row stride, its scratch rows (input, h, d / g; h_row -1 for the last
+// layer), its unit mask's offset (-1: none), its dW tiles [tile0,
+// tile_end), w0.
+struct __align__(16) Layer {
+  int fin, fout, act, p_off, wp_off, colpad, x_row, h_row, g_row, mask_off;
+  int tile0, tile_end;
+  float w0;
+  int pad[3];
 };
+static_assert(sizeof(Layer) == 64, "ops/fused_train.py WIDE_ROW_WORDS");
 
-// wp[fb][wp_off[l] + r * colpad + c] = W_l[r][c] (r < fin), b_l[c]
-// (r == fin), 0 elsewhere; fb = blockIdx.y.
+// wp[fb][wp_off + r * colpad + c] = W[r][c] (r < fin), b[c] (r == fin), 0
+// elsewhere, for layer l = blockIdx.y of chain fb = blockIdx.z.
 __global__ void pack_weights_kernel(const float* __restrict__ params,
-                                    float* __restrict__ wp, Packed p) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p.wp_total) return;
-  params += (size_t)blockIdx.y * p.n_params;
-  wp += (size_t)blockIdx.y * p.wp_total;
-  int l = 0;
-  while (e >= p.wp_off[l + 1]) ++l;
-  const int r = (e - p.wp_off[l]) / p.colpad[l];
-  const int c = e - p.wp_off[l] - r * p.colpad[l];
-  wp[e] = (r <= p.fin[l] && c < p.fout[l])
-              ? params[p.p_off[l] + r * p.fout[l] + c]
-              : 0.f;
+                                    float* __restrict__ wp,
+                                    const Layer* __restrict__ layers,
+                                    int n_params, int wp_total) {
+  const Layer ly = ld_row(layers + blockIdx.y);
+  params += (size_t)blockIdx.z * n_params + ly.p_off;
+  wp += (size_t)blockIdx.z * wp_total + ly.wp_off;
+  const int size = round_up(ly.fin + 1, kOB) * ly.colpad;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < size;
+       e += gridDim.x * blockDim.x) {
+    const int r = e / ly.colpad, c = e - r * ly.colpad;
+    wp[e] = (r <= ly.fin && c < ly.fout) ? params[r * ly.fout + c] : 0.f;
+  }
 }
 
+// `blocks` blocks of 256 threads per layer: ops/fused_train.py sizes them
+// for its largest packed layer.
 inline cudaError_t pack_weights(const float* params, float* wp,
-                                const Packed& p, int n_fleet,
-                                cudaStream_t s) {
-  pack_weights_kernel<<<dim3((p.wp_total + 255) / 256, n_fleet), 256, 0,
-                        s>>>(params, wp, p);
+                                const Layer* layers, int n_layers,
+                                int n_params, int wp_total, int n_fleet,
+                                int blocks, cudaStream_t s) {
+  pack_weights_kernel<<<dim3(blocks, n_layers, n_fleet), 256, 0, s>>>(
+      params, wp, layers, n_params, wp_total);
   return cudaGetLastError();
+}
+
+// The streamed operand's slab s: rows s * kKS .. s * kKS + kKS - 1 of X
+// (row stride np floats, kT floats a row) into `dst` (kKS rows of kT),
+// rows from `xrows` on a ones row (at xrows, when `ones`) then zeros.
+// Joins the caller's cp.async group.
+template <int kT>
+__device__ __forceinline__ void stream_rows(float* dst, const float* X,
+                                            size_t np, int xrows, bool ones,
+                                            int s) {
+  constexpr int kNT = 4 * kT, kQ = kT / 4;
+  for (int j = threadIdx.x; j < kKS * kQ; j += kNT) {
+    const int r = j / kQ, q = j - r * kQ, row = s * kKS + r;
+    float* d = dst + r * kT + 4 * q;
+    if (row < xrows) {
+      cp16(d, X + (size_t)row * np + 4 * q);
+    } else {
+      const float v = ones && row == xrows ? 1.f : 0.f;
+      *reinterpret_cast<float4*>(d) = make_float4(v, v, v, v);
+    }
+  }
 }
 
 // acc[a][c] = sum_{k < kend} Wp[k][o0 + 4 oq + a] * X[k][4 cu + c]: the
 // pre-activation of outputs o0 .. o0 + 63 of the tile.  Wp: a layer's
 // packed weights (row stride colpad); X: the input rows (kend a multiple
-// of kKS, rows fin .. kend - 1 a ones row then zeros).  `slab`: 2 * kSlab
-// floats.  Called by every thread; ends after a barrier.
-template <int kT>
+// of kKS), rows fin .. kend - 1 a ones row then zeros: in shared memory,
+// or (kStream) the scratch's rows 0 .. fin - 1 (row stride np), streamed
+// through `xs` (2 * kKS * kT floats).  `slab`: 2 * kSlab floats.  Called
+// by every thread; ends after a barrier.
+template <int kT, bool kStream>
 __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
                                               int colpad, int o0, int kend,
-                                              const float* X, float* slab,
+                                              const float* X, size_t np,
+                                              int fin, float* xs, float* slab,
                                               float (&acc)[4][4]) {
   constexpr int kNT = 4 * kT, kCQ = kT / 4;
   const int t = threadIdx.x, cu = t % kCQ, oq = t / kCQ;
@@ -110,6 +149,7 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
       const int r = j / (kOB / 4), q = j % (kOB / 4);
       cp16(dst + r * kOB + 4 * q, src + (size_t)r * colpad + 4 * q);
     }
+    if (kStream) stream_rows<kT>(xs + (s & 1) * kKS * kT, X, np, fin, true, s);
     cp_commit();
   };
   load(0);
@@ -122,7 +162,8 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
     }
     __syncthreads();
     const float* w = slab + (s & 1) * kSlab + 4 * oq;
-    const float* x = X + (size_t)s * kKS * kT + 4 * cu;
+    const float* x = (kStream ? xs + (s & 1) * kKS * kT
+                              : X + (size_t)s * kKS * kT) + 4 * cu;
 #pragma unroll 8
     for (int k = 0; k < kKS; ++k) {
       const float4 wv = *reinterpret_cast<const float4*>(w + k * kOB);
@@ -140,11 +181,15 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
 
 // acc[a][c] = sum_{o < oend} Wp[i0 + 4 iq + a][o] * G[o][4 cu + c]: inputs
 // i0 .. i0 + 63 of W_l g_l for the tile (oend a multiple of kKS, rows of G
-// from fout on zero).  Walks W's rows along o: no transposed copy.
-template <int kT>
+// from fout on zero: in shared memory, or (kStream) the scratch's rows
+// 0 .. fout - 1 streamed through `xs`).  Walks W's rows along o: no
+// transposed copy.
+template <int kT, bool kStream>
 __device__ __forceinline__ void input_grad_block(const float* __restrict__ Wp,
                                                  int colpad, int i0, int oend,
-                                                 const float* G, float* slab,
+                                                 const float* G, size_t np,
+                                                 int fout, float* xs,
+                                                 float* slab,
                                                  float (&acc)[4][4]) {
   constexpr int kNT = 4 * kT, kCQ = kT / 4;
   const int t = threadIdx.x, cu = t % kCQ, iq = t / kCQ;
@@ -160,6 +205,8 @@ __device__ __forceinline__ void input_grad_block(const float* __restrict__ Wp,
       const int r = j / (kKS / 4), q = j % (kKS / 4);
       cp16(dst + r * kSlabStride + 4 * q, src + (size_t)r * colpad + 4 * q);
     }
+    if (kStream)
+      stream_rows<kT>(xs + (s & 1) * kKS * kT, G, np, fout, false, s);
     cp_commit();
   };
   load(0);
@@ -172,7 +219,8 @@ __device__ __forceinline__ void input_grad_block(const float* __restrict__ Wp,
     }
     __syncthreads();
     const float* w = slab + (s & 1) * kSlab + 4 * iq * kSlabStride;
-    const float* g = G + (size_t)s * kKS * kT + 4 * cu;
+    const float* g = (kStream ? xs + (s & 1) * kKS * kT
+                              : G + (size_t)s * kKS * kT) + 4 * cu;
 #pragma unroll 2
     for (int o = 0; o < kKS; o += 4) {
       float4 gv[4];

@@ -29,15 +29,18 @@ Two forms (`choose_plan`):
     weights streamed through shared memory in k-block slabs, each warp
     kNW n-tiles of all 8 voxel tiles, the weights split once per call by
     pack_kernel (two launches a call); the layer's input in shared memory
-    (or, past 256 features, in a device scratch); as many slabs in flight
-    as shared memory holds (up to MAX_STAGES).
-`supports` takes the chains the JAX package's `supports` takes (weights
-up to 32 MB, at least 2 spatial axes) within the port's limits: up to
-MAX_LAYERS layers, 2 to 4 spatial axes, no layer wider than MAX_WIDTH.
+    (or, past 256 features, in a device scratch, which holds any width);
+    as many slabs in flight as shared memory holds (up to MAX_STAGES).
+The chain's layers and the grid's axes are rows of a table in device
+memory (`chain_table`, `axis_table`; ops/chain.py layer_table), made once
+per chain and grid, so neither bounds the kernel.  `supports` takes the
+chains the JAX package's `supports` takes: any plain chain whose weights
+take at most WEIGHT_BUDGET (32 MB), over any grid of 2 or more axes.
 
 Coordinates: the lead axis is the affine lo + i * step (float32, no fused
 multiply-add), the other axes are axis_linspace values — the TPU kernel's
-formulas.  The kernel splits the flat voxel index with 32-bit
+formulas.  The kernel takes axis a's index of the flat voxel index v as
+v // stride_a - (v // stride_{a-1}) size_a (`split_index`), with 32-bit
 multiply-shift divisions (`fast_divisor`) below 2^31 voxels.  The slab
 path of the JAX package (train/decode._decode_scan) uses the affine
 index_to_coords on every axis; the two differ by a float32 rounding of
@@ -60,18 +63,18 @@ import numpy as np
 import torch
 
 from brief_pytorch_tpu_torch.core.coords import axis_linspace, parse_coords_mode
-from brief_pytorch_tpu_torch.ops.chain import ACTS, LayerSpec, chain_layer_specs
+from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
+                                               chain_layer_specs, f32_word,
+                                               i64_words, layer_table,
+                                               pad_row)
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
 from brief_pytorch_tpu_torch.ops.fused_train import (pack_fragments,
                                                     tf32_split_nearest)
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
-MAX_PLANE_AXES = 3
-MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
-MAX_WIDTH = 3327             # widest layer: bounds the wide form's scratch
-                             # (132 blocks x 2 x 3,328 rows x 132 floats)
 WEIGHT_BUDGET = 32 << 20     # bytes of W: the JAX kernel's gate
+NARROW_AXES = 4              # kMaxPlaneAxes + 1: the narrow form's grids
 WARPS = 8                    # warps a block, both forms
 # narrow form: kNT (n-tiles of registers) -> (16-voxel m-tiles a warp,
 # blocks of 8 warps per SM its launch bounds guarantee: 2 at <= 128
@@ -82,13 +85,18 @@ WIDE_STRIDE = 16 * WIDE_M + 4   # floats per activation row
 MAX_STAGES = 8               # wide form: slabs in the ring, at most
 BARRIER_BYTES = 16 * MAX_STAGES   # wide form: the ring's barriers
 FRAG_BYTES = 512             # one B fragment: 32 lanes x 4 floats
+# int32 words of a table row: sizeof ChainLayer (csrc/chain_tc.cuh) and
+# GridAxis (csrc/fused_decode.cu) / 4
+CHAIN_ROW_WORDS = 12
+AXIS_ROW_WORDS = 8
 
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {
     "brief_fused_decode": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p],
     "brief_fused_decode_kernels": []}
@@ -111,8 +119,10 @@ def packed_layout(widths: Sequence[int]) -> Dict[str, List[int]]:
     bias_off = [4 * frag_off[-1]]
     for n in nt:
         bias_off.append(bias_off[-1] + 8 * n)
+    most = max(max(32 * k * n, 8 * n) for k, n in zip(kb, nt))
     return {"kb": kb, "nt": nt, "frag_off": frag_off[:-1],
-            "bias_off": bias_off[:-1], "packed_floats": bias_off[-1]}
+            "bias_off": bias_off[:-1], "packed_floats": bias_off[-1],
+            "pack_blocks": _cdiv(most, 256)}
 
 
 def narrow_plan(widths: Sequence[int]) -> Optional[Dict]:
@@ -158,20 +168,55 @@ def wide_plan(widths: Sequence[int]) -> Dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _choose(widths: Tuple[int, ...]) -> Optional[Dict]:
-    if len(widths) - 1 > MAX_LAYERS or max(widths) > MAX_WIDTH or \
-            widths[0] > MAX_PLANE_AXES + 1:
-        return None
-    return narrow_plan(widths) or wide_plan(widths)
+def _choose(widths: Tuple[int, ...]) -> Dict:
+    narrow = narrow_plan(widths) if widths[0] <= NARROW_AXES else None
+    return narrow or wide_plan(widths)
 
 
-def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The narrow form where it fits, else the wide form; None past
-    MAX_LAYERS layers, MAX_WIDTH features or 4 coordinates.  The plan
+def choose_plan(widths: Sequence[int]) -> Dict:
+    """The narrow form where it fits (grids of up to NARROW_AXES axes, whose
+    coordinates fill k-block 0), else the wide form, for a chain of any
+    depth and width (widths[0]: the coordinates, any number).  The plan
     states its form (`layout`), instance (`inst`: kNT or kNW), voxels a
     warp or block tile (`tile`), shared memory and warps per SM."""
-    p = _choose(tuple(int(w) for w in widths))
-    return None if p is None else dict(p)
+    return dict(_choose(tuple(int(w) for w in widths)))
+
+
+def chain_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
+                ptrs: Sequence[int]) -> List[int]:
+    """The chain's table (csrc/chain_tc.cuh ChainLayer rows) for plan p:
+    per layer its W and b pointers (ptrs, 2 a layer), the packed copy's
+    fragment and bias offsets (in float4), widths, k-blocks, n-tiles,
+    activation, w0.  Kernels 2 and 3 read the same rows."""
+    if p["packed_floats"] // 4 >= 1 << 31:
+        raise ValueError(f"chain widths {list(widths)}: its split weights "
+                         f"({4 * p['packed_floats']:,} bytes) pass the "
+                         f"kernel's 32-bit float4 offsets")
+    words = []
+    for l, (act, w0) in enumerate(acts):
+        words += pad_row(
+            i64_words(ptrs[2 * l]) + i64_words(ptrs[2 * l + 1]) +
+            [p["frag_off"][l], p["bias_off"][l] // 4, widths[l],
+             widths[l + 1], p["kb"][l], p["nt"][l], ACTS.index(act),
+             f32_word(w0)], CHAIN_ROW_WORDS)
+    return words
+
+
+def axis_table(spatial: Sequence[int], index64: bool) -> List[int]:
+    """The grid's axis rows (csrc/fused_decode.cu GridAxis): each axis's
+    voxel stride, size, axis_linspace table offset (plane axes, as
+    _plane_tables concatenates them) and the fast_divisor of its stride
+    and of its size (zeros where the grid takes 64-bit division)."""
+    words, off = [], 0
+    for a, size in enumerate(spatial):
+        stride = int(np.prod(spatial[a + 1:]))
+        div = [(0, 0), (0, 0)] if index64 else [fast_divisor(stride),
+                                                 fast_divisor(int(size))]
+        words += pad_row(
+            i64_words(stride) + [int(size), off if a else 0] +
+            [i64_words(x)[0] for d in div for x in d], AXIS_ROW_WORDS)
+        off += int(size) if a else 0
+    return words
 
 
 def fast_divisor(d: int) -> Tuple[int, int]:
@@ -197,19 +242,17 @@ def fast_div(n, mul: int, shift: int):
 
 
 def split_index(v, spatial: Sequence[int]):
-    """(lead, [axis indices]) of flat voxel indices v < 2^31 as the kernel
-    splits them: fast_div by the plane, then by each plane axis from the
-    last."""
+    """(lead, [plane axes' indices]) of flat voxel indices v < 2^31 as the
+    wide form splits them (csrc/fused_decode.cu GridInput): q_a = fast_div
+    of v by axis a's stride (the product of the later axes' sizes), the
+    lead index q_0 and plane axis a's q_a - q_{a-1} size_a.  The narrow
+    form divides by the plane, then each plane axis's size from the last:
+    the same integers."""
     v = np.asarray(v, dtype=np.int64)
-    plane = int(np.prod(spatial[1:]))
-    lead = fast_div(v, *fast_divisor(plane))
-    p = v - lead * plane
-    idx = [None] * (len(spatial) - 1)
-    for a in range(len(spatial) - 2, -1, -1):
-        q = fast_div(p, *fast_divisor(int(spatial[a + 1])))
-        idx[a] = p - q * int(spatial[a + 1])
-        p = q
-    return lead, idx
+    q = [fast_div(v, *fast_divisor(int(np.prod(spatial[a + 1:]))))
+         for a in range(len(spatial))]
+    return q[0], [q[a] - q[a - 1] * int(spatial[a])
+                  for a in range(1, len(spatial))]
 
 
 def pack_weights(layers, widths: Sequence[int]) -> torch.Tensor:
@@ -229,9 +272,9 @@ def pack_weights(layers, widths: Sequence[int]) -> torch.Tensor:
 def supports(model, spatial=None) -> bool:
     """Whether the fused decode kernel can run this φ model: a plain chain
     (SIRENPos folds into the coordinates) whose weights take at most
-    WEIGHT_BUDGET bytes (the JAX kernel's gate) and which choose_plan
-    holds, over 2 to 4 spatial axes."""
-    if spatial is not None and not 2 <= len(spatial) <= MAX_PLANE_AXES + 1:
+    WEIGHT_BUDGET bytes, over 2 or more spatial axes (the JAX kernel's
+    gate, pallas_decode.py:231-247)."""
+    if spatial is not None and len(spatial) < 2:
         return False
     spec = getattr(model, "spec", None)
     if spec is None:
@@ -241,10 +284,8 @@ def supports(model, spatial=None) -> bool:
     except ValueError:
         return False
     widths = [spec.entries[0].fan_in] + [e.fan_out for e in spec.entries]
-    if sum(4 * a * b for a, b in zip(widths[:-1], widths[1:])) > \
-            WEIGHT_BUDGET:
-        return False
-    return choose_plan(widths) is not None
+    return sum(4 * a * b for a, b in zip(widths[:-1], widths[1:])) <= \
+        WEIGHT_BUDGET
 
 
 def _plane_tables(spatial: Sequence[int], mode: str, enc_periods, device
@@ -351,8 +392,8 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     weights take the plain version in slabs of `slab` voxels.
     """
     spatial = tuple(int(s) for s in spatial)
-    if not 2 <= len(spatial) <= MAX_PLANE_AXES + 1:
-        raise ValueError("fused decode needs 2 to 4 spatial axes")
+    if len(spatial) < 2:
+        raise ValueError("fused decode needs 2 or more spatial axes")
     device = layers[0]["w"].device
     if device.type == "cpu":
         return fused_decode_grid_reference(layers, spatial, acts, mode,
@@ -375,38 +416,24 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     if len(acts) != len(layers):
         raise ValueError("one (act, w0) per layer")
     p = choose_plan(widths)
-    if p is None:
-        raise ValueError(f"chain widths {widths}: more than {MAX_LAYERS} "
-                         f"layers or a layer wider than {MAX_WIDTH} "
-                         "features (see supports)")
     pop = int(np.prod(spatial))
     n_tiles = _cdiv(pop, p["tile"])
     if n_tiles >= 1 << 31:
         raise ValueError(f"grid {spatial}: {pop} voxels is too many")
     tables = _plane_tables(spatial, mode, enc_periods, device)
     lo, step, scale = _lead_affine(spatial, mode, enc_periods)
-    n_plane = len(spatial) - 1
-    sizes = list(spatial[1:]) + [1] * (MAX_PLANE_AXES - n_plane)
-    table_off = [int(o) for o in np.cumsum([0] + list(spatial[1:]))[:n_plane]]
-    table_off += [0] * (MAX_PLANE_AXES - n_plane)
     index64 = pop >= 1 << 31
-    divisors = [0, 0] * (1 + MAX_PLANE_AXES)
-    if not index64:
-        divisors = [x for d in [pop // spatial[0]] + sizes
-                    for x in fast_divisor(d)]
-        divisors = [x - (1 << 32) if x >= 1 << 31 else x for x in divisors]
-    meta = [len(layers), widths[0], widths[-1], n_plane,
-            int(enc_periods is not None), int(index64), n_tiles, p["rows"],
-            p["packed_floats"], p.get("stages", 0)] + sizes + table_off + \
-        divisors
-    for l, (act, _) in enumerate(acts):
-        meta += [widths[l], widths[l + 1], p["kb"][l], p["nt"][l],
-                 p["frag_off"][l], p["bias_off"][l], ACTS.index(act)]
-    fmeta = [lo, step, scale] + [float(w0) for _, w0 in acts]
+    meta = [len(layers), widths[0], widths[-1], int(enc_periods is not None),
+            int(index64), n_tiles, p["rows"], p.get("stages", 0),
+            8 * p["kb"][0], p["pack_blocks"]]
     meta_c = (ctypes.c_int * len(meta))(*meta)
-    fmeta_c = (ctypes.c_float * len(fmeta))(*fmeta)
+    fmeta_c = (ctypes.c_float * 3)(lo, step, scale)
     wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
-    wb_c = (ctypes.c_void_p * len(wb))(*[t.data_ptr() for t in wb])
+    ptrs = tuple(t.data_ptr() for t in wb)
+    table, head = layer_table(
+        ("decode", tuple(widths), tuple(acts), ptrs, spatial),
+        lambda: chain_table(p, widths, acts, ptrs) +
+        axis_table(spatial, index64), device)
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_block = p["tile"] * (WARPS if p["layout"] == "narrow" else 1)
@@ -422,8 +449,8 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
         build.check(lib.brief_fused_decode(
             tables.data_ptr(), out.data_ptr(),
             packed.data_ptr() if form else None,
-            scratch.data_ptr() if p["global"] else None, wb_c, pop, meta_c,
-            fmeta_c, form, p["inst"], grid, p["smem_bytes"],
+            scratch.data_ptr() if p["global"] else None, table.data_ptr(),
+            head, pop, meta_c, fmeta_c, form, p["inst"], grid, p["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream), "fused_decode")
     launches += 1
     return out

@@ -24,8 +24,10 @@ fused_decode's plans do:
   * wide (`fused_decode.wide_plan`, every other chain): the weights split
     once per call and streamed through a TMA slab ring, 128-row tiles,
     the activations in a device scratch past 256 features.
-It takes every plain chain of up to MAX_LAYERS layers and MAX_WIDTH
-features, C included; `kernel_plan` raises NotImplementedError beyond.
+It takes every plain chain, of any depth and width and any C: the
+chain's layers are rows of a table in device memory
+(`fused_decode.chain_table`), and the wide form's scratch holds any
+width.
 Its sums keep float32's accuracy where the tensor core's own truncate
 (each k-block's three 3xTF32 products summed from zero and added in
 float32, the small parts rounded: chain_tc.cuh's sums, kernel 2's too);
@@ -46,12 +48,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from brief_pytorch_tpu_torch.ops import fused_decode
-from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
-                                               chain_layer_specs,
-                                               make_pre_encode)
+from brief_pytorch_tpu_torch.ops.chain import (LayerSpec, chain_layer_specs,
+                                               layer_table, make_pre_encode)
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
-from brief_pytorch_tpu_torch.ops.fused_decode import (MAX_LAYERS, MAX_WIDTH,
-                                                      WARPS, WIDE_STRIDE)
+from brief_pytorch_tpu_torch.ops.fused_decode import (WARPS, WIDE_STRIDE,
+                                                      chain_table)
 from brief_pytorch_tpu_torch.ops.fused_train import (tf32_split,
                                                     tf32_split_nearest)
 
@@ -59,40 +60,25 @@ launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {"brief_fused_siren": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]}
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=None)
-def _choose(widths: Tuple[int, ...]) -> Optional[Dict]:
-    if len(widths) - 1 > MAX_LAYERS or max(widths) > MAX_WIDTH:
-        return None
+def _choose(widths: Tuple[int, ...]) -> Dict:
     return fused_decode.narrow_plan(widths) or \
         fused_decode.wide_plan(widths)
 
 
-def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The narrow form where it fits, else the wide form; None past
-    MAX_LAYERS layers or MAX_WIDTH features (C included).  The plan states
-    its form (`layout`), instance (`inst`: kNT or kNW), rows a warp or
-    block tile (`tile`), shared memory (`smem_bytes`), warps per SM and
-    whether the wide form's activations live in a device scratch
-    (`global`)."""
-    p = _choose(tuple(int(w) for w in widths))
-    return None if p is None else dict(p)
+def choose_plan(widths: Sequence[int]) -> Dict:
+    """The narrow form where it fits, else the wide form, for a chain of
+    any depth and width (C included).  The plan states its form
+    (`layout`), instance (`inst`: kNT or kNW), rows a warp or block tile
+    (`tile`), shared memory (`smem_bytes`), warps per SM and whether the
+    wide form's activations live in a device scratch (`global`)."""
+    return dict(_choose(tuple(int(w) for w in widths)))
 
-
-def kernel_plan(widths: Sequence[int]) -> Dict:
-    """choose_plan, raising NotImplementedError for a plain chain the
-    kernel cannot hold (there is no other route on the card)."""
-    p = choose_plan(widths)
-    if p is None:
-        raise NotImplementedError(
-            f"chain widths {list(widths)}: more than {MAX_LAYERS} layers or "
-            f"a width past {MAX_WIDTH} features; the fused forward kernel "
-            f"takes at most {MAX_LAYERS} layers of at most {MAX_WIDTH}")
-    return p
 
 
 def chain_widths(spec) -> List[int]:
@@ -100,10 +86,9 @@ def chain_widths(spec) -> List[int]:
 
 
 def supports(model) -> bool:
-    """Whether the fused kernel can run this φ model: a plain chain
-    (SIRENPos folds into the coordinates), as the JAX package's
-    `supports`.  Raises NotImplementedError for such a chain past the
-    kernel's limits (kernel_plan)."""
+    """Whether the fused kernel can run this φ model: a plain chain of any
+    depth and width (SIRENPos folds into the coordinates), as the JAX
+    package's `supports` (pallas_siren.py:179-190)."""
     spec = getattr(model, "spec", None)
     if spec is None:
         return False
@@ -111,7 +96,6 @@ def supports(model) -> bool:
         chain_layer_specs(spec)
     except ValueError:
         return False
-    kernel_plan(chain_widths(spec))
     return True
 
 
@@ -171,8 +155,12 @@ def mma_tf32_model(c: torch.Tensor, a: torch.Tensor,
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+GROUP_K = 32                 # kGroupK of csrc/chain_tc.cuh
+
+
 def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
-                   nearest: bool = True) -> torch.Tensor:
+                   nearest: bool = True, plan: Optional[Dict] = None
+                   ) -> torch.Tensor:
     """The chain as csrc/chain_tc.cuh computes it on an H100, on the CPU:
     layer 0's input zero-padded to k-blocks of 8 features, the bias
     starting each accumulator, then per k-block the 3xTF32 terms a_small
@@ -183,6 +171,10 @@ def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
     kernels took before) split by fused_train.tf32_split and summed into
     the accumulator.  Rows are independent, so no tiles are needed; the
     k-block sums are independent too and go in batches of k-blocks.
+    Given the wide form's `plan` with its activations in a scratch
+    (`global`), a layer of at most plan["inst"] n-tiles and more than
+    GROUP_K k-blocks sums its k-blocks in groups of GROUP_K, each group's
+    sum added to the accumulator, as that form does.
     Kernel 2's rows are its voxels' coordinates
     (fused_decode.grid_coords)."""
     split = tf32_split_nearest if nearest else tf32_split
@@ -199,15 +191,24 @@ def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
         kb = wp.shape[0] // 8
         ab, as_ = split(h.view(n, kb, 8).transpose(0, 1).contiguous())
         bb, bs = bb.view(kb, 8, fout), bs.view(kb, 8, fout)
+        grouped = plan is not None and plan["layout"] == "wide" and \
+            plan["global"] and -(-fout // 8) <= plan["inst"] and \
+            kb > GROUP_K
         if nearest:
             step = max(1, (1 << 22) // (n * 9 * fout))    # k-blocks a batch
+            group, done = torch.zeros_like(c), 0
             for k0 in range(0, kb, step):
                 k = slice(k0, k0 + step)
                 s = mma_tf32_model(torch.zeros(ab[k].shape[0], n, fout),
                                    as_[k], bb[k])
                 s = mma_tf32_model(s, ab[k], bs[k])
                 for sk in mma_tf32_model(s, ab[k], bb[k]):
-                    c = c + sk
+                    if not grouped:
+                        c = c + sk
+                        continue
+                    group, done = group + sk, done + 1
+                    if done % GROUP_K == 0 or done == kb:
+                        c, group = c + group, torch.zeros_like(c)
         else:
             for k in range(kb):
                 c = mma_tf32_model(c, as_[k], bb[k])
@@ -248,7 +249,7 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
 
     device = coords.device
     widths = _check(layers, coords, acts)
-    p = kernel_plan(widths)
+    p = choose_plan(widths)
     n = coords.shape[0]
     out = torch.empty((n, widths[-1]), dtype=torch.float32, device=device)
     if n == 0:
@@ -258,14 +259,12 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
     if n_tiles >= 1 << 31:
         raise ValueError(f"{n} coordinates is too many")
     meta = [len(layers), widths[0], widths[-1], n_tiles, p["rows"],
-            p["packed_floats"], p.get("stages", 0)]
-    for l, (act, _) in enumerate(acts):
-        meta += [widths[l], widths[l + 1], p["kb"][l], p["nt"][l],
-                 p["frag_off"][l], p["bias_off"][l], ACTS.index(act)]
+            p.get("stages", 0), 8 * p["kb"][0], p["pack_blocks"]]
     meta_c = (ctypes.c_int * len(meta))(*meta)
-    w0_c = (ctypes.c_float * len(acts))(*[float(w0) for _, w0 in acts])
     wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
-    wb_c = (ctypes.c_void_p * len(wb))(*[t.data_ptr() for t in wb])
+    ptrs = tuple(t.data_ptr() for t in wb)
+    table, head = layer_table(("siren", tuple(widths), tuple(acts), ptrs),
+                        lambda: chain_table(p, widths, acts, ptrs), device)
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     narrow = p["layout"] == "narrow"
@@ -282,8 +281,9 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
         build.check(lib.brief_fused_siren(
             coords.data_ptr(), out.data_ptr(),
             None if packed is None else packed.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), wb_c, n, meta_c,
-            w0_c, form, p["inst"], grid, p["smem_bytes"],
+            None if scratch is None else scratch.data_ptr(),
+            table.data_ptr(), head, n, meta_c, form, p["inst"], grid,
+            p["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream), "fused_siren")
     launches += 1
     return out
@@ -340,7 +340,6 @@ def make_fused_apply(model):
     """An apply(params, coords) drop-in for model.apply using the fused
     kernel; the SIRENPos warp runs on the coordinates before it."""
     acts = chain_layer_specs(model.spec)
-    kernel_plan(chain_widths(model.spec))
     pre = make_pre_encode(model.spec)
 
     def apply(params, coords):

@@ -23,8 +23,11 @@ instruction throughput does (the sine epilogues, the TF32 splits,
 fragment loads and stores) at the 16 warps per SM that its registers and
 shared memory allow (PERF.md).
 
-Three layouts; `choose_plan` takes the first that fits and `kernel_plan`
-raises for a chain none holds:
+Three layouts; `choose_plan` takes the first that fits, and one always
+does: any plain chain, of any depth and width, trains on the kernel.  Each
+layout's per-layer values live in a small table in device memory
+(`narrow_table`, `tiled_table`, `wide_table`; ops/chain.py layer_table),
+made once per chain, so no layout bounds the depth:
   * narrow (`plan`, `narrow_plan`; 5 x 22, brain64's 3-7x4-1, the narrow
     φ families; 5 layers up to 33 features, 7 up to 24): W and W^T split
     into TF32 big and small parts in mma B-fragment order
@@ -45,8 +48,12 @@ raises for a chain none holds:
     layout such as 3-128x6-1): W streamed through shared memory in slabs
     (ops/wide.py, csrc/wide.cuh), h_l and d_l of every coordinate in a
     device-memory scratch, dW a split-K product over it (`dw_split`).
-    Any chain of up to MAX_LAYERS layers whose widest layer fits a tile
-    of 8 coordinates (3,327 features) trains.
+    Its rows form holds two layers' rows of a tile in shared memory, up
+    to 3,327 features at 8 coordinates a tile; past that its streamed
+    form (`stream`; 3-4096-1, 3-20971-1) reads each layer's input and
+    each g_l slab by slab from the scratch.  Its limit is device memory
+    for the scratch, B * rows_total * round64(N) floats, which the
+    wrapper reports as torch.cuda.OutOfMemoryError naming the bytes.
 csrc/fused_train.cu says what bounds each.
 
 `fused_train_grads_fleet` launches the kernel for CUDA tensors and calls
@@ -56,18 +63,20 @@ form (a fleet of one, which the C side runs without the fleet's parts).
 Scope: acts sine, relu, sigmoid, none; losses datal2, datasmoothl1;
 float32.  `half` never reaches the kernel: the trainers take autograd
 for it, as the JAX gates do (train/fit.py:332, block_trainer.py:395).
-Not ported yet (ROADMAP.md): chains of more than MAX_LAYERS layers
-(kernel_plan raises NotImplementedError).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from brief_pytorch_tpu_torch.ops import wide
-from brief_pytorch_tpu_torch.ops.chain import ACTS, LayerSpec, chain_layer_specs
+from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
+                                               chain_layer_specs, f32_word,
+                                               i64_words, layer_table,
+                                               pad_row)
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sincos
 
 LOSSES = ("datal2", "datasmoothl1")
@@ -87,30 +96,33 @@ FRAG = 128                   # floats of one packed B fragment (32 lanes x 4)
 TILED_THREADS = 256          # kTiledThreads of csrc/fused_train.cu
 TILED_TILE = 32              # kTile: coordinates per tile of the tiled layout
 TILED_SLOTS = (4, 6, 8)      # dW tiles per thread: the kernel's instances
-MAX_LAYERS = 16              # kMaxLayers of csrc/chain.cuh
 DW_CHUNK = 32                # kDwChunk: coordinates per dW operand chunk
 DW_BLOCKS = 1056             # dW blocks aimed at per call: 8 per H100 SM
+# int32 words of a layer's table row: sizeof NarrowLayer, TiledLayer
+# (csrc/fused_train.cu) and wide::Layer (csrc/wide.cuh) / 4
+NARROW_ROW_WORDS = 24
+TILED_ROW_WORDS = 12
+WIDE_ROW_WORDS = 16
 
 launches = 0                 # kernel launches, for proof that a run used it
 
 _SIGNATURES = {
     "brief_fused_train_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
-    "brief_fused_train": [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p],
+    "brief_fused_train": [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
     "brief_fused_train_tiled_occupancy": [ctypes.c_int, ctypes.c_int,
                                           ctypes.c_void_p, ctypes.c_void_p],
-    "brief_fused_train_tiled": [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
-    "brief_fused_train_wide_occupancy": [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p, ctypes.c_void_p],
-    "brief_fused_train_wide": [ctypes.c_void_p] * 11 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "brief_fused_train_tiled": [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "brief_fused_train_wide_occupancy": [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p],
+    "brief_fused_train_wide": [ctypes.c_void_p] * 12 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -205,6 +217,16 @@ def plan(widths: Sequence[int], warps: int, groups: int = 1) -> Dict:
             "smem_bytes": 4 * (red_off + 32)}
 
 
+def _narrow_weight_floats(widths: Sequence[int]) -> int:
+    """Floats of the narrow layout's B fragments: the forward's and, from
+    layer 1, the input gradient's."""
+    fwd = sum(_tiles8(i + 1) * _tiles8(o + (l < len(widths) - 2))
+              for l, (i, o) in enumerate(zip(widths[:-1], widths[1:])))
+    bwd = sum(_tiles8(o) * _tiles8(i)
+              for i, o in zip(widths[1:-1], widths[2:]))
+    return FRAG * (fwd + bwd)
+
+
 def _job_count(m: int, n: int, job_tiles: int) -> Tuple[int, int]:
     """(dW jobs, tiles) of an m x n gradient with M over m."""
     return -(-m // 16) * -(-_tiles8(n) // job_tiles), -(-m // 16) * _tiles8(n)
@@ -257,7 +279,10 @@ def narrow_plan(widths: Sequence[int]) -> Optional[Dict]:
     """The narrow plan with the most resident warps per SM, then the fewest
     dW jobs per warp (the dW phase waits for the busiest warp), then the
     most groups per block (their barriers interleave), or None where none
-    of NARROW_GROUPS fits."""
+    of NARROW_GROUPS fits (at once where the weights alone overflow a
+    block, before any dW job is dealt)."""
+    if 4 * _narrow_weight_floats(widths) > SMEM_LIMIT:
+        return None
     best, best_key = None, (0, 0, 0)
     for groups, warps in NARROW_GROUPS:
         p = plan(widths, warps, groups)
@@ -323,7 +348,8 @@ def tiled_plan(widths: Sequence[int]) -> Dict:
         row += _round4(widths[l + 1] + 1)
         g_row.append(row)
         row += _round4(widths[l + 1])
-    n_tiles = len(dw_tiles(widths))
+    n_tiles = sum(_round4(i + 1) // 4 * (_round4(o) // 4)
+                  for i, o in zip(widths[:-1], widths[1:]))
     slots = next((s for s in TILED_SLOTS if n_tiles <= s * TILED_THREADS), 0)
     return {"layout": "tiled", "n_params": n_params, "p_off": p_off,
             "w_off": w_off, "x_row": [0] + h_row[:-1], "h_row": h_row,
@@ -332,12 +358,15 @@ def tiled_plan(widths: Sequence[int]) -> Dict:
             "smem_bytes": 4 * (act_off + row * TILED_TILE)}
 
 
-def wide_plan(widths: Sequence[int], tile: int) -> Dict:
+def wide_plan(widths: Sequence[int], tile: int, stream: bool = False
+              ) -> Dict:
     """Layout of the wide layout for a chain of `widths` and `tile`
     coordinates per tile (4 * tile threads).
 
-    Shared memory: two buffers of rows_max rows of `tile` floats, two
-    weight slabs, a loss buffer of one float per thread.  Scratch rows
+    Shared memory: the rows form, two buffers of rows_max rows of `tile`
+    floats and two weight slabs; the streamed form (`stream`, rows_max 0),
+    two weight slabs, two slabs of KS operand rows and the last layer's
+    c_out rows; then a loss buffer of one float per thread.  Scratch rows
     (each np = round64(N) floats; B * rows_total of them per call): the
     coordinates (x_row[0] = 0), then per layer h_l (h_row; none for the
     last layer) and d_l / g_l (g_row); x_row[l] is the layer's input.
@@ -345,7 +374,7 @@ def wide_plan(widths: Sequence[int], tile: int) -> Dict:
     (i-block, o-block), numbered from tile0[l], o-blocks fastest."""
     n_layers = len(widths) - 1
     meta = wide.layer_meta(widths)
-    rows = wide.rows_max(widths)
+    rows = 0 if stream else wide.rows_max(widths)
     x_row, h_row, g_row, tile0 = [0], [], [], [0]
     row = widths[0]
     for l in range(n_layers):
@@ -361,11 +390,15 @@ def wide_plan(widths: Sequence[int], tile: int) -> Dict:
         tile0.append(tile0[-1] + -(-(widths[l] + 1) // wide.OB)
                      * -(-fout // wide.OB))
     threads = 4 * tile
+    operand = 2 * wide.KS * tile + widths[-1] * tile if stream else 0
+    pack = max(b - a for a, b in zip(meta["wp_off"][:-1], meta["wp_off"][1:]))
     return {"layout": "wide", "block": tile, "threads": threads,
-            "rows_max": rows, "rows_total": row, "x_row": x_row,
-            "h_row": h_row, "g_row": g_row, "tile0": tile0[:-1],
-            "n_dw_tiles": tile0[-1], "wp_total": meta["wp_off"][-1], **meta,
-            "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB + threads)}
+            "stream": stream, "rows_max": rows, "rows_total": row,
+            "x_row": x_row, "h_row": h_row, "g_row": g_row,
+            "tile0": tile0[:-1], "n_dw_tiles": tile0[-1],
+            "wp_total": meta["wp_off"][-1], "pack_blocks": -(-pack // 256),
+            **meta, "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB +
+                                       operand + threads)}
 
 
 def dw_split(n: int, n_fleet: int, n_dw_tiles: int) -> Tuple[int, int, int]:
@@ -380,40 +413,29 @@ def dw_split(n: int, n_fleet: int, n_dw_tiles: int) -> Tuple[int, int, int]:
     return np_, -(-np_ // chunk), chunk
 
 
-def choose_plan(widths: Sequence[int]) -> Optional[Dict]:
-    """The layout for a chain: the narrow layout (W, W^T and the activation
-    store of a block's coordinates in shared memory, products on the tensor
-    cores) when it keeps at least NARROW_MIN_WARPS warps resident per SM;
-    else the tiled layout (weights once in shared memory, dW in registers)
-    when its weights and 32-coordinate tile fit and its dW tiles fit
-    TILED_SLOTS; else the wide layout; None past MAX_LAYERS layers or when
-    even the wide layout's 8-coordinate tile does not fit a block's
-    227 KB."""
-    if len(widths) - 1 > MAX_LAYERS:
-        return None
+def choose_plan(widths: Sequence[int]) -> Dict:
+    """The layout for a chain of any depth and width: the narrow layout
+    (W, W^T and the activation store of a block's coordinates in shared
+    memory, products on the tensor cores) when it keeps at least
+    NARROW_MIN_WARPS warps resident per SM; else the tiled layout (weights
+    once in shared memory, dW in registers) when its weights and
+    32-coordinate tile fit and its dW tiles fit TILED_SLOTS; else the wide
+    layout, in its rows form where a tile's rows fit a block's 227 KB, in
+    its streamed form past that."""
     p = narrow_plan(widths)
     if p is not None and resident_warps(p) >= NARROW_MIN_WARPS:
         return p
     p = tiled_plan(widths)
     if p["slots"] and p["smem_bytes"] <= SMEM_LIMIT:
         return p
-    tile = wide.choose_tile(lambda t: wide_plan(widths, t)["smem_bytes"],
-                            SMEM_LIMIT, SM_SMEM)
-    return None if tile is None else wide_plan(widths, tile)
+    for stream in (False, True):
+        tile = wide.choose_tile(
+            lambda t: wide_plan(widths, t, stream)["smem_bytes"], SMEM_LIMIT,
+            SM_SMEM)
+        if tile is not None:
+            return wide_plan(widths, tile, stream)
+    raise AssertionError(f"no tile of the streamed form fits: {widths}")
 
-
-def kernel_plan(widths: Sequence[int]) -> Dict:
-    """choose_plan, raising NotImplementedError for a chain the kernel
-    cannot hold (the JAX kernel takes it: there is no autograd fallback on
-    the card)."""
-    p = choose_plan(widths)
-    if p is None:
-        raise NotImplementedError(
-            f"chain widths {widths}: more than {MAX_LAYERS} layers, or a "
-            f"layer wider than the wide layout's 8-coordinate tile holds; "
-            f"such chains on the train kernel are not ported yet "
-            f"(ROADMAP.md)")
-    return p
 
 
 def chain_widths(spec) -> List[int]:
@@ -422,8 +444,8 @@ def chain_widths(spec) -> List[int]:
 
 def supports_training(model, loss_name: str) -> bool:
     """Whether the fused train-grad kernel runs this φ model + loss: a plain
-    activation chain and a kernel loss (the JAX package's gate).  Raises
-    NotImplementedError for such a chain that is too wide (kernel_plan)."""
+    activation chain, of any depth and width, and a kernel loss (the JAX
+    package's gate, pallas_train.py:360-373)."""
     if loss_name not in LOSSES:
         return False
     spec = getattr(model, "spec", None)
@@ -433,7 +455,6 @@ def supports_training(model, loss_name: str) -> bool:
         chain_layer_specs(spec)
     except ValueError:
         return False
-    kernel_plan(chain_widths(spec))
     return True
 
 
@@ -580,7 +601,8 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
     card at once (at least one per chain), but no more than there are
     tiles."""
     key = (device.index or 0, p["layout"], p["threads"], p["smem_bytes"],
-           p.get("slots", p.get("jobs", 0)), p.get("small", False))
+           p.get("slots", p.get("jobs", 0)), p.get("small", False),
+           p.get("stream", False))
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         from brief_pytorch_tpu_torch.ops import build
@@ -590,8 +612,8 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
                 ctypes.addressof(sms))
         elif p["layout"] == "wide":
             err = lib.brief_fused_train_wide_occupancy(
-                p["block"], p["smem_bytes"], ctypes.addressof(per_sm),
-                ctypes.addressof(sms))
+                p["block"], int(p["stream"]), p["smem_bytes"],
+                ctypes.addressof(per_sm), ctypes.addressof(sms))
         else:
             err = lib.brief_fused_train_occupancy(
                 p["threads"], p["jobs"], int(p["small"]), p["smem_bytes"],
@@ -646,19 +668,38 @@ def _wide_buffers(device: torch.device, p: Dict, n_fleet: int, np_: int,
     """The wide layout's device scratch: the packed weights, h_l and d_l /
     g_l of every coordinate, dW's partial rows and the loss partials.
     Kept for the last shape per device and reused by every call of that
-    shape (a training run's steps); a new shape frees it first."""
+    shape (a training run's steps); a new shape frees it first.  This
+    scratch, not shared memory, bounds the layout's width: where the card
+    cannot hold it, torch.cuda.OutOfMemoryError names its bytes."""
     key = (p["wp_total"], p["rows_total"], p["n_params"], n_fleet, np_,
            grid, splits)
     if device not in _WIDE_BUFFERS or _WIDE_BUFFERS[device][0] != key:
         _WIDE_BUFFERS.pop(device, None)
-        empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                           device=device)
-        _WIDE_BUFFERS[device] = (key, {
-            "wp": empty(n_fleet, p["wp_total"]),
-            "scratch": empty(n_fleet, p["rows_total"], np_),
-            "partial": empty(n_fleet, splits, p["n_params"]),
-            "lossp": empty(n_fleet, grid)})
+        shapes = {"wp": (n_fleet, p["wp_total"]),
+                  "scratch": (n_fleet, p["rows_total"], np_),
+                  "partial": (n_fleet, splits, p["n_params"]),
+                  "lossp": (n_fleet, grid)}
+        try:
+            bufs = {k: torch.empty(v, dtype=torch.float32, device=device)
+                    for k, v in shapes.items()}
+        except torch.cuda.OutOfMemoryError as e:
+            need = 4 * sum(math.prod(v) for v in shapes.values())
+            raise torch.cuda.OutOfMemoryError(
+                f"the train kernel's wide layout needs {need:,} bytes of "
+                f"device scratch for {n_fleet} chain(s) of "
+                f"{p['rows_total']:,} activation rows at N = {np_:,} "
+                f"({4 * n_fleet * p['rows_total'] * np_:,} bytes of it h_l "
+                f"and d_l); {device} cannot hold it: fewer coordinates a "
+                f"step (Compress.sampler.sample_size) shrink it") from e
+        _WIDE_BUFFERS[device] = (key, bufs)
     return _WIDE_BUFFERS[device][1]
+
+
+def free_scratch() -> None:
+    """Drop the wide layout's cached device scratch (the next wide call
+    allocates it anew): B * rows_total * round64(N) floats, 16.8 GB for
+    3-20971-1 at N = 100,000, that a run's last shape keeps otherwise."""
+    _WIDE_BUFFERS.clear()
 
 
 _SLOT_MAPS: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
@@ -674,11 +715,56 @@ def _slot_map(widths, slots: int, device: torch.device) -> torch.Tensor:
     return _SLOT_MAPS[key]
 
 
+def narrow_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
+                 mask_off: Sequence[int], ptrs: Sequence[int]) -> List[int]:
+    """The narrow layout's table (csrc/fused_train.cu NarrowLayer rows,
+    then the plan's dW job codes): per layer its W, b and unit mask
+    pointers (ptrs, 3 a layer, 0 for no mask), widths, activation,
+    offsets, store rows, mask offset (-1: none), dW orientation and w0."""
+    words = []
+    for l, (act, w0) in enumerate(acts):
+        words += pad_row(
+            i64_words(ptrs[3 * l]) + i64_words(ptrs[3 * l + 1]) +
+            i64_words(ptrs[3 * l + 2]) +
+            [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
+             p["wf_off"][l], p["kb"][l], p["nt"][l], p["wb_off"][l],
+             p["kbb"][l], p["ntb"][l], p["x_row"][l], p["h_row"][l],
+             p["g_row"][l], mask_off[l], p["dw_gmajor"][l], f32_word(w0)],
+            NARROW_ROW_WORDS)
+    return words + list(p["job_table"])
+
+
+def tiled_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
+                mask_off: Sequence[int]) -> List[int]:
+    """The tiled layout's table (csrc/fused_train.cu TiledLayer rows)."""
+    words = []
+    for l, (act, w0) in enumerate(acts):
+        words += pad_row(
+            [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
+             p["w_off"][l], p["x_row"][l], p["h_row"][l], p["g_row"][l],
+             mask_off[l], f32_word(w0)], TILED_ROW_WORDS)
+    return words
+
+
+def wide_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
+               mask_off: Sequence[int]) -> List[int]:
+    """The wide layout's table (csrc/wide.cuh wide::Layer rows)."""
+    tile_end = p["tile0"][1:] + [p["n_dw_tiles"]]
+    words = []
+    for l, (act, w0) in enumerate(acts):
+        words += pad_row(
+            [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
+             p["wp_off"][l], p["colpad"][l], p["x_row"][l], p["h_row"][l],
+             p["g_row"][l], mask_off[l], p["tile0"][l], tile_end[l],
+             f32_word(w0)], WIDE_ROW_WORDS)
+    return words
+
+
 def _plan(widths: Sequence[int]) -> Dict:
-    """kernel_plan, made once per chain shape."""
+    """choose_plan, made once per chain shape."""
     key = tuple(widths)
     if key not in _PLANS:
-        _PLANS[key] = kernel_plan(widths)
+        _PLANS[key] = choose_plan(widths)
     return _PLANS[key]
 
 
@@ -701,37 +787,30 @@ def _launch(params, coords, values, weights, widths, acts,
     p = _plan(widths)
     n_fleet, n = coords.shape[0], coords.shape[-1]
     mask_width = 0 if masks is None else masks.shape[1]
+    key = (p["layout"], tuple(widths), tuple(acts), tuple(mask_off))
     if p["layout"] == "wide":
         np_, splits, chunk = dw_split(n, n_fleet, p["n_dw_tiles"])
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 mask_width, p["rows_max"], np_, p["rows_total"],
-                p["wp_total"], p["n_dw_tiles"]]
-        for l, (act, _) in enumerate(acts):
-            meta += [widths[l], widths[l + 1], ACTS.index(act),
-                     p["p_off"][l], p["wp_off"][l], p["colpad"][l],
-                     p["x_row"][l], p["h_row"][l], p["g_row"][l],
-                     mask_off[l], p["tile0"][l]]
+                p["wp_total"], p["n_dw_tiles"], p["pack_blocks"],
+                int(p["stream"])]
+        table, _ = layer_table(key, lambda: wide_table(p, widths, acts,
+                                                       mask_off), device)
     elif p["layout"] == "tiled":
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 p["red_off"], p["act_off"], mask_width, p["slots"]]
-        for l, (act, _) in enumerate(acts):
-            meta += [widths[l], widths[l + 1], ACTS.index(act),
-                     p["p_off"][l], p["w_off"][l], p["x_row"][l],
-                     p["h_row"][l], p["g_row"][l], mask_off[l]]
+        table, _ = layer_table(key, lambda: tiled_table(p, widths, acts,
+                                                        mask_off), device)
     else:
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 p["stride"], p["act_off"], p["red_off"], p["jobs"],
                 p["groups"], p["rows"], p["yw_row"], p["mask_sm"],
                 int(p["small"])]
-        for l, (act, _) in enumerate(acts):
-            meta += [widths[l], widths[l + 1], ACTS.index(act),
-                     p["p_off"][l], p["wf_off"][l], p["kb"][l], p["nt"][l],
-                     p["wb_off"][l], p["kbb"][l], p["ntb"][l], p["x_row"][l],
-                     p["h_row"][l], p["g_row"][l], mask_off[l],
-                     p["dw_gmajor"][l]]
-        meta += p["job_table"]
+        ptrs = tuple(0 if x is None else x.data_ptr() for layer in params
+                     for x in layer)
+        table, head = layer_table(key + (ptrs,), lambda: narrow_table(
+            p, widths, acts, mask_off, ptrs), device)
     meta_c = (ctypes.c_int * len(meta))(*meta)
-    w0_c = (ctypes.c_float * len(acts))(*[float(w0) for _, w0 in acts])
 
     lib = build.library("fused_train", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
@@ -739,19 +818,18 @@ def _launch(params, coords, values, weights, widths, acts,
         width = p["n_params"] + 1
         out = torch.empty((n_fleet, width), dtype=torch.float32,
                           device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
         if p["layout"] == "wide":
             bufs = _wide_buffers(device, p, n_fleet, np_, grid, splits)
             build.check(lib.brief_fused_train_wide(
                 coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), 0 if masks is None else masks.data_ptr(),
-                0 if thres is None else thres.data_ptr(),
+                0 if thres is None else thres.data_ptr(), table.data_ptr(),
                 bufs["wp"].data_ptr(), bufs["scratch"].data_ptr(),
                 bufs["partial"].data_ptr(), bufs["lossp"].data_ptr(),
-                out.data_ptr(), n, n_fleet, meta_c, w0_c,
+                out.data_ptr(), n, n_fleet, meta_c,
                 LOSSES.index(loss_name), float(beta), grid, p["block"],
-                p["smem_bytes"], splits, chunk,
-                torch.cuda.current_stream(device).cuda_stream),
-                "fused_train wide")
+                p["smem_bytes"], splits, chunk, stream), "fused_train wide")
             return out
         partial = torch.empty((n_fleet, grid * p.get("groups", 1), width),
                               dtype=torch.float32, device=device)
@@ -761,22 +839,17 @@ def _launch(params, coords, values, weights, widths, acts,
                 params.data_ptr(), 0 if masks is None else masks.data_ptr(),
                 0 if thres is None else thres.data_ptr(),
                 _slot_map(widths, p["slots"], device).data_ptr(),
-                partial.data_ptr(), out.data_ptr(), n, n_fleet, meta_c,
-                w0_c, LOSSES.index(loss_name), float(beta), grid,
-                p["smem_bytes"],
-                torch.cuda.current_stream(device).cuda_stream),
-                "fused_train tiled")
+                table.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
+                n_fleet, meta_c, LOSSES.index(loss_name), float(beta), grid,
+                p["smem_bytes"], stream), "fused_train tiled")
             return out
-        ptrs = [0 if x is None else x.data_ptr() for layer in params
-                for x in layer]
         build.check(lib.brief_fused_train(
             coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            table.data_ptr(), head,
             0 if thres is None else thres.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, n_fleet, meta_c, w0_c,
+            out.data_ptr(), n, n_fleet, meta_c,
             LOSSES.index(loss_name), float(beta), grid, p["threads"],
-            p["smem_bytes"], torch.cuda.current_stream(device).cuda_stream),
-            "fused_train")
+            p["smem_bytes"], stream), "fused_train")
     return out
 
 

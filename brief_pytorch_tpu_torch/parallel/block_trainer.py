@@ -998,12 +998,11 @@ class BlockFleetTrainer:
         opt = make_optimizer(cc.optimizer_name_phi, float(cc.lr_phi),
                              cc.lr_scheduler_phi)
 
+        # every plain bucket, of any depth and width, takes the kernel
+        # (JAX block_trainer.py:1053-1066)
         fused = bool(cc.get("fused_train", True)) and dev.type == "cuda" \
             and fleet_fused_supported(spec, cc.loss.name, sampler_name,
                                       bool(cc.half))
-        if fused:   # a bucket too wide for the kernel raises here
-            fused_train.kernel_plan([spec.dims[0][0]] +
-                                    [o for _, o in spec.dims])
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed + 1)

@@ -273,8 +273,8 @@ class NFGR:
             opt = make_optimizer(cfg.optimizer_name_phi, float(cfg.lr_phi),
                                  cfg.lr_scheduler_phi)
             opt_state = opt.init(params)
-            # fused train kernel gate (fit.py:331-336 of the JAX package);
-            # a chain too wide for the kernel raises NotImplementedError
+            # fused train kernel gate (fit.py:331-336 of the JAX package):
+            # every plain chain, of any depth and width, takes the kernel
             fused = bool(cfg.get("fused_train", True)) \
                 and dev.type == "cuda" and not self.half \
                 and fused_train.supports_training(model, loss_name)

@@ -202,6 +202,26 @@ non-zero exit:
      19c the CLI with -coordinator -nprocs 1 -procid 0 -g 0 (a group of
      one over NCCL) on brain64.yaml cut to CLI19_STEPS steps: its module
      files byte for byte those of the same command without the flags.
+ 20. the kernels' full reach (reach_phase): chains past the 16 layers and
+     3,327 features the kernels once held, and grids past 4 axes.
+     20a the SingleTask command with Module.phi.layers REACH_LAYERS (20)
+     on the 64^3 fixture, 3-9x19-1 (kernel 1's tiled layout), for
+     REACH_STEPS["fixture"] steps; 20b the same on the HiP-CT demo volume
+     at 80x with layers 20 (3-78x19-1, the wide layout) and with layers
+     2 (3-22213-1, the wide layout's streamed form), REACH_STEPS["demo"]
+     steps each (reach_single: one train launch a step, the grid kernel
+     in the checkpoint and the standalone decompress, which equals the
+     checkpoint's volume, PSNR within REACH_AUTOGRAD_DB of autograd's on
+     the same steps; 20b also the batch-major route through kernel 3
+     within 1 LSB of the grid kernel's on >= 99.9%); 20c hipct.yaml with
+     layers 20 (4 blocks padded to REACH_HIPCT_PADDED, kernel 1's fleet
+     form), REACH_STEPS["hipct"] steps, decompress_divide within 1 LSB of
+     the merged checkpoint; 20d each kernel against its plain version
+     under phases 3, 4, 6 and 9's rules: kernel 1 at REACH_TRAIN
+     (chain_check; the streamed form's scratch freed before the plain
+     version runs) and REACH_FLEETS (fleet_check, their relu/sigmoid
+     chains against the plain version in float64), kernel 2 at
+     REACH_DECODE (decode_check), kernel 3 at REACH_SIREN (siren_check).
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -309,7 +329,7 @@ SIREN_CASES = [
 ]
 # phase 9 forward tolerance (absolute, times max|plain|) where it is not
 # the default (2e-6, 2e-6)
-SIREN_TOL = {"wide-1024": (1e-5, 1e-5)}
+SIREN_TOL = {"wide-1024": (1e-5, 1e-5), "reach-4096": (1e-5, 1e-5)}
 GRAD_N = 8192                # coordinates of phase 9's gradient check
 # phases 4, 9 and 10: the kernel's distance from a float64 evaluation of
 # the chain (float64_chain), max and mean, at most this many times the
@@ -318,6 +338,42 @@ GRAD_N = 8192                # coordinates of phase 9's gradient check
 # into one accumulator, were 2.3x (max) and 3.0x (mean) on phase 10's
 # trained chain.
 F64_RATIO = {"phase4": 2.0, "phase9": 2.0, "phase10": 1.5}
+# phase 20: chains past the kernels' old reach (16 layers, 3,327 features).
+# 20a the 64^3 fixture and 20b the HiP-CT demo volume at 80x through the
+# SingleTask command with Module.phi.layers set (models/sizing widths),
+# 20c hipct.yaml with layers 20, 20d each kernel against its plain version.
+REACH_LAYERS = 20
+REACH_FIXTURE_FEATURES = 9                # 3-9x19-1 at 80x
+REACH_STEPS = {"fixture": 1000, "demo": 300, "hipct": 300}
+# (layers, features (models/sizing on the demo volume's file at 80x),
+# coordinates a step: None keeps the config's 100,000).  3-22213-1 takes
+# 50,000 for both runs: at 100,000 its autograd reference fits the card
+# (64.5 GiB at 3-20971-1, scripts/reach_probe.py) but takes 320 ms a
+# step, 96 s of the phase (PERF.md, PR 14)
+REACH_DEMO = [(20, 78, None), (2, 22213, 50_000)]
+REACH_AUTOGRAD_DB = 0.5                   # dB; kernels against autograd
+REACH_HIPCT_PADDED = [3] + [35] * 19 + [1]   # true widths 27, 28, 31, 35
+REACH_TRAIN = [   # (label, φ config over SIREN_BASE, N): the wide layout
+    ("reach-24x64", {"name": "SIREN", "features": 64, "layers": 24}, 100_000),
+    ("reach-4096", {"name": "SIREN", "features": 4096, "layers": 3}, 16_384),
+    ("reach-20971", {"name": "SIREN", "features": 20971, "layers": 2},
+     100_000),
+]
+# (label, true widths, layers): the fleet form, wide layout.  Their
+# relu/sigmoid chains are held to the plain version evaluated in float64:
+# at 20 layers the float32 plain version is itself 1.05e-5 from it in a
+# gradient whose largest entry is 1.10e-2 (the kernel 2.5e-8;
+# scripts/reach_probe.py), past phase 6's 1e-4 relative tolerance)
+REACH_FLEETS = [("reach-fleet-4x32", (26, 28, 30, 32), 20),
+                ("reach-fleet-2x4096", (4000, 4096), 2)]
+# (label, grid, features, layers, the plain version's voxels at a time)
+REACH_DECODE = [("reach-20x22", (64, 64, 64), 22, 20, None),
+                ("reach-20971", (64, 64, 64), 20971, 2, 16_384),
+                ("reach-5-axes", (4, 4, 8, 16, 32), 22, 5, None)]
+REACH_SIREN = [("reach-4096", {"name": "SIREN", "features": 4096,
+                               "layers": 3}, 65_536),
+               ("reach-24", {"name": "SIREN", "features": 22, "layers": 24},
+                N_COORDS)]
 # phase 3: chains the old narrow layout took, beyond the default's 5 x 22:
 # (label, family config, the layout the plan must pick)
 TRAIN_CASES = [
@@ -468,7 +524,14 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
         return fused_train.fused_train_grads_reference(layers, c, v, w, acts,
                                                        **kw)
 
-    (lk, gk), (lp, gp) = k(), pl()
+    def free():   # the streamed form's scratch, before the plain version
+        if p.get("stream"):
+            fused_train.free_scratch()
+            torch.cuda.empty_cache()
+
+    lk, gk = k()
+    free()
+    lp, gp = pl()
     torch.cuda.synchronize()
     one = lambda g: [{a: b[None] for a, b in x.items()} for x in g["layers"]]
     err = compare_grads(lk[None], one(gk), lp[None], one(gp),
@@ -479,16 +542,18 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
                 zip(gr["layers"], gk["layers"]) for key in ("w", "b")):
             fail(f"{label} {widths}: runs differ bitwise")
     ms = time_ms(k)
+    free()
     plain = time_ms(pl, reps=5)
     n_bytes = 4 * (n * (cin + 2 * cout) + 2 * sum(
         l["w"].numel() + l["b"].numel() for l in layers) + 1)
     b, by = bound_ms(n_bytes, train_flops(widths, acts, n))
     row = dict(shape=f"SIREN {widths}, N={n}", layout=layout,
                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-               bound_by=by)
+               bound_by=by, **({"stream": True} if p.get("stream") else {}))
     if layout == "narrow":
         row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
     say(phase, case=label, widths=widths, n=n, layout=layout,
+        **({"form": "streamed"} if p.get("stream") else {}),
         max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
         bound_ms=f"{b:.4f}", bound_by=by,
         **({"tc_bound_ms": f"{row['tc_bound_ms']:.4f}"}
@@ -526,17 +591,17 @@ def grid_coords(fused_decode, spatial, mode: str, dev, voxels):
 
 
 def f64_distances(fused_decode, out, plain, spatial, layers, acts,
-                  mode: str, dev) -> dict:
+                  mode: str, dev, slab: int = DECODE_SLAB) -> dict:
     """Max and mean distance of the decode `out` and of its plain version
-    from float64_chain on the kernel's coordinates, DECODE_SLAB voxels at
-    a time, on the card."""
+    from float64_chain on the kernel's coordinates, `slab` voxels at a
+    time, on the card."""
     import torch
     chain64 = float64_chain(layers, acts)
     pop = out.shape[0]
     d = {"max_err_vs_float64": 0.0, "plain_max_err_vs_float64": 0.0}
     sums = {"": 0.0, "plain_": 0.0}
-    for start in range(0, pop, DECODE_SLAB):
-        stop = min(pop, start + DECODE_SLAB)
+    for start in range(0, pop, slab):
+        stop = min(pop, start + slab)
         truth = chain64(grid_coords(fused_decode, spatial, mode, dev,
                                     (start, stop)))
         for name, x in (("", out), ("plain_", plain)):
@@ -568,7 +633,7 @@ def kernels_per_call(fn, layout: str) -> int:
 
 def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
                  reps: int = 25, plain_reps: int = 20,
-                 phase: str = "4-fused_decode") -> dict:
+                 phase: str = "4-fused_decode", slab: int = None) -> dict:
     """The grid-decode kernel on one chain and grid: finite values of the
     right shape within 1e-5 * max|plain| + 1e-5 of the plain version (in
     slabs of DECODE_SLAB voxels past 2^24), two more calls bitwise equal,
@@ -577,13 +642,17 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
     kernels one call launches (kernels_per_call: the narrow form splits
     its weights in place, one launch; the wide form two, pack_kernel
     first); timed beside the plain version (plain_reps 0: not timed) and
-    both bounds.  Returns its row."""
+    both bounds.  `slab`: the plain version's and the float64
+    evaluation's voxels at a time, for chains whose activations at
+    DECODE_SLAB voxels would not fit the card.  Returns its row."""
     import torch
     from brief_pytorch_tpu_torch.ops import fused_decode
     widths = [len(spatial)] + [int(l["w"].shape[1]) for l in layers]
     p = fused_decode.choose_plan(widths)
     pop = int(np.prod(spatial))
-    slab = DECODE_SLAB if pop > 1 << 24 or p["layout"] == "wide" else None
+    if slab is None:
+        slab = DECODE_SLAB if pop > 1 << 24 or p["layout"] == "wide" \
+            else None
 
     def k():
         return fused_decode.fused_decode_grid(layers, spatial, acts, mode)
@@ -605,7 +674,7 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
     f64 = f64_check(f"fused_decode {label} {spatial} {widths}", None, None,
                     None, F64_RATIO["phase4"], f64_distances(
                         fused_decode, out_k, out_p, spatial, layers, acts,
-                        mode, dev))
+                        mode, dev, slab or DECODE_SLAB))
     del out_p
     for _ in range(2):
         if not torch.equal(k(), out_k):
@@ -638,12 +707,15 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
 
 def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
                 thres, layout: str, cin: int = 3,
-                phase: str = "6-fused_train_fleet") -> dict:
+                phase: str = "6-fused_train_fleet",
+                relu_reference: str = "plain") -> dict:
     """The train kernel's fleet form on B = len(true_widths) SIREN chains
     padded to the widest (unit masks), n coordinates per block, per-block
     thresholds `thres` (-inf: none), in the kernel layout `layout` (the
-    plan must pick it): against its plain version for both
-    losses and a relu/sigmoid chain, each block against the one-chain
+    plan must pick it): against its plain version for both losses and a
+    relu/sigmoid chain (that one, where relu_reference is "float64",
+    against the plain version evaluated in float64), each block against
+    the one-chain
     kernel on its unpadded chain, padded gradients exactly 0, three runs
     bitwise equal; then timed beside the plain version and the bound.
     Fails the run on any disagreement; returns the kernel's JSON row."""
@@ -681,9 +753,20 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     relu_sig = tuple((("relu", 1.0), ("sigmoid", 1.0))[l % 2]
                      for l in range(len(acts) - 1)) + (("none", 1.0),)
     err = 0.0
+    def p64(loss_name, acts6):
+        fused_train.free_scratch()      # room for the float64 activations
+        torch.cuda.empty_cache()
+        d = lambda t: None if t is None else t.double()
+        return fused_train.fused_train_grads_reference(
+            [{k: d(t) for k, t in l.items()} for l in flayers], d(fc), d(fv),
+            d(fw), acts6, loss_name=loss_name, beta=0.01,
+            weight_thres=d(fthres), unit_masks=[d(m) for m in um])
+
     for loss_name, acts6 in (("datal2", acts), ("datasmoothl1", acts),
                              ("datasmoothl1", relu_sig)):
-        (lk, gk), (lp, gp) = k6(loss_name, acts6), p6(loss_name, acts6)
+        lk, gk = k6(loss_name, acts6)
+        lp, gp = (p64 if acts6 is relu_sig and relu_reference == "float64"
+                  else p6)(loss_name, acts6)
         torch.cuda.synchronize()
         err = max(err, compare_grads(lk, gk["layers"], lp, gp["layers"],
                                      f"{what} {loss_name} {acts6[:2]}"))
@@ -836,7 +919,8 @@ def f64_check(what: str, out, plain, truth, ratio: float,
     return d
 
 
-def siren_check(dev, label: str, cfg: dict, n: int) -> dict:
+def siren_check(dev, label: str, cfg: dict, n: int,
+                phase: str = "9-fused_siren") -> dict:
     """The batch-major forward kernel on one family at n coordinates:
     against its plain version (forward within SIREN_TOL; gradients of
     (out^2).mean() for every w, b and for coords against autograd through
@@ -856,7 +940,7 @@ def siren_check(dev, label: str, cfg: dict, n: int) -> dict:
     layers = params["layers"]
     acts = chain_layer_specs(model.spec)
     widths = fused_siren.chain_widths(model.spec)
-    plan = fused_siren.kernel_plan(widths)
+    plan = fused_siren.choose_plan(widths)
     if not fused_siren.supports(model):
         fail(f"fused_siren does not support {cfg}")
     rng = np.random.default_rng(n)
@@ -916,7 +1000,7 @@ def siren_check(dev, label: str, cfg: dict, n: int) -> dict:
     tc = tc_bound_ms(n_bytes, products, n * SIN_FLOPS * sine)
     form = dict(layout=plan["layout"], inst=plan["inst"], tile=plan["tile"],
                 warps_per_sm=plan["warps_per_sm"])
-    say("9-fused_siren", case=label, family=cfg["name"], widths=widths, n=n,
+    say(phase, case=label, family=cfg["name"], widths=widths, n=n,
         **form, max_abs_err=f"{err:.3e}", grad_max_abs_err=f"{gerr:.3e}",
         **{k: f"{v:.3e}" for k, v in f64.items()},
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b:.4f}",
@@ -945,9 +1029,13 @@ def load_archive(dev, cf, comp: str):
     return model, params, side
 
 
-def batch_major_decode(dev, cf, comp: str) -> dict:
+def batch_major_decode(dev, cf, comp: str, references: bool = True,
+                       phase: str = "10-batch-major-decode") -> dict:
     """Phase 10 on the archive under `comp` (module/, sideinfos.yaml) of a
-    SingleTask run with the config node `cf`."""
+    SingleTask run with the config node `cf`: the route through the
+    forward kernel within 1 LSB of the grid kernel's on 99.9% of the
+    voxels, and (references) against model.apply's route and a float64
+    evaluation, each route timed."""
     import torch
     from brief_pytorch_tpu_torch.core.normalize import invnormalize_data
     from brief_pytorch_tpu_torch.ops import fused_decode, fused_siren
@@ -962,9 +1050,9 @@ def batch_major_decode(dev, cf, comp: str) -> dict:
     sample_size = int(cf.Decompress.sample_size)
     slab = max(128, -(-min(sample_size, pop) // 128) * 128)
     mode = cf.Compress.coords_mode
-    chain64 = float64_chain(params["layers"],
-                            chain_layer_specs(model.spec),
-                            make_pre_encode(model.spec))
+    chain64 = float64_chain(params["layers"], chain_layer_specs(model.spec),
+                            make_pre_encode(model.spec)) \
+        if references else None
 
     def apply64(_, coords):
         return chain64(coords)
@@ -977,30 +1065,26 @@ def batch_major_decode(dev, cf, comp: str) -> dict:
         return reconstruct_flattened(model, params, shape, sample_size, mode,
                                      apply_fn=apply_fn)
 
+    def timed(apply_fn):   # the route once, its wall ms (ends in a copy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = route(apply_fn)
+        return out, (time.perf_counter() - t0) * 1e3
+
     fused_siren.launches = 0
     fused_decode.launches = 0
-    out_k = route(apply_k)
+    out_k, first_ms_k = timed(apply_k)
     launches = {"fused_siren": fused_siren.launches,
                 "fused_decode": fused_decode.launches}
     want = -(-pop // slab)
     if launches != {"fused_siren": want, "fused_decode": 0}:
         fail(f"batch-major decode: launches {launches}, want {want} of the "
              f"forward kernel and 0 of the grid kernel")
-    out_p = route(model.apply)
-    out_t = route(apply64)
-    out_g = route(None)
+    out_g, first_ms_g = timed(None)
     if fused_decode.launches != 1:
         fail("the default decode did not take the grid kernel")
     if out_k.shape != tuple(shape) or not np.isfinite(out_k).all():
         fail(f"batch-major decode: shape {out_k.shape} or non-finite values")
-    err = float(np.abs(out_k - out_p).max())
-    scale = float(np.abs(out_p).max())      # normalized values reach 100
-    # the route against float64 beside model.apply's route: float32's
-    # accuracy (model.apply's own distance, ~2e-4 of 100, exceeds
-    # 2e-6 * max|value|, so no other float32 order of sums can be held
-    # to model.apply that closely)
-    f64 = f64_check("batch-major decode", out_k, out_p,
-                    np.asarray(out_t, np.float64), F64_RATIO["phase10"])
 
     def volume(dec):
         post = cf.Decompress.postprocess
@@ -1023,8 +1107,28 @@ def batch_major_decode(dev, cf, comp: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(times))
 
+    grid = "x".join(map(str, shape[:-1]))
+    if not references:   # the first calls' times: no route run again
+        ms_k, ms_g = first_ms_k, first_ms_g
+        say(phase, grid=grid, slab=slab, launches=json.dumps(launches),
+            within_1lsb_of_grid_kernel=f"{within:.6f}",
+            max_lsb=int(diff.max()), wall_ms_forward_kernel=f"{ms_k:.3f}",
+            wall_ms_grid_kernel=f"{ms_g:.3f}")
+        return dict(launches=launches["fused_siren"], slab=slab,
+                    route_wall_ms=ms_k, grid_route_wall_ms=ms_g,
+                    within_1lsb=within)
+    out_p = route(model.apply)
+    out_t = route(apply64)
+    err = float(np.abs(out_k - out_p).max())
+    scale = float(np.abs(out_p).max())      # normalized values reach 100
+    # the route against float64 beside model.apply's route: float32's
+    # accuracy (model.apply's own distance, ~2e-4 of 100, exceeds
+    # 2e-6 * max|value|, so no other float32 order of sums can be held
+    # to model.apply that closely)
+    f64 = f64_check("batch-major decode", out_k, out_p,
+                    np.asarray(out_t, np.float64), F64_RATIO["phase10"])
     ms_k, ms_p, ms_g = wall_ms(apply_k), wall_ms(model.apply), wall_ms(None)
-    say("10-batch-major-decode", grid="64^3", slab=slab,
+    say(phase, grid=grid, slab=slab,
         launches=json.dumps(launches), max_abs_err_vs_apply=f"{err:.3e}",
         **{k.replace("plain_", "apply_"): f"{v:.3e}" for k, v in f64.items()},
         max_abs_apply=f"{scale:.3f}",
@@ -2342,6 +2446,197 @@ def cli_group_phase(out_dir: str) -> dict:
     return dict(module_files=len(plain), wall_s=wall)
 
 
+def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
+                 features: int, steps: int, n=None) -> dict:
+    """Phase 20a / 20b: opt/SingleTask/default.yaml on `data_path` with
+    Module.phi.layers = `layers` (and `n` coordinates a step where given)
+    through the command, on the kernels and through autograd: every step
+    one train-kernel launch, the checkpoint on the grid kernel, the
+    standalone decompress equal to the checkpoint, the PSNRs within
+    REACH_AUTOGRAD_DB.  Returns the run's row."""
+    import torch
+    from brief_pytorch_tpu_torch.core import config as cfglib
+    from brief_pytorch_tpu_torch.io.image import read_img
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    from brief_pytorch_tpu_torch.train.fit import NFGR
+    compress = {"sampler": {"sample_size": n}} if n else None
+    phi = {"layers": layers}
+    fused_train.launches = fused_decode.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, opt = run_config(CONFIG, out_dir, steps, data_path,
+                                       phi=phi, project=f"reach_{label}",
+                                       compress=compress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_train": fused_train.launches,
+                "fused_decode": fused_decode.launches}
+    cf = opt.CompressFramework
+    comp = os.path.join(run_dir, f"steps{steps}", "compressed")
+    side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
+    widths = [3] + [features] * (layers - 1) + [1]
+    train_plan = fused_train.choose_plan(widths)
+    decode_plan = fused_decode.choose_plan(widths)
+    if launches["fused_train"] != steps or launches["fused_decode"] < 1 or \
+            side["phi_features"] != features:
+        fail(f"reach {label}: launches {launches}, features "
+             f"{side['phi_features']} (want {features})")
+    fused_decode.launches = 0
+    dec = NFGR.decompress(cf, os.path.join(comp, "module"),
+                          os.path.join(comp, "sideinfos.yaml"), device=dev)
+    decompress_launches = fused_decode.launches
+    ext = os.path.splitext(data_path)[1]
+    ck = read_img(os.path.join(
+        run_dir, f"steps{steps}", "decompressed",
+        os.path.basename(data_path)[:-len(ext)] + "_decompressed" + ext))
+    if decompress_launches != 1 or not np.array_equal(dec, ck):
+        fail(f"reach {label}: standalone decompress ({decompress_launches} "
+             "decode launches) differs from the checkpoint's decode")
+    psnr = last_psnr(run_dir)
+    fused_train.free_scratch()
+    torch.cuda.empty_cache()
+    fused_train.launches = 0
+    summary_a, run_dir_a, _ = run_config(
+        CONFIG, out_dir, steps, data_path, fused_train=False, phi=phi,
+        project=f"reach_{label}_autograd", compress=compress)
+    psnr_a = last_psnr(run_dir_a)
+    if fused_train.launches:
+        fail(f"reach {label} autograd run: {fused_train.launches} kernel "
+             "launches")
+    torch.cuda.empty_cache()
+    form = train_plan["layout"] + (" streamed" if train_plan.get("stream")
+                                   else "")
+    row = dict(widths=widths, steps=steps,
+               coordinates=n or int(cf.Compress.sampler.sample_size),
+               train_layout=form, decode_layout=decode_plan["layout"],
+               launches=launches, decompress_decode_launches=
+               decompress_launches, psnr=psnr, psnr_autograd=psnr_a,
+               steps_per_s=steps / summary["train_s"],
+               steps_per_s_autograd=steps / summary_a["train_s"],
+               checkpoint_s=summary["checkpoint_s"], wall_s=wall)
+    say(f"20-reach-{label}", widths=f"3-{features}x{layers - 1}-1",
+        steps=steps, coordinates=row["coordinates"], train_layout=form,
+        decode_layout=decode_plan["layout"], launches=json.dumps(launches),
+        decompress_decode_launches=decompress_launches,
+        psnr=f"{psnr:.3f}", psnr_autograd=f"{psnr_a:.3f}",
+        psnr_autograd_margin=REACH_AUTOGRAD_DB,
+        steps_per_s=f"{row['steps_per_s']:.2f}",
+        steps_per_s_autograd=f"{row['steps_per_s_autograd']:.2f}",
+        checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
+    if not math.isfinite(psnr) or not abs(psnr - psnr_a) <= REACH_AUTOGRAD_DB:
+        fail(f"reach {label}: PSNR {psnr} on the kernels, {psnr_a} through "
+             f"autograd: more than {REACH_AUTOGRAD_DB} dB apart")
+    if data_path == HIPCT:   # the batch-major route through kernel 3
+        row["batch_major"] = batch_major_decode(
+            dev, cf, comp, references=False,
+            phase=f"20-reach-{label}-batch-major")
+        torch.cuda.empty_cache()
+    return row
+
+
+def reach_divide(dev, out_dir: str) -> dict:
+    """Phase 20c: opt/DivideTask/hipct.yaml with Module.phi.layers =
+    REACH_LAYERS for REACH_STEPS["hipct"] steps: every step one launch of
+    the train kernel's fleet form on the bucket padded to
+    REACH_HIPCT_PADDED, the standalone decompress (one grid-kernel call a
+    chunk) within 1 LSB of the merged checkpoint on 99.9% of the voxels."""
+    import torch
+    from brief_pytorch_tpu_torch.ops import fused_train
+    steps = REACH_STEPS["hipct"]
+    fused_train.launches = 0
+    t0 = time.perf_counter()
+    summary, run_dir, opt = run_config(
+        os.path.join(DIVIDE, "hipct.yaml"), out_dir, steps, HIPCT,
+        phi={"layers": REACH_LAYERS}, project="reach_hipct")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_train.launches
+    padded = summary["fleet"][0]["widths"]
+    names = chunk_dirs(run_dir, steps)
+    if launches != steps or summary["fused"] != [True] or \
+            padded != list(REACH_HIPCT_PADDED):
+        fail(f"reach hipct: {launches} launches, fused {summary['fused']}, "
+             f"widths {padded} (want {steps}, [True], "
+             f"{list(REACH_HIPCT_PADDED)})")
+    within, max_lsb, kernels = divide_decompress(
+        dev, opt.CompressFramework, run_dir, steps, HIPCT)
+    plan = fused_train.choose_plan(padded)
+    form = plan["layout"] + (" streamed" if plan.get("stream") else "")
+    psnr = last_psnr(run_dir)
+    say("20-reach-hipct", steps=steps, chunks=len(names), padded=padded,
+        layout=form, launches=launches, decompress_kernels=kernels,
+        within_1lsb=f"{within:.6f}", max_lsb=max_lsb, psnr=f"{psnr:.3f}",
+        steps_per_s=f"{steps / summary['train_s']:.2f}",
+        checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
+    if within < 0.999 or not math.isfinite(psnr):
+        fail(f"reach hipct: {within:.6f} of voxels within 1 LSB of the "
+             f"merged checkpoint, PSNR {psnr}")
+    fused_train.free_scratch()
+    torch.cuda.empty_cache()
+    return dict(padded=padded, layout=form, launches=launches,
+                decompress_kernels=kernels, within_1lsb=within,
+                max_lsb=max_lsb, psnr=psnr,
+                steps_per_s=steps / summary["train_s"], wall_s=wall)
+
+
+def reach_kernels(dev) -> dict:
+    """Phase 20d: each kernel against its plain version at chains past the
+    old reach (phases 3, 4, 6 and 9's rules and tolerances); returns the
+    rows by kernel."""
+    import torch
+    from brief_pytorch_tpu_torch.models.phi import init_phi
+    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
+    kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.05)
+    rows = {"train": {}, "fleet": {}, "decode": {}, "siren": {}}
+    for label, phi, n in REACH_TRAIN:
+        rows["train"][label] = chain_check(dev, label, phi, n, "wide", kw,
+                                           phase="20d-fused_train")
+        fused_train.free_scratch()
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(20)
+    for label, true, layers in REACH_FLEETS:
+        thres = [(60.0, -np.inf, 40.0, -np.inf)[i % 4]
+                 for i in range(len(true))]
+        rows["fleet"][label] = fleet_check(
+            dev, rng, true, layers, 20.0, FLEET_N, thres, "wide",
+            phase="20d-fused_train_fleet", relu_reference="float64")
+        fused_train.free_scratch()
+        torch.cuda.empty_cache()
+    for label, spatial, features, layers, slab in REACH_DECODE:
+        model = init_phi({**SIREN_BASE, "name": "SIREN",
+                          "coords_channel": len(spatial),
+                          "features": features, "layers": layers})
+        params = model.init(torch.Generator().manual_seed(4), dev)
+        rows["decode"][label] = decode_check(
+            dev, label, spatial, params["layers"],
+            chain_layer_specs(model.spec), phase="20d-fused_decode",
+            plain_reps=3, slab=slab)
+        torch.cuda.empty_cache()
+    for label, cfg, n in REACH_SIREN:
+        rows["siren"][label] = siren_check(dev, label, cfg, n,
+                                           phase="20d-fused_siren")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def reach_phase(dev, out_dir: str) -> dict:
+    """Phase 20: chains past the kernels' old reach of 16 layers and 3,327
+    features, through the commands (20a-c) and each kernel against its
+    plain version (20d)."""
+    t0 = time.perf_counter()
+    rows = {"fixture": reach_single(dev, out_dir, "fixture", FIXTURE,
+                                    REACH_LAYERS, REACH_FIXTURE_FEATURES,
+                                    REACH_STEPS["fixture"])}
+    for layers, features, n in REACH_DEMO:
+        rows[f"demo_{layers}"] = reach_single(
+            dev, out_dir, f"demo_{layers}", HIPCT, layers, features,
+            REACH_STEPS["demo"], n)
+    rows["hipct"] = reach_divide(dev, out_dir)
+    rows["kernels"] = reach_kernels(dev)
+    say("20-reach", wall_s=f"{time.perf_counter() - t0:.1f}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2875,6 +3170,22 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- 20. the kernels' full reach: chains past 16 layers and 3,327
+    # features through the commands, each kernel against its plain version
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_reach_")
+    try:
+        reach = reach_phase(dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    singles = {k: v for k, v in reach.items()
+               if k not in ("kernels", "hipct")}
+
+    def reach_runs(key: str, layout: str) -> dict:
+        """The SingleTask runs of phase 20 as one kernel saw them."""
+        return {k: {"widths": v["widths"], "layout": v[layout],
+                    "launches": v["launches"][key]}
+                for k, v in singles.items()}
+
     kernels = [
         {"name": "fused_train_grads", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
@@ -2885,7 +3196,9 @@ def main() -> int:
          "shape": f"SIREN {widths}, N={n}", **train_rows,
          "media_2d": {**media_rows["png"]["train"],
                       "launches": media_rows["png"]["run"]["train_launches"]},
-         "hipct_solo": solo_row, "phase16_half": half_row},
+         "hipct_solo": solo_row, "phase16_half": half_row,
+         "reach": {**reach["kernels"]["train"],
+                   "runs": reach_runs("fused_train", "train_layout")}},
         {"name": "fused_train_grads_fleet", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
@@ -2895,7 +3208,9 @@ def main() -> int:
          "wide": {k: v for k, v in wfleet_row.items() if k != "padded"},
          "media_2d_fleet": fleet2d_row, "phase17": {
              "exception": exc, **gather_rows},
-         "phase19_ranks": phase19["fleet"]},
+         "phase19_ranks": phase19["fleet"],
+         "reach": {**reach["kernels"]["fleet"],
+                   "hipct_20_layers": reach["hipct"]}},
         {"name": "fused_decode_grid", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",
@@ -2914,7 +3229,9 @@ def main() -> int:
          "trained_5x22": dec_rows["trained"],
          "media_2d": {**media_rows["png"]["decode"], "launches":
                       media_rows["png"]["run"]["decode_kernels"]},
-         "phase13": resume_rows, "phase14": multitask_row},
+         "phase13": resume_rows, "phase14": multitask_row,
+         "reach": {**reach["kernels"]["decode"],
+                   "runs": reach_runs("fused_decode", "decode_layout")}},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
                    "(+ csrc/wide.cuh)",
@@ -2947,7 +3264,10 @@ def main() -> int:
          "launches": route10["launches"], "library_ms": None,
          **siren_rows["main"],
          **{k: v for k, v in siren_rows.items() if k != "main"},
-         "decode_route": route10},
+         "decode_route": route10,
+         "reach": {**reach["kernels"]["siren"], "batch_major": {
+             k: v["batch_major"] for k, v in singles.items()
+             if "batch_major" in v}}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -118,6 +118,8 @@ def test_fused_train_is_deterministic(dev):
     ((5, 6, 7), 16, 1, "n11"),
     ((37, 41), 22, 3, "0,1"),
     ((1, 6, 7), 8, 1, "n11"),
+    ((4, 4, 8, 16, 32), 22, 1, "n11"),     # 5 axes: past the old 4
+    ((2, 3, 2, 3, 2, 3, 2, 3, 4), 16, 2, "-1,1"),   # 9 axes: 2 k-blocks
 ])
 def test_fused_decode_matches_plain(dev, spatial, features, cout, mode):
     model, params = _chain(dev, features, 5, cin=len(spatial), cout=cout)
@@ -130,6 +132,68 @@ def test_fused_decode_matches_plain(dev, spatial, features, cout, mode):
     assert out.shape == ref.shape == (int(np.prod(spatial)), cout)
     assert float((out - ref).abs().max()) <= \
         1e-5 * float(ref.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("widths,layout", [
+    ([3] + [8] * 19 + [1], "narrow"),       # 20 layers
+    ([3] + [9] * 19 + [1], "tiled"),        # 64^3 fixture, layers 20, 80x
+    ([3] + [76] * 19 + [1], "wide"),        # demo volume, layers 20, 80x
+    ([3, 4096, 1], "stream"),               # past 3,327 features
+    ([3, 3400, 3400, 1], "stream"),
+])
+def test_reach_matches_plain(dev, widths, layout):
+    """Chains past the kernels' old reach (16 layers, 3,327 features): the
+    train kernel in the layout its plan names, the grid decode (weights
+    within 32 MB) and the batch-major forward, each against its plain
+    version."""
+    layers_ = []
+    g = torch.Generator().manual_seed(len(widths))
+    for fin, fout in zip(widths[:-1], widths[1:]):
+        bound = (6 / fin) ** 0.5 / 10
+        layers_.append({
+            "w": ((torch.rand(fin, fout, generator=g) * 2 - 1) * bound).to(dev),
+            "b": ((torch.rand(fout, generator=g) * 2 - 1) * bound).to(dev)})
+    acts = (("sine", 10.0),) * (len(widths) - 2) + (("none", 1.0),)
+    p = ft.choose_plan(widths)
+    assert ("stream" if p.get("stream") else p["layout"]) == layout
+    coords, values, weights = _batch(dev, 3000)
+    kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.5)
+    lk, gk = ft.fused_train_grads(layers_, coords, values, weights, acts, **kw)
+    lp, gp = ft.fused_train_grads_reference(layers_, coords, values, weights,
+                                            acts, **kw)
+    _close(lk, gk["layers"], lp, gp["layers"])
+    if sum(4 * a * b for a, b in zip(widths[:-1], widths[1:])) <= \
+            fd.WEIGHT_BUDGET:
+        out = fd.fused_decode_grid(layers_, (6, 7, 8), acts, "n11")
+        ref = fd.fused_decode_grid_reference(layers_, (6, 7, 8), acts, "n11")
+        assert float((out - ref).abs().max()) <= \
+            1e-5 * float(ref.abs().max()) + 1e-5
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    rows = coords.T.contiguous()
+    out = fs.fused_chain_apply(layers_, rows, acts)
+    ref = fs.fused_chain_apply_reference(layers_, rows, acts)
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("true_widths,layers,layout", [
+    ((24, 28, 30, 32), 20, "wide"),         # 4 x [3] + [32] x 19 + [1]
+    ((4000, 4096), 2, "stream"),            # 2 x 3-4096-1
+])
+def test_reach_fleet_matches_plain(dev, true_widths, layers, layout):
+    models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers,
+                                                   n=3000)
+    padded = [3] + [int(l["w"].shape[-1]) for l in layers_]
+    p = ft.choose_plan(padded)
+    assert ("stream" if p.get("stream") else p["layout"]) == layout
+    acts = chain_layer_specs(models[0].spec)
+    kw = dict(loss_name="datal2", beta=0.01)
+    lk, gk = ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
+                                        thres=thres, **kw)
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, acts,
+                                            weight_thres=thres,
+                                            unit_masks=um, **kw)
+    _close(lk, gk["layers"], lp, gp["layers"])
 
 
 def test_fused_decode_sirenpos(dev):
@@ -296,16 +360,24 @@ def test_wide_chain_trains_on_the_kernel(dev, features, layers, layout):
 
 def test_too_wide_chain_raises_on_the_card(dev):
     """A chain whose widest layer the wide layout's 8-coordinate tile does
-    not hold (3,400 features) has no autograd fallback on the card: the
-    gate and the launch raise NotImplementedError naming its widths."""
+    not hold (3,400 features), which raised NotImplementedError before,
+    trains on the kernel: the gate holds, the plan is the wide layout's
+    streamed form, and the kernel matches its plain version."""
     model, params = _chain(dev, 3400, 2)
-    with pytest.raises(NotImplementedError, match="3400"):
-        ft.supports_training(model, "datal2")
-    coords, values, weights = _batch(dev, 256)
-    with pytest.raises(NotImplementedError, match="3400"):
-        ft.fused_train_grads(params["layers"], coords, values, weights,
-                             chain_layer_specs(model.spec),
-                             loss_name="datal2")
+    assert ft.supports_training(model, "datal2")
+    p = ft.choose_plan(ft.chain_widths(model.spec))
+    assert p["layout"] == "wide" and p["stream"]
+    coords, values, weights = _batch(dev, 1000)
+    acts = chain_layer_specs(model.spec)
+    kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.5)
+    before = ft.launches
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    assert ft.launches == before + 1
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    _close(lk, gk["layers"], lp, gp["layers"])
 
 
 # --- the wide layout at the demo volumes' SingleTask widths ---------------
@@ -742,12 +814,15 @@ def test_fused_siren_rejects_bad_inputs(dev):
         fs.fused_chain_apply(params["layers"], coords.double(), acts)
     with pytest.raises(ValueError):
         fs.fused_chain_apply(params["layers"], coords, acts[:-1])
+    # past the 3,327 features it once refused, the kernel takes the chain
+    # and matches its plain version
     wide, wparams = _family(dev, "SIREN", features=3328)
-    with pytest.raises(NotImplementedError, match="3327"):
-        fs.supports(wide)
-    with pytest.raises(NotImplementedError, match="3327"):
-        fs.fused_chain_apply(wparams["layers"], coords,
-                             chain_layer_specs(wide.spec))
+    assert fs.supports(wide)
+    wacts = chain_layer_specs(wide.spec)
+    out = fs.fused_chain_apply(wparams["layers"], coords, wacts)
+    ref = fs.fused_chain_apply_reference(wparams["layers"], coords, wacts)
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
 
 
 # --- the narrow layout: warp-owned tiles, 3xTF32 on the tensor cores -------

@@ -96,7 +96,9 @@ def test_supports_gating():
     assert fd.supports(model, (64, 64, 64))
     assert fd.supports(model, (64, 64))
     assert not fd.supports(model, (64,))
-    assert not fd.supports(model, (2, 2, 2, 2, 2))
+    # any grid of 2 or more axes, as the JAX gate (pallas_decode.py:231);
+    # past 4 axes it takes the wide form
+    assert fd.supports(model, (2, 2, 2, 2, 2))
     assert fd.choose_plan([3, 22, 22, 22, 22, 1])["layout"] == "narrow"
     # 512-wide weights (3 MB) take the wide form; past the JAX kernel's
     # 32 MB of weights (5 x 1,700: 34.7 MB), the slab path

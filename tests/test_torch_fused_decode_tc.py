@@ -210,17 +210,26 @@ def test_plan_at_the_main_paths_shapes(widths, layout, inst, tile, warps):
     ([3] + [96] * 4 + [1], "wide", False),        # its weights overflow
     ([3] + [64] * 15 + [1], "wide", False),       # 16 layers of 64
     ([3, 512, 512, 512, 512, 1], "wide", True),   # past 256 features
-    ([3, 3327, 1], "wide", True),                 # the widest
+    ([3, 3327, 1], "wide", True),                 # the widest of old
+    ([3] + [8] * 16 + [1], "narrow", False),      # 17 layers
+    ([3] + [22] * 19 + [1], "narrow", False),     # 20 layers
+    ([3] + [64] * 23 + [1], "wide", False),       # 24 layers of 64
+    ([3, 3328, 1], "wide", True),                 # past 3,327 features
+    ([3, 20971, 1], "wide", True),                # hipct at 80x, 2 layers
+    ([4, 22, 22, 22, 22, 1], "narrow", False),    # 4 axes, as before
+    ([5, 22, 22, 22, 22, 1], "wide", False),      # a 5-axis grid
+    ([9, 22, 22, 1], "wide", False),              # 9 axes: 2 k-blocks
 ])
 def test_plan_reach(widths, layout, glob):
-    """Every chain of up to MAX_LAYERS layers and MAX_WIDTH features has a
-    form (the chains the kernel took before); past 256 features the wide
-    form keeps its activations in a device scratch."""
+    """Every chain has a form, of any depth and width (the chains the
+    kernel took before, and past its old 16 layers and 3,327 features),
+    over any number of axes; past 256 features the wide form keeps its
+    activations in a device scratch, whose rows hold the widest layer."""
     p = fd.choose_plan(widths)
     assert (p["layout"], p["global"]) == (layout, glob)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
-    assert fd.choose_plan([3, 3328, 1]) is None
-    assert fd.choose_plan([3] + [8] * 16 + [1]) is None
+    if glob:
+        assert p["rows"] == 8 * max(p["kb"]) >= max(widths)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 7, 64, 100, 255, 256, 257, 511, 512,

@@ -151,7 +151,8 @@ def test_plans():
     registers; wider ones stream them through the wide form's slab ring
     (3-186x4-1 with its activations in shared memory, past 256 features
     in a device scratch); the chains the train and decode kernels accept
-    are accepted; a width past 3,327 features raises, naming the limit."""
+    are accepted, and so are chains past 16 layers and 3,327 features
+    (the wide form, its activations in the scratch)."""
     from brief_pytorch_tpu_torch.ops import fused_train as ft
     p = fs.choose_plan([3, 22, 22, 22, 22, 1])
     assert (p["layout"], p["inst"], p["tile"]) == ("narrow", 3, 32)
@@ -164,14 +165,13 @@ def test_plans():
     for widths in ([3, 217, 217, 217, 217, 1], [3] + [145] * 6 + [1],
                    [2, 8, 1], [3] + [40] * 15 + [1], [3, 2048, 2048, 1]):
         assert ft.choose_plan(widths) is not None
-        p = fs.kernel_plan(widths)
+        p = fs.choose_plan(widths)
         assert p == fd.narrow_plan(widths) or p == fd.wide_plan(widths)
         assert p["smem_bytes"] <= fd.SMEM_LIMIT
-    assert fs.choose_plan([3] + [8] * 17 + [1]) is None
-    with pytest.raises(NotImplementedError, match="3327"):
-        fs.kernel_plan([3, 3328, 3328, 1])
-    with pytest.raises(NotImplementedError, match="3327"):
-        fs.supports(tphi.init_phi(_cfg(features=3328)))
+    assert fs.choose_plan([3] + [8] * 17 + [1])["layout"] == "narrow"
+    p = fs.choose_plan([3, 3328, 3328, 1])
+    assert (p["layout"], p["global"], p["rows"]) == ("wide", True, 3328)
+    assert fs.supports(tphi.init_phi(_cfg(features=3328)))
 
 
 def test_fused_apply_or_returns_the_default_on_the_cpu():

@@ -1,5 +1,5 @@
 """The batch-major forward kernel's tensor-core design on the CPU
-(brief_pytorch_tpu_torch/ops/fused_siren.py `choose_plan`, `kernel_plan`,
+(brief_pytorch_tpu_torch/ops/fused_siren.py `choose_plan`,
 `supports`, `chain_tc_model`; csrc/fused_siren.cu on the shared chain of
 csrc/chain_tc.cuh): its arithmetic emulated, the plan at the shapes the
 card's check runs, its reach, and its gate against the JAX package's.
@@ -175,7 +175,7 @@ def test_plan_at_phase_9_shapes(label, cfg, layout, inst, glob):
     shared memory, the wide one a slab ring and (in shared memory or a
     device scratch) every k-block of the widest layer input."""
     widths = fs.chain_widths(tphi.init_phi(cfg).spec)
-    p = fs.kernel_plan(widths)
+    p = fs.choose_plan(widths)
     assert (p["layout"], p["inst"], p["global"]) == (layout, inst, glob)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
     if layout == "narrow":
@@ -189,32 +189,39 @@ def test_plan_at_phase_9_shapes(label, cfg, layout, inst, glob):
 
 @pytest.mark.parametrize("widths,ok", [
     ([3] + [8] * 15 + [1], True),          # 16 layers
-    ([3, 3327, 1], True),                  # the widest layer
-    ([3327, 8, 1], True),                  # the widest input
+    ([3, 3327, 1], True),                  # the widest layer of old
+    ([3327, 8, 1], True),                  # the widest input of old
     ([3, 3327, 3327, 1], True),
     ([100, 22, 1], True),                  # 13 input k-blocks: wide
-    ([3] + [8] * 16 + [1], False),         # 17 layers
-    ([3, 3328, 1], False),
-    ([3328, 8, 1], False),
+    ([3] + [8] * 16 + [1], True),          # 17 layers
+    ([3, 3328, 1], True),
+    ([3328, 8, 1], True),
 ])
 def test_reach(widths, ok):
-    """Every plain chain of at most 16 layers and 3,327 features, the
-    input included, has a form; beyond, kernel_plan raises naming the
-    limits.  An input wider than 12 k-blocks, or one whose rows leave no
-    room in shared memory, takes the wide form (the latter with its
-    activations in a device scratch)."""
-    if not ok:
-        assert fs.choose_plan(widths) is None
-        with pytest.raises(NotImplementedError, match="16 layers of at most "
-                           "3327"):
-            fs.kernel_plan(widths)
-        return
-    p = fs.kernel_plan(widths)
+    """Every plain chain has a form, of any depth (17 layers: past the 16
+    the kernel once held) and any width, the input included (3,328
+    features: past the 3,327 it once held).  An input wider than 12
+    k-blocks, or one whose rows leave no room in shared memory, takes the
+    wide form (the latter with its activations in a device scratch); the
+    17-layer chain is emulated tile by tile against the plain version."""
+    assert ok
+    p = fs.choose_plan(widths)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
     if widths[0] > 96:
         assert p["layout"] == "wide"
-    if widths[0] == 3327:
+    if widths[0] >= 3327:
         assert p["global"] and p["inst"] == 4
+    if len(widths) == 18:
+        assert p["layout"] == "narrow"
+        _, _, tmodel, tparams = _pair(_cfg(features=8, layers=17))
+        assert fs.chain_widths(tmodel.spec) == widths
+        coords = torch.from_numpy(_coords(64, 3, seed=17))
+        acts = chain_layer_specs(tmodel.spec)
+        emu = fs.chain_tc_model(tparams["layers"], coords, acts)
+        plain = fs.fused_chain_apply_reference(tparams["layers"], coords,
+                                               acts)
+        assert float((emu - plain).abs().max()) <= \
+            TIGHT[0] + TIGHT[1] * float(plain.abs().max())
 
 
 FAMILIES = ["SIREN", "SIRENFT", "SIREN_Pyramid", "SIRENPS", "SIREN_RELU",
@@ -226,10 +233,9 @@ KEYS = {"SIRENFT": {"ratio": 2.2}, "SIREN_Pyramid": {"features_dis": 3},
 @pytest.mark.parametrize("name", FAMILIES + ["NeRF", "FFN", "MFNFourier"])
 @pytest.mark.parametrize("features", [22, 907, 908, 1500, 3327])
 def test_supports_is_the_jax_gate(name, features):
-    """For every plain family whose chain stays within 3,327 features the
-    port's gate is the JAX package's (True); the other families are
-    refused by both; a plain chain past the limits raises on the port's
-    side only."""
+    """For every plain family, at any width (SIRENFT at 3,327 features
+    passes the 3,327 the kernel once held), the port's gate is the JAX
+    package's (True); the other families are refused by both."""
     cfg = _cfg(name, features=features, **KEYS.get(name, {}))
     if name == "FFN":
         cfg["embsize"] = 12
@@ -239,8 +245,4 @@ def test_supports_is_the_jax_gate(name, features):
         assert fs.supports(tmodel) is jgate is False
         return
     assert jgate is True
-    if max(fs.chain_widths(tmodel.spec)) <= fd.MAX_WIDTH:
-        assert fs.supports(tmodel) is True
-    else:
-        with pytest.raises(NotImplementedError):
-            fs.supports(tmodel)
+    assert fs.supports(tmodel) is True

@@ -112,16 +112,17 @@ def test_supports_training_and_plan():
     assert ft.SM_SMEM // (p["smem_bytes"] + 1024) == 1
     assert ft.resident_warps(p) == p["threads"] // 32 == 16
     # a 512-wide chain takes the wide layout (it raised before the
-    # layout streamed its weights); past MAX_LAYERS layers the card has no
-    # autograd fallback, the gate raises
+    # layout streamed its weights); a chain of 17 layers (past the 16 the
+    # kernel once held) takes a layout too, as the JAX gate takes every
+    # plain chain (pallas_train.py:360-373)
     wide = tphi.init_phi({**cfg, "features": 512})
     assert ft.choose_plan(ft.chain_widths(wide.spec))["layout"] == "wide"
     assert ft.supports_training(wide, "datal2")
-    deep = tphi.init_phi({**cfg, "layers": ft.MAX_LAYERS + 1})
-    assert len(ft.chain_widths(deep.spec)) == ft.MAX_LAYERS + 2
-    assert ft.choose_plan(ft.chain_widths(deep.spec)) is None
-    with pytest.raises(NotImplementedError, match="layers"):
-        ft.supports_training(deep, "datal2")
+    deep = tphi.init_phi({**cfg, "layers": 17})
+    assert len(ft.chain_widths(deep.spec)) == 18
+    assert ft.choose_plan(ft.chain_widths(deep.spec))["layout"] in (
+        "narrow", "tiled", "wide")
+    assert ft.supports_training(deep, "datal2")
     assert not ft.supports_training(deep, "nosuchloss")
 
 

@@ -304,7 +304,7 @@ def test_every_old_narrow_chain_keeps_a_kernel(widths, layout):
     a layout: the new narrow one where it keeps NARROW_MIN_WARPS warps per
     SM, else the tiled one (10-12x faster than the old layout at 5 x 64 and
     7 x 48 on the card, PERF.md)."""
-    p = ft.kernel_plan(widths)
+    p = ft.choose_plan(widths)
     assert p["layout"] == layout and p["smem_bytes"] <= ft.SMEM_LIMIT
     if layout == "narrow":
         assert ft.resident_warps(p) >= ft.NARROW_MIN_WARPS
