@@ -23,9 +23,13 @@
 //    families): warp-owned coordinate tiles, the three products on the
 //    tensor cores in 3xTF32; described below.
 //  * tiled (fused_train_tiled_kernel, e.g. 3-64x6-1, 3-66x6-1, 5 x 64,
-//    5 x 95): the weights once in shared memory, dW in registers, float32
-//    CUDA-core micro-tiles; described at its code.  Paced by shared-memory
-//    reads and the sine evaluations (3-64x6-1 fleet: 23% of the bound).
+//    5 x 95): the weights once in shared memory in float32, a store of
+//    every layer's activations for 32-128 coordinates, the three products
+//    on the tensor cores in 3xTF32 (operands split as they are read),
+//    groups of warps per m-tile, dW jobs in registers, a fleet's chains
+//    sharing the grid by their work; described at its code.  Paced by
+//    instruction issue, ~10 instructions an mma (the HiP-CT fleet at ~23%
+//    of its float32 bound, PERF.md).
 //  * wide (wide_train_kernel + wide_dw_kernel, e.g. 3-191x4-1,
 //    3-242x4-1, 3-128x6-1): W streamed through shared memory in slabs,
 //    h_l and d_l in a device-memory scratch, dW a split-K product over it;
@@ -710,417 +714,694 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled layout: a kernel of its own, for chains whose weights, stored
-// once, fit in shared memory beside a 32-coordinate activation tile, and
-// whose dW fits the threads' registers, where the narrow layout's weights
-// (W and W^T, big and small) and activation store do not fit.
+// The tiled layout (ops/fused_train.py tiled_plan): for chains whose
+// weights and a tile's activations fit in shared memory once, but whose
+// W and W^T, split into TF32 big and small parts, do not fit beside a
+// store for 8 or more warps (the narrow layout): 3-66x6-1 has ~22,000
+// weights, 4 x 88 KB split both ways.  A kernel of its own.
 //
-// Why: in the old wide layout every multiply-add of the forward and the input
-// gradient loaded its W entry from L2, and the dW loop took two shared
-// reads per multiply-add plus a device-memory read-modify-write of the
-// block's whole partial row per tile.  Here (3-64x6-1: 198,656 bytes, one
-// block of 256 threads per SM):
-//  * W of every layer once, as (round4(fin + 1), round4(fout)): the bias
-//    is row fin, and each layer's input block carries a row of ones, so
-//    the bias is one more multiply-add row of the same loops.  The input
-//    gradient reads the same rows along o: no W^T copy.
-//  * Activation rows of 32 floats (one 128-byte line), their 16-byte
-//    chunks XOR-permuted per row quad (elem), h_l / d_l blocks padded to
-//    row quads; padding rows stay 0, so padded units add exact zeros.
-//  * The forward and the input gradient: each thread a 4 x 2 micro-tile
-//    (4 outputs or inputs x 2 coordinates), 8 multiply-adds per one
-//    16-byte W read and one 8-byte activation read.  The last layer (one
-//    output) splits its inner dimension over 16 lanes and sums by
-//    shuffles.  The activation is picked once per micro-tile and the mask
-//    read ahead, so its 8 evaluations overlap.
-//  * dW: the (fin + 1) x fout gradient of every layer cut into 4 x 4
-//    tiles, dealt round-robin to the 256 threads (ops/fused_train.py
-//    dw_map: 6 slots, 96 registers at 3-64x6-1, 252 in all and no spill;
-//    the 8-slot instance, for chains such as 5 x 95, spills 164 bytes);
-//    after the tile's backward, each thread adds H^T G of its tiles over
-//    the 32 coordinates (16-byte reads: 64 multiply-adds per 8 reads) into
-//    registers it keeps for the whole persistent loop, and writes its
-//    block's partial row once at the end.  No atomics: reduce_partials_kernel adds the rows in
-//    order, so runs are bitwise equal.
-// Tried and dropped (PERF.md, section 6): 4 x 4 micro-tiles with the inner
-// dimension split over two lanes (slower), 512 threads (the dW registers
-// spill; slower), W rows padded against bank conflicts and the inner loops
-// unrolled twice (no change).
+// Design, with the numbers of 3-66x6-1 (the hipct.yaml fleet's bucket):
+//  * Every product on the tensor cores, mma.sync.m16n8k8 TF32 in 3xTF32
+//    (csrc/tf32.cuh split_tf32_nearest, both parts rounded to TF32): a b =
+//    as bb + ab bs + ab bb.  Each k-block's three products are summed from
+//    zero and added to a float32 accumulator (csrc/chain_tc.cuh's sums):
+//    mma.sync truncates its own sums, which dW over 100,000 coordinates
+//    would otherwise carry.  With the small parts truncated instead
+//    (split_tf32) a 20-layer fleet drifted 2.3x the plain version's mean
+//    distance from float64.
+//  * W of every layer once, float32, (fin + 1) x fout with the bias as row
+//    0, row stride 4 mod 8 (68 at 66 outputs): 93.4 KB.  A B fragment is
+//    split as it is read.  The forward reads W with K paired (features
+//    2t, 2t + 1 of a k-block, as the narrow layout), the input gradient
+//    reads the same rows along o with K in the plain order (W^T without a
+//    copy); with that stride both reads hit 32 banks.  A padded k-block or
+//    n-tile reads the next layer's rows (finite weights times zero
+//    activations) or output columns it drops.
+//  * Activations: a store of rows of 16 x mt coordinates (mt m-tiles a
+//    tile; 32 coordinates at 3-66x6-1, 113.7 KB): two input buffers
+//    (a ones row and the coordinates, values and weights; the next tile's
+//    copied in by cp.async while this one runs), then per layer h (after
+//    a ones row, the next layer's bias input) and d, overwritten by g in
+//    the backward.  Regions start on rows multiple of 8; coordinate u of
+//    row r sits at column u ^ 4 pi(r & 7) (tiled_at), which puts every
+//    fragment access on 32 banks without padding the rows.
+//  * Work: each layer's output is mt x nt mma tiles (16 coordinates x 8
+//    units); warp w takes m-tile w % mt and every (8 / mt)-th n-tile from
+//    w / mt, in chunks of kTiledChunk sharing one A fragment.  A width of
+//    66 is 9 n-tiles: 18 tiles for 8 warps, 5, 5, 4, 4 on the SM's four
+//    schedulers, not a second pass over a layer.
+//  * A fleet's padding: the units past a chain's last unmasked one
+//    (tiled_width, from its unit masks) are exactly 0, so its products
+//    stop at its own k-blocks and n-tiles (the ones row first keeps the
+//    bias inside them), and tiled_share_kernel gives each chain a share
+//    of the grid by its work (51/54/60/66: 0.74 of the padded products).
+//  * Barriers: a coordinate's activations take 880 store rows at
+//    3-66x6-1, so the block holds 32 coordinates, fewer than one m-tile a
+//    warp.  The warps of one m-tile (a group: 8 / mt warps) carry it
+//    through the forward and the input gradients alone and meet at their
+//    own named barrier after each layer (2L - 2 a tile, 12 at 7 layers;
+//    the two groups run out of step); the block meets twice a tile,
+//    before dW (which reads every coordinate) and after it (before the
+//    next tile overwrites the store).
+//  * dW: layer l's (fin + 1) x fout gradient in 16 x 8 mma tiles (M over
+//    fout or fin + 1, whichever gives fewer jobs; ops/fused_train.py
+//    tiled_jobs), in jobs of kTiledJob tiles of one row sharing its A
+//    fragment, kJ jobs a warp (dw_map; 81 jobs, 11 a warp, at 3-66x6-1;
+//    instances 3, 6, 9, 11, 13: 13 is 156 registers of sums, all 255
+//    used and none spilled),
+//    every job computed (no branch, so their mma chains interleave), each
+//    sum in registers for the whole persistent loop.  Each block writes
+//    its partial row once; no atomics: reduce_spans_kernel adds a chain's
+//    rows in a fixed order, so runs are bitwise equal.
+// What bounds it on an H100 at the HiP-CT fleet (4 x 100,000 coordinates,
+// true widths 51/54/60/66): the three products, 3 x 33.5 GFLOP at 495
+// TFLOP/s TF32 (0.20 ms; mma.sync delivers ~310, scripts/mma_tf32_rate.py)
+// and the sines, 2.9 GFLOP at 67 TFLOP/s (0.04 ms).  Beside each mma it
+// issues the operands' shared reads and splits and the float32 sums (~10
+// instructions an mma), and the epilogues' sines: instruction issue, not
+// the tensor cores, paces it (PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int kTile = 32;            // coordinates per tile: one 128-byte row
-constexpr int kTiledThreads = 256;
-constexpr int kCols = 2;             // coordinates per forward / dX micro-tile
-constexpr int kColGroups = kTile / kCols;
-static_assert(kCols == 2, "the micro-tile loops are written for 2 columns");
+constexpr int kTiledWarps = 8;
+constexpr int kTiledThreads = 32 * kTiledWarps;
+constexpr int kTiledChunk = 3;         // n-tiles of one pass of a product
+constexpr int kTiledJob = 3;           // dW tiles of one job (one A row)
+constexpr int kTiledDwWeight = 3;      // a dW job's work against a product
+                                       // tile's, per tile (tiled_share)
+constexpr unsigned kTiledPi = 0x56127430u;   // pi(r & 7), a nibble each
+                                             // (ops/fused_train.py TILED_PI)
+
+using brief::mma_tf32_zero;
+using brief::split_tf32_nearest;
 
 // Layer l's row of the tiled layout's table (ops/fused_train.py
 // tiled_table): widths, activation, offset in the packed parameters, its
-// W's offset in shared memory, its activation rows (input, h, d / g), its
-// unit mask's offset in the chain's mask row (-1: none), w0.
+// W in shared memory (offset, row stride; the bias as row 0), its store
+// rows (input, whose row 0 holds ones; h, -1 for the last layer, its
+// units from row 1; d / g), its unit mask's offset in the chain's mask
+// row (-1: none), w0, and x_in: the input is the tile's input buffer
+// (layer 0), whose rows move with the tile.
 struct __align__(16) TiledLayer {
-  int fin, fout, act, p_off, w_off, x_row, h_row, g_row, mask_off;
+  int fin, fout, act, p_off, w_off, w_stride, x_row, h_row, g_row, mask_off;
   float w0;
-  int pad[2];
+  int x_in;
 };
 static_assert(sizeof(TiledLayer) == 48, "ops/fused_train.py TILED_ROW_WORDS");
 
 struct TiledDesc {
-  int n_layers, c_in, c_out, n_params, red_off, act_off, mask_width;
-  const TiledLayer* layer;   // n_layers rows, device memory
+  int n_layers, c_in, c_out, n_params, mask_width, n_fleet, n_tiles;
+  int mt;          // m-tiles a tile: 16 mt coordinates, rows of 16 mt floats
+  int buf_rows;    // rows of one input buffer; values from its row yw_row
+  int yw_row, w_floats, mask_sm, tab_sm, width_sm, desc_sm, red_off, jobs;
+  // n_layers rows in device memory (copied to shared memory at tab_sm),
+  // then per warp and job slot (jobs a warp) two dW codes
+  // (ops/fused_train.py dw_codes)
+  const TiledLayer* layer;
 };
 
-__host__ __device__ __forceinline__ int round_up4(int x) {
-  return (x + 3) & ~3;
+// 4 pi(r & 7): the column permutation of store row r
+__device__ __forceinline__ int tiled_sigma(int r) {
+  return (int)((kTiledPi >> (4 * (r & 7))) & 7u) << 2;
 }
 
-// Float offset of coordinate u of activation row r.  A row is one 128-byte
-// line (kTile floats); the 4-float chunks of rows 4j .. 4j + 3 are
-// XOR-permuted by j & 7, so 16-byte reads of one chunk from 8 consecutive
-// row quads hit 8 distinct bank quads.  Rows of one quad share the
-// permutation: elem(4j + a, u) = elem(4j, u) + a * kTile.
-__device__ __forceinline__ int elem(int r, int u) {
-  return r * kTile + ((((u >> 2) ^ (r >> 2)) & 7) << 2) + (u & 3);
+// Float offset of coordinate u of store row r (ops/fused_train.py
+// swizzle), rows of T floats.
+__device__ __forceinline__ int tiled_at(int r, int u, int T) {
+  return r * T + (u ^ tiled_sigma(r));
 }
 
-// h = act(z), d = act'(z) for the 4 x kCols outputs of a micro-tile, the
-// activation chosen once (so the 8 evaluations are independent
-// instructions the scheduler can interleave), times the unit mask m[k].
+// cp.async of one float, zero-filled where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// A layer's width in chain fb as the products see it: one past its last
+// unit whose mask is not 0 (the units past it carry exact zeros), or
+// fout unmasked.  One warp; every lane gets it.
+__device__ __forceinline__ int tiled_width(const float* masks,
+                                           int mask_width, int fb,
+                                           const TiledLayer& ly, int lane) {
+  if (masks == nullptr || ly.mask_off < 0) return ly.fout;
+  const float* m = masks + (size_t)fb * mask_width + ly.mask_off;
+  int last = 0;
+  for (int o = lane; o < ly.fout; o += 32)
+    if (m[o] != 0.f) last = o + 1;
+  return __reduce_max_sync(0xffffffffu, last);
+}
+
+// Chain fb's products per tile, in (k-block, n-tile) pairs, plus its dW
+// jobs at kTiledDwWeight each: the work tiled_share_kernel shares the
+// grid by.  widths[l]: the layers' tiled_width.
+__device__ __forceinline__ int tiled_work(const TiledDesc& d,
+                                          const int* widths, int jobs) {
+  int w = kTiledDwWeight * jobs * kTiledWarps, fin = d.c_in;
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int fout = widths[l];
+    w += ((fin + 8) >> 3) * ((fout + 7) >> 3);            // forward
+    if (l > 0) w += ((fout + 7) >> 3) * ((fin + 7) >> 3);  // input grad
+    fin = fout;
+  }
+  return w;
+}
+
+// One block of kTiledThreads: each chain's work (tiled_work), then the
+// grid's `blocks` shared among the chains by it, each at least one and
+// at most n_tiles: span[2 c] = chain c's first block, span[2 c + 1] its
+// blocks (blocks past the last chain's run idle).  Deterministic, so
+// every launch on the same masks makes the same shares.
+__global__ void __launch_bounds__(kTiledThreads) tiled_share_kernel(
+    TiledDesc d, const float* __restrict__ masks, int blocks,
+    int* __restrict__ span) {
+  extern __shared__ int widths[];     // n_layers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = 0; c < d.n_fleet; ++c) {
+    for (int l = warp; l < d.n_layers; l += kTiledWarps) {
+      const int w = tiled_width(masks, d.mask_width, c, ld_row(d.layer + l),
+                                lane);
+      if (lane == 0) widths[l] = w;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) span[2 * c] = tiled_work(d, widths, d.jobs);
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  long long total = 0;
+  for (int c = 0; c < d.n_fleet; ++c) total += span[2 * c];
+  int used = 0;
+  for (int c = 0; c < d.n_fleet; ++c) {
+    int k = (int)((long long)blocks * span[2 * c] / total);
+    k = min(max(k, 1), d.n_tiles);
+    span[2 * c + 1] = k;
+    used += k;
+  }
+  // the rest one at a time to the chain with the most work a block; past
+  // the grid, one back from the chain with the least
+  while (used < blocks) {
+    int best = -1;
+    for (int c = 0; c < d.n_fleet; ++c)
+      if (span[2 * c + 1] < d.n_tiles &&
+          (best < 0 || (long long)span[2 * c] * span[2 * best + 1] >
+                           (long long)span[2 * best] * span[2 * c + 1]))
+        best = c;
+    if (best < 0) break;
+    ++span[2 * best + 1];
+    ++used;
+  }
+  while (used > blocks) {
+    int best = -1;
+    for (int c = 0; c < d.n_fleet; ++c)
+      if (span[2 * c + 1] > 1 &&
+          (best < 0 || (long long)span[2 * c] * span[2 * best + 1] <
+                           (long long)span[2 * best] * span[2 * c + 1]))
+        best = c;
+    --span[2 * best + 1];
+    --used;
+  }
+  for (int c = 0, first = 0; c < d.n_fleet; ++c) {
+    const int k = span[2 * c + 1];
+    span[2 * c] = first;
+    first += k;
+  }
+}
+
+// c[j] = A x B for the kN n-tiles n0 + j * nstep: A rows [ar, ar + 8 KB)
+// of the store by coordinates u, u + 8 (u = 16 m + g), B from W (row
+// stride WS).  kPaired (the forward, B = [b; W]): k-block features 2t,
+// 2t + 1, B rows of W, columns 8 n + g.  Else (the input gradient, B =
+// W^T, W from its row 1): features t, t + 4, B = W[8 n + g][8 kb + t
+// (+ 4)].  ar is a multiple of 8, so a lane's rows keep one permutation.
+// Branch-free (kN at compile time): the kN chains of three mma
+// interleave.
+template <int kN, bool kPaired>
+__device__ __forceinline__ void tiled_product(float (&c)[kN][4],
+                                              const float* S, int T, int ar,
+                                              int u, const float* W, int WS,
+                                              int KB, int n0, int nstep,
+                                              int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  const int r0 = kPaired ? 2 * t : t, r1 = kPaired ? 2 * t + 1 : t + 4;
+  const int s0 = tiled_sigma(r0), s1 = tiled_sigma(r1);
+  const int c00 = r0 * T + (u ^ s0), c01 = r0 * T + ((u + 8) ^ s0);
+  const int c10 = r1 * T + (u ^ s1), c11 = r1 * T + ((u + 8) ^ s1);
+  const float* a = S + ar * T;
+  const int bstep = kPaired ? WS : 4;         // b1's offset from b0
+  const int nstride = kPaired ? 8 : 8 * WS;   // one n-tile further
+  const int kstep = kPaired ? 8 * WS : 8;     // one k-block further
+  const float* w = (kPaired ? W + 2 * t * WS + g : W + g * WS + t) +
+                   n0 * nstride;
+#pragma unroll 2
+  for (int kb = 0; kb < KB; ++kb, a += 8 * T, w += kstep) {
+    uint32_t ab[4], as[4];
+    split_tf32_nearest(a[c00], &ab[0], &as[0]);
+    split_tf32_nearest(a[c01], &ab[1], &as[1]);
+    split_tf32_nearest(a[c10], &ab[2], &as[2]);
+    split_tf32_nearest(a[c11], &ab[3], &as[3]);
+    uint32_t bb[kN][2], bs[kN][2];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const float* wj = w + j * nstep * nstride;
+      split_tf32_nearest(wj[0], &bb[j][0], &bs[j][0]);
+      split_tf32_nearest(wj[bstep], &bb[j][1], &bs[j][1]);
+    }
+    float dd[kN][4];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) mma_tf32_zero(dd[j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) mma_tf32(dd[j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) mma_tf32(dd[j], ab, bb[j][0], bb[j][1]);
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += dd[j][e];
+  }
+}
+
+// What a warp's chunks of a layer share: the store and its rows of T
+// floats, the warp's first coordinate u (= 16 m + g), its n-tile stride
+// (the warps of its group), its lane, and the offsets of its four C
+// entries (rows 2t + (e & 1), coordinates u + 8 (e >> 1)) from a row
+// multiple of 8: off[e] in d / g rows, offh[e] in h rows (units from
+// row 1).
+struct TiledWarp {
+  float* S;
+  int T, u, nstep, g, t;
+  int off[4], offh[4];
+};
+
+// kN n-tiles of a hidden layer from n0: z = [1, h] [b; W] over the
+// chain's kb k-blocks, then h = act(z) and d = act'(z) times the unit
+// mask into rows h_row + 1 + o and g_row + o (o < fout); the activation
+// fixed at compile time, so a tile's four evaluations interleave.
+template <int kN, int kAct>
+__device__ __forceinline__ void tiled_hidden_chunk(const TiledWarp& x,
+                                                   const TiledLayer& ly,
+                                                   const float* W, int xr,
+                                                   int kb, const float* ml,
+                                                   int n0) {
+  float c[kN][4];
+  tiled_product<kN, true>(c, x.S, x.T, xr, x.u, W, ly.w_stride, kb, n0,
+                          x.nstep, x.g, x.t);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int o0 = 8 * (n0 + j * x.nstep);
+    float h[4], dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      brief::act_fwd(kAct, ly.w0, c[j][e], &h[e], &dv[e]);
+    float* hp = x.S + (ly.h_row + o0) * x.T;
+    float* dp = x.S + (ly.g_row + o0) * x.T;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int o = o0 + 2 * x.t + q;
+      if (o < ly.fout) {
+        const float m = ml == nullptr ? 1.f : ml[o];
+        hp[x.offh[q]] = h[q] * m;
+        hp[x.offh[q + 2]] = h[q + 2] * m;
+        dp[x.off[q]] = dv[q] * m;
+        dp[x.off[q + 2]] = dv[q + 2] * m;
+      }
+    }
+  }
+}
+
+// A hidden layer: the warp's n-tiles nfirst, nfirst + nstep, ... below
+// NT, in chunks of up to kTiledChunk.
 template <int kAct>
-__device__ __forceinline__ void act_tile(const float (&z)[4][kCols], float w0,
-                                         const float (&m)[4],
-                                         float (&h)[4][kCols],
-                                         float (&dv)[4][kCols]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      brief::act_fwd(kAct, w0, z[k][c], &h[k][c], &dv[k][c]);
-      h[k][c] *= m[k];
-      dv[k][c] *= m[k];
+__device__ __forceinline__ void tiled_hidden(const TiledWarp& x,
+                                             const TiledLayer& ly,
+                                             const float* W, int xr, int kb,
+                                             int NT, const float* ml,
+                                             int nfirst) {
+  for (int n0 = nfirst; n0 < NT; n0 += kTiledChunk * x.nstep) {
+    const int cnt = (NT - n0 + x.nstep - 1) / x.nstep;
+    if (cnt >= 3) {
+      tiled_hidden_chunk<3, kAct>(x, ly, W, xr, kb, ml, n0);
+    } else if (cnt == 2) {
+      tiled_hidden_chunk<2, kAct>(x, ly, W, xr, kb, ml, n0);
+    } else {
+      tiled_hidden_chunk<1, kAct>(x, ly, W, xr, kb, ml, n0);
     }
   }
 }
 
-// Rows [hr, hr + fout) = act(W^T x + b) of the tile and rows [dr, dr + fout)
-// = act'; x is rows [xr, xr + fin] (row xr + fin holds ones, W's row fin the
-// bias; both zero past it up to the row quad).  A thread owns 4 outputs x kCols coordinates; where the layer has fewer
-// such micro-tiles than threads (the last layer), `split` threads share
-// one, each a stride of the row quads, summed by shuffles.
-__device__ __forceinline__ void tiled_forward(
-    const float* __restrict__ W, float* A, int xr, int fin, int fout,
-    int act, float w0, int hr, int dr, const float* __restrict__ mask) {
-  const int t = threadIdx.x, fop = round_up4(fout);
-  const int n_mt = (fop >> 2) * kColGroups;
-  int split = 1;
-  while (split < 32 && 2 * split * n_mt <= kTiledThreads) split *= 2;
-  const int part = t & (split - 1);
-  for (int m = t / split; m < n_mt; m += kTiledThreads / split) {
-    const int o0 = (m / kColGroups) * 4, u0 = (m % kColGroups) * kCols;
-    float mo[4];   // the mask, read ahead of the products
+// kN n-tiles of the last layer from n0: the prediction, the loss against
+// the tile's values and weights (rows yr, yr + c_out of its input
+// buffer) and g = dL/dz into rows g_row + o (o < c_out).
+template <int kN>
+__device__ __forceinline__ void tiled_last_chunk(
+    const TiledWarp& x, const TiledLayer& ly, const float* W, int xr, int kb,
+    const float* ml, int n0, int yr, int n_valid, int loss, float beta,
+    bool thr_on, float thr, float* loss_acc) {
+  float c[kN][4];
+  tiled_product<kN, true>(c, x.S, x.T, xr, x.u, W, ly.w_stride, kb, n0,
+                          x.nstep, x.g, x.t);
+  const int c_out = ly.fout;
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      mo[k] = mask != nullptr && o0 + k < fout ? __ldg(mask + o0 + k) : 1.f;
-    float z[4][kCols];
+  for (int j = 0; j < kN; ++j) {
+    const int o0 = 8 * (n0 + j * x.nstep);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) z[k][0] = z[k][1] = 0.f;
-    for (int q = part; 4 * q <= fin; q += split) {
-      const float* x = A + elem(xr + 4 * q, u0);
-      const float* w = W + 4 * q * fop + o0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 wv = *reinterpret_cast<const float4*>(w + j * fop);
-        const float2 xv = *reinterpret_cast<const float2*>(x + j * kTile);
-        z[0][0] = fmaf(wv.x, xv.x, z[0][0]);
-        z[0][1] = fmaf(wv.x, xv.y, z[0][1]);
-        z[1][0] = fmaf(wv.y, xv.x, z[1][0]);
-        z[1][1] = fmaf(wv.y, xv.y, z[1][1]);
-        z[2][0] = fmaf(wv.z, xv.x, z[2][0]);
-        z[2][1] = fmaf(wv.z, xv.y, z[2][1]);
-        z[3][0] = fmaf(wv.w, xv.x, z[3][0]);
-        z[3][1] = fmaf(wv.w, xv.y, z[3][1]);
+    for (int e = 0; e < 4; ++e) {
+      const int o = o0 + 2 * x.t + (e & 1);
+      const int uu = x.u + 8 * (e >> 1);
+      if (o >= c_out) continue;
+      float h, dv;
+      brief::act_fwd(ly.act, ly.w0, c[j][e], &h, &dv);
+      if (ml != nullptr) {
+        h *= ml[o];
+        dv *= ml[o];
       }
-    }
-    // split > 1 only when all micro-tiles fit in one pass of whole warps
-    for (int s = 1; s < split; s <<= 1) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        z[k][0] += __shfl_xor_sync(0xffffffffu, z[k][0], s);
-        z[k][1] += __shfl_xor_sync(0xffffffffu, z[k][1], s);
-      }
-    }
-    if (part != 0) continue;
-    float h[4][kCols], dv[4][kCols];
-    switch (act) {
-      case brief::kActSine: act_tile<brief::kActSine>(z, w0, mo, h, dv); break;
-      case brief::kActRelu: act_tile<brief::kActRelu>(z, w0, mo, h, dv); break;
-      case brief::kActSigmoid:
-        act_tile<brief::kActSigmoid>(z, w0, mo, h, dv);
-        break;
-      default: act_tile<brief::kActNone>(z, w0, mo, h, dv);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (o0 + k < fout) {
-        *reinterpret_cast<float2*>(A + elem(hr + o0 + k, u0)) =
-            make_float2(h[k][0], h[k][1]);
-        *reinterpret_cast<float2*>(A + elem(dr + o0 + k, u0)) =
-            make_float2(dv[k][0], dv[k][1]);
-      }
+      const float gv = loss_grad(
+          loss, beta, thr_on, thr, h, x.S[(yr + o0) * x.T + x.off[e]],
+          x.S[tiled_at(yr + c_out + o, uu, x.T)], uu < n_valid, dv, loss_acc);
+      x.S[(ly.g_row + o0) * x.T + x.off[e]] = gv;
     }
   }
 }
 
-// Rows [dr, dr + fin) *= W g: the input gradient of a layer whose output
-// gradient is rows [gr, gr + round4(fout)) (zero past fout).  A thread owns
-// 4 inputs x kCols coordinates and walks W's rows along o, so no W^T copy.
-__device__ __forceinline__ void tiled_input_grad(const float* __restrict__ W,
-                                                 float* A, int fin, int fout,
-                                                 int gr, int dr) {
-  const int t = threadIdx.x, fop = round_up4(fout);
-  const int n_mt = ((fin + 3) >> 2) * kColGroups;
-  for (int m = t; m < n_mt; m += kTiledThreads) {
-    const int i0 = (m / kColGroups) * 4, u0 = (m % kColGroups) * kCols;
-    float z[4][kCols];
+// kN n-tiles of layer l's input gradient from n0: g_{l-1} = (g_l W^T)
+// d_{l-1} in place of d_{l-1} (rows dr + i, i < fin), over kb k-blocks
+// of g_l.
+template <int kN>
+__device__ __forceinline__ void tiled_grad_chunk(const TiledWarp& x,
+                                                 const TiledLayer& ly,
+                                                 const float* W, int dr,
+                                                 int kb, int n0) {
+  float c[kN][4];
+  tiled_product<kN, false>(c, x.S, x.T, ly.g_row, x.u, W + ly.w_stride,
+                           ly.w_stride, kb, n0, x.nstep, x.g, x.t);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) z[a][0] = z[a][1] = 0.f;
-    for (int o = 0; o < fop; o += 4) {
-      const float* gq = A + elem(gr + o, u0);   // a row quad: one permutation
-      float2 g[4];
+  for (int j = 0; j < kN; ++j) {
+    const int i0 = 8 * (n0 + j * x.nstep);
+    float* p = x.S + (dr + i0) * x.T;
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        g[b] = *reinterpret_cast<const float2*>(gq + b * kTile);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(W + (i0 + a) * fop + o);
-        z[a][0] = fmaf(w.x, g[0].x, z[a][0]);
-        z[a][1] = fmaf(w.x, g[0].y, z[a][1]);
-        z[a][0] = fmaf(w.y, g[1].x, z[a][0]);
-        z[a][1] = fmaf(w.y, g[1].y, z[a][1]);
-        z[a][0] = fmaf(w.z, g[2].x, z[a][0]);
-        z[a][1] = fmaf(w.z, g[2].y, z[a][1]);
-        z[a][0] = fmaf(w.w, g[3].x, z[a][0]);
-        z[a][1] = fmaf(w.w, g[3].y, z[a][1]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (i0 + a < fin) {
-        float2* p = reinterpret_cast<float2*>(A + elem(dr + i0 + a, u0));
-        const float2 dv = *p;
-        *p = make_float2(z[a][0] * dv.x, z[a][1] * dv.y);
-      }
+    for (int e = 0; e < 4; ++e) {
+      if (i0 + 2 * x.t + (e & 1) < ly.fin) p[x.off[e]] *= c[j][e];
     }
   }
 }
 
-// kSlots: dW tiles per thread.  slot_map (kSlots, kTiledThreads): the
-// tile (layer << 16 | ig << 8 | og, or -1) of entries (4 ig + a, 4 og + b),
-// a, b < 4, of the layer's (W; b) gradient, bias as row fin, that thread t
-// sums in registers for its whole run (ops/fused_train.py dw_map).
-template <int kSlots>
+// kJ: dW jobs a warp (the instance), kTiledJob tiles each.  Grid: the
+// fleet's blocks, shared among its chains by tiled_share_kernel (span);
+// kTiledThreads threads, one block an SM.
+template <int kJ>
 __global__ void __launch_bounds__(kTiledThreads, 1) fused_train_tiled_kernel(
     const float* __restrict__ coords, const float* __restrict__ values,
     const float* __restrict__ weights, const float* __restrict__ params,
-    const int* __restrict__ slot_map, float* __restrict__ partial, int n,
-    TiledDesc d, int loss, float beta, int has_thres,
-    const float* __restrict__ thres, const float* __restrict__ masks) {
+    const float* __restrict__ masks, const float* __restrict__ thres,
+    const int* __restrict__ span, float* __restrict__ partial, int n,
+    TiledDesc d, int loss, float beta) {
   extern __shared__ __align__(16) float sm[];
-  const int t = threadIdx.x, L = d.n_layers, fb = blockIdx.y;
-  coords += (size_t)fb * d.c_in * n;
-  values += (size_t)fb * d.c_out * n;
-  weights += (size_t)fb * d.c_out * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int L = d.n_layers, c_in = d.c_in, c_out = d.c_out;
+  // this block's chain and its place among the chain's blocks
+  int fb = 0;
+  while (fb < d.n_fleet && blockIdx.x >= span[2 * fb] + span[2 * fb + 1])
+    ++fb;
+  if (fb == d.n_fleet) return;       // past the last chain's blocks
+  const int rank = blockIdx.x - span[2 * fb], n_blocks = span[2 * fb + 1];
+  const int MT = d.mt, T = 16 * MT;
+  coords += (size_t)fb * c_in * n;
+  values += (size_t)fb * c_out * n;
+  weights += (size_t)fb * c_out * n;
   params += (size_t)fb * d.n_params;
-  const float* mk =
-      masks == nullptr ? nullptr : masks + (size_t)fb * d.mask_width;
-  const float thr = has_thres ? thres[fb] : 0.f;
-  float* A = sm + d.act_off;
+  const bool thr_on = thres != nullptr;
+  const float thr = thr_on ? thres[fb] : 0.f;
+  float* S = sm + d.w_floats;            // the activation store
+  float* msk = sm + d.mask_sm;
+  int* dsc = reinterpret_cast<int*>(sm + d.desc_sm) + warp * kJ;
+  TiledLayer* tab = reinterpret_cast<TiledLayer*>(sm + d.tab_sm);
+  int* widths = reinterpret_cast<int*>(sm + d.width_sm);
+  const int* codes = reinterpret_cast<const int*>(d.layer + L);
 
-  // W of layer l as (round4(fin + 1), round4(fout)): row fin is the bias
-  // (it follows W in the packed parameters), zeros elsewhere
-  for (int l = 0; l < L; ++l) {
-    const TiledLayer ly = ld_row(d.layer + l);
-    const int fin = ly.fin, fout = ly.fout, fop = round_up4(fout);
-    const float* W = params + ly.p_off;
-    float* sw = sm + ly.w_off;
-    for (int e = t; e < round_up4(fin + 1) * fop; e += kTiledThreads) {
-      const int i = e / fop, o = e - i * fop;
-      sw[e] = (i <= fin && o < fout) ? W[i * fout + o] : 0.f;
-    }
+  // ---- set-up: zeros, the layer table and the chain's widths, W (bias
+  // first), the ones rows, masks, this warp's dW codes ----
+  for (int e = tid; e < d.red_off; e += kTiledThreads) sm[e] = 0.f;
+  for (int l = tid; l < L; l += kTiledThreads) tab[l] = ld_row(d.layer + l);
+  for (int l = warp; l < L; l += kTiledWarps) {
+    const int w = tiled_width(masks, d.mask_width, fb, ld_row(d.layer + l),
+                              lane);
+    if (lane == 0) widths[l] = w;
   }
-  // activation rows: zeros (padding rows stay zero), then the ones row
-  // after each layer's input
-  const TiledLayer last_ly = ld_row(d.layer + L - 1);
-  const int n_rows = last_ly.g_row + round_up4(last_ly.fout);
-  for (int e = t; e < n_rows * kTile; e += kTiledThreads) A[e] = 0.f;
   __syncthreads();
-  for (int e = t; e < L * kTile; e += kTiledThreads) {
-    const int l = e / kTile;
-    const TiledLayer ly = ld_row(d.layer + l);
-    A[elem(ly.x_row + ly.fin, e - l * kTile)] = 1.f;
-  }
-
-  // this thread's dW tiles: first rows of their H and G quads, times kTile
-  int hb[kSlots], gb[kSlots];
-  float acc[kSlots][16];
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int code = slot_map[k * kTiledThreads + t];
-    hb[k] = gb[k] = -1;
-    if (code >= 0) {
-      const int l = code >> 16, ig = (code >> 8) & 255, og = code & 255;
-      const TiledLayer ly = ld_row(d.layer + l);
-      hb[k] = (ly.x_row + 4 * ig) * kTile;
-      gb[k] = (ly.g_row + 4 * og) * kTile;
+  for (int l = 0; l < L; ++l) {
+    const TiledLayer ly = tab[l];
+    const int fo = ly.fout, cnt = (ly.fin + 1) * fo;
+    const float* src = params + ly.p_off;   // W (fin, fout), then b
+    for (int e = tid; e < cnt; e += kTiledThreads) {
+      const int i = e / fo;
+      sm[ly.w_off + (i < ly.fin ? i + 1 : 0) * ly.w_stride + e - i * fo] =
+          src[e];
     }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[k][j] = 0.f;
+    for (int e = tid; e < (ly.x_in ? 2 : 1) * T; e += kTiledThreads) {
+      const int r = ly.x_row + (e >= T ? d.buf_rows : 0);
+      S[tiled_at(r, e % T, T)] = 1.f;
+    }
   }
+  if (masks != nullptr)
+    for (int e = tid; e < d.mask_width; e += kTiledThreads)
+      msk[e] = masks[(size_t)fb * d.mask_width + e];
+  if (lane < kJ) dsc[lane] = codes[2 * (warp * kJ + lane)];
+
+  // the inputs of tile `tl` (coordinates, values, weights; zeros past n)
+  // into input buffer `buf`, by cp.async
+  const int n_ch = c_in + 2 * c_out;
+  auto stage = [&](int tl, int buf) {
+    const int base = tl * T;
+    for (int e = tid; e < n_ch * T; e += kTiledThreads) {
+      const int ch = e / T, u = e - ch * T, idx = base + u;
+      const int r =
+          buf * d.buf_rows + (ch < c_in ? 1 + ch : d.yw_row + ch - c_in);
+      const float* src = ch < c_in ? coords + (size_t)ch * n
+                         : ch < c_in + c_out
+                             ? values + (size_t)(ch - c_in) * n
+                             : weights + (size_t)(ch - c_in - c_out) * n;
+      cp_async4(S + tiled_at(r, u, T), src + min(idx, n - 1), idx < n);
+    }
+    brief::wide::cp_commit();
+  };
+
+  float acc[kJ][kTiledJob][4];
+#pragma unroll
+  for (int s = 0; s < kJ; ++s)
+#pragma unroll
+    for (int j = 0; j < kTiledJob; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
   float loss_acc = 0.f;
+  const int grp = warp % MT, gsize = kTiledWarps / MT;   // this warp's group
+  TiledWarp x{S, T, 16 * grp + g, gsize, g, t, {}, {}};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = 2 * t + (e & 1), uu = x.u + 8 * (e >> 1);
+    x.off[e] = r * T + (uu ^ tiled_sigma(r));
+    x.offh[e] = (r + 1) * T + (uu ^ tiled_sigma(r + 1));
+  }
+  const int nfirst = warp / MT;          // its first n-tile of a layer
+  const int bar = 1 + grp, bar_threads = 32 * gsize;
+  if (rank < d.n_tiles) stage(rank, 0);
+  brief::wide::cp_wait<0>();
+  __syncthreads();
 
-  const int n_tiles = (n + kTile - 1) / kTile;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * kTile;
-    for (int e = t; e < d.c_in * kTile; e += kTiledThreads) {
-      const int c = e / kTile, u = e - c * kTile, idx = base + u;
-      A[elem(c, u)] = idx < n ? coords[(size_t)c * n + idx] : 0.f;
-    }
-    __syncthreads();
+  int par = 0;
+  for (int tile = rank; tile < d.n_tiles; tile += n_blocks, par ^= 1) {
+    const int base = tile * T, pr = par * d.buf_rows;
+    if (tile + n_blocks < d.n_tiles) stage(tile + n_blocks, par ^ 1);
 
-    // ---- forward: h_l and d_l of the tile ----
-    for (int l = 0; l < L; ++l) {
-      const TiledLayer ly = ld_row(d.layer + l);
+    // ---- forward: z = [1, h] [b; W] over the chain's own k-blocks and
+    // n-tiles; h and d of hidden layers into the store; the last
+    // layer's loss and g = dL/dz into its g rows ----
+    for (int l = 0, fin = c_in; l < L; ++l) {
+      const TiledLayer ly = tab[l];
+      const int fout = widths[l];
+      const int xr = ly.x_row + (ly.x_in ? pr : 0);
+      const int KB = (fin + 8) >> 3, NT = (fout + 7) >> 3;
+      const float* W = sm + ly.w_off;
       const float* ml =
-          mk == nullptr || ly.mask_off < 0 ? nullptr : mk + ly.mask_off;
-      tiled_forward(sm + ly.w_off, A, ly.x_row, ly.fin, ly.fout, ly.act,
-                    ly.w0, ly.h_row, ly.g_row, ml);
-      __syncthreads();
-    }
-
-    // ---- loss and dL/dz of the last layer (padding lanes weigh 0) ----
-    for (int e = t; e < d.c_out * kTile; e += kTiledThreads) {
-      const int c = e / kTile, u = e - c * kTile, idx = base + u;
-      const bool valid = idx < n;
-      const float p = A[elem(last_ly.h_row + c, u)];
-      float y = 0.f, wv = 0.f;
-      if (valid) {
-        y = values[(size_t)c * n + idx];
-        wv = weights[(size_t)c * n + idx];
-      }
-      float weff = (has_thres && p <= thr) ? 1.f : wv;
-      weff = valid ? weff : 0.f;
-      const float er = p - y;
-      float le, g;
-      if (loss == 0) {  // datal2
-        le = er * er;
-        g = 2.f * weff * er;
-      } else {          // datasmoothl1
-        const float ae = fabsf(er);
-        le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
-        const float sg = (float)((er > 0.f) - (er < 0.f));
-        g = weff * (ae < beta ? er / beta : sg);
-      }
-      loss_acc += weff * le;
-      float* dg = A + elem(last_ly.g_row + c, u);
-      *dg = g * *dg;
-    }
-    __syncthreads();
-
-    // ---- input gradients, last layer first: g_{l-1} over d_{l-1} ----
-    for (int l = L - 1; l > 0; --l) {
-      const TiledLayer ly = ld_row(d.layer + l);
-      tiled_input_grad(sm + ly.w_off, A, ly.fin, ly.fout, ly.g_row,
-                       ld_row(d.layer + l - 1).g_row);
-      __syncthreads();
-    }
-
-    // ---- dW of every layer: each thread its 4 x 4 tiles, in registers ----
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      if (hb[k] < 0) continue;
-      const int hkey = (hb[k] >> 5) & 28, gkey = (gb[k] >> 5) & 28;
-#pragma unroll
-      for (int uc = 0; uc < kTile / 4; ++uc) {
-        float4 h[4], g[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          h[a] = *reinterpret_cast<const float4*>(
-              A + hb[k] + a * kTile + ((uc << 2) ^ hkey));
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          g[b] = *reinterpret_cast<const float4*>(
-              A + gb[k] + b * kTile + ((uc << 2) ^ gkey));
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            float s = acc[k][4 * a + b];
-            s = fmaf(h[a].x, g[b].x, s);
-            s = fmaf(h[a].y, g[b].y, s);
-            s = fmaf(h[a].z, g[b].z, s);
-            s = fmaf(h[a].w, g[b].w, s);
-            acc[k][4 * a + b] = s;
+          masks == nullptr || ly.mask_off < 0 ? nullptr : msk + ly.mask_off;
+      if (l + 1 < L) {
+        switch (ly.act) {
+          case brief::kActSine:
+            tiled_hidden<brief::kActSine>(x, ly, W, xr, KB, NT, ml, nfirst);
+            break;
+          case brief::kActRelu:
+            tiled_hidden<brief::kActRelu>(x, ly, W, xr, KB, NT, ml, nfirst);
+            break;
+          case brief::kActSigmoid:
+            tiled_hidden<brief::kActSigmoid>(x, ly, W, xr, KB, NT, ml,
+                                             nfirst);
+            break;
+          default:
+            tiled_hidden<brief::kActNone>(x, ly, W, xr, KB, NT, ml, nfirst);
+        }
+      } else {
+        const int yr = pr + d.yw_row;
+        for (int n0 = nfirst; n0 < NT; n0 += kTiledChunk * gsize) {
+          const int cnt = (NT - n0 + gsize - 1) / gsize;
+          if (cnt >= 3) {
+            tiled_last_chunk<3>(x, ly, W, xr, KB, ml, n0, yr, n - base, loss,
+                                beta, thr_on, thr, &loss_acc);
+          } else if (cnt == 2) {
+            tiled_last_chunk<2>(x, ly, W, xr, KB, ml, n0, yr, n - base, loss,
+                                beta, thr_on, thr, &loss_acc);
+          } else {
+            tiled_last_chunk<1>(x, ly, W, xr, KB, ml, n0, yr, n - base, loss,
+                                beta, thr_on, thr, &loss_acc);
           }
         }
       }
+      fin = fout;
+      group_sync(bar, bar_threads);   // the group's layer output is in
     }
-    __syncthreads();   // the next tile overwrites the coordinates
+
+    // ---- input gradients, last layer first: g_{l-1} = (g_l W_l^T) d_{l-1}
+    // in place of d_{l-1} (rows i < fin), the chain's own k-blocks and
+    // n-tiles ----
+    for (int l = L - 1; l >= 1; --l) {
+      const TiledLayer ly = tab[l];
+      const int dr = tab[l - 1].g_row;
+      const int KB = (widths[l] + 7) >> 3, NT = (widths[l - 1] + 7) >> 3;
+      const float* W = sm + ly.w_off;
+      for (int n0 = nfirst; n0 < NT; n0 += kTiledChunk * gsize) {
+        const int cnt = (NT - n0 + gsize - 1) / gsize;
+        if (cnt >= 3) {
+          tiled_grad_chunk<3>(x, ly, W, dr, KB, n0);
+        } else if (cnt == 2) {
+          tiled_grad_chunk<2>(x, ly, W, dr, KB, n0);
+        } else {
+          tiled_grad_chunk<1>(x, ly, W, dr, KB, n0);
+        }
+      }
+      if (l > 1) group_sync(bar, bar_threads);
+    }
+    __syncthreads();   // every group's h and g are in the store
+
+    // ---- dW over the tile's T coordinates into this warp's jobs: kJ
+    // jobs of kTiledJob tiles of one row (A, M), sharing its fragment;
+    // every job and tile computed (a warp's unused slots read rows 0 and
+    // are never written), so the jobs' mma chains interleave ----
+    const int sg = tiled_sigma(g);   // rows 16 m + g (+ 8), 8 n + g
+    for (int kb = 0; kb < 2 * MT; ++kb) {
+      const int ua = (8 * kb + t) ^ sg, ub = (8 * kb + t + 4) ^ sg;
+#pragma unroll
+      for (int s = 0; s < kJ; ++s) {
+        const int code = dsc[s];
+        const int ra = (code & 0x1fff) + ((code >> 26) & 1 ? pr : 0);
+        const int rb = ((code >> 13) & 0x1fff) + ((code >> 27) & 1 ? pr : 0);
+        const float* pa = S + (ra + g) * T;
+        uint32_t ab[4], as[4];
+        split_tf32_nearest(pa[ua], &ab[0], &as[0]);
+        split_tf32_nearest(pa[8 * T + ua], &ab[1], &as[1]);
+        split_tf32_nearest(pa[ub], &ab[2], &as[2]);
+        split_tf32_nearest(pa[8 * T + ub], &ab[3], &as[3]);
+        uint32_t bb[kTiledJob][2], bs[kTiledJob][2];
+#pragma unroll
+        for (int j = 0; j < kTiledJob; ++j) {
+          const float* pb = S + (rb + 8 * j + g) * T;
+          split_tf32_nearest(pb[ua], &bb[j][0], &bs[j][0]);
+          split_tf32_nearest(pb[ub], &bb[j][1], &bs[j][1]);
+        }
+        float dd[kTiledJob][4];
+#pragma unroll
+        for (int j = 0; j < kTiledJob; ++j)
+          mma_tf32_zero(dd[j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+        for (int j = 0; j < kTiledJob; ++j)
+          mma_tf32(dd[j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+        for (int j = 0; j < kTiledJob; ++j)
+          mma_tf32(dd[j], ab, bb[j][0], bb[j][1]);
+#pragma unroll
+        for (int j = 0; j < kTiledJob; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[s][j][e] += dd[j][e];
+      }
+    }
+    brief::wide::cp_wait<0>();   // the next tile's inputs are in
+    __syncthreads();             // before the next tile overwrites the store
   }
 
   // ---- this block's partial sums, written once: gradients, then loss ----
-  float* out = partial_row(partial, fb, d.n_params);
+  float* out = partial + (size_t)blockIdx.x * (d.n_params + 1);
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int code = slot_map[k * kTiledThreads + t];
+  for (int s = 0; s < kJ; ++s) {
+    const int code = codes[2 * (warp * kJ + s) + 1];
     if (code < 0) continue;
-    const int l = code >> 16, ig = (code >> 8) & 255, og = code & 255;
-    const TiledLayer ly = ld_row(d.layer + l);
-    const int fin = ly.fin, fout = ly.fout;
-    float* outl = out + ly.p_off;
+    const int l = code >> 20, gm = (code >> 19) & 1;
+    const int m = (code >> 12) & 127, n0 = (code >> 4) & 255, cnt = code & 15;
+    const TiledLayer ly = tab[l];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int j = 0; j < kTiledJob; ++j) {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = 4 * ig + a, o = 4 * og + b;   // i == fin: the bias
-        if (i <= fin && o < fout) outl[i * fout + o] = acc[k][4 * a + b];
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m + g + 8 * (e >> 1);
+        const int q = 8 * (n0 + j) + 2 * t + (e & 1);
+        // the input region's row k: the bias (k == 0) or unit k - 1
+        const int k = gm ? q : r, o = gm ? r : q;
+        const int i = k == 0 ? ly.fin : k - 1;
+        if (j < cnt && k <= ly.fin && o < ly.fout)
+          out[ly.p_off + i * ly.fout + o] = acc[s][j][e];
       }
     }
   }
+  for (int s = 16; s > 0; s >>= 1)
+    loss_acc += __shfl_xor_sync(0xffffffffu, loss_acc, s);
   float* red = sm + d.red_off;
-  red[t] = loss_acc;
+  if (lane == 0) red[warp] = loss_acc;
   __syncthreads();
-  for (int s = kTiledThreads / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] += red[t + s];
-    __syncthreads();
+  if (tid == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < kTiledWarps; ++w) sum += red[w];
+    out[d.n_params] = sum;
   }
-  if (t == 0) out[d.n_params] = red[0];
 }
 
-template <int kSlots>
+// out[c][p] = (sum over chain c's blocks, in order, of their partial row
+// p) / m, c = blockIdx.y; the blocks from span (tiled_share_kernel).
+__global__ void reduce_spans_kernel(const float* __restrict__ partial,
+                                    const int* __restrict__ span,
+                                    float* __restrict__ out, int width,
+                                    float m) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= width) return;
+  const int c = blockIdx.y, first = span[2 * c], k = span[2 * c + 1];
+  partial += (size_t)first * width + p;
+  float s = 0.f;
+  for (int b = 0; b < k; ++b) s += partial[(size_t)b * width];
+  out[(size_t)c * width + p] = s / m;
+}
+
+template <int kJ>
 cudaError_t tiled_occupancy(int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_tiled_kernel<kSlots>,
+      fused_train_tiled_kernel<kJ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_train_tiled_kernel<kSlots>, kTiledThreads,
+      blocks_per_sm, fused_train_tiled_kernel<kJ>, kTiledThreads,
       smem_bytes);
 }
 
-template <int kSlots>
-cudaError_t launch_tiled(dim3 grid, int smem_bytes, cudaStream_t s,
+template <int kJ>
+cudaError_t launch_tiled(int grid, int smem_bytes, cudaStream_t s,
                          const float* coords, const float* values,
                          const float* weights, const float* params,
-                         const int* slot_map, float* partial, int n,
-                         const TiledDesc& d, int loss, float beta,
-                         const float* thres, const float* masks) {
+                         const float* masks, const float* thres,
+                         const int* span, float* partial, int n,
+                         const TiledDesc& d, int loss, float beta) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_tiled_kernel<kSlots>,
+      fused_train_tiled_kernel<kJ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  fused_train_tiled_kernel<kSlots><<<grid, kTiledThreads, smem_bytes, s>>>(
-      coords, values, weights, params, slot_map, partial, n, d, loss, beta,
-      thres != nullptr, thres, masks);
+  fused_train_tiled_kernel<kJ><<<grid, kTiledThreads, smem_bytes, s>>>(
+      coords, values, weights, params, masks, thres, span, partial, n, d,
+      loss, beta);
   return cudaGetLastError();
 }
 
@@ -1648,14 +1929,16 @@ int brief_fused_train(const float* coords, const float* values,
 }
 
 // The tiled layout's blocks per SM (kTiledThreads threads, `smem_bytes`)
-// for `slots` dW tiles per thread, and the device's SM count.
-int brief_fused_train_tiled_occupancy(int slots, int smem_bytes,
+// for `jobs` dW jobs a warp (the instance), and the device's SM count.
+int brief_fused_train_tiled_occupancy(int jobs, int smem_bytes,
                                       int* blocks_per_sm, int* sm_count) {
   cudaError_t err;
-  switch (slots) {
-    case 4: err = tiled_occupancy<4>(smem_bytes, blocks_per_sm); break;
+  switch (jobs) {
+    case 3: err = tiled_occupancy<3>(smem_bytes, blocks_per_sm); break;
     case 6: err = tiled_occupancy<6>(smem_bytes, blocks_per_sm); break;
-    case 8: err = tiled_occupancy<8>(smem_bytes, blocks_per_sm); break;
+    case 9: err = tiled_occupancy<9>(smem_bytes, blocks_per_sm); break;
+    case 11: err = tiled_occupancy<11>(smem_bytes, blocks_per_sm); break;
+    case 13: err = tiled_occupancy<13>(smem_bytes, blocks_per_sm); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -1666,47 +1949,65 @@ int brief_fused_train_tiled_occupancy(int slots, int smem_bytes,
                                      dev);
 }
 
-// The tiled layout.  meta: n_layers, c_in, c_out, n_params, red_off,
-// act_off, mask_width, slots.  table: device memory, n_layers TiledLayer
-// rows (ops/fused_train.py tiled_table); a layer's mask_off counts only
-// when `masks` is given.  slot_map: (slots, kTiledThreads) int32.  The
-// other arguments as for brief_fused_train; the kernel always runs in its
-// fleet form (B = 1 for one chain).
+// The tiled layout (ops/fused_train.py tiled_plan).  meta: n_layers, c_in,
+// c_out, n_params, mask_width, mt, buf_rows, yw_row, w_floats, mask_sm,
+// tab_sm, width_sm, desc_sm, red_off, jobs (dW jobs a warp: the
+// instance).  table: device memory, n_layers TiledLayer rows, then the dW
+// codes (ops/fused_train.py tiled_table); a layer's mask_off counts only
+// when `masks` (B, mask_width) is given.  `grid` blocks in all, shared
+// among the B chains by their work (tiled_share_kernel; span: 2 B ints
+// of scratch); partial: (grid, n_params + 1) scratch.  The other
+// arguments as for brief_fused_train.
 int brief_fused_train_tiled(const float* coords, const float* values,
                             const float* weights, const float* params,
                             const float* masks, const float* thres,
-                            const int* slot_map, const void* table,
-                            float* partial, float* out, int n, int n_fleet,
-                            const int* meta, int loss, float beta, int grid,
-                            int smem_bytes, void* stream) {
+                            const void* table, float* partial, int* span,
+                            float* out, int n, int n_fleet, const int* meta,
+                            int loss, float beta, int grid, int smem_bytes,
+                            void* stream) {
   TiledDesc d;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || table == nullptr || n_fleet < 1 || n_fleet > 65535)
+  if (d.n_layers < 1 || table == nullptr || span == nullptr || n < 1 ||
+      n_fleet < 1 || n_fleet > 65535 || grid < n_fleet)
     return (int)cudaErrorInvalidValue;
   d.c_in = meta[1];
   d.c_out = meta[2];
   d.n_params = meta[3];
-  d.red_off = meta[4];
-  d.act_off = meta[5];
-  d.mask_width = meta[6];
-  const int slots = meta[7];
+  d.mask_width = meta[4];
+  d.mt = meta[5];
+  d.buf_rows = meta[6];
+  d.yw_row = meta[7];
+  d.w_floats = meta[8];
+  d.mask_sm = meta[9];
+  d.tab_sm = meta[10];
+  d.width_sm = meta[11];
+  d.desc_sm = meta[12];
+  d.red_off = meta[13];
+  d.jobs = meta[14];
+  d.n_fleet = n_fleet;
+  d.n_tiles = (n + 16 * d.mt - 1) / (16 * d.mt);
+  if (d.mt != 2 && d.mt != 4 && d.mt != 8) return (int)cudaErrorInvalidValue;
   d.layer = static_cast<const TiledLayer*>(table);
-  decltype(&launch_tiled<4>) fn;
-  switch (slots) {
-    case 4: fn = &launch_tiled<4>; break;
+  decltype(&launch_tiled<3>) fn;
+  switch (d.jobs) {
+    case 3: fn = &launch_tiled<3>; break;
     case 6: fn = &launch_tiled<6>; break;
-    case 8: fn = &launch_tiled<8>; break;
+    case 9: fn = &launch_tiled<9>; break;
+    case 11: fn = &launch_tiled<11>; break;
+    case 13: fn = &launch_tiled<13>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = fn(dim3(grid, n_fleet), smem_bytes, s, coords, values,
-                       weights, params, slot_map, partial, n, d, loss, beta,
-                       thres, masks);
+  tiled_share_kernel<<<1, kTiledThreads, d.n_layers * sizeof(int), s>>>(
+      d, masks, grid, span);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = fn(grid, smem_bytes, s, coords, values, weights, params, masks, thres,
+           span, partial, n, d, loss, beta);
   if (err != cudaSuccess) return (int)err;
   const int width = d.n_params + 1;
-  reduce_partials_kernel<true><<<dim3((width + 255) / 256, n_fleet), 256, 0,
-                                 s>>>(partial, out, grid, width,
-                                      (float)((double)n * d.c_out));
+  reduce_spans_kernel<<<dim3((width + 255) / 256, n_fleet), 256, 0, s>>>(
+      partial, span, out, width, (float)((double)n * d.c_out));
   return (int)cudaGetLastError();
 }
 

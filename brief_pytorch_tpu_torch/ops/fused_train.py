@@ -39,10 +39,18 @@ made once per chain, so no layout bounds the depth:
     accumulators the warps keep in registers for the whole call.  Chains
     the old one-thread-per-coordinate layout took beyond that reach (5 x
     34-64, 7 x 25-48, ...) take the tiled layout, measured faster there;
-  * tiled (`tiled_plan`; the HiP-CT bucket 3-64x6-1, 3-66x6-1, 5 x 95):
-    W once, beside a 32-coordinate tile; 256 threads work on register
-    micro-tiles of the three products and keep their share of dW
-    (`dw_map`) in registers for the whole call, written once;
+  * tiled (`tiled_plan`; the DivideTask fleets' buckets 3-66x6-1,
+    3-58x6-1, 3-28x6-1, 2-47x4-1, and 5 x 64, 5 x 95, 3-9x19-1): W once in
+    float32 beside a store of every layer's h and d for a tile of 16 x mt
+    coordinates (`swizzle`d rows, no bank conflict); 8 warps, the warps
+    of each m-tile carrying it through the layers on the tensor cores in
+    3xTF32 (operands split as they are read, float32 sums per k-block),
+    dW in jobs (`tiled_jobs`, `dw_map`) kept in registers for the whole
+    call, written once; a fleet's chains stop at their masks' widths
+    (`tiled_widths`) and share the grid by their work (`tiled_work`,
+    `tiled_shares`).  Paced by instruction issue (~10 instructions an
+    mma), not the tensor cores; `tiled_emulation` is its arithmetic on
+    the CPU;
   * wide (`wide_plan`; the SingleTask default on the 64x512x512 demo
     volumes, 3-191x4-1 and 3-242x4-1, and fleet buckets past the tiled
     layout such as 3-128x6-1): W streamed through shared memory in slabs
@@ -93,9 +101,12 @@ NARROW_SM_WARPS = 16         # 32 * kNarrowMaxWarps threads, 128 registers each
 SMALL_WARPS = 8              # kSmallWarps: warps per block of a small chain
 NARROW_MIN_WARPS = 8         # fewer resident per SM: the tiled layout
 FRAG = 128                   # floats of one packed B fragment (32 lanes x 4)
-TILED_THREADS = 256          # kTiledThreads of csrc/fused_train.cu
-TILED_TILE = 32              # kTile: coordinates per tile of the tiled layout
-TILED_SLOTS = (4, 6, 8)      # dW tiles per thread: the kernel's instances
+TILED_WARPS = 8              # kTiledWarps of csrc/fused_train.cu
+TILED_THREADS = 32 * TILED_WARPS
+TILED_MT = (8, 4, 2)         # m-tiles (16 coordinates) a tile, largest first
+TILED_JOB = 3                # kTiledJob: dW tiles of one job (one A row)
+TILED_JOBS = (3, 6, 9, 11, 13)   # dW jobs per warp: the kernel's instances
+TILED_PI = 0x56127430        # kTiledPi: pi(r & 7), a nibble each (`swizzle`)
 DW_CHUNK = 32                # kDwChunk: coordinates per dW operand chunk
 DW_BLOCKS = 1056             # dW blocks aimed at per call: 8 per H100 SM
 # int32 words of a layer's table row: sizeof NarrowLayer, TiledLayer
@@ -296,66 +307,229 @@ def _round4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
-def dw_tiles(widths: Sequence[int]) -> List[Tuple[int, int, int]]:
-    """The tiled layout's dW tiles in order: (layer, ig, og) for the 4 x 4
-    entries (4 ig + a, 4 og + b) of layer l's gradient seen as a
-    (fin + 1, fout) matrix, the bias as row fin (entries past it or past
-    fout are padding, computed and never written)."""
-    return [(l, ig, og) for l in range(len(widths) - 1)
-            for ig in range(_round4(widths[l] + 1) // 4)
-            for og in range(_round4(widths[l + 1]) // 4)]
+def _round32(x: int) -> int:
+    return (x + 31) // 32 * 32
 
 
-def dw_map(widths: Sequence[int], slots: int,
-           threads: int = TILED_THREADS) -> List[List[int]]:
-    """(slots, threads): the dW tile that thread t sums in registers in its
-    k-th slot, coded layer << 16 | ig << 8 | og, or -1 (none).  Tile j of
-    dw_tiles goes to thread j % threads, slot j // threads: 8 consecutive
-    threads take 8 consecutive column quads of one row quad, whose rows
-    the activation layout puts in 8 distinct bank quads."""
-    tiles = dw_tiles(widths)
-    if len(tiles) > slots * threads:
-        raise ValueError(f"{len(tiles)} dW tiles exceed {slots} slots of "
-                         f"{threads} threads")
-    codes = [l << 16 | ig << 8 | og for l, ig, og in tiles]
-    codes += [-1] * (slots * threads - len(codes))
-    return [codes[k * threads:(k + 1) * threads] for k in range(slots)]
+def swizzle(row, u):
+    """Column of coordinate u in row `row` of the tiled layout's store
+    (csrc/fused_train.cu tiled_at): u XOR 4 pi(row & 7), pi the
+    permutation 0 3 4 7 2 1 6 5 of TILED_PI.  Every fragment access of
+    the kernel (rows 2t, 2t + 1 or t, t + 4 of a k-block by coordinates g,
+    g + 8; rows g of a dW tile by coordinates t, t + 4) then hits 32
+    distinct banks, with rows of 16 x mt floats and no padding
+    (tests/test_torch_fused_train_tiled.py checks it).  Integers or
+    integer arrays."""
+    return u ^ (((TILED_PI >> (4 * (row & 7))) & 7) << 2)
 
 
-def tiled_plan(widths: Sequence[int]) -> Dict:
-    """Shared-memory layout (in floats) of the tiled layout: the weights of
-    every layer once, as (round4(fin + 1), round4(fout)) with the bias as
-    row fin; a loss reduction buffer of one float per thread; then
-    activation rows of TILED_TILE floats (one 128-byte line each): the
-    coordinates with a ones row after them, and for every layer h_l (with
-    a ones row: the next layer's bias input) and d_l / g_l, each block
-    padded to a multiple of 4 rows.  `slots`: dW tiles per thread, the
-    smallest of TILED_SLOTS that holds dw_tiles (0: none does)."""
+def _w_stride(fout: int) -> int:
+    """Row stride of a layer's W in the tiled layout: the least >= fout
+    that is 4 mod 8, so that both products' B-fragment reads hit 32
+    banks."""
+    return fout + (4 - fout) % 8
+
+
+def tiled_jobs(widths: Sequence[int]
+               ) -> List[Tuple[int, int, int, int, int]]:
+    """The tiled layout's dW jobs in order, (layer, gmajor, m-tile, first
+    n-tile, n-tiles): layer l's (fin + 1) x fout gradient, the bias as row
+    fin, in 16 x 8 mma tiles, M over fout (gmajor 1) or over fin + 1,
+    whichever gives fewer jobs (then fewer tiles); each row of tiles cut
+    into jobs of up to TILED_JOB tiles, which share the row's A
+    fragment."""
+    jobs = []
+    for l, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
+        count = lambda m, nn: (-(-m // 16) * -(-_tiles8(nn) // TILED_JOB),
+                               -(-m // 16) * _tiles8(nn))
+        gmajor = int(count(fout, fin + 1) <= count(fin + 1, fout))
+        m, nn = (fout, fin + 1) if gmajor else (fin + 1, fout)
+        for mt in range(-(-m // 16)):
+            for n0 in range(0, _tiles8(nn), TILED_JOB):
+                jobs.append((l, gmajor, mt, n0,
+                             min(TILED_JOB, _tiles8(nn) - n0)))
+    return jobs
+
+
+def dw_map(p: Dict) -> List[List[Tuple[int, int, int, int, int]]]:
+    """The dW jobs of plan p dealt to the TILED_WARPS warps of a block, a
+    contiguous run of at most p["per_warp"] each.  Each warp keeps its
+    jobs' sums in registers for the whole call."""
+    jobs, k = p["dw_jobs"], p["per_warp"]
+    return [jobs[w * k:(w + 1) * k] for w in range(TILED_WARPS)]
+
+
+def dw_codes(p: Dict) -> List[int]:
+    """dw_map as the kernel's table words: per warp, per slot (p["jobs"]
+    of them, the instance), the job's store rows, A (M) and B (first
+    n-tile, N), rowA | rowB << 13 | a_in << 26 | b_in << 27 (a_in, b_in:
+    the row is in the tile's input buffer), and its place in the gradient,
+    layer << 20 | gmajor << 19 | m-tile << 12 | first n-tile << 4 |
+    n-tiles.  A slot without a job reads rows 0 (code 0) and is never
+    written (-1)."""
+    words = []
+    for run in dw_map(p):
+        for s in range(p["jobs"]):
+            if s >= len(run):
+                words += [0, -1]
+                continue
+            l, gm, mt, n0, cnt = run[s]
+            xr, gr = p["x_row"][l], p["g_row"][l]
+            xin = int(l == 0)
+            ra, rb = (gr, xr) if gm else (xr, gr)
+            ia, ib = (0, xin) if gm else (xin, 0)
+            words += [ra + 16 * mt | (rb + 8 * n0) << 13 | ia << 26
+                      | ib << 27,
+                      l << 20 | gm << 19 | mt << 12 | n0 << 4 | cnt]
+    return words
+
+
+TILED_DW_WEIGHT = 3           # kTiledDwWeight of csrc/fused_train.cu
+
+
+def tiled_widths(widths: Sequence[int], masks) -> List[int]:
+    """Each layer's width as the tiled kernel's products see it for one
+    chain (csrc/fused_train.cu tiled_width): one past the last unit whose
+    mask is not 0, or fout where the layer has no mask (masks[l] None)."""
+    out = []
+    for l, fout in enumerate(widths[1:]):
+        m = None if masks is None or l >= len(masks) else masks[l]
+        if m is None:
+            out.append(fout)
+            continue
+        nz = torch.nonzero(torch.as_tensor(m).reshape(-1) != 0)
+        out.append(int(nz.max()) + 1 if len(nz) else 0)
+    return out
+
+
+def tiled_work(c_in: int, widths_eff: Sequence[int], jobs: int) -> int:
+    """A chain's work per tile in (k-block, n-tile) pairs of its products,
+    plus its dW jobs at TILED_DW_WEIGHT each (csrc/fused_train.cu
+    tiled_work): the measure tiled_shares divides the grid by."""
+    w, fin = TILED_DW_WEIGHT * jobs * TILED_WARPS, c_in
+    for l, fout in enumerate(widths_eff):
+        w += ((fin + 8) >> 3) * ((fout + 7) >> 3)
+        if l > 0:
+            w += ((fout + 7) >> 3) * ((fin + 7) >> 3)
+        fin = fout
+    return w
+
+
+def tiled_shares(work: Sequence[int], blocks: int, n_tiles: int
+                 ) -> List[Tuple[int, int]]:
+    """(first block, blocks) of each chain: the grid's `blocks` shared by
+    the chains' `work`, each at least 1 and at most n_tiles; the rest one
+    at a time to the chain with the most work a block, any excess back
+    from the one with the least (csrc/fused_train.cu tiled_share_kernel,
+    the same integer steps)."""
+    total = sum(work)
+    cnt = [min(max(blocks * w // total, 1), n_tiles) for w in work]
+    used = sum(cnt)
+    while used < blocks:
+        best = -1
+        for c, w in enumerate(work):
+            if cnt[c] < n_tiles and (best < 0 or
+                                     w * cnt[best] > work[best] * cnt[c]):
+                best = c
+        if best < 0:
+            break
+        cnt[best] += 1
+        used += 1
+    while used > blocks:
+        best = -1
+        for c, w in enumerate(work):
+            if cnt[c] > 1 and (best < 0 or
+                               w * cnt[best] < work[best] * cnt[c]):
+                best = c
+        cnt[best] -= 1
+        used -= 1
+    first = [sum(cnt[:c]) for c in range(len(cnt))]
+    return list(zip(first, cnt))
+
+
+def tiled_plan(widths: Sequence[int], mt: Optional[int] = None) -> Dict:
+    """Shared-memory layout (in floats) of the tiled layout for tiles of
+    16 x mt coordinates (mt m-tiles; None: the largest of TILED_MT that
+    fits SMEM_LIMIT, else the smallest).
+
+    W of every layer once in float32, (fin + 1) rows with the bias as row
+    0, row stride w_stride (`_w_stride`: >= fout, 4 mod 8), the layers
+    back to back and zeros after them up to the last float the products
+    read (`w_floats`): a product's padded k-block or n-tile reads the next
+    rows, which hold finite weights times zero activations, or output
+    columns it drops.  Then the activation store, rows of 16 x mt floats
+    (one per coordinate of the tile, `swizzle`d): two input buffers of
+    buf_rows rows (a ones row, the coordinates, zeros to 8; the values and
+    weights from yw_row), the tile's and the next one's; then per layer
+    its h (hidden layers: fout + 1 rows, the first one ones, the next
+    layer's bias input) and its d / g (fout rows), each region
+    starting on a row multiple of 8 and zero-padded to it, and rows past
+    them where a dW job's tiles reach.  Then the unit masks (mask_sm),
+    the layer table's copy (tab_sm), the chain's widths (width_sm,
+    `tiled_widths`), the dW codes (`dw_codes`,
+    TILED_WARPS x jobs words) and one float a warp for the loss.  `jobs`:
+    the kernel instance, the least of TILED_JOBS that holds `per_warp`
+    dW jobs (0: none does)."""
+    if mt is None:
+        fits = [m for m in TILED_MT
+                if tiled_plan(widths, m)["smem_bytes"] <= SMEM_LIMIT]
+        return tiled_plan(widths, fits[0] if fits else TILED_MT[-1])
     n_layers = len(widths) - 1
-    off, n_params = 0, 0
-    p_off, w_off, h_row, g_row = [], [], [], []
-    for l in range(n_layers):
-        fin, fout = widths[l], widths[l + 1]
+    c_in, c_out = widths[0], widths[-1]
+    n_params, p_off, w_off, w_stride = 0, [], [], []
+    off, reach = 0, 0
+    for fin, fout in zip(widths[:-1], widths[1:]):
         p_off.append(n_params)
-        n_params += fin * fout + fout
+        n_params += (fin + 1) * fout
+        s = _w_stride(fout)
         w_off.append(off)
-        off += _round4(fin + 1) * _round4(fout)
-    red_off = off
-    act_off = (off + TILED_THREADS + 31) // 32 * 32   # 128-byte rows
-    row = _round4(widths[0] + 1)
+        w_stride.append(s)
+        # forward rows < round8(fin + 1), input gradient rows 1 ..
+        # round8(fin), columns < round8(fout)
+        reach = max(reach, off + max(_round8(fin + 1) - 1, _round8(fin)) * s
+                    + _round8(fout))
+        off += (fin + 1) * s
+    w_floats = _round32(max(off, reach))
+    in_rows = _round8(c_in + 1)
+    buf_rows = in_rows + _round8(2 * c_out)
+    row = 2 * buf_rows
+    x_row, h_row, g_row = [0], [], []
     for l in range(n_layers):
-        h_row.append(row)
-        row += _round4(widths[l + 1] + 1)
+        fout = widths[l + 1]
+        if l < n_layers - 1:
+            h_row.append(row)
+            x_row.append(row)
+            row += _round8(fout + 1)
+        else:
+            h_row.append(-1)
         g_row.append(row)
-        row += _round4(widths[l + 1])
-    n_tiles = sum(_round4(i + 1) // 4 * (_round4(o) // 4)
-                  for i, o in zip(widths[:-1], widths[1:]))
-    slots = next((s for s in TILED_SLOTS if n_tiles <= s * TILED_THREADS), 0)
+        row += _round8(fout)
+    # dW jobs read 16-row m-tiles and TILED_JOB 8-row n-tiles of the
+    # 8-row-aligned regions: rows past the last region where they reach
+    jobs = tiled_jobs(widths)
+    reach_rows = row
+    for l, gm, mt_, n0, _ in jobs:
+        ra, rb = (g_row[l], x_row[l]) if gm else (x_row[l], g_row[l])
+        reach_rows = max(reach_rows, ra + 16 * mt_ + 16,
+                         rb + 8 * (n0 + TILED_JOB))
+    store_rows = reach_rows
+    block = 16 * mt
+    mask_sm = w_floats + store_rows * block
+    tab_sm = mask_sm + _round4(sum(widths[1:]))
+    width_sm = tab_sm + n_layers * TILED_ROW_WORDS
+    desc_sm = width_sm + _round4(n_layers)
+    per_warp = -(-len(jobs) // TILED_WARPS)
+    k = next((j for j in TILED_JOBS if per_warp <= j), 0)
+    red_off = desc_sm + _round4(TILED_WARPS * max(k, 1))
     return {"layout": "tiled", "n_params": n_params, "p_off": p_off,
-            "w_off": w_off, "x_row": [0] + h_row[:-1], "h_row": h_row,
-            "g_row": g_row, "red_off": red_off, "act_off": act_off,
-            "block": TILED_TILE, "threads": TILED_THREADS, "slots": slots,
-            "smem_bytes": 4 * (act_off + row * TILED_TILE)}
+            "w_off": w_off, "w_stride": w_stride, "w_floats": w_floats,
+            "mt": mt, "block": block, "threads": TILED_THREADS,
+            "buf_rows": buf_rows, "yw_row": in_rows, "x_row": x_row,
+            "h_row": h_row, "g_row": g_row, "store_rows": store_rows,
+            "mask_sm": mask_sm, "tab_sm": tab_sm, "width_sm": width_sm,
+            "desc_sm": desc_sm,
+            "dw_jobs": jobs, "per_warp": per_warp, "jobs": k,
+            "red_off": red_off, "smem_bytes": 4 * (red_off + TILED_WARPS)}
 
 
 def wide_plan(widths: Sequence[int], tile: int, stream: bool = False
@@ -418,15 +592,16 @@ def choose_plan(widths: Sequence[int]) -> Dict:
     (W, W^T and the activation store of a block's coordinates in shared
     memory, products on the tensor cores) when it keeps at least
     NARROW_MIN_WARPS warps resident per SM; else the tiled layout (weights
-    once in shared memory, dW in registers) when its weights and
-    32-coordinate tile fit and its dW tiles fit TILED_SLOTS; else the wide
+    once in shared memory, dW in registers) when its weights and a tile
+    of at least 32 coordinates fit and its dW jobs fit TILED_JOBS; else
+    the wide
     layout, in its rows form where a tile's rows fit a block's 227 KB, in
     its streamed form past that."""
     p = narrow_plan(widths)
     if p is not None and resident_warps(p) >= NARROW_MIN_WARPS:
         return p
     p = tiled_plan(widths)
-    if p["slots"] and p["smem_bytes"] <= SMEM_LIMIT:
+    if p["jobs"] and p["smem_bytes"] <= SMEM_LIMIT:
         return p
     for stream in (False, True):
         tile = wide.choose_tile(
@@ -590,6 +765,112 @@ def fused_train_grads_reference(layers, coords_t, values_t, weights_t,
     return loss / m, {"layers": grads}
 
 
+def _kblock_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., KB, M, N): per k-block of 8, the 3xTF32 products of a (..., M,
+    K) and b (..., K, N), both split by tf32_split_nearest, a_small b_big
+    + a_big b_small + a_big b_big summed exactly and rounded to float32
+    (one k-block's three mma.sync, which truncate instead; within the
+    tolerances)."""
+    k = a.shape[-1]
+    kp = -(-k // 8) * 8
+    a = torch.nn.functional.pad(a.float(), (0, kp - k))
+    b = torch.nn.functional.pad(b.float(), (0, 0, 0, kp - k))
+    ab, as_ = (x.double() for x in tf32_split_nearest(a.contiguous()))
+    bb, bs = (x.double() for x in tf32_split_nearest(b.contiguous()))
+    blk = lambda x: x.unflatten(-1, (kp // 8, 8)).movedim(-2, -3)
+    blk_b = lambda x: x.unflatten(-2, (kp // 8, 8))
+    aa, asb = blk(ab), blk(as_)                      # (..., KB, M, 8)
+    bbb, bsb = blk_b(bb), blk_b(bs)                  # (..., KB, 8, N)
+    d = asb @ bbb + aa @ bsb + aa @ bbb
+    return d.float()
+
+
+def _sum_in_order(d: torch.Tensor, dim: int) -> torch.Tensor:
+    """d summed along `dim` one slice after another in float32, the order
+    of a kernel's accumulator."""
+    acc = torch.zeros_like(d.select(dim, 0))
+    for i in range(d.shape[dim]):
+        acc = acc + d.select(dim, i)
+    return acc
+
+
+def tiled_emulation(layers, coords, values, weights, acts: LayerSpec, *,
+                    loss_name: str, beta: float = 0.01, thres=None,
+                    unit_masks=None, mt: int = 2, blocks: int = 1):
+    """The tiled layout's arithmetic (csrc/fused_train.cu
+    fused_train_tiled_kernel) on the CPU, for a fleet shaped as
+    fused_train_grads_fleet takes it (thres: None or (B,), -inf for none).
+
+    Every product in 3xTF32 on k-blocks of 8 (`_kblock_sums`): the forward
+    [h, 1] [W; b] and the input gradient g W^T over the features, each
+    k-block's sum added to a float32 accumulator in order; dW = [h, 1]^T
+    g over the coordinates, in k-blocks of 8 coordinates of tiles of 16 mt,
+    tile j going to block j % blocks, each block adding its k-blocks in
+    order into its partial sums, the blocks' partials then added in order
+    (reduce_partials_kernel) and divided by N * Cout.  The loss is summed
+    in float64 per block, then in float32 over the blocks."""
+    n_layers = len(layers)
+    masks = unit_masks if unit_masks is not None else [None] * n_layers
+    nb, _, n = coords.shape
+    c_out = values.shape[1]
+    x = coords.transpose(1, 2).float()                     # (B, N, C)
+    ones = torch.ones(nb, n, 1)
+    hs, ds = [], []
+    for l, (layer, (act, w0)) in enumerate(zip(layers, acts)):
+        h_aug = torch.cat([x, ones], dim=2)
+        hs.append(h_aug)
+        w_aug = torch.cat([layer["w"], layer["b"][:, None]], dim=1)
+        z = _sum_in_order(_kblock_sums(h_aug[:, None], w_aug[:, None])[:, 0],
+                          1)
+        x, dv = _act_fwd(z, act, w0)
+        if dv is None:
+            dv = torch.ones_like(z)
+        if masks[l] is not None:
+            m = masks[l][:, None, :].float()
+            x, dv = x * m, dv * m
+        ds.append(dv)
+    pred, y = x, values.transpose(1, 2)
+    wv = weights.transpose(1, 2)
+    weff = wv if thres is None else torch.where(
+        pred <= thres[:, None, None], 1.0, wv)
+    e = pred - y
+    if loss_name == "datal2":
+        l_elem, g = e * e, 2.0 * weff * e
+    else:
+        ae = e.abs()
+        l_elem = torch.where(ae < beta, 0.5 * ae * ae / beta, ae - 0.5 * beta)
+        g = weff * torch.where(ae < beta, e / beta, torch.sign(e))
+    g = g * ds[-1]
+    T = 16 * mt
+    n_tiles = -(-n // T)
+    pad = n_tiles * T - n
+    owner = torch.arange(n_tiles) % blocks                 # tile -> block
+    lossb = (weff * l_elem).sum(-1).double()               # (B, N)
+    lossb = torch.nn.functional.pad(lossb, (0, pad)).view(nb, n_tiles, T)
+    per_block = torch.stack([lossb[:, owner == k].sum((1, 2)).float()
+                             for k in range(blocks)], 1)
+    m = float(n * c_out)
+    loss = _sum_in_order(per_block, 1) / m
+    grads = [None] * n_layers
+    for l in range(n_layers - 1, -1, -1):
+        hp = torch.nn.functional.pad(hs[l], (0, 0, 0, pad))   # (B, Np, fin+1)
+        gp = torch.nn.functional.pad(g, (0, 0, 0, pad))       # (B, Np, fout)
+        d = _kblock_sums(hp.transpose(1, 2)[:, None], gp[:, None])[:, 0]
+        d = d.view(nb, n_tiles, T // 8, *d.shape[-2:])        # per tile
+        parts = []
+        for k in range(blocks):
+            mine = d[:, owner == k].flatten(1, 2)             # its k-blocks
+            parts.append(_sum_in_order(mine, 1) if mine.shape[1] else
+                         torch.zeros(nb, *d.shape[-2:]))
+        dw = _sum_in_order(torch.stack(parts, 1), 1) / m
+        grads[l] = {"w": dw[:, :-1], "b": dw[:, -1]}
+        if l > 0:
+            g = _sum_in_order(_kblock_sums(
+                g[:, None], layers[l]["w"].transpose(1, 2)[:, None])[:, 0], 1)
+            g = g * ds[l - 1]
+    return loss, {"layers": grads}
+
+
 # --------------------------------------------------------------------------
 # CUDA kernel
 # --------------------------------------------------------------------------
@@ -599,16 +880,17 @@ _OCCUPANCY: Dict[Tuple[int, str, int, int, int], int] = {}
 def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
     """Persistent grid per fleet block: as many blocks in all as fit on the
     card at once (at least one per chain), but no more than there are
-    tiles."""
+    tiles; the tiled layout's, the whole grid (its kernel shares it among
+    the chains)."""
     key = (device.index or 0, p["layout"], p["threads"], p["smem_bytes"],
-           p.get("slots", p.get("jobs", 0)), p.get("small", False),
+           p.get("jobs", 0), p.get("small", False),
            p.get("stream", False))
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         from brief_pytorch_tpu_torch.ops import build
         if p["layout"] == "tiled":
             err = lib.brief_fused_train_tiled_occupancy(
-                p["slots"], p["smem_bytes"], ctypes.addressof(per_sm),
+                p["jobs"], p["smem_bytes"], ctypes.addressof(per_sm),
                 ctypes.addressof(sms))
         elif p["layout"] == "wide":
             err = lib.brief_fused_train_wide_occupancy(
@@ -620,11 +902,13 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
                 ctypes.addressof(per_sm), ctypes.addressof(sms))
         build.check(err, "fused_train occupancy")
         _OCCUPANCY[key] = max(1, per_sm.value) * sms.value
+    n_tiles = -(-n // (p["block"] * p.get("groups", 1)))
+    if p["layout"] == "tiled":   # one grid, shared among the chains
+        return max(n_fleet, min(_OCCUPANCY[key], n_fleet * n_tiles))
     # a fleet shares the resident blocks: rounding up would start a second
     # wave of a few blocks
     per_fleet = max(1, _OCCUPANCY[key] // n_fleet)
-    return max(1, min(per_fleet,
-                      -(-n // (p["block"] * p.get("groups", 1)))))
+    return max(1, min(per_fleet, n_tiles))
 
 
 def _check_batch(widths, coords, values, weights, lead: Tuple[int, ...]):
@@ -702,19 +986,6 @@ def free_scratch() -> None:
     _WIDE_BUFFERS.clear()
 
 
-_SLOT_MAPS: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
-
-
-def _slot_map(widths, slots: int, device: torch.device) -> torch.Tensor:
-    """dw_map as an int32 tensor on `device`, made once per chain shape (a
-    step's launch then moves nothing from the host)."""
-    key = (tuple(widths), device)
-    if key not in _SLOT_MAPS:
-        _SLOT_MAPS[key] = torch.tensor(dw_map(widths, slots),
-                                       dtype=torch.int32, device=device)
-    return _SLOT_MAPS[key]
-
-
 def narrow_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
                  mask_off: Sequence[int], ptrs: Sequence[int]) -> List[int]:
     """The narrow layout's table (csrc/fused_train.cu NarrowLayer rows,
@@ -736,14 +1007,18 @@ def narrow_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
 
 def tiled_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
                 mask_off: Sequence[int]) -> List[int]:
-    """The tiled layout's table (csrc/fused_train.cu TiledLayer rows)."""
+    """The tiled layout's table (csrc/fused_train.cu TiledLayer rows: widths,
+    activation, offsets, W stride, store rows, mask offset, w0, whether
+    the input is the tile's input buffer), then its dW codes
+    (`dw_codes`)."""
     words = []
     for l, (act, w0) in enumerate(acts):
         words += pad_row(
             [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
-             p["w_off"][l], p["x_row"][l], p["h_row"][l], p["g_row"][l],
-             mask_off[l], f32_word(w0)], TILED_ROW_WORDS)
-    return words
+             p["w_off"][l], p["w_stride"][l], p["x_row"][l], p["h_row"][l],
+             p["g_row"][l], mask_off[l], f32_word(w0), int(l == 0)],
+            TILED_ROW_WORDS)
+    return words + dw_codes(p)
 
 
 def wide_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
@@ -798,7 +1073,9 @@ def _launch(params, coords, values, weights, widths, acts,
                                                        mask_off), device)
     elif p["layout"] == "tiled":
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
-                p["red_off"], p["act_off"], mask_width, p["slots"]]
+                mask_width, p["mt"], p["buf_rows"], p["yw_row"],
+                p["w_floats"], p["mask_sm"], p["tab_sm"], p["width_sm"],
+                p["desc_sm"], p["red_off"], p["jobs"]]
         table, _ = layer_table(key, lambda: tiled_table(p, widths, acts,
                                                         mask_off), device)
     else:
@@ -831,18 +1108,22 @@ def _launch(params, coords, values, weights, widths, acts,
                 LOSSES.index(loss_name), float(beta), grid, p["block"],
                 p["smem_bytes"], splits, chunk, stream), "fused_train wide")
             return out
-        partial = torch.empty((n_fleet, grid * p.get("groups", 1), width),
-                              dtype=torch.float32, device=device)
         if p["layout"] == "tiled":
+            # the grid's blocks shared among the chains by their work
+            partial = torch.empty((grid, width), dtype=torch.float32,
+                                  device=device)
+            span = torch.empty(2 * n_fleet, dtype=torch.int32, device=device)
             build.check(lib.brief_fused_train_tiled(
                 coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), 0 if masks is None else masks.data_ptr(),
                 0 if thres is None else thres.data_ptr(),
-                _slot_map(widths, p["slots"], device).data_ptr(),
-                table.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
+                table.data_ptr(), partial.data_ptr(), span.data_ptr(),
+                out.data_ptr(), n,
                 n_fleet, meta_c, LOSSES.index(loss_name), float(beta), grid,
                 p["smem_bytes"], stream), "fused_train tiled")
             return out
+        partial = torch.empty((n_fleet, grid * p.get("groups", 1), width),
+                              dtype=torch.float32, device=device)
         build.check(lib.brief_fused_train(
             coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
             table.data_ptr(), head,

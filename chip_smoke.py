@@ -51,8 +51,12 @@ non-zero exit:
      finite and -inf thresholds, against its plain version for both
      losses and a relu/sigmoid chain, each block against the one-chain
      kernel on its unpadded chain, padded gradients exactly 0, three runs
-     bitwise equal;
-     timed beside the plain version and the bound; the wide one-chain
+     bitwise equal; the tiled fleet's loss and gradients also against
+     the plain version evaluated in float64, max and mean distance at
+     most F64_RATIO["phase6"] (2x) the float32 plain version's;
+     timed beside the plain version, the bound and (narrow and tiled
+     layouts, whose products run on the tensor cores) tc_bound_ms; the
+     wide one-chain
      layout at phase 12's chains (3-191x4-1, 3-242x4-1, N = 100,000)
      checked against its plain version and timed the same way;
   7. the DivideTask command on opt/DivideTask/hipct.yaml, verbatim (the
@@ -337,7 +341,7 @@ GRAD_N = 8192                # coordinates of phase 9's gradient check
 # accuracy.  The tensor core's truncating sums, three mma.sync a k-block
 # into one accumulator, were 2.3x (max) and 3.0x (mean) on phase 10's
 # trained chain.
-F64_RATIO = {"phase4": 2.0, "phase9": 2.0, "phase10": 1.5}
+F64_RATIO = {"phase4": 2.0, "phase6": 2.0, "phase9": 2.0, "phase10": 1.5}
 # phase 20: chains past the kernels' old reach (16 layers, 3,327 features).
 # 20a the 64^3 fixture and 20b the HiP-CT demo volume at 80x through the
 # SingleTask command with Module.phi.layers set (models/sizing widths),
@@ -550,14 +554,14 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
     row = dict(shape=f"SIREN {widths}, N={n}", layout=layout,
                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                bound_by=by, **({"stream": True} if p.get("stream") else {}))
-    if layout == "narrow":
+    if layout in ("narrow", "tiled"):
         row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
     say(phase, case=label, widths=widths, n=n, layout=layout,
         **({"form": "streamed"} if p.get("stream") else {}),
         max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
         bound_ms=f"{b:.4f}", bound_by=by,
         **({"tc_bound_ms": f"{row['tc_bound_ms']:.4f}"}
-           if layout == "narrow" else {}),
+           if "tc_bound_ms" in row else {}),
         tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; 3 runs "
                   "bitwise")
     return row
@@ -717,8 +721,12 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     against the plain version evaluated in float64), each block against
     the one-chain
     kernel on its unpadded chain, padded gradients exactly 0, three runs
-    bitwise equal; then timed beside the plain version and the bound.
-    Fails the run on any disagreement; returns the kernel's JSON row."""
+    bitwise equal; in the tiled layout also the loss and gradients'
+    distance from the plain version evaluated in float64, max and mean,
+    at most F64_RATIO["phase6"] x the float32 plain version's; then timed
+    beside the plain version, the bound and (narrow, tiled) the
+    tensor-core bound.  Fails the run on any disagreement; returns the
+    kernel's JSON row."""
     import torch
     from brief_pytorch_tpu_torch.models.phi import init_phi
     from brief_pytorch_tpu_torch.ops import fused_train
@@ -770,6 +778,15 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
         torch.cuda.synchronize()
         err = max(err, compare_grads(lk, gk["layers"], lp, gp["layers"],
                                      f"{what} {loss_name} {acts6[:2]}"))
+    f64 = {}
+    if layout == "tiled":
+        flat = lambda loss, g: torch.cat([loss.double().reshape(-1)] + [
+            x[key].double().reshape(-1) for x in g["layers"]
+            for key in ("w", "b")]).cpu().numpy()
+        truth = flat(*p64("datal2", acts))
+        f64 = f64_check(f"{what} datal2 against float64", flat(*k6()),
+                        flat(*p6()), truth, F64_RATIO["phase6"])
+        del truth
     loss_f, g_f = k6()
     for i, m in enumerate(models):
         dims = [(e.fan_in, e.fan_out) for e in m.spec.entries]
@@ -810,19 +827,22 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     p = fused_train.choose_plan(padded)
     if p["layout"] != layout:
         fail(f"{what}: layout {p['layout']}, not {layout}")
+    tc_row = {"tc_bound_ms": tc} if layout in ("narrow", "tiled") else {}
     say(phase, blocks=nb, n=n, padded=padded,
         true_widths=list(true_widths), thres=fthres.tolist(), layout=layout,
-        tile=p["block"], max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+        tile=p["block"], max_abs_err=f"{err:.3e}",
+        **{k: f"{v:.3e}" for k, v in f64.items()}, ms=f"{ms:.4f}",
         plain_ms=f"{plain:.4f}", bound_ms=f"{b:.4f}",
         bound_padded_ms=f"{b_pad:.4f}", bound_by=by,
-        **({"tc_bound_ms": f"{tc:.4f}"} if layout == "narrow" else {}),
+        **{k: f"{v:.4f}" for k, v in tc_row.items()},
         tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; padded "
-                  "grads 0; 3 runs bitwise")
+                  "grads 0; 3 runs bitwise" + (
+                      f"; float64 {F64_RATIO['phase6']:g}x plain"
+                      if f64 else ""))
     return dict(shape=f"{nb} x SIREN {padded} (true {list(true_widths)}), "
                       f"N={n} per block", layout=layout, tile=p["block"],
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_padded_ms=b_pad, bound_by=by, padded=padded,
-                **({"tc_bound_ms": tc} if layout == "narrow" else {}))
+                max_abs_err=err, **f64, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_padded_ms=b_pad, bound_by=by, padded=padded, **tc_row)
 
 
 def run_config(config: str, out_dir: str, steps: int, data_path=None,

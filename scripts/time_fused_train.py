@@ -11,9 +11,15 @@ A shape is c_in-f x hidden-c_out:N (SIREN, w0 = 20, datal2 with
 weight_thres 0.05, as chip_smoke.py phase 3), c_in-f1,f2,...-c_out:N for
 uneven hidden widths (SIREN_Pyramid, SIRENFT; SIREN's initialisation
 rule per layer), or a fleet
-fleet:f1,f2,...:layers:N:w0 (chip_smoke.fleet_check: SIREN chains of true
-widths f1, f2, ... padded to the widest, thresholds 60, -inf, 40, -inf,
-...; checked and timed as phase 6 does).  --root imports the package
+fleet:f1,f2,...:layers:N:w0[:c_in] (chip_smoke.fleet_check: SIREN chains
+of true widths f1, f2, ... padded to the widest, c_in coordinates (3
+unless given), thresholds 60, -inf, 40, -inf, ...; checked and timed as
+phase 6 does).  The fleets of the DivideTask configs:
+
+    fleet:51,54,60,66:7:100000:10      hipct.yaml (by_var)
+    fleet:58,58,58,58:7:100000:10      vessel.yaml (by_size)
+    fleet:28,28,28,28:7:100000:10      neuron.yaml (by_size)
+    fleet:47,46,44,45:5:100000:10:2    the 2048^2 PNG, total_1_2_2  --root imports the package
 (and chip_smoke.py) from another checkout, e.g. a `git archive` of the
 parent commit, so that two builds can be timed in turns in one call.
 --layout forces a layout of the kernel (narrow, tiled or wide) where its
@@ -96,14 +102,16 @@ def main(argv=None) -> int:
         force_layout(fused_train, args.layout)
     for shape in args.shapes:
         if shape.startswith("fleet:"):
-            _, fs, layers_, n, w0 = shape.split(":")
+            _, fs, layers_, n, w0, *rest = shape.split(":")
+            cin = int(rest[0]) if rest else 3
             true = tuple(int(f) for f in fs.split(","))
-            padded = [3] + [max(true)] * (int(layers_) - 1) + [1]
+            padded = [cin] + [max(true)] * (int(layers_) - 1) + [1]
             thres = [(60.0, -np.inf, 40.0, -np.inf)[i % 4]
                      for i in range(len(true))]
             row = cs.fleet_check(dev, np.random.default_rng(0), true,
                                  int(layers_), float(w0), int(n), thres,
-                                 fused_train.choose_plan(padded)["layout"])
+                                 fused_train.choose_plan(padded)["layout"],
+                                 cin=cin)
             print(json.dumps({"root": args.root, "shape": shape,
                               **{k: row[k] for k in ("layout", "ms",
                                                      "plain_ms",

@@ -229,11 +229,11 @@ def test_profiling_reports_device_time(dev, capsys):
 
 
 # --- the train kernel's fleet form and its wide-chain layout ---------------
-def _fleet(dev, true_widths, layers=4, cout=1, n=5000, seed=3):
+def _fleet(dev, true_widths, layers=4, cout=1, n=5000, seed=3, cin=3):
     """B padded SIREN chains (w0 = 10) of the given true widths, their unit
     masks, a batch and per-block thresholds (finite and -inf)."""
     from brief_pytorch_tpu_torch.parallel.block_trainer import build_stacked
-    models = [tphi.init_phi({"name": "SIREN", "coords_channel": 3,
+    models = [tphi.init_phi({"name": "SIREN", "coords_channel": cin,
                              "data_channel": cout, "features": f,
                              "layers": layers, "w0": 10})
               for f in true_widths]
@@ -241,7 +241,8 @@ def _fleet(dev, true_widths, layers=4, cout=1, n=5000, seed=3):
     B = len(true_widths)
     rng = np.random.default_rng(seed)
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    batch = (f(rng.uniform(-1, 1, (B, 3, n))), f(rng.uniform(0, 1, (B, cout, n))),
+    batch = (f(rng.uniform(-1, 1, (B, cin, n))),
+             f(rng.uniform(0, 1, (B, cout, n))),
              f(rng.uniform(1, 2, (B, cout, n))))
     thres = torch.tensor([0.4, -np.inf, 0.6, -np.inf][:B], device=dev)
     return models, params["layers"], list(masks[:-1]) + [None], batch, thres
@@ -300,6 +301,56 @@ def test_fused_train_fleet_matches_plain(dev, true_widths, layers, n, layout,
                ls, gs["layers"])
 
 
+@pytest.mark.parametrize("true_widths,layers,cin", [
+    ((58, 58, 58, 58), 7, 3),       # vessel.yaml's fleet (by_size)
+    ((28, 28, 28, 28), 7, 3),       # neuron.yaml's fleet (by_size)
+    ((47, 46, 44, 45), 5, 2),       # the 2048^2 PNG's total_1_2_2 fleet
+])
+@pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
+def test_tiled_fleets_of_the_configs_match_plain(dev, true_widths, layers,
+                                                 cin, loss_name):
+    """The tiled layout at the DivideTask configs' other fleets: one launch
+    within the plain version's tolerances, padded units' gradients exactly
+    0, each block equal to the one-chain kernel on its unpadded chain
+    within them, two more calls bitwise equal."""
+    models, layers_, um, (c, v, w), thres = _fleet(dev, true_widths, layers,
+                                                   n=20011, cin=cin)
+    padded = [cin] + [int(l["w"].shape[-1]) for l in layers_]
+    assert ft.choose_plan(padded)["layout"] == "tiled"
+    acts = chain_layer_specs(models[0].spec)
+    kw = dict(loss_name=loss_name, beta=0.01)
+    run = lambda: ft.fused_train_grads_fleet(layers_, c, v, w, acts,
+                                             unit_masks=um, thres=thres, **kw)
+    before = ft.launches
+    lk, gk = run()
+    assert ft.launches == before + 1
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, acts,
+                                            weight_thres=thres,
+                                            unit_masks=um, **kw)
+    torch.cuda.synchronize()
+    _close(lk, gk["layers"], lp, gp["layers"])
+    for i, m in enumerate(models):
+        dims = [(e.fan_in, e.fan_out) for e in m.spec.entries]
+        for (a, b), g in zip(dims, gk["layers"]):
+            assert int(torch.count_nonzero(g["w"][i, a:, :])) == 0
+            assert int(torch.count_nonzero(g["w"][i, :, b:])) == 0
+            assert int(torch.count_nonzero(g["b"][i, b:])) == 0
+        own = [{"w": l["w"][i, :a, :b].contiguous(),
+                "b": l["b"][i, :b].contiguous()}
+               for l, (a, b) in zip(layers_, dims)]
+        t = float(thres[i])
+        ls, gs = ft.fused_train_grads(own, c[i], v[i], w[i], acts,
+                                      weight_thres=t if np.isfinite(t)
+                                      else None, **kw)
+        _close(lk[i], [{"w": g["w"][i, :a, :b], "b": g["b"][i, :b]}
+                       for g, (a, b) in zip(gk["layers"], dims)],
+               ls, gs["layers"])
+    for loss, grads in (run(), run()):
+        assert torch.equal(loss, lk)
+        for a, b in zip(grads["layers"], gk["layers"]):
+            assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
 @pytest.mark.parametrize("true_widths,layers", [((30, 24, 17), 5),
                                                 ((49, 52, 58, 64), 7)])
 def test_fused_train_fleet_relu_sigmoid_masked(dev, true_widths, layers):
@@ -334,10 +385,12 @@ def test_fused_train_fleet_is_deterministic(dev, true_widths, layers, layout):
 
 
 @pytest.mark.parametrize("features,layers,layout", [
-    (66, 7, "tiled"), (95, 5, "tiled"), (186, 5, "wide"), (512, 5, "wide")])
+    (66, 7, "tiled"), (95, 5, "tiled"), (96, 5, "tiled"), (186, 5, "wide"),
+    (512, 5, "wide")])
 def test_wide_chain_trains_on_the_kernel(dev, features, layers, layout):
-    """Chains beyond the narrow layout: 3-66x6-1 and a SingleTask 5 x 95
-    (the tiled layout; 5 x 95 needs its largest dW slot count), the
+    """Chains beyond the narrow layout: 3-66x6-1 and SingleTask 5 x 95
+    and 5 x 96 (the tiled layout; 5 x 96 needs its largest dW job
+    instance, 13 a warp), the
     SingleTask default at 3-186x4-1 and a 512-wide chain (the wide
     layout): supports_training holds, the plan is the expected one, and
     the kernel matches its plain version."""

@@ -309,7 +309,7 @@ def test_wide_chains_get_the_wide_layout(widths, layout, block):
         assert p["smem_bytes"] == 4 * (2 * rows * block + 2 * 64 * 36
                                        + p["threads"])
     else:
-        assert p["threads"] == ft.TILED_THREADS and p["slots"] in ft.TILED_SLOTS
+        assert p["threads"] == ft.TILED_THREADS and p["jobs"] in ft.TILED_JOBS
     model = tphi.init_phi({"name": "SIREN", "features": widths[1],
                            "layers": len(widths) - 1, "w0": 10})
     assert ft.supports_training(model, "datal2")

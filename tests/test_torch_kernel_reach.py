@@ -248,8 +248,8 @@ def test_every_chain_has_a_plan(layers, features):
                                     [3] + [78] * 19 + [1], WIDE, WIDE2])
 def test_tables_hold_every_layer(widths):
     """Each kernel's per-layer table: one row of the kernel's struct size
-    per layer, whatever the depth (the narrow layout's dW job codes after
-    its rows), w0 as its float32 bits."""
+    per layer, whatever the depth (the narrow and tiled layouts' dW job
+    codes after their rows), w0 as its float32 bits."""
     acts = _acts(widths)
     L = len(widths) - 1
     p = ft.choose_plan(widths)
@@ -259,7 +259,7 @@ def test_tables_hold_every_layer(widths):
         assert len(words) == L * ft.NARROW_ROW_WORDS + len(p["job_table"])
     elif p["layout"] == "tiled":
         words = ft.tiled_table(p, widths, acts, masks)
-        assert len(words) == L * ft.TILED_ROW_WORDS
+        assert len(words) == L * ft.TILED_ROW_WORDS + len(ft.dw_codes(p))
     else:
         words = ft.wide_table(p, widths, acts, masks)
         assert len(words) == L * ft.WIDE_ROW_WORDS
