@@ -34,7 +34,8 @@ from brief_pytorch_tpu_torch.ops.fast_math import exact_sine
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fast_math", "fused_train", "fused_decode", "fused_siren")
+SOURCES = ("fast_math", "fused_train", "fused_train_stream", "fused_decode",
+           "fused_siren")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

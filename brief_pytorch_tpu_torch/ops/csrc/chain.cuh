@@ -1,6 +1,7 @@
 // What the fused kernels share about an activation chain: the activation
-// codes, an activation with its derivative, and the reader of their
-// per-layer tables.
+// codes, an activation with its derivative, the reader of their per-layer
+// tables, and the train kernels' loss (csrc/fused_train.cu,
+// csrc/fused_train_stream.cu).
 //
 // Every kernel keeps its chain's per-layer values (widths, offsets,
 // activations, w0, weight pointers) in a table in device memory, one
@@ -118,6 +119,29 @@ __device__ __forceinline__ void act_fwd(int act, float w0, float z, float* h,
       *h = z;
       *d = 1.f;
   }
+}
+
+// The loss of one output entry and its dL/dp times d (datal2 or
+// datasmoothl1, weight_thres override: p <= thr weighs 1).
+__device__ __forceinline__ float loss_grad(int loss, float beta, bool thr_on,
+                                           float thr, float p, float y,
+                                           float wv, bool valid, float dd,
+                                           float* loss_acc) {
+  float weff = (thr_on && p <= thr) ? 1.f : wv;
+  weff = valid ? weff : 0.f;
+  const float e = p - y;
+  float le, g;
+  if (loss == 0) {
+    le = e * e;
+    g = 2.f * weff * e;
+  } else {
+    const float ae = fabsf(e);
+    le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
+    const float sg = (float)((e > 0.f) - (e < 0.f));
+    g = weff * (ae < beta ? e / beta : sg);
+  }
+  *loss_acc += weff * le;
+  return g * dd;
 }
 
 }  // namespace brief

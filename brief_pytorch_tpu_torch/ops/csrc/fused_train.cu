@@ -33,7 +33,8 @@
 //  * wide (wide_train_kernel + wide_dw_kernel, e.g. 3-191x4-1,
 //    3-242x4-1, 3-128x6-1): W streamed through shared memory in slabs,
 //    h_l and d_l in a device-memory scratch, dW a split-K product over it;
-//    described at its code.
+//    described at its code.  Chains past its rows' reach (a layer wider
+//    than 3,327 features) take the streamed form, csrc/fused_train_stream.cu.
 //
 // The narrow layout (fused_train_kernel), for chains whose weights and a
 // tile's activations fit in shared memory with 8 or more warps per SM:
@@ -100,28 +101,7 @@ __device__ __forceinline__ float* partial_row(float* partial, int fb,
          ((size_t)fb * gridDim.x + blockIdx.x) * (size_t)(n_params + 1);
 }
 
-// The loss of one output entry and its dL/dp times d (datal2 or
-// datasmoothl1, weight_thres override: p <= thr weighs 1).
-__device__ __forceinline__ float loss_grad(int loss, float beta, bool thr_on,
-                                           float thr, float p, float y,
-                                           float wv, bool valid, float dd,
-                                           float* loss_acc) {
-  float weff = (thr_on && p <= thr) ? 1.f : wv;
-  weff = valid ? weff : 0.f;
-  const float e = p - y;
-  float le, g;
-  if (loss == 0) {
-    le = e * e;
-    g = 2.f * weff * e;
-  } else {
-    const float ae = fabsf(e);
-    le = ae < beta ? 0.5f * ae * ae / beta : ae - 0.5f * beta;
-    const float sg = (float)((e > 0.f) - (e < 0.f));
-    g = weff * (ae < beta ? e / beta : sg);
-  }
-  *loss_acc += weff * le;
-  return g * dd;
-}
+using brief::loss_grad;   // csrc/chain.cuh
 
 // 3xTF32 on mma.sync.m16n8k8: csrc/tf32.cuh
 using brief::mma_tf32;
@@ -1469,17 +1449,12 @@ cudaError_t launch_narrow(dim3 grid, int threads, int smem_bytes,
 // memory (so 5-layer chains stopped at 217 features).  Here a W slab in
 // shared memory serves a whole tile (64 multiply-adds per float copied),
 // the products run on register micro-tiles, and shared memory holds two
-// layer rows of the tile and two slabs (the rows form, any width whose
-// round32(f + 1) rows fit at kT = 8: 3,327 features).  Past that the
-// streamed form (kStream) reads each layer's input, and the backward each
-// g_l, slab by slab from the scratch, which holds them anyway: shared
-// memory no longer grows with the width, and the limit is device memory,
-// B * rows_total * round64(N) floats of scratch.
+// layer rows of the tile and two slabs (any width whose round32(f + 1)
+// rows fit at kT = 8: 3,327 features; wider chains take the streamed
+// form, csrc/fused_train_stream.cu).
 // What bounds it: operations (3-191x4-1, N = 100,000: 66 GFLOP, 0.99 ms
 // at 67 TFLOP/s) and the scratch traffic (~1.2 GB there: h and d written,
-// d read and g written, h and g read by dW; 0.36 ms at 3.35 TB/s).  The
-// streamed form adds the input's reads from L2 for every 64-output block
-// of a layer.
+// d read and g written, h and g read by dW; 0.36 ms at 3.35 TB/s).
 // ---------------------------------------------------------------------------
 namespace wl = brief::wide;
 
@@ -1493,11 +1468,10 @@ struct WideDesc {
   const wl::Layer* layer;   // n_layers rows, device memory (csrc/wide.cuh)
 };
 
-// (b).  Grid (blocks, B), 4 * kT threads.  Shared memory: the rows form,
-// two buffers of rows_max rows of kT floats, then two weight slabs; the
-// streamed form (kStream), two weight slabs, two operand slabs of kKS rows
-// and the last layer's c_out rows; then the loss reduction buffer.
-template <int kT, bool kStream>
+// (b).  Grid (blocks, B), 4 * kT threads.  Shared memory: two buffers of
+// rows_max rows of kT floats, two weight slabs, then the loss reduction
+// buffer.
+template <int kT>
 __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
     const float* __restrict__ coords, const float* __restrict__ values,
     const float* __restrict__ weights, const float* __restrict__ wp,
@@ -1520,9 +1494,7 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
   float* buf0 = sm;
   float* buf1 = sm + d.rows_max * kT;
   float* slab = sm + 2 * d.rows_max * kT;
-  float* xs = slab + 2 * wl::kSlab;              // kStream: operand slabs
-  float* pred = xs + (kStream ? 2 * wl::kKS * kT : 0);   // kStream
-  float* red = pred + (kStream ? d.c_out * kT : 0);
+  float* red = slab + 2 * wl::kSlab;
   const size_t np = (size_t)d.np;
   float loss_acc = 0.f;
   float acc[4][4];
@@ -1531,9 +1503,8 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * kT;
     // coordinates (0 past n) to the scratch (dW of layer 0 reads them
-    // there, and so does the streamed forward); the rows form also takes
-    // them, a ones row and zeros to the slab boundary into buf0
-    const int c_end = kStream ? d.c_in : wl::round_up(d.c_in + 1, wl::kKS);
+    // there), and with a ones row and zeros to the slab boundary into buf0
+    const int c_end = wl::round_up(d.c_in + 1, wl::kKS);
     for (int e = t; e < c_end * kT; e += kNT) {
       const int r = e / kT, u = e - r * kT, idx = base + u;
       float v = r == d.c_in ? 1.f : 0.f;
@@ -1541,7 +1512,7 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
         v = idx < n ? coords[(size_t)r * n + idx] : 0.f;
         scratch[(size_t)r * np + idx] = v;
       }
-      if (!kStream) buf0[e] = v;
+      buf0[e] = v;
     }
     __syncthreads();
 
@@ -1551,21 +1522,15 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
     for (int l = 0; l < L; ++l) {
       const wl::Layer* ly = d.layer + l;
       const int fout = ld_use(&ly->fout);
-      const bool last = l + 1 == L;
       for (int o0 = 0; o0 < fout; o0 += wl::kOB) {
         const int fin = ld_use(&ly->fin);
-        wl::forward_block<kT, kStream>(
-            wp + ld_use(&ly->wp_off), ld_use(&ly->colpad), o0,
-            wl::round_up(fin + 1, wl::kKS),
-            kStream ? scratch + ld_use(&ly->x_row) * np + base : X, np, fin,
-            xs, slab, acc);
+        wl::forward_block<kT>(wp + ld_use(&ly->wp_off), ld_use(&ly->colpad),
+                              o0, wl::round_up(fin + 1, wl::kKS), X, slab,
+                              acc);
         const int mo = ld_use(&ly->mask_off), hr = ld_use(&ly->h_row);
         const float* ml = mk == nullptr || mo < 0 ? nullptr : mk + mo;
         float* H = hr < 0 ? nullptr : scratch + hr * np + base;
         float* D = scratch + ld_use(&ly->g_row) * np + base;
-        // the layer's output rows in shared memory: the rows form's other
-        // buffer; the streamed form keeps only the last layer's
-        float* Yl = kStream ? (last ? pred : nullptr) : Y;
         const int act = ld_use(&ly->act);
         const float w0 = ld_use(&ly->w0);
 #pragma unroll
@@ -1581,16 +1546,14 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
             dv[c] *= m;
           }
           const float4 h4 = make_float4(h[0], h[1], h[2], h[3]);
-          if (Yl != nullptr)
-            *reinterpret_cast<float4*>(Yl + o * kT + 4 * cu) = h4;
+          *reinterpret_cast<float4*>(Y + o * kT + 4 * cu) = h4;
           if (H != nullptr)
             *reinterpret_cast<float4*>(H + o * np + 4 * cu) = h4;
           *reinterpret_cast<float4*>(D + o * np + 4 * cu) =
               make_float4(dv[0], dv[1], dv[2], dv[3]);
         }
       }
-      if (!kStream)
-        wl::fill_rows<kT>(Y, fout, wl::round_up(fout + 1, wl::kKS), true);
+      wl::fill_rows<kT>(Y, fout, wl::round_up(fout + 1, wl::kKS), true);
       __syncthreads();
       float* sw = X;
       X = Y;
@@ -1599,7 +1562,7 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
 
     // ---- loss; g of the last layer over its d (padding weighs 0) ----
     {
-      float* P = kStream ? pred : X;   // the prediction, then g
+      float* P = X;   // the prediction, then g
       float* D = scratch + ld_use(&d.layer[L - 1].g_row) * np + base;
       for (int e = t; e < d.c_out * kT; e += kNT) {
         const int c = e / kT, u = e - c * kT, idx = base + u;
@@ -1614,8 +1577,7 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
         P[e] = g;
         D[c * np + u] = g;
       }
-      if (!kStream)
-        wl::fill_rows<kT>(X, d.c_out, wl::round_up(d.c_out, wl::kKS), false);
+      wl::fill_rows<kT>(X, d.c_out, wl::round_up(d.c_out, wl::kKS), false);
       __syncthreads();
     }
 
@@ -1625,11 +1587,9 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
       const int fin = ld_use(&ly->fin);
       for (int i0 = 0; i0 < fin; i0 += wl::kOB) {
         const int fout = ld_use(&ly->fout);
-        wl::input_grad_block<kT, kStream>(
-            wp + ld_use(&ly->wp_off), ld_use(&ly->colpad), i0,
-            wl::round_up(fout, wl::kKS),
-            kStream ? scratch + ld_use(&ly->g_row) * np + base : X, np, fout,
-            xs, slab, acc);
+        wl::input_grad_block<kT>(wp + ld_use(&ly->wp_off), ld_use(&ly->colpad),
+                                 i0, wl::round_up(fout, wl::kKS), X, slab,
+                                 acc);
         float* D = scratch + ld_use(&d.layer[l - 1].g_row) * np + base;
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
@@ -1639,11 +1599,11 @@ __global__ void __launch_bounds__(4 * kT) wide_train_kernel(
           const float4 dv = *dp;
           const float4 g = make_float4(acc[a][0] * dv.x, acc[a][1] * dv.y,
                                        acc[a][2] * dv.z, acc[a][3] * dv.w);
-          if (!kStream) *reinterpret_cast<float4*>(Y + i * kT + 4 * cu) = g;
+          *reinterpret_cast<float4*>(Y + i * kT + 4 * cu) = g;
           *dp = g;
         }
       }
-      if (!kStream) wl::fill_rows<kT>(Y, fin, wl::round_up(fin, wl::kKS), false);
+      wl::fill_rows<kT>(Y, fin, wl::round_up(fin, wl::kKS), false);
       __syncthreads();
       float* sw = X;
       X = Y;
@@ -1801,17 +1761,17 @@ __global__ void reduce_wide_kernel(const float* __restrict__ partial,
   out[(size_t)fb * (n_params + 1) + p] = s / m;
 }
 
-template <int kT, bool kStream>
+template <int kT>
 cudaError_t wide_occupancy(int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      wide_train_kernel<kT, kStream>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, wide_train_kernel<kT, kStream>, 4 * kT, smem_bytes);
+      blocks_per_sm, wide_train_kernel<kT>, 4 * kT, smem_bytes);
 }
 
-template <int kT, bool kStream>
+template <int kT>
 cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
                         const float* coords, const float* values,
                         const float* weights, const float* wp,
@@ -1819,10 +1779,10 @@ cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
                         float* scratch, float* lossp, int n,
                         const WideDesc& d, int loss, float beta) {
   cudaError_t err = cudaFuncSetAttribute(
-      wide_train_kernel<kT, kStream>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return err;
-  wide_train_kernel<kT, kStream><<<grid, 4 * kT, smem_bytes, s>>>(
+  wide_train_kernel<kT><<<grid, 4 * kT, smem_bytes, s>>>(
       coords, values, weights, wp, masks, thres, scratch, lossp, n, d, loss,
       beta);
   return cudaGetLastError();
@@ -2012,20 +1972,16 @@ int brief_fused_train_tiled(const float* coords, const float* values,
 }
 
 
-// The wide layout's blocks per SM (4 * tile threads, `smem_bytes`; the
-// streamed form when `stream`) and the device's SM count.
-int brief_fused_train_wide_occupancy(int tile, int stream, int smem_bytes,
+// The wide layout's blocks per SM (4 * tile threads, `smem_bytes`) and
+// the device's SM count.
+int brief_fused_train_wide_occupancy(int tile, int smem_bytes,
                                      int* blocks_per_sm, int* sm_count) {
-  decltype(&wide_occupancy<64, false>) fn;
-  switch (tile * 2 + (stream ? 1 : 0)) {
-    case 128: fn = &wide_occupancy<64, false>; break;
-    case 64: fn = &wide_occupancy<32, false>; break;
-    case 32: fn = &wide_occupancy<16, false>; break;
-    case 16: fn = &wide_occupancy<8, false>; break;
-    case 129: fn = &wide_occupancy<64, true>; break;
-    case 65: fn = &wide_occupancy<32, true>; break;
-    case 33: fn = &wide_occupancy<16, true>; break;
-    case 17: fn = &wide_occupancy<8, true>; break;
+  decltype(&wide_occupancy<64>) fn;
+  switch (tile) {
+    case 64: fn = &wide_occupancy<64>; break;
+    case 32: fn = &wide_occupancy<32>; break;
+    case 16: fn = &wide_occupancy<16>; break;
+    case 8: fn = &wide_occupancy<8>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = fn(smem_bytes, blocks_per_sm);
@@ -2038,9 +1994,9 @@ int brief_fused_train_wide_occupancy(int tile, int stream, int smem_bytes,
 }
 
 // The wide layout (ops/fused_train.py wide_plan).  meta: n_layers, c_in,
-// c_out, n_params, mask_width, rows_max (0: the streamed form), np,
-// rows_total, wp_total, n_dw_tiles, pack_blocks (blocks of 256 threads a
-// layer for pack_weights), stream.  table: device memory, n_layers
+// c_out, n_params, mask_width, rows_max, np, rows_total, wp_total,
+// n_dw_tiles, pack_blocks (blocks of 256 threads a layer for
+// pack_weights).  table: device memory, n_layers
 // wide::Layer rows (ops/fused_train.py wide_table); a layer's mask_off
 // counts only when `masks` is given.  Scratch the caller allocates: wp
 // (B, wp_total) for the packed weights, scratch (B, rows_total, np) for
@@ -2070,23 +2026,19 @@ int brief_fused_train_wide(const float* coords, const float* values,
   d.rows_total = meta[7];
   d.wp_total = meta[8];
   d.n_dw_tiles = meta[9];
-  const int pack_blocks = meta[10], stream_form = meta[11];
+  const int pack_blocks = meta[10];
   d.layer = static_cast<const wl::Layer*>(table);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = wl::pack_weights(params, wp, d.layer, d.n_layers,
                                      d.n_params, d.wp_total, n_fleet,
                                      pack_blocks, s);
   if (err != cudaSuccess) return (int)err;
-  decltype(&launch_wide<64, false>) fn;
-  switch (tile * 2 + (stream_form ? 1 : 0)) {
-    case 128: fn = &launch_wide<64, false>; break;
-    case 64: fn = &launch_wide<32, false>; break;
-    case 32: fn = &launch_wide<16, false>; break;
-    case 16: fn = &launch_wide<8, false>; break;
-    case 129: fn = &launch_wide<64, true>; break;
-    case 65: fn = &launch_wide<32, true>; break;
-    case 33: fn = &launch_wide<16, true>; break;
-    case 17: fn = &launch_wide<8, true>; break;
+  decltype(&launch_wide<64>) fn;
+  switch (tile) {
+    case 64: fn = &launch_wide<64>; break;
+    case 32: fn = &launch_wide<32>; break;
+    case 16: fn = &launch_wide<16>; break;
+    case 8: fn = &launch_wide<8>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   err = fn(dim3(grid, n_fleet), smem_bytes, s, coords, values, weights, wp,

@@ -13,14 +13,10 @@
 // with cp.async, so a slab's 16-byte copies overlap the products on the
 // previous one.
 //
-// Where the activation operand lives:
-//  * rows (kStream false): two buffers of rows in shared memory, a layer
-//    reading one and writing the other: 2 * round32(width + 1) * kT
-//    floats, which at kT = 8 holds up to 3,327 features;
-//  * streamed (kStream true), for wider layers: the layer's input rows
-//    come slab by slab from the device scratch that holds every h_l and
-//    g_l anyway, copied beside the weight slab into two buffers of kKS
-//    rows, so shared memory no longer grows with the width.
+// The activation operand lives in shared memory: two buffers of rows, a
+// layer reading one and writing the other: 2 * round32(width + 1) * kT
+// floats, which at kT = 8 holds up to 3,327 features.  Wider chains take
+// the streamed form (csrc/fused_train_stream.cu).
 //
 // A product block is 64 outputs (or inputs) x kT coordinates; thread t
 // owns the 4 x 4 micro-tile of outputs 4 * (t / (kT / 4)) + a and
@@ -101,39 +97,16 @@ inline cudaError_t pack_weights(const float* params, float* wp,
   return cudaGetLastError();
 }
 
-// The streamed operand's slab s: rows s * kKS .. s * kKS + kKS - 1 of X
-// (row stride np floats, kT floats a row) into `dst` (kKS rows of kT),
-// rows from `xrows` on a ones row (at xrows, when `ones`) then zeros.
-// Joins the caller's cp.async group.
-template <int kT>
-__device__ __forceinline__ void stream_rows(float* dst, const float* X,
-                                            size_t np, int xrows, bool ones,
-                                            int s) {
-  constexpr int kNT = 4 * kT, kQ = kT / 4;
-  for (int j = threadIdx.x; j < kKS * kQ; j += kNT) {
-    const int r = j / kQ, q = j - r * kQ, row = s * kKS + r;
-    float* d = dst + r * kT + 4 * q;
-    if (row < xrows) {
-      cp16(d, X + (size_t)row * np + 4 * q);
-    } else {
-      const float v = ones && row == xrows ? 1.f : 0.f;
-      *reinterpret_cast<float4*>(d) = make_float4(v, v, v, v);
-    }
-  }
-}
-
 // acc[a][c] = sum_{k < kend} Wp[k][o0 + 4 oq + a] * X[k][4 cu + c]: the
 // pre-activation of outputs o0 .. o0 + 63 of the tile.  Wp: a layer's
-// packed weights (row stride colpad); X: the input rows (kend a multiple
-// of kKS), rows fin .. kend - 1 a ones row then zeros: in shared memory,
-// or (kStream) the scratch's rows 0 .. fin - 1 (row stride np), streamed
-// through `xs` (2 * kKS * kT floats).  `slab`: 2 * kSlab floats.  Called
-// by every thread; ends after a barrier.
-template <int kT, bool kStream>
+// packed weights (row stride colpad); X: the input rows in shared memory
+// (kend a multiple of kKS), rows fin .. kend - 1 a ones row then zeros.
+// `slab`: 2 * kSlab floats.  Called by every thread; ends after a
+// barrier.
+template <int kT>
 __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
                                               int colpad, int o0, int kend,
-                                              const float* X, size_t np,
-                                              int fin, float* xs, float* slab,
+                                              const float* X, float* slab,
                                               float (&acc)[4][4]) {
   constexpr int kNT = 4 * kT, kCQ = kT / 4;
   const int t = threadIdx.x, cu = t % kCQ, oq = t / kCQ;
@@ -149,7 +122,6 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
       const int r = j / (kOB / 4), q = j % (kOB / 4);
       cp16(dst + r * kOB + 4 * q, src + (size_t)r * colpad + 4 * q);
     }
-    if (kStream) stream_rows<kT>(xs + (s & 1) * kKS * kT, X, np, fin, true, s);
     cp_commit();
   };
   load(0);
@@ -162,8 +134,7 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
     }
     __syncthreads();
     const float* w = slab + (s & 1) * kSlab + 4 * oq;
-    const float* x = (kStream ? xs + (s & 1) * kKS * kT
-                              : X + (size_t)s * kKS * kT) + 4 * cu;
+    const float* x = X + (size_t)s * kKS * kT + 4 * cu;
 #pragma unroll 8
     for (int k = 0; k < kKS; ++k) {
       const float4 wv = *reinterpret_cast<const float4*>(w + k * kOB);
@@ -181,15 +152,12 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ Wp,
 
 // acc[a][c] = sum_{o < oend} Wp[i0 + 4 iq + a][o] * G[o][4 cu + c]: inputs
 // i0 .. i0 + 63 of W_l g_l for the tile (oend a multiple of kKS, rows of G
-// from fout on zero: in shared memory, or (kStream) the scratch's rows
-// 0 .. fout - 1 streamed through `xs`).  Walks W's rows along o: no
+// in shared memory from fout on zero).  Walks W's rows along o: no
 // transposed copy.
-template <int kT, bool kStream>
+template <int kT>
 __device__ __forceinline__ void input_grad_block(const float* __restrict__ Wp,
                                                  int colpad, int i0, int oend,
-                                                 const float* G, size_t np,
-                                                 int fout, float* xs,
-                                                 float* slab,
+                                                 const float* G, float* slab,
                                                  float (&acc)[4][4]) {
   constexpr int kNT = 4 * kT, kCQ = kT / 4;
   const int t = threadIdx.x, cu = t % kCQ, iq = t / kCQ;
@@ -205,8 +173,6 @@ __device__ __forceinline__ void input_grad_block(const float* __restrict__ Wp,
       const int r = j / (kKS / 4), q = j % (kKS / 4);
       cp16(dst + r * kSlabStride + 4 * q, src + (size_t)r * colpad + 4 * q);
     }
-    if (kStream)
-      stream_rows<kT>(xs + (s & 1) * kKS * kT, G, np, fout, false, s);
     cp_commit();
   };
   load(0);
@@ -219,8 +185,7 @@ __device__ __forceinline__ void input_grad_block(const float* __restrict__ Wp,
     }
     __syncthreads();
     const float* w = slab + (s & 1) * kSlab + 4 * iq * kSlabStride;
-    const float* g = (kStream ? xs + (s & 1) * kKS * kT
-                              : G + (size_t)s * kKS * kT) + 4 * cu;
+    const float* g = G + (size_t)s * kKS * kT + 4 * cu;
 #pragma unroll 2
     for (int o = 0; o < kKS; o += 4) {
       float4 gv[4];

@@ -56,13 +56,15 @@ made once per chain, so no layout bounds the depth:
     layout such as 3-128x6-1): W streamed through shared memory in slabs
     (ops/wide.py, csrc/wide.cuh), h_l and d_l of every coordinate in a
     device-memory scratch, dW a split-K product over it (`dw_split`).
-    Its rows form holds two layers' rows of a tile in shared memory, up
-    to 3,327 features at 8 coordinates a tile; past that its streamed
-    form (`stream`; 3-4096-1, 3-20971-1) reads each layer's input and
-    each g_l slab by slab from the scratch.  Its limit is device memory
-    for the scratch, B * rows_total * round64(N) floats, which the
-    wrapper reports as torch.cuda.OutOfMemoryError naming the bytes.
-csrc/fused_train.cu says what bounds each.
+    It holds two layers' rows of a tile in shared memory, up to 3,327
+    features at 8 coordinates a tile; past that the streamed form takes
+    the chain (ops/stream.py, csrc/fused_train_stream.cu; 3-4096-1,
+    3-20971-1, [3, 4096, 4096, 1]): thin end layers as reductions on the
+    CUDA cores, the square products on the tensor cores in 3xTF32, one
+    row set of z per stored hidden layer.  The limit of both is device
+    memory for the scratch, which the wrapper reports as
+    torch.cuda.OutOfMemoryError naming the bytes.
+csrc/fused_train.cu and csrc/fused_train_stream.cu say what bounds each.
 
 `fused_train_grads_fleet` launches the kernel for CUDA tensors and calls
 the plain version, `fused_train_grads_reference`, for CPU tensors; there
@@ -80,6 +82,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from brief_pytorch_tpu_torch.ops import stream as stream_form
 from brief_pytorch_tpu_torch.ops import wide
 from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
                                                chain_layer_specs, f32_word,
@@ -128,7 +131,7 @@ _SIGNATURES = {
     "brief_fused_train_tiled": [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "brief_fused_train_wide_occupancy": [ctypes.c_int] * 3 + [
+    "brief_fused_train_wide_occupancy": [ctypes.c_int] * 2 + [
         ctypes.c_void_p, ctypes.c_void_p],
     "brief_fused_train_wide": [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -532,15 +535,12 @@ def tiled_plan(widths: Sequence[int], mt: Optional[int] = None) -> Dict:
             "red_off": red_off, "smem_bytes": 4 * (red_off + TILED_WARPS)}
 
 
-def wide_plan(widths: Sequence[int], tile: int, stream: bool = False
-              ) -> Dict:
+def wide_plan(widths: Sequence[int], tile: int) -> Dict:
     """Layout of the wide layout for a chain of `widths` and `tile`
     coordinates per tile (4 * tile threads).
 
-    Shared memory: the rows form, two buffers of rows_max rows of `tile`
-    floats and two weight slabs; the streamed form (`stream`, rows_max 0),
-    two weight slabs, two slabs of KS operand rows and the last layer's
-    c_out rows; then a loss buffer of one float per thread.  Scratch rows
+    Shared memory: two buffers of rows_max rows of `tile` floats and two
+    weight slabs, then a loss buffer of one float per thread.  Scratch rows
     (each np = round64(N) floats; B * rows_total of them per call): the
     coordinates (x_row[0] = 0), then per layer h_l (h_row; none for the
     last layer) and d_l / g_l (g_row); x_row[l] is the layer's input.
@@ -548,7 +548,7 @@ def wide_plan(widths: Sequence[int], tile: int, stream: bool = False
     (i-block, o-block), numbered from tile0[l], o-blocks fastest."""
     n_layers = len(widths) - 1
     meta = wide.layer_meta(widths)
-    rows = 0 if stream else wide.rows_max(widths)
+    rows = wide.rows_max(widths)
     x_row, h_row, g_row, tile0 = [0], [], [], [0]
     row = widths[0]
     for l in range(n_layers):
@@ -564,15 +564,14 @@ def wide_plan(widths: Sequence[int], tile: int, stream: bool = False
         tile0.append(tile0[-1] + -(-(widths[l] + 1) // wide.OB)
                      * -(-fout // wide.OB))
     threads = 4 * tile
-    operand = 2 * wide.KS * tile + widths[-1] * tile if stream else 0
     pack = max(b - a for a, b in zip(meta["wp_off"][:-1], meta["wp_off"][1:]))
     return {"layout": "wide", "block": tile, "threads": threads,
-            "stream": stream, "rows_max": rows, "rows_total": row,
+            "stream": False, "rows_max": rows, "rows_total": row,
             "x_row": x_row, "h_row": h_row, "g_row": g_row,
             "tile0": tile0[:-1], "n_dw_tiles": tile0[-1],
             "wp_total": meta["wp_off"][-1], "pack_blocks": -(-pack // 256),
             **meta, "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB +
-                                       operand + threads)}
+                                       threads)}
 
 
 def dw_split(n: int, n_fleet: int, n_dw_tiles: int) -> Tuple[int, int, int]:
@@ -595,22 +594,19 @@ def choose_plan(widths: Sequence[int]) -> Dict:
     once in shared memory, dW in registers) when its weights and a tile
     of at least 32 coordinates fit and its dW jobs fit TILED_JOBS; else
     the wide
-    layout, in its rows form where a tile's rows fit a block's 227 KB, in
-    its streamed form past that."""
+    layout where a tile's rows fit a block's 227 KB; else its streamed form
+    (ops/stream.py stream_plan)."""
     p = narrow_plan(widths)
     if p is not None and resident_warps(p) >= NARROW_MIN_WARPS:
         return p
     p = tiled_plan(widths)
     if p["jobs"] and p["smem_bytes"] <= SMEM_LIMIT:
         return p
-    for stream in (False, True):
-        tile = wide.choose_tile(
-            lambda t: wide_plan(widths, t, stream)["smem_bytes"], SMEM_LIMIT,
-            SM_SMEM)
-        if tile is not None:
-            return wide_plan(widths, tile, stream)
-    raise AssertionError(f"no tile of the streamed form fits: {widths}")
-
+    tile = wide.choose_tile(lambda t: wide_plan(widths, t)["smem_bytes"],
+                            SMEM_LIMIT, SM_SMEM)
+    if tile is not None:
+        return wide_plan(widths, tile)
+    return stream_form.stream_plan(widths)
 
 
 def chain_widths(spec) -> List[int]:
@@ -883,8 +879,7 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
     tiles; the tiled layout's, the whole grid (its kernel shares it among
     the chains)."""
     key = (device.index or 0, p["layout"], p["threads"], p["smem_bytes"],
-           p.get("jobs", 0), p.get("small", False),
-           p.get("stream", False))
+           p.get("jobs", 0), p.get("small", False))
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         from brief_pytorch_tpu_torch.ops import build
@@ -894,8 +889,8 @@ def _grid(lib, device: torch.device, p: Dict, n: int, n_fleet: int) -> int:
                 ctypes.addressof(sms))
         elif p["layout"] == "wide":
             err = lib.brief_fused_train_wide_occupancy(
-                p["block"], int(p["stream"]), p["smem_bytes"],
-                ctypes.addressof(per_sm), ctypes.addressof(sms))
+                p["block"], p["smem_bytes"], ctypes.addressof(per_sm),
+                ctypes.addressof(sms))
         else:
             err = lib.brief_fused_train_occupancy(
                 p["threads"], p["jobs"], int(p["small"]), p["smem_bytes"],
@@ -980,10 +975,11 @@ def _wide_buffers(device: torch.device, p: Dict, n_fleet: int, np_: int,
 
 
 def free_scratch() -> None:
-    """Drop the wide layout's cached device scratch (the next wide call
-    allocates it anew): B * rows_total * round64(N) floats, 16.8 GB for
-    3-20971-1 at N = 100,000, that a run's last shape keeps otherwise."""
+    """Drop the wide layout's and the streamed form's cached device
+    scratch (the next call allocates it anew), which a run's last shape
+    keeps otherwise."""
     _WIDE_BUFFERS.clear()
+    stream_form.free_buffers()
 
 
 def narrow_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
@@ -1023,7 +1019,8 @@ def tiled_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
 
 def wide_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
                mask_off: Sequence[int]) -> List[int]:
-    """The wide layout's table (csrc/wide.cuh wide::Layer rows)."""
+    """The wide layout's table (csrc/wide.cuh wide::Layer rows); the
+    streamed form has its own (ops/stream.py stream_table)."""
     tile_end = p["tile0"][1:] + [p["n_dw_tiles"]]
     words = []
     for l, (act, w0) in enumerate(acts):
@@ -1060,6 +1057,10 @@ def _launch(params, coords, values, weights, widths, acts,
     if len(acts) != len(widths) - 1:
         raise ValueError("one (act, w0) per layer")
     p = _plan(widths)
+    if p.get("stream"):
+        return stream_form.launch(p, params, coords, values, weights, widths,
+                             acts, masks, mask_off, thres,
+                             LOSSES.index(loss_name), beta)
     n_fleet, n = coords.shape[0], coords.shape[-1]
     mask_width = 0 if masks is None else masks.shape[1]
     key = (p["layout"], tuple(widths), tuple(acts), tuple(mask_off))
@@ -1067,8 +1068,7 @@ def _launch(params, coords, values, weights, widths, acts,
         np_, splits, chunk = dw_split(n, n_fleet, p["n_dw_tiles"])
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 mask_width, p["rows_max"], np_, p["rows_total"],
-                p["wp_total"], p["n_dw_tiles"], p["pack_blocks"],
-                int(p["stream"])]
+                p["wp_total"], p["n_dw_tiles"], p["pack_blocks"]]
         table, _ = layer_table(key, lambda: wide_table(p, widths, acts,
                                                        mask_off), device)
     elif p["layout"] == "tiled":

@@ -3,12 +3,11 @@ kernel's wide layout (ops/fused_train.py), for chains whose weights do
 not fit in shared memory.
 
 A block takes a tile of T coordinates (one of TILES) with 4 T threads and
-holds two buffers of activation rows (rows_max(widths) rows of T floats;
-or, in the streamed form for layers wider than those rows allow, two
-slabs of KS rows streamed from the device scratch) and two weight slabs of
-SLAB floats; the weights stay in device memory in a packed copy, each
-layer's W with its bias as row fin, zero-padded to (round64(fin + 1),
-round64(fout)) (packed_layout).
+holds two buffers of activation rows (rows_max(widths) rows of T floats)
+and two weight slabs of SLAB floats; the weights stay in device memory in
+a packed copy, each layer's W with its bias as row fin, zero-padded to
+(round64(fin + 1), round64(fout)) (packed_layout).  Chains whose rows do
+not fit take the streamed form (ops/stream.py).
 """
 from __future__ import annotations
 

@@ -216,15 +216,21 @@ non-zero exit:
      steps each (reach_single: one train launch a step, the grid kernel
      in the checkpoint and the standalone decompress, which equals the
      checkpoint's volume, PSNR within REACH_AUTOGRAD_DB of autograd's on
-     the same steps; 20b also the batch-major route through kernel 3
+     the same steps; 3-22213-1's steps each one launch of the streamed
+     form, csrc/fused_train_stream.cu, by its own count; 20b also the
+     batch-major route through kernel 3
      within 1 LSB of the grid kernel's on >= 99.9%); 20c hipct.yaml with
      layers 20 (4 blocks padded to REACH_HIPCT_PADDED, kernel 1's fleet
      form), REACH_STEPS["hipct"] steps, decompress_divide within 1 LSB of
      the merged checkpoint; 20d each kernel against its plain version
      under phases 3, 4, 6 and 9's rules: kernel 1 at REACH_TRAIN
      (chain_check; the streamed form's scratch freed before the plain
-     version runs) and REACH_FLEETS (fleet_check, their relu/sigmoid
-     chains against the plain version in float64), kernel 2 at
+     version runs; the streamed shapes also against the plain version in
+     float64, train_f64, within F64_RATIO["phase20"] of its distance, and
+     their tensor-core bound) and REACH_FLEETS (fleet_check, their
+     relu/sigmoid chains against the plain version in float64; the
+     streamed fleet's loss and gradients within 2x the plain version's
+     float64 distance), kernel 2 at
      REACH_DECODE (decode_check), kernel 3 at REACH_SIREN (siren_check).
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
@@ -341,7 +347,9 @@ GRAD_N = 8192                # coordinates of phase 9's gradient check
 # accuracy.  The tensor core's truncating sums, three mma.sync a k-block
 # into one accumulator, were 2.3x (max) and 3.0x (mean) on phase 10's
 # trained chain.
-F64_RATIO = {"phase4": 2.0, "phase6": 2.0, "phase9": 2.0, "phase10": 1.5}
+F64_RATIO = {"phase4": 2.0, "phase6": 2.0, "phase9": 2.0, "phase10": 1.5,
+             "phase20": 2.0}
+F64_SLAB = 16_384     # coordinates a time of a float64 train reference
 # phase 20: chains past the kernels' old reach (16 layers, 3,327 features).
 # 20a the 64^3 fixture and 20b the HiP-CT demo volume at 80x through the
 # SingleTask command with Module.phi.layers set (models/sizing widths),
@@ -502,7 +510,11 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
     them) at n coordinates:
     the plan must pick `layout`; against its plain version (compare_grads'
     tolerances), two more runs bitwise equal, timed beside the plain
-    version, bound_ms and (narrow) tc_bound_ms.  Returns its JSON row."""
+    version, bound_ms and (narrow, tiled, the wide layout's streamed form)
+    tc_bound_ms; the streamed form also against the plain version
+    evaluated in float64 (train_f64), max and mean distance within
+    F64_RATIO["phase20"] x the float32 plain version's.  Returns its JSON
+    row."""
     import torch
     from brief_pytorch_tpu_torch.models.phi import init_phi
     from brief_pytorch_tpu_torch.ops import fused_train
@@ -540,6 +552,14 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
     one = lambda g: [{a: b[None] for a, b in x.items()} for x in g["layers"]]
     err = compare_grads(lk[None], one(gk), lp[None], one(gp),
                         f"{label} {widths}")
+    f64 = {}
+    if p.get("stream"):
+        free()
+        f64 = f64_check(f"{label} {widths} against float64",
+                        flat_grads(lk, gk), flat_grads(lp, gp),
+                        train_f64(layers, c, v, w, acts, kw),
+                        F64_RATIO["phase20"])
+    del lp, gp
     for lr, gr in [k() for _ in range(2)]:
         if not torch.equal(lr, lk) or not all(
                 torch.equal(x[key], y[key]) for x, y in
@@ -552,9 +572,9 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
         l["w"].numel() + l["b"].numel() for l in layers) + 1)
     b, by = bound_ms(n_bytes, train_flops(widths, acts, n))
     row = dict(shape=f"SIREN {widths}, N={n}", layout=layout,
-               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+               max_abs_err=err, **f64, ms=ms, plain_ms=plain, bound_ms=b,
                bound_by=by, **({"stream": True} if p.get("stream") else {}))
-    if layout in ("narrow", "tiled"):
+    if layout in ("narrow", "tiled") or p.get("stream"):
         row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
     say(phase, case=label, widths=widths, n=n, layout=layout,
         **({"form": "streamed"} if p.get("stream") else {}),
@@ -562,9 +582,44 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
         bound_ms=f"{b:.4f}", bound_by=by,
         **({"tc_bound_ms": f"{row['tc_bound_ms']:.4f}"}
            if "tc_bound_ms" in row else {}),
+        **{k_: f"{v_:.3e}" for k_, v_ in f64.items()},
         tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; 3 runs "
-                  "bitwise")
+                  "bitwise" + (f"; float64 {F64_RATIO['phase20']:g}x plain"
+                               if f64 else ""))
     return row
+
+
+def flat_grads(loss, grads) -> np.ndarray:
+    """One chain's loss and gradients (w, b of each layer) as one float64
+    array on the host."""
+    return np.concatenate(
+        [loss.double().reshape(-1).cpu().numpy()] +
+        [x[key].double().reshape(-1).cpu().numpy()
+         for x in grads["layers"] for key in ("w", "b")])
+
+
+def train_f64(layers, c, v, w, acts, kw, slab: int = F64_SLAB
+              ) -> np.ndarray:
+    """The plain version of one chain's train step evaluated in float64,
+    `slab` coordinates at a time (each slab's loss and gradients weighed by
+    its share of the coordinates and added in float64), as flat_grads
+    lays it out: the float64 truth a wide chain's activations at full N
+    would not leave room for."""
+    import torch
+    from brief_pytorch_tpu_torch.ops import fused_train
+    n = c.shape[-1]
+    d64 = [{key: t.double() for key, t in l.items()} for l in layers]
+    total = None
+    for a in range(0, n, slab):
+        b = min(n, a + slab)
+        loss, g = fused_train.fused_train_grads_reference(
+            d64, c[:, a:b].double(), v[:, a:b].double(), w[:, a:b].double(),
+            acts, **kw)
+        part = [loss.reshape(-1)] + [x[key].reshape(-1) for x in g["layers"]
+                                     for key in ("w", "b")]
+        part = torch.cat(part) * ((b - a) / n)
+        total = part if total is None else total + part
+    return total.cpu().numpy()
 
 
 def decode_bounds(widths, acts, spatial, n_params: int):
@@ -721,12 +776,12 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     against the plain version evaluated in float64), each block against
     the one-chain
     kernel on its unpadded chain, padded gradients exactly 0, three runs
-    bitwise equal; in the tiled layout also the loss and gradients'
-    distance from the plain version evaluated in float64, max and mean,
-    at most F64_RATIO["phase6"] x the float32 plain version's; then timed
-    beside the plain version, the bound and (narrow, tiled) the
-    tensor-core bound.  Fails the run on any disagreement; returns the
-    kernel's JSON row."""
+    bitwise equal; in the tiled layout and the wide layout's streamed form
+    also the loss and gradients' distance from the plain version evaluated
+    in float64, max and mean, at most F64_RATIO["phase6"] x the float32
+    plain version's; then timed beside the plain version, the bound and
+    (narrow, tiled, streamed) the tensor-core bound.  Fails the run on any
+    disagreement; returns the kernel's JSON row."""
     import torch
     from brief_pytorch_tpu_torch.models.phi import init_phi
     from brief_pytorch_tpu_torch.ops import fused_train
@@ -779,7 +834,8 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
         err = max(err, compare_grads(lk, gk["layers"], lp, gp["layers"],
                                      f"{what} {loss_name} {acts6[:2]}"))
     f64 = {}
-    if layout == "tiled":
+    stream = bool(fused_train.choose_plan(padded).get("stream"))
+    if layout == "tiled" or stream:
         flat = lambda loss, g: torch.cat([loss.double().reshape(-1)] + [
             x[key].double().reshape(-1) for x in g["layers"]
             for key in ("w", "b")]).cpu().numpy()
@@ -827,7 +883,8 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     p = fused_train.choose_plan(padded)
     if p["layout"] != layout:
         fail(f"{what}: layout {p['layout']}, not {layout}")
-    tc_row = {"tc_bound_ms": tc} if layout in ("narrow", "tiled") else {}
+    tc_row = {"tc_bound_ms": tc} if layout in ("narrow", "tiled") or \
+        stream else {}
     say(phase, blocks=nb, n=n, padded=padded,
         true_widths=list(true_widths), thres=fthres.tolist(), layout=layout,
         tile=p["block"], max_abs_err=f"{err:.3e}",
@@ -2473,15 +2530,16 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
     through the command, on the kernels and through autograd: every step
     one train-kernel launch, the checkpoint on the grid kernel, the
     standalone decompress equal to the checkpoint, the PSNRs within
-    REACH_AUTOGRAD_DB.  Returns the run's row."""
+    REACH_AUTOGRAD_DB; a chain past 3,327 features launches the streamed
+    form every step.  Returns the run's row."""
     import torch
     from brief_pytorch_tpu_torch.core import config as cfglib
     from brief_pytorch_tpu_torch.io.image import read_img
-    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train
+    from brief_pytorch_tpu_torch.ops import fused_decode, fused_train, stream
     from brief_pytorch_tpu_torch.train.fit import NFGR
     compress = {"sampler": {"sample_size": n}} if n else None
     phi = {"layers": layers}
-    fused_train.launches = fused_decode.launches = 0
+    fused_train.launches = fused_decode.launches = stream.launches = 0
     t0 = time.perf_counter()
     summary, run_dir, opt = run_config(CONFIG, out_dir, steps, data_path,
                                        phi=phi, project=f"reach_{label}",
@@ -2489,7 +2547,8 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_train": fused_train.launches,
-                "fused_decode": fused_decode.launches}
+                "fused_decode": fused_decode.launches,
+                "fused_train_streamed": stream.launches}
     cf = opt.CompressFramework
     comp = os.path.join(run_dir, f"steps{steps}", "compressed")
     side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
@@ -2497,7 +2556,9 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
     train_plan = fused_train.choose_plan(widths)
     decode_plan = fused_decode.choose_plan(widths)
     if launches["fused_train"] != steps or launches["fused_decode"] < 1 or \
-            side["phi_features"] != features:
+            side["phi_features"] != features or \
+            launches["fused_train_streamed"] != \
+            (steps if train_plan.get("stream") else 0):
         fail(f"reach {label}: launches {launches}, features "
              f"{side['phi_features']} (want {features})")
     fused_decode.launches = 0
@@ -3231,6 +3292,15 @@ def main() -> int:
          "phase19_ranks": phase19["fleet"],
          "reach": {**reach["kernels"]["fleet"],
                    "hipct_20_layers": reach["hipct"]}},
+        {"name": "fused_train_grads_streamed", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train_stream.cu "
+                   "(+ ops/stream.py, csrc/tf32.cuh)",
+         "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
+         "launches": reach["demo_2"]["launches"]["fused_train_streamed"],
+         "library_ms": None, **reach["kernels"]["train"]["reach-20971"],
+         "at_4096": reach["kernels"]["train"]["reach-4096"],
+         "fleet_2x4096": reach["kernels"]["fleet"]["reach-fleet-2x4096"],
+         "phase20b": reach["demo_2"]},
         {"name": "fused_decode_grid", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_decode.cu "
                    "(+ csrc/chain_tc.cuh, csrc/tf32.cuh)",

@@ -15,6 +15,14 @@ the opcode sequences are equal, and how many opcodes differ (a diff of
 the two sequences); register numbers and constant-bank offsets are not
 compared.  Needs cuobjdump (the CUDA toolkit) on PATH or under
 /usr/local/cuda/bin.
+
+    python3 scripts/sass_compare.py --by-name --drop-false \
+        outputs/parent/build/libfused_train.so build/libfused_train.so
+
+--by-name pairs kernels by their own name (its anonymous namespace's
+hash left out) instead of their kind; --drop-false leaves false bool
+template arguments out of the key, so that an instance of a kernel that
+lost a bool parameter meets its old false instance.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ def _tool(name: str) -> str:
     return path
 
 
-def kernels(lib: str):
+def kernels(lib: str, by_name: bool = False, drop_false: bool = False):
     """{key: (mangled name, [opcode, ...])} of every kernel in lib."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", lib],
                           capture_output=True, text=True, check=True).stdout
@@ -57,17 +65,25 @@ def kernels(lib: str):
         # Itanium template arguments: Li3E (int 3), Lb1E (bool true)
         args = [("true" if v == "1" else "false") if t == "b" else v
                 for t, v in re.findall(r"L([ib])(-?\d+)E", raw)]
-        kind = m.group(1) if m else raw
-        keyed[f"{kind}_kernel<{','.join(args)}>"] = (raw, ops)
+        if drop_false:
+            args = [a for a in args if a != "false"]
+        kind = (m.group(1) if m else raw) + "_kernel"
+        named = re.search(r"([a-z][a-z_]*_kernel)", raw)
+        if by_name and named:
+            kind = named.group(1)
+        keyed[f"{kind}<{','.join(args)}>"] = (raw, ops)
     return keyed
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    flags = {f: f in argv for f in ("--by-name", "--drop-false")}
+    argv = [x for x in argv if x not in flags]
     if len(argv) != 2:
         print(__doc__)
         return 2
-    a, b = kernels(argv[0]), kernels(argv[1])
+    a, b = (kernels(x, flags["--by-name"], flags["--drop-false"])
+            for x in argv)
     for key in sorted(set(a) | set(b)):
         if key not in a or key not in b:
             print(json.dumps({"kernel": key, "only_in": argv[0] if key in a

@@ -23,7 +23,10 @@ phase 6 does).  The fleets of the DivideTask configs:
 (and chip_smoke.py) from another checkout, e.g. a `git archive` of the
 parent commit, so that two builds can be timed in turns in one call.
 --layout forces a layout of the kernel (narrow, tiled or wide) where its
-plan fits, to time one shape in two layouts.  Prints one JSON line per
+plan fits, to time one shape in two layouts.  --relu-float64 holds a
+fleet's relu/sigmoid chain to the plain version evaluated in float64 (as
+chip_smoke.py phase 20d does for its 20-layer fleet, where the float32
+plain version itself is past the 1e-4 tolerance).  Prints one JSON line per
 shape, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -85,6 +88,7 @@ def main(argv=None) -> int:
                     help="time the plain version too")
     ap.add_argument("--layout", choices=("auto", "narrow", "tiled", "wide"),
                     default="auto")
+    ap.add_argument("--relu-float64", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -111,7 +115,8 @@ def main(argv=None) -> int:
             row = cs.fleet_check(dev, np.random.default_rng(0), true,
                                  int(layers_), float(w0), int(n), thres,
                                  fused_train.choose_plan(padded)["layout"],
-                                 cin=cin)
+                                 cin=cin, relu_reference="float64"
+                                 if args.relu_float64 else "plain")
             print(json.dumps({"root": args.root, "shape": shape,
                               **{k: row[k] for k in ("layout", "ms",
                                                      "plain_ms",
@@ -152,7 +157,10 @@ def main(argv=None) -> int:
             return fused_train.fused_train_grads_reference(
                 layers, coords, values, weights, acts, **kw)
 
-        (lk, gk), (lp, gp) = k(), p()
+        lk, gk = k()
+        fused_train.free_scratch()     # room for the plain version's
+        torch.cuda.empty_cache()       # activations at the widest shapes
+        lp, gp = p()
         torch.cuda.synchronize()
         err = cs.compare_grads(lk[None], [{a: b[None] for a, b in g.items()}
                                           for g in gk["layers"]], lp[None],

@@ -196,6 +196,58 @@ def test_reach_fleet_matches_plain(dev, true_widths, layers, layout):
     _close(lk, gk["layers"], lp, gp["layers"])
 
 
+@pytest.mark.parametrize("widths,n", [
+    ([3, 4096, 4096, 1], 16_384),           # chip_smoke.py REACH_TRAIN
+    ([3, 20971, 1], 100_000),
+])
+def test_streamed_form_at_phase20_shapes(dev, widths, n):
+    """Phase 20d's streamed shapes (kernel 1's streamed form, ops/stream.py):
+    one launch of the form a call by its own count, within the plain
+    version's tolerances, two calls bitwise equal."""
+    from brief_pytorch_tpu_torch.ops import stream as st
+    model, params = _chain(dev, widths[1], len(widths) - 1)
+    assert ft.chain_widths(model.spec) == widths
+    assert ft.choose_plan(widths).get("stream")
+    acts = chain_layer_specs(model.spec)
+    coords, values, weights = _batch(dev, n)
+    kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.5)
+    before = st.launches
+    lk, gk = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    assert st.launches == before + 1
+    l2, g2 = ft.fused_train_grads(params["layers"], coords, values, weights,
+                                  acts, **kw)
+    assert torch.equal(lk, l2) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(gk["layers"], g2["layers"])
+        for k in ("w", "b"))
+    ft.free_scratch()
+    lp, gp = ft.fused_train_grads_reference(params["layers"], coords, values,
+                                            weights, acts, **kw)
+    torch.cuda.synchronize()
+    _close(lk, gk["layers"], lp, gp["layers"])
+
+
+@pytest.mark.parametrize("loss_name", ["datal2", "datasmoothl1"])
+def test_streamed_fleet_at_phase20_shape(dev, loss_name):
+    """Phase 20d's streamed fleet, 2 x 3-4096-1 (true 4000 and 4096), N =
+    100,000, masks and thresholds: within the plain version's tolerances,
+    padded units' gradients exactly 0."""
+    models, layers_, um, (c, v, w), thres = _fleet(dev, (4000, 4096), 2,
+                                                   n=100_000)
+    assert ft.choose_plan([3, 4096, 1]).get("stream")
+    acts = chain_layer_specs(models[0].spec)
+    kw = dict(loss_name=loss_name, beta=0.01)
+    lk, gk = ft.fused_train_grads_fleet(layers_, c, v, w, acts, unit_masks=um,
+                                        thres=thres, **kw)
+    lp, gp = ft.fused_train_grads_reference(layers_, c, v, w, acts,
+                                            weight_thres=thres,
+                                            unit_masks=um, **kw)
+    _close(lk, gk["layers"], lp, gp["layers"])
+    assert not gk["layers"][0]["w"][0, :, 4000:].any()
+    assert not gk["layers"][0]["b"][0, 4000:].any()
+    assert not gk["layers"][1]["w"][0, 4000:, :].any()
+
+
 def test_fused_decode_sirenpos(dev):
     model, params = _chain(dev, 16, 4, name="SIRENPos", T=[2.0, 3.0, 2.0])
     out = fd.decode_volume(model, params, (9, 10, 11), "n11")

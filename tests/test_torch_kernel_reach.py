@@ -26,6 +26,7 @@ from brief_pytorch_tpu.ops import pallas_train as pt
 from brief_pytorch_tpu_torch.ops import fused_decode as fd
 from brief_pytorch_tpu_torch.ops import fused_siren as fs
 from brief_pytorch_tpu_torch.ops import fused_train as ft
+from brief_pytorch_tpu_torch.ops import stream as st
 
 DEEP = [3] + [8] * 19 + [1]          # 20 layers
 WIDE = [3, 3400, 1]                  # past 3,327 features
@@ -260,9 +261,13 @@ def test_tables_hold_every_layer(widths):
     elif p["layout"] == "tiled":
         words = ft.tiled_table(p, widths, acts, masks)
         assert len(words) == L * ft.TILED_ROW_WORDS + len(ft.dw_codes(p))
-    else:
-        words = ft.wide_table(p, widths, acts, masks)
-        assert len(words) == L * ft.WIDE_ROW_WORDS
+    else:   # the wide layout's rows form, or its streamed form
+        if p["stream"]:
+            words = st.stream_table(p, widths, acts, masks,
+                                    st.stream_splits(p, widths, 1000, 1))
+        else:
+            words = ft.wide_table(p, widths, acts, masks)
+        assert len(words) == L * ft.WIDE_ROW_WORDS == L * st.STREAM_ROW_WORDS
         rows = np.asarray(words, np.int32).reshape(L, ft.WIDE_ROW_WORDS)
         assert rows[:, 0].tolist() == widths[:-1]
         assert rows[:, 1].tolist() == widths[1:]
