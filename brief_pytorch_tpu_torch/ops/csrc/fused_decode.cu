@@ -31,9 +31,14 @@
 //    The divisions are 32-bit multiply-shifts prepared on the host
 //    (ops/fused_decode.py fast_divisor); grids of 2^31 voxels or more
 //    take 64-bit division.
+//  * Chains with a layer wider than 3,327 features take the streamed form
+//    of csrc/chain_stream.cuh (brief_fused_decode_stream): its thin end
+//    layers as reductions, its square layers on 128 x 128 tensor-core
+//    tiles, the coordinates from GridInput::coord.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain_stream.cuh"
 #include "chain_tc.cuh"
 
 namespace {
@@ -182,10 +187,19 @@ struct GridInput {
       X[r * kWideStride + u] = x;
     }
   }
+
+  // The streamed form (csrc/chain_stream.cuh): coordinate r of voxel v <
+  // pop, as wide_input builds it
+  __device__ __forceinline__ float coord(long long v, int r, int) const {
+    if (r == 0) return lead(quot(v, 0));
+    const int idx = (int)(quot(v, r) - quot(v, r - 1) * __ldg(&axes[r].size));
+    return __ldg(tables + __ldg(&axes[r].table_off) + idx);
+  }
 };
 
 // Device kernels brief_fused_decode has launched in this process: one a
-// call in the narrow form, two in the wide forms (pack_kernel first).
+// call in the narrow form, two in the wide forms (pack_kernel first); and
+// those of brief_fused_decode_stream (ops/chain_stream.py stream_kernels).
 unsigned long long kernels_launched = 0;
 
 }  // namespace
@@ -255,6 +269,50 @@ int brief_fused_decode(const float* tables, float* out, float* packed,
                                       form, inst, grid, smem_bytes, s);
   if (err == (int)cudaSuccess) ++kernels_launched;
   return err;
+}
+
+// The decode of one grid in the streamed form (csrc/chain_stream.cuh;
+// ops/chain_stream.py, every chain with a layer wider than 3,327
+// features).  meta: n_layers, c_in (the grid's axes), c_out, has_enc,
+// index64, R (rows a chunk), S (splits of the thin sums), n_fb (their
+// feature blocks), pack_blocks, h_floats (floats of one H buffer).  fmeta:
+// lo, step, enc_scale0.  table: device memory, n_layers StreamLayer rows
+// then c_in GridAxis rows (ops/chain_stream.py stream_table,
+// ops/fused_decode.py axis_table); head: the same words in host memory.
+// wp, h (two buffers of h_floats), part: the caller's scratch.
+int brief_fused_decode_stream(const float* tables, float* out, float* wp,
+                              float* h, float* part, const void* table,
+                              const void* head, long long pop,
+                              const int* meta, const float* fmeta,
+                              void* stream) {
+  namespace cs = brief::chain_stream;
+  cs::StreamDesc d;
+  d.n_layers = meta[0];
+  if (d.n_layers < 1 || table == nullptr || pop < 1 || meta[1] < 2)
+    return (int)cudaErrorInvalidValue;
+  d.c_in = meta[1];
+  d.c_out = meta[2];
+  d.R = meta[5];
+  d.S = meta[6];
+  d.n_fb = meta[7];
+  d.n = pop;
+  d.base = 0;
+  d.layer = static_cast<const cs::StreamLayer*>(table);
+  d.h0 = h;
+  d.h1 = h == nullptr ? nullptr : h + (size_t)meta[9];
+  d.part = part;
+  d.wp = wp;
+  d.out = out;
+  GridInput in{};
+  in.tables = tables;
+  in.axes = reinterpret_cast<const GridAxis*>(d.layer + d.n_layers);
+  in.has_enc = meta[3];
+  in.index64 = meta[4];
+  in.lo = fmeta[0];
+  in.step = fmeta[1];
+  in.enc_scale0 = fmeta[2];
+  return cs::launch_stream(in, d, static_cast<const cs::StreamLayer*>(head),
+                           meta[8], (cudaStream_t)stream, &kernels_launched);
 }
 
 // kernels_launched, the count of the kernels a call launches

@@ -34,10 +34,14 @@
 //  * the sums are chain_tc.cuh's: each k-block's three products
 //    summed from zero and added with a float32 add, the small parts
 //    rounded to TF32, so the chain keeps float32's accuracy (the tensor
-//    core truncates its sums).
+//    core truncates its sums);
+//  * chains with a layer wider than 3,327 features take the streamed form
+//    of csrc/chain_stream.cuh (brief_fused_siren_stream), the rows read
+//    by RowInput::coord.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain_stream.cuh"
 #include "chain_tc.cuh"
 
 namespace {
@@ -98,6 +102,11 @@ struct RowInput {
          e += kThreads)
       X[(C + e / kWideVox) * kWideStride + e % kWideVox] = 0.f;
   }
+
+  // The streamed form (csrc/chain_stream.cuh): feature r of row v < n
+  __device__ __forceinline__ float coord(long long v, int r, int c_in) const {
+    return __ldg(x + v * c_in + r);
+  }
 };
 
 }  // namespace
@@ -138,6 +147,41 @@ int brief_fused_siren(const float* coords, float* out, float* packed,
   }
   return brief::launch_chain(d, head, in, form == 0 ? nullptr : packed,
                              out, scratch, form, inst, grid, smem_bytes, s);
+}
+
+// The forward of one call in the streamed form (csrc/chain_stream.cuh;
+// ops/chain_stream.py, every chain with a layer wider than 3,327
+// features).  meta: n_layers, c_in, c_out, R (rows a chunk), S (splits of
+// the thin sums), n_fb (their feature blocks), pack_blocks, h_floats
+// (floats of one H buffer).  table: device memory, n_layers StreamLayer
+// rows (ops/chain_stream.py stream_table); head: the same rows in host
+// memory.  wp, h (two buffers of h_floats), part: the caller's scratch.
+int brief_fused_siren_stream(const float* coords, float* out, float* wp,
+                             float* h, float* part, const void* table,
+                             const void* head, long long n, const int* meta,
+                             void* stream) {
+  namespace cs = brief::chain_stream;
+  cs::StreamDesc d;
+  d.n_layers = meta[0];
+  if (d.n_layers < 1 || table == nullptr || n < 1)
+    return (int)cudaErrorInvalidValue;
+  d.c_in = meta[1];
+  d.c_out = meta[2];
+  d.R = meta[3];
+  d.S = meta[4];
+  d.n_fb = meta[5];
+  d.n = n;
+  d.base = 0;
+  d.layer = static_cast<const cs::StreamLayer*>(table);
+  d.h0 = h;
+  d.h1 = h == nullptr ? nullptr : h + (size_t)meta[7];
+  d.part = part;
+  d.wp = wp;
+  d.out = out;
+  unsigned long long launched = 0;
+  return cs::launch_stream(RowInput{coords}, d,
+                           static_cast<const cs::StreamLayer*>(head),
+                           meta[6], (cudaStream_t)stream, &launched);
 }
 
 }  // extern "C"

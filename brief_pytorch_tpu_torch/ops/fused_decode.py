@@ -18,7 +18,7 @@ paced by the sines).  csrc/chain_tc.cuh (the tensor-core chain it
 shares with ops/fused_siren.py) and csrc/fused_decode.cu say how its
 design answers that.
 
-Two forms (`choose_plan`):
+Three forms (`choose_plan`):
   * narrow (`narrow_plan`; 5 x 22, the HiP-CT chunks 3-66x6-1): every
     layer's weights, split by each persistent block while it loads them
     (one launch a call), resident in its shared memory; each warp carries
@@ -30,7 +30,12 @@ Two forms (`choose_plan`):
     kNW n-tiles of all 8 voxel tiles, the weights split once per call by
     pack_kernel (two launches a call); the layer's input in shared memory
     (or, past 256 features, in a device scratch, which holds any width);
-    as many slabs in flight as shared memory holds (up to MAX_STAGES).
+    as many slabs in flight as shared memory holds (up to MAX_STAGES);
+  * streamed (ops/chain_stream.py, csrc/chain_stream.cuh; every chain
+    with a layer wider than 3,327 features, e.g. 3-22213-1 on the demo
+    volume at 80x with Module.phi.layers 2): thin end layers as
+    reductions, square layers on 128 x 128 tensor-core tiles, the rows
+    in chunks of bounded scratch.
 The chain's layers and the grid's axes are rows of a table in device
 memory (`chain_table`, `axis_table`; ops/chain.py layer_table), made once
 per chain and grid, so neither bounds the kernel.  `supports` takes the
@@ -63,13 +68,15 @@ import numpy as np
 import torch
 
 from brief_pytorch_tpu_torch.core.coords import axis_linspace, parse_coords_mode
+from brief_pytorch_tpu_torch.ops import chain_stream
 from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
                                                chain_layer_specs, f32_word,
                                                i64_words, layer_table,
                                                pad_row)
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
-from brief_pytorch_tpu_torch.ops.fused_train import (pack_fragments,
-                                                    tf32_split_nearest)
+from brief_pytorch_tpu_torch.ops.fused_train import pack_fragments
+from brief_pytorch_tpu_torch.ops.tc_model import act as _act
+from brief_pytorch_tpu_torch.ops.tc_model import tf32_split_nearest
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
 SM_SMEM = 233472             # bytes of shared memory of one SM (H100)
@@ -91,6 +98,7 @@ CHAIN_ROW_WORDS = 12
 AXIS_ROW_WORDS = 8
 
 launches = 0                 # kernel launches, for proof that a run used it
+stream_launches = 0          # those in the streamed form (ops/chain_stream.py)
 
 _SIGNATURES = {
     "brief_fused_decode": [
@@ -98,6 +106,11 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "brief_fused_decode_stream": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p],
     "brief_fused_decode_kernels": []}
 
@@ -169,16 +182,20 @@ def wide_plan(widths: Sequence[int]) -> Dict:
 
 @functools.lru_cache(maxsize=None)
 def _choose(widths: Tuple[int, ...]) -> Dict:
+    if chain_stream.takes(widths):
+        return chain_stream.stream_plan(widths)
     narrow = narrow_plan(widths) if widths[0] <= NARROW_AXES else None
     return narrow or wide_plan(widths)
 
 
 def choose_plan(widths: Sequence[int]) -> Dict:
-    """The narrow form where it fits (grids of up to NARROW_AXES axes, whose
-    coordinates fill k-block 0), else the wide form, for a chain of any
-    depth and width (widths[0]: the coordinates, any number).  The plan
-    states its form (`layout`), instance (`inst`: kNT or kNW), voxels a
-    warp or block tile (`tile`), shared memory and warps per SM."""
+    """The streamed form (ops/chain_stream.py) for a chain with a layer
+    wider than 3,327 features; else the narrow form where it fits (grids of
+    up to NARROW_AXES axes, whose coordinates fill k-block 0), else the
+    wide form, for a chain of any depth and width (widths[0]: the
+    coordinates, any number).  The plan states its form (`layout`, and
+    `stream` for the streamed one), instance (`inst`: kNT or kNW), voxels
+    a warp or block tile (`tile`), shared memory and warps per SM."""
     return dict(_choose(tuple(int(w) for w in widths)))
 
 
@@ -313,18 +330,6 @@ def _lead_affine(spatial, mode, enc_periods):
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
-def _act(z: torch.Tensor, act: str, w0: float) -> torch.Tensor:
-    if act == "sine":
-        return fast_sin(w0 * z)
-    if act == "relu":
-        return torch.clamp_min(z, 0.0)
-    if act == "sigmoid":
-        return torch.sigmoid(z)
-    if act == "none":
-        return z
-    raise ValueError(act)
-
-
 def grid_coords(spatial: Sequence[int], mode: str = "n11", *,
                 enc_periods=None, device="cpu",
                 voxels: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -400,7 +405,7 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
                                            enc_periods=enc_periods, slab=slab)
     if device.type != "cuda":
         raise ValueError(f"fused_decode_grid runs on cuda or cpu, not {device}")
-    global launches
+    global launches, stream_launches
     from brief_pytorch_tpu_torch.ops import build
 
     widths = [len(spatial)] + [int(l["w"].shape[1]) for l in layers]
@@ -417,6 +422,12 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
         raise ValueError("one (act, w0) per layer")
     p = choose_plan(widths)
     pop = int(np.prod(spatial))
+    if p.get("stream"):
+        out = _decode_stream(p, layers, widths, spatial, acts, mode,
+                             enc_periods, pop, device)
+        launches += 1
+        stream_launches += 1
+        return out
     n_tiles = _cdiv(pop, p["tile"])
     if n_tiles >= 1 << 31:
         raise ValueError(f"grid {spatial}: {pop} voxels is too many")
@@ -456,10 +467,45 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     return out
 
 
+def _decode_stream(p, layers, widths, spatial, acts, mode, enc_periods,
+                   pop: int, device) -> torch.Tensor:
+    """One grid decode in the streamed form (csrc/chain_stream.cuh)."""
+    from brief_pytorch_tpu_torch.ops import build
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    call = chain_stream.stream_call(p, pop, sms)
+    tables = _plane_tables(spatial, mode, enc_periods, device)
+    lo, step, scale = _lead_affine(spatial, mode, enc_periods)
+    index64 = pop >= 1 << 31
+    meta = [len(layers), widths[0], widths[-1], int(enc_periods is not None),
+            int(index64), call["R"], call["S"], p["n_fb"],
+            chain_stream.pack_blocks(p, widths), call["h_floats"]]
+    wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
+    ptrs = tuple(t.data_ptr() for t in wb)
+    table, head = layer_table(
+        ("decode-stream", tuple(widths), tuple(acts), ptrs, spatial),
+        lambda: chain_stream.stream_table(p, widths, acts, ptrs) +
+        axis_table(spatial, index64), device)
+    out = torch.empty((pop, widths[-1]), dtype=torch.float32, device=device)
+    bufs = chain_stream.buffers(p, call, device)
+    lib = build.library("fused_decode", _SIGNATURES)
+    with torch.cuda.device(device):    # the C side launches on the current one
+        build.check(lib.brief_fused_decode_stream(
+            tables.data_ptr(), out.data_ptr(), chain_stream.ptr(bufs["wp"]),
+            chain_stream.ptr(bufs["h"]), chain_stream.ptr(bufs["part"]),
+            table.data_ptr(), head, pop,
+            (ctypes.c_int * len(meta))(*meta),
+            (ctypes.c_float * 3)(lo, step, scale),
+            torch.cuda.current_stream(device).cuda_stream),
+            "fused_decode stream")
+    return out
+
+
 def kernels_launched() -> int:
     """Device kernels the decode library has launched in this process (its
     own count, kept where it launches them): one a call in the narrow form,
-    two in the wide forms (pack_kernel, then the chain).  Needs the card."""
+    two in the wide forms (pack_kernel, then the chain), and
+    chain_stream.stream_call's `kernels` in the streamed form.  Needs the
+    card."""
     from brief_pytorch_tpu_torch.ops import build
     return build.library("fused_decode",
                          _SIGNATURES).brief_fused_decode_kernels()

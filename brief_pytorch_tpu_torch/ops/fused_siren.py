@@ -21,9 +21,13 @@ fused_decode's plans do:
     block's shared memory, at most 12 n-tiles and input k-blocks): each
     block splits the weights while it loads them, so a call is one
     launch;
-  * wide (`fused_decode.wide_plan`, every other chain): the weights split
-    once per call and streamed through a TMA slab ring, 128-row tiles,
-    the activations in a device scratch past 256 features.
+  * wide (`fused_decode.wide_plan`, every other chain up to 3,327
+    features): the weights split once per call and streamed through a
+    TMA slab ring, 128-row tiles, the activations in a device scratch
+    past 256 features;
+  * streamed (ops/chain_stream.py, csrc/chain_stream.cuh; a layer or the
+    input wider than 3,327 features): thin end layers as reductions,
+    square layers on 128 x 128 tensor-core tiles, the rows in chunks.
 It takes every plain chain, of any depth and width and any C: the
 chain's layers are rows of a table in device memory
 (`fused_decode.chain_table`), and the wide form's scratch holds any
@@ -47,36 +51,44 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from brief_pytorch_tpu_torch.ops import fused_decode
+from brief_pytorch_tpu_torch.ops import chain_stream, fused_decode
 from brief_pytorch_tpu_torch.ops.chain import (LayerSpec, chain_layer_specs,
                                                layer_table, make_pre_encode)
-from brief_pytorch_tpu_torch.ops.fast_math import fast_sin
 from brief_pytorch_tpu_torch.ops.fused_decode import (WARPS, WIDE_STRIDE,
                                                       chain_table)
-from brief_pytorch_tpu_torch.ops.fused_train import (tf32_split,
-                                                    tf32_split_nearest)
+from brief_pytorch_tpu_torch.ops.tc_model import (  # noqa: F401
+    GROUP_K, act as _act, mma_tf32_model, tf32_split, tf32_split_nearest)
 
 launches = 0                 # kernel launches, for proof that a run used it
+stream_launches = 0          # those in the streamed form (ops/chain_stream.py)
 
 _SIGNATURES = {"brief_fused_siren": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "brief_fused_siren_stream": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=None)
 def _choose(widths: Tuple[int, ...]) -> Dict:
+    if chain_stream.takes(widths):
+        return chain_stream.stream_plan(widths)
     return fused_decode.narrow_plan(widths) or \
         fused_decode.wide_plan(widths)
 
 
 def choose_plan(widths: Sequence[int]) -> Dict:
-    """The narrow form where it fits, else the wide form, for a chain of
-    any depth and width (C included).  The plan states its form
-    (`layout`), instance (`inst`: kNT or kNW), rows a warp or block tile
-    (`tile`), shared memory (`smem_bytes`), warps per SM and whether the
-    wide form's activations live in a device scratch (`global`)."""
+    """The streamed form (ops/chain_stream.py) for a chain with a layer (or
+    an input) wider than 3,327 features, else the narrow form where it
+    fits, else the wide form, for a chain of any depth and width (C
+    included).  The plan states its form (`layout`, and `stream` for the
+    streamed one), instance (`inst`: kNT or kNW), rows a warp or block
+    tile (`tile`), shared memory (`smem_bytes`), warps per SM and whether
+    the activations live in a device scratch (`global`)."""
     return dict(_choose(tuple(int(w) for w in widths)))
 
 
@@ -102,18 +114,6 @@ def supports(model) -> bool:
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
-def _act(z: torch.Tensor, act: str, w0: float) -> torch.Tensor:
-    if act == "sine":
-        return fast_sin(w0 * z)
-    if act == "relu":
-        return torch.clamp_min(z, 0.0)
-    if act == "sigmoid":
-        return torch.sigmoid(z)
-    if act == "none":
-        return z
-    raise ValueError(act)
-
-
 def fused_chain_apply_reference(layers, coords: torch.Tensor,
                                 acts: LayerSpec) -> torch.Tensor:
     """The kernel's function in plain PyTorch (autograd-able): the JAX
@@ -128,36 +128,6 @@ def fused_chain_apply_reference(layers, coords: torch.Tensor,
 # --------------------------------------------------------------------------
 # the kernel's arithmetic on the CPU
 # --------------------------------------------------------------------------
-def _exponent(x: torch.Tensor) -> torch.Tensor:
-    """floor(log2 |x|) as int32, -1000 for 0."""
-    _, e = torch.frexp(x)
-    return torch.where(x == 0, -1000, e - 1)
-
-
-def mma_tf32_model(c: torch.Tensor, a: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
-    """c + a b as one mma.sync.m16n8k8 TF32 sums it on an H100: c (..., n,
-    o) float32, a (..., n, 8) and b (..., 8, o) TF32 values, leading
-    dimensions batched.  The 8 products are exact.  Each product's
-    exponent is taken as the sum of its factors' (floor of log2 |x|);
-    with E the largest of these and c's, each product and c is truncated
-    toward zero to a multiple of 2^(E - 25), the terms are summed, and the
-    sum is rounded to float32 toward zero.  Equal to the card's mma.sync
-    bit for bit (scripts/mma_tf32_sums.py)."""
-    e = (_exponent(a)[..., None] + _exponent(b)[..., None, :, :]).amax(-2)
-    e = torch.maximum(e, _exponent(c)).clamp_min(-1000)
-    q = torch.exp2((e - 25).double())
-    p = a.double()[..., None] * b.double()[..., None, :, :]
-    s = (torch.trunc(p / q[..., None, :]).sum(-2)
-         + torch.trunc(c.double() / q)) * q
-    f = s.float()
-    return torch.where(f.double().abs() > s.abs(),
-                       torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-GROUP_K = 32                 # kGroupK of csrc/chain_tc.cuh
-
-
 def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
                    nearest: bool = True, plan: Optional[Dict] = None
                    ) -> torch.Tensor:
@@ -168,15 +138,18 @@ def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
     (the sums of kernels 2 and 3): both operands split by
     tf32_split_nearest, the three terms summed from zero and added to the
     accumulator in float32; else (the tensor core's own sums, which the
-    kernels took before) split by fused_train.tf32_split and summed into
+    kernels took before) split by tc_model.tf32_split and summed into
     the accumulator.  Rows are independent, so no tiles are needed; the
     k-block sums are independent too and go in batches of k-blocks.
     Given the wide form's `plan` with its activations in a scratch
     (`global`), a layer of at most plan["inst"] n-tiles and more than
     GROUP_K k-blocks sums its k-blocks in groups of GROUP_K, each group's
-    sum added to the accumulator, as that form does.
+    sum added to the accumulator, as that form does.  Given the streamed
+    form's plan (`stream`), its arithmetic (chain_stream.stream_model).
     Kernel 2's rows are its voxels' coordinates
     (fused_decode.grid_coords)."""
+    if plan is not None and plan.get("stream"):
+        return chain_stream.stream_model(layers, coords, acts, plan)
     split = tf32_split_nearest if nearest else tf32_split
     n, c_in = coords.shape
     h = torch.zeros(n, -(-c_in // 8) * 8)
@@ -244,7 +217,7 @@ def _check(layers, coords: torch.Tensor, acts: LayerSpec) -> List[int]:
 
 
 def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
-    global launches
+    global launches, stream_launches
     from brief_pytorch_tpu_torch.ops import build
 
     device = coords.device
@@ -255,6 +228,11 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
     if n == 0:
         return out
     coords = coords.contiguous()
+    if p.get("stream"):
+        _launch_stream(p, layers, coords, widths, acts, out)
+        launches += 1
+        stream_launches += 1
+        return out
     n_tiles = -(-n // p["tile"])
     if n_tiles >= 1 << 31:
         raise ValueError(f"{n} coordinates is too many")
@@ -287,6 +265,31 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
             torch.cuda.current_stream(device).cuda_stream), "fused_siren")
     launches += 1
     return out
+
+
+def _launch_stream(p, layers, coords: torch.Tensor, widths, acts,
+                   out: torch.Tensor) -> None:
+    """One call in the streamed form (csrc/chain_stream.cuh) into out."""
+    from brief_pytorch_tpu_torch.ops import build
+    device, n = coords.device, coords.shape[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    call = chain_stream.stream_call(p, n, sms)
+    meta = [len(layers), widths[0], widths[-1], call["R"], call["S"],
+            p["n_fb"], chain_stream.pack_blocks(p, widths), call["h_floats"]]
+    wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
+    ptrs = tuple(t.data_ptr() for t in wb)
+    table, head = layer_table(
+        ("siren-stream", tuple(widths), tuple(acts), ptrs),
+        lambda: chain_stream.stream_table(p, widths, acts, ptrs), device)
+    bufs = chain_stream.buffers(p, call, device)
+    lib = build.library("fused_siren", _SIGNATURES)
+    with torch.cuda.device(device):    # the C side launches on the current one
+        build.check(lib.brief_fused_siren_stream(
+            coords.data_ptr(), out.data_ptr(), chain_stream.ptr(bufs["wp"]),
+            chain_stream.ptr(bufs["h"]), chain_stream.ptr(bufs["part"]),
+            table.data_ptr(), head, n, (ctypes.c_int * len(meta))(*meta),
+            torch.cuda.current_stream(device).cuda_stream),
+            "fused_siren stream")
 
 
 class _FusedChain(torch.autograd.Function):

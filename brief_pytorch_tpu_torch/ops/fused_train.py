@@ -89,6 +89,8 @@ from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec,
                                                i64_words, layer_table,
                                                pad_row)
 from brief_pytorch_tpu_torch.ops.fast_math import fast_sincos
+from brief_pytorch_tpu_torch.ops.tc_model import (tf32_split,  # noqa: F401
+                                                  tf32_split_nearest)
 
 LOSSES = ("datal2", "datasmoothl1")
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use (H100)
@@ -632,34 +634,6 @@ def supports_training(model, loss_name: str) -> bool:
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded as cvt.rna.tf32.f32 rounds: to 10 mantissa bits, the
-    nearest, ties away from zero (inf and NaN kept)."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
-    return torch.where(torch.isfinite(x), r, x)
-
-
-def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) of float32 x as the narrow kernel feeds them to the
-    tensor cores for 3xTF32 (csrc/fused_train.cu split_tf32): big = x
-    rounded as cvt.rna.tf32.f32 rounds it, small = x - big (exact in
-    float32) as the tensor core reads it, its 13 low bits dropped.  big +
-    small is within 2^-21 |x| of x, and a b = as bb + ab bs + ab bb keeps
-    float32 accuracy."""
-    big = _tf32(x)
-    small = (x - big).contiguous().view(torch.int32) & -0x2000
-    return big, small.view(torch.float32)
-
-
-def tf32_split_nearest(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) of float32 x as the tensor-core chain of kernels 2 and
-    3 splits it (csrc/tf32.cuh split_tf32_nearest): big = x rounded as
-    cvt.rna.tf32.f32 rounds it, small = x - big rounded the same way."""
-    big = tf32_split(x)[0]
-    return big, tf32_split(x - big)[0]
-
-
 def pack_fragments(m: torch.Tensor, kb: int, nt: int,
                    split=tf32_split) -> torch.Tensor:
     """The (kb, nt, 32, 4) B fragments of the (K, N) matrix m as the narrow

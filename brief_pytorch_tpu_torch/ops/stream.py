@@ -24,6 +24,7 @@ import torch
 from brief_pytorch_tpu_torch.ops import wide
 from brief_pytorch_tpu_torch.ops.chain import (ACTS, LayerSpec, f32_word,
                                                layer_table, pad_row)
+from brief_pytorch_tpu_torch.ops.tc_model import fma, z_from_x
 
 GM = GN = 128            # kGM, kGN: a product's tile
 GK = 32                  # kGK: slab depth
@@ -172,23 +173,6 @@ def stream_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
 # --------------------------------------------------------------------------
 # the kernel's arithmetic on the CPU
 # --------------------------------------------------------------------------
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fmaf(a, b, c): the product exact (float64 holds it), one rounding
-    to float32 (up to a double rounding of the sum, within the
-    tolerances)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _z_from_x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-              ) -> torch.Tensor:
-    """z_1 (B, F, N) of coordinates x (B, C, N) as z_from_x computes it:
-    the bias, then one fmaf a channel."""
-    z = b[:, :, None].expand(-1, -1, x.shape[-1]).float()
-    for c in range(x.shape[1]):
-        z = _fma(x[:, c:c + 1, :], w[:, c, :, None], z)
-    return z
-
-
 def _act(z, act: str, w0: float, mask):
     from brief_pytorch_tpu_torch.ops.fused_train import _act_fwd
     h, d = _act_fwd(z, act, w0)
@@ -253,7 +237,7 @@ def _seq_fma_sum(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """sum_u fmaf(h[..., u], g[..., u], acc) from zero, u in order."""
     acc = torch.zeros(torch.broadcast_shapes(h.shape, g.shape)[:-1])
     for u in range(h.shape[-1]):
-        acc = _fma(h[..., u], g[..., u], acc)
+        acc = fma(h[..., u], g[..., u], acc)
     return acc
 
 
@@ -289,7 +273,7 @@ def stream_emulation(layers, coords, values, weights, acts: LayerSpec, *,
         if l == 0:
             return x, None
         if zs[l] is None:          # z_1 of a thin layer 0: recomputed
-            zs[l] = _z_from_x(x, layers[0]["w"], layers[0]["b"])
+            zs[l] = z_from_x(x, layers[0]["w"], layers[0]["b"])
         act, w0 = acts[l - 1]
         return _act(zs[l], act, w0, masks[l - 1])
 
@@ -303,7 +287,7 @@ def stream_emulation(layers, coords, values, weights, acts: LayerSpec, *,
             for f0 in range(0, widths[l], FB):
                 acc = torch.zeros(nb, c_out, n)
                 for o in range(f0, min(widths[l], f0 + FB)):
-                    acc = _fma(h[:, o:o + 1, :], w[:, o, :, None], acc)
+                    acc = fma(h[:, o:o + 1, :], w[:, o, :, None], acc)
                 z = z + acc
             zs[L] = z
             continue
@@ -351,7 +335,7 @@ def stream_emulation(layers, coords, values, weights, acts: LayerSpec, *,
         w = layers[l]["w"].float()
         gsum = torch.zeros(nb, F, n)
         for c in range(c_out):
-            gsum = _fma(w[:, :, c, None], g[:, c:c + 1, :], gsum)
+            gsum = fma(w[:, :, c, None], g[:, c:c + 1, :], gsum)
         g_in = d * gsum
         hb = torch.cat([h, torch.ones(nb, 1, n)], 1)       # the bias row
         dw = _split_sums(lambda lo, hi: torch.stack(

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import random
 import socket
 import subprocess
 import time
@@ -145,10 +146,41 @@ def plan_fleet(bucket_sizes: Sequence[int], n_solo: int, n_ranks: int
 
 
 def free_port() -> int:
-    """A free TCP port on this host for a coordinator."""
+    """A free TCP port on this host for a coordinator, drawn at random
+    below the kernel's ephemeral range (/proc/sys/net/ipv4/
+    ip_local_port_range).  A port that bind(("", 0)) hands out is closed
+    again before rank 0's store binds it, seconds later once its
+    interpreter has started, and in between any other process's bind to
+    port 0 or outgoing connection may take it (a test suite's other
+    ranks, their gloo or gRPC connections); a port below the range is
+    taken only by a bind that names it.  Where the range is unknown,
+    the kernel's choice."""
+    low = _ephemeral_low()
+    if low is not None and low > PORT_SPAN + 1024:
+        rng = random.SystemRandom()
+        for _ in range(64):
+            port = rng.randrange(low - PORT_SPAN, low)
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+                return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+PORT_SPAN = 8192     # free_port's ports: the 8,192 below the ephemeral range
+
+
+def _ephemeral_low() -> Optional[int]:
+    """The first port of the kernel's ephemeral range, or None."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
 
 
 def wait_ranks(procs: Sequence[subprocess.Popen],

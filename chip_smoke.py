@@ -217,8 +217,11 @@ non-zero exit:
      in the checkpoint and the standalone decompress, which equals the
      checkpoint's volume, PSNR within REACH_AUTOGRAD_DB of autograd's on
      the same steps; 3-22213-1's steps each one launch of the streamed
-     form, csrc/fused_train_stream.cu, by its own count; 20b also the
-     batch-major route through kernel 3
+     form, csrc/fused_train_stream.cu, by its own count, and its decodes
+     (checkpoint, standalone decompress) kernel 2's streamed form,
+     csrc/chain_stream.cuh, by fused_decode.stream_launches; 20b also
+     the batch-major route through kernel 3 (for 3-22213-1 its streamed
+     form every launch, fused_siren.stream_launches)
      within 1 LSB of the grid kernel's on >= 99.9%); 20c hipct.yaml with
      layers 20 (4 blocks padded to REACH_HIPCT_PADDED, kernel 1's fleet
      form), REACH_STEPS["hipct"] steps, decompress_divide within 1 LSB of
@@ -231,7 +234,13 @@ non-zero exit:
      relu/sigmoid chains against the plain version in float64; the
      streamed fleet's loss and gradients within 2x the plain version's
      float64 distance), kernel 2 at
-     REACH_DECODE (decode_check), kernel 3 at REACH_SIREN (siren_check).
+     REACH_DECODE (decode_check), kernel 3 at REACH_SIREN (siren_check);
+     past 3,327 features (3-20971-1, [3, 4096, 4096, 1]) kernels 2 and
+     3 run their streamed form (ops/chain_stream.py), its calls bitwise
+     equal and within F64_RATIO of the plain version's float64 distance
+     as every other form's; REACH_DECODE's reach-383 (3-383x4-1) keeps
+     the wide form's scratch instance (layers of 257-3,327 features)
+     under the same checks, each row's plan held to the form it names.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -356,7 +365,10 @@ F64_SLAB = 16_384     # coordinates a time of a float64 train reference
 # 20c hipct.yaml with layers 20, 20d each kernel against its plain version.
 REACH_LAYERS = 20
 REACH_FIXTURE_FEATURES = 9                # 3-9x19-1 at 80x
-REACH_STEPS = {"fixture": 1000, "demo": 300, "hipct": 300}
+# 20a and 20b each also run through autograd (on an H100, 35 s for 1,000
+# steps of 3-9x19-1 and 46 s for 300 of 3-22213-1), so their depth is
+# half of that, to keep the script inside its time limit
+REACH_STEPS = {"fixture": 500, "demo": 150, "hipct": 300}
 # (layers, features (models/sizing on the demo volume's file at 80x),
 # coordinates a step: None keeps the config's 100,000).  3-22213-1 takes
 # 50,000 for both runs: at 100,000 its autograd reference fits the card
@@ -378,14 +390,22 @@ REACH_TRAIN = [   # (label, φ config over SIREN_BASE, N): the wide layout
 # scripts/reach_probe.py), past phase 6's 1e-4 relative tolerance)
 REACH_FLEETS = [("reach-fleet-4x32", (26, 28, 30, 32), 20),
                 ("reach-fleet-2x4096", (4000, 4096), 2)]
-# (label, grid, features, layers, the plain version's voxels at a time)
-REACH_DECODE = [("reach-20x22", (64, 64, 64), 22, 20, None),
-                ("reach-20971", (64, 64, 64), 20971, 2, 16_384),
-                ("reach-5-axes", (4, 4, 8, 16, 32), 22, 5, None)]
+# (label, grid, features, layers, the plain version's voxels at a time,
+# the form and `global` its plan must take).  reach-383 (3-383x4-1, the
+# demo volume's chain at ~20x) holds the wide form's scratch instance
+# (layers of 257-3,327 features), which no other phase's decode reaches
+REACH_DECODE = [
+    ("reach-20x22", (64, 64, 64), 22, 20, None, ("narrow", False)),
+    ("reach-20971", (64, 64, 64), 20971, 2, 16_384, ("wide streamed", True)),
+    ("reach-5-axes", (4, 4, 8, 16, 32), 22, 5, None, ("wide", False)),
+    ("reach-4096", (64, 64, 64), 4096, 3, 65_536, ("wide streamed", True)),
+    ("reach-383", (64, 64, 64), 383, 5, None, ("wide", True))]
 REACH_SIREN = [("reach-4096", {"name": "SIREN", "features": 4096,
                                "layers": 3}, 65_536),
                ("reach-24", {"name": "SIREN", "features": 22, "layers": 24},
-                N_COORDS)]
+                N_COORDS),
+               ("reach-20971", {"name": "SIREN", "features": 20971,
+                                "layers": 2}, 65_536)]
 # phase 3: chains the old narrow layout took, beyond the default's 5 x 22:
 # (label, family config, the layout the plan must pick)
 TRAIN_CASES = [
@@ -675,19 +695,31 @@ def f64_distances(fused_decode, out, plain, spatial, layers, acts,
     return d
 
 
-def kernels_per_call(fn, layout: str) -> int:
-    """How many kernels one call of fn(), a grid decode, launches on the
-    card, by the decode library's own count (fused_decode.kernels_launched);
-    torch's own kernels (the wrapper's coordinate tables) are not counted.
-    The narrow form must launch 1, the wide form 2 (pack_kernel first)."""
+def kernels_per_call(fn, p: dict, pop: int) -> int:
+    """How many kernels one call of fn(), a grid decode of pop voxels in
+    plan p, launches on the card, by the decode library's own count
+    (fused_decode.kernels_launched); torch's own kernels (the wrapper's
+    coordinate tables) are not counted.  The narrow form must launch 1,
+    the wide form 2 (pack_kernel first), the streamed form
+    chain_stream.stream_call's count."""
     from brief_pytorch_tpu_torch.ops import fused_decode
     before = fused_decode.kernels_launched()
     fn()
     n = fused_decode.kernels_launched() - before
-    want = 1 if layout == "narrow" else 2
+    want = 1 if p["layout"] == "narrow" else 2
+    if p.get("stream"):
+        from brief_pytorch_tpu_torch.ops import chain_stream
+        import torch
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        want = chain_stream.stream_call(p, pop, sms)["kernels"]
     if n != want:
-        fail(f"fused_decode {layout}: {n} kernels a call, want {want}")
+        fail(f"fused_decode {form_name(p)}: {n} kernels a call, want {want}")
     return n
+
+
+def form_name(p: dict) -> str:
+    """A kernel plan's form: narrow, tiled, wide or wide streamed."""
+    return p["layout"] + (" streamed" if p.get("stream") else "")
 
 
 def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
@@ -739,7 +771,7 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
         if not torch.equal(k(), out_k):
             fail(f"fused_decode {label} {spatial}: calls differ bitwise")
     del out_k
-    per_call = kernels_per_call(k, p["layout"])
+    per_call = kernels_per_call(k, p, pop)
     ms = time_ms(k, reps=reps)
     plain = time_ms(pl, reps=plain_reps, warmup=1) if plain_reps else None
     b, by, tc = decode_bounds(widths, acts, spatial, sum(
@@ -747,12 +779,12 @@ def decode_check(dev, label: str, spatial, layers, acts, mode: str = "-1,1",
     grid = "x".join(map(str, spatial))
     tile = p.get("tile", p.get("block"))
     row = dict(shape=f"SIREN {widths}, {grid} grid", layout=p["layout"],
-               tile=tile, inst=p.get("inst"),
+               form=form_name(p), tile=tile, inst=p.get("inst"),
                warps_per_sm=p.get("warps_per_sm"),
                kernels_per_call=per_call, max_abs_err=err, **f64, ms=ms,
                plain_ms=plain, bound_ms=b, bound_by=by, tc_bound_ms=tc)
     say(phase, case=label, grid=grid, widths=widths,
-        layout=p["layout"], tile=tile, inst=p.get("inst"),
+        layout=p["layout"], form=form_name(p), tile=tile, inst=p.get("inst"),
         warps_per_sm=p.get("warps_per_sm"), kernels_per_call=per_call,
         max_abs_err=f"{err:.3e}",
         **{k: f"{v:.3e}" for k, v in f64.items()},
@@ -1075,7 +1107,8 @@ def siren_check(dev, label: str, cfg: dict, n: int,
                    + sum(l["w"].numel() + l["b"].numel() for l in layers))
     b, by = bound_ms(n_bytes, products + n * SIN_FLOPS * sine)
     tc = tc_bound_ms(n_bytes, products, n * SIN_FLOPS * sine)
-    form = dict(layout=plan["layout"], inst=plan["inst"], tile=plan["tile"],
+    form = dict(layout=plan["layout"], form=form_name(plan),
+                inst=plan["inst"], tile=plan["tile"],
                 warps_per_sm=plan["warps_per_sm"])
     say(phase, case=label, family=cfg["name"], widths=widths, n=n,
         **form, max_abs_err=f"{err:.3e}", grad_max_abs_err=f"{gerr:.3e}",
@@ -1148,15 +1181,20 @@ def batch_major_decode(dev, cf, comp: str, references: bool = True,
         out = route(apply_fn)
         return out, (time.perf_counter() - t0) * 1e3
 
-    fused_siren.launches = 0
+    fused_siren.launches = fused_siren.stream_launches = 0
     fused_decode.launches = 0
     out_k, first_ms_k = timed(apply_k)
     launches = {"fused_siren": fused_siren.launches,
                 "fused_decode": fused_decode.launches}
+    streamed = fused_siren.stream_launches
     want = -(-pop // slab)
-    if launches != {"fused_siren": want, "fused_decode": 0}:
-        fail(f"batch-major decode: launches {launches}, want {want} of the "
-             f"forward kernel and 0 of the grid kernel")
+    stream = fused_siren.choose_plan(
+        fused_siren.chain_widths(model.spec)).get("stream", False)
+    if launches != {"fused_siren": want, "fused_decode": 0} or \
+            streamed != (want if stream else 0):
+        fail(f"batch-major decode: launches {launches}, {streamed} in the "
+             f"streamed form, want {want} of the forward kernel (streamed: "
+             f"{stream}) and 0 of the grid kernel")
     out_g, first_ms_g = timed(None)
     if fused_decode.launches != 1:
         fail("the default decode did not take the grid kernel")
@@ -1188,10 +1226,12 @@ def batch_major_decode(dev, cf, comp: str, references: bool = True,
     if not references:   # the first calls' times: no route run again
         ms_k, ms_g = first_ms_k, first_ms_g
         say(phase, grid=grid, slab=slab, launches=json.dumps(launches),
+            stream_launches=streamed,
             within_1lsb_of_grid_kernel=f"{within:.6f}",
             max_lsb=int(diff.max()), wall_ms_forward_kernel=f"{ms_k:.3f}",
             wall_ms_grid_kernel=f"{ms_g:.3f}")
-        return dict(launches=launches["fused_siren"], slab=slab,
+        return dict(launches=launches["fused_siren"],
+                    stream_launches=streamed, slab=slab,
                     route_wall_ms=ms_k, grid_route_wall_ms=ms_g,
                     within_1lsb=within)
     out_p = route(model.apply)
@@ -1216,8 +1256,8 @@ def batch_major_decode(dev, cf, comp: str, references: bool = True,
         mvox_per_s_forward_kernel=f"{pop / ms_k / 1e3:.1f}",
         mvox_per_s_model_apply=f"{pop / ms_p / 1e3:.1f}",
         mvox_per_s_grid_kernel=f"{pop / ms_g / 1e3:.1f}")
-    return dict(launches=launches["fused_siren"], slab=slab,
-                max_abs_err_vs_apply=err,
+    return dict(launches=launches["fused_siren"], stream_launches=streamed,
+                slab=slab, max_abs_err_vs_apply=err,
                 **{k.replace("plain_", "apply_"): v for k, v in f64.items()},
                 route_wall_ms=ms_k, apply_route_wall_ms=ms_p,
                 grid_route_wall_ms=ms_g, within_1lsb=within)
@@ -2540,6 +2580,7 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
     compress = {"sampler": {"sample_size": n}} if n else None
     phi = {"layers": layers}
     fused_train.launches = fused_decode.launches = stream.launches = 0
+    fused_decode.stream_launches = 0
     t0 = time.perf_counter()
     summary, run_dir, opt = run_config(CONFIG, out_dir, steps, data_path,
                                        phi=phi, project=f"reach_{label}",
@@ -2548,7 +2589,8 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
     wall = time.perf_counter() - t0
     launches = {"fused_train": fused_train.launches,
                 "fused_decode": fused_decode.launches,
-                "fused_train_streamed": stream.launches}
+                "fused_train_streamed": stream.launches,
+                "fused_decode_streamed": fused_decode.stream_launches}
     cf = opt.CompressFramework
     comp = os.path.join(run_dir, f"steps{steps}", "compressed")
     side = cfglib.load(os.path.join(comp, "sideinfos.yaml"))
@@ -2558,13 +2600,22 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
     if launches["fused_train"] != steps or launches["fused_decode"] < 1 or \
             side["phi_features"] != features or \
             launches["fused_train_streamed"] != \
-            (steps if train_plan.get("stream") else 0):
+            (steps if train_plan.get("stream") else 0) or \
+            launches["fused_decode_streamed"] != \
+            (launches["fused_decode"] if decode_plan.get("stream") else 0):
         fail(f"reach {label}: launches {launches}, features "
              f"{side['phi_features']} (want {features})")
-    fused_decode.launches = 0
+    fused_decode.launches = fused_decode.stream_launches = 0
+    t1 = time.perf_counter()
     dec = NFGR.decompress(cf, os.path.join(comp, "module"),
                           os.path.join(comp, "sideinfos.yaml"), device=dev)
+    decompress_s = time.perf_counter() - t1
     decompress_launches = fused_decode.launches
+    if fused_decode.stream_launches != \
+            (decompress_launches if decode_plan.get("stream") else 0):
+        fail(f"reach {label}: the standalone decompress took the streamed "
+             f"form {fused_decode.stream_launches} times in "
+             f"{decompress_launches} calls")
     ext = os.path.splitext(data_path)[1]
     ck = read_img(os.path.join(
         run_dir, f"steps{steps}", "decompressed",
@@ -2584,25 +2635,26 @@ def reach_single(dev, out_dir: str, label: str, data_path: str, layers: int,
         fail(f"reach {label} autograd run: {fused_train.launches} kernel "
              "launches")
     torch.cuda.empty_cache()
-    form = train_plan["layout"] + (" streamed" if train_plan.get("stream")
-                                   else "")
+    form = form_name(train_plan)
     row = dict(widths=widths, steps=steps,
                coordinates=n or int(cf.Compress.sampler.sample_size),
-               train_layout=form, decode_layout=decode_plan["layout"],
+               train_layout=form, decode_layout=form_name(decode_plan),
                launches=launches, decompress_decode_launches=
                decompress_launches, psnr=psnr, psnr_autograd=psnr_a,
                steps_per_s=steps / summary["train_s"],
                steps_per_s_autograd=steps / summary_a["train_s"],
-               checkpoint_s=summary["checkpoint_s"], wall_s=wall)
+               checkpoint_s=summary["checkpoint_s"],
+               decompress_s=decompress_s, wall_s=wall)
     say(f"20-reach-{label}", widths=f"3-{features}x{layers - 1}-1",
         steps=steps, coordinates=row["coordinates"], train_layout=form,
-        decode_layout=decode_plan["layout"], launches=json.dumps(launches),
+        decode_layout=form_name(decode_plan), launches=json.dumps(launches),
         decompress_decode_launches=decompress_launches,
         psnr=f"{psnr:.3f}", psnr_autograd=f"{psnr_a:.3f}",
         psnr_autograd_margin=REACH_AUTOGRAD_DB,
         steps_per_s=f"{row['steps_per_s']:.2f}",
         steps_per_s_autograd=f"{row['steps_per_s_autograd']:.2f}",
-        checkpoint_s=f"{summary['checkpoint_s']:.3f}", wall_s=f"{wall:.3f}")
+        checkpoint_s=f"{summary['checkpoint_s']:.3f}",
+        decompress_s=f"{decompress_s:.3f}", wall_s=f"{wall:.3f}")
     if not math.isfinite(psnr) or not abs(psnr - psnr_a) <= REACH_AUTOGRAD_DB:
         fail(f"reach {label}: PSNR {psnr} on the kernels, {psnr_a} through "
              f"autograd: more than {REACH_AUTOGRAD_DB} dB apart")
@@ -2665,7 +2717,8 @@ def reach_kernels(dev) -> dict:
     rows by kernel."""
     import torch
     from brief_pytorch_tpu_torch.models.phi import init_phi
-    from brief_pytorch_tpu_torch.ops import fused_train
+    from brief_pytorch_tpu_torch.ops import (fused_decode, fused_siren,
+                                             fused_train)
     from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
     kw = dict(loss_name="datal2", beta=0.01, weight_thres=0.05)
     rows = {"train": {}, "fleet": {}, "decode": {}, "siren": {}}
@@ -2683,10 +2736,14 @@ def reach_kernels(dev) -> dict:
             phase="20d-fused_train_fleet", relu_reference="float64")
         fused_train.free_scratch()
         torch.cuda.empty_cache()
-    for label, spatial, features, layers, slab in REACH_DECODE:
+    for label, spatial, features, layers, slab, form in REACH_DECODE:
         model = init_phi({**SIREN_BASE, "name": "SIREN",
                           "coords_channel": len(spatial),
                           "features": features, "layers": layers})
+        p = fused_decode.choose_plan(fused_siren.chain_widths(model.spec))
+        if (form_name(p), p["global"]) != form:
+            fail(f"fused_decode {label}: plan {form_name(p)}, global "
+                 f"{p['global']}, want {form}")
         params = model.init(torch.Generator().manual_seed(4), dev)
         rows["decode"][label] = decode_check(
             dev, label, spatial, params["layers"],
@@ -3322,6 +3379,22 @@ def main() -> int:
          "phase13": resume_rows, "phase14": multitask_row,
          "reach": {**reach["kernels"]["decode"],
                    "runs": reach_runs("fused_decode", "decode_layout")}},
+        {"name": "fused_decode_grid_streamed", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/chain_stream.cuh "
+                   "(+ csrc/fused_decode.cu, ops/chain_stream.py)",
+         "replaces": "brief_pytorch_tpu/ops/pallas_decode.py:172",
+         "launches": reach["demo_2"]["launches"]["fused_decode_streamed"]
+         + reach["demo_2"]["decompress_decode_launches"],
+         "library_ms": None, **reach["kernels"]["decode"]["reach-20971"],
+         "at_4096": reach["kernels"]["decode"]["reach-4096"]},
+        {"name": "fused_chain_apply_streamed", "route": "cuda",
+         "source": "brief_pytorch_tpu_torch/ops/csrc/chain_stream.cuh "
+                   "(+ csrc/fused_siren.cu, ops/chain_stream.py)",
+         "replaces": "brief_pytorch_tpu/ops/pallas_siren.py:116",
+         "launches": reach["demo_2"]["batch_major"]["stream_launches"],
+         "library_ms": None, **reach["kernels"]["siren"]["reach-20971"],
+         "at_4096": reach["kernels"]["siren"]["reach-4096"],
+         "batch_major": reach["demo_2"]["batch_major"]},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
                    "(+ csrc/wide.cuh)",

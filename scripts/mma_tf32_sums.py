@@ -9,7 +9,7 @@ tensor-core chain (csrc/chain_tc.cuh) of kernels 2 and 3.
    `normal` (A, B, C standard normal), `spread` (each entry's exponent
    drawn from 2^-20 .. 2^20) and `cancel` (C close to -A B).  Per kind,
    one JSON line: the share of outputs equal bit for bit to
-   ops/fused_siren.py mma_tf32_model, to the exact sum rounded to
+   ops/tc_model.py mma_tf32_model, to the exact sum rounded to
    nearest, and to the exact sum rounded toward zero.
 2. Runs kernel 2 (fused_decode_grid) and kernel 3 (fused_chain_apply)
    on the SingleTask default chain (SIREN 5 x 22, w0 20, random weights
@@ -91,7 +91,7 @@ def tiles_of(kind: str, n: int, rng):
     import numpy as np
     import torch
 
-    from brief_pytorch_tpu_torch.ops.fused_train import tf32_split
+    from brief_pytorch_tpu_torch.ops.tc_model import tf32_split
 
     def draw(shape):
         x = rng.standard_normal(shape)
@@ -110,7 +110,7 @@ def tiles_of(kind: str, n: int, rng):
 def sums(lib, dev, rng, n_tiles: int) -> None:
     import torch
 
-    from brief_pytorch_tpu_torch.ops.fused_siren import mma_tf32_model
+    from brief_pytorch_tpu_torch.ops.tc_model import mma_tf32_model
     for kind in ("normal", "spread", "cancel"):
         a, b, c = tiles_of(kind, n_tiles, rng)
         ad, bd, cd = (t.contiguous().to(dev) for t in (a, b, c))

@@ -8,6 +8,7 @@ timer (CUDA events, median of 25) and bounds (decode_check).
     python3 scripts/time_fused_decode.py --root outputs/parent \\
         3-22x4-1:256x256x256
     python3 scripts/time_fused_decode.py --layout wide 3-66x6-1:64x256x256:10
+    python3 scripts/time_fused_decode.py --layout stream 3-383x4-1:64x512x512
 
 A shape is c_in-f x hidden-c_out:grid[:w0] (SIREN, w0 = 20 unless given),
 or c_in-f1,f2,...-c_out:grid[:w0] for uneven hidden widths; the grid has
@@ -17,7 +18,8 @@ can be timed in turns in one call; the check, timer and bounds stay this
 checkout's chip_smoke.py (a build whose decode is further from float64
 than chip_smoke's F64_RATIO allows fails there unless --f64-ratio raises
 it).  --layout forces a form of the kernel (narrow
-or wide) where its plan fits.  Prints one JSON line per shape, then the
+or wide) where its plan fits, or the streamed form (ops/chain_stream.py,
+which takes any chain) below the 3,327 features where it starts.  Prints one JSON line per shape, then the
 card's name and power limit.
 """
 from __future__ import annotations
@@ -36,6 +38,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def force_layout(fused_decode, layout: str) -> None:
     """Make the package's plan choose `layout` wherever its plan fits."""
     def choose(widths):
+        if layout == "stream":
+            from brief_pytorch_tpu_torch.ops import chain_stream
+            return chain_stream.stream_plan(widths)
         p = fused_decode.narrow_plan(widths) if layout == "narrow" \
             else fused_decode.wide_plan(widths)
         if p is None:
@@ -64,7 +69,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("shapes", nargs="+")
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--layout", choices=("auto", "narrow", "wide"),
+    ap.add_argument("--layout", choices=("auto", "narrow", "wide", "stream"),
                     default="auto")
     ap.add_argument("--plain-reps", type=int, default=3)
     ap.add_argument("--f64-ratio", type=float, default=None,
@@ -108,8 +113,12 @@ def main(argv=None) -> int:
                              f"{widths[0]} coordinates")
         layers = siren_layers(widths, w0, dev)
         acts = tuple(("sine", w0) for _ in widths[2:]) + (("none", 1.0),)
+        # the plain version's voxels at a time: its activations within
+        # ~256 MB a layer (chains past 3,327 features)
+        slab = max(4096, (1 << 26) // max(widths)) \
+            if max(widths) > 3327 else None
         row = cs.decode_check(dev, shape, spatial, layers, acts,
-                              plain_reps=args.plain_reps)
+                              plain_reps=args.plain_reps, slab=slab)
         print(json.dumps({"root": args.root, "shape": shape,
                           "widths": widths, **row}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,6 +6,11 @@ CUDA events, median of 25).
 
     python3 scripts/time_fused_siren.py
     python3 scripts/time_fused_siren.py --root outputs/parent
+    python3 scripts/time_fused_siren.py --cases wide-1024,reach-4096,reach-20971
+
+--cases times only the named cases, of SIREN_CASES and of phase 20's
+REACH_SIREN (the streamed form past 3,327 features: reach-4096,
+[3, 4096, 4096, 1] at N = 65,536; reach-20971, 3-20971-1 at N = 65,536).
 
 --root imports the package and chip_smoke.py from another checkout, e.g.
 a `git archive` of the parent commit, so that two builds can be timed in
@@ -26,6 +31,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated labels (default: SIREN_CASES)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -35,12 +42,18 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    for label, cfg, n, _ in cs.SIREN_CASES:
+    cases = [c[:3] for c in cs.SIREN_CASES]
+    if args.cases:
+        known = {c[0]: c for c in cases + list(cs.REACH_SIREN)}
+        cases = [known[c] for c in args.cases.split(",")]
+    for label, cfg, n in cases:
         row = cs.siren_check(dev, label, cfg, n)
+        torch.cuda.empty_cache()
         print(json.dumps({"root": args.root, "case": label, "n": n,
                           "ms": row["ms"], "bound_ms": row["bound_ms"],
                           "tc_bound_ms": row.get("tc_bound_ms"),
                           "layout": row.get("layout"),
+                          "form": row.get("form"),
                           "inst": row.get("inst"),
                           "max_abs_err": row["max_abs_err"]}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -32,6 +32,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _chain(dev, features, layers, cin=3, cout=1, seed=0, **extra):
     cfg = {"name": "SIREN", "coords_channel": cin, "data_channel": cout,
            "features": features, "layers": layers, "w0": 20, **extra}
@@ -569,6 +573,7 @@ DECODE_FORMS = [
     ((191, 191, 191, 191), (5, 41, 37), ("wide", 3, False)),
     ((242, 242, 242, 242), (3, 43, 47), ("wide", 4, False)),
     ((300, 257, 40), (4, 19, 23), ("wide", 4, True)),
+    ((383, 383, 383, 383), (5, 29, 31), ("wide", 4, True)),
 ]
 
 
@@ -1109,3 +1114,80 @@ def test_media_grids_decode_on_the_kernel(dev, spatial, features, cout, slab):
     assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= \
         1e-5 * float(ref.abs().max()) + 1e-5
+
+
+# --- kernels 2 and 3's streamed form: chains past 3,327 features ---------
+STREAM_SHAPES = [
+    # (widths, kernel 3's rows, kernel 2's grid, hidden activation)
+    ([3, 20971, 1], 65_536, (16, 32, 32), "sine"),     # chip_smoke 20d
+    ([3, 4096, 4096, 1], 5_000, (16, 32, 32), "sine"),
+    ([3, 22213, 1], 10_112, (4, 64, 64), "sine"),      # phase 20b's chain
+    ([12, 3400, 5], 700, None, "sine"),                # a square layer 0
+    ([3, 3400, 20], 777, (5, 6, 7), "sine"),           # a square last layer
+    ([3, 3400, 3400, 3400, 2], 500, (2,) * 9, "sigmoid"),
+]
+
+
+@pytest.mark.parametrize("widths,n,spatial,act", STREAM_SHAPES,
+                         ids=["-".join(map(str, s[0])) for s in STREAM_SHAPES])
+def test_streamed_form_matches_plain(dev, widths, n, spatial, act):
+    """Kernels 2 and 3 in the streamed form (ops/chain_stream.py): within
+    1e-5 * max|plain| + 1e-5 of the plain version, two calls bitwise
+    equal, each call counted once as streamed, kernel 2's kernels those
+    its plan states."""
+    from brief_pytorch_tpu_torch.ops import chain_stream as cs
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    layers = _siren_layers(dev, widths, seed=len(widths))
+    w0 = 20.0 if act == "sine" else 1.0
+    acts = ((act, w0),) * (len(widths) - 2) + (("none", 1.0),)
+    assert fs.choose_plan(widths).get("stream")
+    rows = _coords(dev, n, widths[0])
+    before = fs.stream_launches
+    out = fs.fused_chain_apply(layers, rows, acts)
+    assert fs.stream_launches == before + 1
+    ref = torch.cat([fs.fused_chain_apply_reference(layers, rows[i:i + 8192],
+                                                    acts)
+                     for i in range(0, n, 8192)])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
+    assert torch.equal(fs.fused_chain_apply(layers, rows, acts), out)
+    if spatial is None:
+        return
+    pop = int(np.prod(spatial))
+    p = fd.choose_plan([len(spatial)] + widths[1:])
+    assert p.get("stream")
+    layers = _siren_layers(dev, [len(spatial)] + widths[1:], seed=3)
+    before, kernels = fd.stream_launches, fd.kernels_launched()
+    out = fd.fused_decode_grid(layers, spatial, acts, "n11")
+    assert fd.stream_launches == before + 1
+    assert fd.kernels_launched() - kernels == \
+        cs.stream_call(p, pop, _sms(dev))["kernels"]
+    ref = fd.fused_decode_grid_reference(layers, spatial, acts, "n11",
+                                         slab=4096)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max()) + 1e-5
+    assert torch.equal(fd.fused_decode_grid(layers, spatial, acts, "n11"),
+                       out)
+
+
+@pytest.mark.parametrize("widths,n", [([3, 3400, 6], 1500),
+                                      ([3, 3400, 3400, 3400, 2], 300),
+                                      ([12, 3400, 20], 200)])
+def test_streamed_sums_are_the_model(dev, widths, n):
+    """On relu chains (no sine, whose device and CPU copies may differ in
+    a last bit) the streamed form's outputs are chain_stream.stream_model's
+    bit for bit: the thin sums by fmaf in their order, the products'
+    mma.sync sums through mma_tf32_model, the epilogue's partial sums."""
+    from brief_pytorch_tpu_torch.ops import chain_stream as cs
+    from brief_pytorch_tpu_torch.ops import fused_siren as fs
+    layers = _siren_layers(dev, widths, seed=13)
+    acts = (("relu", 1.0),) * (len(widths) - 2) + (("none", 1.0),)
+    rows = _coords(dev, n, widths[0])
+    out = fs.fused_chain_apply(layers, rows, acts).cpu()
+    cpu = [{k: t.cpu() for k, t in layer.items()} for layer in layers]
+    assert torch.equal(out, cs.stream_model(cpu, rows.cpu(), acts,
+                                            fs.choose_plan(widths),
+                                            _sms(dev)))

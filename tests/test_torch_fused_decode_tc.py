@@ -228,7 +228,10 @@ def test_plan_reach(widths, layout, glob):
     p = fd.choose_plan(widths)
     assert (p["layout"], p["global"]) == (layout, glob)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
-    if glob:
+    # past 3,327 features the streamed form (ops/chain_stream.py), whose
+    # scratch rows are its own
+    assert bool(p.get("stream")) == (max(widths) > 3327)
+    if glob and not p.get("stream"):
         assert p["rows"] == 8 * max(p["kb"]) >= max(widths)
 
 

@@ -152,7 +152,7 @@ def test_plans():
     (3-186x4-1 with its activations in shared memory, past 256 features
     in a device scratch); the chains the train and decode kernels accept
     are accepted, and so are chains past 16 layers and 3,327 features
-    (the wide form, its activations in the scratch)."""
+    (past 3,327 the streamed form, ops/chain_stream.py)."""
     from brief_pytorch_tpu_torch.ops import fused_train as ft
     p = fs.choose_plan([3, 22, 22, 22, 22, 1])
     assert (p["layout"], p["inst"], p["tile"]) == ("narrow", 3, 32)
@@ -169,8 +169,8 @@ def test_plans():
         assert p == fd.narrow_plan(widths) or p == fd.wide_plan(widths)
         assert p["smem_bytes"] <= fd.SMEM_LIMIT
     assert fs.choose_plan([3] + [8] * 17 + [1])["layout"] == "narrow"
-    p = fs.choose_plan([3, 3328, 3328, 1])
-    assert (p["layout"], p["global"], p["rows"]) == ("wide", True, 3328)
+    p = fs.choose_plan([3, 3328, 3328, 1])    # the streamed form
+    assert (p["layout"], p["global"], p["stream"]) == ("wide", True, True)
     assert fs.supports(tphi.init_phi(_cfg(features=3328)))
 
 

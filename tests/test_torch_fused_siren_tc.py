@@ -209,8 +209,9 @@ def test_reach(widths, ok):
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
     if widths[0] > 96:
         assert p["layout"] == "wide"
-    if widths[0] >= 3327:
-        assert p["global"] and p["inst"] == 4
+    assert bool(p.get("stream")) == (max(widths) > 3327)
+    if widths[0] >= 3327:   # the wide form's scratch, or the streamed form
+        assert p["global"] and (p.get("stream") or p["inst"] == 4)
     if len(widths) == 18:
         assert p["layout"] == "narrow"
         _, _, tmodel, tparams = _pair(_cfg(features=8, layers=17))

@@ -23,6 +23,7 @@ import torch
 from brief_pytorch_tpu.ops import pallas_decode as pd
 from brief_pytorch_tpu.ops import pallas_siren as ps
 from brief_pytorch_tpu.ops import pallas_train as pt
+from brief_pytorch_tpu_torch.ops import chain_stream as cs
 from brief_pytorch_tpu_torch.ops import fused_decode as fd
 from brief_pytorch_tpu_torch.ops import fused_siren as fs
 from brief_pytorch_tpu_torch.ops import fused_train as ft
@@ -239,7 +240,11 @@ def test_every_chain_has_a_plan(layers, features):
         p = mod.choose_plan(widths)
         assert p["layout"] in ("narrow", "wide")
         assert p["smem_bytes"] <= fd.SMEM_LIMIT
-        if p["layout"] == "wide" and max(widths) > 256:
+        # past 3,327 features the streamed form (ops/chain_stream.py)
+        assert bool(p.get("stream")) == (max(widths) > 3327)
+        if p.get("stream"):
+            assert p["global"]
+        elif p["layout"] == "wide" and max(widths) > 256:
             assert p["global"] and p["rows"] >= max(widths)
     p5 = fd.choose_plan([5] + widths[1:])     # a 5-axis grid: the wide form
     assert p5["layout"] == "wide"
@@ -274,6 +279,7 @@ def test_tables_hold_every_layer(widths):
         w0 = rows[:-1, 12].astype(np.int32).view(np.float32)
         assert w0.tolist() == [20.0] * (L - 1)
     pd_ = fd.choose_plan(widths)
-    words = fd.chain_table(pd_, widths, acts, [0] * (2 * L)) + \
+    table = cs.stream_table if pd_.get("stream") else fd.chain_table
+    words = table(pd_, widths, acts, [0] * (2 * L)) + \
         fd.axis_table((4, 5, 6), False)
     assert len(words) == L * fd.CHAIN_ROW_WORDS + 3 * fd.AXIS_ROW_WORDS

@@ -405,3 +405,20 @@ with open(sys.argv[sys.argv.index("-o") + 1], "w") as f:
     assert (out / "libfake.so").read_text() == "library"
     assert sorted(p.name for p in out.iterdir()
                   if not p.name.startswith(".")) == ["libfake.so"]
+
+
+def test_free_port_is_below_the_ephemeral_range():
+    """mesh.free_port draws coordinator ports below the kernel's ephemeral
+    range, so that no other process's bind to port 0 or outgoing
+    connection takes one between the draw and rank 0's bind (the cause of
+    test_two_rank_fleet_matches_one_rank's failures under six test
+    workers); each port it returns binds."""
+    import socket
+    low = mesh._ephemeral_low()
+    ports = {mesh.free_port() for _ in range(20)}
+    for port in ports:
+        if low is not None:
+            assert low - mesh.PORT_SPAN <= port < low
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))
+    assert len(ports) > 1
