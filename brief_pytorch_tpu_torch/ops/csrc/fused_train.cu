@@ -30,11 +30,14 @@
 //    sharing the grid by their work; described at its code.  Paced by
 //    instruction issue, ~10 instructions an mma (the HiP-CT fleet at ~23%
 //    of its float32 bound, PERF.md).
-//  * wide (wide_train_kernel + wide_dw_kernel, e.g. 3-191x4-1,
-//    3-242x4-1, 3-128x6-1): W streamed through shared memory in slabs,
-//    h_l and d_l in a device-memory scratch, dW a split-K product over it;
-//    described at its code.  Chains past its rows' reach (a layer wider
-//    than 3,327 features) take the streamed form, csrc/fused_train_stream.cu.
+//  * wide (wide_tile_kernel + wide_dw_kernel, e.g. 3-191x4-1,
+//    3-242x4-1, 3-128x6-1, [3]+[64]x23+[1]): the three products on the
+//    tensor cores in 3xTF32, W split once into fragment-ordered packs and
+//    streamed through a cp.async slab ring, a tile's activations in
+//    shared memory, one z / g row set a layer in a device-memory scratch,
+//    dW a split-K product over it; described at its code.  Chains past
+//    its reach (a layer wider than 352 features) take the streamed
+//    form, csrc/fused_train_stream.cu.
 //
 // The narrow layout (fused_train_kernel), for chains whose weights and a
 // tile's activations fit in shared memory with 8 or more warps per SM:
@@ -1420,371 +1423,690 @@ cudaError_t launch_narrow(dim3 grid, int threads, int smem_bytes,
 // ---------------------------------------------------------------------------
 // The wide layout: for chains whose weights do not fit in shared memory
 // beside a tile (the SingleTask default on the 64x512x512 demo volumes,
-// 3-191x4-1 at 80x and 3-242x4-1 at 50x; fleet buckets padded past the
-// tiled layout, e.g. 3-128x6-1).  Kernels of its own, with their own
-// descriptor; the narrow and tiled layouts keep their code.
+// 3-191x4-1 at 80x and 3-242x4-1 at 50x; fleet buckets past the tiled
+// layout, e.g. 3-128x6-1; the deep chains, 3-78x19-1, [3]+[64]x23+[1];
+// ops/fused_train.py wide_plan), up to 352 features a layer; wider ones
+// take the streamed form (csrc/fused_train_stream.cu), faster there
+// (PERF.md §6).  It replaces, for those chains,
+// brief_pytorch_tpu/ops/pallas_train.py _fused_grads_padded
+// (pl.pallas_call :281, body _make_train_kernel :70).
 //
-// Per call:
-//  (a) pack_weights_kernel (csrc/wide.cuh): every layer's W with its bias
-//      as one more row, zero-padded to (round64(fin + 1), round64(fout)),
-//      so that 16-byte cp.async copies of a slab are aligned;
-//  (b) wide_train_kernel: a persistent grid over tiles of kT coordinates;
-//      per tile the forward (wide::forward_block, one layer at a time,
-//      activations ping-ponging between two shared buffers), the loss and
-//      the input gradients (wide::input_grad_block).  h_l and d_l of
-//      every coordinate go to a scratch in device memory, feature-major
-//      with a row stride np = round64(N); the backward turns d_l into
-//      g_l in place.  Each block writes its loss partial;
-//  (c) wide_dw_kernel: dW_l = sum_u [h_{l-1}; 1][:, u] g_l[:, u]^T as a
-//      split-K product over the scratch: a block per (layer, 64 x 64 tile
-//      of (fin + 1) x fout, split of the coordinates), 32-coordinate
-//      chunks of both operands double-buffered through shared memory,
-//      4 x 4 register micro-tiles, its partial row written once;
-//  (d) reduce_wide_kernel: the splits' rows and the loss partials summed
-//      in a fixed order.  No float atomics, so runs are bitwise equal.
-// Why this way: in the old wide layout every multiply-add of the forward
-// and the input gradient loaded its W entry from L2, dW took two shared
-// reads per multiply-add plus a read-modify-write of the block's whole
-// partial row per tile, and all h_l, d_l of a tile had to fit in shared
-// memory (so 5-layer chains stopped at 217 features).  Here a W slab in
-// shared memory serves a whole tile (64 multiply-adds per float copied),
-// the products run on register micro-tiles, and shared memory holds two
-// layer rows of the tile and two slabs (any width whose round32(f + 1)
-// rows fit at kT = 8: 3,327 features; wider chains take the streamed
-// form, csrc/fused_train_stream.cu).
-// What bounds it: operations (3-191x4-1, N = 100,000: 66 GFLOP, 0.99 ms
-// at 67 TFLOP/s) and the scratch traffic (~1.2 GB there: h and d written,
-// d read and g written, h and g read by dW; 0.36 ms at 3.35 TB/s).
+// Every product runs on the tensor cores: mma.sync.m16n8k8 TF32 in
+// 3xTF32 (x = big + small; a b = as bb + ab bs + ab bb), each k-block's
+// three products summed from zero and added to the running sum in
+// float32 (the tensor core truncates its accumulator: a long run of
+// k-blocks left in it drifts).  A chain of L layers, h_0 the coordinates,
+// z_{l+1} = W_l^T h_l + b_l, h_{l+1} = act_l(z_{l+1}) m_l.  Per call:
+//  (a) pack_weights_kernel (csrc/wide.cuh): W and W^T of every layer,
+//      split into TF32 halves once, in the order the fragments are read;
+//  (b) wide_tile_kernel, mode 0 (forward): a persistent grid over tiles
+//      of kT coordinates (128 or 64), 16 warps a block; the tile's
+//      activations stay in shared memory (two buffers, a layer reading
+//      one and writing the other), each layer's products stream its
+//      forward pack through a ring of kStages cp.async slabs, 64 output
+//      columns at a time; the epilogue adds the bias, stores z_{l+1} to
+//      the scratch and h_{l+1} to the other buffer; the last layer's
+//      epilogue gives the loss (a block's sum in float64) and g_L;
+//  (c) per layer, last first: wide_tile_kernel, mode 1 (l >= 1): g_l =
+//      (W_l g_{l+1}) act'(z_l) m, the tile's g_{l+1} in shared memory,
+//      the input-gradient pack streamed as in (b); h_l, which dW needs,
+//      written over z_l and g_l into the other of two G buffers; then
+//      wide_dw_kernel: dW_l = h_l g_{l+1}^T and db_l, split over the
+//      coordinates (layer 0: the coordinates' rows);
+//  (d) reduce_wide_kernel: the splits' partial sums and the loss partials
+//      added in a fixed order.  No float atomics: runs are bitwise equal.
+// The scratch (device memory, rows of np = round128(N) floats) holds the
+// coordinates, one z / h row set a hidden layer and the two G buffers:
+// 1,149 rows at 3-191x4-1, where the old layout kept 1,532 (h and d of
+// every layer).
+// Why this way: the old wide layout ran its products as float32 FMAs on
+// the CUDA cores (its float32 bound alone, 1.01 ms at 3-191x4-1, N =
+// 100,000, is 2.5x the tensor-core bound) and each W slab served 32
+// coordinates.  Here W is split once and read as ready fragments (one
+// 16-byte load a lane), a slab serves 128 coordinates at 3-191x4-1, and
+// the activation rows are paired (wat) so that an A fragment is two
+// 8-byte loads a lane.
+// What bounds it: the tensor cores (3 x 66 GFLOP at 3-191x4-1: 0.40 ms at
+// 495 TFLOP/s, ~0.64 ms at the ~311 TFLOP/s mma.sync reached on the card,
+// scripts/mma_tf32_rate.py) and the scratch traffic (~2 GB a call there,
+// ~0.6 ms at 3.35 TB/s).  It runs at ~25% of mma.sync's rate, paced by
+// latency at 16 warps an SM: without the W slabs' copies, the barriers
+// or the sines it gains 3-11% (scripts/wide_variants.py, PERF.md).  It
+// stays on mma.sync, not wgmma: wgmma's TF32 operands must both be
+// K-major in shared memory, for which the packs and the input gradient's
+// operand would have to be laid out anew, and mma.sync's fragments let
+// an epilogue apply the activation where the sums are.
 // ---------------------------------------------------------------------------
 namespace wl = brief::wide;
 
-constexpr int kDwThreads = 256;
-constexpr int kDwChunk = 32;     // coordinates per dW operand chunk
+constexpr int kWideThreads = wl::kThreads;   // 16 warps
+constexpr int kDwI = 64;       // a dW block's rows (of fin)
+constexpr int kDwChunk = 32;   // coordinates of a dW k-slab
 constexpr int kDwStride = kDwChunk + 4;
 
-struct WideDesc {
-  int n_layers, c_in, c_out, n_params, mask_width, rows_max, np, rows_total;
-  int wp_total, n_dw_tiles;
-  const wl::Layer* layer;   // n_layers rows, device memory (csrc/wide.cuh)
+// A dW block of kThreads threads: kO = kThreads / 4 columns (128 with 16
+// warps, 4 x 4; 64 with 8, 4 x 2, for layers of at most 64 outputs), its
+// stage and its shared memory.
+template <int kThreads>
+struct DwGeom {
+  static constexpr int kO = kThreads / 4;
+  static constexpr int kWN = kO / 32;
+  static constexpr int kStage = (kDwI + kO) * kDwStride;
+  static constexpr int kSmem = 4 * wl::kStages * kStage;
 };
 
-// (b).  Grid (blocks, B), 4 * kT threads.  Shared memory: two buffers of
-// rows_max rows of kT floats, two weight slabs, then the loss reduction
-// buffer.
+// A tile's slab: kKS k-blocks of a chunk's 8 fragments.
 template <int kT>
-__global__ void __launch_bounds__(4 * kT) wide_train_kernel(
-    const float* __restrict__ coords, const float* __restrict__ values,
-    const float* __restrict__ weights, const float* __restrict__ wp,
-    const float* __restrict__ masks, const float* __restrict__ thres,
-    float* __restrict__ scratch, float* __restrict__ lossp, int n,
-    WideDesc d, int loss, float beta) {
-  constexpr int kNT = 4 * kT, kCQ = kT / 4;
-  extern __shared__ __align__(16) float sm[];
-  const int t = threadIdx.x, cu = t % kCQ, q4 = 4 * (t / kCQ);
-  const int fb = blockIdx.y, L = d.n_layers;
-  coords += (size_t)fb * d.c_in * n;
-  values += (size_t)fb * d.c_out * n;
-  weights += (size_t)fb * d.c_out * n;
-  wp += (size_t)fb * d.wp_total;
-  scratch += (size_t)fb * d.rows_total * d.np;
-  const float* mk =
-      masks == nullptr ? nullptr : masks + (size_t)fb * d.mask_width;
-  const bool thr_on = thres != nullptr;
-  const float thr = thr_on ? thres[fb] : 0.f;
-  float* buf0 = sm;
-  float* buf1 = sm + d.rows_max * kT;
-  float* slab = sm + 2 * d.rows_max * kT;
-  float* red = slab + 2 * wl::kSlab;
-  const size_t np = (size_t)d.np;
-  float loss_acc = 0.f;
-  float acc[4][4];
+struct WideSlab {
+  static constexpr int kKS = kT == 128 ? 2 : 4;
+  static constexpr int kFloats = kKS * 8 * wl::kFrag;
+  static_assert(kFloats % (4 * kWideThreads) == 0, "whole 16-byte copies");
+  static_assert(wl::kStages * kFloats >= 2 * kWideThreads,
+                "the ring holds the loss reduction's doubles");
+};
 
-  const int n_tiles = d.np / kT;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * kT;
-    // coordinates (0 past n) to the scratch (dW of layer 0 reads them
-    // there), and with a ones row and zeros to the slab boundary into buf0
-    const int c_end = wl::round_up(d.c_in + 1, wl::kKS);
-    for (int e = t; e < c_end * kT; e += kNT) {
-      const int r = e / kT, u = e - r * kT, idx = base + u;
-      float v = r == d.c_in ? 1.f : 0.f;
-      if (r < d.c_in) {
-        v = idx < n ? coords[(size_t)r * n + idx] : 0.f;
-        scratch[(size_t)r * np + idx] = v;
-      }
-      buf0[e] = v;
-    }
-    __syncthreads();
+// The warps over a 64-column chunk of a tile of kT coordinates: kWM x kWN
+// warps, each kMT m-tiles (16 coordinates) by kNT n-tiles (8 outputs).
+template <int kT>
+struct WideGeom {
+  static constexpr int kWarps = kWideThreads / 32;
+  static constexpr int kMTiles = kT / 16;
+  static constexpr int kMT = kT == 128 ? 2 : 1;
+  static constexpr int kWM = kMTiles / kMT;
+  static constexpr int kWN = kWarps / kWM;
+  static constexpr int kNT = 8 / kWN;
+  static_assert(kNT >= 1 && kWM * kWN == kWarps, "the warps over a chunk");
+};
 
-    // ---- forward: h_l and d_l of the tile to the scratch ----
-    float* X = buf0;
-    float* Y = buf1;
-    for (int l = 0; l < L; ++l) {
-      const wl::Layer* ly = d.layer + l;
-      const int fout = ld_use(&ly->fout);
-      for (int o0 = 0; o0 < fout; o0 += wl::kOB) {
-        const int fin = ld_use(&ly->fin);
-        wl::forward_block<kT>(wp + ld_use(&ly->wp_off), ld_use(&ly->colpad),
-                              o0, wl::round_up(fin + 1, wl::kKS), X, slab,
-                              acc);
-        const int mo = ld_use(&ly->mask_off), hr = ld_use(&ly->h_row);
-        const float* ml = mk == nullptr || mo < 0 ? nullptr : mk + mo;
-        float* H = hr < 0 ? nullptr : scratch + hr * np + base;
-        float* D = scratch + ld_use(&ly->g_row) * np + base;
-        const int act = ld_use(&ly->act);
-        const float w0 = ld_use(&ly->w0);
+// The call (ops/fused_train.py wide_plan): the caller's tensors, the
+// table, the packs, the scratch and the partial sums.  blockIdx.y (the
+// tile kernel) or blockIdx.z (dW) is the chain.
+struct WideDesc {
+  const float* coords;
+  const float* values;
+  const float* weights;
+  const float* masks;
+  const float* thres;
+  const float* params;      // (B, n_params): the biases, read in place
+  const wl::Layer* layer;   // n_layers rows, device memory (csrc/wide.cuh)
+  const float* wp;
+  float* scratch;
+  float* partial;
+  double* lossp;            // (B, grid): the blocks' loss partials
+  int n, np, n_layers, c_in, c_out, n_params, mask_width, rows_total;
+  int wp_total, part_total, rows_max, kp;   // kp: 8 WideSlab<kT>::kKS
+};
+
+// Row r (a feature), coordinate u of a tile's activation buffer: rows
+// 8 kb + t and 8 kb + t + 4 side by side, a float2 a coordinate, in
+// paired row 4 kb + t of kT float2, its coordinates XOR 4 t.  An A
+// fragment's entries (rows 8 kb + t, t + 4 by coordinates g, g + 8 of an
+// m-tile) are then two 8-byte reads a lane, and a half warp's reads hit
+// 32 banks with no padding.
+template <int kT>
+__device__ __forceinline__ int wat(int r, int u) {
+  return ((((r >> 3) << 2) | (r & 3)) * kT + (u ^ ((r & 3) << 2))) * 2 +
+         ((r >> 2) & 1);
+}
+
+// One k-block (rows k0 .. k0 + 7 of X, fragments kbl * 8 .. of the
+// stage st) of the warp's kMT x kNT tiles: each tile's three products
+// summed from zero, then added to acc.  xo: this lane's offsets of its A
+// entries' pairs (coordinates g and g + 8) in a k-block's rows (the
+// layout depends on the row only through r & 7), bo: its offset of a
+// stage's fragment.
+// kFull: all kNT n-tiles hold outputs (no branch between the mma
+// chains); else the first nj.
+template <int kT, bool kFull>
+__device__ __forceinline__ void wide_kblock(
+    const float* Xk, const float4* st, const int (&xo)[WideGeom<kT>::kMT][2],
+    int bo, int kbl, int nj,
+    float (&acc)[WideGeom<kT>::kMT][WideGeom<kT>::kNT][4]) {
+  using G = WideGeom<kT>;
+  uint32_t bb[G::kNT][2], bs[G::kNT][2];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int o = o0 + q4 + a;
-          if (o >= fout) continue;
-          const float m = ml == nullptr ? 1.f : __ldg(ml + o);
-          float h[4], dv[4];
+  for (int j = 0; j < G::kNT; ++j) {
+    if (!kFull && j >= nj) continue;
+    const float4 v = st[bo + (kbl * 8 + j) * 32];
+    bb[j][0] = __float_as_uint(v.x);
+    bb[j][1] = __float_as_uint(v.y);
+    bs[j][0] = __float_as_uint(v.z);
+    bs[j][1] = __float_as_uint(v.w);
+  }
+  uint32_t ab[G::kMT][4], as[G::kMT][4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            brief::act_fwd(act, w0, acc[a][c], &h[c], &dv[c]);
-            h[c] *= m;
-            dv[c] *= m;
-          }
-          const float4 h4 = make_float4(h[0], h[1], h[2], h[3]);
-          *reinterpret_cast<float4*>(Y + o * kT + 4 * cu) = h4;
-          if (H != nullptr)
-            *reinterpret_cast<float4*>(H + o * np + 4 * cu) = h4;
-          *reinterpret_cast<float4*>(D + o * np + 4 * cu) =
-              make_float4(dv[0], dv[1], dv[2], dv[3]);
-        }
-      }
-      wl::fill_rows<kT>(Y, fout, wl::round_up(fout + 1, wl::kKS), true);
-      __syncthreads();
-      float* sw = X;
-      X = Y;
-      Y = sw;
-    }
-
-    // ---- loss; g of the last layer over its d (padding weighs 0) ----
-    {
-      float* P = X;   // the prediction, then g
-      float* D = scratch + ld_use(&d.layer[L - 1].g_row) * np + base;
-      for (int e = t; e < d.c_out * kT; e += kNT) {
-        const int c = e / kT, u = e - c * kT, idx = base + u;
-        const bool valid = idx < n;
-        float y = 0.f, wv = 0.f;
-        if (valid) {
-          y = values[(size_t)c * n + idx];
-          wv = weights[(size_t)c * n + idx];
-        }
-        const float g = loss_grad(loss, beta, thr_on, thr, P[e], y, wv,
-                                  valid, D[c * np + u], &loss_acc);
-        P[e] = g;
-        D[c * np + u] = g;
-      }
-      wl::fill_rows<kT>(X, d.c_out, wl::round_up(d.c_out, wl::kKS), false);
-      __syncthreads();
-    }
-
-    // ---- input gradients, last layer first: g_{l-1} over d_{l-1} ----
-    for (int l = L - 1; l > 0; --l) {
-      const wl::Layer* ly = d.layer + l;
-      const int fin = ld_use(&ly->fin);
-      for (int i0 = 0; i0 < fin; i0 += wl::kOB) {
-        const int fout = ld_use(&ly->fout);
-        wl::input_grad_block<kT>(wp + ld_use(&ly->wp_off), ld_use(&ly->colpad),
-                                 i0, wl::round_up(fout, wl::kKS), X, slab,
-                                 acc);
-        float* D = scratch + ld_use(&d.layer[l - 1].g_row) * np + base;
+  for (int i = 0; i < G::kMT; ++i) {
+    const float2 lo = *reinterpret_cast<const float2*>(Xk + xo[i][0]);
+    const float2 hi = *reinterpret_cast<const float2*>(Xk + xo[i][1]);
+    const float a[4] = {lo.x, hi.x, lo.y, hi.y};   // (g, t) (g+8, t) (g, t+4) ..
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = i0 + q4 + a;
-          if (i >= fin) continue;
-          float4* dp = reinterpret_cast<float4*>(D + i * np + 4 * cu);
-          const float4 dv = *dp;
-          const float4 g = make_float4(acc[a][0] * dv.x, acc[a][1] * dv.y,
-                                       acc[a][2] * dv.z, acc[a][3] * dv.w);
-          *reinterpret_cast<float4*>(Y + i * kT + 4 * cu) = g;
-          *dp = g;
-        }
-      }
-      wl::fill_rows<kT>(Y, fin, wl::round_up(fin, wl::kKS), false);
-      __syncthreads();
-      float* sw = X;
-      X = Y;
-      Y = sw;
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], &ab[i][e], &as[i][e]);
+  }
+#pragma unroll
+  for (int j = 0; j < G::kNT; ++j) {
+    if (!kFull && j >= nj) continue;
+#pragma unroll
+    for (int i = 0; i < G::kMT; ++i) {
+      float s4[4];
+      brief::mma_tf32_zero(s4, as[i], bb[j][0], bb[j][1]);
+      mma_tf32(s4, ab[i], bs[j][0], bs[j][1]);
+      mma_tf32(s4, ab[i], bb[j][0], bb[j][1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += s4[e];
     }
   }
+}
 
-  // ---- this block's loss partial ----
+// acc = X^T B over the k-blocks [0, kbs) of one chunk: X the tile's rows
+// in shared memory (zero from the product's K on), B the chunk's packed
+// fragments at src (its slabs in order, through the ring); n_valid:
+// columns of the chunk that exist (n-tiles past them are skipped).
+// Called by every thread; starts with a barrier.
+template <int kT>
+__device__ __forceinline__ void wide_product(
+    const float* X, const float* __restrict__ src, int kbs, int n_valid,
+    float* ring, float (&acc)[WideGeom<kT>::kMT][WideGeom<kT>::kNT][4]) {
+  using G = WideGeom<kT>;
+  using S = WideSlab<kT>;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / G::kWN, wn = warp % G::kWN;
+  const int nj = min(G::kNT, max(0, (n_valid - 8 * G::kNT * wn + 7) / 8));
+  int xo[G::kMT][2];   // wat<kT>(k0 + t, m (+ 8)) - k0 kT: rows t and t + 4
+#pragma unroll
+  for (int i = 0; i < G::kMT; ++i) {
+    const int m = 16 * (G::kMT * wm + i) + g;
+    xo[i][0] = wat<kT>(q, m);
+    xo[i][1] = wat<kT>(q, m + 8);
+  }
+  const int bo = G::kNT * wn * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < G::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int ns = kbs / S::kKS;
+  auto load = [&](int s, int stage) {
+    float* dst = ring + stage * S::kFloats;
+    const float* from = src + (size_t)s * S::kFloats;
+#pragma unroll
+    for (int j = 0; j < S::kFloats / 4 / kWideThreads; ++j) {
+      const int c = t + j * kWideThreads;
+      wl::cp16(dst + 4 * c, from + 4 * c);
+    }
+  };
+  __syncthreads();   // the ring's and the buffers' last readers are done
+#pragma unroll
+  for (int s = 0; s < wl::kStages - 1; ++s) {
+    if (s < ns) load(s, s);
+    wl::cp_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    wl::cp_wait<wl::kStages - 2>();
+    __syncthreads();   // slab s is in; slab s - 1's stage is free
+    if (s + wl::kStages - 1 < ns)
+      load(s + wl::kStages - 1, (s + wl::kStages - 1) % wl::kStages);
+    wl::cp_commit();
+    const float4* st = reinterpret_cast<const float4*>(
+        ring + (s % wl::kStages) * S::kFloats);
+    const float* Xs = X + 8 * S::kKS * s * kT;
+#pragma unroll
+    for (int kbl = 0; kbl < S::kKS; ++kbl) {
+      if (nj == G::kNT)
+        wide_kblock<kT, true>(Xs + 8 * kbl * kT, st, xo, bo, kbl, nj, acc);
+      else if (nj > 0)
+        wide_kblock<kT, false>(Xs + 8 * kbl * kT, st, xo, bo, kbl, nj, acc);
+    }
+  }
+}
+
+// Where the tile kernel's per-tile values live
+struct WideTile {
+  float* scratch;       // this chain's rows
+  const float* wp;      // this chain's packs
+  const float* mk;      // this chain's unit masks, or null
+  const float* values;  // this chain's values and weights
+  const float* weights;
+  int base;             // the tile's first coordinate
+  bool thr_on;
+  float thr;
+};
+
+// act(z) alone (a hidden layer's forward: its derivative is recomputed
+// from z where the backward needs it)
+template <int kAct>
+__device__ __forceinline__ float act_h(float w0, float z) {
+  if (kAct == brief::kActSine) return brief::fast_sin(w0 * z);
+  float h, d;
+  brief::act_fwd(kAct, w0, z, &h, &d);
+  return h;
+}
+
+// Layer k's forward over columns [c0, c0 + 64) of the tile:
+// the product, the bias; hidden layers store z to the scratch and h to
+// Y, the last layer the loss and g_L.
+template <int kT, int kAct>
+__device__ __forceinline__ void wide_forward_chunk(
+    const WideDesc& d, const WideTile& w, const wl::Layer& ly, bool last,
+    const float* bias, const float* ml, int kbs, int c0, const float* X,
+    float* Y, float* ring, int loss, float beta, float* loss_acc) {
+  using G = WideGeom<kT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / G::kWN, wn = warp % G::kWN;
+  const size_t np = d.np;
+  float acc[G::kMT][G::kNT][4];
+  wide_product<kT>(
+      X, w.wp + ly.wf_off + (size_t)c0 / 64 * kbs * 8 * wl::kFrag, kbs,
+      ly.fout - c0, ring, acc);
+#pragma unroll
+  for (int i = 0; i < G::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (G::kMT * wm + i) + g + 8 * (e >> 1);
+        const int o = c0 + 8 * (G::kNT * wn + j) + 2 * q + (e & 1);
+        if (o >= ly.fout) continue;
+        const float z = acc[i][j][e] + __ldg(bias + o);
+        const float mv = ml == nullptr ? 1.f : __ldg(ml + o);
+        const int idx = w.base + r;
+        if (!last) {
+          w.scratch[(size_t)(ly.out_row + o) * np + idx] = z;
+          Y[wat<kT>(o, r)] = act_h<kAct>(ly.w0, z) * mv;
+        } else {
+          float h, dv;
+          brief::act_fwd(kAct, ly.w0, z, &h, &dv);
+          h *= mv;
+          dv *= mv;
+          const bool valid = idx < d.n;
+          float y = 0.f, wv = 0.f;
+          if (valid) {
+            y = w.values[(size_t)o * d.n + idx];
+            wv = w.weights[(size_t)o * d.n + idx];
+          }
+          w.scratch[(size_t)(ly.g_row + o) * np + idx] = loss_grad(
+              loss, beta, w.thr_on, w.thr, h, y, wv, valid, dv, loss_acc);
+        }
+      }
+}
+
+// Layer ly's input gradient over columns [c0, c0 + 64) of the tile: the product of the tile's g_{l+1} (X) and W^T; h_l and d_l
+// from z_l through activation kAct (`in`: layer l - 1's row); h_l
+// written over z_l, g_l = (W g_{l+1}) d_l to the other G buffer.
+template <int kT, int kAct>
+__device__ __forceinline__ void wide_grad_chunk(
+    const WideDesc& d, const WideTile& w, const wl::Layer& ly,
+    const wl::Layer& in, const float* ml, int kbs, int c0, const float* X,
+    float* ring) {
+  using G = WideGeom<kT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / G::kWN, wn = warp % G::kWN;
+  const size_t np = d.np;
+  float zv[G::kMT][G::kNT][4];   // z_l, loading while the product runs
+#pragma unroll
+  for (int i = 0; i < G::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (G::kMT * wm + i) + g + 8 * (e >> 1);
+        const int o = c0 + 8 * (G::kNT * wn + j) + 2 * q + (e & 1);
+        zv[i][j][e] =
+            o < ly.fin ? w.scratch[(size_t)(ly.in_row + o) * np + w.base + r]
+                       : 0.f;
+      }
+  float acc[G::kMT][G::kNT][4];
+  wide_product<kT>(
+      X, w.wp + ly.wb_off + (size_t)c0 / 64 * kbs * 8 * wl::kFrag, kbs,
+      ly.fin - c0, ring, acc);
+#pragma unroll
+  for (int i = 0; i < G::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (G::kMT * wm + i) + g + 8 * (e >> 1);
+        const int o = c0 + 8 * (G::kNT * wn + j) + 2 * q + (e & 1);
+        if (o >= ly.fin) continue;
+        float h, dv;
+        brief::act_fwd(kAct, in.w0, zv[i][j][e], &h, &dv);
+        if (ml != nullptr) {
+          const float mv = __ldg(ml + o);
+          h *= mv;
+          dv *= mv;
+        }
+        const size_t u = (size_t)w.base + r;
+        w.scratch[(size_t)(ly.in_row + o) * np + u] = h;
+        w.scratch[(size_t)(in.g_row + o) * np + u] = acc[i][j][e] * dv;
+      }
+}
+
+// Dispatch on the activation: one copy of the chunk per activation, so
+// that the epilogues do not branch on it a value
+#define WIDE_BY_ACT(act, CALL)                        \
+  switch (act) {                                      \
+    case brief::kActSine: CALL(brief::kActSine); break;       \
+    case brief::kActRelu: CALL(brief::kActRelu); break;       \
+    case brief::kActSigmoid: CALL(brief::kActSigmoid); break; \
+    default: CALL(brief::kActNone);                   \
+  }
+
+// (b) mode 0: the forward and the loss; mode 1: layer l's input
+// gradient.  Grid (blocks, B), kWideThreads threads.  Shared memory: two
+// buffers of rows_max rows of kT floats, the slab ring (at the end, the
+// loss reduction's doubles).
+template <int kT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    wide_tile_kernel(WideDesc d, int mode, int l, int loss, float beta) {
+  extern __shared__ __align__(16) float sm[];
+  float* buf0 = sm;
+  float* buf1 = sm + d.rows_max * kT;
+  float* ring = sm + 2 * d.rows_max * kT;
+  const int t = threadIdx.x, fb = blockIdx.y;
+  const size_t np = d.np;
+  WideTile w;
+  w.scratch = d.scratch + (size_t)fb * d.rows_total * np;
+  w.wp = d.wp + (size_t)fb * d.wp_total;
+  w.mk = d.masks == nullptr ? nullptr : d.masks + (size_t)fb * d.mask_width;
+  w.values = d.values + (size_t)fb * d.c_out * d.n;
+  w.weights = d.weights + (size_t)fb * d.c_out * d.n;
+  w.thr_on = d.thres != nullptr;
+  w.thr = w.thr_on ? d.thres[fb] : 0.f;
+  const float* coords = d.coords + (size_t)fb * d.c_in * d.n;
+  float loss_acc = 0.f;
+
+  for (int tile = blockIdx.x; tile < d.np / kT; tile += gridDim.x) {
+    w.base = tile * kT;
+    __syncthreads();   // the last tile's readers of the buffers are done
+    if (mode == 0) {
+      // the coordinates (0 past n): to X, zeros to layer 0's K, and to the
+      // scratch's rows 0 .. c_in - 1 (layer 0's dW reads them there)
+      const int k_end = wl::round_up(d.c_in, d.kp);
+      for (int e = t; e < k_end * kT; e += kWideThreads) {
+        const int r = e / kT, u = e % kT, idx = w.base + u;
+        const float v =
+            r < d.c_in && idx < d.n ? coords[(size_t)r * d.n + idx] : 0.f;
+        buf0[wat<kT>(r, u)] = v;
+        if (r < d.c_in) w.scratch[(size_t)r * np + idx] = v;
+      }
+      float* X = buf0;
+      float* Y = buf1;
+      for (int k = 0; k < d.n_layers; ++k) {
+        const wl::Layer ly = ld_row(d.layer + k);
+        const bool last = k == d.n_layers - 1;
+        const int kbs = wl::round_up(ly.fin, d.kp) / 8;
+        const float* ml =
+            w.mk == nullptr || ly.mask_off < 0 ? nullptr : w.mk + ly.mask_off;
+        const float* bias = d.params + (size_t)fb * d.n_params + ly.p_off +
+                            (size_t)ly.fin * ly.fout;
+        for (int c0 = 0; c0 < ly.fout; c0 += 64) {
+#define WIDE_FWD(A)                                                   \
+  wide_forward_chunk<kT, A>(d, w, ly, last, bias, ml, kbs, c0, X, Y, ring, \
+                            loss, beta, &loss_acc);
+          WIDE_BY_ACT(ly.act, WIDE_FWD)
+#undef WIDE_FWD
+        }
+        if (!last) {   // zeros from fout to the next product's K
+          const int r0 = ly.fout, r1 = wl::round_up(ly.fout, d.kp);
+          for (int e = t; e < (r1 - r0) * kT; e += kWideThreads)
+            Y[wat<kT>(r0 + e / kT, e % kT)] = 0.f;
+          float* sw = X;
+          X = Y;
+          Y = sw;
+        }
+      }
+    } else {
+      // g_{l+1} of the tile (zeros from fout to K), then h_l and g_l
+      const wl::Layer ly = ld_row(d.layer + l);
+      const wl::Layer in = ld_row(d.layer + l - 1);
+      const int kbs = wl::round_up(ly.fout, d.kp) / 8;
+      for (int e = t; e < kbs * 8 * (kT / 4); e += kWideThreads) {
+        const int r = e / (kT / 4), u = 4 * (e % (kT / 4));
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < ly.fout)
+          v = *reinterpret_cast<const float4*>(
+              w.scratch + (size_t)(ly.g_row + r) * np + w.base + u);
+        buf0[wat<kT>(r, u)] = v.x;
+        buf0[wat<kT>(r, u + 1)] = v.y;
+        buf0[wat<kT>(r, u + 2)] = v.z;
+        buf0[wat<kT>(r, u + 3)] = v.w;
+      }
+      const float* ml =
+          w.mk == nullptr || in.mask_off < 0 ? nullptr : w.mk + in.mask_off;
+      for (int c0 = 0; c0 < ly.fin; c0 += 64) {
+#define WIDE_GRAD(A) \
+  wide_grad_chunk<kT, A>(d, w, ly, in, ml, kbs, c0, buf0, ring);
+        WIDE_BY_ACT(in.act, WIDE_GRAD)
+#undef WIDE_GRAD
+      }
+    }
+  }
+  if (mode != 0) return;
+  // ---- this block's loss partial, its threads' sums added in float64 in
+  // the ring, whose last readers are done after the barrier ----
+  __syncthreads();
+  double* red = reinterpret_cast<double*>(ring);
   red[t] = loss_acc;
   __syncthreads();
-  for (int s = kNT / 2; s > 0; s >>= 1) {
+  for (int s = kWideThreads / 2; s > 0; s >>= 1) {
     if (t < s) red[t] += red[t + s];
     __syncthreads();
   }
-  if (t == 0) lossp[(size_t)fb * gridDim.x + blockIdx.x] = red[0];
+  if (t == 0) d.lossp[(size_t)fb * gridDim.x + blockIdx.x] = red[0];
 }
 
-// (c).  Grid (n_dw_tiles, splits, B), kDwThreads threads.  Block (tile,
-// split) sums, over coordinates [split * chunk, min(np, (split + 1) *
-// chunk)), entries (i0 + to + 16 a, o0 + tu + 16 b) of its layer's
-// (fin + 1) x fout gradient (row fin: the bias, against a row of ones);
-// thread t: to = t / 16, tu = t % 16.  Rows 16 apart, read at a row stride
-// of 36 floats, put a warp's 16 G rows in 8 distinct bank quads.
-__global__ void __launch_bounds__(kDwThreads) wide_dw_kernel(
-    const float* __restrict__ scratch, float* __restrict__ partial,
-    WideDesc d, int chunk) {
-  __shared__ __align__(16) float sh[2][wl::kOB * kDwStride];
-  __shared__ __align__(16) float sg[2][wl::kOB * kDwStride];
-  const int t = threadIdx.x, to = t / 16, tu = t % 16;
-  const int fb = blockIdx.z, split = blockIdx.y, tile = blockIdx.x;
-  scratch += (size_t)fb * d.rows_total * d.np;
-  // this tile's layer: the last whose first tile is not past it
-  int lo_l = 0, hi_l = d.n_layers - 1;
-  while (lo_l < hi_l) {
-    const int mid = (lo_l + hi_l + 1) / 2;
-    if (__ldg(&d.layer[mid].tile0) <= tile) lo_l = mid;
-    else hi_l = mid - 1;
+// A dW block's products over one stage (32 coordinates): warp (wm, wn)'s
+// m-tile and 4 n-tiles of H^T G, each k-block's three products from zero
+// into the chunk's sums, which then go to acc.  kFull: all 4 tiles hold
+// entries (no branch between the mma chains); else the first nj.
+template <bool kFull>
+__device__ __forceinline__ void dw_chunk(const float* sh, int wm, int wn,
+                                         int nj, float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const float* sg = sh + kDwI * kDwStride;
+  float cs[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cs[j][e] = 0.f;
+#pragma unroll
+  for (int kb = 0; kb < kDwChunk / 8; ++kb) {
+    const int k0 = 8 * kb + q;
+    uint32_t bb[4][2], bs[4][2], ab[4], as[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!kFull && j >= nj) continue;
+      const float* p = sg + (32 * wn + 8 * j + g) * kDwStride + k0;
+      split_tf32(p[0], &bb[j][0], &bs[j][0]);
+      split_tf32(p[4], &bb[j][1], &bs[j][1]);
+    }
+    const float* p = sh + (16 * wm + g) * kDwStride + k0;
+    const float a[4] = {p[0], p[8 * kDwStride], p[4], p[8 * kDwStride + 4]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], &ab[e], &as[e]);
+    float s4[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kFull || j < nj) brief::mma_tf32_zero(s4[j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kFull || j < nj) mma_tf32(s4[j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kFull || j < nj) mma_tf32(s4[j], ab, bb[j][0], bb[j][1]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kFull || j < nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cs[j][e] += s4[j][e];
   }
-  const wl::Layer ly = ld_row(d.layer + lo_l);
-  const int fin = ly.fin, fout = ly.fout;
-  const int n_ob = (fout + wl::kOB - 1) / wl::kOB;
-  const int i0 = (tile - ly.tile0) / n_ob * wl::kOB;
-  const int o0 = (tile - ly.tile0) % n_ob * wl::kOB;
-  const size_t np = (size_t)d.np;
-  const float* H = scratch + ly.x_row * np;
-  const float* G = scratch + ly.g_row * np;
-  const int lo = split * chunk, hi = min(d.np, lo + chunk);
-  const int n_chunks = (hi - lo) / kDwChunk;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += cs[j][e];
+}
 
-  auto load = [&](int k) {
+// (c) dW of layer l.  Grid (i-blocks x o-blocks, splits, B), kThreads
+// threads, DwGeom::kSmem bytes.  Block (tile, split) sums entries (i0 + r,
+// o0 + c) of the fin x fout gradient of W over coordinates [split *
+// chunk, min(np, (split + 1) * chunk)), 32 at a time through a ring of
+// kStages cp.async stages: H (64 rows of h_l, which the input gradient
+// wrote over z_l; or the coordinates) and G (kO rows of g_{l+1}), rows of
+// kDwStride floats, so that every fragment read of a warp hits 32 banks.
+// Each warp takes 16 rows and 32 columns of the tile: 1 x 4 mma tiles,
+// operands split as they are read; each k-block's
+// three products summed from zero, a 32-coordinate chunk's four k-blocks
+// summed apart and then added to the running sum (a run of thousands of
+// terms in one register loses ~1e-4 of a sum of like signs).  The blocks
+// of the first i-block also sum db = sum_u g_{l+1}: four threads a
+// column, each 8 of the chunk's coordinates in order, the quarters added
+// in pairs, (q0 + q1) + (q2 + q3), the chunk's sum added to the running
+// one.  Rows and columns past
+// the layer are neither loaded nor stored: they only reach outputs that
+// are dropped.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 512 / kThreads) wide_dw_kernel(
+    WideDesc d, int l) {
+  using D = DwGeom<kThreads>;
+  constexpr int kDwO = D::kO, kDwStage = D::kStage;
+  extern __shared__ __align__(16) float sm[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3, wm = warp / D::kWN, wn = warp % D::kWN;
+  const wl::Layer ly = ld_row(d.layer + l);
+  const int fin = ly.fin, fout = ly.fout;
+  const int n_ob = (fout + kDwO - 1) / kDwO;
+  const int i0 = blockIdx.x / n_ob * kDwI, o0 = blockIdx.x % n_ob * kDwO;
+  const int split = blockIdx.y, fb = blockIdx.z;
+  const size_t np = d.np;
+  const float* scratch = d.scratch + (size_t)fb * d.rows_total * np;
+  const float* H = scratch + (size_t)ly.in_row * np;
+  const float* Gr = scratch + (size_t)ly.g_row * np;
+  const int lo = split * ly.chunk, hi = min(d.np, lo + ly.chunk);
+  const int n_chunks = max(0, (hi - lo) / kDwChunk);
+  // whether this warp's m-tile holds entries; its n-tiles that do
+  const bool mi = i0 + 16 * wm < fin;
+  const int nj = min(4, max(0, (fout - o0 - 32 * wn + 7) / 8));
+  const int bc = o0 + (t >> 2);                 // this thread's db column
+  const bool db = i0 == 0 && bc < fout;
+
+  auto load = [&](int k, int stage) {
     const int u0 = lo + k * kDwChunk;
-    float* dh = sh[k & 1];
-    float* dg = sg[k & 1];
-    for (int j = t; j < 2 * wl::kOB * (kDwChunk / 4); j += kDwThreads) {
-      const int which = j / (wl::kOB * (kDwChunk / 4));
-      const int r = j / (kDwChunk / 4) % wl::kOB, q = j % (kDwChunk / 4);
-      if (which == 0) {
-        const int i = i0 + r;
-        if (i < fin)
-          wl::cp16(dh + r * kDwStride + 4 * q, H + i * np + u0 + 4 * q);
-        else if (i == fin)
-          *reinterpret_cast<float4*>(dh + r * kDwStride + 4 * q) =
-              make_float4(1.f, 1.f, 1.f, 1.f);
-      } else {
-        const int o = o0 + r;
-        if (o < fout)
-          wl::cp16(dg + r * kDwStride + 4 * q, G + o * np + u0 + 4 * q);
+    float* sh = sm + stage * kDwStage;
+    for (int j = t; j < (kDwI + kDwO) * (kDwChunk / 4); j += kThreads) {
+      const int r = j / (kDwChunk / 4), c4 = 4 * (j % (kDwChunk / 4));
+      if (r < kDwI) {
+        if (i0 + r < fin)
+          wl::cp16(sh + r * kDwStride + c4,
+                   H + (size_t)(i0 + r) * np + u0 + c4);
+      } else if (o0 + r - kDwI < fout) {
+        wl::cp16(sh + r * kDwStride + c4,
+                 Gr + (size_t)(o0 + r - kDwI) * np + u0 + c4);
       }
     }
-    wl::cp_commit();
   };
 
-  float acc[4][4];
+  float acc[4][4], bacc = 0.f;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  if (n_chunks > 0) load(0);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < wl::kStages - 1; ++s) {
+    if (s < n_chunks) load(s, s);
+    wl::cp_commit();
+  }
   for (int k = 0; k < n_chunks; ++k) {
-    if (k + 1 < n_chunks) {
-      load(k + 1);
-      wl::cp_wait<1>();
-    } else {
-      wl::cp_wait<0>();
+    wl::cp_wait<wl::kStages - 2>();
+    __syncthreads();   // chunk k is in; chunk k - 1's stage is free
+    if (k + wl::kStages - 1 < n_chunks)
+      load(k + wl::kStages - 1, (k + wl::kStages - 1) % wl::kStages);
+    wl::cp_commit();
+    const float* sh = sm + (k % wl::kStages) * kDwStage;
+    float h = 0.f;   // this thread's quarter of its db column's chunk
+    if (db) {
+      const float* p = sh + (kDwI + (t >> 2)) * kDwStride + 8 * (t & 3);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) h += p[u];
     }
-    __syncthreads();
-    const float* hh = sh[k & 1] + to * kDwStride;
-    const float* gg = sg[k & 1] + tu * kDwStride;
-    // the chunk's 32 terms summed apart, then added: a run of thousands
-    // of terms in one register loses ~1e-4 of a sum of like signs
-    float cs[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) cs[a][b] = 0.f;
-#pragma unroll 2
-    for (int u = 0; u < kDwChunk; u += 4) {
-      float4 h[4], g[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        h[a] = *reinterpret_cast<const float4*>(hh + 16 * a * kDwStride + u);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        g[b] = *reinterpret_cast<const float4*>(gg + 16 * b * kDwStride + u);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          float s = cs[a][b];
-          s = fmaf(h[a].x, g[b].x, s);
-          s = fmaf(h[a].y, g[b].y, s);
-          s = fmaf(h[a].z, g[b].z, s);
-          s = fmaf(h[a].w, g[b].w, s);
-          cs[a][b] = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] += cs[a][b];
-    __syncthreads();
+    float o = __shfl_xor_sync(0xffffffffu, h, 1);
+    h = (t & 1) ? o + h : h + o;   // quarters 0 + 1, 2 + 3
+    o = __shfl_xor_sync(0xffffffffu, h, 2);
+    h = (t & 2) ? o + h : h + o;   // then the two halves
+    if (db) bacc += h;
+    if (!mi || nj == 0) continue;
+    if (nj == 4)
+      dw_chunk<true>(sh, wm, wn, nj, acc);
+    else
+      dw_chunk<false>(sh, wm, wn, nj, acc);
   }
-  float* out = partial + ((size_t)fb * gridDim.y + split) * d.n_params +
-               ly.p_off;
+  float* out = d.partial + (size_t)fb * d.part_total + ly.part_off +
+               (size_t)split * (fin + 1) * fout;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + to + 16 * a;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int o = o0 + tu + 16 * b;
-      if (i <= fin && o < fout) out[i * fout + o] = acc[a][b];
+    for (int e = 0; e < 4; ++e) {
+      const int r = i0 + 16 * wm + g + 8 * (e >> 1);
+      const int c = o0 + 32 * wn + 8 * j + 2 * q + (e & 1);
+      if (r < fin && c < fout) out[(size_t)r * fout + c] = acc[j][e];
     }
-  }
+  if (db && !(t & 3)) out[(size_t)fin * fout + bc] = bacc;
 }
 
-// (d).  out[fb][p] = sum over splits, in order, of partial[fb][s][p] / m
-// for p < n_params; out[fb][n_params] = the blocks' loss partials, in
-// order, / m.  fb = blockIdx.y.
-__global__ void reduce_wide_kernel(const float* __restrict__ partial,
-                                   const float* __restrict__ lossp,
-                                   float* __restrict__ out, int n_split,
-                                   int n_grid, int n_params, float m) {
+// (d).  out[fb][p] = the sum over layer l's splits, in order, of its
+// partial sums of p, / m, for p < n_params (l the layer whose parameters
+// hold p); out[fb][n_params] = the blocks' loss partials, in order, in
+// float64, / m.  fb = blockIdx.y.
+__global__ void reduce_wide_kernel(WideDesc d, float* __restrict__ out,
+                                   int n_grid, float m) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const int fb = blockIdx.y;
-  if (p > n_params) return;
+  if (p > d.n_params) return;
   float s = 0.f;
-  if (p < n_params) {
-    partial += (size_t)fb * n_split * n_params + p;
-    for (int k = 0; k < n_split; ++k) s += partial[(size_t)k * n_params];
+  if (p < d.n_params) {
+    int lo = 0, hi = d.n_layers - 1;   // the last layer starting at or before p
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (__ldg(&d.layer[mid].p_off) <= p) lo = mid;
+      else hi = mid - 1;
+    }
+    const wl::Layer ly = ld_row(d.layer + lo);
+    const size_t size = (size_t)(ly.fin + 1) * ly.fout;
+    const float* src = d.partial + (size_t)fb * d.part_total + ly.part_off +
+                       (p - ly.p_off);
+    for (int k = 0; k < ly.splits; ++k) s += src[k * size];
+    out[(size_t)fb * (d.n_params + 1) + p] = s / m;
   } else {
-    lossp += (size_t)fb * n_grid;
-    for (int k = 0; k < n_grid; ++k) s += lossp[k];
+    const double* lp = d.lossp + (size_t)fb * n_grid;
+    double sl = 0.0;
+    for (int k = 0; k < n_grid; ++k) sl += lp[k];
+    out[(size_t)fb * (d.n_params + 1) + p] = (float)(sl / m);
   }
-  out[(size_t)fb * (n_params + 1) + p] = s / m;
 }
 
 template <int kT>
 cudaError_t wide_occupancy(int smem_bytes, int* blocks_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide_tile_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, wide_train_kernel<kT>, 4 * kT, smem_bytes);
+      blocks_per_sm, wide_tile_kernel<kT>, kWideThreads, smem_bytes);
 }
 
 template <int kT>
-cudaError_t launch_wide(dim3 grid, int smem_bytes, cudaStream_t s,
-                        const float* coords, const float* values,
-                        const float* weights, const float* wp,
-                        const float* masks, const float* thres,
-                        float* scratch, float* lossp, int n,
-                        const WideDesc& d, int loss, float beta) {
+cudaError_t launch_wide_tile(dim3 grid, int smem_bytes, cudaStream_t s,
+                             const WideDesc& d, int mode, int l, int loss,
+                             float beta) {
   cudaError_t err = cudaFuncSetAttribute(
-      wide_train_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide_tile_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
-  wide_train_kernel<kT><<<grid, 4 * kT, smem_bytes, s>>>(
-      coords, values, weights, wp, masks, thres, scratch, lossp, n, d, loss,
-      beta);
+  wide_tile_kernel<kT><<<grid, kWideThreads, smem_bytes, s>>>(d, mode, l,
+                                                              loss, beta);
   return cudaGetLastError();
 }
 
@@ -1972,16 +2294,14 @@ int brief_fused_train_tiled(const float* coords, const float* values,
 }
 
 
-// The wide layout's blocks per SM (4 * tile threads, `smem_bytes`) and
-// the device's SM count.
+// The wide layout's blocks per SM (kWideThreads threads, `smem_bytes`)
+// at `tile` coordinates a tile, and the device's SM count.
 int brief_fused_train_wide_occupancy(int tile, int smem_bytes,
                                      int* blocks_per_sm, int* sm_count) {
-  decltype(&wide_occupancy<64>) fn;
+  decltype(&wide_occupancy<128>) fn;
   switch (tile) {
+    case 128: fn = &wide_occupancy<128>; break;
     case 64: fn = &wide_occupancy<64>; break;
-    case 32: fn = &wide_occupancy<32>; break;
-    case 16: fn = &wide_occupancy<16>; break;
-    case 8: fn = &wide_occupancy<8>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = fn(smem_bytes, blocks_per_sm);
@@ -1994,63 +2314,100 @@ int brief_fused_train_wide_occupancy(int tile, int smem_bytes,
 }
 
 // The wide layout (ops/fused_train.py wide_plan).  meta: n_layers, c_in,
-// c_out, n_params, mask_width, rows_max, np, rows_total, wp_total,
-// n_dw_tiles, pack_blocks (blocks of 256 threads a layer for
-// pack_weights).  table: device memory, n_layers
-// wide::Layer rows (ops/fused_train.py wide_table); a layer's mask_off
-// counts only when `masks` is given.  Scratch the caller allocates: wp
-// (B, wp_total) for the packed weights, scratch (B, rows_total, np) for
-// h_l and d_l / g_l, partial (B, n_split, n_params), lossp (B, grid).
-// `tile` coordinates per tile (64, 32, 16 or 8), `grid` blocks per fleet
-// block, coordinates split into n_split chunks of `chunk` (a multiple of
-// 32) for dW.  The other arguments as for brief_fused_train.
+// c_out, n_params, mask_width, np, rows_total, wp_total, part_total,
+// rows_max, pack_blocks (blocks of 256 threads a layer for
+// pack_weights_kernel).  table: device memory, n_layers wide::Layer rows
+// (ops/fused_train.py wide_table); head: the same rows in host memory
+// (the dW launches' grids); a layer's mask_off counts only when `masks`
+// (B, mask_width) is given.  Scratch the caller allocates: wp (B,
+// wp_total) for the packs, scratch (B, rows_total, np) for z / g,
+// partial (B, part_total), lossp (B, grid) float64.  `tile` coordinates a tile
+// (128 or 64), `grid` blocks a chain.  params (B, n_params); the
+// other arguments as for brief_fused_train.
 int brief_fused_train_wide(const float* coords, const float* values,
                            const float* weights, const float* params,
                            const float* masks, const float* thres,
-                           const void* table, float* wp, float* scratch,
-                           float* partial, float* lossp, float* out, int n,
-                           int n_fleet, const int* meta, int loss, float beta,
-                           int grid, int tile, int smem_bytes, int n_split,
-                           int chunk, void* stream) {
+                           const void* table, const void* head, float* wp,
+                           float* scratch, float* partial, double* lossp,
+                           float* out, int n, int n_fleet, const int* meta,
+                           int loss, float beta, int grid, int tile,
+                           int smem_bytes, void* stream) {
   WideDesc d;
   d.n_layers = meta[0];
-  if (d.n_layers < 1 || table == nullptr || n_fleet < 1 ||
-      n_fleet > 65535 || n_split < 1 || n_split > 65535 || chunk % kDwChunk)
+  if (d.n_layers < 1 || table == nullptr || head == nullptr || n < 1 ||
+      n_fleet < 1 || n_fleet > 65535 || grid < 1)
     return (int)cudaErrorInvalidValue;
+  d.coords = coords;
+  d.values = values;
+  d.weights = weights;
+  d.masks = masks;
+  d.thres = thres;
+  d.params = params;
+  d.layer = static_cast<const wl::Layer*>(table);
+  d.wp = wp;
+  d.scratch = scratch;
+  d.partial = partial;
+  d.lossp = lossp;
+  d.n = n;
   d.c_in = meta[1];
   d.c_out = meta[2];
   d.n_params = meta[3];
   d.mask_width = meta[4];
-  d.rows_max = meta[5];
-  d.np = meta[6];
-  d.rows_total = meta[7];
-  d.wp_total = meta[8];
-  d.n_dw_tiles = meta[9];
+  d.np = meta[5];
+  d.rows_total = meta[6];
+  d.wp_total = meta[7];
+  d.part_total = meta[8];
+  d.rows_max = meta[9];
   const int pack_blocks = meta[10];
-  d.layer = static_cast<const wl::Layer*>(table);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = wl::pack_weights(params, wp, d.layer, d.n_layers,
-                                     d.n_params, d.wp_total, n_fleet,
-                                     pack_blocks, s);
-  if (err != cudaSuccess) return (int)err;
-  decltype(&launch_wide<64>) fn;
+  d.kp = tile == 128 ? 8 * WideSlab<128>::kKS : 8 * WideSlab<64>::kKS;
+  if (d.np % 128 || d.np < n) return (int)cudaErrorInvalidValue;
+  decltype(&launch_wide_tile<128>) fn;
   switch (tile) {
-    case 64: fn = &launch_wide<64>; break;
-    case 32: fn = &launch_wide<32>; break;
-    case 16: fn = &launch_wide<16>; break;
-    case 8: fn = &launch_wide<8>; break;
+    case 128: fn = &launch_wide_tile<128>; break;
+    case 64: fn = &launch_wide_tile<64>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  err = fn(dim3(grid, n_fleet), smem_bytes, s, coords, values, weights, wp,
-           masks, thres, scratch, lossp, n, d, loss, beta);
+  const wl::Layer* rows = static_cast<const wl::Layer*>(head);
+  for (int l = 0; l < d.n_layers; ++l)
+    if (rows[l].splits < 1 || rows[l].splits > 65535 ||
+        rows[l].chunk % kDwChunk)
+      return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  wl::pack_weights_kernel<<<dim3(pack_blocks, d.n_layers, n_fleet), 256, 0,
+                            s>>>(params, wp, d.layer, d.n_params,
+                                 d.wp_total, d.kp);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wide_dw_kernel<<<dim3(d.n_dw_tiles, n_split, n_fleet), kDwThreads, 0, s>>>(
-      scratch, partial, d, chunk);
-  err = cudaGetLastError();
+  const dim3 tgrid(grid, n_fleet);
+  err = fn(tgrid, smem_bytes, s, d, 0, 0, loss, beta);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(wide_dw_kernel<512>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DwGeom<512>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(wide_dw_kernel<256>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DwGeom<256>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  for (int l = d.n_layers - 1; l >= 0; --l) {
+    if (l > 0) {   // h_l over z_l and g_l first: dW_l reads h_l
+      err = fn(tgrid, smem_bytes, s, d, 1, l, loss, beta);
+      if (err != cudaSuccess) return (int)err;
+    }
+    // layers of at most 64 outputs: blocks of 64 columns, 8 warps
+    const int i_blocks = (rows[l].fin + kDwI - 1) / kDwI;
+    if (rows[l].fout <= 64)
+      wide_dw_kernel<256><<<dim3(i_blocks, rows[l].splits, n_fleet), 256,
+                             DwGeom<256>::kSmem, s>>>(d, l);
+    else
+      wide_dw_kernel<512><<<dim3(i_blocks * ((rows[l].fout + 127) / 128),
+                                 rows[l].splits, n_fleet),
+                            512, DwGeom<512>::kSmem, s>>>(d, l);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   reduce_wide_kernel<<<dim3((d.n_params + 256) / 256, n_fleet), 256, 0, s>>>(
-      partial, lossp, out, n_split, grid, d.n_params,
-      (float)((double)n * d.c_out));
+      d, out, grid, (float)((double)n * d.c_out));
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Kernel 1's streamed form, for Hopper: the fused train-step gradients of
-// a plain activation chain with a layer wider than the wide layout's rows
-// hold (3,327 features; e.g. 3-20971-1, 3-4096-1, [3, 4096, 4096, 1]), for
+// a plain activation chain with a layer wider than the wide layout takes
+// (352 features; e.g. 3-20971-1, 3-4096-1, [3, 4096, 4096, 1]), for
 // one chain or a fleet of B chains of one padded shape.  The port of
 // brief_pytorch_tpu/ops/pallas_train.py (_fused_grads_padded) for those
 // chains; ops/fused_train.py choose_plan sends them here, ops/stream.py is

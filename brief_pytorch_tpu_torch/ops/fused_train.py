@@ -52,18 +52,24 @@ made once per chain, so no layout bounds the depth:
     mma), not the tensor cores; `tiled_emulation` is its arithmetic on
     the CPU;
   * wide (`wide_plan`; the SingleTask default on the 64x512x512 demo
-    volumes, 3-191x4-1 and 3-242x4-1, and fleet buckets past the tiled
-    layout such as 3-128x6-1): W streamed through shared memory in slabs
-    (ops/wide.py, csrc/wide.cuh), h_l and d_l of every coordinate in a
-    device-memory scratch, dW a split-K product over it (`dw_split`).
-    It holds two layers' rows of a tile in shared memory, up to 3,327
-    features at 8 coordinates a tile; past that the streamed form takes
-    the chain (ops/stream.py, csrc/fused_train_stream.cu; 3-4096-1,
-    3-20971-1, [3, 4096, 4096, 1]): thin end layers as reductions on the
-    CUDA cores, the square products on the tensor cores in 3xTF32, one
-    row set of z per stored hidden layer.  The limit of both is device
-    memory for the scratch, which the wrapper reports as
-    torch.cuda.OutOfMemoryError naming the bytes.
+    volumes, 3-191x4-1 and 3-242x4-1, fleet buckets past the tiled layout
+    such as 3-128x6-1, and the deep chains, 3-78x19-1): the three
+    products on the tensor cores in 3xTF32, W split once a call into
+    fragment-ordered packs (ops/wide.py, csrc/wide.cuh) streamed through a
+    cp.async slab ring, a tile of 128 or 64 coordinates carried
+    through the forward in shared memory; a device-memory scratch of one
+    row set a hidden layer (its z, from which the input gradient
+    recomputes h and d, writing h over z for dW) and two G buffers; per
+    layer, last first, the input gradient a tile at a time and dW a
+    split-K product over the coordinates (`dw_split`); `wide_emulation`
+    is its arithmetic on the CPU.  It takes layers
+    of up to WIDE_MAX_FEATURES features (the rows of a 64-coordinate
+    tile); past that the streamed form takes the chain (ops/stream.py,
+    csrc/fused_train_stream.cu; 3-4096-1, 3-20971-1, [3, 4096, 4096, 1]):
+    thin end layers as reductions on the CUDA cores, the square products
+    on the tensor cores in 3xTF32, one row set of z per stored hidden
+    layer.  The limit of both is device memory for the scratch, which the
+    wrapper reports as torch.cuda.OutOfMemoryError naming the bytes.
 csrc/fused_train.cu and csrc/fused_train_stream.cu say what bounds each.
 
 `fused_train_grads_fleet` launches the kernel for CUDA tensors and calls
@@ -112,8 +118,11 @@ TILED_MT = (8, 4, 2)         # m-tiles (16 coordinates) a tile, largest first
 TILED_JOB = 3                # kTiledJob: dW tiles of one job (one A row)
 TILED_JOBS = (3, 6, 9, 11, 13)   # dW jobs per warp: the kernel's instances
 TILED_PI = 0x56127430        # kTiledPi: pi(r & 7), a nibble each (`swizzle`)
-DW_CHUNK = 32                # kDwChunk: coordinates per dW operand chunk
-DW_BLOCKS = 1056             # dW blocks aimed at per call: 8 per H100 SM
+DW_CHUNK = 32                # kDwChunk: coordinates of a dW k-slab
+WIDE_DW_BLOCKS = 264         # 16-warp dW blocks of a layer's launch: 2 waves
+WIDE_MAX_FEATURES = 352      # the wide layout's widest layer: the rows of
+#                              a 64-coordinate tile in 227 KB; the streamed
+#                              form is faster past it (PERF.md §6)
 # int32 words of a layer's table row: sizeof NarrowLayer, TiledLayer
 # (csrc/fused_train.cu) and wide::Layer (csrc/wide.cuh) / 4
 NARROW_ROW_WORDS = 24
@@ -135,10 +144,10 @@ _SIGNATURES = {
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "brief_fused_train_wide_occupancy": [ctypes.c_int] * 2 + [
         ctypes.c_void_p, ctypes.c_void_p],
-    "brief_fused_train_wide": [ctypes.c_void_p] * 12 + [
+    "brief_fused_train_wide": [ctypes.c_void_p] * 13 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_void_p],
 }
 
 
@@ -538,54 +547,75 @@ def tiled_plan(widths: Sequence[int], mt: Optional[int] = None) -> Dict:
 
 
 def wide_plan(widths: Sequence[int], tile: int) -> Dict:
-    """Layout of the wide layout for a chain of `widths` and `tile`
-    coordinates per tile (4 * tile threads).
+    """Layout of the wide layout (csrc/fused_train.cu wide_tile_kernel,
+    wide_dw_kernel) for a chain of `widths` and `tile` coordinates a tile
+    (wide.THREADS threads).
 
-    Shared memory: two buffers of rows_max rows of `tile` floats and two
-    weight slabs, then a loss buffer of one float per thread.  Scratch rows
-    (each np = round64(N) floats; B * rows_total of them per call): the
-    coordinates (x_row[0] = 0), then per layer h_l (h_row; none for the
-    last layer) and d_l / g_l (g_row); x_row[l] is the layer's input.
-    dW tiles: layer l's (fin + 1) x fout gradient in 64 x 64 tiles
-    (i-block, o-block), numbered from tile0[l], o-blocks fastest."""
+    Shared memory (wide.smem_bytes): two buffers of rows_max rows of
+    `tile` floats, the slab ring, one float a thread for the loss.  The
+    packs (wide.layer_meta): per layer W (wf_off) and W^T (wb_off) in
+    split mma fragments.  Scratch rows (np = round128(N) floats each; B *
+    rows_total of them a call): the coordinates (rows 0 .. c_in - 1), one
+    row set a hidden layer, out_row[l], where its output z_{l+1} lives
+    until the input gradient writes h_{l+1} over it (-1 for the last
+    layer), and two G buffers of the widest layer's rows, g_row[l] the
+    one holding g_{l+1} (the last layer's g_L in the first, then
+    alternating); in_row[l] is the layer's input (0: the coordinates).
+    dW: per layer wide.dw_tiles blocks of (wide.OB_I, wide.OB_O) entries of
+    its fin x fout gradient of W."""
     n_layers = len(widths) - 1
-    meta = wide.layer_meta(widths)
-    rows = wide.rows_max(widths)
-    x_row, h_row, g_row, tile0 = [0], [], [], [0]
-    row = widths[0]
-    for l in range(n_layers):
-        fout = widths[l + 1]
-        if l < n_layers - 1:
-            h_row.append(row)
-            x_row.append(row)
-            row += fout
-        else:
-            h_row.append(-1)
-        g_row.append(row)
-        row += fout
-        tile0.append(tile0[-1] + -(-(widths[l] + 1) // wide.OB)
-                     * -(-fout // wide.OB))
-    threads = 4 * tile
-    pack = max(b - a for a, b in zip(meta["wp_off"][:-1], meta["wp_off"][1:]))
-    return {"layout": "wide", "block": tile, "threads": threads,
-            "stream": False, "rows_max": rows, "rows_total": row,
-            "x_row": x_row, "h_row": h_row, "g_row": g_row,
-            "tile0": tile0[:-1], "n_dw_tiles": tile0[-1],
-            "wp_total": meta["wp_off"][-1], "pack_blocks": -(-pack // 256),
-            **meta, "smem_bytes": 4 * (2 * rows * tile + 2 * wide.SLAB +
-                                       threads)}
+    out_row, row = [], widths[0]
+    for l, f in enumerate(widths[1:]):
+        out_row.append(row if l < n_layers - 1 else -1)
+        row += f if l < n_layers - 1 else 0
+    gw = max(widths[1:])
+    g_row = [row + gw * ((n_layers - 1 - l) % 2) for l in range(n_layers)]
+    kp = wide.kp(tile)
+    pack = max(wide.pack_floats(a, b, kp) + wide.pack_floats(b, a, kp)
+               for a, b in zip(widths[:-1], widths[1:])) // 4
+    return {"layout": "wide", "block": tile, "threads": wide.THREADS,
+            "stream": False, "kp": kp,
+            "rows_max": wide.rows_max(widths, tile),
+            "rows_total": row + 2 * gw, "out_row": out_row,
+            "in_row": [0] + out_row[:-1], "g_row": g_row,
+            "dw_tiles": [wide.dw_tiles(a, b)
+                         for a, b in zip(widths[:-1], widths[1:])],
+            "pack_blocks": min(1024, -(-pack // 256)),
+            **wide.layer_meta(widths, kp),
+            "smem_bytes": wide.smem_bytes(widths, tile)}
 
 
-def dw_split(n: int, n_fleet: int, n_dw_tiles: int) -> Tuple[int, int, int]:
-    """(np, splits, chunk) of the wide layout's dW product at N = n:
-    coordinates [0, np) cut into `splits` runs of `chunk` (a multiple of
-    DW_CHUNK; the last run ends at np), so that the grid holds about
-    DW_BLOCKS blocks."""
-    np_ = wide.round_up(n, wide.OB)
-    want = -(-DW_BLOCKS // (n_dw_tiles * n_fleet))
-    splits = max(1, min(want, np_ // (4 * DW_CHUNK)))
-    chunk = wide.round_up(-(-np_ // splits), DW_CHUNK)
-    return np_, -(-np_ // chunk), chunk
+def dw_split(n: int, n_fleet: int, widths: Sequence[int]) -> Dict:
+    """The wide layout's dW sums at N = n: np = round128(n) and per layer
+    its splits of the coordinates [0, np) (`chunk` of them a split, a
+    multiple of DW_CHUNK; the last split ends at np), so that a layer's
+    launch holds at most two waves of blocks (WIDE_DW_BLOCKS of 16 warps,
+    twice as many of 8), at least 256 coordinates a split; its partial
+    sums' offset (part_off: (fin + 1) * fout floats a
+    split) and part_total floats of them a chain."""
+    np_ = wide.round_up(n, 128)
+    splits, chunks, part_off, off = [], [], [], 0
+    for fin, fout in zip(widths[:-1], widths[1:]):
+        ti, to = wide.dw_tiles(fin, fout)
+        # two waves of blocks: one of 16 warps an SM, or two of 8
+        aim = WIDE_DW_BLOCKS * (2 if wide.dw_columns(fout) == 64 else 1)
+        s = max(1, min(aim // (ti * to * n_fleet), np_ // 256))
+        chunk = wide.round_up(-(-np_ // s), DW_CHUNK)
+        splits.append(-(-np_ // chunk))
+        chunks.append(chunk)
+        part_off.append(off)
+        off += splits[-1] * (fin + 1) * fout
+    return {"np": np_, "splits": splits, "chunk": chunks,
+            "part_off": part_off, "part_total": off}
+
+
+def wide_choose(widths: Sequence[int]) -> Optional[Dict]:
+    """The wide layout's plan at the tile wide.choose_tile picks, or None
+    where a layer is wider than WIDE_MAX_FEATURES or no tile fits."""
+    if max(widths) > WIDE_MAX_FEATURES:
+        return None
+    tile = wide.choose_tile(widths, SMEM_LIMIT, SM_SMEM)
+    return None if tile is None else wide_plan(widths, tile)
 
 
 def choose_plan(widths: Sequence[int]) -> Dict:
@@ -595,19 +625,17 @@ def choose_plan(widths: Sequence[int]) -> Dict:
     NARROW_MIN_WARPS warps resident per SM; else the tiled layout (weights
     once in shared memory, dW in registers) when its weights and a tile
     of at least 32 coordinates fit and its dW jobs fit TILED_JOBS; else
-    the wide
-    layout where a tile's rows fit a block's 227 KB; else its streamed form
-    (ops/stream.py stream_plan)."""
+    the wide layout up to WIDE_MAX_FEATURES features a layer; else its
+    streamed form (ops/stream.py stream_plan)."""
     p = narrow_plan(widths)
     if p is not None and resident_warps(p) >= NARROW_MIN_WARPS:
         return p
     p = tiled_plan(widths)
     if p["jobs"] and p["smem_bytes"] <= SMEM_LIMIT:
         return p
-    tile = wide.choose_tile(lambda t: wide_plan(widths, t)["smem_bytes"],
-                            SMEM_LIMIT, SM_SMEM)
-    if tile is not None:
-        return wide_plan(widths, tile)
+    p = wide_choose(widths)
+    if p is not None:
+        return p
     return stream_form.stream_plan(widths)
 
 
@@ -735,18 +763,19 @@ def fused_train_grads_reference(layers, coords_t, values_t, weights_t,
     return loss / m, {"layers": grads}
 
 
-def _kblock_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _kblock_sums(a: torch.Tensor, b: torch.Tensor, split_a=tf32_split_nearest,
+                 split_b=tf32_split_nearest) -> torch.Tensor:
     """(..., KB, M, N): per k-block of 8, the 3xTF32 products of a (..., M,
-    K) and b (..., K, N), both split by tf32_split_nearest, a_small b_big
-    + a_big b_small + a_big b_big summed exactly and rounded to float32
-    (one k-block's three mma.sync, which truncate instead; within the
+    K) and b (..., K, N), split by split_a and split_b, a_small b_big +
+    a_big b_small + a_big b_big summed exactly and rounded to float32 (one
+    k-block's three mma.sync, which truncate instead; within the
     tolerances)."""
     k = a.shape[-1]
     kp = -(-k // 8) * 8
     a = torch.nn.functional.pad(a.float(), (0, kp - k))
     b = torch.nn.functional.pad(b.float(), (0, 0, 0, kp - k))
-    ab, as_ = (x.double() for x in tf32_split_nearest(a.contiguous()))
-    bb, bs = (x.double() for x in tf32_split_nearest(b.contiguous()))
+    ab, as_ = (x.double() for x in split_a(a.contiguous()))
+    bb, bs = (x.double() for x in split_b(b.contiguous()))
     blk = lambda x: x.unflatten(-1, (kp // 8, 8)).movedim(-2, -3)
     blk_b = lambda x: x.unflatten(-2, (kp // 8, 8))
     aa, asb = blk(ab), blk(as_)                      # (..., KB, M, 8)
@@ -841,6 +870,96 @@ def tiled_emulation(layers, coords, values, weights, acts: LayerSpec, *,
     return loss, {"layers": grads}
 
 
+def wide_emulation(layers, coords, values, weights, acts: LayerSpec, *,
+                   loss_name: str, beta: float = 0.01, thres=None,
+                   unit_masks=None):
+    """The wide layout's arithmetic (csrc/fused_train.cu wide_tile_kernel,
+    wide_dw_kernel, reduce_wide_kernel) on the CPU, for a fleet shaped as
+    fused_train_grads_fleet takes it (thres: None or (B,), -inf for none).
+
+    Every product in 3xTF32 on k-blocks of 8 (`_kblock_sums`): the
+    activation or gradient operand split as it is read (tf32_split, its
+    small part truncated by the tensor core), W from the packs
+    (tf32_split_nearest, ops/wide.py pack_layer).  Forward: z_{l+1} = the
+    k-blocks of h_l W_l added in order in float32, then the bias; z is
+    what the scratch keeps, and h = act(z) m, d = act'(z) m are
+    recomputed from it (fast_sincos) wherever they are read.  The loss
+    and g_L per coordinate; g_l = (the k-blocks of g_{l+1} W_l^T, in
+    order) d_l.  dW_l = h_l^T g_{l+1} over the coordinates [0, np), np =
+    round128(N) (zeros past N), per split of `dw_split`: each
+    32-coordinate chunk's four k-blocks summed from zero, the chunks added
+    to the split's sum in order, the splits added in order, then divided
+    by N * Cout; db the same with each chunk's sum that of its quarters of
+    8 coordinates, each summed in order, added as (q0 + q1) + (q2 + q3)
+    (float32 adds).  The loss is summed in float64 and rounded (the kernel's
+    per-thread float32 sums differ in the last bits)."""
+    n_layers = len(layers)
+    masks = list(unit_masks) if unit_masks is not None else []
+    masks += [None] * (n_layers - len(masks))
+    nb, c_in, n = coords.shape
+    widths = [c_in] + [int(l["w"].shape[-1]) for l in layers]
+    sp = dw_split(n, nb, widths)
+    c_out = widths[-1]
+    x = coords.transpose(1, 2).float()                     # (B, N, C)
+
+    def h_d(l, z):                 # h, d of layer l's output z (B, N, f)
+        h, d = _act_fwd(z, *acts[l])
+        if d is None:
+            d = torch.ones_like(z)
+        if masks[l] is not None:
+            m = masks[l][:, None, :].float()
+            h, d = h * m, d * m
+        return h, d
+
+    def product(a, b):             # a (B, M, K) b (B, K, N), k-blocks in order
+        return _sum_in_order(_kblock_sums(a[:, None], b[:, None], tf32_split,
+                                          tf32_split_nearest)[:, 0], 1)
+
+    zs, h = [None], x
+    for l, layer in enumerate(layers):
+        z = product(h, layer["w"].float()) + layer["b"][:, None, :].float()
+        zs.append(z)
+        h = h_d(l, z)[0]
+    pred, dv = h_d(n_layers - 1, zs[-1])
+    y, wv = values.transpose(1, 2), weights.transpose(1, 2)
+    weff = wv if thres is None else torch.where(
+        pred <= thres[:, None, None], 1.0, wv)
+    e = pred - y
+    if loss_name == "datal2":
+        l_elem, g = e * e, 2.0 * weff * e
+    else:
+        ae = e.abs()
+        l_elem = torch.where(ae < beta, 0.5 * ae * ae / beta, ae - 0.5 * beta)
+        g = weff * torch.where(ae < beta, e / beta, torch.sign(e))
+    g = g * dv
+    m = float(n * c_out)
+    loss = ((weff * l_elem).double().sum((1, 2)).float() / m)
+    pad = sp["np"] - n
+    grads = [None] * n_layers
+    for l in range(n_layers - 1, -1, -1):
+        hl = x if l == 0 else h_d(l - 1, zs[l])[0]
+        hp = torch.nn.functional.pad(hl, (0, 0, 0, pad))      # (B, np, fin)
+        gp = torch.nn.functional.pad(g, (0, 0, 0, pad))       # (B, np, fout)
+        d = _kblock_sums(hp.transpose(1, 2)[:, None], gp[:, None],
+                         tf32_split, tf32_split)[:, 0]       # (B, KB, ., .)
+        d = d.view(nb, -1, DW_CHUNK // 8, *d.shape[-2:])
+        chunks = _sum_in_order(d, 2)                          # per chunk
+        quarter = gp.view(nb, -1, 4, DW_CHUNK // 4, gp.shape[-1])
+        q = _sum_in_order(quarter, 3)                         # (B, C, 4, fout)
+        bchunks = (q[:, :, 0] + q[:, :, 1]) + (q[:, :, 2] + q[:, :, 3])
+        per = sp["chunk"][l] // DW_CHUNK
+        parts = [_sum_in_order(chunks[:, k:k + per], 1)
+                 for k in range(0, chunks.shape[1], per)]
+        bparts = [_sum_in_order(bchunks[:, k:k + per], 1)
+                  for k in range(0, bchunks.shape[1], per)]
+        grads[l] = {"w": _sum_in_order(torch.stack(parts, 1), 1) / m,
+                    "b": _sum_in_order(torch.stack(bparts, 1), 1) / m}
+        if l > 0:
+            g = product(g, layers[l]["w"].float().transpose(1, 2)) * \
+                h_d(l - 1, zs[l])[1]
+    return loss, {"layers": grads}
+
+
 # --------------------------------------------------------------------------
 # CUDA kernel
 # --------------------------------------------------------------------------
@@ -916,33 +1035,34 @@ _WIDE_BUFFERS: Dict[torch.device, Tuple[Tuple[int, ...],
                                         Dict[str, torch.Tensor]]] = {}
 
 
-def _wide_buffers(device: torch.device, p: Dict, n_fleet: int, np_: int,
-                  grid: int, splits: int) -> Dict[str, torch.Tensor]:
-    """The wide layout's device scratch: the packed weights, h_l and d_l /
-    g_l of every coordinate, dW's partial rows and the loss partials.
+def _wide_buffers(device: torch.device, p: Dict, n_fleet: int, sp: Dict,
+                  grid: int) -> Dict[str, torch.Tensor]:
+    """The wide layout's device scratch: the packs, one z / g row set a
+    layer for every coordinate, dW's partial sums and the loss partials.
     Kept for the last shape per device and reused by every call of that
     shape (a training run's steps); a new shape frees it first.  This
-    scratch, not shared memory, bounds the layout's width: where the card
+    scratch, not shared memory, bounds the layout's depth: where the card
     cannot hold it, torch.cuda.OutOfMemoryError names its bytes."""
-    key = (p["wp_total"], p["rows_total"], p["n_params"], n_fleet, np_,
-           grid, splits)
+    key = (p["wp_total"], p["rows_total"], n_fleet, sp["np"],
+           sp["part_total"], grid)
     if device not in _WIDE_BUFFERS or _WIDE_BUFFERS[device][0] != key:
         _WIDE_BUFFERS.pop(device, None)
         shapes = {"wp": (n_fleet, p["wp_total"]),
-                  "scratch": (n_fleet, p["rows_total"], np_),
-                  "partial": (n_fleet, splits, p["n_params"]),
+                  "scratch": (n_fleet, p["rows_total"], sp["np"]),
+                  "partial": (n_fleet, sp["part_total"]),
                   "lossp": (n_fleet, grid)}
         try:
-            bufs = {k: torch.empty(v, dtype=torch.float32, device=device)
+            bufs = {k: torch.empty(v, device=device, dtype=torch.float64
+                                   if k == "lossp" else torch.float32)
                     for k, v in shapes.items()}
         except torch.cuda.OutOfMemoryError as e:
             need = 4 * sum(math.prod(v) for v in shapes.values())
             raise torch.cuda.OutOfMemoryError(
                 f"the train kernel's wide layout needs {need:,} bytes of "
                 f"device scratch for {n_fleet} chain(s) of "
-                f"{p['rows_total']:,} activation rows at N = {np_:,} "
-                f"({4 * n_fleet * p['rows_total'] * np_:,} bytes of it h_l "
-                f"and d_l); {device} cannot hold it: fewer coordinates a "
+                f"{p['rows_total']:,} activation rows at N = {sp['np']:,} "
+                f"({4 * n_fleet * p['rows_total'] * sp['np']:,} bytes of it "
+                f"z and g); {device} cannot hold it: fewer coordinates a "
                 f"step (Compress.sampler.sample_size) shrink it") from e
         _WIDE_BUFFERS[device] = (key, bufs)
     return _WIDE_BUFFERS[device][1]
@@ -992,17 +1112,19 @@ def tiled_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
 
 
 def wide_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
-               mask_off: Sequence[int]) -> List[int]:
-    """The wide layout's table (csrc/wide.cuh wide::Layer rows); the
+               mask_off: Sequence[int], sp: Dict) -> List[int]:
+    """The wide layout's table (csrc/wide.cuh wide::Layer rows: widths,
+    activation, offsets, packs, scratch rows, mask offset, the dW partial
+    sums' offset, splits and chunk, w0, the G buffer of g_{l+1}); the
     streamed form has its own (ops/stream.py stream_table)."""
-    tile_end = p["tile0"][1:] + [p["n_dw_tiles"]]
     words = []
     for l, (act, w0) in enumerate(acts):
         words += pad_row(
             [widths[l], widths[l + 1], ACTS.index(act), p["p_off"][l],
-             p["wp_off"][l], p["colpad"][l], p["x_row"][l], p["h_row"][l],
-             p["g_row"][l], mask_off[l], p["tile0"][l], tile_end[l],
-             f32_word(w0)], WIDE_ROW_WORDS)
+             p["wf_off"][l], p["wb_off"][l], p["out_row"][l],
+             p["in_row"][l], mask_off[l], sp["part_off"][l],
+             sp["splits"][l], sp["chunk"][l], f32_word(w0), p["g_row"][l]],
+            WIDE_ROW_WORDS)
     return words
 
 
@@ -1039,12 +1161,13 @@ def _launch(params, coords, values, weights, widths, acts,
     mask_width = 0 if masks is None else masks.shape[1]
     key = (p["layout"], tuple(widths), tuple(acts), tuple(mask_off))
     if p["layout"] == "wide":
-        np_, splits, chunk = dw_split(n, n_fleet, p["n_dw_tiles"])
+        sp = dw_split(n, n_fleet, widths)
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
-                mask_width, p["rows_max"], np_, p["rows_total"],
-                p["wp_total"], p["n_dw_tiles"], p["pack_blocks"]]
-        table, _ = layer_table(key, lambda: wide_table(p, widths, acts,
-                                                       mask_off), device)
+                mask_width, sp["np"], p["rows_total"], p["wp_total"],
+                sp["part_total"], p["rows_max"], p["pack_blocks"]]
+        table, head = layer_table(key + (sp["np"], n_fleet), lambda:
+                                  wide_table(p, widths, acts, mask_off, sp),
+                                  device)
     elif p["layout"] == "tiled":
         meta = [len(widths) - 1, widths[0], widths[-1], p["n_params"],
                 mask_width, p["mt"], p["buf_rows"], p["yw_row"],
@@ -1071,16 +1194,16 @@ def _launch(params, coords, values, weights, widths, acts,
                           device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         if p["layout"] == "wide":
-            bufs = _wide_buffers(device, p, n_fleet, np_, grid, splits)
+            bufs = _wide_buffers(device, p, n_fleet, sp, grid)
             build.check(lib.brief_fused_train_wide(
                 coords.data_ptr(), values.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), 0 if masks is None else masks.data_ptr(),
                 0 if thres is None else thres.data_ptr(), table.data_ptr(),
-                bufs["wp"].data_ptr(), bufs["scratch"].data_ptr(),
-                bufs["partial"].data_ptr(), bufs["lossp"].data_ptr(),
-                out.data_ptr(), n, n_fleet, meta_c,
+                ctypes.addressof(head), bufs["wp"].data_ptr(),
+                bufs["scratch"].data_ptr(), bufs["partial"].data_ptr(),
+                bufs["lossp"].data_ptr(), out.data_ptr(), n, n_fleet, meta_c,
                 LOSSES.index(loss_name), float(beta), grid, p["block"],
-                p["smem_bytes"], splits, chunk, stream), "fused_train wide")
+                p["smem_bytes"], stream), "fused_train wide")
             return out
         if p["layout"] == "tiled":
             # the grid's blocks shared among the chains by their work

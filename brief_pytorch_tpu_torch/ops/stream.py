@@ -1,6 +1,7 @@
 """The Python side of csrc/fused_train_stream.cu: kernel 1's streamed
-form, for chains with a layer wider than the wide layout's rows hold
-(3,327 features; ops/fused_train.py choose_plan sends them here).
+form, for chains with a layer wider than the wide layout takes
+(fused_train.WIDE_MAX_FEATURES; ops/fused_train.py choose_plan sends
+them here).
 
 The plan (`stream_plan`) sorts a chain's layers into thin ones (layer 0
 when c_in + 1 <= 8, the last when c_out <= 8: reductions on the CUDA

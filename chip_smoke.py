@@ -8,7 +8,7 @@ Phases, each printing one line, each failure ending the run with a
 non-zero exit:
   1. the card's name and power limit (nvidia-smi) and torch's version;
      build every CUDA kernel from ops/csrc (one nvcc per source, at once;
-     the wide layout's products, csrc/wide.cuh, go into fused_train.cu,
+     the wide layout's weight packs, csrc/wide.cuh, go into fused_train.cu,
      the 3xTF32 mma helpers, csrc/tf32.cuh, into fused_train.cu and,
      through the tensor-core chain csrc/chain_tc.cuh, into fused_decode.cu
      and fused_siren.cu);
@@ -51,14 +51,14 @@ non-zero exit:
      finite and -inf thresholds, against its plain version for both
      losses and a relu/sigmoid chain, each block against the one-chain
      kernel on its unpadded chain, padded gradients exactly 0, three runs
-     bitwise equal; the tiled fleet's loss and gradients also against
-     the plain version evaluated in float64, max and mean distance at
-     most F64_RATIO["phase6"] (2x) the float32 plain version's;
-     timed beside the plain version, the bound and (narrow and tiled
-     layouts, whose products run on the tensor cores) tc_bound_ms; the
-     wide one-chain
-     layout at phase 12's chains (3-191x4-1, 3-242x4-1, N = 100,000)
-     checked against its plain version and timed the same way;
+     bitwise equal; the tiled and wide fleets' loss and gradients also
+     against the plain version evaluated in float64, max and mean
+     distance at most F64_RATIO["phase6"] (2x) the float32 plain
+     version's; timed beside the plain version, the bound and (every
+     layout's products run on the tensor cores) tc_bound_ms;
+     the wide one-chain layout at phase 12's chains (3-191x4-1,
+     3-242x4-1, N = 100,000) checked the same way (its plain version,
+     float64 at 2x, three runs bitwise) and timed;
   7. the DivideTask command on opt/DivideTask/hipct.yaml, verbatim (the
      tracked demo volume dataset/example/hipct-0_64-0_512-0_512.tif, LZW;
      by_var must give phase 6's FLEET_WIDTHS), HIPCT_STEPS steps with one
@@ -530,8 +530,8 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
     them) at n coordinates:
     the plan must pick `layout`; against its plain version (compare_grads'
     tolerances), two more runs bitwise equal, timed beside the plain
-    version, bound_ms and (narrow, tiled, the wide layout's streamed form)
-    tc_bound_ms; the streamed form also against the plain version
+    version, bound_ms and tc_bound_ms (every layout's products run on the
+    tensor cores); the streamed form also against the plain version
     evaluated in float64 (train_f64), max and mean distance within
     F64_RATIO["phase20"] x the float32 plain version's.  Returns its JSON
     row."""
@@ -594,8 +594,7 @@ def chain_check(dev, label: str, phi: dict, n: int, layout: str, kw: dict,
     row = dict(shape=f"SIREN {widths}, N={n}", layout=layout,
                max_abs_err=err, **f64, ms=ms, plain_ms=plain, bound_ms=b,
                bound_by=by, **({"stream": True} if p.get("stream") else {}))
-    if layout in ("narrow", "tiled") or p.get("stream"):
-        row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
+    row["tc_bound_ms"] = train_tc_bound_ms(widths, acts, n, n_bytes)
     say(phase, case=label, widths=widths, n=n, layout=layout,
         **({"form": "streamed"} if p.get("stream") else {}),
         max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
@@ -808,12 +807,12 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     against the plain version evaluated in float64), each block against
     the one-chain
     kernel on its unpadded chain, padded gradients exactly 0, three runs
-    bitwise equal; in the tiled layout and the wide layout's streamed form
-    also the loss and gradients' distance from the plain version evaluated
-    in float64, max and mean, at most F64_RATIO["phase6"] x the float32
-    plain version's; then timed beside the plain version, the bound and
-    (narrow, tiled, streamed) the tensor-core bound.  Fails the run on any
-    disagreement; returns the kernel's JSON row."""
+    bitwise equal; in the tiled and wide layouts (the latter's streamed
+    form included) also the loss and gradients' distance from the plain
+    version evaluated in float64, max and mean, at most F64_RATIO["phase6"]
+    x the float32 plain version's; then timed beside the plain version,
+    the bound and the tensor-core bound (tc_bound_ms).  Fails the run on
+    any disagreement; returns the kernel's JSON row."""
     import torch
     from brief_pytorch_tpu_torch.models.phi import init_phi
     from brief_pytorch_tpu_torch.ops import fused_train
@@ -866,8 +865,7 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
         err = max(err, compare_grads(lk, gk["layers"], lp, gp["layers"],
                                      f"{what} {loss_name} {acts6[:2]}"))
     f64 = {}
-    stream = bool(fused_train.choose_plan(padded).get("stream"))
-    if layout == "tiled" or stream:
+    if layout in ("tiled", "wide"):
         flat = lambda loss, g: torch.cat([loss.double().reshape(-1)] + [
             x[key].double().reshape(-1) for x in g["layers"]
             for key in ("w", "b")]).cpu().numpy()
@@ -915,8 +913,7 @@ def fleet_check(dev, rng, true_widths, layers: int, w0: float, n: int,
     p = fused_train.choose_plan(padded)
     if p["layout"] != layout:
         fail(f"{what}: layout {p['layout']}, not {layout}")
-    tc_row = {"tc_bound_ms": tc} if layout in ("narrow", "tiled") or \
-        stream else {}
+    tc_row = {"tc_bound_ms": tc}
     say(phase, blocks=nb, n=n, padded=padded,
         true_widths=list(true_widths), thres=fthres.tolist(), layout=layout,
         tile=p["block"], max_abs_err=f"{err:.3e}",
@@ -3018,6 +3015,12 @@ def main() -> int:
                                         for g in gk["layers"]], lp[None],
                              [{k: v[None] for k, v in g.items()}
                               for g in gp["layers"]], f"wide chain {wwidths}")
+        fused_train.free_scratch()      # room for the float64 activations
+        torch.cuda.empty_cache()
+        f64w = f64_check(f"wide chain {wwidths} against float64",
+                         flat_grads(lk, gk), flat_grads(lp, gp),
+                         train_f64(wlayers, wc, wv, ww, wacts, kw),
+                         F64_RATIO["phase6"])
         for lr, gr in [kwide() for _ in range(2)]:
             if not torch.equal(lr, lk) or not all(
                     torch.equal(x[k], y[k]) for x, y in
@@ -3026,19 +3029,22 @@ def main() -> int:
         del gk, gp
         msw = time_ms(kwide)
         plainw = time_ms(pwide, reps=5)
-        bw, byw = bound_ms(4 * (DEMO_N * 5 + 2 * sum(
-            l["w"].numel() + l["b"].numel() for l in wlayers) + 1),
-            train_flops(wwidths, wacts, DEMO_N))
+        nbw = 4 * (DEMO_N * 5 + 2 * sum(
+            l["w"].numel() + l["b"].numel() for l in wlayers) + 1)
+        bw, byw = bound_ms(nbw, train_flops(wwidths, wacts, DEMO_N))
+        tcw = train_tc_bound_ms(wwidths, wacts, DEMO_N, nbw)
         wide_rows[f] = dict(shape=f"SIREN {wwidths}, N={DEMO_N}",
                             layout="wide", tile=wplan["block"],
-                            max_abs_err=errw, ms=msw, plain_ms=plainw,
-                            bound_ms=bw, bound_by=byw)
+                            max_abs_err=errw, **f64w, ms=msw, plain_ms=plainw,
+                            bound_ms=bw, bound_by=byw, tc_bound_ms=tcw)
         say("6-fused_train_wide", widths=wwidths, n=DEMO_N,
             tile=wplan["block"], smem_bytes=wplan["smem_bytes"],
-            max_abs_err=f"{errw:.3e}", ms=f"{msw:.4f}",
+            max_abs_err=f"{errw:.3e}",
+            **{k_: f"{v_:.3e}" for k_, v_ in f64w.items()}, ms=f"{msw:.4f}",
             plain_ms=f"{plainw:.4f}", bound_ms=f"{bw:.4f}", bound_by=byw,
+            tc_bound_ms=f"{tcw:.4f}",
             tolerance="loss rel 1e-5; grads 1e-4*max|plain|+1e-6; 3 runs "
-                      "bitwise")
+                      f"bitwise; float64 {F64_RATIO['phase6']:g}x plain")
 
     # ---- 7. the DivideTask command on the HiP-CT config ----
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_divide_")
@@ -3397,7 +3403,9 @@ def main() -> int:
          "batch_major": reach["demo_2"]["batch_major"]},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
-                   "(+ csrc/wide.cuh)",
+                   "(+ csrc/wide.cuh, csrc/tf32.cuh)",
+         "cuda_kernels": ["pack_weights_kernel", "wide_tile_kernel",
+                          "wide_dw_kernel", "reduce_wide_kernel"],
          "replaces": "brief_pytorch_tpu/ops/pallas_train.py:281",
          "launches": demo_rows[191]["launches"]["fused_train"],
          "library_ms": None, **wide_rows[191],

@@ -23,7 +23,8 @@ phase 6 does).  The fleets of the DivideTask configs:
 (and chip_smoke.py) from another checkout, e.g. a `git archive` of the
 parent commit, so that two builds can be timed in turns in one call.
 --layout forces a layout of the kernel (narrow, tiled or wide) where its
-plan fits, to time one shape in two layouts.  --relu-float64 holds a
+plan fits, or the wide layout's streamed form (stream) at any width, to
+time one shape in two layouts.  --relu-float64 holds a
 fleet's relu/sigmoid chain to the plain version evaluated in float64 (as
 chip_smoke.py phase 20d does for its 20-layer fleet, where the float32
 plain version itself is past the 1e-4 tolerance).  Prints one JSON line per
@@ -46,12 +47,18 @@ def force_layout(fused_train, layout: str) -> None:
     def choose(widths):
         if layout == "tiled":
             p = fused_train.tiled_plan(widths)
-            ok = p["slots"] and p["smem_bytes"] <= fused_train.SMEM_LIMIT
-        elif layout == "wide":
+            ok = p["jobs"] and p["smem_bytes"] <= fused_train.SMEM_LIMIT
+        elif layout == "wide" and hasattr(fused_train, "wide_choose"):
+            p = fused_train.wide_choose(widths)
+            ok = p is not None
+        elif layout == "wide":   # a build before the tensor-core wide layout
             tile = fused_train.wide.choose_tile(
                 lambda t: fused_train.wide_plan(widths, t)["smem_bytes"],
                 fused_train.SMEM_LIMIT, fused_train.SM_SMEM)
             p, ok = fused_train.wide_plan(widths, tile or 8), tile is not None
+        elif layout == "stream":   # the streamed form at any width
+            p = fused_train.stream_form.stream_plan(widths)
+            ok = True
         else:   # the narrow layout at any occupancy it fits
             best = getattr(fused_train, "narrow_plan", chosen)
             p = best(widths)
@@ -86,7 +93,8 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--plain", action="store_true",
                     help="time the plain version too")
-    ap.add_argument("--layout", choices=("auto", "narrow", "tiled", "wide"),
+    ap.add_argument("--layout", choices=("auto", "narrow", "tiled", "wide",
+                                         "stream"),
                     default="auto")
     ap.add_argument("--relu-float64", action="store_true")
     args = ap.parse_args(argv)
@@ -118,9 +126,9 @@ def main(argv=None) -> int:
                                  cin=cin, relu_reference="float64"
                                  if args.relu_float64 else "plain")
             print(json.dumps({"root": args.root, "shape": shape,
-                              **{k: row[k] for k in ("layout", "ms",
-                                                     "plain_ms",
-                                                     "bound_ms")}}),
+                              **{k: row.get(k) for k in (
+                                  "layout", "tile", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "tc_bound_ms")}}),
                   flush=True)
             continue
         m = re.fullmatch(r"(\d+)-(\d+)x(\d+)-(\d+):(\d+)", shape)
@@ -171,11 +179,17 @@ def main(argv=None) -> int:
         n_par = sum(l["w"].numel() + l["b"].numel() for l in layers)
         b, by = cs.bound_ms(4 * (n * (c_in + 2 * c_out) + 2 * n_par + 1),
                             cs.train_flops(widths, acts, n))
-        layout = fused_train.choose_plan(widths)["layout"]
+        plan = fused_train.choose_plan(widths)
         print(json.dumps({"root": args.root, "shape": shape,
-                          "widths": widths, "layout": layout,
+                          "widths": widths, "layout": plan["layout"],
+                          "stream": bool(plan.get("stream")),
+                          "tile": plan.get("block"),
                           "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                          "bound_ms": b, "bound_by": by}), flush=True)
+                          "bound_ms": b, "bound_by": by,
+                          "tc_bound_ms": cs.train_tc_bound_ms(
+                              widths, acts, n, 4 * (n * (c_in + 2 * c_out)
+                                                    + 2 * n_par + 1))}),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -290,24 +290,24 @@ def test_fleet_cpu_tensors_never_reach_the_kernel():
 
 @pytest.mark.parametrize("widths,layout,block", [
     ([3] + [66] * 6 + [1], "tiled", 32),   # the padded HiP-CT bucket, 3-66
-    ([3] + [186] * 4 + [1], "wide", 32),   # SingleTask default at HiP-CT size
+    ([3] + [186] * 4 + [1], "wide", 128),  # SingleTask default at HiP-CT size
 ])
 def test_wide_chains_get_the_wide_layout(widths, layout, block):
     """Chains whose weights, W^T and accumulator do not fit a block's shared
     memory still train on the kernel (no silent autograd fallback): in the
     tiled layout when their weights, stored once, fit beside a
     32-coordinate tile (3-66x6-1), else in the wide layout, which keeps two
-    activation rows of the tile and two weight slabs there (3-186x4-1)."""
+    buffers of activation rows of a 128-coordinate tile and a ring of
+    three weight slabs there (3-186x4-1)."""
     assert ft.narrow_plan(widths) is None
     p = ft.choose_plan(widths)
     assert p is not None and p["layout"] == layout
     assert p["block"] == block and p["smem_bytes"] <= ft.SMEM_LIMIT
     if layout == "wide":
-        assert p["threads"] == 4 * block
-        rows = max(widths) + 1 + 31 >> 5 << 5
+        assert p["threads"] == 512 and p["kp"] == 16
+        rows = max(widths) + 15 >> 4 << 4
         assert p["rows_max"] == rows
-        assert p["smem_bytes"] == 4 * (2 * rows * block + 2 * 64 * 36
-                                       + p["threads"])
+        assert p["smem_bytes"] == 4 * (2 * rows * block + 3 * 2 * 8 * 128)
     else:
         assert p["threads"] == ft.TILED_THREADS and p["jobs"] in ft.TILED_JOBS
     model = tphi.init_phi({"name": "SIREN", "features": widths[1],

@@ -34,7 +34,7 @@ from brief_pytorch_tpu_torch.ops import fused_decode as fd
 from brief_pytorch_tpu_torch.ops import fused_train as ft
 from brief_pytorch_tpu_torch.ops import stream as st
 
-ROWS_REACH = 3327            # the wide layout's rows at 8 coordinates a tile
+ROWS_REACH = ft.WIDE_MAX_FEATURES   # the wide layout's widest layer
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,8 +63,8 @@ def _sweep():
 @pytest.mark.parametrize("layers,features", _sweep(), ids=lambda v: str(v))
 def test_plan_takes_exactly_the_wide_chains(layers, features):
     """The streamed form takes a chain exactly when a layer is wider than
-    the wide layout's rows hold; its ends are thin (3 coordinates, one
-    output), every other layer square, its block fits the card."""
+    the wide layout takes; its ends are thin (3 coordinates, one output),
+    every other layer square, its block fits the card."""
     widths = [3] + [features] * (layers - 1) + [1]
     p = ft.choose_plan(widths)
     assert bool(p.get("stream")) == (features > ROWS_REACH)

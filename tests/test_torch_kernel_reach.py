@@ -235,7 +235,7 @@ def test_every_chain_has_a_plan(layers, features):
     assert p1["layout"] in ("narrow", "tiled", "wide")
     assert p1["smem_bytes"] <= ft.SMEM_LIMIT
     if p1["layout"] == "wide":
-        assert p1["stream"] == (max(widths) > 3327)
+        assert p1["stream"] == (max(widths) > ft.WIDE_MAX_FEATURES)
     for mod in (fd, fs):
         p = mod.choose_plan(widths)
         assert p["layout"] in ("narrow", "wide")
@@ -271,7 +271,8 @@ def test_tables_hold_every_layer(widths):
             words = st.stream_table(p, widths, acts, masks,
                                     st.stream_splits(p, widths, 1000, 1))
         else:
-            words = ft.wide_table(p, widths, acts, masks)
+            words = ft.wide_table(p, widths, acts, masks,
+                                  ft.dw_split(1000, 1, widths))
         assert len(words) == L * ft.WIDE_ROW_WORDS == L * st.STREAM_ROW_WORDS
         rows = np.asarray(words, np.int32).reshape(L, ft.WIDE_ROW_WORDS)
         assert rows[:, 0].tolist() == widths[:-1]
