@@ -1,16 +1,18 @@
 """The Python side of csrc/chain_stream.cuh: kernels 2 and 3's streamed
-form, for every plain chain with a layer wider than 3,327 features (the
-grid decode, ops/fused_decode.py, and the batch-major forward,
-ops/fused_siren.py, send them here).
+form, for every plain chain with a layer (or an input) wider than 256
+features, STREAM_WIDTH (the grid decode, ops/fused_decode.py, and the
+batch-major forward, ops/fused_siren.py, send them here; 256 is the
+widest layer the wide form holds in shared memory).
 
 The plan (`stream_plan`) sorts a chain's layers into thin ones (layer 0
 when c_in + 1 <= 8, the last when c_out <= 8, in chains of two or more
 layers: computed as reductions on the CUDA cores, layer 0 from the
 coordinates wherever it is read) and square ones (products on the tensor
-cores in 3xTF32, 128 x 128 tiles), and lays out the device scratch: the
-square layers' W copies zero-padded to whole tiles, two buffers H of the
-layer inputs (rows of R floats, R rows a chunk), and the partial sums of a
-thin last layer.  `stream_call` sizes a call of N rows (its chunks, the
+cores in 3xTF32, tiles of 128 rows and 128 columns, or 64 where that pads
+a layer's outputs less), and lays out the device scratch: the square
+layers' W copies zero-padded to whole tiles, two buffers H of the layer
+inputs (rows of R floats, R rows a chunk), and the partial sums of a thin
+last layer.  `stream_call` sizes a call of N rows (its chunks, the
 splits of a 3-F-1 chain's feature blocks, its kernels), `scratch_bytes`
 its scratch, `stream_table` is the kernels' per-layer table,
 `stream_model` their arithmetic on the CPU.
@@ -29,8 +31,9 @@ from brief_pytorch_tpu_torch.ops.tc_model import (GROUP_K, act, fma,
                                                   tf32_split_nearest,
                                                   z_from_x)
 
-STREAM_WIDTH = 3327      # a layer wider than this: the streamed form
+STREAM_WIDTH = 256       # a layer wider than this: the streamed form
 GM = GN = 128            # kGM, kGN: a square product's tile
+GN64 = 64                # kGN64: the narrow tile's columns
 GK = 32                  # kGK: slab depth
 WN, MT, NT = 4, 4, 4     # kWN warps along n, a warp's kMT x kNT mma tiles
 GEMM_SMEM = 4 * (3 * 2 * GK * (GM + 8) + 4 * MT * NT * 256)   # kGemmSmem
@@ -52,7 +55,8 @@ def _r(x: int, m: int) -> int:
 
 def takes(widths: Sequence[int]) -> bool:
     """Whether a chain takes the streamed form: a layer (or the input)
-    wider than STREAM_WIDTH features."""
+    wider than STREAM_WIDTH features, more than the wide form's shared
+    memory holds (ops/fused_decode.py wide_plan)."""
     return max(int(w) for w in widths) > STREAM_WIDTH
 
 
@@ -61,9 +65,10 @@ def stream_plan(widths: Sequence[int]) -> Dict:
     that tests can force it at small ones): which ends are thin (t0, tl),
     the square layers, whether the chain is a thin 3-F-1 (`thin`), the
     rows of an H buffer (round128 of the widest square input, h_rows;
-    `n_h` buffers), the padded W copies (wp_off, wp_cols = round128(fout),
-    round32(fin) rows; wp_total floats).  Its layout is "wide" with
-    "stream" set, as kernel 1's streamed form (ops/stream.py) states it."""
+    `n_h` buffers), each square layer's product tiles' columns (gn: GN64
+    where round64(fout) < round128(fout), else GN), the padded W copies (wp_off, wp_cols = round_gn(fout), round32(fin) rows;
+    wp_total floats).  Its layout is "wide" with "stream" set, as kernel
+    1's streamed form (ops/stream.py) states it."""
     widths = [int(w) for w in widths]
     L = len(widths) - 1
     c_in, c_out = widths[0], widths[-1]
@@ -71,22 +76,23 @@ def stream_plan(widths: Sequence[int]) -> Dict:
     tl = L >= 2 and c_out <= CO_MAX
     square = [l for l in range(L)
               if not (l == 0 and t0) and not (l == L - 1 and tl)]
-    wp_off, wp_cols, off = [-1] * L, [0] * L, 0
+    wp_off, wp_cols, gn, off = [-1] * L, [0] * L, [0] * L, 0
     for l in square:
-        wp_off[l], wp_cols[l] = off, _r(widths[l + 1], GN)
+        fout = widths[l + 1]
+        gn[l] = GN64 if _r(fout, GN64) < _r(fout, GN) else GN
+        wp_off[l], wp_cols[l] = off, _r(fout, gn[l])
         off += _r(widths[l], GK) * wp_cols[l]
     if off >= 1 << 31:
         raise ValueError(f"chain widths {widths}: its padded weights "
                          f"({4 * off:,} bytes) pass the kernel's 32-bit "
                          f"offsets")
-    return {"layout": "wide", "stream": True, "global": True,
-            "inst": None, "tile": GM, "blocks_per_sm": 1,
-            "warps_per_sm": 8, "c_in": c_in, "c_out": c_out, "t0": t0,
-            "tl": tl, "square": square,
+    return {"layout": "wide", "stream": True, "inst": None, "tile": GM,
+            "blocks_per_sm": 1, "warps_per_sm": 8, "c_in": c_in,
+            "c_out": c_out, "t0": t0, "tl": tl, "square": square,
             "thin": not square,
             "h_rows": max((_r(widths[l], GM) for l in square), default=0),
             "n_h": min(2, len(square)), "wp_off": wp_off,
-            "wp_cols": wp_cols, "wp_total": off,
+            "wp_cols": wp_cols, "gn": gn, "wp_total": off,
             "work": [widths[l] * widths[l + 1] for l in range(L)],
             "n_fb": -(-widths[1] // FB) if not square else 0,
             "smem_bytes": GEMM_SMEM if square else THIN_SMEM}
@@ -111,13 +117,13 @@ def stream_call(p: Dict, n: int, sms: int = H100_SMS) -> Dict:
         # a whole number of waves of product blocks (one an SM) a chunk
         # where the budget holds one: its largest product's column tiles
         # times the chunk's row tiles a multiple of sms
-        cols = p["wp_cols"][max(p["square"], key=lambda l: p["work"][l])]
-        quantum = GM * sms // math.gcd(sms, cols // GN)
+        big = max(p["square"], key=lambda l: p["work"][l])
+        quantum = GM * sms // math.gcd(sms, p["wp_cols"][big] // p["gn"][big])
         cap = H_BUDGET // (4 * p["n_h"] * p["h_rows"])
         R = min(_r(n, GM), cap // quantum * quantum or max(GM, cap // GM * GM))
         S = 1
         L = len(p["wp_cols"])
-        tiles = p["wp_cols"][L - 2] // GN if p["tl"] else 0
+        tiles = p["wp_cols"][L - 2] // p["gn"][L - 2] if p["tl"] else 0
     chunks = -(-n // R)
     per_chunk = 2 if p["thin"] else \
         1 + len(p["square"]) + int(p["tl"])
@@ -160,13 +166,15 @@ def stream_table(p: Dict, widths: Sequence[int], acts: LayerSpec,
                  ptrs: Sequence[int]) -> List[int]:
     """The streamed form's table (csrc/chain_stream.cuh StreamLayer rows):
     per layer its W and b pointers (ptrs, 2 a layer), widths, activation,
-    w0, its padded W copy's offset and row stride."""
+    w0, its padded W copy's offset and row stride, its product tiles'
+    columns."""
     words = []
     for l, (act, w0) in enumerate(acts):
         words += pad_row(
             i64_words(ptrs[2 * l]) + i64_words(ptrs[2 * l + 1]) +
             [int(widths[l]), int(widths[l + 1]), ACTS.index(act),
-             f32_word(w0), p["wp_off"][l], p["wp_cols"][l]], ROW_WORDS)
+             f32_word(w0), p["wp_off"][l], p["wp_cols"][l], p["gn"][l]],
+            ROW_WORDS)
     return words
 
 
@@ -220,9 +228,9 @@ def stream_model(layers, coords: torch.Tensor, acts: LayerSpec,
     3xTF32 k-block sums in groups of 32 (`_square`, the card's mma.sync
     sums through tc_model.mma_tf32_model), then the bias and the
     activation; before a thin last layer the sums over
-    each tile of 128 features in the order of the kernel's epilogue (a
-    thread's 8 features of the tile by fmaf, its 4 lanes, the 4 warps),
-    the tiles added in order after the bias."""
+    each tile of gn features (128 or 64) in the order of the kernel's
+    epilogue (a thread's gn / 16 features of the tile by fmaf, its 4
+    lanes, the 4 warps), the tiles added in order after the bias."""
     x = coords.float().cpu()
     n = x.shape[0]
     L = len(layers)
@@ -248,24 +256,25 @@ def stream_model(layers, coords: torch.Tensor, acts: LayerSpec,
         h = act(z, *acts[l])
         if l == L - 1:
             return h
-    # the thin last layer: per tile of 128 features, per warp wn and lane
-    # q the fmaf sum of its 8 features (column 32 wn + 8 j + 2 q + p, j
-    # then p), the lanes (q0 + q1) + (q2 + q3), the warps in order
-    F = h.shape[1]
-    hp = torch.zeros(n, _r(F, GN))
+    # the thin last layer: per tile of gn features, per warp wn and lane
+    # q the fmaf sum of its 2 nt features (column 8 nt wn + 8 j + 2 q + p,
+    # j then p), the lanes (q0 + q1) + (q2 + q3), the warps in order
+    F, gn = h.shape[1], plan["gn"][L - 2]
+    nt = gn // (8 * WN)
+    hp = torch.zeros(n, _r(F, gn))
     hp[:, :F] = h
-    wl = torch.zeros(_r(F, GN), w[-1].shape[1])
+    wl = torch.zeros(_r(F, gn), w[-1].shape[1])
     wl[:F] = w[-1]
     z = b[-1].expand(n, -1)
-    for t0 in range(0, hp.shape[1], GN):
+    for t0 in range(0, hp.shape[1], gn):
         warps = []
         for wn in range(WN):
             lanes = []
             for q in range(4):
                 s = torch.zeros(n, wl.shape[1])
-                for j in range(NT):
+                for j in range(nt):
                     for p_ in range(2):
-                        o = t0 + 8 * NT * wn + 8 * j + 2 * q + p_
+                        o = t0 + 8 * nt * wn + 8 * j + 2 * q + p_
                         s = fma(hp[:, o:o + 1], wl[o][None], s)
                 lanes.append(s)
             warps.append((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))

@@ -1,22 +1,24 @@
 // Kernels 2 and 3's streamed form, for Hopper: the forward of a plain
-// activation chain with a layer wider than 3,327 features (3-20971-1,
-// 3-22213-1, [3, 4096, 4096, 1], ...), over the voxels of a grid (kernel
-// 2, csrc/fused_decode.cu GridInput) or the rows of an (N, C) array
-// (kernel 3, csrc/fused_siren.cu RowInput).  The port of
+// activation chain with a layer (or an input) wider than 256 features
+// (3-383x4-1, 3-1024x4-1, 3-20971-1, [3, 4096, 4096, 1], ...), over the
+// voxels of a grid (kernel 2, csrc/fused_decode.cu GridInput) or the rows
+// of an (N, C) array (kernel 3, csrc/fused_siren.cu RowInput).  The port of
 // brief_pytorch_tpu/ops/pallas_decode.py (_decode_grid_padded) and
 // pallas_siren.py (_fused_forward) for those chains; ops/chain_stream.py is
 // the Python side (the plan, the table, the CPU model `stream_model`).
+// 256 features is the widest layer the wide form of csrc/chain_tc.cuh
+// holds in shared memory.
 //
 // What bounds it on an H100: operations.  A chain with one hidden layer
 // (3-F-1) does N F sines (16 flops each at 67 TFLOP/s: 3-20971-1 on 64^3
 // in 1.31 ms) and nothing the tensor cores could take; a square layer
 // (both sides wider than 8) does 2 N fin fout flops of products, 3 x that
-// in 3xTF32 at 495 TFLOP/s ([3, 4096, 4096, 1] at N = 65,536: 13.3 ms).
-// The chain tc form this replaces for them (chain_wide_kernel<In, 4, true>)
-// padded the last layer's one output to 8, summed its 2,622 k-blocks one
-// slab round trip at a time, stored every hidden value of layer 0 in a
-// 3 GB scratch and read the square products' A operand from device memory
-// in every warp.
+// in 3xTF32 at 495 TFLOP/s ([3, 4096, 4096, 1] at N = 65,536: 13.3 ms;
+// 3-383x4-1 on 64x512x512: 89.8 ms).  The wide form's scratch instance,
+// which took these chains before and is gone, made a round trip of every
+// layer's activations through a device scratch per block, read the A
+// operand from device memory in every warp, took the outputs in passes of
+// 32 n-tiles and padded a thin last layer to an 8-wide n-tile.
 //
 // Design, a chain of L layers (h_0 the row's coordinates, In::coord):
 //  * thin in: layer 0 when L >= 2 and c_in + 1 <= 8.  h_1 is computed from
@@ -30,7 +32,9 @@
 //    to the thread's sums over its split of the features; the splits' sums
 //    (as many as fill the card) added in order, after the bias, by
 //    chain_stream_end_kernel.  No scratch but those partial sums;
-//  * square layers (the others): C = H^T W on 128 x 128 tiles of 8 warps,
+//  * square layers (the others): C = H^T W on tiles of 128 rows and 128
+//    columns (or 64, where a layer's outputs pad to fewer columns: 257-320
+//    features take 320, not 384) of 8 warps,
 //    mma.sync.m16n8k8 TF32 in 3xTF32 (operands split as they are read from
 //    shared memory, the small parts rounded: csrc/tf32.cuh
 //    split_tf32_nearest), k-slabs of 32 of both operands through a ring of
@@ -45,9 +49,9 @@
 //    from the coordinates for a thin layer 0, else the coordinates), each
 //    square layer's epilogue the next square layer's input (the other H
 //    buffer), the output, or, before a thin last layer, its sums over the
-//    tile's 128 features (a thread's 8 by fmaf from zero, then its 4 lanes,
-//    then the 4 warps, in that order), which chain_stream_end_kernel adds
-//    in order after the bias.
+//    tile's 128 or 64 features (a thread's 8 or 4 by fmaf from zero, then
+//    its 4 lanes, then the 4 warps, in that order), which
+//    chain_stream_end_kernel adds in order after the bias.
 // No float atomics, every sum in a fixed order: a row's value does not
 // depend on the block that computes it, and two calls are bitwise equal.
 #pragma once
@@ -64,6 +68,7 @@ constexpr int kWM = 2, kWN = 4;  // warps of a product block along m and n
 constexpr int kMT = 4, kNT = 4;  // a warp's mma tiles (16 x 8) along m, n
 constexpr int kGThreads = 32 * kWM * kWN;
 constexpr int kGM = kWM * 16 * kMT, kGN = kWN * 8 * kNT;   // 128 x 128
+constexpr int kGN64 = kGN / 2;   // the narrow tile's columns: kNT / 2
 constexpr int kGK = 32;                         // slab depth
 constexpr int kGStages = 3;                     // slabs in the ring
 constexpr int kSK = 128 + 8;     // a k-major slab row, floats (8 mod 32)
@@ -72,7 +77,8 @@ constexpr int kStage = 2 * kTile;
 constexpr int kGroupK = 32;      // k-blocks a group of the sums
 constexpr int kAcc = 4 * kMT * kNT;   // a thread's accumulators
 constexpr int kGemmSmem = 4 * (kGStages * kStage + kAcc * kGThreads);
-static_assert(kGM == 128 && kGN == 128, "ops/chain_stream.py GM, GN");
+static_assert(kGM == 128 && kGN == 128 && kGN64 == 64,
+              "ops/chain_stream.py GM, GN, GN64");
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -105,30 +111,33 @@ __device__ __forceinline__ float z_from_x(const float* x, const float* w) {
   return z;
 }
 
-// The 128 x 128 tile's sums over k-slabs [0, 32 KT) of A (k-major: A[k][m]
-// at A + k lda + m, rows m0..) and B (k-major: B[k][n], columns n0..),
-// kernel 1's product loop (csrc/fused_train_stream.cu stream_gemm_kernel,
-// whose own copy keeps its SASS) with both operands k-major: K in slabs
-// of 32 through a ring of kGStages cp.async stages that every warp of the
-// block reads, shared memory rows of 128 + 8 floats (every fragment read
-// of a warp hits 32 banks); warp w takes rows 16 kMT (w / kWN) and
-// columns 8 kNT (w % kWN): kMT x kNT mma tiles, operands split as they
-// are read, each k-block's three 3xTF32 products summed from zero into
-// `s` and added to the group's sums in float32; every kGroupK k-blocks
-// the group is added to the running total and starts again from zero.  On
-// return the group's sums of the thread's fragment (i, j) are in
-// grp[i][j], the running totals in shared memory at sm + kGStages kStage
-// (element ((i kNT + j) 4 + e) kGThreads + t), and the ring is free.
-__device__ __forceinline__ void mainloop(float (&grp)[kMT][kNT][4],
+// The 128 x 8 kWN kNTt tile's sums (kNTt = kNT: 128 columns; kNT / 2:
+// 64) over k-slabs [0, 32 KT) of A (k-major: A[k][m] at A + k lda + m,
+// rows m0..) and B (k-major: B[k][n], columns n0..), kernel 1's product
+// loop (csrc/fused_train_stream.cu stream_gemm_kernel, whose own copy
+// keeps its SASS) with both operands k-major: K in slabs of 32 through a
+// ring of kGStages cp.async stages that every warp of the block reads,
+// shared memory rows of 128 + 8 floats (every fragment read of a warp
+// hits 32 banks); warp w takes rows 16 kMT (w / kWN) and columns 8 kNTt
+// (w % kWN): kMT x kNTt mma tiles, operands split as they are read, each
+// k-block's three 3xTF32 products summed from zero into `s` and added to
+// the group's sums in float32; every kGroupK k-blocks the group is added
+// to the running total and starts again from zero.  On return the
+// group's sums of the thread's fragment (i, j) are in grp[i][j], the
+// running totals in shared memory at sm + kGStages kStage (element
+// ((i kNTt + j) 4 + e) kGThreads + t), and the ring is free.
+template <int kNTt>
+__device__ __forceinline__ void mainloop(float (&grp)[kMT][kNTt][4],
                                          float* sm, const float* A,
                                          size_t lda, const float* B,
                                          size_t ldb, int m0, int n0, int KT) {
+  constexpr int kC4 = 2 * kWN * kNTt;   // 16-byte copies a slab row of B
   float* tot = sm + kGStages * kStage;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, q = lane & 3, wm = warp / kWN, wn = warp % kWN;
 
-  // a stage: kGK rows of 128 floats of each operand, 2 x 1024 16-byte
-  // copies
+  // a stage: kGK rows of 128 floats of A and of 8 kWN kNTt floats of B,
+  // 1024 + 32 kC4 16-byte copies
   auto load = [&](int kt, int stage) {
     const int kk = kt * kGK;
     float* st = sm + stage * kStage;
@@ -136,19 +145,22 @@ __device__ __forceinline__ void mainloop(float (&grp)[kMT][kNT][4],
     for (int j = 0; j < 1024 / kGThreads; ++j) {
       const int c = t + j * kGThreads, r = c >> 5, c4 = c & 31;
       cp16(st + r * kSK + 4 * c4, A + (size_t)(kk + r) * lda + m0 + 4 * c4);
-      cp16(st + kTile + r * kSK + 4 * c4,
-           B + (size_t)(kk + r) * ldb + n0 + 4 * c4);
+      if (j < kGK * kC4 / kGThreads) {
+        const int rb = c / kC4, cb = c % kC4;
+        cp16(st + kTile + rb * kSK + 4 * cb,
+             B + (size_t)(kk + rb) * ldb + n0 + 4 * cb);
+      }
     }
   };
 
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < kNTt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) grp[i][j][e] = 0.f;
 #pragma unroll 8
-  for (int e = 0; e < kAcc; ++e) tot[e * kGThreads + t] = 0.f;
+  for (int e = 0; e < 4 * kMT * kNTt; ++e) tot[e * kGThreads + t] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kGStages - 1; ++s) {
@@ -170,18 +182,18 @@ __device__ __forceinline__ void mainloop(float (&grp)[kMT][kNT][4],
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int j = 0; j < kNT; ++j)
+          for (int j = 0; j < kNTt; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              tot[((i * kNT + j) * 4 + e) * kGThreads + t] += grp[i][j][e];
+              tot[((i * kNTt + j) * 4 + e) * kGThreads + t] += grp[i][j][e];
               grp[i][j][e] = 0.f;
             }
       }
       const int k = 8 * kb + q;
-      uint32_t bb[kNT][2], bsm[kNT][2];
+      uint32_t bb[kNTt][2], bsm[kNTt][2];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = 8 * kNT * wn + 8 * j + g;
+      for (int j = 0; j < kNTt; ++j) {
+        const int n = 8 * kNTt * wn + 8 * j + g;
         split_tf32_nearest(bs[k * kSK + n], &bb[j][0], &bsm[j][0]);
         split_tf32_nearest(bs[(k + 4) * kSK + n], &bb[j][1], &bsm[j][1]);
       }
@@ -192,7 +204,7 @@ __device__ __forceinline__ void mainloop(float (&grp)[kMT][kNT][4],
         split_a(as[k * kSK + m], as[k * kSK + m + 8], as[(k + 4) * kSK + m],
                 as[(k + 4) * kSK + m + 8], ab, asm_);
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
+        for (int j = 0; j < kNTt; ++j) {
           float s[4];
           mma_tf32_zero(s, asm_, bb[j][0], bb[j][1]);
           mma_tf32(s, ab, bsm[j][0], bsm[j][1]);
@@ -217,13 +229,14 @@ static_assert(kWN * kCOMax * kGM <= kGStages * kStage, "the epilogue's sums");
 // Layer l's row of the table (ops/chain_stream.py stream_table): its W
 // (fin, fout) and b as the caller holds them, widths, activation and w0,
 // and its zero-padded W copy (square layers; -1: thin): offset in floats
-// and row stride (round128(fout)); round32(fin) rows.
+// and row stride (wp_cols, a multiple of gn); round32(fin) rows; gn, the
+// columns of its product tiles (kGN or kGN64).
 struct __align__(16) StreamLayer {
   const float* w;
   const float* b;
   int fin, fout, act;
   float w0;
-  int wp_off, wp_cols, pad0, pad1;
+  int wp_off, wp_cols, gn, pad1;
 };
 static_assert(sizeof(StreamLayer) == 48, "ops/chain_stream.py ROW_WORDS");
 
@@ -396,15 +409,15 @@ __global__ void chain_stream_end_kernel(StreamDesc d, int T, int rows) {
   }
 }
 
-// Square layer l on the chunk's 128-row tile blockIdx.y and 128-output
-// tile blockIdx.x: C[u][o] = sum_i H[i][u] Wp[i][o] (H = h0, or h1 where
-// src), both operands k-major, summed by `mainloop`.  Then z = C + b and
-// h = act(z), and by kEpi:
+// Square layer l on the chunk's 128-row tile blockIdx.y and output tile
+// blockIdx.x of 8 kWN kNTt columns (128 or 64): C[u][o] = sum_i H[i][u]
+// Wp[i][o] (H = h0, or h1 where src), both operands k-major, summed by
+// `mainloop`.  Then z = C + b and h = act(z), and by kEpi:
 //   0: the next square layer's input, the other H buffer (zeros past fout);
 //   1: the chain's output (o < c_out, rows < n);
 //   2: before a thin last layer L - 1, the tile's partial sums over its
-//      128 features, part[tile][c][u] = sum_o h[u][o] W_{L-1}[o][c].
-template <int kEpi>
+//      features, part[tile][c][u] = sum_o h[u][o] W_{L-1}[o][c].
+template <int kEpi, int kNTt>
 __global__ void __launch_bounds__(kGThreads, 1) chain_stream_gemm_kernel(
     StreamDesc d, int l, int src) {
   extern __shared__ __align__(16) float sm[];
@@ -412,21 +425,21 @@ __global__ void __launch_bounds__(kGThreads, 1) chain_stream_gemm_kernel(
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, q = lane & 3, wm = warp / kWN, wn = warp % kWN;
   const StreamLayer ly = ld_row(d.layer + l);
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  float grp[kMT][kNT][4];
-  mainloop(grp, sm, src ? d.h1 : d.h0, d.R, d.wp + ly.wp_off, ly.wp_cols, m0,
-           n0, round_up(ly.fin, kGK) / kGK);
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * (8 * kWN * kNTt);
+  float grp[kMT][kNTt][4];
+  mainloop<kNTt>(grp, sm, src ? d.h1 : d.h0, d.R, d.wp + ly.wp_off,
+                 ly.wp_cols, m0, n0, round_up(ly.fin, kGK) / kGK);
 
   // ---- epilogue: fragment (i, j) holds rows 16 kMT wm + 16 i + g (+ 8)
-  // and columns 8 kNT wn + 8 j + 2 q (+ 1) of the tile; h in place ----
+  // and columns 8 kNTt wn + 8 j + 2 q (+ 1) of the tile; h in place ----
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < kNTt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int n = n0 + 8 * kNT * wn + 8 * j + 2 * q + (e & 1);
-        const float v = tot[((i * kNT + j) * 4 + e) * kGThreads + t] +
+        const int n = n0 + 8 * kNTt * wn + 8 * j + 2 * q + (e & 1);
+        const float v = tot[((i * kNTt + j) * 4 + e) * kGThreads + t] +
                         grp[i][j][e];
         grp[i][j][e] =
             n < ly.fout ? act1(ly.act, ly.w0, v + __ldg(ly.b + n)) : 0.f;
@@ -436,11 +449,11 @@ __global__ void __launch_bounds__(kGThreads, 1) chain_stream_gemm_kernel(
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
+      for (int j = 0; j < kNTt; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int m = m0 + 16 * kMT * wm + 16 * i + g + (e >= 2 ? 8 : 0);
-          const int n = n0 + 8 * kNT * wn + 8 * j + 2 * q + (e & 1);
+          const int n = n0 + 8 * kNTt * wn + 8 * j + 2 * q + (e & 1);
           if (kEpi == 0) {
             H[(size_t)n * d.R + m] = grp[i][j][e];
           } else if (n < d.c_out && d.base + m < d.n) {
@@ -455,12 +468,12 @@ __global__ void __launch_bounds__(kGThreads, 1) chain_stream_gemm_kernel(
   const StreamLayer nx = ld_row(d.layer + l + 1);
   float* red = sm;   // [kWN][c_out][kGM]
   for (int c = 0; c < d.c_out; ++c) {
-    float w[kNT][2];
+    float w[kNTt][2];
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < kNTt; ++j)
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        const int n = n0 + 8 * kNT * wn + 8 * j + 2 * q + p;
+        const int n = n0 + 8 * kNTt * wn + 8 * j + 2 * q + p;
         w[j][p] = n < nx.fin ? __ldg(nx.w + (size_t)n * d.c_out + c) : 0.f;
       }
 #pragma unroll
@@ -469,7 +482,7 @@ __global__ void __launch_bounds__(kGThreads, 1) chain_stream_gemm_kernel(
       for (int hh = 0; hh < 2; ++hh) {
         float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < kNT; ++j)
+        for (int j = 0; j < kNTt; ++j)
 #pragma unroll
           for (int p = 0; p < 2; ++p) s = fmaf(grp[i][j][2 * hh + p], w[j][p], s);
         s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -489,15 +502,29 @@ __global__ void __launch_bounds__(kGThreads, 1) chain_stream_gemm_kernel(
   }
 }
 
-template <int kEpi>
-cudaError_t gemm(const StreamDesc& d, int l, int src, dim3 grid,
-                 cudaStream_t s) {
+template <int kEpi, int kNTt>
+cudaError_t gemm_tile(const StreamDesc& d, int l, int src, dim3 grid,
+                      cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
-      chain_stream_gemm_kernel<kEpi>,
+      chain_stream_gemm_kernel<kEpi, kNTt>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   if (err != cudaSuccess) return err;
-  chain_stream_gemm_kernel<kEpi><<<grid, kGThreads, kGemmSmem, s>>>(d, l, src);
+  chain_stream_gemm_kernel<kEpi, kNTt>
+      <<<grid, kGThreads, kGemmSmem, s>>>(d, l, src);
   return cudaGetLastError();
+}
+
+// Square layer l (its row `ly` in host memory) on the chunk's `tiles` row
+// tiles, in the instance of its column tile (ly.gn: kGN or kGN64)
+template <int kEpi>
+cudaError_t gemm(const StreamDesc& d, const StreamLayer& ly, int l, int src,
+                 int tiles, cudaStream_t s) {
+  if (ly.gn == kGN)
+    return gemm_tile<kEpi, kNT>(d, l, src, dim3(ly.wp_cols / kGN, tiles), s);
+  if (ly.gn == kGN64)
+    return gemm_tile<kEpi, kNT / 2>(d, l, src,
+                                    dim3(ly.wp_cols / kGN64, tiles), s);
+  return cudaErrorInvalidValue;
 }
 
 template <class In, int kX, int kCO>
@@ -559,19 +586,18 @@ int launch_stream(const In& in, StreamDesc d, const StreamLayer* head,
     BRIEF_CHECK(cudaGetLastError());
     int src = 0;
     for (int l = first; l < (tl ? L - 1 : L); ++l) {
-      const dim3 grid(head[l].wp_cols / kGN, tiles);
       if (l == L - 1) {
-        BRIEF_CHECK(gemm<1>(d, l, src, grid, s));
+        BRIEF_CHECK(gemm<1>(d, head[l], l, src, tiles, s));
       } else if (tl && l == L - 2) {
-        BRIEF_CHECK(gemm<2>(d, l, src, grid, s));
+        BRIEF_CHECK(gemm<2>(d, head[l], l, src, tiles, s));
       } else {
-        BRIEF_CHECK(gemm<0>(d, l, src, grid, s));
+        BRIEF_CHECK(gemm<0>(d, head[l], l, src, tiles, s));
         src ^= 1;
       }
     }
     if (tl) {
       chain_stream_end_kernel<<<(rows + 255) / 256, 256, 0, s>>>(
-          d, head[L - 2].wp_cols / kGN, rows);
+          d, head[L - 2].wp_cols / head[L - 2].gn, rows);
       BRIEF_CHECK(cudaGetLastError());
     }
   }

@@ -10,8 +10,9 @@
 //   void wide_input(float* X, long long base, const ChainDesc& d) const;
 // and the caller launches through launch_chain<In>.  The chain's layers
 // are rows of a table in device memory (ChainLayer, ops/fused_decode.py
-// chain_table), so a chain may have any depth; the wide form's scratch
-// rows hold any width.
+// chain_table), so a chain may have any depth.  Its widths are at most
+// 256 features (the input's too): a wider chain takes the streamed form,
+// csrc/chain_stream.cuh.
 //
 // Design (ops/fused_decode.py narrow_plan / wide_plan pick the form):
 //  * M = 16 rows, N = 8 outputs, K = 8 inputs; the bias starts the
@@ -34,7 +35,7 @@
 //    in pairs so that nothing is copied); no shared activation store, no
 //    barrier per tile.  Paced by instruction issue: the sines (15
 //    instructions each) and the splits beside the mma.
-//  * The wide form (chain_wide_kernel<In, kNW, kGlobal>): a persistent
+//  * The wide form (chain_wide_kernel<In, kNW>): a persistent
 //    block of 8 warps carries 128 rows at a time; each layer's B fragments
 //    stream through a ring of k-block slabs in shared memory (SlabRing:
 //    one thread issues each slab as a TMA bulk copy, mbarriers count the
@@ -43,12 +44,10 @@
 //    as the last one has, one m-tile with all of them), so every 16-byte
 //    fragment read feeds 8 row tiles.  The layer's input lives in shared
 //    memory (feature-major rows of 132 floats: fragment reads hit 32
-//    banks) and the output is written over it after a barrier.  Chains
-//    with a layer wider than 256, or an input too wide for shared memory
-//    (kGlobal), keep two activation buffers per block in a device scratch
-//    instead and take the outputs in passes of 32 n-tiles.  One block of 8
-//    warps an SM: paced by mma.sync between its barriers, and by the
-//    epilogues all 8 warps take together.
+//    banks) and the output is written over it after a barrier: a layer of
+//    at most 32 n-tiles (256 features) in one pass.  One block of 8 warps
+//    an SM: paced by mma.sync between its barriers, and by the epilogues
+//    all 8 warps take together.
 //  * Sums.  An H100's mma.sync TF32 truncates its 8 products and the
 //    accumulator 2 bits below float32's last bit at the largest exponent
 //    among them (a product's taken as the sum of its factors'), adds them
@@ -80,7 +79,6 @@ constexpr int kWideM = 8;                   // wide form: m-tiles a block tile
 constexpr int kWideVox = 16 * kWideM;       // rows a block tile
 constexpr int kWideStride = kWideVox + 4;   // activation row, floats
 constexpr int kMaxStages = 8;               // wide form: slabs in the ring
-constexpr int kGroupK = 32;                 // wide form: k-blocks a group
 constexpr int kBarFloats = 4 * kMaxStages;  // wide form: the ring's barriers
 
 __host__ __device__ constexpr int min_c(int a, int b) { return a < b ? a : b; }
@@ -103,7 +101,7 @@ static_assert(sizeof(ChainLayer) == 48, "ops/fused_decode.py CHAIN_ROW_WORDS");
 // kernels compiled for chains of at most kParamLayers layers.
 struct ChainDesc {
   long long n;
-  int n_layers, c_in, c_out, in_rows, n_tiles, rows, stages;
+  int n_layers, c_in, c_out, in_rows, n_tiles, stages;
   const ChainLayer* layer;
   ChainLayer head[kParamLayers];
 };
@@ -413,8 +411,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) chain_narrow_kernel(
 // One k-block of the wide form's product for one warp: c[j][m] += A_m B_j
 // in 3xTF32 for kJ of its n-tiles (slab fragments jb + js j) and kMt
 // m-tiles (A: rows 2t, 2t + 1 of the k-block, rows xa + 16 m and + 8).
-// No branch inside.  Every A fragment is loaded first (the scratch form's
-// come from device memory), then the tiles go in groups of 2 m-tiles x
+// No branch inside.  Every A fragment is loaded first, then the tiles go
+// in groups of 2 m-tiles x
 // kJ n-tiles, each A fragment split as its group needs it: each tile's
 // three products summed from zero, term by term across the group, then
 // added to c in float32.
@@ -517,10 +515,10 @@ struct SlabRing {
   }
 };
 
-template <class In, int kNW, bool kGlobal, bool kDeep>
+template <class In, int kNW, bool kDeep>
 __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
     const float* __restrict__ packed, const In in, float* __restrict__ out,
-    float* __restrict__ scratch, ChainDesc d) {
+    ChainDesc d) {
   constexpr int kP = kWarps * kNW;   // n-tiles per pass
   constexpr int kSlab = 32 * kP;     // float4 per slab
   constexpr int S = kWideStride;
@@ -533,9 +531,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
   ring.tile = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, L = d.n_layers;
-  float* const X0 = kGlobal
-      ? scratch + (size_t)blockIdx.x * 2 * d.rows * S
-      : sm + kBarFloats + d.stages * kSlab * 4;
+  float* const X = sm + kBarFloats + d.stages * kSlab * 4;
   if (threadIdx.x == 0) {
     for (int i = 0; i < d.stages; ++i) {
       mbar_init(ring.full + i, 1);
@@ -545,12 +541,9 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
     for (int i = 0; i < d.stages - 1; ++i) ring.produce(d, packed);
   }
   int stage = 0, phase = 0;   // the next slab to consume, its fill
-  float* const Y0 = kGlobal ? X0 + (size_t)d.rows * S : X0;
 
   for (int tile = blockIdx.x; tile < d.n_tiles; tile += gridDim.x) {
     const long long base = (long long)tile * kWideVox;
-    float* X = X0;
-    float* Y = Y0;
     __syncthreads();   // the previous tile's last layer has read X
     in.wide_input(X, base, d);   // rows 0 .. in_rows - 1 of layer 0's input
     for (int l = 0; l < L; ++l) {
@@ -582,26 +575,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
             c[j][m][1] = c[j][m][3] = bv.y;
           }
         }
-        // A warp with one m-tile (msplit) and a long reduction sums its
-        // k-blocks in groups of kGroupK from zero, keeping the running
-        // total in the second m-tile's accumulators (free in this path),
-        // and adds each group's sum to it: float32's rounding then grows
-        // with the groups and the group's k-blocks, not with all k-blocks
-        // (a 20,971-wide input's 2,622 k-blocks in one running sum put
-        // the output 3.9x further from float64 than the plain version's).
-        // Only the scratch instance (kGlobal), which every layer past 256
-        // features takes: the code cost the others registers and 6%.
-        const bool grouped = kGlobal && msplit && KB > kGroupK;
         for (int kb = 0; kb < KB; ++kb) {
-          if (grouped && kb % kGroupK == 0) {   // a group starts from zero
-#pragma unroll
-            for (int j = 0; j < kNW; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                c[j][1][e] = c[j][0][e];
-                c[j][0][e] = 0.f;
-              }
-          }
           mbar_wait(ring.full + stage, phase);
           const float4* ws = ring.slab + stage * kSlab;
           const float* xa = X + (8 * kb + 2 * t) * S + 16 * m0 + g;
@@ -620,12 +594,6 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
               case 3: wide_step<kNW, min_c(3, kNW), kWideM>(c, ws, jb, js, xa, lane); break;
               default: wide_step<kNW, min_c(4, kNW), kWideM>(c, ws, jb, js, xa, lane);
             }
-          }
-          if (grouped && ((kb + 1) % kGroupK == 0 || kb + 1 == KB)) {
-#pragma unroll
-            for (int j = 0; j < kNW; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) c[j][0][e] += c[j][1][e];
           }
           __syncwarp();
           if (lane == 0) mbar_arrive(ring.empty + stage);   // released
@@ -655,12 +623,12 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
           }
           continue;
         }
-        if (!kGlobal) __syncthreads();   // every warp has read X: in place
+        __syncthreads();   // every warp has read X: in place
 #pragma unroll
         for (int j = 0; j < kNW; ++j) {
           const int n = jb + js * j;
           if (n < np) {
-            float* y = Y + (8 * (nb + n) + 2 * t) * S + 16 * m0 + g;
+            float* y = X + (8 * (nb + n) + 2 * t) * S + 16 * m0 + g;
 #pragma unroll
             for (int m = 0; m < kWideM; ++m) {
               if (m < mc) {
@@ -672,11 +640,6 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wide_kernel(
             }
           }
         }
-      }
-      if (kGlobal) {
-        float* sw = X;
-        X = Y;
-        Y = sw;
       }
     }
   }
@@ -695,15 +658,15 @@ int launch(Kernel kernel, int grid, int smem_bytes, cudaStream_t s,
   return (int)cudaGetLastError();
 }
 
-// Host: launch form 0 (narrow, inst = kNT), 1 (wide, inst = kNW) or 2
-// (wide with its activations in `scratch`, inst 4) on stream s, the
-// instances for chains of any depth (kDeep) or of at most kParamLayers
-// layers; packed holds pack_kernel's output for the wide forms (the narrow
-// form splits the weights itself and ignores it).  Returns a cudaError_t.
+// Host: launch form 0 (narrow, inst = kNT) or 1 (wide, inst = kNW) on
+// stream s, the instances for chains of any depth (kDeep) or of at most
+// kParamLayers layers; packed holds pack_kernel's output for the wide form
+// (the narrow form splits the weights itself and ignores it).  Returns a
+// cudaError_t.
 template <class In, bool kDeep>
 int launch_form(const ChainDesc& d, const In& in, const float* packed,
-                float* out, float* scratch, int form, int inst, int grid,
-                int smem_bytes, cudaStream_t s) {
+                float* out, int form, int inst, int grid, int smem_bytes,
+                cudaStream_t s) {
   if (form == 0) {
     switch (inst) {   // kNT, m-tiles a warp, blocks an SM
       case 3: return launch(chain_narrow_kernel<In, 3, 2, 2, kDeep>, grid,
@@ -717,21 +680,18 @@ int launch_form(const ChainDesc& d, const In& in, const float* packed,
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if ((form != 1 && form != 2) || packed == nullptr || d.stages < 2 ||
-      d.stages > kMaxStages || (form == 2 && (scratch == nullptr || inst != 4)))
+  if (form != 1 || packed == nullptr || d.stages < 2 ||
+      d.stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  if (form == 2)
-    return launch(chain_wide_kernel<In, 4, true, kDeep>, grid, smem_bytes, s,
-                  packed, in, out, scratch, d);
   switch (inst) {
-    case 1: return launch(chain_wide_kernel<In, 1, false, kDeep>, grid,
-                          smem_bytes, s, packed, in, out, scratch, d);
-    case 2: return launch(chain_wide_kernel<In, 2, false, kDeep>, grid,
-                          smem_bytes, s, packed, in, out, scratch, d);
-    case 3: return launch(chain_wide_kernel<In, 3, false, kDeep>, grid,
-                          smem_bytes, s, packed, in, out, scratch, d);
-    case 4: return launch(chain_wide_kernel<In, 4, false, kDeep>, grid,
-                          smem_bytes, s, packed, in, out, scratch, d);
+    case 1: return launch(chain_wide_kernel<In, 1, kDeep>, grid, smem_bytes,
+                          s, packed, in, out, d);
+    case 2: return launch(chain_wide_kernel<In, 2, kDeep>, grid, smem_bytes,
+                          s, packed, in, out, d);
+    case 3: return launch(chain_wide_kernel<In, 3, kDeep>, grid, smem_bytes,
+                          s, packed, in, out, d);
+    case 4: return launch(chain_wide_kernel<In, 4, kDeep>, grid, smem_bytes,
+                          s, packed, in, out, d);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -742,14 +702,14 @@ int launch_form(const ChainDesc& d, const In& in, const float* packed,
 // read the device table.
 template <class In>
 int launch_chain(ChainDesc& d, const void* head_rows, const In& in,
-                 const float* packed, float* out, float* scratch, int form,
-                 int inst, int grid, int smem_bytes, cudaStream_t s) {
+                 const float* packed, float* out, int form, int inst,
+                 int grid, int smem_bytes, cudaStream_t s) {
   if (d.n_layers > kParamLayers)
-    return launch_form<In, true>(d, in, packed, out, scratch, form, inst,
-                                 grid, smem_bytes, s);
+    return launch_form<In, true>(d, in, packed, out, form, inst, grid,
+                                 smem_bytes, s);
   if (head_rows == nullptr) return (int)cudaErrorInvalidValue;
   memcpy(d.head, head_rows, d.n_layers * sizeof(ChainLayer));
-  return launch_form<In, false>(d, in, packed, out, scratch, form, inst, grid,
+  return launch_form<In, false>(d, in, packed, out, form, inst, grid,
                                 smem_bytes, s);
 }
 

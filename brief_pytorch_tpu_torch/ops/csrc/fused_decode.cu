@@ -31,7 +31,7 @@
 //    The divisions are 32-bit multiply-shifts prepared on the host
 //    (ops/fused_decode.py fast_divisor); grids of 2^31 voxels or more
 //    take 64-bit division.
-//  * Chains with a layer wider than 3,327 features take the streamed form
+//  * Chains with a layer wider than 256 features take the streamed form
 //    of csrc/chain_stream.cuh (brief_fused_decode_stream): its thin end
 //    layers as reductions, its square layers on 128 x 128 tensor-core
 //    tiles, the coordinates from GridInput::coord.
@@ -198,7 +198,7 @@ struct GridInput {
 };
 
 // Device kernels brief_fused_decode has launched in this process: one a
-// call in the narrow form, two in the wide forms (pack_kernel first); and
+// call in the narrow form, two in the wide form (pack_kernel first); and
 // those of brief_fused_decode_stream (ops/chain_stream.py stream_kernels).
 unsigned long long kernels_launched = 0;
 
@@ -208,16 +208,14 @@ extern "C" {
 
 // The decode of one grid (ops/fused_decode.py fused_decode_grid).
 // meta: n_layers, c_in (the grid's axes), c_out, has_enc, index64,
-// n_tiles, rows, stages (wide form), in_rows, pack_blocks (wide form).
+// n_tiles, stages (wide form), in_rows, pack_blocks (wide form).
 // fmeta: lo, step, enc_scale0.  table: device memory, n_layers
 // ChainLayer rows then c_in GridAxis rows (ops/fused_decode.py
 // chain_table, axis_table); head: the same words in host memory.  form:
-// 0 narrow (inst = kNT), 1 wide (inst = kNW), 2 wide with its activations
-// in `scratch`.  packed: scratch for the wide forms' split weights (unused
-// by the narrow form).
+// 0 narrow (inst = kNT), 1 wide (inst = kNW).  packed: scratch for the
+// wide form's split weights (unused by the narrow form).
 int brief_fused_decode(const float* tables, float* out, float* packed,
-                       float* scratch, const void* table,
-                       const void* head, long long pop,
+                       const void* table, const void* head, long long pop,
                        const int* meta, const float* fmeta, int form,
                        int inst, int grid, int smem_bytes, void* stream) {
   ChainDesc d;
@@ -230,10 +228,9 @@ int brief_fused_decode(const float* tables, float* out, float* packed,
   in.has_enc = meta[3];
   in.index64 = meta[4];
   d.n_tiles = meta[5];
-  d.rows = meta[6];
-  d.stages = meta[7];
-  d.in_rows = meta[8];
-  const int pack_blocks = meta[9];
+  d.stages = meta[6];
+  d.in_rows = meta[7];
+  const int pack_blocks = meta[8];
   if (d.c_in < 2) return (int)cudaErrorInvalidValue;
   d.n = pop;
   d.layer = static_cast<const brief::ChainLayer*>(table);
@@ -265,14 +262,14 @@ int brief_fused_decode(const float* tables, float* out, float* packed,
     if (err != cudaSuccess) return (int)err;
     ++kernels_launched;
   }
-  const int err = brief::launch_chain(d, head, in, packed, out, scratch,
-                                      form, inst, grid, smem_bytes, s);
+  const int err = brief::launch_chain(d, head, in, packed, out, form, inst,
+                                      grid, smem_bytes, s);
   if (err == (int)cudaSuccess) ++kernels_launched;
   return err;
 }
 
 // The decode of one grid in the streamed form (csrc/chain_stream.cuh;
-// ops/chain_stream.py, every chain with a layer wider than 3,327
+// ops/chain_stream.py, every chain with a layer wider than 256
 // features).  meta: n_layers, c_in (the grid's axes), c_out, has_enc,
 // index64, R (rows a chunk), S (splits of the thin sums), n_fb (their
 // feature blocks), pack_blocks, h_floats (floats of one H buffer).  fmeta:

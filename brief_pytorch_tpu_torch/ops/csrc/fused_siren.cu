@@ -5,8 +5,8 @@
 // (_make_kernel / _fused_forward, entry fused_chain_apply):
 // h <- act_l(w0_l * (h @ W_l + b_l)) through every layer, coords (N, C)
 // row-major -> out (N, Cout) row-major, with no activation written to
-// device memory between layers (the wide form's scratch past 256
-// features aside).
+// device memory between layers (chains past 256 features, which take the
+// streamed form, aside).
 //
 // What bounds it on an H100: operations.  SIREN 5 x 22 on N = 262,144
 // coordinates reads and writes ~4.2 MB (3.35 TB/s: ~1.3 us) but does ~0.8
@@ -24,20 +24,20 @@
 //    shared memory, so a call is one launch; lane (g, t) of a warp loads
 //    features 8k + 2t and 8k + 2t + 1 of rows v0 + 16 m + g and + 8
 //    straight from the row-major array into its C fragments;
-//  * the wide form (every other chain, of any depth and width, any C):
-//    pack_kernel splits the weights once per call for the TMA slab ring;
-//    each 128-row tile's input is copied from the contiguous rows into
-//    feature-major rows of 132 floats (consecutive threads on consecutive
-//    addresses), in a device scratch past 256 features;
+//  * the wide form (every other chain of at most 256 features, of any
+//    depth, C included): pack_kernel splits the weights once per call for
+//    the TMA slab ring; each 128-row tile's input is copied from the
+//    contiguous rows into feature-major rows of 132 floats in shared
+//    memory (consecutive threads on consecutive addresses);
 //  * rows past N are clamped to N - 1 and never stored; offsets are 64-bit
 //    (N * C may pass 2^31);
 //  * the sums are chain_tc.cuh's: each k-block's three products
 //    summed from zero and added with a float32 add, the small parts
 //    rounded to TF32, so the chain keeps float32's accuracy (the tensor
 //    core truncates its sums);
-//  * chains with a layer wider than 3,327 features take the streamed form
-//    of csrc/chain_stream.cuh (brief_fused_siren_stream), the rows read
-//    by RowInput::coord.
+//  * chains with a layer (or an input) wider than 256 features take the
+//    streamed form of csrc/chain_stream.cuh (brief_fused_siren_stream),
+//    the rows read by RowInput::coord.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,15 +114,13 @@ struct RowInput {
 extern "C" {
 
 // The forward of one call (ops/fused_siren.py _launch).  meta: n_layers,
-// c_in, c_out, n_tiles, rows, stages (wide form), in_rows, pack_blocks
-// (wide form).  table: device memory, n_layers ChainLayer rows
+// c_in, c_out, n_tiles, stages (wide form), in_rows, pack_blocks (wide
+// form).  table: device memory, n_layers ChainLayer rows
 // (ops/fused_decode.py chain_table); head: the same rows in host memory.
-// form: 0 narrow (inst = kNT; packed unused), 1 wide (inst = kNW), 2 wide
-// with its activations in `scratch`; packed: device memory for the wide
-// forms' split weights.
+// form: 0 narrow (inst = kNT; packed unused), 1 wide (inst = kNW); packed:
+// device memory for the wide form's split weights.
 int brief_fused_siren(const float* coords, float* out, float* packed,
-                      float* scratch, const void* table,
-                      const void* head, long long n,
+                      const void* table, const void* head, long long n,
                       const int* meta, int form, int inst, int grid,
                       int smem_bytes, void* stream) {
   ChainDesc d;
@@ -133,10 +131,9 @@ int brief_fused_siren(const float* coords, float* out, float* packed,
   d.c_in = meta[1];
   d.c_out = meta[2];
   d.n_tiles = meta[3];
-  d.rows = meta[4];
-  d.stages = meta[5];
-  d.in_rows = meta[6];
-  const int pack_blocks = meta[7];
+  d.stages = meta[4];
+  d.in_rows = meta[5];
+  const int pack_blocks = meta[6];
   if (d.c_in < 1 || d.c_out < 1) return (int)cudaErrorInvalidValue;
   d.layer = static_cast<const brief::ChainLayer*>(table);
   const RowInput in{coords};
@@ -146,12 +143,12 @@ int brief_fused_siren(const float* coords, float* out, float* packed,
     if (err != cudaSuccess) return (int)err;
   }
   return brief::launch_chain(d, head, in, form == 0 ? nullptr : packed,
-                             out, scratch, form, inst, grid, smem_bytes, s);
+                             out, form, inst, grid, smem_bytes, s);
 }
 
 // The forward of one call in the streamed form (csrc/chain_stream.cuh;
-// ops/chain_stream.py, every chain with a layer wider than 3,327
-// features).  meta: n_layers, c_in, c_out, R (rows a chunk), S (splits of
+// ops/chain_stream.py, every chain with a layer or an input wider than
+// 256 features).  meta: n_layers, c_in, c_out, R (rows a chunk), S (splits of
 // the thin sums), n_fb (their feature blocks), pack_blocks, h_floats
 // (floats of one H buffer).  table: device memory, n_layers StreamLayer
 // rows (ops/chain_stream.py stream_table); head: the same rows in host

@@ -24,18 +24,18 @@ Three forms (`choose_plan`):
     (one launch a call), resident in its shared memory; each warp carries
     16 voxels through the chain with a layer's input and output in
     registers (kNT n-tiles each, NARROW_NT);
-  * wide (`wide_plan`; the SingleTask default on the 64x512x512 demo
-    volumes, 5 x 191 and 5 x 242): blocks of 128 voxels, the pre-split
-    weights streamed through shared memory in k-block slabs, each warp
-    kNW n-tiles of all 8 voxel tiles, the weights split once per call by
-    pack_kernel (two launches a call); the layer's input in shared memory
-    (or, past 256 features, in a device scratch, which holds any width);
-    as many slabs in flight as shared memory holds (up to MAX_STAGES);
+  * wide (`wide_plan`; chains of at most 256 features, e.g. the
+    SingleTask default on the 64x512x512 demo volumes, 5 x 191 and
+    5 x 242): blocks of 128 voxels, the pre-split weights streamed
+    through shared memory in k-block slabs, each warp kNW n-tiles of all
+    8 voxel tiles, the weights split once per call by pack_kernel (two
+    launches a call); the layer's input in shared memory; as many slabs
+    in flight as shared memory holds (up to MAX_STAGES);
   * streamed (ops/chain_stream.py, csrc/chain_stream.cuh; every chain
-    with a layer wider than 3,327 features, e.g. 3-22213-1 on the demo
-    volume at 80x with Module.phi.layers 2): thin end layers as
-    reductions, square layers on 128 x 128 tensor-core tiles, the rows
-    in chunks of bounded scratch.
+    with a layer wider than 256 features, e.g. 3-383x4-1 on the demo
+    volume at ~20x, or 3-22213-1 at 80x with Module.phi.layers 2): thin
+    end layers as reductions, square layers on tensor-core tiles of 128
+    rows and 128 or 64 columns, the rows in chunks of bounded scratch.
 The chain's layers and the grid's axes are rows of a table in device
 memory (`chain_table`, `axis_table`; ops/chain.py layer_table), made once
 per chain and grid, so neither bounds the kernel.  `supports` takes the
@@ -103,7 +103,7 @@ stream_launches = 0          # those in the streamed form (ops/chain_stream.py)
 _SIGNATURES = {
     "brief_fused_decode": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p],
@@ -153,31 +153,30 @@ def narrow_plan(widths: Sequence[int]) -> Optional[Dict]:
     blocks = min(SM_SMEM // (smem + 1024), reg_blocks)
     return {"layout": "narrow", "inst": inst, "tile": 16 * m_tiles,
             "smem_bytes": smem,
-            "blocks_per_sm": blocks, "warps_per_sm": WARPS * blocks,
-            "rows": 0, "global": False, **lay}
+            "blocks_per_sm": blocks, "warps_per_sm": WARPS * blocks, **lay}
 
 
 def wide_plan(widths: Sequence[int]) -> Dict:
-    """The wide form: kNW n-tiles a warp (a layer in one pass up to 32
-    n-tiles, 256 features); the layer input's rows (8 x the most
-    k-blocks) of WIDE_STRIDE floats in shared memory, or, past 256
-    features or where those rows leave no room for two slabs, two such
-    buffers per block in a device scratch (`global`, kNW 4); beside them
-    a ring of as many slabs of 8 x kNW fragments as fit, up to
-    MAX_STAGES."""
+    """The wide form: kNW n-tiles a warp (a layer in one pass, at most 32
+    n-tiles: 256 features); the layer input's rows (8 x the most
+    k-blocks) of WIDE_STRIDE floats in shared memory, beside a ring of as
+    many slabs of 8 x kNW fragments as fit, up to MAX_STAGES.  Raises for
+    a chain those rows would not hold (a layer or an input wider than
+    256 features: chain_stream.takes), which takes the streamed form."""
     lay = packed_layout(widths)
     nw = min(4, _cdiv(max(lay["nt"]), WARPS))
     rows = 8 * max(lay["kb"])
-    glob = max(lay["nt"]) > WARPS * nw or BARRIER_BYTES + 4 * rows * \
-        WIDE_STRIDE + 2 * WARPS * nw * FRAG_BYTES > SMEM_LIMIT
-    nw = 4 if glob else nw
-    fixed = BARRIER_BYTES + (0 if glob else 4 * rows * WIDE_STRIDE)
+    fixed = BARRIER_BYTES + 4 * rows * WIDE_STRIDE
     slab = WARPS * nw * FRAG_BYTES
+    if max(lay["nt"]) > WARPS * nw or fixed + 2 * slab > SMEM_LIMIT:
+        raise ValueError(f"chain widths {list(widths)}: wider than the wide "
+                         f"form's shared memory holds (the streamed form "
+                         f"takes it)")
     stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slab)
     return {"layout": "wide", "inst": nw, "tile": 16 * WIDE_M,
             "smem_bytes": fixed + stages * slab,
             "stages": stages, "blocks_per_sm": 1, "warps_per_sm": WARPS,
-            "rows": rows, "global": glob, **lay}
+            **lay}
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,12 +189,14 @@ def _choose(widths: Tuple[int, ...]) -> Dict:
 
 def choose_plan(widths: Sequence[int]) -> Dict:
     """The streamed form (ops/chain_stream.py) for a chain with a layer
-    wider than 3,327 features; else the narrow form where it fits (grids of
-    up to NARROW_AXES axes, whose coordinates fill k-block 0), else the
-    wide form, for a chain of any depth and width (widths[0]: the
-    coordinates, any number).  The plan states its form (`layout`, and
-    `stream` for the streamed one), instance (`inst`: kNT or kNW), voxels
-    a warp or block tile (`tile`), shared memory and warps per SM."""
+    wider than 256 features (chain_stream.STREAM_WIDTH); else the narrow
+    form where it fits (grids of up to NARROW_AXES axes, whose coordinates
+    fill k-block 0), else the wide form with its activations in shared
+    memory: a chain of any depth (widths[0]: the coordinates, any
+    number).  The plan states its form (`layout`, and `stream` for the
+    streamed one), instance (`inst`: kNT or kNW), voxels a warp or block
+    tile (`tile`), shared memory and warps per SM; only the streamed
+    form keeps activations in a device scratch."""
     return dict(_choose(tuple(int(w) for w in widths)))
 
 
@@ -435,8 +436,8 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     lo, step, scale = _lead_affine(spatial, mode, enc_periods)
     index64 = pop >= 1 << 31
     meta = [len(layers), widths[0], widths[-1], int(enc_periods is not None),
-            int(index64), n_tiles, p["rows"], p.get("stages", 0),
-            8 * p["kb"][0], p["pack_blocks"]]
+            int(index64), n_tiles, p.get("stages", 0), 8 * p["kb"][0],
+            p["pack_blocks"]]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     fmeta_c = (ctypes.c_float * 3)(lo, step, scale)
     wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
@@ -449,18 +450,15 @@ def fused_decode_grid(layers, spatial: Sequence[int], acts: LayerSpec,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_block = p["tile"] * (WARPS if p["layout"] == "narrow" else 1)
     grid = min(_cdiv(pop, per_block), sms * p["blocks_per_sm"])
-    form = 0 if p["layout"] == "narrow" else 2 if p["global"] else 1
+    form = 0 if p["layout"] == "narrow" else 1
     out = torch.empty((pop, widths[-1]), dtype=torch.float32, device=device)
     packed = torch.empty(p["packed_floats"] if form else 0,
                          dtype=torch.float32, device=device)
-    scratch = torch.empty(grid * 2 * p["rows"] * WIDE_STRIDE if p["global"]
-                          else 0, dtype=torch.float32, device=device)
     lib = build.library("fused_decode", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
         build.check(lib.brief_fused_decode(
             tables.data_ptr(), out.data_ptr(),
-            packed.data_ptr() if form else None,
-            scratch.data_ptr() if p["global"] else None, table.data_ptr(),
+            packed.data_ptr() if form else None, table.data_ptr(),
             head, pop, meta_c, fmeta_c, form, p["inst"], grid, p["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream), "fused_decode")
     launches += 1
@@ -503,7 +501,7 @@ def _decode_stream(p, layers, widths, spatial, acts, mode, enc_periods,
 def kernels_launched() -> int:
     """Device kernels the decode library has launched in this process (its
     own count, kept where it launches them): one a call in the narrow form,
-    two in the wide forms (pack_kernel, then the chain), and
+    two in the wide form (pack_kernel, then the chain), and
     chain_stream.stream_call's `kernels` in the streamed form.  Needs the
     card."""
     from brief_pytorch_tpu_torch.ops import build

@@ -21,17 +21,17 @@ fused_decode's plans do:
     block's shared memory, at most 12 n-tiles and input k-blocks): each
     block splits the weights while it loads them, so a call is one
     launch;
-  * wide (`fused_decode.wide_plan`, every other chain up to 3,327
-    features): the weights split once per call and streamed through a
-    TMA slab ring, 128-row tiles, the activations in a device scratch
-    past 256 features;
+  * wide (`fused_decode.wide_plan`, every other chain of at most 256
+    features, C included): the weights split once per call and streamed
+    through a TMA slab ring, 128-row tiles, the activations in shared
+    memory;
   * streamed (ops/chain_stream.py, csrc/chain_stream.cuh; a layer or the
-    input wider than 3,327 features): thin end layers as reductions,
-    square layers on 128 x 128 tensor-core tiles, the rows in chunks.
+    input wider than 256 features): thin end layers as reductions,
+    square layers on tensor-core tiles of 128 rows and 128 or 64
+    columns, the rows in chunks.
 It takes every plain chain, of any depth and width and any C: the
 chain's layers are rows of a table in device memory
-(`fused_decode.chain_table`), and the wide form's scratch holds any
-width.
+(`fused_decode.chain_table`, `chain_stream.stream_table`).
 Its sums keep float32's accuracy where the tensor core's own truncate
 (each k-block's three 3xTF32 products summed from zero and added in
 float32, the small parts rounded: chain_tc.cuh's sums, kernel 2's too);
@@ -54,17 +54,16 @@ import torch
 from brief_pytorch_tpu_torch.ops import chain_stream, fused_decode
 from brief_pytorch_tpu_torch.ops.chain import (LayerSpec, chain_layer_specs,
                                                layer_table, make_pre_encode)
-from brief_pytorch_tpu_torch.ops.fused_decode import (WARPS, WIDE_STRIDE,
-                                                      chain_table)
+from brief_pytorch_tpu_torch.ops.fused_decode import WARPS, chain_table
 from brief_pytorch_tpu_torch.ops.tc_model import (  # noqa: F401
-    GROUP_K, act as _act, mma_tf32_model, tf32_split, tf32_split_nearest)
+    act as _act, mma_tf32_model, tf32_split, tf32_split_nearest)
 
 launches = 0                 # kernel launches, for proof that a run used it
 stream_launches = 0          # those in the streamed form (ops/chain_stream.py)
 
 _SIGNATURES = {"brief_fused_siren": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "brief_fused_siren_stream": [
@@ -83,12 +82,13 @@ def _choose(widths: Tuple[int, ...]) -> Dict:
 
 def choose_plan(widths: Sequence[int]) -> Dict:
     """The streamed form (ops/chain_stream.py) for a chain with a layer (or
-    an input) wider than 3,327 features, else the narrow form where it
-    fits, else the wide form, for a chain of any depth and width (C
-    included).  The plan states its form (`layout`, and `stream` for the
-    streamed one), instance (`inst`: kNT or kNW), rows a warp or block
-    tile (`tile`), shared memory (`smem_bytes`), warps per SM and whether
-    the activations live in a device scratch (`global`)."""
+    an input) wider than 256 features (chain_stream.STREAM_WIDTH), else
+    the narrow form where it fits, else the wide form with its activations
+    in shared memory, for a chain of any depth.  The plan states its form
+    (`layout`, and `stream` for the streamed one), instance (`inst`: kNT
+    or kNW), rows a warp or block tile (`tile`), shared memory
+    (`smem_bytes`) and warps per SM; only the streamed form keeps
+    activations in a device scratch."""
     return dict(_choose(tuple(int(w) for w in widths)))
 
 
@@ -141,11 +141,9 @@ def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
     kernels took before) split by tc_model.tf32_split and summed into
     the accumulator.  Rows are independent, so no tiles are needed; the
     k-block sums are independent too and go in batches of k-blocks.
-    Given the wide form's `plan` with its activations in a scratch
-    (`global`), a layer of at most plan["inst"] n-tiles and more than
-    GROUP_K k-blocks sums its k-blocks in groups of GROUP_K, each group's
-    sum added to the accumulator, as that form does.  Given the streamed
-    form's plan (`stream`), its arithmetic (chain_stream.stream_model).
+    Given the streamed form's plan (`stream`), its arithmetic
+    (chain_stream.stream_model); the narrow and wide forms' plans change
+    nothing.
     Kernel 2's rows are its voxels' coordinates
     (fused_decode.grid_coords)."""
     if plan is not None and plan.get("stream"):
@@ -164,24 +162,15 @@ def chain_tc_model(layers, coords: torch.Tensor, acts: LayerSpec,
         kb = wp.shape[0] // 8
         ab, as_ = split(h.view(n, kb, 8).transpose(0, 1).contiguous())
         bb, bs = bb.view(kb, 8, fout), bs.view(kb, 8, fout)
-        grouped = plan is not None and plan["layout"] == "wide" and \
-            plan["global"] and -(-fout // 8) <= plan["inst"] and \
-            kb > GROUP_K
         if nearest:
             step = max(1, (1 << 22) // (n * 9 * fout))    # k-blocks a batch
-            group, done = torch.zeros_like(c), 0
             for k0 in range(0, kb, step):
                 k = slice(k0, k0 + step)
                 s = mma_tf32_model(torch.zeros(ab[k].shape[0], n, fout),
                                    as_[k], bb[k])
                 s = mma_tf32_model(s, ab[k], bs[k])
                 for sk in mma_tf32_model(s, ab[k], bb[k]):
-                    if not grouped:
-                        c = c + sk
-                        continue
-                    group, done = group + sk, done + 1
-                    if done % GROUP_K == 0 or done == kb:
-                        c, group = c + group, torch.zeros_like(c)
+                    c = c + sk
         else:
             for k in range(kb):
                 c = mma_tf32_model(c, as_[k], bb[k])
@@ -236,8 +225,8 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
     n_tiles = -(-n // p["tile"])
     if n_tiles >= 1 << 31:
         raise ValueError(f"{n} coordinates is too many")
-    meta = [len(layers), widths[0], widths[-1], n_tiles, p["rows"],
-            p.get("stages", 0), 8 * p["kb"][0], p["pack_blocks"]]
+    meta = [len(layers), widths[0], widths[-1], n_tiles, p.get("stages", 0),
+            8 * p["kb"][0], p["pack_blocks"]]
     meta_c = (ctypes.c_int * len(meta))(*meta)
     wb = [t.contiguous() for layer in layers for t in (layer["w"], layer["b"])]
     ptrs = tuple(t.data_ptr() for t in wb)
@@ -248,18 +237,14 @@ def _launch(layers, coords: torch.Tensor, acts: LayerSpec) -> torch.Tensor:
     narrow = p["layout"] == "narrow"
     per_block = p["tile"] * (WARPS if narrow else 1)
     grid = min(-(-n // per_block), sms * p["blocks_per_sm"])
-    form = 0 if narrow else 2 if p["global"] else 1
+    form = 0 if narrow else 1
     packed = None if narrow else torch.empty(
         p["packed_floats"], dtype=torch.float32, device=device)
-    scratch = torch.empty(grid * 2 * p["rows"] * WIDE_STRIDE,
-                          dtype=torch.float32, device=device) \
-        if p["global"] else None
     lib = build.library("fused_siren", _SIGNATURES)
     with torch.cuda.device(device):    # the C side launches on the current one
         build.check(lib.brief_fused_siren(
             coords.data_ptr(), out.data_ptr(),
             None if packed is None else packed.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
             table.data_ptr(), head, n, meta_c, form, p["inst"], grid,
             p["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream), "fused_siren")

@@ -80,10 +80,11 @@ non-zero exit:
      SIREN_CASES: the slab the batch-major decode gives it (5 x 22, N =
      10,112) and the SingleTask default's full width (N = 262,144), a
      HiP-CT block's chain (3-64x6-1, N = 100,003: a tail that is no
-     multiple of any tile), the wide form (3-186x4-1; SIREN 3-1024x4-1 at
-     N = 65,536 with its activations in a device scratch), a
+     multiple of any tile), the wide form (3-186x4-1), the streamed form
+     past 256 features (SIREN 3-1024x4-1 at N = 65,536), a
      SIREN_Pyramid chain, SIREN_RELU and SIREN_SIGMOID, SIRENPos through
-     make_fused_apply, two coordinates (coords_channel 2): forward within
+     make_fused_apply, two coordinates (coords_channel 2), each plan
+     held to the form its case names: forward within
      2e-6 + 2e-6 * max|plain| (SIREN_TOL: 1e-5 * max|plain| + 1e-5 for
      3-1024x4-1, kernel 2's phase-4 tolerance), gradients of
      (out^2).mean() for every w, b and for coords within 1e-6 of autograd
@@ -235,12 +236,14 @@ non-zero exit:
      streamed fleet's loss and gradients within 2x the plain version's
      float64 distance), kernel 2 at
      REACH_DECODE (decode_check), kernel 3 at REACH_SIREN (siren_check);
-     past 3,327 features (3-20971-1, [3, 4096, 4096, 1]) kernels 2 and
-     3 run their streamed form (ops/chain_stream.py), its calls bitwise
-     equal and within F64_RATIO of the plain version's float64 distance
-     as every other form's; REACH_DECODE's reach-383 (3-383x4-1) keeps
-     the wide form's scratch instance (layers of 257-3,327 features)
-     under the same checks, each row's plan held to the form it names.
+     past 256 features (3-20971-1, [3, 4096, 4096, 1], and the range
+     of 257-3,327 features that the wide form's scratch instance once
+     took: REACH_DECODE's reach-257, reach-300 and reach-383, 3-Fx4-1 on
+     64^3, square layers in 64- and 128-column tiles) kernels
+     2 and 3 run their streamed form (ops/chain_stream.py), its calls
+     bitwise equal and within F64_RATIO of the plain version's float64
+     distance as every other form's, each row's plan held to the form it
+     names.
 Then one JSON line of the kernels, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}.
 
@@ -328,23 +331,28 @@ H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
 SINCOS_FLOPS = 25            # fast_sincos incl. the w0 multiplies
 SIN_FLOPS = 16               # fast_sin incl. the w0 multiply
-# phase 9: (label, family config, N, in the kernels line as)
+# phase 9: (label, family config, N, in the kernels line as, the form its
+# plan must take)
 SIREN_BASE = {"coords_channel": 3, "data_channel": 1, "layers": 5, "w0": 20}
 SIREN_CASES = [
-    ("slab", {"name": "SIREN", "features": 22}, 10_112, "main"),
-    ("default", {"name": "SIREN", "features": 22}, N_COORDS, "at_262144"),
+    ("slab", {"name": "SIREN", "features": 22}, 10_112, "main", "narrow"),
+    ("default", {"name": "SIREN", "features": 22}, N_COORDS, "at_262144",
+     "narrow"),
     ("hipct-block", {"name": "SIREN", "features": 64, "layers": 7, "w0": 10},
-     100_003, "hipct_block"),
-    ("wide", {"name": "SIREN", "features": 186}, N_COORDS, "wide"),
+     100_003, "hipct_block", "narrow"),
+    ("wide", {"name": "SIREN", "features": 186}, N_COORDS, "wide", "wide"),
     ("pyramid", {"name": "SIREN_Pyramid", "features": 27, "features_dis": 3},
-     N_COORDS, None),
-    ("relu", {"name": "SIREN_RELU", "features": 22}, N_COORDS, None),
-    ("sigmoid", {"name": "SIREN_SIGMOID", "features": 22}, N_COORDS, None),
+     N_COORDS, None, "narrow"),
+    ("relu", {"name": "SIREN_RELU", "features": 22}, N_COORDS, None,
+     "narrow"),
+    ("sigmoid", {"name": "SIREN_SIGMOID", "features": 22}, N_COORDS, None,
+     "narrow"),
     ("sirenpos", {"name": "SIRENPos", "features": 22, "T": [2.0, 3.0, 2.0]},
-     N_COORDS, None),
-    ("wide-1024", {"name": "SIREN", "features": 1024}, 65_536, "wide_1024"),
+     N_COORDS, None, "narrow"),
+    ("wide-1024", {"name": "SIREN", "features": 1024}, 65_536, "wide_1024",
+     "wide streamed"),
     ("c2", {"name": "SIREN", "features": 22, "coords_channel": 2}, N_COORDS,
-     None),
+     None, "narrow"),
 ]
 # phase 9 forward tolerance (absolute, times max|plain|) where it is not
 # the default (2e-6, 2e-6)
@@ -391,21 +399,25 @@ REACH_TRAIN = [   # (label, φ config over SIREN_BASE, N): the wide layout
 REACH_FLEETS = [("reach-fleet-4x32", (26, 28, 30, 32), 20),
                 ("reach-fleet-2x4096", (4000, 4096), 2)]
 # (label, grid, features, layers, the plain version's voxels at a time,
-# the form and `global` its plan must take).  reach-383 (3-383x4-1, the
-# demo volume's chain at ~20x) holds the wide form's scratch instance
-# (layers of 257-3,327 features), which no other phase's decode reaches
+# the form its plan must take).  reach-257, reach-300 and
+# reach-383 (3-383x4-1: the demo volume's chain at ~20x) hold the streamed
+# form on layers of 257-3,327 features (square layers in 64-column tiles
+# at 257 and 300, 128 at 383), which no other phase's decode reaches
 REACH_DECODE = [
-    ("reach-20x22", (64, 64, 64), 22, 20, None, ("narrow", False)),
-    ("reach-20971", (64, 64, 64), 20971, 2, 16_384, ("wide streamed", True)),
-    ("reach-5-axes", (4, 4, 8, 16, 32), 22, 5, None, ("wide", False)),
-    ("reach-4096", (64, 64, 64), 4096, 3, 65_536, ("wide streamed", True)),
-    ("reach-383", (64, 64, 64), 383, 5, None, ("wide", True))]
+    ("reach-20x22", (64, 64, 64), 22, 20, None, "narrow"),
+    ("reach-20971", (64, 64, 64), 20971, 2, 16_384, "wide streamed"),
+    ("reach-5-axes", (4, 4, 8, 16, 32), 22, 5, None, "wide"),
+    ("reach-4096", (64, 64, 64), 4096, 3, 65_536, "wide streamed"),
+    ("reach-383", (64, 64, 64), 383, 5, None, "wide streamed"),
+    ("reach-257", (64, 64, 64), 257, 5, None, "wide streamed"),
+    ("reach-300", (64, 64, 64), 300, 5, None, "wide streamed")]
+# (label, family config, N, the form its plan must take)
 REACH_SIREN = [("reach-4096", {"name": "SIREN", "features": 4096,
-                               "layers": 3}, 65_536),
+                               "layers": 3}, 65_536, "wide streamed"),
                ("reach-24", {"name": "SIREN", "features": 22, "layers": 24},
-                N_COORDS),
+                N_COORDS, "narrow"),
                ("reach-20971", {"name": "SIREN", "features": 20971,
-                                "layers": 2}, 65_536)]
+                                "layers": 2}, 65_536, "wide streamed")]
 # phase 3: chains the old narrow layout took, beyond the default's 5 x 22:
 # (label, family config, the layout the plan must pick)
 TRAIN_CASES = [
@@ -1026,8 +1038,9 @@ def f64_check(what: str, out, plain, truth, ratio: float,
 
 
 def siren_check(dev, label: str, cfg: dict, n: int,
-                phase: str = "9-fused_siren") -> dict:
-    """The batch-major forward kernel on one family at n coordinates:
+                phase: str = "9-fused_siren", form: str = None) -> dict:
+    """The batch-major forward kernel on one family at n coordinates, its
+    plan in `form` where given (form_name: narrow, wide or wide streamed):
     against its plain version (forward within SIREN_TOL; gradients of
     (out^2).mean() for every w, b and for coords against autograd through
     model.apply on the first GRAD_N coordinates), two runs bitwise equal,
@@ -1049,6 +1062,9 @@ def siren_check(dev, label: str, cfg: dict, n: int,
     plan = fused_siren.choose_plan(widths)
     if not fused_siren.supports(model):
         fail(f"fused_siren does not support {cfg}")
+    if form is not None and form_name(plan) != form:
+        fail(f"fused_siren {label} {widths}: plan {form_name(plan)}, want "
+             f"{form}")
     rng = np.random.default_rng(n)
     coords = torch.from_numpy(
         rng.uniform(-1, 1, (n, widths[0])).astype(np.float32)).to(dev)
@@ -2738,18 +2754,17 @@ def reach_kernels(dev) -> dict:
                           "coords_channel": len(spatial),
                           "features": features, "layers": layers})
         p = fused_decode.choose_plan(fused_siren.chain_widths(model.spec))
-        if (form_name(p), p["global"]) != form:
-            fail(f"fused_decode {label}: plan {form_name(p)}, global "
-                 f"{p['global']}, want {form}")
+        if form_name(p) != form:
+            fail(f"fused_decode {label}: plan {form_name(p)}, want {form}")
         params = model.init(torch.Generator().manual_seed(4), dev)
         rows["decode"][label] = decode_check(
             dev, label, spatial, params["layers"],
             chain_layer_specs(model.spec), phase="20d-fused_decode",
             plain_reps=3, slab=slab)
         torch.cuda.empty_cache()
-    for label, cfg, n in REACH_SIREN:
+    for label, cfg, n, form in REACH_SIREN:
         rows["siren"][label] = siren_check(dev, label, cfg, n,
-                                           phase="20d-fused_siren")
+                                           phase="20d-fused_siren", form=form)
         torch.cuda.empty_cache()
     return rows
 
@@ -3167,8 +3182,8 @@ def main() -> int:
 
     # ---- 9. kernel 3: the batch-major fused forward ----
     siren_rows = {}
-    for label, cfg9, n9, key in SIREN_CASES:
-        row = siren_check(dev, label, cfg9, n9)
+    for label, cfg9, n9, key, form9 in SIREN_CASES:
+        row = siren_check(dev, label, cfg9, n9, form=form9)
         if key is not None:
             siren_rows[key] = row
 
@@ -3324,6 +3339,12 @@ def main() -> int:
     singles = {k: v for k, v in reach.items()
                if k not in ("kernels", "hipct")}
 
+    def reach_form(kernel: str, streamed: bool) -> dict:
+        """Phase 20d's rows of kernel 2 or 3 in the streamed form, or in
+        the others."""
+        return {k: v for k, v in reach["kernels"][kernel].items()
+                if v["form"].endswith("streamed") == streamed}
+
     def reach_runs(key: str, layout: str) -> dict:
         """The SingleTask runs of phase 20 as one kernel saw them."""
         return {k: {"widths": v["widths"], "layout": v[layout],
@@ -3383,7 +3404,7 @@ def main() -> int:
          "media_2d": {**media_rows["png"]["decode"], "launches":
                       media_rows["png"]["run"]["decode_kernels"]},
          "phase13": resume_rows, "phase14": multitask_row,
-         "reach": {**reach["kernels"]["decode"],
+         "reach": {**reach_form("decode", False),
                    "runs": reach_runs("fused_decode", "decode_layout")}},
         {"name": "fused_decode_grid_streamed", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/chain_stream.cuh "
@@ -3392,14 +3413,15 @@ def main() -> int:
          "launches": reach["demo_2"]["launches"]["fused_decode_streamed"]
          + reach["demo_2"]["decompress_decode_launches"],
          "library_ms": None, **reach["kernels"]["decode"]["reach-20971"],
-         "at_4096": reach["kernels"]["decode"]["reach-4096"]},
+         "reach": reach_form("decode", True)},
         {"name": "fused_chain_apply_streamed", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/chain_stream.cuh "
                    "(+ csrc/fused_siren.cu, ops/chain_stream.py)",
          "replaces": "brief_pytorch_tpu/ops/pallas_siren.py:116",
          "launches": reach["demo_2"]["batch_major"]["stream_launches"],
          "library_ms": None, **reach["kernels"]["siren"]["reach-20971"],
-         "at_4096": reach["kernels"]["siren"]["reach-4096"],
+         "reach": reach_form("siren", True),
+         "at_1024": siren_rows["wide_1024"],
          "batch_major": reach["demo_2"]["batch_major"]},
         {"name": "fused_train_grads_wide", "route": "cuda",
          "source": "brief_pytorch_tpu_torch/ops/csrc/fused_train.cu "
@@ -3434,9 +3456,10 @@ def main() -> int:
          "replaces": "brief_pytorch_tpu/ops/pallas_siren.py:116",
          "launches": route10["launches"], "library_ms": None,
          **siren_rows["main"],
-         **{k: v for k, v in siren_rows.items() if k != "main"},
+         **{k: v for k, v in siren_rows.items()
+            if k not in ("main", "wide_1024")},
          "decode_route": route10,
-         "reach": {**reach["kernels"]["siren"], "batch_major": {
+         "reach": {**reach_form("siren", False), "batch_major": {
              k: v["batch_major"] for k, v in singles.items()
              if "batch_major" in v}}},
     ]

@@ -8,7 +8,8 @@ timer (CUDA events, median of 25) and bounds (decode_check).
     python3 scripts/time_fused_decode.py --root outputs/parent \\
         3-22x4-1:256x256x256
     python3 scripts/time_fused_decode.py --layout wide 3-66x6-1:64x256x256:10
-    python3 scripts/time_fused_decode.py --layout stream 3-383x4-1:64x512x512
+    python3 scripts/time_fused_decode.py --layout stream 3-242x4-1:64x512x512
+    python3 scripts/time_fused_decode.py --profile 3-257x4-1:64x256x256
 
 A shape is c_in-f x hidden-c_out:grid[:w0] (SIREN, w0 = 20 unless given),
 or c_in-f1,f2,...-c_out:grid[:w0] for uneven hidden widths; the grid has
@@ -19,8 +20,10 @@ checkout's chip_smoke.py (a build whose decode is further from float64
 than chip_smoke's F64_RATIO allows fails there unless --f64-ratio raises
 it).  --layout forces a form of the kernel (narrow
 or wide) where its plan fits, or the streamed form (ops/chain_stream.py,
-which takes any chain) below the 3,327 features where it starts.  Prints one JSON line per shape, then the
-card's name and power limit.
+which takes any chain) below the 256 features where it starts.
+--profile prints, after each shape's row, one
+call's device time by kernel name (torch.profiler).  Prints one JSON line
+per shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -50,6 +53,27 @@ def force_layout(fused_decode, layout: str) -> None:
     fused_decode.choose_plan = choose
 
 
+def kernel_profile(fn) -> dict:
+    """One call of fn() under torch.profiler: device ms by kernel name
+    (the name cut at its first parenthesis), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            name = e.key.split("(")[0][:80]
+            out[name] = round(out.get(name, 0.0) + us / 1e3, 4)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def siren_layers(widths, w0: float, dev):
     """SIREN's initialisation (the first layer U(-1/fin, 1/fin), the others
     U(-sqrt(6/fin)/w0, sqrt(6/fin)/w0), biases likewise) from a fixed
@@ -72,6 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layout", choices=("auto", "narrow", "wide", "stream"),
                     default="auto")
     ap.add_argument("--plain-reps", type=int, default=3)
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--f64-ratio", type=float, default=None,
                     help="fail past this many times the plain version's "
                          "distance from float64 (default chip_smoke's "
@@ -121,6 +146,11 @@ def main(argv=None) -> int:
                               plain_reps=args.plain_reps, slab=slab)
         print(json.dumps({"root": args.root, "shape": shape,
                           "widths": widths, **row}), flush=True)
+        if args.profile:
+            print(json.dumps({"shape": shape, "profile_ms": kernel_profile(
+                lambda: fused_decode.fused_decode_grid(layers, spatial,
+                                                       acts, "-1,1"))}),
+                  flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

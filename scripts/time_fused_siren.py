@@ -7,10 +7,16 @@ CUDA events, median of 25).
     python3 scripts/time_fused_siren.py
     python3 scripts/time_fused_siren.py --root outputs/parent
     python3 scripts/time_fused_siren.py --cases wide-1024,reach-4096,reach-20971
+    python3 scripts/time_fused_siren.py --layout stream \
+        --cases wide,3-242x4-1:262144
 
 --cases times only the named cases, of SIREN_CASES and of phase 20's
-REACH_SIREN (the streamed form past 3,327 features: reach-4096,
-[3, 4096, 4096, 1] at N = 65,536; reach-20971, 3-20971-1 at N = 65,536).
+REACH_SIREN (the streamed form past 256 features: wide-1024, SIREN
+3-1024x4-1 at N = 65,536; reach-4096, [3, 4096, 4096, 1] at N = 65,536;
+reach-20971, 3-20971-1 at N = 65,536), or SIREN shapes c_in-fxh-c_out:N
+(w0 = 20), e.g. 3-257x4-1:65536.  --layout stream forces the streamed
+form (ops/chain_stream.py) below the 256 features where it starts (e.g.
+`wide`, 3-186x4-1 at N = 262,144).
 
 --root imports the package and chip_smoke.py from another checkout, e.g.
 a `git archive` of the parent commit, so that two builds can be timed in
@@ -23,8 +29,19 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
+
+
+def shape_case(shape: str):
+    """(label, SIREN config, N) of c_in-fxh-c_out:N."""
+    m = re.fullmatch(r"(\d+)-(\d+)x(\d+)-(\d+):(\d+)", shape)
+    if m is None:
+        raise SystemExit(f"unknown case {shape!r}")
+    c_in, f, hidden, c_out, n = map(int, m.groups())
+    return shape, {"name": "SIREN", "features": f, "layers": hidden + 1,
+                   "coords_channel": c_in, "data_channel": c_out}, n
 
 
 def main(argv=None) -> int:
@@ -32,7 +49,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--cases", default=None,
-                    help="comma-separated labels (default: SIREN_CASES)")
+                    help="comma-separated labels or shapes (default: "
+                         "SIREN_CASES)")
+    ap.add_argument("--layout", choices=("auto", "stream"), default="auto")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -44,8 +63,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cases = [c[:3] for c in cs.SIREN_CASES]
     if args.cases:
-        known = {c[0]: c for c in cases + list(cs.REACH_SIREN)}
-        cases = [known[c] for c in args.cases.split(",")]
+        known = {c[0]: c[:3] for c in cases + list(cs.REACH_SIREN)}
+        cases = [known.get(c) or shape_case(c)
+                 for c in args.cases.split(",")]
+    if args.layout == "stream":
+        from brief_pytorch_tpu_torch.ops import chain_stream, fused_siren
+        fused_siren.choose_plan = chain_stream.stream_plan
     for label, cfg, n in cases:
         row = cs.siren_check(dev, label, cfg, n)
         torch.cuda.empty_cache()

@@ -98,17 +98,18 @@ def _float64(layers, x, acts):
 def test_exactly_the_wide_chains_take_it(layers, features):
     """Over the reach sweep of tests/test_torch_kernel_reach.py, both
     kernels' plans are the streamed form exactly where a layer is wider
-    than 3,327 features (a 5-axis grid too), and its shared memory fits a
-    block."""
+    than 256 features (a 5-axis grid too), never at or below, and its
+    shared memory fits a block."""
+    assert cs.STREAM_WIDTH == 256
     widths = [3] + [features] * (layers - 1) + [1]
     for mod in (fd, fs):
         for w in (widths, [5] + widths[1:]):
             p = mod.choose_plan(w)
-            assert bool(p.get("stream")) == (max(w) > cs.STREAM_WIDTH)
+            assert bool(p.get("stream")) == (max(w) > 256)
             assert p["smem_bytes"] <= fd.SMEM_LIMIT
             if p.get("stream"):
                 assert p == cs.stream_plan(w)
-                assert p["layout"] == "wide" and p["global"]
+                assert p["layout"] == "wide"
 
 
 @pytest.mark.parametrize("widths,thin,square", [
@@ -125,12 +126,64 @@ def test_plan_sorts_the_layers(widths, thin, square):
     assert (p["thin"], p["square"]) == (thin, square)
     for l in range(len(widths) - 1):
         if l in square:
-            assert p["wp_cols"][l] == -(-widths[l + 1] // 128) * 128
+            # 64-column tiles where they pad less (the 20 outputs)
+            gn = 64 if -(-widths[l + 1] // 64) % 2 else 128
+            assert p["gn"][l] == gn
+            assert p["wp_cols"][l] == -(-widths[l + 1] // gn) * gn
             assert p["wp_off"][l] >= 0
         else:
             assert p["wp_off"][l] == -1
     assert p["wp_total"] == sum(-(-widths[l] // 32) * 32 * p["wp_cols"][l]
                                 for l in square)
+
+
+@pytest.mark.parametrize("widths,stream", [
+    ([3] + [256] * 4 + [1], False),            # the widest in shared memory
+    ([3] + [257] * 4 + [1], True),             # one feature past it
+    ([3, 257, 1], True),                       # a 3-F-1 chain
+    ([2] + [256] * 2 + [3], False),
+    ([256, 22, 22, 1], False),                 # kernel 3: the widest input
+    ([257, 22, 22, 1], True),                  # an input past 256
+    ([300, 8, 1], True),
+])
+def test_the_edge_at_256(widths, stream):
+    """Both kernels send a chain to the streamed form exactly where a layer
+    or the input passes 256 features; at or below it the wide form's plan
+    holds its rows in shared memory, and wide_plan refuses a layer past
+    it (an input of 257-424 features would still fit its shared memory:
+    the streamed form takes it all the same)."""
+    for mod in (fd, fs):
+        if mod is fd and widths[0] > fd.NARROW_AXES + 8:
+            continue                # no grid has so many axes
+        p = mod.choose_plan(widths)
+        assert bool(p.get("stream")) == stream
+        assert p["smem_bytes"] <= fd.SMEM_LIMIT
+        if stream:
+            assert p == cs.stream_plan(widths)
+    if max(widths[1:]) > 256:
+        with pytest.raises(ValueError):
+            fd.wide_plan(widths)
+    else:
+        assert not fd.wide_plan(widths).get("stream")
+
+
+@pytest.mark.parametrize("fout,gn,cols", [
+    (257, 64, 320), (300, 64, 320), (320, 64, 320), (383, 128, 384),
+    (384, 128, 384), (448, 64, 448), (1024, 128, 1024), (3400, 128, 3456),
+])
+def test_narrow_tiles(fout, gn, cols):
+    """A square layer takes 64-column product tiles where they pad its
+    outputs less than 128-column ones (257 and 300 features: 320 columns
+    against 384), else 128.  The thin last layer's partial sums count the
+    tiles of its input layer."""
+    widths = [3, fout, fout, 1]
+    p = cs.stream_plan(widths)
+    assert (p["gn"][1], p["wp_cols"][1]) == (gn, cols)
+    assert p["wp_total"] == -(-fout // 32) * 32 * cols
+    call = cs.stream_call(p, 1000)
+    assert call["tiles"] == cols // gn
+    assert call["part_floats"] == call["tiles"] * call["R"]
+    assert cols <= -(-fout // 128) * 128
 
 
 @pytest.mark.parametrize("widths,n", [
@@ -144,8 +197,8 @@ def test_call_chunks_and_scratch(widths, n):
     within H_BUDGET, a full chunk a whole number of waves of product
     blocks (one an SM), the thin sums' splits within the feature blocks;
     the scratch it holds, in bytes, against the 2 x 132 x rows x 132
-    floats the wide form's scratch instance held (2.92 GB at
-    3-20971-1)."""
+    floats the wide form's scratch instance once held (2.92 GB at
+    3-20971-1; rows: 8 x the most k-blocks of a layer input)."""
     p = cs.stream_plan(widths)
     call = cs.stream_call(p, n)
     assert call["R"] % 128 == 0 and call["chunks"] * call["R"] >= n > \
@@ -159,10 +212,10 @@ def test_call_chunks_and_scratch(widths, n):
         assert call["kernels"] == 1 + call["chunks"] * (
             1 + len(p["square"]) + int(p["tl"]))
         if call["chunks"] > 1:
-            cols = max(p["wp_cols"]) // 128
+            cols = max(c // g for c, g in zip(p["wp_cols"], p["gn"]) if g)
             assert call["R"] // 128 * cols % cs.H100_SMS == 0
-    old = fd.wide_plan(widths)
-    old_bytes = 4 * 132 * 2 * old["rows"] * fd.WIDE_STRIDE
+    old_rows = 8 * max(fd.packed_layout(widths)["kb"])
+    old_bytes = 4 * 132 * 2 * old_rows * fd.WIDE_STRIDE
     got = cs.scratch_bytes(p, call)
     assert got == 4 * (p["wp_total"] + p["n_h"] * call["h_floats"]
                        + call["part_floats"])
@@ -188,6 +241,7 @@ def test_table_rows():
     assert rows[:, 7].view(np.float32).tolist() == [20.0, 20.0, 1.0]
     assert rows[:, 8].tolist() == [-1, 0, -1]
     assert rows[:, 9].tolist() == [0, 4096, 0]
+    assert rows[:, 10].tolist() == [0, 128, 0]
 
 
 # --- the arithmetic --------------------------------------------------------
@@ -230,6 +284,60 @@ def test_rows_model_matches_plain_and_pallas(label, widths, act, n):
                                                    truth).abs()
     assert float(e_emu.max()) <= F64_RATIO * float(e_plain.max())
     assert float(e_emu.mean()) <= F64_RATIO * float(e_plain.mean())
+
+
+RANGE_CASES = [
+    # (hidden widths, activation): 257-3,327 features, once the wide
+    # form's scratch instance's
+    (257, "sine"), (257, "relu"), (257, "sigmoid"),
+    (300, "sine"), (300, "relu"), (300, "sigmoid"),
+    (383, "sine"), (383, "relu"), (383, "sigmoid"),
+]
+
+
+@pytest.mark.parametrize("f,act", RANGE_CASES,
+                         ids=[f"3-{f}x4-1-{a}" for f, a in RANGE_CASES])
+def test_range_257_to_3327_matches_plain_pallas_and_float64(f, act):
+    """3-Fx4-1 for F of 257, 300 and 383 (the streamed form's square
+    layers in 64-column tiles at 257 and 300, 128 at 383; its thin ends)
+    as both kernels take it: kernel 3 on rows and kernel 2 on the
+    coordinates it builds from a grid, each through
+    fused_siren.chain_tc_model given the plan (chain_stream.stream_model),
+    against the plain version (TIGHT), the Pallas kernel in interpret mode
+    (atol 1e-5) and a float64 evaluation (at most F64_RATIO x the plain
+    version's distance, max and mean).  The weights follow SIREN's rule
+    with the chain's own w0 (1 for relu and sigmoid: at w0 = 20 their
+    outputs are the last bias to within an ulp, and a distance from
+    float64 says nothing)."""
+    widths = [3] + [f] * 4 + [1]
+    plan = fs.choose_plan(widths)
+    assert plan == fd.choose_plan(widths) == cs.stream_plan(widths)
+    layers = _layers(widths, seed=f, w0=20.0 if act == "sine" else 1.0)
+    acts = _acts(widths, act)
+    spatial = (3, 5, 7)
+    for x, ref in (
+            (torch.from_numpy(_rows(96, 3, seed=f)), None),
+            (fd.grid_coords(spatial, "n11"), np.asarray(pd.fused_decode_grid(
+                _jax(layers), spatial, acts, "n11", tile=128,
+                interpret=True)))):
+        emu = fs.chain_tc_model(_torch(layers), x, acts, plan=plan)
+        assert torch.equal(emu, cs.stream_model(_torch(layers), x, acts,
+                                                plan))
+        plain = fs.fused_chain_apply_reference(_torch(layers), x, acts)
+        _close(emu, plain)
+        if ref is None:
+            ref = np.asarray(ps.fused_chain_apply(
+                _jax(layers), jnp.asarray(x.numpy()), acts, tile=256,
+                interpret=True))
+        else:
+            _close(plain, fd.fused_decode_grid_reference(
+                _torch(layers), spatial, acts, "n11"), (0.0, 0.0))
+        np.testing.assert_allclose(emu.numpy(), ref, rtol=0, atol=1e-5)
+        truth = _float64(_torch(layers), x, acts)
+        e_emu = (emu.double() - truth).abs()
+        e_plain = (plain.double() - truth).abs()
+        assert float(e_emu.max()) <= F64_RATIO * float(e_plain.max())
+        assert float(e_emu.mean()) <= F64_RATIO * float(e_plain.mean())
 
 
 @pytest.mark.parametrize("widths,spatial,act", [

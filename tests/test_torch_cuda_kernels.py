@@ -562,37 +562,46 @@ def _siren_layers(dev, widths, seed, w0=20.0):
 
 
 DECODE_FORMS = [
-    # (hidden widths, grid, plan: form, instance, activations in scratch)
-    ((22, 22, 22, 22), (13, 17, 19), ("narrow", 3, False)),
-    ((7, 7, 7, 7), (5, 33), ("narrow", 3, False)),
-    ((60, 15, 15, 15), (7, 9, 11), ("narrow", 9, False)),
-    ((40, 40, 40), (3, 4, 5, 7), ("narrow", 6, False)),
-    ((66,) * 6, (9, 31, 29), ("narrow", 9, False)),
-    ((88, 88, 88, 88), (6, 29, 23), ("narrow", 12, False)),
-    ((64,) * 15, (5, 27, 19), ("wide", 1, False)),
-    ((96, 96, 96, 96), (7, 23, 21), ("wide", 2, False)),
-    ((191, 191, 191, 191), (5, 41, 37), ("wide", 3, False)),
-    ((242, 242, 242, 242), (3, 43, 47), ("wide", 4, False)),
-    ((300, 257, 40), (4, 19, 23), ("wide", 4, True)),
-    ((383, 383, 383, 383), (5, 29, 31), ("wide", 4, True)),
+    # (hidden widths, grid, plan: form, instance ("stream": the streamed
+    # form))
+    ((22, 22, 22, 22), (13, 17, 19), ("narrow", 3)),
+    ((7, 7, 7, 7), (5, 33), ("narrow", 3)),
+    ((60, 15, 15, 15), (7, 9, 11), ("narrow", 9)),
+    ((40, 40, 40), (3, 4, 5, 7), ("narrow", 6)),
+    ((66,) * 6, (9, 31, 29), ("narrow", 9)),
+    ((88, 88, 88, 88), (6, 29, 23), ("narrow", 12)),
+    ((64,) * 15, (5, 27, 19), ("wide", 1)),
+    ((96, 96, 96, 96), (7, 23, 21), ("wide", 2)),
+    ((191, 191, 191, 191), (5, 41, 37), ("wide", 3)),
+    ((242, 242, 242, 242), (3, 43, 47), ("wide", 4)),
+    ((300, 257, 40), (4, 19, 23), ("wide", "stream")),
+    ((383, 383, 383, 383), (5, 29, 31), ("wide", "stream")),
+    ((257, 257, 257, 257), (5, 29, 31), ("wide", "stream")),
 ]
+
+
+def _form(p):
+    """(layout, instance or "stream") of a plan"""
+    return (p["layout"], "stream" if p.get("stream") else p["inst"])
 
 
 @pytest.mark.parametrize("act", ["sine", "relu", "sigmoid", "none"])
 @pytest.mark.parametrize("hidden,spatial,form", DECODE_FORMS,
-                         ids=[f"{f[0]}{f[1]}{'g' if f[2] else ''}-"
+                         ids=[f"{f[0]}{f[1]}-"
                               f"{'x'.join(map(str, h[:2]))}"
                               for h, _, f in DECODE_FORMS])
 def test_decode_forms_match_plain(dev, hidden, spatial, form, act):
-    """Every instance of both forms of the tensor-core decode (plans:
-    ops/fused_decode.py choose_plan), on grids whose voxel count is no
-    multiple of any tile, with each activation in the hidden layers and
-    two outputs: within 1e-5 * max|plain| + 1e-5 of the plain version, one
-    launch a call (one kernel in the narrow form, two in the wide: the
-    library's own count), two calls bitwise equal."""
+    """Every instance of the three forms of the tensor-core decode (plans:
+    ops/fused_decode.py choose_plan; past 256 features the streamed form),
+    on grids whose voxel count is no multiple of any tile, with each
+    activation in the hidden layers and two outputs: within 1e-5 *
+    max|plain| + 1e-5 of the plain version, one launch a call (one kernel
+    in the narrow form, two in the wide, the plan's count in the
+    streamed: the library's own count), two calls bitwise equal."""
+    from brief_pytorch_tpu_torch.ops import chain_stream as cs
     widths = [len(spatial)] + list(hidden) + [2]
     p = fd.choose_plan(widths)
-    assert (p["layout"], p["inst"], p["global"]) == form
+    assert _form(p) == form
     layers = _siren_layers(dev, widths, seed=len(hidden))
     w0 = 20.0 if act == "sine" else 1.0
     acts = ((act, w0),) * (len(widths) - 2) + (("none", 1.0),)
@@ -600,8 +609,9 @@ def test_decode_forms_match_plain(dev, hidden, spatial, form, act):
     kernels = fd.kernels_launched()
     out = fd.fused_decode_grid(layers, spatial, acts, "n11")
     assert fd.launches == before + 1
-    assert fd.kernels_launched() - kernels == \
-        (1 if p["layout"] == "narrow" else 2)
+    assert fd.kernels_launched() - kernels == (
+        cs.stream_call(p, int(np.prod(spatial)), _sms(dev))["kernels"]
+        if p.get("stream") else 1 if p["layout"] == "narrow" else 2)
     ref = fd.fused_decode_grid_reference(layers, spatial, acts, "n11")
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (int(np.prod(spatial)), 2)
@@ -725,30 +735,31 @@ def test_fused_siren_matches_plain(dev, name, extra, n, layout):
 
 
 SIREN_FORMS = [
-    # (c_in, hidden widths, N, plan: form, instance, activations in scratch)
-    (3, (22, 22, 22, 22), 5003, ("narrow", 3, False)),
-    (3, (40, 40, 40), 4099, ("narrow", 6, False)),
-    (3, (66,) * 6, 3001, ("narrow", 9, False)),
-    (3, (88, 88, 88, 88), 2047, ("narrow", 12, False)),
-    (3, (64,) * 15, 1301, ("wide", 1, False)),
-    (3, (96, 96, 96, 96), 1299, ("wide", 2, False)),
-    (3, (191, 191, 191, 191), 1031, ("wide", 3, False)),
-    (3, (242, 242, 242, 242), 1029, ("wide", 4, False)),
-    (3, (300, 257, 40), 517, ("wide", 4, True)),
-    (3, (1024, 1024, 1024, 1024), 65536, ("wide", 4, True)),
-    (2, (32, 32), 1001, ("narrow", 6, False)),
-    (4, (32, 32), 1001, ("narrow", 6, False)),
-    (11, (32, 32), 1001, ("narrow", 6, False)),
-    (2, (191, 191), 333, ("wide", 3, False)),
-    (4, (191, 191), 333, ("wide", 3, False)),
-    (11, (191, 191), 333, ("wide", 3, False)),
-    (100, (22, 22), 257, ("wide", 1, False)),
+    # (c_in, hidden widths, N, plan: form, instance or "stream")
+    (3, (22, 22, 22, 22), 5003, ("narrow", 3)),
+    (3, (40, 40, 40), 4099, ("narrow", 6)),
+    (3, (66,) * 6, 3001, ("narrow", 9)),
+    (3, (88, 88, 88, 88), 2047, ("narrow", 12)),
+    (3, (64,) * 15, 1301, ("wide", 1)),
+    (3, (96, 96, 96, 96), 1299, ("wide", 2)),
+    (3, (191, 191, 191, 191), 1031, ("wide", 3)),
+    (3, (242, 242, 242, 242), 1029, ("wide", 4)),
+    (3, (300, 257, 40), 517, ("wide", "stream")),
+    (3, (1024, 1024, 1024, 1024), 65536, ("wide", "stream")),
+    (2, (32, 32), 1001, ("narrow", 6)),
+    (4, (32, 32), 1001, ("narrow", 6)),
+    (11, (32, 32), 1001, ("narrow", 6)),
+    (2, (191, 191), 333, ("wide", 3)),
+    (4, (191, 191), 333, ("wide", 3)),
+    (11, (191, 191), 333, ("wide", 3)),
+    (100, (22, 22), 257, ("wide", 1)),
+    (257, (22, 22), 1001, ("wide", "stream")),
 ]
 
 
 @pytest.mark.parametrize("act", ["sine", "relu", "sigmoid", "none"])
 @pytest.mark.parametrize("c_in,hidden,n,form", SIREN_FORMS,
-                         ids=[f"c{c}-{f[0]}{f[1]}{'g' if f[2] else ''}-"
+                         ids=[f"c{c}-{f[0]}{f[1]}-"
                               f"{'x'.join(map(str, h[:2]))}"
                               for c, h, _, f in SIREN_FORMS])
 def test_fused_siren_forms_match_plain(dev, c_in, hidden, n, form, act):
@@ -762,7 +773,7 @@ def test_fused_siren_forms_match_plain(dev, c_in, hidden, n, form, act):
     from brief_pytorch_tpu_torch.ops import fused_siren as fs
     widths = [c_in] + list(hidden) + [2]
     p = fs.choose_plan(widths)
-    assert (p["layout"], p["inst"], p["global"]) == form
+    assert _form(p) == form
     layers = _siren_layers(dev, widths, seed=len(hidden) + c_in)
     w0 = 20.0 if act == "sine" else 1.0
     acts = ((act, w0),) * (len(widths) - 2) + (("none", 1.0),)
@@ -1117,9 +1128,12 @@ def test_media_grids_decode_on_the_kernel(dev, spatial, features, cout, slab):
         1e-5 * float(ref.abs().max()) + 1e-5
 
 
-# --- kernels 2 and 3's streamed form: chains past 3,327 features ---------
+# --- kernels 2 and 3's streamed form: chains past 256 features -----------
 STREAM_SHAPES = [
     # (widths, kernel 3's rows, kernel 2's grid, hidden activation)
+    ([3, 257, 257, 257, 257, 1], 65_536, (16, 32, 32), "sine"),   # 64-wide
+    ([3, 300, 300, 300, 300, 1], 5_000, (16, 32, 32), "sine"),    # tiles
+    ([3, 383, 383, 383, 383, 1], 5_000, (16, 32, 32), "sine"),
     ([3, 20971, 1], 65_536, (16, 32, 32), "sine"),     # chip_smoke 20d
     ([3, 4096, 4096, 1], 5_000, (16, 32, 32), "sine"),
     ([3, 22213, 1], 10_112, (4, 64, 64), "sine"),      # phase 20b's chain
@@ -1176,7 +1190,9 @@ def test_streamed_form_matches_plain(dev, widths, n, spatial, act):
 
 @pytest.mark.parametrize("widths,n", [([3, 3400, 6], 1500),
                                       ([3, 3400, 3400, 3400, 2], 300),
-                                      ([12, 3400, 20], 200)])
+                                      ([12, 3400, 20], 200),
+                                      ([3, 300, 300, 300, 300, 1], 700),
+                                      ([3, 383, 383, 6], 600)])
 def test_streamed_sums_are_the_model(dev, widths, n):
     """On relu chains (no sine, whose device and CPU copies may differ in
     a last bit) the streamed form's outputs are chain_stream.stream_model's

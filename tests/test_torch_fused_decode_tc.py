@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import torch
 
 from brief_pytorch_tpu.ops import pallas_decode as pd
+from brief_pytorch_tpu_torch.ops import chain_stream as cs
 from brief_pytorch_tpu_torch.ops import fused_decode as fd
 from brief_pytorch_tpu_torch.ops import fused_train as ft
 
@@ -189,7 +190,7 @@ def test_plan_at_the_main_paths_shapes(widths, layout, inst, tile, warps):
     assert (p["layout"], p["inst"], p["tile"]) == (layout, inst, tile)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
     assert p["warps_per_sm"] == warps
-    assert not p["global"]
+    assert not p.get("stream")
     if layout == "narrow":
         # the pre-split weights are what the block holds
         assert p["smem_bytes"] == 4 * p["packed_floats"]
@@ -197,14 +198,14 @@ def test_plan_at_the_main_paths_shapes(widths, layout, inst, tile, warps):
         # a ring of slabs of one k-block for 8 x kNW n-tiles (as many as
         # fit, 3 at least), and the 128-voxel tile's input rows (every
         # k-block of the widest layer)
-        assert p["rows"] == 8 * max(p["kb"])
         assert 8 * inst >= max(p["nt"]) > 8 * (inst - 1)
         assert 3 <= p["stages"] <= fd.MAX_STAGES
         assert p["smem_bytes"] == fd.BARRIER_BYTES + \
-            p["stages"] * 8 * inst * 512 + 4 * p["rows"] * fd.WIDE_STRIDE
+            p["stages"] * 8 * inst * 512 + 4 * 8 * max(p["kb"]) * \
+            fd.WIDE_STRIDE
 
 
-@pytest.mark.parametrize("widths,layout,glob", [
+@pytest.mark.parametrize("widths,layout,stream", [
     ([3, 7, 7, 7, 7, 1], "narrow", False),        # brain64's chunks
     ([3] + [88] * 4 + [1], "narrow", False),      # 12 n-tiles of registers
     ([3] + [96] * 4 + [1], "wide", False),        # its weights overflow
@@ -219,20 +220,28 @@ def test_plan_at_the_main_paths_shapes(widths, layout, inst, tile, warps):
     ([4, 22, 22, 22, 22, 1], "narrow", False),    # 4 axes, as before
     ([5, 22, 22, 22, 22, 1], "wide", False),      # a 5-axis grid
     ([9, 22, 22, 1], "wide", False),              # 9 axes: 2 k-blocks
+    ([3] + [256] * 4 + [1], "wide", False),       # the widest in smem
+    ([3] + [257] * 4 + [1], "wide", True),        # past 256: streamed
 ])
-def test_plan_reach(widths, layout, glob):
+def test_plan_reach(widths, layout, stream):
     """Every chain has a form, of any depth and width (the chains the
     kernel took before, and past its old 16 layers and 3,327 features),
-    over any number of axes; past 256 features the wide form keeps its
-    activations in a device scratch, whose rows hold the widest layer."""
+    over any number of axes; past 256 features the streamed form
+    (ops/chain_stream.py), the only one that keeps activations in a
+    device scratch; at most 256, the wide form holds its layer input's
+    rows in shared memory, and wide_plan refuses a wider chain."""
     p = fd.choose_plan(widths)
-    assert (p["layout"], p["global"]) == (layout, glob)
+    assert (p["layout"], bool(p.get("stream"))) == (layout, stream)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
-    # past 3,327 features the streamed form (ops/chain_stream.py), whose
-    # scratch rows are its own
-    assert bool(p.get("stream")) == (max(widths) > 3327)
-    if glob and not p.get("stream"):
-        assert p["rows"] == 8 * max(p["kb"]) >= max(widths)
+    assert (max(widths) > 256) == stream
+    if stream:
+        assert p == cs.stream_plan(widths)
+        with pytest.raises(ValueError):
+            fd.wide_plan(widths)
+    elif layout == "wide":
+        # the rows of the layer input: 8 x its most k-blocks
+        assert 8 * max(p["kb"]) >= max(widths)
+        assert p["smem_bytes"] >= 4 * 8 * max(p["kb"]) * fd.WIDE_STRIDE
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 7, 64, 100, 255, 256, 257, 511, 512,

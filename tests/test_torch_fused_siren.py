@@ -20,6 +20,7 @@ from brief_pytorch_tpu.models.phi import init_phi as jinit
 from brief_pytorch_tpu.ops import pallas_siren as ps
 from brief_pytorch_tpu.train import decode as jdecode
 from brief_pytorch_tpu_torch.models import phi as tphi
+from brief_pytorch_tpu_torch.ops import chain_stream as cs
 from brief_pytorch_tpu_torch.ops import fused_decode as fd
 from brief_pytorch_tpu_torch.ops import fused_siren as fs
 from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
@@ -149,10 +150,10 @@ def test_plans():
     """The kernel's forms are the decode kernel's: narrow chains keep the
     pre-split weights in shared memory, warp tiles of 16 or 32 rows in
     registers; wider ones stream them through the wide form's slab ring
-    (3-186x4-1 with its activations in shared memory, past 256 features
-    in a device scratch); the chains the train and decode kernels accept
-    are accepted, and so are chains past 16 layers and 3,327 features
-    (past 3,327 the streamed form, ops/chain_stream.py)."""
+    (3-186x4-1, its activations in shared memory), and past 256 features
+    the streamed form (ops/chain_stream.py); the chains the train and
+    decode kernels accept are accepted, and so are chains past 16 layers
+    and 3,327 features."""
     from brief_pytorch_tpu_torch.ops import fused_train as ft
     p = fs.choose_plan([3, 22, 22, 22, 22, 1])
     assert (p["layout"], p["inst"], p["tile"]) == ("narrow", 3, 32)
@@ -160,17 +161,20 @@ def test_plans():
     p = fs.choose_plan([3] + [64] * 6 + [1])
     assert (p["layout"], p["inst"], p["warps_per_sm"]) == ("narrow", 9, 8)
     p = fs.choose_plan([3, 186, 186, 186, 186, 1])
-    assert (p["layout"], p["inst"], p["global"]) == ("wide", 3, False)
-    assert p["smem_bytes"] <= fd.SMEM_LIMIT and p["rows"] == 8 * 24
+    assert (p["layout"], p["inst"], p.get("stream")) == ("wide", 3, None)
+    assert p["smem_bytes"] <= fd.SMEM_LIMIT and max(p["kb"]) == 24
     for widths in ([3, 217, 217, 217, 217, 1], [3] + [145] * 6 + [1],
                    [2, 8, 1], [3] + [40] * 15 + [1], [3, 2048, 2048, 1]):
         assert ft.choose_plan(widths) is not None
         p = fs.choose_plan(widths)
-        assert p == fd.narrow_plan(widths) or p == fd.wide_plan(widths)
+        if max(widths) > 256:
+            assert p == cs.stream_plan(widths)
+        else:
+            assert p == fd.narrow_plan(widths) or p == fd.wide_plan(widths)
         assert p["smem_bytes"] <= fd.SMEM_LIMIT
     assert fs.choose_plan([3] + [8] * 17 + [1])["layout"] == "narrow"
     p = fs.choose_plan([3, 3328, 3328, 1])    # the streamed form
-    assert (p["layout"], p["global"], p["stream"]) == ("wide", True, True)
+    assert (p["layout"], p["stream"]) == ("wide", True)
     assert fs.supports(tphi.init_phi(_cfg(features=3328)))
 
 

@@ -33,6 +33,7 @@ import torch
 from brief_pytorch_tpu.models.phi import init_phi as jinit
 from brief_pytorch_tpu.ops import pallas_siren as ps
 from brief_pytorch_tpu_torch.models import phi as tphi
+from brief_pytorch_tpu_torch.ops import chain_stream as cs
 from brief_pytorch_tpu_torch.ops import fused_decode as fd
 from brief_pytorch_tpu_torch.ops import fused_siren as fs
 from brief_pytorch_tpu_torch.ops.chain import (chain_layer_specs,
@@ -155,35 +156,40 @@ def test_sums_keep_float32_accuracy(label, cfg):
 
 
 PLANS = [
-    # (phase-9 case, family config, form, instance, scratch activations)
+    # (phase-9 case, family config, form, instance, streamed: the form
+    # with activations in a device scratch, which has no instance)
     ("slab / default / relu / sigmoid / sirenpos", _cfg(), "narrow", 3,
      False),
     ("hipct-block", _cfg(features=64, layers=7, w0=10), "narrow", 9, False),
     ("wide", _cfg(features=186), "wide", 3, False),
     ("pyramid", _cfg("SIREN_Pyramid", features=27, features_dis=3),
      "narrow", 6, False),
-    ("wide-1024", _cfg(features=1024), "wide", 4, True),
+    ("wide-1024", _cfg(features=1024), "wide", None, True),
     ("c2", _cfg(coords_channel=2, data_channel=3), "narrow", 3, False),
 ]
 
 
-@pytest.mark.parametrize("label,cfg,layout,inst,glob", PLANS,
+@pytest.mark.parametrize("label,cfg,layout,inst,stream", PLANS,
                          ids=[p[0].split(" ")[0] for p in PLANS])
-def test_plan_at_phase_9_shapes(label, cfg, layout, inst, glob):
+def test_plan_at_phase_9_shapes(label, cfg, layout, inst, stream):
     """The form and instance of each phase-9 chain, and what the plan
     states beside them: the narrow form holds the pre-split weights in
-    shared memory, the wide one a slab ring and (in shared memory or a
-    device scratch) every k-block of the widest layer input."""
+    shared memory, the wide one a slab ring and every k-block of the
+    widest layer input; 3-1024x4-1, past 256 features, takes the streamed
+    form, whose activations live in a device scratch."""
     widths = fs.chain_widths(tphi.init_phi(cfg).spec)
     p = fs.choose_plan(widths)
-    assert (p["layout"], p["inst"], p["global"]) == (layout, inst, glob)
+    assert (p["layout"], p["inst"], bool(p.get("stream"))) == \
+        (layout, inst, stream)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
-    if layout == "narrow":
+    if stream:
+        assert p == cs.stream_plan(widths)
+    elif layout == "narrow":
         assert p["smem_bytes"] == 4 * p["packed_floats"]
         assert p["tile"] in (16, 32) and p["warps_per_sm"] in (8, 16)
     else:
         assert p["tile"] == 128 and p["warps_per_sm"] == 8
-        assert p["rows"] == 8 * max(p["kb"])
+        assert p["smem_bytes"] >= 4 * 8 * max(p["kb"]) * fd.WIDE_STRIDE
         assert 2 <= p["stages"] <= fd.MAX_STAGES
 
 
@@ -196,22 +202,27 @@ def test_plan_at_phase_9_shapes(label, cfg, layout, inst, glob):
     ([3] + [8] * 16 + [1], True),          # 17 layers
     ([3, 3328, 1], True),
     ([3328, 8, 1], True),
+    ([256, 8, 1], True),                   # the widest input in smem
+    ([257, 8, 1], True),                   # past 256: streamed
+    ([3] + [256] * 4 + [1], True),
+    ([3] + [257] * 4 + [1], True),
 ])
 def test_reach(widths, ok):
     """Every plain chain has a form, of any depth (17 layers: past the 16
     the kernel once held) and any width, the input included (3,328
     features: past the 3,327 it once held).  An input wider than 12
-    k-blocks, or one whose rows leave no room in shared memory, takes the
-    wide form (the latter with its activations in a device scratch); the
-    17-layer chain is emulated tile by tile against the plain version."""
+    k-blocks takes the wide form, one wider than 256 features (as any
+    layer) the streamed form, the only one with its activations in a
+    device scratch; the 17-layer chain is emulated tile by tile against
+    the plain version."""
     assert ok
     p = fs.choose_plan(widths)
     assert p["smem_bytes"] <= fd.SMEM_LIMIT
     if widths[0] > 96:
         assert p["layout"] == "wide"
-    assert bool(p.get("stream")) == (max(widths) > 3327)
-    if widths[0] >= 3327:   # the wide form's scratch, or the streamed form
-        assert p["global"] and (p.get("stream") or p["inst"] == 4)
+    assert bool(p.get("stream")) == (max(widths) > 256)
+    if p.get("stream"):
+        assert p == cs.stream_plan(widths)
     if len(widths) == 18:
         assert p["layout"] == "narrow"
         _, _, tmodel, tparams = _pair(_cfg(features=8, layers=17))

@@ -189,21 +189,24 @@ def test_siren_plain_matches_pallas(widths, n):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
 
 
-def test_grouped_sums_model():
-    """The wide form's long reductions of one m-tile (the last layer of
-    3-300-1: 38 k-blocks, one n-tile) in groups of GROUP_K k-blocks: the
-    model with the plan agrees with the plain version; where no layer is
-    grouped (a narrow chain) the plan changes nothing."""
-    widths = [3, 300, 1]
+@pytest.mark.parametrize("widths", [[3, 300, 1], [3, 300, 300, 1],
+                                    [3, 257, 257, 257, 1]],
+                         ids=["3-300-1", "3-300x2-1", "3-257x3-1"])
+def test_streamed_sums_model(widths):
+    """Chains of 257-3,327 features (3-300-1: the thin 3-F-1 sums; the
+    others: square layers in 64-column tiles, their 38 or 33 k-blocks in
+    groups of 32) take the streamed form in both kernels, and its model
+    through fused_siren.chain_tc_model given the plan agrees with the
+    plain version; where the chain is narrow the plan changes nothing."""
     layers = _torch(_layers(widths, seed=3))
     acts = _acts(widths)
     x = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, (64, 3)).astype(np.float32))
     plan = fs.choose_plan(widths)
-    assert plan["layout"] == "wide" and plan["kb"][1] > fs.GROUP_K
+    assert plan == fd.choose_plan(widths) == cs.stream_plan(widths)
     plain = fs.fused_chain_apply_reference(layers, x, acts)
-    grouped = fs.chain_tc_model(layers, x, acts, plan=plan)
-    assert float((grouped - plain).abs().max()) <= \
+    emu = fs.chain_tc_model(layers, x, acts, plan=plan)
+    assert float((emu - plain).abs().max()) <= \
         2e-6 + 2e-6 * float(plain.abs().max())
     narrow = [3, 22, 22, 1]
     nl = _torch(_layers(narrow, seed=4))
@@ -219,7 +222,8 @@ def _sweep():
     weights take at most the decode's 32 MB budget."""
     out = []
     for layers in (2, 3, 5, 16, 17, 20, 33, 64):
-        for f in (8, 22, 64, 191, 1024, 3327, 3328, 4096, 20971, 32768):
+        for f in (8, 22, 64, 191, 1024, 3327, 3328, 4096, 20971, 32768,
+                  256, 257):
             widths = [3] + [f] * (layers - 1) + [1]
             if 4 * sum(a * b for a, b in zip(widths[:-1], widths[1:])) <= \
                     fd.WEIGHT_BUDGET:
@@ -240,12 +244,9 @@ def test_every_chain_has_a_plan(layers, features):
         p = mod.choose_plan(widths)
         assert p["layout"] in ("narrow", "wide")
         assert p["smem_bytes"] <= fd.SMEM_LIMIT
-        # past 3,327 features the streamed form (ops/chain_stream.py)
-        assert bool(p.get("stream")) == (max(widths) > 3327)
-        if p.get("stream"):
-            assert p["global"]
-        elif p["layout"] == "wide" and max(widths) > 256:
-            assert p["global"] and p["rows"] >= max(widths)
+        # past 256 features the streamed form (ops/chain_stream.py), the
+        # only one that keeps activations in a device scratch
+        assert bool(p.get("stream")) == (max(widths) > 256)
     p5 = fd.choose_plan([5] + widths[1:])     # a 5-axis grid: the wide form
     assert p5["layout"] == "wide"
 
