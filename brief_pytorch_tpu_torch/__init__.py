@@ -11,14 +11,36 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 (device="cpu", or `-g cpu` on the CLI); with no card they raise.
 
 Subpackages
-  core/    device selection, coordinates, normalisation, config system
-  models/  the φ chain (SIREN) and closed-form sizing
-  ops/     fast sine, the fused train-step and grid-decode kernels
-  train/   the fit loop, samplers, losses, optimisers, grid decode
-  io/      TIFF I/O and the raw-binary weight interchange format
-  eval/    PSNR/SSIM/MIP metrics
-  post/    denoise/clip preprocessing, per-voxel weights, checkpoints
-  cli/     command-line entry point accepting the reference YAML schema
+  core/      device selection, coordinates, normalisation, config system,
+             parameter trees
+  models/    the eleven φ families (SIREN and its variants, NeRF, FFN,
+             MFNFourier, MFNGabor) and closed-form sizing
+  ops/       fast sine, the three kernels and their plain versions, the
+             build (ops/build.py, nvcc on ops/csrc/)
+  train/     the fit loop (SingleTask), samplers, losses, optimisers,
+             grid decode, training state (resume)
+  parallel/  the DivideTask block fleet and its runner, ranks over
+             torch.distributed, data parallelism
+  partition/ the DivideTask block plans (regular divides, the adaptive
+             quad/oct tree)
+  nflr/      NFLR: cropped latents, modulated SIRENs, entropy models, rANS
+  io/        TIFF/PNG/JPG/MP4/YUV I/O, the raw-binary weight format,
+             archives
+  eval/      PSNR/SSIM/MS-SSIM/MIP metrics
+  post/      denoise/clip preprocessing, deblocking
+  sched/     MultiTask experiments
+  cli/       the command line (main, multitask), the reference YAML schema
+  utils/     logging, profiling (trace, annotate, ThroughputMeter)
+
+The kernels (ops/csrc/, one per pl.pallas_call of the JAX package)
+  1. the fused train step, forward + loss + backward of a chain or a
+     fleet of chains (fused_train.cu, fused_train_stream.cu;
+     ops/fused_train.py, ops/stream.py);
+  2. the full-grid decode, coordinates built in the kernel
+     (fused_decode.cu, chain_tc.cuh, chain_stream.cuh;
+     ops/fused_decode.py, ops/chain_stream.py);
+  3. the batch-major chain forward over rows of an (N, C) input
+     (fused_siren.cu on the same chains; ops/fused_siren.py).
 """
 
 __version__ = "0.1.0"

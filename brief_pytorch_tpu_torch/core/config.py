@@ -4,14 +4,14 @@ in behaviour for what the port needs.
 Accepts the reference's opt/*.yaml files verbatim: nested dicts become
 attribute-accessible `Config` nodes, lists stay lists.  Copy of
 brief_pytorch_tpu/core/config.py (load / loads / save / merge, `Config`
-with set_path, and the dotlists MultiTask expands:
-from_dotlist / to_dotlist).
+with get_path / set_path, the dotlists MultiTask expands:
+from_dotlist / to_dotlist, and to_dict / iter_leaves).
 """
 from __future__ import annotations
 
 import copy
 import io
-from typing import Dict, List
+from typing import Any, Dict, Iterator, List
 
 import yaml
 
@@ -61,6 +61,14 @@ class Config(dict):
                 return [conv(x) for x in v]
             return v
         return conv(self)
+
+    def get_path(self, dotted: str, default=None):
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, dict) or part not in node:
+                return default
+            node = node[part]
+        return node
 
     def set_path(self, dotted: str, value):
         parts = dotted.split(".")
@@ -134,3 +142,17 @@ def to_dotlist(cfg: Config | Dict, prefix: str = "") -> List[str]:
         else:
             out.append(f"{prefix}{k}={v}")
     return out
+
+
+def to_dict(cfg: Config | Dict, sep: str = ".") -> Dict[str, str]:
+    """Flattened key->string-value dict (reference utils/misc.py:55-58)."""
+    items = to_dotlist(cfg)
+    return {s.split("=", 1)[0]: s.split("=", 1)[1] for s in items}
+
+
+def iter_leaves(cfg: Config, prefix: str = "") -> Iterator[tuple]:
+    for k, v in cfg.items():
+        if isinstance(v, Config):
+            yield from iter_leaves(v, prefix + str(k) + ".")
+        else:
+            yield prefix + str(k), v

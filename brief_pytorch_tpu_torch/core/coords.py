@@ -2,8 +2,8 @@
 
 Coordinates are regenerated arithmetically from flat voxel indices rather
 than gathered from a materialised (D*H*W, C) grid.  Torch port of
-brief_pytorch_tpu/core/coords.py:20-68, bit-equal to it in float32
-(tests/test_torch_coords.py).
+brief_pytorch_tpu/core/coords.py, bit-equal to it in float32
+(tests/test_torch_coords.py) except where axis_linspace says otherwise.
 
 Capability parity: reference `utils/dataset.py:11-62` (modes 'n11', '0p1',
 "min,max").
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -98,6 +99,14 @@ def axes_to_coords(axes_idx: torch.Tensor, shape_vec: torch.Tensor,
     return lo + axes_idx.to(dtype) * step
 
 
+def floordiv24(a: torch.Tensor, b) -> torch.Tensor:
+    """a // b for integer tensors (JAX core/coords.py:115-128).  The JAX
+    package multiplies by a float32 reciprocal with two corrections, exact
+    for 0 <= a < 2**24 and b >= 1; this divides integers, which is exact
+    everywhere and equal to it there."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
 def flat_to_axes24(flat_idx: torch.Tensor, shape_vec: torch.Tensor
                    ) -> torch.Tensor:
     """Flat row-major indices -> per-axis indices (..., ndim) (JAX
@@ -134,3 +143,34 @@ def index_to_coords_dynamic(flat_idx: torch.Tensor, shape_vec: torch.Tensor,
             torch.zeros((), dtype=dtype, device=n.device))
         comps.append(lo + idx_axis.to(dtype) * step)
     return torch.stack(comps[::-1], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# dense grids
+# --------------------------------------------------------------------------
+def create_coords(shape: Sequence[int], mode: str = "n11",
+                  dtype=torch.float32, device=None) -> torch.Tensor:
+    """Dense coordinate grid of shape (*shape, len(shape)) (JAX
+    core/coords.py:147-155; reference utils/dataset.py:11-35), each axis
+    an axis_linspace."""
+    axes = [axis_linspace(n, mode, dtype, device) for n in shape]
+    grids = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack(grids, dim=-1)
+
+
+def create_flattened_coords(shape: Sequence[int], mode: str = "n11",
+                            dtype=torch.float32, device=None
+                            ) -> torch.Tensor:
+    """Flat (prod(shape), len(shape)) coordinate list, row-major (JAX
+    core/coords.py:158-164; reference utils/dataset.py:36-62)."""
+    return create_coords(shape, mode, dtype, device).reshape(-1, len(shape))
+
+
+def create_coords_np(shape: Sequence[int], mode: str = "n11") -> np.ndarray:
+    """NumPy twin of create_coords for host-side code paths (a copy of
+    JAX core/coords.py:167-173)."""
+    lo, hi = parse_coords_mode(mode)
+    axes = [np.linspace(lo, hi, n, dtype=np.float32) if n > 1
+            else np.asarray([lo], dtype=np.float32) for n in shape]
+    grids = np.meshgrid(*axes, indexing="ij")
+    return np.stack(grids, axis=-1)

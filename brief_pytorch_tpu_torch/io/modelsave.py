@@ -125,3 +125,10 @@ def load_phi_module(model, module_path: str, like_params=None):
         params["encoder"] = {k: _np(v)
                              for k, v in like_params["encoder"].items()}
     return params
+
+
+def copy_dir(old_dir: str, new_dir: str) -> None:
+    """Flat file copy (reference utils/ModelSave.py:54-61)."""
+    os.makedirs(new_dir, exist_ok=True)
+    for fname in os.listdir(old_dir):
+        shutil.copy(os.path.join(old_dir, fname), os.path.join(new_dir, fname))

@@ -215,6 +215,10 @@ class PhiModel:
               ) -> torch.Tensor:
         raise NotImplementedError
 
+    @staticmethod
+    def param_count(params) -> int:
+        return get_param_count(params)
+
 
 class _ChainModel(PhiModel):
     """Common base for all chain (Sequential) networks."""

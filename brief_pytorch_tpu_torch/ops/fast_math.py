@@ -1,6 +1,6 @@
 """Fast float32 sine for the INR hot loop — plain PyTorch version.
 
-Torch port of brief_pytorch_tpu/ops/fast_math.py:37-131, with the same
+Torch port of brief_pytorch_tpu/ops/fast_math.py:37-168, with the same
 constants.  The CUDA kernels carry the same function as a
 `__device__ __forceinline__` in csrc/fast_math.cuh; this module is its
 plain version (CPU tests, the autograd chain, and the reference the card's
@@ -71,6 +71,14 @@ def fast_sin(x: torch.Tensor) -> torch.Tensor:
         return torch.sin(x)
     r, _ = _reduce(x)
     return _sin_poly(r, r * r)
+
+
+def fast_cos(x: torch.Tensor) -> torch.Tensor:
+    """cos(x) = sin(x + pi/2) through the same fast path (JAX
+    fast_math.py:78-83)."""
+    if exact_sine() or x.dtype == torch.float64:
+        return torch.cos(x)
+    return fast_sin(x + _HALF_PI)
 
 
 def fast_sincos(x: torch.Tensor):

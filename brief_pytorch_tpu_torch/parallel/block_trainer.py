@@ -771,7 +771,7 @@ class BlockFleetTrainer:
 
     def train(self, blocks: List[Dict], compress_cfg, max_steps: int,
               checkpoint_cb=None, checkpoints: Optional[List[int]] = None,
-              state_path: Optional[str] = None,
+              progress_cb=None, state_path: Optional[str] = None,
               resume_path: Optional[str] = None) -> List[Dict]:
         """blocks: dicts with keys data_norm, weight, model (PhiModel),
         name, weight_thres_norm.  Returns blocks with 'params' attached
@@ -779,7 +779,12 @@ class BlockFleetTrainer:
 
         compress_cfg: the Compress config node (sampler, loss, lr, ...).
         checkpoint_cb(step, blocks, per_block_params) fires at every entry
-        of `checkpoints` with the whole fleet.  state_path: write the
+        of `checkpoints` with the whole fleet.  progress_cb(step, losses)
+        fires at every checkpoint that trained steps, before checkpoint_cb,
+        on every rank: losses is a float array of every block's last loss
+        in block order, NaN for a solo block whose schedule has not reached
+        its first step (JAX block_trainer.py:867-885); it reads the losses
+        the checkpoint already fetched.  state_path: write the
         fleet's training state (stacked params, optimizer states,
         generator states) there at every checkpoint, atomically (rank 0).
         resume_path: a state file (or a run dir holding
@@ -840,6 +845,8 @@ class BlockFleetTrainer:
                     self._run_solo_to(ss, ckpt, max_steps)
                 self._gather_losses()
                 self.train_s += time.perf_counter() - t0
+                if progress_cb is not None:
+                    progress_cb(ckpt, np.asarray(self.block_losses()))
             step = ckpt
             if checkpoint_cb is not None:
                 checkpoint_cb(step, blocks, self._fleet_params(blocks))

@@ -248,6 +248,11 @@ class Tree:
         return data
 
 
+# alias names mirroring the reference API
+QuadTree = Tree
+OctTree = Tree
+
+
 def _to_gray(img: np.ndarray) -> np.ndarray:
     """Single-channel scoring input: the channel itself, or the gray of the
     first three channels read as RGB (cv2's RGB2GRAY weights), rounded

@@ -28,9 +28,15 @@ a torch.profiler trace of whatever runs inside it, written as
 <logdir>/trace.json (Chrome trace format: chrome://tracing, Perfetto):
 host ops, and the card's kernels where a card is present.  Beside it,
 <logdir>/kernels.json counts the trace's device kernels by name.  A trace
-that holds no device kernel (the CPU, or a card whose CUPTI another tracer
-holds) is said so in a warning on standard error and in the run's log,
-not written silently.
+that holds no device kernel (the CPU, a card whose CUPTI another tracer
+holds, or a process whose earlier session held some 300,000 device
+events: scripts/profiler_after_cost.py) is said so in a warning on
+standard error and in the run's log, not written silently.
+
+`annotate(name)` (JAX :34, there a TraceAnnotation) names a range of the
+trace: torch.profiler's record_function, a span named `name` in
+trace.json.  `ThroughputMeter` (JAX :41-79) adds up coordinates and
+seconds over measured segments: coords/s and coords/s per card.
 """
 from __future__ import annotations
 
@@ -40,7 +46,10 @@ import json
 import os
 import subprocess
 import sys
+import time
 from collections import Counter
+from dataclasses import dataclass
+from typing import Dict
 
 import torch
 
@@ -83,11 +92,70 @@ def trace(logdir: str, log_path: str = None):
             msg = (f"WARNING profile: the trace in {logdir} holds no device "
                    "kernel (" + ("no CUDA card" if len(activities) == 1 else
                                  "CUPTI gave the profiler no kernel events; "
-                                 "is another tracer holding it?") + ")")
+                                 "is another tracer holding it, or did an "
+                                 "earlier session of this process hold "
+                                 "some 300,000 device events?") + ")")
         print(msg, file=sys.stderr, flush=True)
         if log_path is not None and not kernels:
             with open(log_path, "a") as f:
                 f.write(msg + "\n")
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named range inside a trace (torch.profiler.record_function)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@dataclass
+class ThroughputMeter:
+    """coords/s (/card) accounting for training / decode loops.
+
+    Usage:
+        meter = ThroughputMeter(n_chips=torch.cuda.device_count())
+        with meter.measure(coords=n_steps * batch):
+            for _ in range(n_steps):
+                step()
+        meter.coords_per_sec, meter.coords_per_sec_per_chip
+
+    measure() synchronises the card at both ends where CUDA is
+    initialised, so that a segment of queued launches is timed to its end
+    and not by its launch time alone."""
+    n_chips: int = 1
+    total_coords: int = 0
+    total_seconds: float = 0.0
+    segments: int = 0
+
+    @contextlib.contextmanager
+    def measure(self, coords: int):
+        sync = torch.cuda.is_initialized()
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        if sync:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        self.total_coords += int(coords)
+        self.total_seconds += dt
+        self.segments += 1
+
+    @property
+    def coords_per_sec(self) -> float:
+        return self.total_coords / max(self.total_seconds, 1e-12)
+
+    @property
+    def coords_per_sec_per_chip(self) -> float:
+        return self.coords_per_sec / max(self.n_chips, 1)
+
+    def report(self) -> Dict[str, float]:
+        return {
+            "coords_per_sec": self.coords_per_sec,
+            "coords_per_sec_per_chip": self.coords_per_sec_per_chip,
+            "segments": self.segments,
+            "seconds": self.total_seconds,
+        }
 
 
 def kernel_ms(prof) -> dict:
@@ -111,7 +179,6 @@ def timed_loop(step, n: int, warmup: int = 10, window: int = 20,
     rest), kernel_ms_per_step (the window), device_idle_share = 1 -
     kernel / wall, steps_per_s, the five kernels with the most time, and
     wall_s over all n calls.  On the CPU only the host clock is read."""
-    import time
     cuda = device is not None and torch.device(device).type == "cuda"
     t_all = time.perf_counter()
     if not cuda or n < warmup + window + 10:

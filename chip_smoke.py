@@ -12,7 +12,11 @@ non-zero exit:
      the 3xTF32 mma helpers, csrc/tf32.cuh, into fused_train.cu and,
      through the tensor-core chain csrc/chain_tc.cuh, into fused_decode.cu
      and fused_siren.cu);
-  2. fast_sincos on the card against its plain version over |x| <= 200;
+  2. fast_sincos on the card against its plain version over |x| <= 200,
+     and fast_cos (fast_sin(x + pi/2), plain torch on the card) against
+     float64 cos on the same grid, both within 1e-5 of float64;
+     create_flattened_coords((64, 64, 64)) on the card bitwise equal to
+     the CPU's;
   3. the fused train-step kernel against its plain version at the default
      run's full width (SIREN 5 x 22, w0 = 20, N = 262,144; the narrow
      layout, products on the tensor cores in 3xTF32), timed with CUDA
@@ -20,6 +24,15 @@ non-zero exit:
      tensor-core bound (tc_bound_ms), naming the layout that ran; then the
      same for TRAIN_CASES, the chains the old narrow layout also took: a
      SIREN_Pyramid chain (narrow) and its edges 5 x 64 and 7 x 48 (tiled);
+     after phase 17 (annotate_check), ANNOTATED_CALLS calls of the default
+     chain's kernel under utils/profiling.trace inside
+     utils/profiling.annotate(ANNOTATED): the range must be in trace.json;
+     the device kernels the trace holds under it are printed, not
+     checked.  It runs there, not here, because a torch.profiler session
+     with CUDA activity leaves every later launch of the process slower
+     on the host, and before phase 18 because a session of 300,000
+     device events (100,000 did not; 18a's timed_loop window) leaves
+     later sessions none (scripts/profiler_after_cost.py);
   4. the grid-decode kernel the same way (decode_check) on the 64^3 and
      256^3 grids (5 x 22) and the widest HiP-CT chunk of phase 7
      (3-66x6-1, SIREN w0 = 10, 64x256x256), all in its narrow form, and,
@@ -70,6 +83,10 @@ non-zero exit:
      then `python -m brief_pytorch_tpu_torch.post.deblock -stp` on its
      checkpoint: the deblocked TIFF of the merged volume's shape and
      dtype, changed only within 3 voxels of the blocks' boundaries;
+     utils/profiling.ThroughputMeter over the fleet's checkpoint
+     intervals (metered_fleet: opened as the first segment is queued,
+     closed by the fleet's progress_cb): its steps/s within 1% of the
+     trainer's own (train_s);
   8. opt/DivideTask/brain64.yaml (8 blocks of 32^3, randompoint, on the
      fleet kernel at phase 6's shape) and opt/DivideTask/default.yaml
      (adaptive blocks, fullbatch buckets through autograd) on the bundled
@@ -155,7 +172,12 @@ non-zero exit:
      kernel at the solo block's chain, then a step-level exception for
      the block by_var gives 66 features (exception_run: the block on the
      one-chain kernel at its proportional steps, the other three on the
-     fleet kernel, decompress_divide within 1 LSB, resume_run bitwise),
+     fleet kernel, decompress_divide within 1 LSB, resume_run bitwise;
+     resume_run's uninterrupted run passes BlockFleetTrainer.train a
+     progress_cb: one call a checkpoint, one finite loss a block in block
+     order, equal to last_losses mapped through the buckets' block_idxs
+     and the solo block, progress_check; its resumed run passes none, so
+     the bitwise comparison shows the hook leaves training alone),
      and raw_gather / vector_len 8 (gather_run: PSNR within
      HIPCT_AUTOGRAD_DB of phase 7's, steps/s and resident bytes beside
      phase 7's);
@@ -252,6 +274,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import csv
 import json
 import math
@@ -443,6 +466,8 @@ FAMILIES = [
     ("MFNGabor", {}, False, 25.6),
 ]
 DIVIDE_FAMILIES = [("MFNFourier", {}, 8), ("NeRF", {}, 0)]   # solo blocks
+ANNOTATED = "chip_smoke.kernel1"     # phase 3's range in the trace
+ANNOTATED_CALLS = 3
 
 
 def fail(msg: str) -> None:
@@ -1479,8 +1504,147 @@ def tree_bytes(root: str) -> dict:
     return out
 
 
+def annotate_check(fn, calls: int) -> dict:
+    """Phase 3's range: utils/profiling.annotate(ANNOTATED) around `calls`
+    calls of fn and a sync, under utils/profiling.trace.  The range must
+    be in trace.json (else the run fails); returns the device kernels the
+    trace holds in all, those launched under the range (a runtime call
+    inside its host span, matched by correlation id) with their names,
+    and those inside its device span."""
+    import torch
+    from brief_pytorch_tpu_torch.utils.profiling import annotate, trace
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with trace(logdir):
+            with annotate(ANNOTATED):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        with open(os.path.join(logdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    spans = [e for e in events if e.get("name") == ANNOTATED
+             and e.get("ph") == "X"]
+    host = [e for e in spans if e.get("cat") != "gpu_user_annotation"]
+    if not host:
+        fail(f"the range {ANNOTATED} is not in trace.json")
+    t0 = float(host[0]["ts"])
+    t1 = t0 + float(host[0]["dur"])
+    launched = {e["args"]["correlation"] for e in events
+                if str(e.get("cat", "")).startswith("cuda_")
+                and "correlation" in e.get("args", {})
+                and t0 <= float(e["ts"]) <= t1}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    under = [e for e in kernels
+             if e.get("args", {}).get("correlation") in launched]
+    device = [e for e in spans if e.get("cat") == "gpu_user_annotation"]
+    in_span = None
+    if device:
+        d0 = float(device[0]["ts"])
+        d1 = d0 + float(device[0]["dur"])
+        in_span = sum(d0 <= float(e["ts"]) <= d1 for e in kernels)
+    names = {}
+    for e in under:
+        names[short_kernel(e["name"])] = names.get(
+            short_kernel(e["name"]), 0) + 1
+    return dict(kernels_in_trace=len(kernels), kernels_under_range=len(under),
+                kernels_in_device_span=in_span, names=names)
+
+
+@contextlib.contextmanager
+def metered_fleet(meter, coords_per_step: int):
+    """utils/profiling.ThroughputMeter over each checkpoint interval of
+    the fleet's training (BlockFleetTrainer.train): measure() opens where
+    the interval's first bucket segment is queued and closes in
+    progress_cb, which fires once the interval's losses are fetched, so
+    it times what the trainer's own train_s times."""
+    from brief_pytorch_tpu_torch.parallel.block_trainer import \
+        BlockFleetTrainer as fleet
+    train, segment = fleet.train, fleet._run_segment
+    open_ = []
+
+    def queued(self, st, cc, n):
+        if not open_:
+            m = meter.measure(coords=n * coords_per_step)
+            m.__enter__()
+            open_.append(m)
+        return segment(self, st, cc, n)
+
+    def progress(step, losses):
+        open_.pop().__exit__(None, None, None)
+
+    def hooked(self, *a, **kw):
+        return train(self, *a, progress_cb=progress, **kw)
+
+    fleet.train, fleet._run_segment = hooked, queued
+    try:
+        yield
+    finally:
+        fleet.train, fleet._run_segment = train, segment
+
+
+@contextlib.contextmanager
+def fleet_progress(calls: list):
+    """BlockFleetTrainer.train with a progress_cb that records at each
+    call the step, the losses, the blocks' names and what the trainer
+    holds then: its buckets' block_idxs, its solo blocks, last_losses."""
+    from brief_pytorch_tpu_torch.parallel.block_trainer import \
+        BlockFleetTrainer as fleet
+    train = fleet.train
+
+    def hooked(self, blocks, *a, **kw):
+        def progress(step, losses):
+            calls.append(dict(
+                step=step, losses=np.array(losses),
+                names=[b["name"] for b in blocks],
+                buckets=[list(st.block_idxs) for st in self._states],
+                solo=self.solo_blocks(),
+                last=[np.array(x) for x in self.last_losses]))
+        return train(self, blocks, *a, progress_cb=progress, **kw)
+
+    fleet.train = hooked
+    try:
+        yield
+    finally:
+        fleet.train = train
+
+
+def progress_check(calls: list, steps: list, solo_name: str) -> dict:
+    """Phase 17a's progress_cb records (fleet_progress): one call per
+    checkpoint, one finite loss per block in block order, equal to
+    last_losses mapped through each bucket's block_idxs and the solo
+    blocks (buckets first, then solo blocks, in last_losses), the solo
+    block at its block's place."""
+    got = [c["step"] for c in calls]
+    if got != steps:
+        fail(f"progress_cb: calls at steps {got}, not {steps}")
+    for c in calls:
+        nb = len(c["names"])
+        want = np.full(nb, np.nan)
+        nbk = len(c["buckets"])
+        if len(c["last"]) != nbk + len(c["solo"]):
+            fail(f"progress_cb at {c['step']}: last_losses holds "
+                 f"{len(c['last'])} entries for {nbk} buckets and "
+                 f"{len(c['solo'])} solo blocks")
+        for idxs, lv in zip(c["buckets"], c["last"]):
+            want[idxs] = lv
+        for i, lv in zip(c["solo"], c["last"][nbk:]):
+            want[i] = lv[0]
+        losses = c["losses"]
+        if losses.shape != (nb,) or not np.isfinite(losses).all() or \
+                losses.tobytes() != want.astype(losses.dtype).tobytes() or \
+                [c["names"][i] for i in c["solo"]] != [solo_name]:
+            fail(f"progress_cb at {c['step']}: {losses.tolist()} against "
+                 f"last_losses in block order {want.tolist()}, solo "
+                 f"{[c['names'][i] for i in c['solo']]}")
+    return dict(calls=len(calls), steps=got, blocks=len(calls[-1]["names"]),
+                solo_at=calls[-1]["solo"],
+                losses=[float(x) for x in calls[-1]["losses"]])
+
+
 def resume_run(dev, out_dir: str, label: str, config: str, steps: int,
-               data_path: str, per_step: float = 1.0) -> dict:
+               data_path: str, per_step: float = 1.0, hook_b=None) -> dict:
     """Phase 13 on one config: A, the run preempted right after it wrote
     its training state at steps // 2 (the state writer raises Preempted
     after writing); B, the same run uninterrupted; C, A's command plus
@@ -1488,8 +1652,9 @@ def resume_run(dev, out_dir: str, label: str, config: str, steps: int,
     byte for byte, C must launch the train kernel steps // 2 times and
     skip A's checkpoint; then C once more with another lr_phi must raise
     ValueError (the fingerprint).  per_step: train launches a fleet step
-    (1.5 with a solo block at half the fleet's max_steps).  Fails the run
-    on any miss; returns the numbers."""
+    (1.5 with a solo block at half the fleet's max_steps).  hook_b: a
+    context manager factory, run B runs inside one.  Fails the run on any
+    miss; returns the numbers."""
     import torch
     from brief_pytorch_tpu_torch.cli import main as cli
     from brief_pytorch_tpu_torch.core import config as cfglib
@@ -1541,7 +1706,9 @@ def resume_run(dev, out_dir: str, label: str, config: str, steps: int,
     t0 = time.perf_counter()
     for tag, extra in (("B", []), ("C", ["-resume", run_dir["A"]])):
         fused_train.launches = 0
-        cli.main(["-p", paths[tag], "-g", "0"] + extra)
+        with hook_b() if hook_b is not None and tag == "B" else \
+                contextlib.nullcontext():
+            cli.main(["-p", paths[tag], "-g", "0"] + extra)
         torch.cuda.synchronize()
         launches[tag] = fused_train.launches
     wall = time.perf_counter() - t0
@@ -1982,7 +2149,9 @@ def exception_run(dev, out_dir: str) -> dict:
     tiled fleet layout (one launch a step each); the solo block's steps at
     the checkpoint are the proportional target; decompress_divide within
     1 LSB on >= 99.9% of voxels; preempted at half and resumed, the weight
-    binaries equal the uninterrupted run's byte for byte (resume_run)."""
+    binaries equal the uninterrupted run's byte for byte (resume_run),
+    whose uninterrupted run passes a progress_cb (progress_check) and
+    its resumed run none."""
     import torch
     from brief_pytorch_tpu_torch.ops import fused_train
     from brief_pytorch_tpu_torch.train.fit import NFGR
@@ -2028,8 +2197,14 @@ def exception_run(dev, out_dir: str) -> dict:
         fail(f"exception: launches {launches}, solo at {solo_done} (want "
              f"{target}), fused {summary['fused']} / {fp['solo_fused']}, "
              f"{within} within 1 LSB")
+    calls = []
     resumed = resume_run(dev, out_dir, "exception", path, EXCEPTION_STEPS,
-                         HIPCT, per_step=1.5)
+                         HIPCT, per_step=1.5,
+                         hook_b=lambda: fleet_progress(calls))
+    progress = progress_check(
+        calls, [EXCEPTION_STEPS // 2, EXCEPTION_STEPS], name)
+    say("17-progress_cb", **{k: json.dumps(v) for k, v in progress.items()},
+        resumed_without_it_bitwise=True)
     return dict(launches=launches, solo_steps=solo_done, psnr=psnr,
                 within_1lsb=within, resume=resumed)
 
@@ -2797,7 +2972,7 @@ def main() -> int:
     from brief_pytorch_tpu_torch.ops import (build, fused_decode, fused_siren,
                                              fused_train)
     from brief_pytorch_tpu_torch.ops.chain import chain_layer_specs
-    from brief_pytorch_tpu_torch.ops.fast_math import (fast_sincos,
+    from brief_pytorch_tpu_torch.ops.fast_math import (fast_cos, fast_sincos,
                                                        fast_sincos_device)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2833,6 +3008,21 @@ def main() -> int:
     if err > 4e-6 or err_true > 1e-5:
         fail("fast_sincos on the card disagrees (tolerance 4e-6 vs the "
              "plain version, 1e-5 vs float64 sin/cos)")
+    err_cos = float((fast_cos(x).double() - torch.cos(x64)).abs().max())
+    say("2-fast_cos", max_abs_err_vs_float64=f"{err_cos:.3e}",
+        tolerance="1e-5 vs float64 cos, as fast_sincos")
+    if not err_cos <= 1e-5:
+        fail(f"fast_cos on the card: {err_cos} from float64 cos (1e-5)")
+    from brief_pytorch_tpu_torch.core.coords import create_flattened_coords
+    grid_dev = create_flattened_coords((64, 64, 64), device="cuda")
+    grid_cpu = create_flattened_coords((64, 64, 64))
+    same = grid_dev.device.type == "cuda" and \
+        torch.equal(grid_dev.cpu(), grid_cpu)
+    say("2-create_flattened_coords", shape=list(grid_dev.shape),
+        bitwise_equal_to_cpu=same)
+    if not same:
+        fail("create_flattened_coords((64, 64, 64)) on the card differs "
+             "from the CPU's")
 
     # ---- 3. kernel 1: fused train step at the default run's width ----
     cfg = cfglib.load(CONFIG).CompressFramework
@@ -3062,15 +3252,19 @@ def main() -> int:
                       f"bitwise; float64 {F64_RATIO['phase6']:g}x plain")
 
     # ---- 7. the DivideTask command on the HiP-CT config ----
+    from brief_pytorch_tpu_torch.utils.profiling import ThroughputMeter
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_divide_")
     try:
         data_path = HIPCT
         fused_train.launches = 0
         fused_decode.launches = 0
+        meter7 = ThroughputMeter(n_chips=torch.cuda.device_count())
+        coords7 = len(FLEET_WIDTHS) * FLEET_N        # a fleet step's
         t0 = time.perf_counter()
-        summary7, run_dir, opt7 = run_config(
-            os.path.join(DIVIDE, "hipct.yaml"), out_dir, HIPCT_STEPS,
-            data_path)
+        with metered_fleet(meter7, coords7):
+            summary7, run_dir, opt7 = run_config(
+                os.path.join(DIVIDE, "hipct.yaml"), out_dir, HIPCT_STEPS,
+                data_path)
         torch.cuda.synchronize()
         wall7 = time.perf_counter() - t0
         launches7 = {"fused_train": fused_train.launches,
@@ -3135,6 +3329,17 @@ def main() -> int:
             wall_s=f"{wall7:.3f}")
         if not math.isfinite(psnr7) or psnr7 < HIPCT_PSNR_FLOOR:
             fail(f"hipct PSNR {psnr7} below the floor {HIPCT_PSNR_FLOOR}")
+        rep7 = meter7.report()
+        meter_steps7 = rep7["coords_per_sec"] / coords7
+        agree7 = meter_steps7 / (HIPCT_STEPS / train7)
+        say("7-throughput_meter", **{k: repr(v) for k, v in rep7.items()},
+            coords_per_step=coords7, steps_per_s=f"{meter_steps7:.3f}",
+            phase_steps_per_s=f"{HIPCT_STEPS / train7:.3f}",
+            ratio=f"{agree7:.6f}")
+        if rep7["segments"] < 1 or not abs(agree7 - 1.0) <= 0.01:
+            fail(f"ThroughputMeter: {meter_steps7} steps/s over "
+                 f"{rep7['segments']} segments against the trainer's "
+                 f"{HIPCT_STEPS / train7} (1%)")
         if not abs(psnr7 - psnr7a) <= HIPCT_AUTOGRAD_DB:
             fail(f"hipct PSNR {psnr7} on the kernel, {psnr7a} through "
                  f"autograd: more than {HIPCT_AUTOGRAD_DB} dB apart")
@@ -3310,6 +3515,18 @@ def main() -> int:
                                      data_bytes=bytes7)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- 3, traced here: phase 3's kernel-1 calls inside an annotated
+    # range.  A torch.profiler session with CUDA activity leaves every later
+    # launch of the process slower on the host, and one of 300,000 device
+    # events (100,000 did not; phase 18a's timed_loop window) leaves later
+    # sessions no kernel events (scripts/profiler_after_cost.py): so after
+    # phase 17, before 18
+    t0 = time.perf_counter()
+    traced = annotate_check(k1, ANNOTATED_CALLS)
+    say("3-annotate", range=ANNOTATED, calls=ANNOTATED_CALLS,
+        **{k: json.dumps(v) for k, v in traced.items()},
+        trace_s=f"{time.perf_counter() - t0:.2f}")
 
     # ---- 18. NFLR at the RD script's widths ----
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_nflr_")
